@@ -1,0 +1,115 @@
+"""GPT-2-class causal LM for the round's prompt text.
+
+Port of ``cassmantle_tpu/models/gpt2.py``: ``prefill`` over the
+right-padded prompt bucket seeds a fixed-size KV cache, and
+``decode_step`` extends it one token at a time (``ops/decode.py`` drives
+the loop). Attention is masked, so it takes the plain path.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from cassmantle_tpu_torch.config import GPT2Config
+from cassmantle_tpu_torch.models.layers import (
+    Embed,
+    LayerNorm,
+    MultiHeadAttention,
+    TransformerMLP,
+)
+from cassmantle_tpu_torch.utils.device import torch_dtype
+
+Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class GPT2Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.hidden_size
+        self.ln1 = LayerNorm(d)
+        self.attn = MultiHeadAttention(d, cfg.num_heads, dtype=dtype)
+        self.ln2 = LayerNorm(d)
+        self.mlp = TransformerMLP(d, 4 * d, dtype=dtype)
+
+    def forward(self, x, mask=None, kv_cache=None, return_kv=False):
+        out = self.attn(self.ln1(x), mask=mask, kv_cache=kv_cache,
+                        return_kv=return_kv)
+        a, kv = out if (kv_cache is not None or return_kv) else (out, None)
+        x = x + a
+        return x + self.mlp(self.ln2(x)), kv
+
+
+class GPT2LM(nn.Module):
+    def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        self.dtype = dtype
+        self.wte = Embed(cfg.vocab_size, cfg.hidden_size, dtype)
+        self.wpe = Embed(cfg.max_positions, cfg.hidden_size, dtype)
+        for i in range(cfg.num_layers):
+            self.add_module(f"block_{i}", GPT2Block(cfg, dtype))
+        self.ln_f = LayerNorm(cfg.hidden_size)
+
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        # weight-tied LM head in fp32 (keeps the greedy argmax stable)
+        return hidden.float() @ self.wte.weight.float().T
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Plain causal forward: (B, S) -> (B, S, V)."""
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)[None, :]
+        x = self.wte(input_ids) + self.wpe(pos)
+        mask = torch.ones((s, s), dtype=torch.bool,
+                          device=input_ids.device).tril()[None, None]
+        for block in self.blocks():
+            x, _ = block(x, mask=mask)
+        return self._logits(self.ln_f(x))
+
+    def prefill(self, input_ids: torch.Tensor, prompt_len: torch.Tensor,
+                max_len: int) -> Tuple[torch.Tensor, Cache]:
+        """input_ids (B, P) right-padded, prompt_len (B,) -> (logits of
+        the last real token (B, V), per-layer (k, v) caches, each
+        (B, max_len, H, D), zero past P)."""
+        b, p = input_ids.shape
+        if p > max_len:
+            raise ValueError(f"prompt bucket {p} > cache length {max_len}")
+        dev = input_ids.device
+        positions = torch.arange(p, device=dev)[None, :]
+        x = self.wte(input_ids) + self.wpe(positions)
+        causal = torch.ones((p, p), dtype=torch.bool, device=dev).tril()
+        valid = positions < prompt_len[:, None]
+        mask = causal[None, None] & valid[:, None, None, :]
+        cache: Cache = []
+        for block in self.blocks():
+            x, (k, v) = block(x, mask=mask, return_kv=True)
+            ck = k.new_zeros((b, max_len) + k.shape[2:])
+            cv = v.new_zeros((b, max_len) + v.shape[2:])
+            ck[:, :p] = k
+            cv[:, :p] = v
+            cache.append((ck, cv))
+        logits = self._logits(self.ln_f(x))
+        last = logits[torch.arange(b, device=dev), prompt_len - 1]
+        return last, cache
+
+    def decode_step(self, token: torch.Tensor, index: int, cache: Cache,
+                    valid: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """One cached step: token (B,) at position ``index``; ``valid``
+        (B, max_len) marks the cache positions to attend, this one
+        included. The caches update in place; returns (logits (B, V),
+        cache)."""
+        dev = token.device
+        pos = torch.full((1, 1), index, dtype=torch.long, device=dev)
+        x = self.wte(token[:, None]) + self.wpe(pos)
+        mask = valid[:, None, None, :]
+        new_cache: Cache = []
+        for block, (ck, cv) in zip(self.blocks(), cache):
+            x, kv = block(x, mask=mask, kv_cache=(ck, cv, index))
+            new_cache.append(kv)
+        return self._logits(self.ln_f(x))[:, 0], new_cache

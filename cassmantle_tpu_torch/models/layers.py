@@ -1,0 +1,339 @@
+"""Shared building blocks of the port's model zoo.
+
+Port of ``cassmantle_tpu/models/layers.py``. Conventions kept from the
+reference, so a Flax parameter tree maps onto these modules mechanically
+(``models/weights.py::from_jax``):
+
+- submodules carry the Flax module names (``qkv``, ``fc1``, ``norm``...);
+- every layer has a compute ``dtype`` and casts its input and parameters
+  to it where it uses them, as Flax's ``promote_dtype`` does, so storage
+  dtype (``ModelZooConfig.param_dtype``) and compute dtype stay apart;
+- norms take fp32 statistics; LayerNorm32/GroupNorm32 apply the affine in
+  the activation dtype, ``LayerNorm`` (Flax ``nn.LayerNorm(dtype=fp32)``)
+  returns fp32;
+- attention goes through ``ops.attention.multi_head_attention``.
+
+Images are NCHW inside the port's modules; the models convert from and to
+the reference's NHWC at their public boundary.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cassmantle_tpu_torch.ops.attention import multi_head_attention
+
+
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal diffusion-timestep embedding, fp32. (B,) -> (B, dim)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenAI CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def exact_gelu(x: torch.Tensor) -> torch.Tensor:
+    """Erf GELU (BERT, OpenCLIP bigG)."""
+    return F.gelu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximate GELU: Flax's ``nn.gelu`` default (GPT-2, GEGLU)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    with torch.no_grad():
+        w.normal_(0.0, fan_in ** -0.5, generator=generator)
+
+
+class Dense(nn.Module):
+    """``nn.Dense`` twin: weight (out, in), optional bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv(nn.Module):
+    """``nn.Conv`` twin on NCHW: square kernel, SAME padding (1 for 3x3,
+    0 for 1x1), optional stride 2."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.padding = kernel_size // 2
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        _lecun_normal_(self.weight, fan_in, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        stride=self.stride, padding=self.padding)
+
+
+class Embed(nn.Module):
+    """``nn.Embed`` twin: table (num, features), output in ``dtype``."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _lecun_normal_(self.weight, self.weight.shape[1], generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(dtype=float32)``: fp32 statistics with the fast
+    variance E[x^2] - E[x]^2 (clamped at 0), fp32 output."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32.square().mean(dim=-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight.float() + self.bias.float()
+
+
+class LayerNorm32(nn.Module):
+    """LayerNorm with fp32 statistics, applied as one FMA in x's dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    reset_parameters = LayerNorm.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.square().mean(dim=-1, keepdim=True) - mean.square()
+        inv = torch.rsqrt(var + self.eps)
+        scale32 = self.weight.float()
+        a = (inv * scale32).to(x.dtype)
+        b = (self.bias.float() - (mean * inv) * scale32).to(x.dtype)
+        return x * a + b
+
+
+class _GroupNormCore(nn.Module):
+    """GroupNorm of an NCHW tensor with fp32 statistics: per-(batch, group)
+    mean and E[x^2] in fp32, then out = x * a + b with the per-(batch,
+    channel) affine computed in fp32 and applied in x's dtype."""
+
+    def __init__(self, channels: int, num_groups: int, eps: float):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    reset_parameters = LayerNorm.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        g = self.num_groups
+        x32 = x.reshape(b, g, -1).float()
+        mean = x32.mean(dim=-1)                                # (B, G)
+        var = x32.square().mean(dim=-1) - mean.square()
+        inv = torch.rsqrt(var + self.eps)
+        inv_c = inv.repeat_interleave(c // g, dim=-1)          # (B, C)
+        mean_c = mean.repeat_interleave(c // g, dim=-1)
+        a = inv_c * self.weight.float()[None, :]
+        shift = self.bias.float()[None, :] - mean_c * a
+        shape = (b, c) + (1,) * (x.ndim - 2)
+        return x * a.reshape(shape).to(x.dtype) \
+            + shift.reshape(shape).to(x.dtype)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm32 of the reference; nests the core under ``norm`` to keep
+    the reference's parameter paths."""
+
+    def __init__(self, channels: int, num_groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.norm = _GroupNormCore(channels, num_groups, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)
+
+
+class MultiHeadAttention(nn.Module):
+    """Projections + ``multi_head_attention`` + out projection.
+
+    Self attention when ``context`` is None, cross attention otherwise.
+    ``fused_qkv`` keeps the reference's concatenated projection: ``qkv``
+    (self) or ``q`` + ``kv`` (cross); the attention then reads q, k and v
+    as strided views of the fused output, without a copy.
+    """
+
+    def __init__(self, query_dim: int, num_heads: int,
+                 context_dim: Optional[int] = None, use_bias: bool = True,
+                 out_bias: Optional[bool] = None, fused_qkv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = query_dim // num_heads
+        self.fused_qkv = fused_qkv
+        self.is_cross = context_dim is not None
+        inner = num_heads * self.head_dim
+        self.inner = inner
+        ctx_dim = context_dim if context_dim is not None else query_dim
+        if fused_qkv and not self.is_cross:
+            self.qkv = Dense(query_dim, 3 * inner, use_bias, dtype)
+        elif fused_qkv:
+            self.q = Dense(query_dim, inner, use_bias, dtype)
+            self.kv = Dense(ctx_dim, 2 * inner, use_bias, dtype)
+        else:
+            self.q = Dense(query_dim, inner, use_bias, dtype)
+            self.k = Dense(ctx_dim, inner, use_bias, dtype)
+            self.v = Dense(ctx_dim, inner, use_bias, dtype)
+        self.out = Dense(inner, query_dim,
+                         use_bias if out_bias is None else out_bias, dtype)
+
+    def forward(self, x, context=None, mask=None, kv_cache=None,
+                return_kv: bool = False):
+        """Full mode returns out, or (out, (k, v)) with ``return_kv``.
+        Decode mode (``kv_cache=(cache_k, cache_v, index)``) writes this
+        call's k/v into the caches at ``index`` IN PLACE (the port updates
+        the preallocated cache rather than copying it each step) and
+        attends over the whole cache under the caller's ``mask``; returns
+        (out, (cache_k, cache_v))."""
+        ctx = x if context is None else context
+        if self.fused_qkv:
+            if kv_cache is not None or return_kv:
+                raise ValueError("fused_qkv is a full-forward layout; the "
+                                 "decode cache uses separate projections")
+            if context is None:
+                q, k, v = self.qkv(x).split(self.inner, dim=-1)
+            else:
+                q = self.q(x)
+                k, v = self.kv(ctx).split(self.inner, dim=-1)
+        else:
+            q, k, v = self.q(x), self.k(ctx), self.v(ctx)
+        heads = (self.num_heads, self.head_dim)
+        q, k, v = q.unflatten(-1, heads), k.unflatten(-1, heads), \
+            v.unflatten(-1, heads)
+
+        kv_out = None
+        if kv_cache is not None:
+            cache_k, cache_v, index = kv_cache
+            s = k.shape[-3]
+            cache_k[:, index:index + s] = k.to(cache_k.dtype)
+            cache_v[:, index:index + s] = v.to(cache_v.dtype)
+            k, v = cache_k, cache_v
+            kv_out = (cache_k, cache_v)
+        elif return_kv:
+            kv_out = (k, v)
+
+        out = multi_head_attention(q, k, v, mask=mask)
+        out = self.out(out.flatten(-2))
+        if kv_out is not None:
+            return out, kv_out
+        return out
+
+
+class TransformerMLP(nn.Module):
+    """Two-layer MLP with a configurable activation."""
+
+    def __init__(self, features: int, intermediate: int,
+                 activation: Callable = gelu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.activation = activation
+        self.fc1 = Dense(features, intermediate, dtype=dtype)
+        self.fc2 = Dense(intermediate, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.activation(self.fc1(x)))
+
+
+class GEGLU(nn.Module):
+    """Gated-GELU feed-forward of SD's transformer blocks."""
+
+    def __init__(self, features: int, intermediate: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.proj = Dense(features, 2 * intermediate, dtype=dtype)
+        self.out = Dense(intermediate, features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return self.out(h * gelu(gate))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of every layer (lecun-normal kernels and
+    embeddings, zero biases, unit norm scales) plus each model's own
+    parameters (``reset_parameters`` hooks). Does not reproduce Flax's
+    initial values; parity tests carry the reference's parameters over
+    with ``from_jax`` instead."""
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+    return model

@@ -1,0 +1,212 @@
+"""Diffusion UNet at SD1.5 geometry.
+
+Port of ``cassmantle_tpu/models/unet.py``, plain forward only (the
+DeepCache and encoder-propagation modes come with their samplers). The
+public layout is the reference's: latents (B, H, W, 4) NHWC in, eps
+(B, H, W, 4) fp32 out; inside, activations are NCHW. bf16 parameters and
+activations, fp32 GroupNorm/LayerNorm statistics, fp32 softmax, fp32
+``conv_out``. Every attention site (16 transformer blocks at SD1.5, one
+self and one cross attention each) runs the flash kernel on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cassmantle_tpu_torch.config import UNetConfig
+from cassmantle_tpu_torch.models.layers import (
+    GEGLU,
+    Conv,
+    Dense,
+    GroupNorm32,
+    LayerNorm32,
+    MultiHeadAttention,
+    nearest_upsample_2x,
+    timestep_embedding,
+)
+from cassmantle_tpu_torch.utils.device import torch_dtype
+
+
+class ResBlock(nn.Module):
+    """GN/SiLU/conv3x3 x2 + time injection + skip."""
+
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_channels)
+        self.conv1 = Conv(in_channels, out_channels, 3, dtype=dtype)
+        self.time_proj = Dense(temb_dim, out_channels, dtype=dtype)
+        self.norm2 = GroupNorm32(out_channels)
+        self.conv2 = Conv(out_channels, out_channels, 3, dtype=dtype)
+        self.skip = (Conv(in_channels, out_channels, 1, dtype=dtype)
+                     if in_channels != out_channels else None)
+
+    def forward(self, x, temb):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, channels: int, num_heads: int, context_dim: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        # bias-free q/k/v, biased out projection (the published layout)
+        self.ln1 = LayerNorm32(channels)
+        self.self_attn = MultiHeadAttention(
+            channels, num_heads, use_bias=False, out_bias=True,
+            fused_qkv=True, dtype=dtype)
+        self.ln2 = LayerNorm32(channels)
+        self.cross_attn = MultiHeadAttention(
+            channels, num_heads, context_dim=context_dim, use_bias=False,
+            out_bias=True, fused_qkv=True, dtype=dtype)
+        self.ln3 = LayerNorm32(channels)
+        self.ff = GEGLU(channels, 4 * channels, dtype=dtype)
+
+    def forward(self, x, context):
+        x = x + self.self_attn(self.ln1(x))
+        x = x + self.cross_attn(self.ln2(x), context=context)
+        return x + self.ff(self.ln3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """Flatten HW into tokens, run the transformer blocks, fold back."""
+
+    def __init__(self, channels: int, num_heads: int, depth: int,
+                 context_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.depth = depth
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = Dense(channels, channels, dtype=dtype)
+        for i in range(depth):
+            self.add_module(f"block_{i}", BasicTransformerBlock(
+                channels, num_heads, context_dim, dtype))
+        self.proj_out = Dense(channels, channels, dtype=dtype)
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        residual = x
+        x = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = self.proj_in(x)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x, context)
+        x = self.proj_out(x)
+        return x.reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
+
+
+class UNet(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        self.dtype = dtype
+        base, temb_dim = cfg.base_channels, cfg.time_embed_dim
+        levels = len(cfg.channel_mults)
+
+        def attn_at(lvl: int) -> bool:
+            return bool(cfg.attention_levels[lvl]
+                        and cfg.transformer_depth[lvl])
+
+        def transformer(ch: int, depth: int) -> SpatialTransformer:
+            return SpatialTransformer(ch, self._heads(ch), depth,
+                                      cfg.context_dim, dtype)
+
+        self.time_fc1 = Dense(base, temb_dim, dtype=dtype)
+        self.time_fc2 = Dense(temb_dim, temb_dim, dtype=dtype)
+        self.conv_in = Conv(cfg.sample_channels, base, 3, dtype=dtype)
+
+        ch_in = base
+        skip_channels: List[int] = [base]
+        for lvl in range(levels):
+            ch = base * cfg.channel_mults[lvl]
+            for blk in range(cfg.blocks_per_level):
+                self.add_module(f"down_{lvl}_res_{blk}",
+                                ResBlock(ch_in, ch, temb_dim, dtype))
+                ch_in = ch
+                if attn_at(lvl):
+                    self.add_module(f"down_{lvl}_attn_{blk}",
+                                    transformer(ch, cfg.transformer_depth[lvl]))
+                skip_channels.append(ch)
+            if lvl != levels - 1:
+                self.add_module(f"down_{lvl}_downsample",
+                                Conv(ch, ch, 3, stride=2, dtype=dtype))
+                skip_channels.append(ch)
+
+        mid_ch = base * cfg.channel_mults[-1]
+        mid_depth = max([d for lvl, d in enumerate(cfg.transformer_depth)
+                         if cfg.attention_levels[lvl]] or [1])
+        self.mid_res_0 = ResBlock(ch_in, mid_ch, temb_dim, dtype)
+        self.mid_attn = transformer(mid_ch, mid_depth)
+        self.mid_res_1 = ResBlock(mid_ch, mid_ch, temb_dim, dtype)
+        ch_in = mid_ch
+
+        for lvl in reversed(range(levels)):
+            ch = base * cfg.channel_mults[lvl]
+            for blk in range(cfg.blocks_per_level + 1):
+                self.add_module(
+                    f"up_{lvl}_res_{blk}",
+                    ResBlock(ch_in + skip_channels.pop(), ch, temb_dim, dtype))
+                ch_in = ch
+                if attn_at(lvl):
+                    self.add_module(f"up_{lvl}_attn_{blk}",
+                                    transformer(ch, cfg.transformer_depth[lvl]))
+            if lvl != 0:
+                self.add_module(f"up_{lvl}_upsample",
+                                Conv(ch, ch, 3, dtype=dtype))
+
+        self.norm_out = GroupNorm32(ch_in)
+        self.conv_out = Conv(ch_in, cfg.sample_channels, 3,
+                             dtype=torch.float32)
+
+    def _heads(self, channels: int) -> int:
+        if self.cfg.num_heads is not None:
+            return self.cfg.num_heads
+        return max(1, channels // 64)
+
+    def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        """latents (B, H, W, 4), timesteps (B,), context (B, S, Dc) ->
+        eps (B, H, W, 4) fp32."""
+        cfg, dtype = self.cfg, self.dtype
+        levels = len(cfg.channel_mults)
+        context = context.to(dtype)
+        temb = timestep_embedding(timesteps, cfg.base_channels)
+        temb = self.time_fc2(F.silu(self.time_fc1(temb.to(dtype))))
+
+        x = self.conv_in(latents.to(dtype).permute(0, 3, 1, 2))
+        skips = [x]
+        for lvl in range(levels):
+            for blk in range(cfg.blocks_per_level):
+                x = getattr(self, f"down_{lvl}_res_{blk}")(x, temb)
+                attn = getattr(self, f"down_{lvl}_attn_{blk}", None)
+                if attn is not None:
+                    x = attn(x, context)
+                skips.append(x)
+            if lvl != levels - 1:
+                x = getattr(self, f"down_{lvl}_downsample")(x)
+                skips.append(x)
+
+        x = self.mid_res_0(x, temb)
+        x = self.mid_attn(x, context)
+        x = self.mid_res_1(x, temb)
+
+        for lvl in reversed(range(levels)):
+            for blk in range(cfg.blocks_per_level + 1):
+                x = torch.cat([x, skips.pop()], dim=1)
+                x = getattr(self, f"up_{lvl}_res_{blk}")(x, temb)
+                attn = getattr(self, f"up_{lvl}_attn_{blk}", None)
+                if attn is not None:
+                    x = attn(x, context)
+            if lvl != 0:
+                x = getattr(self, f"up_{lvl}_upsample")(
+                    nearest_upsample_2x(x))
+
+        x = self.conv_out(F.silu(self.norm_out(x)))
+        return x.float().permute(0, 2, 3, 1).contiguous()

@@ -1,0 +1,105 @@
+"""SD autoencoder decoder.
+
+Port of ``cassmantle_tpu/models/vae.py`` (decoder and post-processing; the
+encoder comes with img2img). Latents (B, h, w, 4) NHWC in, (B, 8h, 8w, 3)
+fp32 NHWC out; NCHW inside. bf16 compute over fp32-stored parameters,
+fp32 GroupNorm statistics (eps 1e-6), fp32 ``conv_out``. The mid block's
+single-head attention over H*W tokens at D = 512 runs the flash kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cassmantle_tpu_torch.config import VAEConfig
+from cassmantle_tpu_torch.models.layers import (
+    Conv,
+    GroupNorm32,
+    MultiHeadAttention,
+    nearest_upsample_2x,
+)
+from cassmantle_tpu_torch.utils.device import torch_dtype
+
+
+class VAEResBlock(nn.Module):
+    """GN/SiLU/conv3x3 x2 + skip."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = GroupNorm32(in_channels, eps=1e-6)
+        self.conv1 = Conv(in_channels, out_channels, 3, dtype=dtype)
+        self.norm2 = GroupNorm32(out_channels, eps=1e-6)
+        self.conv2 = Conv(out_channels, out_channels, 3, dtype=dtype)
+        self.skip = (Conv(in_channels, out_channels, 1, dtype=dtype)
+                     if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class VAEAttnBlock(nn.Module):
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.attn = MultiHeadAttention(channels, 1, dtype=dtype)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        t = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        t = self.attn(t)
+        return x + t.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class VAEDecoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        self.dtype = dtype
+        mults = cfg.channel_mults
+        ch = cfg.base_channels * mults[-1]
+        self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels,
+                                    1, dtype=dtype)
+        self.conv_in = Conv(cfg.latent_channels, ch, 3, dtype=dtype)
+        self.mid_res_0 = VAEResBlock(ch, ch, dtype)
+        self.mid_attn = VAEAttnBlock(ch, dtype)
+        self.mid_res_1 = VAEResBlock(ch, ch, dtype)
+        ch_in = ch
+        for lvl in reversed(range(len(mults))):
+            ch = cfg.base_channels * mults[lvl]
+            for blk in range(cfg.blocks_per_level + 1):
+                self.add_module(f"up_{lvl}_res_{blk}",
+                                VAEResBlock(ch_in, ch, dtype))
+                ch_in = ch
+            if lvl != 0:
+                self.add_module(f"up_{lvl}_upsample",
+                                Conv(ch, ch, 3, dtype=dtype))
+        self.norm_out = GroupNorm32(ch_in, eps=1e-6)
+        self.conv_out = Conv(ch_in, 3, 3, dtype=torch.float32)
+
+    def forward(self, latents: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, 4) scaled latents -> (B, 8h, 8w, 3) in [-1, 1]."""
+        cfg = self.cfg
+        z = (latents / cfg.scaling_factor).to(self.dtype).permute(0, 3, 1, 2)
+        x = self.conv_in(self.post_quant_conv(z))
+        x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
+        for lvl in reversed(range(len(cfg.channel_mults))):
+            for blk in range(cfg.blocks_per_level + 1):
+                x = getattr(self, f"up_{lvl}_res_{blk}")(x)
+            if lvl != 0:
+                x = getattr(self, f"up_{lvl}_upsample")(nearest_upsample_2x(x))
+        x = self.conv_out(F.silu(self.norm_out(x)))
+        return x.float().permute(0, 2, 3, 1).contiguous()
+
+
+def postprocess_images(decoded: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> uint8 RGB, on the device."""
+    x = torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
+    return torch.round(x * 255.0).to(torch.uint8)

@@ -1,0 +1,65 @@
+"""Carry a reference (Flax) parameter tree into a port module.
+
+``from_jax(kind, params)`` takes the JAX package's parameter tree as
+nested dicts of numpy arrays (``jax.device_get`` of the Flax variables)
+and returns the port module's ``state_dict``. The port names its
+submodules after the Flax modules, so the mapping is mechanical:
+
+- a Dense kernel (in, out) becomes a Linear weight (out, in);
+- a Conv kernel in HWIO becomes OIHW;
+- a concatenated ``qkv``/``kv`` projection keeps its layout;
+- LayerNorm/GroupNorm ``scale`` and Embed ``embedding`` become ``weight``;
+  ``bias`` stays ``bias``; other leaves (position tables) keep their name.
+
+Loading HF/diffusers checkpoints waits for checkpoints in the repository.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+KINDS = ("clip_text", "unet", "vae", "gpt2", "minilm")
+
+
+def _leaf(name: str, value: np.ndarray):
+    value = np.asarray(value)
+    if name == "kernel":
+        if value.ndim == 2:
+            value = value.T
+        elif value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel of rank {value.ndim}")
+        name = "weight"
+    elif name in ("scale", "embedding"):
+        name = "weight"
+    return name, torch.from_numpy(np.array(value, order="C"))
+
+
+def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk(value, f"{prefix}{key}.", out)
+        else:
+            name, tensor = _leaf(key, value)
+            out[f"{prefix}{name}"] = tensor
+
+
+def state_dict_from_tree(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Any reference module's parameter tree (the Flax variables dict or
+    its ``params`` collection) -> the port module's ``state_dict``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, "", out)
+    return out
+
+
+def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
+    """Reference parameter tree of model ``kind`` -> port ``state_dict``."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown model kind {kind!r}; one of {KINDS}")
+    return state_dict_from_tree(params)

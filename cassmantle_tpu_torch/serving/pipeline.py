@@ -1,0 +1,289 @@
+"""Inference pipelines of the port: text -> image, prompt generation, and
+the content backend that makes one round.
+
+Port of the monolithic path of ``cassmantle_tpu/serving/pipeline.py``:
+``Text2ImagePipeline.generate`` (CLIP encode -> CFG DDIM -> VAE decode ->
+uint8), ``PromptGenerator`` (bucketed greedy GPT-2 decode, trimmed to two
+sentences) and ``TPUContentBackend.generate_sync`` as
+:class:`TorchContentBackend`. Models are built at the configured width
+with seeded random weights, or from given state dicts (the parity tests
+carry the reference's parameters over with ``models.weights.from_jax``).
+Staged serving, brownout tiers, integrity sentinels and the other
+samplers are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
+from cassmantle_tpu_torch.models.gpt2 import GPT2LM
+from cassmantle_tpu_torch.models.layers import init_weights
+from cassmantle_tpu_torch.models.unet import UNet
+from cassmantle_tpu_torch.models.vae import VAEDecoder, postprocess_images
+from cassmantle_tpu_torch.ops.ddim import (
+    DDIMSchedule,
+    ddim_sample,
+    initial_latents,
+    make_cfg_denoiser,
+)
+from cassmantle_tpu_torch.ops.decode import greedy_decode
+from cassmantle_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+    synchronize,
+    torch_dtype,
+)
+from cassmantle_tpu_torch.utils.text import (
+    is_wordlike,
+    load_styles,
+    sanitize_text,
+    template_text,
+    tokenize_words,
+    two_sentences,
+)
+from cassmantle_tpu_torch.utils.tokenizers import (
+    load_tokenizer,
+    tokenize_clip_prompts,
+)
+
+# Seed offsets of the random init, one per model (the reference's init
+# slots: CLIP 1, UNet 2, VAE 3, GPT-2 5).
+INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5}
+
+
+def build_model(module: torch.nn.Module, kind: str, device: torch.device,
+                seed: int, state_dict: Optional[Mapping] = None,
+                storage_dtype: Optional[torch.dtype] = None
+                ) -> torch.nn.Module:
+    """Fill ``module`` (already on ``device``) from ``state_dict`` or a
+    seeded random init, then store its parameters in ``storage_dtype``."""
+    if state_dict is not None:
+        module.load_state_dict(state_dict)
+    else:
+        gen = torch.Generator(device).manual_seed(seed + INIT_SEEDS[kind])
+        init_weights(module, gen)
+    if storage_dtype is not None:
+        module.to(storage_dtype)
+    return module.eval()
+
+
+def check_sampler(sampler_cfg) -> None:
+    """The port's image path is CFG DDIM at eta 0; other samplers wait."""
+    if sampler_cfg.kind != "ddim" or sampler_cfg.eta != 0.0:
+        raise NotImplementedError(
+            f"sampler {sampler_cfg.kind!r} eta={sampler_cfg.eta} is not "
+            f"ported; the port serves DDIM at eta=0")
+
+
+class Text2ImagePipeline:
+    """prompts -> (B, H, W, 3) uint8 images: CLIP -> CFG DDIM -> VAE."""
+
+    def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
+                 state_dicts: Optional[Mapping[str, Mapping]] = None):
+        check_sampler(cfg.sampler)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        m = cfg.models
+        sd = state_dicts or {}
+        param_dtype = torch_dtype(m.param_dtype)
+        with torch.device(self.device):
+            # the reference's pipeline runs CLIP in fp32 over parameters
+            # stored in param_dtype, the UNet in its own dtype over
+            # param_dtype storage, and the VAE over fp32 storage
+            self.clip = build_model(ClipTextEncoder(m.clip_text), "clip_text",
+                                    self.device, cfg.seed, sd.get("clip_text"),
+                                    param_dtype)
+            self.unet = build_model(UNet(m.unet), "unet", self.device,
+                                    cfg.seed, sd.get("unet"), param_dtype)
+            self.vae = build_model(VAEDecoder(m.vae), "vae", self.device,
+                                   cfg.seed, sd.get("vae"))
+        self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size)
+        self.pad_len = min(cfg.sampler.prompt_pad_len,
+                           m.clip_text.max_positions)
+        # pixels per latent: one 2x upsample per VAE level transition
+        self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
+        self.schedule = DDIMSchedule.create(cfg.sampler.num_steps)
+        # host seconds of the last generate() per stage, each ended by a
+        # device synchronize; and whether the last decode was finite
+        # before its uint8 quantisation
+        self.last_stage_seconds: Dict[str, float] = {}
+        self.last_decoded_finite = True
+
+    def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
+        ids = tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
+                                    self.cfg.models.clip_text.vocab_size)
+        return torch.from_numpy(ids).long().to(self.device)
+
+    def generate(self, prompts: Sequence[str], seed: int = 0,
+                 latents: Optional[torch.Tensor] = None) -> np.ndarray:
+        """prompts -> (B, H, W, 3) uint8 host array. ``latents`` (B, h, w, 4)
+        replaces the seeded x_T (the parity tests feed the reference's)."""
+        s = self.cfg.sampler
+        ids = self._tokenize(prompts)
+        uncond_ids = self._tokenize([s.negative_prompt] * len(prompts))
+        if latents is None:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            latents = initial_latents(gen, len(prompts), s.image_size,
+                                      self.vae_scale, device=self.device)
+        latents = latents.to(self.device, torch.float32)
+        times = {}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ctx = self.clip(ids)["hidden"]
+            uncond = self.clip(uncond_ids)["hidden"]
+            synchronize(self.device)
+            t1 = time.perf_counter()
+            times["clip"] = t1 - t0
+            denoise = make_cfg_denoiser(self.unet, ctx, uncond,
+                                        s.guidance_scale)
+            final = ddim_sample(denoise, latents, self.schedule)
+            synchronize(self.device)
+            t2 = time.perf_counter()
+            times["denoise"] = t2 - t1
+            decoded = self.vae(final)
+            images = postprocess_images(decoded)
+            self.last_decoded_finite = bool(torch.isfinite(decoded).all())
+            synchronize(self.device)
+            times["vae"] = time.perf_counter() - t2
+        self.last_stage_seconds = times
+        return images.cpu().numpy()
+
+
+class PromptGenerator:
+    """Story-episode text: bucketed greedy GPT-2 decode."""
+
+    PROMPT_BUCKETS = (32, 64, 128, 256)
+    BATCH_BUCKETS = (1, 2, 4, 8)
+
+    def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
+                 state_dict: Optional[Mapping] = None):
+        if cfg.sampler.text_temperature > 0.0:
+            raise NotImplementedError("the port decodes greedily "
+                                      "(text_temperature=0)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.mcfg = m = cfg.models.gpt2
+        with torch.device(self.device):
+            self.model = build_model(GPT2LM(m), "gpt2", self.device,
+                                     cfg.seed, state_dict,
+                                     torch_dtype(cfg.models.param_dtype))
+        self.tokenizer = load_tokenizer("gpt2", m.vocab_size)
+        self.last_seconds = 0.0
+
+    def _bucket_for(self, n_tokens: int, max_new: int, limit: int) -> int:
+        return next(
+            (b for b in self.PROMPT_BUCKETS
+             if n_tokens <= b and b + max_new <= self.mcfg.max_positions),
+            limit)
+
+    def decode_ids_batch(self, seed_texts: Sequence[str],
+                         max_new_tokens: Optional[int] = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """N seed texts -> (tokens (N, max_new), gen_len (N,)) host arrays.
+        Rows group by their own prompt bucket (so a row decodes at the
+        same positions whatever it is batched with); each group's batch
+        pads to the next BATCH_BUCKETS size with 1-token dummy rows."""
+        if not seed_texts:
+            raise ValueError("decode_ids_batch needs at least one prompt")
+        m = self.mcfg
+        max_new = max_new_tokens or self.cfg.sampler.max_new_tokens
+        limit = m.max_positions - max_new - 1
+        rows = []
+        for text in seed_texts:
+            toks = self.tokenizer.encode(text)
+            rows.append(toks[-limit:] if len(toks) > limit else toks)
+        groups: Dict[int, List[int]] = {}
+        for i, toks in enumerate(rows):
+            groups.setdefault(self._bucket_for(len(toks), max_new, limit),
+                              []).append(i)
+        out_tokens = np.zeros((len(rows), max_new), dtype=np.int32)
+        out_len = np.zeros((len(rows),), dtype=np.int32)
+        # an out-of-vocab eos (byte tokenizer vs a smaller model vocab) can
+        # never be emitted: vocab_size is an unreachable sentinel
+        eos = (self.tokenizer.eos_id if self.tokenizer.eos_id < m.vocab_size
+               else m.vocab_size)
+        for bucket, idxs in groups.items():
+            n = len(idxs)
+            n_pad = next((b for b in self.BATCH_BUCKETS if n <= b), n)
+            ids = np.full((n_pad, bucket), self.tokenizer.pad_id % m.vocab_size,
+                          dtype=np.int64)
+            lens = np.ones((n_pad,), dtype=np.int64)
+            for row, src in enumerate(idxs):
+                toks = rows[src]
+                ids[row, : len(toks)] = np.asarray(toks) % m.vocab_size
+                lens[row] = max(1, len(toks))
+            with torch.inference_mode():
+                tokens, gen_len = greedy_decode(
+                    self.model, torch.from_numpy(ids).to(self.device),
+                    torch.from_numpy(lens).to(self.device), max_new, eos)
+            out_tokens[idxs] = tokens[:n].cpu().numpy()
+            out_len[idxs] = gen_len[:n].cpu().numpy()
+        return out_tokens, out_len
+
+    def generate_batch(self, seed_texts: Sequence[str],
+                       max_new_tokens: Optional[int] = None) -> List[str]:
+        """Greedy continuations, each trimmed to two sentences."""
+        t0 = time.perf_counter()
+        tokens, lengths = self.decode_ids_batch(seed_texts, max_new_tokens)
+        self.last_seconds = time.perf_counter() - t0
+        return [two_sentences(self.tokenizer.decode(
+                    tokens[i, : lengths[i]].tolist()))
+                for i in range(len(seed_texts))]
+
+    def generate(self, seed_text: str,
+                 max_new_tokens: Optional[int] = None) -> str:
+        return self.generate_batch([seed_text], max_new_tokens)[0]
+
+
+@dataclasses.dataclass
+class RoundContent:
+    """One round's generated content."""
+
+    prompt_text: str          # the two-sentence episode text
+    image: np.ndarray         # uint8 HWC RGB
+
+
+class TorchContentBackend:
+    """GPT-2 episode text + diffusion image: one round's content."""
+
+    def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
+                 styles: Optional[List[str]] = None,
+                 rng: Optional[random.Random] = None,
+                 state_dicts: Optional[Mapping[str, Mapping]] = None):
+        sd = state_dicts or {}
+        self.cfg = cfg
+        self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd)
+        self.prompt_gen = PromptGenerator(cfg, device, sd.get("gpt2"))
+        self.styles = styles or load_styles()
+        self.rng = rng or random.Random(cfg.seed)
+        self._round = 0
+        self.text_fallbacks = 0
+
+    def _style_prompt(self, prompt: str) -> str:
+        style = self.rng.choice(self.styles)
+        return f"A {style.lower()} style piece depicting: {prompt}"
+
+    def generate_sync(self, seed: str, is_seed: bool = True,
+                      text: Optional[str] = None) -> RoundContent:
+        """``text`` injects an already-decoded continuation; None decodes
+        here. Degenerate text (fewer words than the round masks, plus one)
+        falls back to the deterministic template."""
+        if text is None:
+            text = self.prompt_gen.generate(seed)
+        text = sanitize_text(text)
+        wordy = sum(is_wordlike(t) for t in tokenize_words(text))
+        if wordy < self.cfg.game.num_masked + 1:
+            self.text_fallbacks += 1
+            text = template_text(seed)
+        self._round += 1
+        images = self.t2i.generate([self._style_prompt(text)],
+                                   seed=self._round)
+        return RoundContent(prompt_text=text, image=images[0])

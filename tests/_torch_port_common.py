@@ -1,0 +1,65 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_port_*.py).
+
+Reference parameter trees come from the Flax module's ``init``, traced
+abstractly (``jax.eval_shape``: the tree and its shapes, without running
+Flax's initializers, which take tens of seconds at CPU-test sizes), with
+values drawn from a seeded numpy generator: kernels lecun-normal, biases
+and norm scales perturbed away from the trivial zeros and ones so their
+mapping is exercised. The same numpy arrays feed both sides.
+"""
+
+import jax
+import numpy as np
+import torch
+
+from cassmantle_tpu_torch.models.weights import from_jax, state_dict_from_tree
+
+
+def jax_params(module, seed, *args, method=None):
+    """A numpy parameter tree for Flax ``module`` called on ``args``."""
+    kw = {} if method is None else {"method": method}
+    shapes = jax.eval_shape(lambda *a: module.init(jax.random.PRNGKey(0),
+                                                   *a, **kw), *args)
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = leaf.shape
+        noise = rng.standard_normal(shape).astype(np.float32)
+        if name == "kernel":
+            return noise / np.float32(np.sqrt(np.prod(shape[:-1])))
+        if name == "scale":
+            return np.float32(1.0) + np.float32(0.05) * noise
+        if name == "bias":
+            return np.float32(0.05) * noise
+        if name == "embedding":
+            return noise / np.float32(np.sqrt(shape[-1]))
+        return np.float32(0.02) * noise              # position tables
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def load(module, params, kind=None):
+    """Port ``module`` with the reference tree ``params`` loaded, in eval."""
+    sd = from_jax(kind, params) if kind else state_dict_from_tree(params)
+    module.load_state_dict(sd)
+    return module.eval()
+
+
+def to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_rel(port, ref, tol):
+    """max |port - ref| <= tol * max |ref|."""
+    port, ref = to_numpy(port), to_numpy(ref)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    err = np.abs(port.astype(np.float64) - ref).max() / max(
+        np.abs(ref).max(), 1e-30)
+    assert err <= tol, f"relative error {err:.3g} > {tol}"
+
+
+def randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
