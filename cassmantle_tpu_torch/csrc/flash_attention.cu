@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -363,13 +365,19 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    float scale, Strides qst, Strides kst, Strides vst,
                    Strides ost, bool vec, cudaStream_t stream) {
   using C = Cfg<DP, BQ, BK, WD>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP, BQ, BK, WD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  // The shared-memory limit is an attribute of the function on each
+  // device: one bit per device ordinal that has it set.
+  static std::atomic<unsigned long long> configured{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (dev >= 64 || !(configured.load() & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, BQ, BK, WD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::kSmem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    if (dev < 64) configured.fetch_or(bit);
   }
   dim3 grid((sq + BQ - 1) / BQ, heads, batch);
   flash_fwd_kernel<DP, BQ, BK, WD><<<grid, C::kThreads, C::kSmem, stream>>>(
@@ -418,12 +426,11 @@ extern "C" int cassmantle_flash_attention_bf16(
                                        kv_len, scale, qst, kst, vst, ost,   \
                                        vec, st);                            \
   }
-  CASSMANTLE_FLASH_CASE(16, 64, 64, 1)
+  // Padded widths: the main path's D = 40, 80, 160, 512, plus 32 and 256
+  // for other head dims (each one held against the plain version).
   CASSMANTLE_FLASH_CASE(32, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(48, 64, 64, 1)
-  CASSMANTLE_FLASH_CASE(64, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(80, 64, 64, 1)
-  CASSMANTLE_FLASH_CASE(128, 64, 32, 1)
   CASSMANTLE_FLASH_CASE(160, 64, 32, 1)
   CASSMANTLE_FLASH_CASE(256, 64, 32, 2)
   CASSMANTLE_FLASH_CASE(512, 32, 32, 4)

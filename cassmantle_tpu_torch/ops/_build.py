@@ -79,17 +79,10 @@ def build(source: str) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every source of csrc/ at once, one nvcc process per source;
-    returns {source: library path}."""
+    """Build every source of csrc/ that is not built yet; returns
+    {source: library path}."""
     sources = sorted(s for s in os.listdir(CSRC_DIR) if s.endswith(".cu"))
-    todo = [s for s in sources if not os.path.exists(library_path(s))]
-    if todo:
-        from concurrent.futures import ThreadPoolExecutor
-
-        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-            for fut in [pool.submit(build, s) for s in todo]:
-                fut.result()
-    return {s: library_path(s) for s in sources}
+    return {s: build(s) for s in sources}
 
 
 def load(source: str) -> ctypes.CDLL:

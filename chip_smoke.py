@@ -6,8 +6,7 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
 
 0. prints the card's name and power limit; fails without CUDA;
 1. builds every kernel of ``cassmantle_tpu_torch/csrc/`` with ``nvcc``
-   (one process per source, all at once) into the git-ignored
-   ``cassmantle_tpu_torch/_build/``;
+   into the git-ignored ``cassmantle_tpu_torch/_build/``;
 2. holds each kernel against its plain PyTorch version at every shape the
    main path gives it, and times the kernel, the plain version and one
    PyTorch library call of the same function (a yardstick the port never
@@ -56,10 +55,17 @@ FLASH_SHAPES = {
 }
 # 50 steps x 16 transformer blocks x (self + cross) + the VAE mid block.
 ROUND_FLASH_LAUNCHES = 50 * 32 + 1
-# bf16 unit-normal inputs: the kernel rounds p to bf16 against its running
-# max, the plain version against the row max, and the two sum in another
-# order; both round the output to bf16 (|o| <~ 3, half an ulp ~ 8e-3).
-FLASH_ATOL = 2e-2
+# Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
+# to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
+# kernel rounds p to bf16 against its running max where the plain version
+# uses the row max, summing in another order. The limits scale with the
+# reference, since the output's spread shrinks as sqrt(e / Sk):
+#   max |kernel - plain| <= 2^-6 * max |plain|   (2 to 4 ulps of it);
+#   ||kernel - plain||_2 <= 1e-2 * ||plain||_2   (each rounding adds ~1e-3).
+# A kernel that dropped one 64-key tile of 4096 would miss the second by
+# ~10x and the first by ~3x.
+FLASH_MAX_REL = 2.0 ** -6
+FLASH_RMS_REL = 1e-2
 
 FLASH_REPLACES = "cassmantle_tpu/ops/flash_attention.py:131"
 FLASH_SOURCE = "cassmantle_tpu_torch/csrc/flash_attention.cu"
@@ -128,6 +134,19 @@ def flash_inputs(b, sq, sk, h, d, layout, gen):
     return tuple(t.unflatten(-1, (h, d)) for t in (q, k, v))
 
 
+def flash_agreement(out, ref) -> dict:
+    """The kernel's output against the plain version's, each error as a
+    share of its limit (``ok`` when both shares are at most 1)."""
+    diff = out.float() - ref.float()
+    ref32 = ref.float()
+    max_abs = diff.abs().max().item()
+    limit = FLASH_MAX_REL * ref32.abs().max().item()
+    rel_rms = (diff.norm() / ref32.norm()).item()
+    return dict(max_abs_err=max_abs, max_limit=limit, rel_rms_err=rel_rms,
+                max_share=max_abs / limit, rms_share=rel_rms / FLASH_RMS_REL,
+                ok=max_abs <= limit and rel_rms <= FLASH_RMS_REL)
+
+
 def flash_bound(b, sq, sk, h, d):
     """(bound ms, 'bytes' or 'operations', flops, bytes): 4*B*H*Sq*Sk*D
     FLOPs at the bf16 peak; q, k, v, o read or written once."""
@@ -155,7 +174,7 @@ def check_flash_kernel():
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = flash_attention_plain(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
+        agree = flash_agreement(out, ref)
         finite = bool(torch.isfinite(out).all())
         ms = time_ms(lambda: flash_attention(q, k, v), 20)
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 2)
@@ -165,13 +184,16 @@ def check_flash_kernel():
             lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         bound_ms, bound_by, flops, nbytes = flash_bound(b, sq, sk, h, d)
         rows[name] = dict(
-            shape=[b, sq, sk, h, d], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            ok=finite and err <= FLASH_ATOL)
+            shape=[b, sq, sk, h, d], max_abs_err=agree["max_abs_err"],
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+            mbytes=nbytes / 1e6, ok=finite and agree["ok"])
         print(f"[kernel] flash_attention {name} (B, Sq, Sk, H, D)="
-              f"{(b, sq, sk, h, d)}: max_abs_err {err:.3e} (atol "
-              f"{FLASH_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{(b, sq, sk, h, d)}: max_abs_err "
+              f"{agree['max_abs_err']:.3e} (limit {agree['max_limit']:.3e}, "
+              f"{agree['max_share']:.2f} of it), rel_rms_err "
+              f"{agree['rel_rms_err']:.3e} ({agree['rms_share']:.2f} of "
+              f"{FLASH_RMS_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB) -> "
@@ -201,10 +223,14 @@ def check_small_agreement():
     """The tiny geometry on the card against the CPU, same weights and
     inputs. The CPU runs the plain attention, the card the kernel.
 
-    The image is held to bf16's own noise: both bf16 images are compared
-    with an fp32 CPU run of the same weights (the path the CPU tests hold
-    against the reference), and the card may stray from it at most twice
-    as far as the CPU's bf16 run does, plus one level."""
+    The image is held to bf16's own noise. Two bf16 runs do not agree
+    with each other to the CPU tests' 2 levels: their roundings (the
+    kernel's p against its running max, other GEMM and conv sum orders)
+    differ, and 4 denoise steps carry the difference on. So both bf16
+    images are compared with an fp32 CPU run of the same weights (the path
+    the CPU tests hold against the reference), and the card may stray from
+    it no further than the CPU's own bf16 run does, plus 0.5 of a level on
+    the mean and 2 levels at the max."""
     import numpy as np
     import torch
 
@@ -255,8 +281,8 @@ def check_small_agreement():
         sim_max_err=sim_err, blur_max_err=blur_err)
     # fp32 GPT-2 and MiniLM (TF32 off): the same greedy tokens and scores
     # within 1e-4 (summation order); the blur within 1 level (rounding).
-    ok = (d_gpu.mean() <= 2 * d_cpu.mean() + 1
-          and d_gpu.max() <= 2 * d_cpu.max() + 1
+    ok = (d_gpu.mean() <= d_cpu.mean() + 0.5
+          and d_gpu.max() <= d_cpu.max() + 2
           and res["tokens_equal"] and sim_err <= 1e-4 and blur_err <= 1)
     print(f"[small] tiny geometry, card vs CPU: {json.dumps(res)} -> "
           f"{'pass' if ok else 'FAIL'}", flush=True)
