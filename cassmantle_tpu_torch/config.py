@@ -8,7 +8,10 @@ the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5.
 
 The port keeps its own copy (it imports nothing of the JAX package);
-fields no port module reads yet are left out.
+fields no port module reads yet are left out. The fused-conv and W8A8
+serving presets (:func:`fusedconv_serving_config`,
+:func:`w8a8_serving_config`) change how the UNet's and GPT-2's hot sites
+execute, not the parameter tree.
 """
 
 from __future__ import annotations
@@ -48,6 +51,20 @@ class UNetConfig:
     context_dim: int = 768
     time_embed_dim: int = 1280
     dtype: str = "bfloat16"
+    # Every ResBlock's GroupNorm -> SiLU -> conv3x3 runs as one fused
+    # kernel (ops/fused_conv.py): the activated tensor never reaches
+    # device memory. Same parameters and outputs (up to rounding) as the
+    # unfused path; CASSMANTLE_NO_FUSED_CONV=1 selects the unfused path.
+    fused_conv: bool = False
+    # The TPU path's channel padding to full 128-lane tiles. The CUDA
+    # kernels tile for Hopper and ignore it; the plain versions apply it,
+    # so the tests show that it changes nothing.
+    conv_pad_to: int = 0
+
+    def arch(self) -> "UNetConfig":
+        """This config with the execution-strategy flags cleared: the
+        architecture (parameter tree and numerics) alone."""
+        return dataclasses.replace(self, fused_conv=False, conv_pad_to=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +115,21 @@ class ModelZooConfig:
     # MiniLM keep fp32 storage, as in the reference). Each layer casts
     # its parameters to its compute dtype where it uses them.
     param_dtype: str = "bfloat16"
+    # Weights-only int8 (w8a16) of the reference. Not ported: the
+    # pipelines refuse it, and with the W8A8 options it is the
+    # reference's exclusivity error.
+    unet_int8: bool = False
+    lm_int8: bool = False
+    # W8A8 serving (ops/quant.py, ops/quant_matmul.py): int8 weights and
+    # activations at every attention, GEGLU and ResBlock-conv site of the
+    # UNet (needs unet.fused_conv), and at every GPT-2 projection with
+    # per-token activation scales. Weights quantize once, at build;
+    # CASSMANTLE_NO_W8A8=1 (read at build) never quantizes.
+    unet_w8a8: bool = False
+    lm_w8a8: bool = False
+    # Smallest weight (in elements) that W8A8 quantizes; the tests drop
+    # it to 0 so the tiny geometry reaches the int8 path.
+    w8a8_min_size: int = 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +175,25 @@ class FrameworkConfig:
 
     def replace(self, **kw) -> "FrameworkConfig":
         return dataclasses.replace(self, **kw)
+
+
+def fusedconv_serving_config() -> FrameworkConfig:
+    """DDIM-50 with every UNet ResBlock's GroupNorm -> SiLU -> conv3x3 as
+    one fused kernel (and the reference's 128-channel padding flag)."""
+    base = FrameworkConfig()
+    return base.replace(models=dataclasses.replace(
+        base.models, unet=dataclasses.replace(
+            base.models.unet, fused_conv=True, conv_pad_to=128)))
+
+
+def w8a8_serving_config() -> FrameworkConfig:
+    """:func:`fusedconv_serving_config` served W8A8: int8 weights and
+    activations at the UNet's attention, GEGLU and ResBlock-conv sites
+    (dynamic per-tensor activation scales) and at GPT-2's projections
+    (per-token scales)."""
+    base = fusedconv_serving_config()
+    return base.replace(models=dataclasses.replace(
+        base.models, unet_w8a8=True, lm_w8a8=True))
 
 
 def test_config() -> FrameworkConfig:

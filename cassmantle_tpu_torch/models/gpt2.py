@@ -3,7 +3,9 @@
 Port of ``cassmantle_tpu/models/gpt2.py``: ``prefill`` over the
 right-padded prompt bucket seeds a fixed-size KV cache, and
 ``decode_step`` extends it one token at a time (``ops/decode.py`` drives
-the loop). Attention is masked, so it takes the plain path.
+the loop). Attention is masked, so it takes the plain path. Under
+``lm_w8a8`` the q, k, v, out, fc1 and fc2 projections of every block run
+the int8 matmul kernel with per-token activation scales.
 """
 
 from __future__ import annotations
@@ -29,10 +31,13 @@ class GPT2Block(nn.Module):
     def __init__(self, cfg: GPT2Config, dtype: torch.dtype):
         super().__init__()
         d = cfg.hidden_size
+        # per-token activation scales at the W8A8 projections: decode
+        # activations carry per-position outliers
         self.ln1 = LayerNorm(d)
-        self.attn = MultiHeadAttention(d, cfg.num_heads, dtype=dtype)
+        self.attn = MultiHeadAttention(d, cfg.num_heads, act_per_token=True,
+                                       dtype=dtype)
         self.ln2 = LayerNorm(d)
-        self.mlp = TransformerMLP(d, 4 * d, dtype=dtype)
+        self.mlp = TransformerMLP(d, 4 * d, act_per_token=True, dtype=dtype)
 
     def forward(self, x, mask=None, kv_cache=None, return_kv=False):
         out = self.attn(self.ln1(x), mask=mask, kv_cache=kv_cache,

@@ -11,7 +11,11 @@ reference, so a Flax parameter tree maps onto these modules mechanically
 - norms take fp32 statistics; LayerNorm32/GroupNorm32 apply the affine in
   the activation dtype, ``LayerNorm`` (Flax ``nn.LayerNorm(dtype=fp32)``)
   returns fp32;
-- attention goes through ``ops.attention.multi_head_attention``.
+- attention goes through ``ops.attention.multi_head_attention``;
+- ``Dense`` is also the reference's ``QDense``: after the W8A8 transform
+  (``ops/quant.py::w8a8_modules``) its forward runs the int8 kernel;
+- ``fused_gn_silu_conv3x3`` is the fused ResBlock GroupNorm -> SiLU ->
+  conv3x3 (``ops/fused_conv.py``), on a plain or a W8A8 weight.
 
 Images are NCHW inside the port's modules; the models convert from and to
 the reference's NHWC at their public boundary.
@@ -27,6 +31,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from cassmantle_tpu_torch.ops.attention import multi_head_attention
+from cassmantle_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+from cassmantle_tpu_torch.ops.quant import ActQTensor, quantized_weight
+from cassmantle_tpu_torch.ops.quant_matmul import (
+    gn_silu_conv3x3_w8a8,
+    w8a8_dense,
+)
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
@@ -71,12 +81,17 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Module):
-    """``nn.Dense`` twin: weight (out, in), optional bias."""
+    """``nn.Dense`` twin: weight (out, in), optional bias. A W8A8 site
+    (its weight quantized by ``ops/quant.py::w8a8_modules``) runs the int8
+    kernel instead, with per-token activation scales when
+    ``act_per_token`` (GPT-2), else per-tensor ones."""
 
     def __init__(self, in_features: int, out_features: int,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 act_per_token: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.act_per_token = act_per_token
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
                      else None)
@@ -87,6 +102,11 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = quantized_weight(self)
+        if q is not None:
+            return w8a8_dense(x, ActQTensor(q.data.t(), q.scale, q.act_scale),
+                              self.bias, out_dtype=self.dtype,
+                              per_token=self.act_per_token)
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
@@ -116,6 +136,17 @@ class Conv(nn.Module):
         dt = self.dtype
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         stride=self.stride, padding=self.padding)
+
+
+class Conv3x3Params(Conv):
+    """The conv3x3 of a fused ResBlock: ``Conv``'s parameters and layout
+    (so ``from_jax`` needs no rule of its own) and its forward for the
+    unfused path; :func:`fused_gn_silu_conv3x3` reads the weight into the
+    fused kernel instead, or its W8A8 buffers once quantized."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, 3, dtype=dtype)
 
 
 class Embed(nn.Module):
@@ -193,6 +224,23 @@ class _GroupNormCore(nn.Module):
 
     reset_parameters = LayerNorm.reset_parameters
 
+    def affine(self, x: torch.Tensor):
+        """The per-(batch, channel) fp32 affine (a, b), out = x * a + b,
+        from per-channel sums over H*W folded into the groups (the
+        reference's ``return_affine`` form: no copy of a channels-last
+        x)."""
+        b, c = x.shape[:2]
+        g = self.num_groups
+        x32 = x.float()
+        dims = tuple(range(2, x.ndim))
+        n_group = x32[0, 0].numel() * (c // g)
+        mean = x32.sum(dim=dims).reshape(b, g, -1).sum(-1) / n_group
+        ex2 = x32.square().sum(dim=dims).reshape(b, g, -1).sum(-1) / n_group
+        inv = torch.rsqrt(ex2 - mean.square() + self.eps)      # (B, G)
+        a = inv.repeat_interleave(c // g, dim=-1) * self.weight.float()
+        shift = self.bias.float() - mean.repeat_interleave(c // g, dim=-1) * a
+        return a, shift
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[:2]
         g = self.num_groups
@@ -218,8 +266,35 @@ class GroupNorm32(nn.Module):
         super().__init__()
         self.norm = _GroupNormCore(channels, num_groups, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_affine: bool = False):
+        """Normalized x, or with ``return_affine`` the fp32 (B, C) (a, b)
+        of ``out = x * a + b``."""
+        if return_affine:
+            return self.norm.affine(x)
         return self.norm(x)
+
+
+def fused_gn_silu_conv3x3(x: torch.Tensor, norm: GroupNorm32,
+                          conv: Conv3x3Params, pad_to: int = 0
+                          ) -> torch.Tensor:
+    """``conv(silu(norm(x)))`` as one fused kernel, on an NCHW x (run
+    channels-last: the kernels read NHWC memory, so the permutes here are
+    views). fp32 GroupNorm statistics here; a plain weight goes to the
+    fused GN-affine + SiLU + conv3x3 kernel (affine and SiLU in fp32), a
+    W8A8 weight to ``gn_silu_conv3x3_w8a8`` (affine and SiLU in x's
+    dtype, then int8)."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    a, b = norm(x, return_affine=True)
+    xh = x.permute(0, 2, 3, 1)
+    q = quantized_weight(conv)
+    if q is not None:
+        hwio = ActQTensor(q.data.permute(2, 3, 1, 0), q.scale, q.act_scale)
+        out = gn_silu_conv3x3_w8a8(xh, a, b, hwio, conv.bias, pad_to=pad_to)
+    else:
+        dt = conv.dtype
+        out = gn_silu_conv3x3(xh, a, b, conv.weight.to(dt).permute(2, 3, 1, 0),
+                              conv.bias.to(dt), pad_to=pad_to)
+    return out.permute(0, 3, 1, 2)
 
 
 class MultiHeadAttention(nn.Module):
@@ -234,6 +309,7 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, query_dim: int, num_heads: int,
                  context_dim: Optional[int] = None, use_bias: bool = True,
                  out_bias: Optional[bool] = None, fused_qkv: bool = False,
+                 act_per_token: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
@@ -243,17 +319,21 @@ class MultiHeadAttention(nn.Module):
         inner = num_heads * self.head_dim
         self.inner = inner
         ctx_dim = context_dim if context_dim is not None else query_dim
+
+        def dense(n_in, n_out, bias=use_bias):
+            return Dense(n_in, n_out, bias, dtype, act_per_token)
+
         if fused_qkv and not self.is_cross:
-            self.qkv = Dense(query_dim, 3 * inner, use_bias, dtype)
+            self.qkv = dense(query_dim, 3 * inner)
         elif fused_qkv:
-            self.q = Dense(query_dim, inner, use_bias, dtype)
-            self.kv = Dense(ctx_dim, 2 * inner, use_bias, dtype)
+            self.q = dense(query_dim, inner)
+            self.kv = dense(ctx_dim, 2 * inner)
         else:
-            self.q = Dense(query_dim, inner, use_bias, dtype)
-            self.k = Dense(ctx_dim, inner, use_bias, dtype)
-            self.v = Dense(ctx_dim, inner, use_bias, dtype)
-        self.out = Dense(inner, query_dim,
-                         use_bias if out_bias is None else out_bias, dtype)
+            self.q = dense(query_dim, inner)
+            self.k = dense(ctx_dim, inner)
+            self.v = dense(ctx_dim, inner)
+        self.out = dense(inner, query_dim,
+                         use_bias if out_bias is None else out_bias)
 
     def forward(self, x, context=None, mask=None, kv_cache=None,
                 return_kv: bool = False):
@@ -301,12 +381,14 @@ class TransformerMLP(nn.Module):
     """Two-layer MLP with a configurable activation."""
 
     def __init__(self, features: int, intermediate: int,
-                 activation: Callable = gelu,
+                 activation: Callable = gelu, act_per_token: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.activation = activation
-        self.fc1 = Dense(features, intermediate, dtype=dtype)
-        self.fc2 = Dense(intermediate, features, dtype=dtype)
+        self.fc1 = Dense(features, intermediate, dtype=dtype,
+                         act_per_token=act_per_token)
+        self.fc2 = Dense(intermediate, features, dtype=dtype,
+                         act_per_token=act_per_token)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.activation(self.fc1(x)))

@@ -7,6 +7,13 @@ public layout is the reference's: latents (B, H, W, 4) NHWC in, eps
 activations, fp32 GroupNorm/LayerNorm statistics, fp32 softmax, fp32
 ``conv_out``. Every attention site (16 transformer blocks at SD1.5, one
 self and one cross attention each) runs the flash kernel on the card.
+
+With ``UNetConfig.fused_conv`` every ResBlock's GroupNorm -> SiLU ->
+conv3x3 runs as one fused kernel (``layers.fused_gn_silu_conv3x3``), or as
+the int8 conv once the W8A8 transform quantized it; the parameters are
+the same. That UNet runs channels-last (NHWC memory under NCHW shapes),
+which the fused kernels read without a copy; the default path is as it
+was.
 """
 
 from __future__ import annotations
@@ -18,13 +25,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from cassmantle_tpu_torch.config import UNetConfig
+from cassmantle_tpu_torch.ops.fused_conv import kill_switch_set
+from cassmantle_tpu_torch.ops.quant import quantized_weight
 from cassmantle_tpu_torch.models.layers import (
     GEGLU,
     Conv,
+    Conv3x3Params,
     Dense,
     GroupNorm32,
     LayerNorm32,
     MultiHeadAttention,
+    fused_gn_silu_conv3x3,
     nearest_upsample_2x,
     timestep_embedding,
 )
@@ -32,23 +43,38 @@ from cassmantle_tpu_torch.utils.device import torch_dtype
 
 
 class ResBlock(nn.Module):
-    """GN/SiLU/conv3x3 x2 + time injection + skip."""
+    """GN/SiLU/conv3x3 x2 + time injection + skip.
+
+    ``fused_conv`` runs each GN/SiLU/conv3x3 as one fused kernel (W8A8
+    sites as the int8 conv); CASSMANTLE_NO_FUSED_CONV, read per call,
+    sends plain weights down the unfused path instead."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_conv: bool = False,
+                 conv_pad_to: int = 0):
         super().__init__()
+        self.fused_conv = fused_conv
+        self.conv_pad_to = conv_pad_to
+        conv3 = (Conv3x3Params if fused_conv
+                 else lambda i, o, dtype: Conv(i, o, 3, dtype=dtype))
         self.norm1 = GroupNorm32(in_channels)
-        self.conv1 = Conv(in_channels, out_channels, 3, dtype=dtype)
+        self.conv1 = conv3(in_channels, out_channels, dtype=dtype)
         self.time_proj = Dense(temb_dim, out_channels, dtype=dtype)
         self.norm2 = GroupNorm32(out_channels)
-        self.conv2 = Conv(out_channels, out_channels, 3, dtype=dtype)
+        self.conv2 = conv3(out_channels, out_channels, dtype=dtype)
         self.skip = (Conv(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
 
+    def _gn_silu_conv(self, x, norm, conv):
+        if self.fused_conv and (quantized_weight(conv) is not None
+                                or not kill_switch_set()):
+            return fused_gn_silu_conv3x3(x, norm, conv, self.conv_pad_to)
+        return conv(F.silu(norm(x)))
+
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self._gn_silu_conv(x, self.norm1, self.conv1)
         h = h + self.time_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._gn_silu_conv(h, self.norm2, self.conv2)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
@@ -118,6 +144,10 @@ class UNet(nn.Module):
             return SpatialTransformer(ch, self._heads(ch), depth,
                                       cfg.context_dim, dtype)
 
+        def res(c_in: int, c_out: int) -> ResBlock:
+            return ResBlock(c_in, c_out, temb_dim, dtype, cfg.fused_conv,
+                            cfg.conv_pad_to)
+
         self.time_fc1 = Dense(base, temb_dim, dtype=dtype)
         self.time_fc2 = Dense(temb_dim, temb_dim, dtype=dtype)
         self.conv_in = Conv(cfg.sample_channels, base, 3, dtype=dtype)
@@ -127,8 +157,7 @@ class UNet(nn.Module):
         for lvl in range(levels):
             ch = base * cfg.channel_mults[lvl]
             for blk in range(cfg.blocks_per_level):
-                self.add_module(f"down_{lvl}_res_{blk}",
-                                ResBlock(ch_in, ch, temb_dim, dtype))
+                self.add_module(f"down_{lvl}_res_{blk}", res(ch_in, ch))
                 ch_in = ch
                 if attn_at(lvl):
                     self.add_module(f"down_{lvl}_attn_{blk}",
@@ -142,17 +171,16 @@ class UNet(nn.Module):
         mid_ch = base * cfg.channel_mults[-1]
         mid_depth = max([d for lvl, d in enumerate(cfg.transformer_depth)
                          if cfg.attention_levels[lvl]] or [1])
-        self.mid_res_0 = ResBlock(ch_in, mid_ch, temb_dim, dtype)
+        self.mid_res_0 = res(ch_in, mid_ch)
         self.mid_attn = transformer(mid_ch, mid_depth)
-        self.mid_res_1 = ResBlock(mid_ch, mid_ch, temb_dim, dtype)
+        self.mid_res_1 = res(mid_ch, mid_ch)
         ch_in = mid_ch
 
         for lvl in reversed(range(levels)):
             ch = base * cfg.channel_mults[lvl]
             for blk in range(cfg.blocks_per_level + 1):
-                self.add_module(
-                    f"up_{lvl}_res_{blk}",
-                    ResBlock(ch_in + skip_channels.pop(), ch, temb_dim, dtype))
+                self.add_module(f"up_{lvl}_res_{blk}",
+                                res(ch_in + skip_channels.pop(), ch))
                 ch_in = ch
                 if attn_at(lvl):
                     self.add_module(f"up_{lvl}_attn_{blk}",
@@ -164,6 +192,8 @@ class UNet(nn.Module):
         self.norm_out = GroupNorm32(ch_in)
         self.conv_out = Conv(ch_in, cfg.sample_channels, 3,
                              dtype=torch.float32)
+        if cfg.fused_conv:
+            self.to(memory_format=torch.channels_last)
 
     def _heads(self, channels: int) -> int:
         if self.cfg.num_heads is not None:
@@ -180,7 +210,10 @@ class UNet(nn.Module):
         temb = timestep_embedding(timesteps, cfg.base_channels)
         temb = self.time_fc2(F.silu(self.time_fc1(temb.to(dtype))))
 
-        x = self.conv_in(latents.to(dtype).permute(0, 3, 1, 2))
+        x = latents.to(dtype).permute(0, 3, 1, 2)
+        if cfg.fused_conv:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = self.conv_in(x)
         skips = [x]
         for lvl in range(levels):
             for blk in range(cfg.blocks_per_level):

@@ -9,7 +9,11 @@ submodules after the Flax modules, so the mapping is mechanical:
 - a Conv kernel in HWIO becomes OIHW;
 - a concatenated ``qkv``/``kv`` projection keeps its layout;
 - LayerNorm/GroupNorm ``scale`` and Embed ``embedding`` become ``weight``;
-  ``bias`` stays ``bias``; other leaves (position tables) keep their name.
+  ``bias`` stays ``bias``; other leaves (position tables) keep their name;
+- a W8A8 kernel leaf (the reference's ``ActQTensor(data, scale,
+  act_scale)``) becomes the quantized module's buffers: ``weight_q`` (the
+  int8 data in the port's layout, as a kernel above), ``weight_scale``
+  (along the out-channel axis) and, when static, ``act_scale``.
 
 Loading HF/diffusers checkpoints waits for checkpoints in the repository.
 """
@@ -39,10 +43,22 @@ def _leaf(name: str, value: np.ndarray):
     return name, torch.from_numpy(np.array(value, order="C"))
 
 
+def _is_w8a8_leaf(value) -> bool:
+    return getattr(value, "_fields", None) == ("data", "scale", "act_scale")
+
+
 def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     for key, value in tree.items():
         if isinstance(value, Mapping):
             _walk(value, f"{prefix}{key}.", out)
+        elif _is_w8a8_leaf(value):
+            _, data = _leaf(key, value.data)
+            out[f"{prefix}weight_q"] = data
+            out[f"{prefix}weight_scale"] = torch.from_numpy(
+                np.array(value.scale, dtype=np.float32).reshape(-1))
+            if value.act_scale is not None:
+                out[f"{prefix}act_scale"] = torch.from_numpy(
+                    np.array(value.act_scale, dtype=np.float32))
         else:
             name, tensor = _leaf(key, value)
             out[f"{prefix}{name}"] = tensor

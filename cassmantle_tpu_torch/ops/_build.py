@@ -3,9 +3,11 @@
 Each source in ``cassmantle_tpu_torch/csrc/`` is a plain C interface
 compiled by ``nvcc`` for ``sm_90a`` into ``cassmantle_tpu_torch/_build/``
 (git-ignored) and loaded with ``ctypes``. The library's file name carries
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library built before. Nothing is built at import
-time: the first launch of a kernel builds its library.
+a hash of the source, the shared headers (``*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one loads the library built
+before. Nothing is built at import time: the first launch of a kernel
+builds its library; ``build_all`` runs one ``nvcc`` per source, all at
+once.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +54,10 @@ def library_path(source: str) -> str:
     """Where the library of ``source`` (a file name in csrc/) is built."""
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
         digest = hashlib.sha256(f.read())
+    for header in sorted(h for h in os.listdir(CSRC_DIR)
+                         if h.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
@@ -79,10 +86,12 @@ def build(source: str) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every source of csrc/ that is not built yet; returns
-    {source: library path}."""
+    """Build every source of csrc/ that is not built yet, one nvcc
+    process per source, all started together; returns {source: library
+    path}."""
     sources = sorted(s for s in os.listdir(CSRC_DIR) if s.endswith(".cu"))
-    return {s: build(s) for s in sources}
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip(sources, pool.map(build, sources)))
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -8,6 +8,10 @@ sentences) and ``TPUContentBackend.generate_sync`` as
 :class:`TorchContentBackend`. Models are built at the configured width
 with seeded random weights, or from given state dicts (the parity tests
 carry the reference's parameters over with ``models.weights.from_jax``).
+The fused-conv and W8A8 presets build the same models: the UNet with
+``fused_conv`` runs its ResBlock convs as one fused kernel, and under
+``unet_w8a8``/``lm_w8a8`` the UNet's and GPT-2's sites quantize once, at
+build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
 Staged serving, brownout tiers, integrity sentinels and the other
 samplers are later slices.
 """
@@ -15,9 +19,11 @@ samplers are later slices.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from functools import partial
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,15 @@ from cassmantle_tpu_torch.ops.ddim import (
     make_cfg_denoiser,
 )
 from cassmantle_tpu_torch.ops.decode import greedy_decode
+from cassmantle_tpu_torch.ops.fused_conv import describe as fc_describe
+from cassmantle_tpu_torch.ops.quant import (
+    w8a8_calibrated,
+    w8a8_default_predicate,
+    w8a8_modules,
+    w8a8_site_count,
+)
+from cassmantle_tpu_torch.ops.quant_matmul import describe as w8a8_describe
+from cassmantle_tpu_torch.ops.quant_matmul import w8a8_disabled
 from cassmantle_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -54,9 +69,47 @@ from cassmantle_tpu_torch.utils.tokenizers import (
     tokenize_clip_prompts,
 )
 
+log = logging.getLogger(__name__)
+
 # Seed offsets of the random init, one per model (the reference's init
 # slots: CLIP 1, UNet 2, VAE 3, GPT-2 5).
 INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5}
+
+
+def check_int8(models_cfg) -> None:
+    """Weights-only int8 (w8a16) is not ported."""
+    if models_cfg.unet_int8 or models_cfg.lm_int8:
+        raise NotImplementedError("weights-only int8 (unet_int8, lm_int8) "
+                                  "is not ported; W8A8 is")
+
+
+def unet_w8a8_armed(models_cfg) -> bool:
+    """True when the UNet serves W8A8: the config asks for it and
+    CASSMANTLE_NO_W8A8 (read here, at build) is not set."""
+    return bool(models_cfg.unet_w8a8) and not w8a8_disabled()
+
+
+def lm_w8a8_armed(models_cfg) -> bool:
+    """The LM's twin of :func:`unet_w8a8_armed` (per-token scales)."""
+    return bool(models_cfg.lm_w8a8) and not w8a8_disabled()
+
+
+def w8a8_unet_tools(models_cfg, act_scales: Optional[Dict[str, float]] = None
+                    ) -> Optional[Callable[[torch.nn.Module], int]]:
+    """The UNet's W8A8 transform (quantize every site of a built UNet in
+    place; returns the site count), or None when W8A8 is off.
+    ``act_scales`` (site key -> calibrated absmax) gives sites a static
+    activation scale; without it every site scales dynamically."""
+    if not unet_w8a8_armed(models_cfg):
+        return None
+    if models_cfg.unet_int8:
+        raise ValueError("unet_w8a8 and unet_int8 are mutually exclusive: "
+                         "both rewrite the same kernel leaves")
+    if not models_cfg.unet.fused_conv:
+        raise ValueError("unet_w8a8 conv sites ride the fused GN+SiLU+conv "
+                         "path; set models.unet.fused_conv=True")
+    pred = partial(w8a8_default_predicate, min_size=models_cfg.w8a8_min_size)
+    return partial(w8a8_modules, act_scales=act_scales, predicate=pred)
 
 
 def build_model(module: torch.nn.Module, kind: str, device: torch.device,
@@ -87,8 +140,11 @@ class Text2ImagePipeline:
     """prompts -> (B, H, W, 3) uint8 images: CLIP -> CFG DDIM -> VAE."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
-                 state_dicts: Optional[Mapping[str, Mapping]] = None):
+                 state_dicts: Optional[Mapping[str, Mapping]] = None,
+                 act_scales: Optional[Dict[str, float]] = None):
         check_sampler(cfg.sampler)
+        check_int8(cfg.models)
+        w8a8 = w8a8_unet_tools(cfg.models, act_scales)
         self.cfg = cfg
         self.device = resolve_device(device)
         m = cfg.models
@@ -105,6 +161,12 @@ class Text2ImagePipeline:
                                     cfg.seed, sd.get("unet"), param_dtype)
             self.vae = build_model(VAEDecoder(m.vae), "vae", self.device,
                                    cfg.seed, sd.get("vae"))
+        if fc_describe(m.unet):
+            log.info("%s", fc_describe(m.unet))
+        if w8a8 is not None:
+            w8a8(self.unet)
+            log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
+                                         w8a8_site_count(self.unet)))
         self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size)
         self.pad_len = min(cfg.sampler.prompt_pad_len,
                            m.clip_text.max_positions)
@@ -168,6 +230,7 @@ class PromptGenerator:
         if cfg.sampler.text_temperature > 0.0:
             raise NotImplementedError("the port decodes greedily "
                                       "(text_temperature=0)")
+        check_int8(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mcfg = m = cfg.models.gpt2
@@ -175,6 +238,12 @@ class PromptGenerator:
             self.model = build_model(GPT2LM(m), "gpt2", self.device,
                                      cfg.seed, state_dict,
                                      torch_dtype(cfg.models.param_dtype))
+        if lm_w8a8_armed(cfg.models):
+            # no static scales: the LM quantizes activations per token
+            w8a8_modules(self.model, predicate=partial(
+                w8a8_default_predicate, min_size=cfg.models.w8a8_min_size))
+            log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
+                     "activation scales)", w8a8_site_count(self.model))
         self.tokenizer = load_tokenizer("gpt2", m.vocab_size)
         self.last_seconds = 0.0
 

@@ -4,22 +4,28 @@
 
 Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
 
-0. prints the card's name and power limit; fails without CUDA;
+0. prints the card's name and power limit; fails without CUDA, or with a
+   kill switch (CASSMANTLE_NO_FUSED_CONV, CASSMANTLE_NO_W8A8) set;
 1. builds every kernel of ``cassmantle_tpu_torch/csrc/`` with ``nvcc``
-   into the git-ignored ``cassmantle_tpu_torch/_build/``;
-2. holds each kernel against its plain PyTorch version at every shape the
-   main path gives it, and times the kernel, the plain version and one
-   PyTorch library call of the same function (a yardstick the port never
-   calls) beside the card's bound for the work;
+   (one process per source, all at once) into the git-ignored
+   ``cassmantle_tpu_torch/_build/``;
+2. holds each kernel (flash attention, the fused GroupNorm-affine + SiLU +
+   conv3x3, the int8 matmul, the int8 conv3x3) against its plain PyTorch
+   version at every shape the main paths give it, and times the kernel,
+   the plain version and one PyTorch library call (a yardstick the port
+   never calls) beside the card's bound for the work;
 3. runs the tiny test geometry on the card and on the CPU from the same
-   weights and inputs, and checks that image, prompt tokens, scores and
-   blur agree;
-4. serves one game round at the full default width (SD1.5 512x512,
-   50-step CFG DDIM, GPT-2-small prompt text, MiniLM scoring, blur) with
-   seeded random weights, and checks that every kernel launch of the
-   round came from that run;
-5. profiles two denoise steps of that pipeline: host time per step, the
-   device's busy time and idle share, and the flash kernel's part.
+   weights and inputs (default, fused-conv and W8A8), and checks that
+   images, prompt tokens, scores and blur agree;
+4. serves one game round at full width (SD1.5 512x512, 50-step CFG DDIM,
+   GPT-2-small prompt text, MiniLM scoring, blur) with seeded random
+   weights under each of ``FrameworkConfig()``,
+   ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, each with
+   the counts set to 0 just before it and read just after: every kernel
+   of the path launched as often as the path says (and the default round
+   none of the new ones), at checked shapes only;
+5. profiles two denoise steps of each pipeline: host time per step, the
+   device's busy time and idle share, and each kernel's part.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -29,6 +35,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +76,50 @@ FLASH_RMS_REL = 1e-2
 
 FLASH_REPLACES = "cassmantle_tpu/ops/flash_attention.py:131"
 FLASH_SOURCE = "cassmantle_tpu_torch/csrc/flash_attention.cu"
+
+PEAK_INT8_OPS = 1979e12
+UNET_FORWARDS = 50               # one CFG forward (batch 2) per DDIM step
+LM_FORWARDS = 96                 # prefill + 95 decode steps (max_new 96)
+
+# Every ResBlock conv3x3 of one SD1.5-512 UNet forward with CFG:
+# (B, H, W, C, F) -> launches per forward (22 ResBlocks x 2 = 44); the
+# fused kernel runs them under fusedconv_serving_config(), the int8 conv
+# under w8a8_serving_config().
+CONV_SHAPES = {
+    (2, 64, 64, 320, 320): 7, (2, 64, 64, 640, 320): 2,
+    (2, 64, 64, 960, 320): 1, (2, 32, 32, 320, 640): 1,
+    (2, 32, 32, 640, 640): 6, (2, 32, 32, 960, 640): 1,
+    (2, 32, 32, 1280, 640): 1, (2, 32, 32, 1920, 640): 1,
+    (2, 16, 16, 640, 1280): 1, (2, 16, 16, 1280, 1280): 6,
+    (2, 16, 16, 1920, 1280): 1, (2, 16, 16, 2560, 1280): 2,
+    (2, 8, 8, 1280, 1280): 11, (2, 8, 8, 2560, 1280): 3,
+}
+# Every W8A8 dense site of one UNet forward, (M, K, N) -> launches (16
+# transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
+# proj and out). M = 2 x tokens; the cross kv reads the 2 x 77 context.
+UNET_MATMUL_SHAPES = {}
+for _c, _m, _blocks in ((320, 8192, 5), (640, 2048, 5), (1280, 512, 5),
+                        (1280, 128, 1)):
+    for _shape, _n in (((_m, _c, 3 * _c), 1), ((_m, _c, _c), 3),
+                       ((_m, _c, 8 * _c), 1), ((_m, 4 * _c, _c), 1),
+                       ((154, 768, 2 * _c), 1)):
+        UNET_MATMUL_SHAPES[_shape] = (UNET_MATMUL_SHAPES.get(_shape, 0)
+                                      + _n * _blocks)
+# GPT-2's W8A8 projections per layer (q, k, v, out, fc1, fc2) at M = 32
+# (prefill: one prompt in the 32-token bucket) and M = 1 (decode).
+GPT2_KN = {(768, 768): 4, (768, 3072): 1, (3072, 768): 1}
+GPT2_LAYERS = 12
+LM_MATMUL_SHAPES = {(m, k, n): c * GPT2_LAYERS * (1 if m == 32 else 95)
+                    for m in (32, 1) for (k, n), c in GPT2_KN.items()}
+ROUND_FUSED_LAUNCHES = 44 * UNET_FORWARDS                     # 2,200
+ROUND_UNET_MATMUL_LAUNCHES = 112 * UNET_FORWARDS              # 5,600
+ROUND_LM_MATMUL_LAUNCHES = 72 * LM_FORWARDS                   # 6,912
+
+FUSED_REPLACES = "cassmantle_tpu/ops/fused_conv.py:273"
+FUSED_SOURCE = "cassmantle_tpu_torch/csrc/fused_conv.cu"
+MATMUL_REPLACES = "cassmantle_tpu/ops/quant_matmul.py:170"
+CONV_REPLACES = "cassmantle_tpu/ops/quant_matmul.py:383"
+INT8_SOURCE = "cassmantle_tpu_torch/csrc/int8_gemm.cu"
 
 
 def fail(msg: str) -> None:
@@ -203,6 +254,183 @@ def check_flash_kernel():
     return rows
 
 
+def bound(ops, nbytes, peak):
+    """(bound ms, 'operations' or 'bytes'): the larger of ops at ``peak``
+    and bytes at the memory rate."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def report_row(kernel, label, shape, agree, ms, plain_ms, library_ms,
+               library_name, ops, nbytes, peak):
+    """One [kernel] line and the row kept for the kernels JSON line."""
+    bound_ms, bound_by = bound(ops, nbytes, peak)
+    row = dict(shape=list(shape), max_abs_err=agree["max_abs_err"], ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_by=bound_by, ok=agree["ok"])
+    lib = ("none" if library_ms is None
+           else f"{library_name} {library_ms:.4f} ms")
+    print(f"[kernel] {kernel} {label}={tuple(shape)}: {agree['text']}, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib}, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}; {ops / 1e9:.3f} G ops, "
+          f"{nbytes / 1e6:.2f} MB) -> {'pass' if row['ok'] else 'FAIL'}",
+          flush=True)
+    return row
+
+
+def scaled_agreement(out, ref) -> dict:
+    """bf16 outputs against the plain version under the flash limits:
+    max |diff| <= 2^-6 max |plain|, ||diff||_2 <= 1e-2 ||plain||_2."""
+    import torch
+
+    a = flash_agreement(out, ref)
+    ok = a["ok"] and bool(torch.isfinite(out).all())
+    return dict(max_abs_err=a["max_abs_err"], ok=ok, text=(
+        f"max_abs_err {a['max_abs_err']:.3e} ({a['max_share']:.2f} of "
+        f"{a['max_limit']:.3e}), rel_rms_err {a['rel_rms_err']:.3e} "
+        f"({a['rms_share']:.2f} of {FLASH_RMS_REL})"))
+
+
+def exact_agreement(out, ref) -> dict:
+    """The int8 kernels against their plain versions: int32 sums are
+    exact and both round the fp32 epilogue step by step, so the outputs
+    must be equal (limit 0)."""
+    diff = (out.float() - ref.float()).abs()
+    n_diff = int((diff > 0).sum().item())
+    return dict(max_abs_err=diff.max().item(), ok=n_diff == 0, text=(
+        f"max_abs_err {diff.max().item():.3e}, {n_diff} of {diff.numel()} "
+        f"values differ (limit: equal)"))
+
+
+def check_fused_conv_kernel():
+    """Kernel 2 vs plain at the 14 ResBlock conv shapes, bf16 unit-normal
+    x, affine a in [0.5, 1.5) with a nonzero shift, weights ~ N(0, 1/9C)
+    in the models' OHWI memory. Library yardstick: one cuDNN conv of the
+    pre-activated tensor (the conv alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cassmantle_tpu_torch.ops.fused_conv import (
+        gn_silu_conv3x3,
+        gn_silu_conv3x3_plain,
+    )
+
+    rows = {}
+    gen = torch.Generator("cuda").manual_seed(1)
+    for shape in CONV_SHAPES:
+        b, h, w, c, f = shape
+        kw = dict(generator=gen, device="cuda")
+        x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
+        a = torch.rand((b, c), **kw) + 0.5
+        shift = torch.randn((b, c), **kw) * 0.5
+        ohwi = (torch.randn((f, 3, 3, c), **kw) / (9 * c) ** 0.5).bfloat16()
+        kernel = ohwi.permute(1, 2, 3, 0)
+        bias = torch.randn((f,), **kw) * 0.1
+        out = gn_silu_conv3x3(x, a, shift, kernel, bias)
+        torch.cuda.synchronize()
+        ref = gn_silu_conv3x3_plain(x, a, shift, kernel, bias)
+        agree = scaled_agreement(out, ref)
+        ms = time_ms(lambda: gn_silu_conv3x3(x, a, shift, kernel, bias), 20)
+        plain_ms = time_ms(
+            lambda: gn_silu_conv3x3_plain(x, a, shift, kernel, bias), 2)
+        act = F.silu(x.float() * a[:, None, None] + shift[:, None, None]) \
+            .bfloat16().permute(0, 3, 1, 2)
+        w_oihw = ohwi.permute(0, 3, 1, 2)
+        bias16 = bias.bfloat16()
+        library_ms = time_ms(
+            lambda: F.conv2d(act, w_oihw, bias16, padding=1), 20)
+        m = b * h * w
+        ops = 18 * m * c * f
+        nbytes = 2 * (m * c + 9 * c * f + m * f) + 4 * (2 * b * c + f)
+        rows[shape] = report_row(
+            "gn_silu_conv3x3", "(B, H, W, C, F)", shape, agree, ms, plain_ms,
+            library_ms, "cudnn conv", ops, nbytes, PEAK_BF16_FLOPS)
+        del x, a, shift, ohwi, kernel, bias, out, ref, act
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_int8_matmul_kernel():
+    """Kernel 3 vs plain at the 19 UNet (M, K, N) (one per-tensor scale,
+    stride 0) and the GPT-2 prefill and decode shapes (per-token scales),
+    bf16 out, int8 operands uniform in [-127, 127], the weight in the
+    modules' (N, K) memory. Library yardstick: torch._int_mm, the int32
+    product alone (it takes M > 16 only)."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.quant_matmul import (
+        int8_matmul,
+        int8_matmul_plain,
+    )
+
+    rows = {}
+    gen = torch.Generator("cuda").manual_seed(2)
+    for shape in list(UNET_MATMUL_SHAPES) + list(LM_MATMUL_SHAPES):
+        m, k, n = shape
+        per_token = shape in LM_MATMUL_SHAPES
+        kw = dict(generator=gen, device="cuda")
+        x_q = torch.randint(-127, 128, (m, k), dtype=torch.int8, **kw)
+        w_q = torch.randint(-127, 128, (n, k), dtype=torch.int8, **kw).t()
+        row = torch.rand((m if per_token else 1,), **kw) * 0.01 + 1e-3
+        col = torch.rand((n,), **kw) * 1e-3 + 1e-4
+        bias = torch.randn((n,), **kw)
+        args = (x_q, w_q, row, col, bias, torch.bfloat16)
+        out = int8_matmul(*args)
+        torch.cuda.synchronize()
+        agree = exact_agreement(out, int8_matmul_plain(*args))
+        ms = time_ms(lambda: int8_matmul(*args), 20)
+        plain_ms = time_ms(lambda: int8_matmul_plain(*args), 2)
+        library_ms = (time_ms(lambda: torch._int_mm(x_q, w_q), 20)
+                      if m > 16 else None)
+        ops = 2 * m * k * n
+        nbytes = m * k + k * n + 2 * m * n + 4 * (row.numel() + 2 * n)
+        rows[shape] = report_row(
+            "int8_matmul", "(M, K, N)", shape, agree, ms, plain_ms,
+            library_ms, "torch._int_mm", ops, nbytes, PEAK_INT8_OPS)
+        del x_q, w_q, row, col, bias, out, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_int8_conv_kernel():
+    """Kernel 4 vs plain at the 14 ResBlock conv shapes, int8 operands
+    uniform in [-127, 127], the weight in OHWI memory, bf16 out. No single
+    PyTorch call computes an int8 conv: library "none"."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.quant_matmul import (
+        int8_conv3x3,
+        int8_conv3x3_plain,
+    )
+
+    rows = {}
+    gen = torch.Generator("cuda").manual_seed(3)
+    for shape in CONV_SHAPES:
+        b, h, w, c, f = shape
+        kw = dict(generator=gen, device="cuda")
+        x_q = torch.randint(-127, 128, (b, h, w, c), dtype=torch.int8, **kw)
+        kernel = torch.randint(-127, 128, (f, 3, 3, c), dtype=torch.int8,
+                               **kw).permute(1, 2, 3, 0)
+        col = torch.rand((f,), **kw) * 1e-5 + 1e-6
+        bias = torch.randn((f,), **kw)
+        args = (x_q, kernel, col, bias, torch.bfloat16)
+        out = int8_conv3x3(*args)
+        torch.cuda.synchronize()
+        agree = exact_agreement(out, int8_conv3x3_plain(*args))
+        ms = time_ms(lambda: int8_conv3x3(*args), 20)
+        plain_ms = time_ms(lambda: int8_conv3x3_plain(*args), 2)
+        m = b * h * w
+        ops = 18 * m * c * f
+        nbytes = m * c + 9 * c * f + 2 * m * f + 8 * f
+        rows[shape] = report_row(
+            "int8_conv3x3", "(B, H, W, C, F)", shape, agree, ms, plain_ms,
+            None, "", ops, nbytes, PEAK_INT8_OPS)
+        del x_q, kernel, col, bias, out, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tiny_bf16_config():
     """The CPU tests' geometry with the serving dtype policy (bf16 UNet
     and VAE compute, bf16 parameter storage), so the kernel runs."""
@@ -289,20 +517,151 @@ def check_small_agreement():
     return ok
 
 
-def run_round(card: str):
-    """One full-width round through InferenceService; returns the flash
-    launch tally of the main path and the stage report."""
+def with_unet(cfg, **unet_kw):
+    import dataclasses
+
+    m = cfg.models
+    return cfg.replace(models=dataclasses.replace(
+        m, unet=dataclasses.replace(m.unet, **unet_kw)))
+
+
+def check_small_fused_and_w8a8():
+    """The tiny geometry's fused-conv and W8A8 twins (bf16 UNet) on the
+    card and on the CPU from the same weights and inputs, each image held
+    against an fp32 CPU run of the fused fp path (the plain version in
+    fp32, which the CPU tests hold against the reference).
+
+    fused conv: the card strays from fp32 no further than the CPU's own
+    bf16 run does, plus 0.5 of a level on the mean and 2 at the max (the
+    default path's limits: bf16 roundings differ in order between the two
+    and 4 steps carry them on).
+    W8A8 (w8a8_min_size=0, dynamic scales): both runs carry the int8
+    quantization error on top of bf16's, and an int8 value flips where
+    card and CPU round the activation a bf16 ulp apart, moving its element
+    by 1/127 of the site's absmax; the tiny model amplifies such flips to
+    the size of the quantization error itself. So the card may stray from
+    fp32 at most 1.5 times as far as the CPU's W8A8 run does, plus 0.5 of
+    a level on the mean and 2 at the max. A wrong scale or layout strays
+    tens of levels. GPT-2 tokens: their agreement is reported (a flip
+    where two logits are within a step changes a greedy token)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from cassmantle_tpu_torch.config import FrameworkConfig
-    from cassmantle_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        reset_counters,
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.ops import fused_conv, quant_matmul
+    from cassmantle_tpu_torch.ops.quant import w8a8_site_count
+    from cassmantle_tpu_torch.serving.pipeline import (
+        PromptGenerator,
+        Text2ImagePipeline,
     )
+
+    fused_cfg = with_unet(tiny_bf16_config(), fused_conv=True,
+                          conv_pad_to=128)
+    cpu = Text2ImagePipeline(fused_cfg, device="cpu")
+    sd = {"clip_text": cpu.clip.state_dict(), "unet": cpu.unet.state_dict(),
+          "vae": cpu.vae.state_dict()}
+    fp32 = Text2ImagePipeline(with_unet(test_config(), fused_conv=True),
+                              device="cpu", state_dicts=sd)
+    hw = fused_cfg.sampler.image_size // cpu.vae_scale
+    x_t = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, hw, hw, 4)).astype(np.float32))
+    prompts = ["A watercolor style piece depicting: a lighthouse at dusk.",
+               "A vaporwave style piece depicting: the comet market."]
+    ref = fp32.generate(prompts, latents=x_t).astype(np.int32)
+
+    def deviation(pipe):
+        img = pipe.generate(prompts, latents=x_t).astype(np.int32)
+        d = np.abs(img - ref)
+        return int(d.max()), float(d.mean())
+
+    ok_all = True
+    w8a8_cfg = fused_cfg.replace(models=dataclasses.replace(
+        fused_cfg.models, unet_w8a8=True, lm_w8a8=True, w8a8_min_size=0))
+    for name, cfg, scale in (("fused_conv", fused_cfg, 1.0),
+                             ("w8a8", w8a8_cfg, 1.5)):
+        c_max, c_mean = deviation(Text2ImagePipeline(
+            cfg, device="cpu", state_dicts=sd))
+        fused_conv.reset_counters()
+        quant_matmul.reset_counters()
+        gpu = Text2ImagePipeline(cfg, device="cuda", state_dicts=sd)
+        g_max, g_mean = deviation(gpu)
+        launched = (fused_conv.gn_silu_conv3x3.launches
+                    if name == "fused_conv"
+                    else min(quant_matmul.int8_conv3x3.launches,
+                             quant_matmul.int8_matmul.launches))
+        res = dict(card_vs_fp32_max=g_max, card_vs_fp32_mean=g_mean,
+                   cpu_vs_fp32_max=c_max, cpu_vs_fp32_mean=c_mean,
+                   card_kernels_launched=launched > 0)
+        ok = (g_mean <= scale * c_mean + 0.5 and g_max <= scale * c_max + 2
+              and launched > 0)
+        if name == "w8a8":
+            seeds = ["The Night the Trains Sang", "Chapter two: the harbor"]
+            lm_sd = PromptGenerator(fused_cfg, device="cpu").model \
+                .state_dict()
+            lm_cpu = PromptGenerator(cfg, device="cpu", state_dict=lm_sd)
+            lm_gpu = PromptGenerator(cfg, device="cuda", state_dict=lm_sd)
+            tok_c, _ = lm_cpu.decode_ids_batch(seeds)
+            tok_g, _ = lm_gpu.decode_ids_batch(seeds)
+            res.update(lm_sites=w8a8_site_count(lm_gpu.model),
+                       token_agreement=float((tok_c == tok_g).mean()))
+            ok = ok and res["lm_sites"] == 6 * cfg.models.gpt2.num_layers
+        print(f"[small] tiny geometry, {name}, card vs CPU: "
+              f"{json.dumps(res)} -> {'pass' if ok else 'FAIL'}", flush=True)
+        ok_all = ok_all and ok
+    return ok_all
+
+
+def reset_all_counters() -> None:
+    from cassmantle_tpu_torch.ops import flash_attention, fused_conv
+    from cassmantle_tpu_torch.ops import quant_matmul
+
+    flash_attention.reset_counters()
+    fused_conv.reset_counters()
+    quant_matmul.reset_counters()
+
+
+def read_tallies() -> dict:
+    """{kernel: Counter of launches per shape} as the counters stand."""
+    import collections
+
+    from cassmantle_tpu_torch.ops.flash_attention import flash_attention
+    from cassmantle_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+    from cassmantle_tpu_torch.ops.quant_matmul import (
+        int8_conv3x3,
+        int8_matmul,
+    )
+
+    return {name: collections.Counter(fn.shapes) for name, fn in (
+        ("flash_attention", flash_attention),
+        ("gn_silu_conv3x3", gn_silu_conv3x3),
+        ("int8_matmul", int8_matmul), ("int8_conv3x3", int8_conv3x3))}
+
+
+def expected_tallies(preset: str) -> dict:
+    """Launches per shape of one round of ``preset``, new kernels only
+    (flash: ROUND_FLASH_LAUNCHES at FLASH_SHAPES under every preset)."""
+    none = {"gn_silu_conv3x3": {}, "int8_matmul": {}, "int8_conv3x3": {}}
+    per_round = {s: n * UNET_FORWARDS for s, n in CONV_SHAPES.items()}
+    if preset == "fusedconv":
+        return {**none, "gn_silu_conv3x3": per_round}
+    if preset == "w8a8":
+        mm = {s: n * UNET_FORWARDS for s, n in UNET_MATMUL_SHAPES.items()}
+        return {**none, "int8_conv3x3": per_round,
+                "int8_matmul": {**mm, **LM_MATMUL_SHAPES}}
+    return none
+
+
+def run_round(card: str, preset: str, cfg):
+    """One full-width round of ``cfg`` through InferenceService with every
+    launch counter set to 0 just before it and read just after; returns
+    the service, the tallies and the failed checks."""
+    import numpy as np
+    import torch
+
     from cassmantle_tpu_torch.serving.service import InferenceService
 
-    cfg = FrameworkConfig()
     t0 = time.perf_counter()
     svc = InferenceService(cfg)                     # device="cuda"
     torch.cuda.synchronize()
@@ -314,7 +673,7 @@ def run_round(card: str):
              ("observatory", "station"), ("violet", "violet tune")]
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
+    reset_all_counters()
     t0 = time.perf_counter()
     rc = svc.generate_content("The Night the Trains Sang")
     round_s = time.perf_counter() - t0
@@ -326,8 +685,7 @@ def run_round(card: str):
     for r in (0.0, 5.0, 15.0):
         blurred[r] = svc.blur(rc.image, r)
     blur_s = time.perf_counter() - t1
-    launches = flash_attention.launches
-    shapes = dict(flash_attention.shapes)
+    tallies = read_tallies()
 
     t2i, gen = svc.backend.t2i, svc.backend.prompt_gen
     stages = {"decode": gen.last_seconds, **t2i.last_stage_seconds,
@@ -341,13 +699,14 @@ def run_round(card: str):
     warm_stages = {"decode": gen.last_seconds, **t2i.last_stage_seconds}
 
     img = rc.image
+    launches = {k: sum(v.values()) for k, v in tallies.items()}
     checks = {
         "image_shape": img.shape == (cfg.sampler.image_size,) * 2 + (3,),
         "image_uint8": img.dtype == np.uint8,
         "decoded_finite": bool(t2i.last_decoded_finite),
         "image_not_constant": int(img.max()) > int(img.min()),
         "second_image_ok": rc2.image.shape == img.shape,
-        "flash_launches": launches == ROUND_FLASH_LAUNCHES,
+        "flash_launches": launches["flash_attention"] == ROUND_FLASH_LAUNCHES,
         "scores_finite": bool(np.all(np.isfinite(sims))),
         "scores_in_range": bool(np.all(np.abs(sims) <= 1.0 + 1e-5)),
         "blur_shapes": all(b.shape == img.shape and b.dtype == np.uint8
@@ -359,18 +718,29 @@ def run_round(card: str):
                                           axis=1)).mean()),
         "prompt_text": bool(rc.prompt_text.strip()),
     }
+    for kernel, want in expected_tallies(preset).items():
+        checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
     checks = {k: bool(v) for k, v in checks.items()}
     report = dict(
-        card=card, build_models_s=build_s, round_s=round_s,
+        preset=preset, card=card, build_models_s=build_s, round_s=round_s,
         warm_round_s=warm_round_s, stages_s=stages,
-        warm_stages_s=warm_stages, peak_gib=peak_gib,
-        flash_launches=launches, text_fallbacks=svc.backend.text_fallbacks,
+        warm_stages_s=warm_stages, peak_gib=peak_gib, launches=launches,
+        text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
         checks=checks)
-    print(f"[round] {json.dumps(report)}", flush=True)
+    print(f"[round-{preset}] {json.dumps(report)}", flush=True)
     bad = [k for k, v in checks.items() if not v]
-    return svc, shapes, bad
+    return svc, tallies, bad
+
+
+# profiler kernel names -> the kernel they belong to
+KERNEL_PATTERNS = (
+    ("flash_attention", re.compile(r"flash_fwd_kernel")),
+    ("int8_matmul", re.compile(r"(igemm_kernel|splitk_reduce)(<|ILi)0")),
+    ("int8_conv3x3", re.compile(r"(igemm_kernel|splitk_reduce)(<|ILi)1")),
+    ("gn_silu_conv3x3", re.compile(r"gn_conv_kernel|splitk_reduce(<|ILi)2")),
+)
 
 
 def profile_denoise(svc, steps: int = 2) -> dict:
@@ -378,17 +748,16 @@ def profile_denoise(svc, steps: int = 2) -> dict:
     of ``steps`` CFG UNet steps (no profiler attached), then the same
     steps under ``torch.profiler`` for the device's busy time (the sum of
     its kernel and copy times: one stream, so they never overlap), the
-    idle share, and the flash kernel's part of the busy time."""
+    idle share, and each kernel's part of the busy time. The step's bound
+    adds aten's FLOP count at the bf16 peak to the kernels' own work (the
+    counter cannot see inside them): attention and the fused conv at the
+    bf16 peak, the int8 products at the int8 peak."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
     from cassmantle_tpu_torch.ops.ddim import make_cfg_denoiser
-    from cassmantle_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        reset_counters,
-    )
 
     t2i = svc.backend.t2i
     s = t2i.cfg.sampler
@@ -413,44 +782,80 @@ def profile_denoise(svc, steps: int = 2) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
-        # the work of one step: aten's count, plus 4*B*H*Sq*Sk*D for each
-        # flash launch (the counter cannot see inside the kernel)
-        reset_counters()
+        reset_all_counters()
         with FlopCounterMode(display=False) as counter:
             denoise(x, timesteps[0])
-        attn_flops = sum(n * 4 * b * h * sq * sk * d for (b, sq, sk, h, d), n
-                         in flash_attention.shapes.items())
-        step_flops = counter.get_total_flops() + attn_flops
-    bound_ms = step_flops / PEAK_BF16_FLOPS * 1e3
+        t = read_tallies()
+        bf16_flops = counter.get_total_flops() + sum(
+            n * 4 * b * h * sq * sk * d
+            for (b, sq, sk, h, d), n in t["flash_attention"].items()) + sum(
+            n * 18 * b * h * w * c * f
+            for (b, h, w, c, f), n in t["gn_silu_conv3x3"].items())
+        int8_ops = sum(n * 2 * m * k * nn
+                       for (m, k, nn), n in t["int8_matmul"].items()) + sum(
+            n * 18 * b * h * w * c * f
+            for (b, h, w, c, f), n in t["int8_conv3x3"].items())
+    bound_ms = (bf16_flops / PEAK_BF16_FLOPS
+                + int8_ops / PEAK_INT8_OPS) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in device)
-    flash_us = sum(e.time_range.elapsed_us() for e in device
-                   if "flash_fwd_kernel" in e.name)
-    report = {"step_wall_ms": wall_ms, "step_tflop": step_flops / 1e12,
-              "step_bound_ms": bound_ms,
+    report = {"step_wall_ms": wall_ms,
+              "step_bf16_tflop": bf16_flops / 1e12,
+              "step_int8_tops": int8_ops / 1e12, "step_bound_ms": bound_ms,
               "bound_share_of_wall": bound_ms / wall_ms}
     if not device:
         return {**report, "device_busy_ms": "not measured"}
     busy_ms = busy_us / 1e3 / steps
-    return {**report, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "bound_share_of_busy": bound_ms / busy_ms,
-            "kernels_per_step": len(device) / steps,
-            "flash_ms": flash_us / 1e3 / steps,
-            "flash_share_of_busy": flash_us / max(busy_us, 1e-9)}
+    report.update(device_busy_ms=busy_ms,
+                  idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                  bound_share_of_busy=bound_ms / busy_ms,
+                  kernels_per_step=len(device) / steps)
+    for kernel, pattern in KERNEL_PATTERNS:
+        us = sum(e.time_range.elapsed_us() for e in device
+                 if pattern.search(e.name))
+        if us:
+            report[f"{kernel}_ms"] = us / 1e3 / steps
+            report[f"{kernel}_share_of_busy"] = us / max(busy_us, 1e-9)
+    return report
+
+
+def kernel_entries(kernel, rows, tally, source, replaces):
+    """The kernels-line entries of one kernel: every checked shape, with
+    its launches in its path's round."""
+    return [{"name": f"{kernel}[{'x'.join(map(str, shape))}]",
+             "route": "cuda",
+             "source": source, "replaces": replaces,
+             "launches": tally.get(shape, 0),
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "ok": r["ok"]} for shape, r in rows.items()]
 
 
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's smoke run "
              "needs an NVIDIA card")
+    for switch in ("CASSMANTLE_NO_FUSED_CONV", "CASSMANTLE_NO_W8A8"):
+        if os.environ.get(switch, "").lower() not in ("", "0", "false",
+                                                      "no", "off"):
+            fail(f"{switch} is set: the smoke run drives the kernels")
     card = card_line()
     print(f"[card] {card}", flush=True)
 
+    from cassmantle_tpu_torch.config import (
+        FrameworkConfig,
+        fusedconv_serving_config,
+        w8a8_serving_config,
+    )
     from cassmantle_tpu_torch.ops import _build
+    from cassmantle_tpu_torch.utils.device import resolve_device
 
+    resolve_device("cuda")        # TF32 off: the plain fp32 convs are fp32
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -468,25 +873,51 @@ def main() -> int:
     rows = check_flash_kernel()
     if not all(r["ok"] for r in rows.values()):
         fail("flash kernel disagrees with its plain version")
+    checked = {"gn_silu_conv3x3": check_fused_conv_kernel(),
+               "int8_matmul": check_int8_matmul_kernel(),
+               "int8_conv3x3": check_int8_conv_kernel()}
+    for kernel, kernel_rows in checked.items():
+        bad = [s for s, r in kernel_rows.items() if not r["ok"]]
+        if bad:
+            fail(f"{kernel} disagrees with its plain version at {bad}")
 
     if not check_small_agreement():
         fail("tiny geometry: card and CPU disagree")
+    if not check_small_fused_and_w8a8():
+        fail("tiny geometry, fused conv or W8A8: card and CPU disagree")
 
-    svc, shapes, bad = run_round(card)
-    if bad:
-        fail(f"round checks failed: {bad}")
-    print(f"[profile] denoise step at full width ({card}): "
-          f"{json.dumps(profile_denoise(svc))}", flush=True)
+    presets = (("default", FrameworkConfig()),
+               ("fusedconv", fusedconv_serving_config()),
+               ("w8a8", w8a8_serving_config()))
+    tallies = {}
+    for preset, cfg in presets:
+        svc, tallies[preset], bad = run_round(card, preset, cfg)
+        if bad:
+            fail(f"round-{preset} checks failed: {bad}")
+        print(f"[profile] {preset} denoise step at full width ({card}): "
+              f"{json.dumps(profile_denoise(svc))}", flush=True)
+        del svc
+        torch.cuda.empty_cache()
 
     by_shape = {(b, sq, sk, h, d): name
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
-    unknown = set(shapes) - set(by_shape)
-    missing = set(by_shape) - set(shapes)
-    if unknown or missing:
-        fail(f"main-path flash shapes differ from the checked ones: "
-             f"unchecked {sorted(unknown)}, never launched {sorted(missing)}")
+    for preset in tallies:
+        shapes = tallies[preset]["flash_attention"]
+        unknown = set(shapes) - set(by_shape)
+        missing = set(by_shape) - set(shapes)
+        if unknown or missing:
+            fail(f"{preset}: main-path flash shapes differ from the checked "
+                 f"ones: unchecked {sorted(unknown)}, never launched "
+                 f"{sorted(missing)}")
+    for kernel, kernel_rows in checked.items():
+        for preset in tallies:
+            unchecked = set(tallies[preset][kernel]) - set(kernel_rows)
+            if unchecked:
+                fail(f"{preset}: {kernel} launched at unchecked shapes "
+                     f"{sorted(unchecked)}")
 
     kernels = []
+    shapes = tallies["default"]["flash_attention"]
     for key, name in by_shape.items():
         r = rows[name]
         kernels.append({
@@ -496,6 +927,12 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "ok": r["ok"]})
+    for kernel, preset, source, replaces in (
+            ("gn_silu_conv3x3", "fusedconv", FUSED_SOURCE, FUSED_REPLACES),
+            ("int8_matmul", "w8a8", INT8_SOURCE, MATMUL_REPLACES),
+            ("int8_conv3x3", "w8a8", INT8_SOURCE, CONV_REPLACES)):
+        kernels += kernel_entries(kernel, checked[kernel],
+                                  tallies[preset][kernel], source, replaces)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

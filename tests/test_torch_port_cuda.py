@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version. Marked ``cuda``; without a card every test skips. This file
-imports neither JAX nor the JAX package, so it runs where only PyTorch is
-installed:
+version (flash attention, the fused GroupNorm-affine + SiLU + conv3x3, the
+int8 matmul and the int8 conv3x3). Marked ``cuda``; without a card every
+test skips. This file imports neither JAX nor the JAX package, so it runs
+where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -12,12 +13,33 @@ reference because the output's spread shrinks as sqrt(e / Sk):
 max |kernel - plain| <= 2^-6 * max |plain| (2 to 4 bf16 ulps of it) and
 ||kernel - plain||_2 <= 1e-2 * ||plain||_2. Both sides round the output to
 bf16; the kernel rounds p to bf16 against its running max, the plain
-version against the row max, and the two sum in another order.
+version against the row max, and the two sum in another order. The fused
+conv kernel takes the same limits: both sides round the activated input
+and the output to bf16 and sum 9*C products in fp32 in other orders (its
+exp is the fast one), so only output roundings differ. The int8 kernels
+sum int32 exactly and round their fp32 epilogue step by step as the plain
+versions do: their outputs must be equal.
 """
 
 import pytest
 import torch
 
+from cassmantle_tpu_torch.ops.fused_conv import (
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_plain,
+)
+from cassmantle_tpu_torch.ops.fused_conv import (
+    reset_counters as reset_conv_counters,
+)
+from cassmantle_tpu_torch.ops.quant_matmul import (
+    int8_conv3x3,
+    int8_conv3x3_plain,
+    int8_matmul,
+    int8_matmul_plain,
+)
+from cassmantle_tpu_torch.ops.quant_matmul import (
+    reset_counters as reset_int8_counters,
+)
 from cassmantle_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -94,3 +116,121 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda_device):
         flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError):
         flash_attention(*_qkv(cuda_device, 1, 16, 16, 1, 520))
+
+
+# -- fused GroupNorm-affine + SiLU + conv3x3 ----------------------------------
+
+def _gn_conv_inputs(device, b, h, w, c, f, seed=0):
+    """bf16 unit-normal x, fp32 affine with a nonzero shift (so that a
+    border activated as silu(b) instead of 0 shows), a bf16 HWIO kernel
+    viewed from OHWI memory as the models hold it, fp32 bias."""
+    g = torch.Generator(device).manual_seed(seed)
+    kw = dict(generator=g, device=device)
+    x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
+    a = torch.rand((b, c), **kw) + 0.5
+    shift = torch.randn((b, c), **kw) * 0.5
+    ohwi = (torch.randn((f, 3, 3, c), **kw) / (9 * c) ** 0.5).bfloat16()
+    bias = torch.randn((f,), **kw) * 0.1
+    return x, a, shift, ohwi.permute(1, 2, 3, 0), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (2, 64, 64, 320, 320),      # UNet level 0 (no split)
+    (2, 32, 32, 960, 640),      # level 1 skip concat
+    (2, 8, 8, 2560, 1280),      # 8x8 level: split K
+    (1, 7, 5, 40, 24),          # ragged tiles, C % 32 != 0
+    (3, 5, 64, 16, 8),          # W = 64: two rows a block, a partial group
+    (1, 130, 1, 8, 8),          # W = 1: 64 rows a block, three groups
+])
+def test_cuda_fused_conv_matches_plain(cuda_device, b, h, w, c, f):
+    x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, b, h, w, c, f)
+    reset_conv_counters()
+    out = gn_silu_conv3x3(x, a, shift, kernel, bias)
+    torch.cuda.synchronize()
+    assert gn_silu_conv3x3.launches == 1
+    assert gn_silu_conv3x3.shapes == {(b, h, w, c, f): 1}
+    ref = gn_silu_conv3x3_plain(x, a, shift, kernel, bias)
+    assert torch.isfinite(out).all()
+    assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_conv_refuses_what_it_does_not_take(cuda_device):
+    x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, 1, 4, 4, 16, 8)
+    with pytest.raises(TypeError):
+        gn_silu_conv3x3(x.float(), a, shift, kernel.float(), bias)
+    with pytest.raises(ValueError):                     # C % 8 != 0
+        gn_silu_conv3x3(*_gn_conv_inputs(cuda_device, 1, 4, 4, 12, 8))
+    with pytest.raises(ValueError):                     # not NHWC memory
+        gn_silu_conv3x3(x.transpose(1, 2), a, shift, kernel, bias)
+    with pytest.raises(ValueError):                     # W > 64
+        gn_silu_conv3x3(*_gn_conv_inputs(cuda_device, 1, 2, 65, 16, 8))
+
+
+# -- int8 matmul and conv3x3 --------------------------------------------------
+
+def _int8(g, shape, device):
+    return torch.randint(-127, 128, shape, generator=g, device=device,
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,per_token,out_dtype", [
+    (8192, 320, 960, False, torch.bfloat16),   # UNet level 0 qkv
+    (154, 768, 640, False, torch.bfloat16),    # cross kv: ragged M = 154
+    (1, 768, 3072, True, torch.bfloat16),      # GPT-2 decode fc1: M = 1
+    (32, 3072, 768, True, torch.bfloat16),     # GPT-2 prefill fc2
+    (5, 48, 33, True, torch.float32),          # odd N, fp32 out
+])
+def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n, per_token,
+                                        out_dtype):
+    g = torch.Generator(cuda_device).manual_seed(m + n)
+    x_q, w_q = _int8(g, (m, k), cuda_device), _int8(g, (n, k), cuda_device)
+    rows = m if per_token else 1
+    row = torch.rand((rows,), generator=g, device=cuda_device) * 0.1 + 0.01
+    col = torch.rand((n,), generator=g, device=cuda_device) * 0.01 + 1e-3
+    bias = torch.randn((n,), generator=g, device=cuda_device)
+    reset_int8_counters()
+    # the weight as the modules hold it: (K, N) viewed from (N, K) memory
+    out = int8_matmul(x_q, w_q.t(), row, col, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == 1 and int8_matmul.shapes == {(m, k, n): 1}
+    ref = int8_matmul_plain(x_q, w_q.t(), row, col, bias, out_dtype)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (2, 64, 64, 320, 320),
+    (2, 8, 8, 2560, 1280),      # split K
+    (1, 5, 7, 32, 24),          # ragged tiles, C % 64 != 0
+])
+def test_cuda_int8_conv_matches_plain(cuda_device, b, h, w, c, f):
+    g = torch.Generator(cuda_device).manual_seed(c + f)
+    x_q = _int8(g, (b, h, w, c), cuda_device)
+    kernel = _int8(g, (f, 3, 3, c), cuda_device).permute(1, 2, 3, 0)
+    col = torch.rand((f,), generator=g, device=cuda_device) * 1e-4 + 1e-5
+    bias = torch.randn((f,), generator=g, device=cuda_device)
+    reset_int8_counters()
+    out = int8_conv3x3(x_q, kernel, col, bias, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert int8_conv3x3.launches == 1
+    ref = int8_conv3x3_plain(x_q, kernel, col, bias, torch.bfloat16)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernels_refuse_what_they_do_not_take(cuda_device):
+    g = torch.Generator(cuda_device).manual_seed(0)
+    one = torch.ones((1,), device=cuda_device)
+    with pytest.raises(ValueError):                     # K % 16 != 0
+        int8_matmul(_int8(g, (4, 20), cuda_device),
+                    _int8(g, (20, 8), cuda_device), one, one.expand(8))
+    with pytest.raises(TypeError):
+        int8_matmul(torch.ones((4, 32), device=cuda_device),
+                    _int8(g, (32, 8), cuda_device), one, one.expand(8))
+    with pytest.raises(ValueError):                     # C % 16 != 0
+        int8_conv3x3(_int8(g, (1, 4, 4, 24), cuda_device),
+                     _int8(g, (3, 3, 24, 8), cuda_device), one.expand(8),
+                     one.expand(8))
