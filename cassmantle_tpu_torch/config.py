@@ -115,11 +115,10 @@ class ModelZooConfig:
     # MiniLM keep fp32 storage, as in the reference). Each layer casts
     # its parameters to its compute dtype where it uses them.
     param_dtype: str = "bfloat16"
-    # Weights-only int8 (w8a16) of the reference. Not ported: the
-    # pipelines refuse it, and with the W8A8 options it is the
-    # reference's exclusivity error.
+    # Weights-only int8 (w8a16) of the UNet in the reference. Not ported:
+    # w8a8_unet_tools refuses it, with the reference's exclusivity error
+    # (both rewrite the same weights).
     unet_int8: bool = False
-    lm_int8: bool = False
     # W8A8 serving (ops/quant.py, ops/quant_matmul.py): int8 weights and
     # activations at every attention, GEGLU and ResBlock-conv site of the
     # UNet (needs unet.fused_conv), and at every GPT-2 projection with

@@ -35,14 +35,9 @@ import os
 import torch
 import torch.nn.functional as F
 
-SOURCE = "fused_conv.cu"
+from cassmantle_tpu_torch.ops._igemm import K_TILE_BYTES, split_k
 
-# Output tile of the implicit-GEMM kernels (csrc/igemm.cuh) and the card's
-# SM count, for the split-K choice.
-BLOCK_M = 128
-BLOCK_N = 128
-K_TILE_BYTES = 64
-SM_COUNT = 132
+SOURCE = "fused_conv.cu"
 
 
 def kill_switch_set() -> bool:
@@ -68,19 +63,6 @@ def round_up(n: int, mult: int) -> int:
     if mult <= 0:
         return n
     return (n + mult - 1) // mult * mult
-
-
-def split_k(m: int, n: int, k_tiles: int, min_k_tiles: int = 4,
-            max_splits: int = 16) -> int:
-    """How many slices the K loop of an (m, n) implicit GEMM splits into:
-    1 when its 128x128 output tiles already fill the card, else enough
-    slices for about two blocks per SM, each at least ``min_k_tiles``
-    K tiles long."""
-    tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N)
-    if tiles >= SM_COUNT:
-        return 1
-    return max(1, min(max_splits, -(-2 * SM_COUNT // tiles),
-                      k_tiles // min_k_tiles))
 
 
 def _pad_last(t: torch.Tensor, to: int) -> torch.Tensor:
@@ -161,7 +143,7 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     bias32 = bias.float().contiguous()
     out = torch.empty((bsz, h, w, f), dtype=x.dtype, device=x.device)
     m = bsz * h * w
-    splits = split_k(m, f, 9 * -(-c // (K_TILE_BYTES // 2)))
+    splits = split_k(m, f, 9 * -(-c // (K_TILE_BYTES // 2)), x.device)
     ws = (torch.empty((splits, m, f), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -56,6 +56,15 @@ class ActQTensor(NamedTuple):
     act_scale: Optional[torch.Tensor]
 
 
+def _qmax(like: torch.Tensor) -> torch.Tensor:
+    """127 as an fp32 tensor on ``like``'s device, filled there (no host
+    copy, no sync). Dividing by it is IEEE division on every device;
+    CUDA divides by a Python number as a multiply by its reciprocal,
+    which rounds an ulp off at times and then flips int8 values against
+    the reference."""
+    return like.new_full((), ACT_QMAX, dtype=torch.float32)
+
+
 def quantize_tensor(w: torch.Tensor, axis: int = -1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-channel int8 of ``w`` along ``axis`` (the output
@@ -64,7 +73,7 @@ def quantize_tensor(w: torch.Tensor, axis: int = -1
     axis = axis % w32.ndim
     reduce = tuple(i for i in range(w32.ndim) if i != axis)
     absmax = w32.abs().amax(dim=reduce, keepdim=True)
-    scale = torch.where(absmax > 0, absmax / 127.0,
+    scale = torch.where(absmax > 0, absmax / _qmax(absmax),
                         torch.ones_like(absmax))
     data = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return data, scale
@@ -82,7 +91,7 @@ def act_absmax(x: torch.Tensor, per_token: bool = False) -> torch.Tensor:
 def act_scale_from_absmax(absmax) -> torch.Tensor:
     """absmax -> the int8 activation scale max(absmax, 1e-8) / 127."""
     absmax = torch.as_tensor(absmax, dtype=torch.float32)
-    return torch.clamp_min(absmax, _ACT_EPS) / ACT_QMAX
+    return torch.clamp_min(absmax, _ACT_EPS) / _qmax(absmax)
 
 
 def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

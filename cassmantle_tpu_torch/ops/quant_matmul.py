@@ -18,7 +18,8 @@ channel):
 - :func:`w8a8_dense` and :func:`gn_silu_conv3x3_w8a8`: the modules'
   entry points, quantizing activations on the device (dynamic absmax,
   per tensor over the whole activation, both CFG halves together, or per
-  token; or the site's static scale).
+  token; or the site's static scale); :func:`w8a8_conv3x3` is the
+  conv's quantize and int8 conv after the elementwise pass.
 
 On a CUDA tensor the wrappers launch ``csrc/int8_gemm.cu`` or raise; on a
 CPU tensor they run the plain versions, whose int32 accumulators are
@@ -38,11 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from cassmantle_tpu_torch.ops.fused_conv import (
-    K_TILE_BYTES,
-    round_up,
-    split_k,
-)
+from cassmantle_tpu_torch.ops._igemm import K_TILE_BYTES, split_k
+from cassmantle_tpu_torch.ops.fused_conv import round_up
 from cassmantle_tpu_torch.ops.quant import (
     ActQTensor,
     act_absmax,
@@ -147,7 +145,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scale, col_scale,
     wt = w_q.t().contiguous()
     col, b = col.contiguous(), b.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    splits = split_k(m, n, -(-k // K_TILE_BYTES))
+    splits = split_k(m, n, -(-k // K_TILE_BYTES), x_q.device)
     ws = (torch.empty((splits, m, n), dtype=torch.int32, device=x_q.device)
           if splits > 1 else None)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
@@ -214,7 +212,7 @@ def int8_conv3x3(x_q: torch.Tensor, kernel: torch.Tensor,
     b = bias.float().reshape(f).contiguous()
     out = torch.empty((bsz, h, w, f), dtype=out_dtype, device=x_q.device)
     m = bsz * h * w
-    splits = split_k(m, f, 9 * -(-c // K_TILE_BYTES))
+    splits = split_k(m, f, 9 * -(-c // K_TILE_BYTES), x_q.device)
     ws = (torch.empty((splits, m, f), dtype=torch.int32, device=x_q.device)
           if splits > 1 else None)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
@@ -258,14 +256,22 @@ def gn_silu_conv3x3_w8a8(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          q: ActQTensor, bias: torch.Tensor,
                          pad_to: int = 0) -> torch.Tensor:
     """The int8 form of the fused contract: the GroupNorm affine and SiLU
-    in x's dtype (as the reference's elementwise pass does), quantized
-    with the site's static scale or one dynamic absmax over the whole
-    activation, then the int8 conv with ``col_scale = s_a * s_w``. Output
-    in x's dtype. ``pad_to`` pads C and F of the plain path with zeros
-    (exact through the integer dot); the CUDA kernel ignores it."""
+    in x's dtype (as the reference's elementwise pass does), then
+    :func:`w8a8_conv3x3`. Output in x's dtype."""
     dt = x.dtype
-    h = x * a[:, None, None, :].to(dt) + b[:, None, None, :].to(dt)
-    h = F.silu(h)
+    h = F.silu(x * a[:, None, None, :].to(dt) + b[:, None, None, :].to(dt))
+    return w8a8_conv3x3(h, q, bias, pad_to)
+
+
+def w8a8_conv3x3(h: torch.Tensor, q: ActQTensor, bias: torch.Tensor,
+                 pad_to: int = 0) -> torch.Tensor:
+    """conv3x3 of the activation ``h`` (B, H, W, C) on a W8A8 weight
+    (``q.data`` HWIO): quantize h with the site's static scale or one
+    dynamic absmax over all of h, then the int8 conv with ``col_scale =
+    s_a * s_w``. Output in h's dtype. ``pad_to`` pads C and F of the
+    plain path with zeros (exact through the integer dot); the CUDA
+    kernel ignores it."""
+    dt = h.dtype
     a_scale = (act_scale_from_absmax(act_absmax(h)) if q.act_scale is None
                else q.act_scale)
     f = q.data.shape[-1]

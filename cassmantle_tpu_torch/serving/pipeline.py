@@ -76,13 +76,6 @@ log = logging.getLogger(__name__)
 INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5}
 
 
-def check_int8(models_cfg) -> None:
-    """Weights-only int8 (w8a16) is not ported."""
-    if models_cfg.unet_int8 or models_cfg.lm_int8:
-        raise NotImplementedError("weights-only int8 (unet_int8, lm_int8) "
-                                  "is not ported; W8A8 is")
-
-
 def unet_w8a8_armed(models_cfg) -> bool:
     """True when the UNet serves W8A8: the config asks for it and
     CASSMANTLE_NO_W8A8 (read here, at build) is not set."""
@@ -94,22 +87,22 @@ def lm_w8a8_armed(models_cfg) -> bool:
     return bool(models_cfg.lm_w8a8) and not w8a8_disabled()
 
 
-def w8a8_unet_tools(models_cfg, act_scales: Optional[Dict[str, float]] = None
-                    ) -> Optional[Callable[[torch.nn.Module], int]]:
+def w8a8_unet_tools(models_cfg) -> Optional[Callable[[torch.nn.Module], int]]:
     """The UNet's W8A8 transform (quantize every site of a built UNet in
-    place; returns the site count), or None when W8A8 is off.
-    ``act_scales`` (site key -> calibrated absmax) gives sites a static
-    activation scale; without it every site scales dynamically."""
+    place, with dynamic activation scales; returns the site count), or
+    None when W8A8 is off. Weights-only int8 (``unet_int8``) is not
+    ported: it raises here, with or without W8A8."""
+    if models_cfg.unet_int8:
+        raise ValueError("unet_int8 (weights-only int8) is not ported, and "
+                         "unet_w8a8 and unet_int8 are mutually exclusive: "
+                         "both rewrite the same kernel leaves")
     if not unet_w8a8_armed(models_cfg):
         return None
-    if models_cfg.unet_int8:
-        raise ValueError("unet_w8a8 and unet_int8 are mutually exclusive: "
-                         "both rewrite the same kernel leaves")
     if not models_cfg.unet.fused_conv:
         raise ValueError("unet_w8a8 conv sites ride the fused GN+SiLU+conv "
                          "path; set models.unet.fused_conv=True")
     pred = partial(w8a8_default_predicate, min_size=models_cfg.w8a8_min_size)
-    return partial(w8a8_modules, act_scales=act_scales, predicate=pred)
+    return partial(w8a8_modules, predicate=pred)
 
 
 def build_model(module: torch.nn.Module, kind: str, device: torch.device,
@@ -140,11 +133,9 @@ class Text2ImagePipeline:
     """prompts -> (B, H, W, 3) uint8 images: CLIP -> CFG DDIM -> VAE."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
-                 state_dicts: Optional[Mapping[str, Mapping]] = None,
-                 act_scales: Optional[Dict[str, float]] = None):
+                 state_dicts: Optional[Mapping[str, Mapping]] = None):
         check_sampler(cfg.sampler)
-        check_int8(cfg.models)
-        w8a8 = w8a8_unet_tools(cfg.models, act_scales)
+        w8a8 = w8a8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
         m = cfg.models
@@ -230,7 +221,6 @@ class PromptGenerator:
         if cfg.sampler.text_temperature > 0.0:
             raise NotImplementedError("the port decodes greedily "
                                       "(text_temperature=0)")
-        check_int8(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mcfg = m = cfg.models.gpt2

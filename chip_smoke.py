@@ -525,6 +525,96 @@ def with_unet(cfg, **unet_kw):
         m, unet=dataclasses.replace(m.unet, **unet_kw)))
 
 
+SITE_REL = 1e-5
+
+
+def record_w8a8_sites():
+    """Patch the two W8A8 site functions that quantize (``w8a8_dense``
+    where the modules call it, ``w8a8_conv3x3`` after the conv sites'
+    elementwise pass) to record each call as (function, args, kwargs);
+    returns (calls, undo)."""
+    from cassmantle_tpu_torch.models import layers
+    from cassmantle_tpu_torch.ops import quant_matmul
+
+    calls = []
+    real = [(layers, "w8a8_dense"), (quant_matmul, "w8a8_conv3x3")]
+    real = [(mod, n, getattr(mod, n)) for mod, n in real]
+
+    def wrap(fn):
+        def site(*args, **kw):
+            calls.append((fn, args, kw))
+            return fn(*args, **kw)
+        return site
+
+    for mod, n, fn in real:
+        setattr(mod, n, wrap(fn))
+    return calls, lambda: [setattr(mod, n, fn) for mod, n, fn in real]
+
+
+def wrong_scales(fn, kw):
+    """The control: ``fn`` with the scale mode the site does not use.
+    A per-token site scales per tensor; a per-tensor site scales each
+    sample alone, where the port scales the whole CFG batch at once."""
+    import torch
+
+    if kw.get("per_token"):
+        return lambda *args, **kw: fn(*args, **{**kw, "per_token": False})
+    return lambda x, *args, **kw: torch.cat(
+        [fn(x[i:i + 1], *args, **kw) for i in range(x.shape[0])])
+
+
+def replay_w8a8_sites(calls):
+    """Each recorded card site call again in fp32, on the card and on the
+    CPU from the same inputs: {"sites", "calls", "max_rel", "worst_call",
+    "control_rel"}.
+
+    The replayed functions take the activation as it reaches the
+    quantize step (the conv sites' GroupNorm affine and SiLU, plain
+    PyTorch that may round an ulp apart on the two devices, ran before
+    it), so the int8 activations are the same on both (the same fp32
+    divides and rounding), the int32 sums exact, and the fp32 epilogue
+    within an ulp: max |card - CPU| within 1e-5 of max |CPU| per call.
+    The control runs the first dense and the first conv call with the
+    wrong scale mode on the card (``wrong_scales``): it must miss that
+    limit."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.quant import ActQTensor
+
+    def to(v, device):
+        if isinstance(v, ActQTensor):
+            return ActQTensor(*(None if t is None else t.to(device)
+                                for t in v))
+        if isinstance(v, torch.Tensor):
+            v = v.to(device)
+            return v.float() if v.is_floating_point() else v
+        return v
+
+    def rel(a, b):
+        return float((a.float().cpu() - b).abs().max() / b.abs().max())
+
+    worst, worst_call, control, sites, controlled = 0.0, None, [], set(), \
+        set()
+    for fn, args, kw in calls:
+        kw = {**kw, **({"out_dtype": torch.float32} if "out_dtype" in kw
+                       else {})}
+        q = next(a for a in args if isinstance(a, ActQTensor))
+        sites.add(q.data.data_ptr())
+        with torch.inference_mode():
+            card_args = [to(a, "cuda") for a in args]
+            cpu = fn(*(to(a, "cpu") for a in args), **kw)
+            err = rel(fn(*card_args, **kw), cpu)
+            if err > worst:
+                worst, worst_call = err, [fn.__name__, list(args[0].shape)]
+            if fn not in controlled and args[0].shape[0] > 1:
+                controlled.add(fn)
+                control.append(rel(wrong_scales(fn, kw)(*card_args, **kw),
+                                   cpu))
+    return dict(sites=len(sites), calls=len(calls), max_rel=worst,
+                worst_call=worst_call,
+                control_rel=min(control) if control else None)
+
+
 def check_small_fused_and_w8a8():
     """The tiny geometry's fused-conv and W8A8 twins (bf16 UNet) on the
     card and on the CPU from the same weights and inputs, each image held
@@ -535,15 +625,20 @@ def check_small_fused_and_w8a8():
     bf16 run does, plus 0.5 of a level on the mean and 2 at the max (the
     default path's limits: bf16 roundings differ in order between the two
     and 4 steps carry them on).
-    W8A8 (w8a8_min_size=0, dynamic scales): both runs carry the int8
+    W8A8 (w8a8_min_size=0, dynamic scales), site by site: every quantized
+    site call of the card's image run and of its GPT-2 decode replayed in
+    fp32 on the card and on the CPU from the same inputs
+    (``replay_w8a8_sites``),
+    every quantized site called, and a per-sample control that misses the
+    limit. The images as a gross check only: both runs carry the int8
     quantization error on top of bf16's, and an int8 value flips where
     card and CPU round the activation a bf16 ulp apart, moving its element
     by 1/127 of the site's absmax; the tiny model amplifies such flips to
     the size of the quantization error itself. So the card may stray from
     fp32 at most 1.5 times as far as the CPU's W8A8 run does, plus 0.5 of
-    a level on the mean and 2 at the max. A wrong scale or layout strays
-    tens of levels. GPT-2 tokens: their agreement is reported (a flip
-    where two logits are within a step changes a greedy token)."""
+    a level on the mean and 2 at the max. GPT-2 tokens: their agreement
+    is reported (a flip where two logits are within a step changes a
+    greedy token)."""
     import dataclasses
 
     import numpy as np
@@ -586,7 +681,11 @@ def check_small_fused_and_w8a8():
         fused_conv.reset_counters()
         quant_matmul.reset_counters()
         gpu = Text2ImagePipeline(cfg, device="cuda", state_dicts=sd)
-        g_max, g_mean = deviation(gpu)
+        calls, undo = record_w8a8_sites()
+        try:
+            g_max, g_mean = deviation(gpu)
+        finally:
+            undo()
         launched = (fused_conv.gn_silu_conv3x3.launches
                     if name == "fused_conv"
                     else min(quant_matmul.int8_conv3x3.launches,
@@ -603,10 +702,22 @@ def check_small_fused_and_w8a8():
             lm_cpu = PromptGenerator(cfg, device="cpu", state_dict=lm_sd)
             lm_gpu = PromptGenerator(cfg, device="cuda", state_dict=lm_sd)
             tok_c, _ = lm_cpu.decode_ids_batch(seeds)
-            tok_g, _ = lm_gpu.decode_ids_batch(seeds)
-            res.update(lm_sites=w8a8_site_count(lm_gpu.model),
+            lm_calls, undo = record_w8a8_sites()
+            try:
+                tok_g, _ = lm_gpu.decode_ids_batch(seeds)
+            finally:
+                undo()
+            unet_sites = replay_w8a8_sites(calls)
+            lm_sites = replay_w8a8_sites(lm_calls)
+            res.update(unet_sites=unet_sites, lm_sites=lm_sites,
                        token_agreement=float((tok_c == tok_g).mean()))
-            ok = ok and res["lm_sites"] == 6 * cfg.models.gpt2.num_layers
+            ok = (ok and unet_sites["sites"] == w8a8_site_count(gpu.unet)
+                  and lm_sites["sites"] == w8a8_site_count(lm_gpu.model)
+                  == 6 * cfg.models.gpt2.num_layers
+                  and max(unet_sites["max_rel"], lm_sites["max_rel"])
+                  <= SITE_REL
+                  and unet_sites["control_rel"] > SITE_REL
+                  and lm_sites["control_rel"] > SITE_REL)
         print(f"[small] tiny geometry, {name}, card vs CPU: "
               f"{json.dumps(res)} -> {'pass' if ok else 'FAIL'}", flush=True)
         ok_all = ok_all and ok

@@ -18,7 +18,8 @@ conv kernel takes the same limits: both sides round the activated input
 and the output to bf16 and sum 9*C products in fp32 in other orders (its
 exp is the fast one), so only output roundings differ. The int8 kernels
 sum int32 exactly and round their fp32 epilogue step by step as the plain
-versions do: their outputs must be equal.
+versions do: their outputs must be equal. W8A8 quantization on the card
+(scales and int8 values) must equal the CPU's bit for bit.
 """
 
 import pytest
@@ -30,6 +31,12 @@ from cassmantle_tpu_torch.ops.fused_conv import (
 )
 from cassmantle_tpu_torch.ops.fused_conv import (
     reset_counters as reset_conv_counters,
+)
+from cassmantle_tpu_torch.ops.quant import (
+    act_absmax,
+    act_scale_from_absmax,
+    quantize_act,
+    quantize_tensor,
 )
 from cassmantle_tpu_torch.ops.quant_matmul import (
     int8_conv3x3,
@@ -218,6 +225,27 @@ def test_cuda_int8_conv_matches_plain(cuda_device, b, h, w, c, f):
     assert int8_conv3x3.launches == 1
     ref = int8_conv3x3_plain(x_q, kernel, col, bias, torch.bfloat16)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_quantization_is_bit_identical_to_cpu(cuda_device):
+    """Weight and activation scales (absmax / 127) and the int8 values
+    quantized on the card equal the CPU's, which equal the reference's:
+    the scales divide in IEEE arithmetic on both devices."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn((1280, 320), generator=g) * 0.05
+    x = torch.randn((8, 1024, 320), generator=g) * 3
+    data, scale = quantize_tensor(w)
+    card_data, card_scale = quantize_tensor(w.to(cuda_device))
+    assert torch.equal(card_scale.cpu(), scale)
+    assert torch.equal(card_data.cpu(), data)
+    for per_token in (False, True):
+        s = act_scale_from_absmax(act_absmax(x, per_token=per_token))
+        card_s = act_scale_from_absmax(act_absmax(x.to(cuda_device),
+                                                  per_token=per_token))
+        assert torch.equal(card_s.cpu(), s)
+        assert torch.equal(quantize_act(x.to(cuda_device), card_s).cpu(),
+                           quantize_act(x, s))
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ from cassmantle_tpu_torch.config import (
 from cassmantle_tpu_torch.models import layers as tl
 from cassmantle_tpu_torch.models.unet import ResBlock, UNet
 from cassmantle_tpu_torch.models.weights import from_jax
-from cassmantle_tpu_torch.ops import fused_conv
+from cassmantle_tpu_torch.ops import _igemm, fused_conv
 from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
 
 from _torch_port_common import assert_rel, jax_params, load, randn
@@ -251,3 +251,20 @@ def test_fused_slice_images_match_reference(fused_slice_ref):
     diff = np.abs(images.astype(np.int32) - ref.astype(np.int32))
     assert images.shape == ref.shape and diff.max() <= 2, diff.max()
     assert diff.mean() <= 0.5, diff.mean()
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_split_k_follows_the_cards_sm_count(monkeypatch, sms):
+    """The implicit-GEMM kernels split K only while their 128x128 output
+    tiles leave SMs idle, for about two blocks per SM of the card at
+    hand, each slice at least 4 K tiles long."""
+    monkeypatch.setattr(_igemm, "sm_count", lambda device: sms)
+    cuda = torch.device("cuda", 0)
+    # 2 x 64 x 64 pixels x 320 channels: 64 x 3 = 192 tiles fill either card
+    assert _igemm.split_k(8192, 320, 90, cuda) == 1
+    # 2 x 8 x 8 pixels x 1280 channels: 10 tiles, up to 16 slices
+    assert _igemm.split_k(128, 1280, 9 * 40, cuda) == min(16,
+                                                          -(-2 * sms // 10))
+    # a short K loop caps the slices: 12 K tiles allow 3
+    assert _igemm.split_k(128, 1280, 12, cuda) == 3
+    assert _igemm.split_k(1, 768, 2, cuda) == 1

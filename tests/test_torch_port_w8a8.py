@@ -17,23 +17,32 @@ Tolerances, each with its reason:
   of a rounding boundary; each flip moves an output by at most one
   quantization step of one product, well below 1e-3 * max |output| at
   these sizes (measured: 0 to 2e-6);
-- the tiny W8A8 UNet and the images it makes are chaotic at the size of
-  the quantization error itself: one int8 value that flips moves its
-  element by 1/127 of the site's absmax, and at these widths (32 to 64
-  channels) the flips that fp32 summation order causes move the UNet's
-  output by 1 to 3 % (as far as a change of 1e-6 of its input moves the
-  reference's own output). So the models are held against the
-  reference's own spread: the port may stray from the reference no
-  further than twice as far as the reference strays from itself when its
-  input changes by 1e-6 (at least 1e-3 of the output; 2 levels, mean 0.5
-  for images). A wrong scale, layout or site misses that by far: W8A8
-  differs from fp by about 4 %, garbage by 100 %. The UNet runs with
-  dynamic scales (the serving preset's), the images with static scales
-  calibrated on the reference's fp forward.
+- the models are held site by site: every W8A8 site call of a whole
+  forward (its inputs and output recorded on the port) against the
+  reference's own site function on the same inputs, with the reference's
+  quantized leaf of that site and its scale mode (per tensor over the
+  whole CFG batch for the UNet, per token for GPT-2), within the flip
+  limit above; and the set of sites called must be the reference's.
+  Measured: 0 to 1.6e-7 of max |output| per site. A site quantized per
+  sample or per token where the reference scales per tensor misses the
+  limit by 7x or more (7.5e-3 to 3e-2), and an unquantized site leaves
+  the site set; the control tests show each of these fails;
+- the model outputs themselves are chaotic at the size of the
+  quantization error: one int8 value that flips moves its element by
+  1/127 of the site's absmax, and at these widths (32 to 64 channels) a
+  change of 1e-6 of the input moves the reference's own output by 1 to
+  3 %. So the outputs are also held within twice that spread of the
+  reference (at least 1e-3 of the output; 2 levels, mean 0.5 for
+  images). That bound cannot tell W8A8 from fp at this size (they differ
+  by about 3 %), so it catches gross faults only; the site checks carry
+  the precision. The UNet runs with dynamic scales (the serving
+  preset's), the images with static scales calibrated on the
+  reference's fp forward.
 """
 
 import contextlib
 import dataclasses
+import re
 from functools import partial
 
 import jax
@@ -59,6 +68,7 @@ from cassmantle_tpu_torch.config import (
     test_config as port_test_config,
     w8a8_serving_config,
 )
+from cassmantle_tpu_torch.models import layers
 from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.unet import UNet
 from cassmantle_tpu_torch.models.weights import from_jax
@@ -130,6 +140,92 @@ def assert_within_spread(port, ref, ref_spread, floor_rel=FLIP_REL):
 def jax_w8a8_tree(params, act_scales=None):
     pred = partial(jq.w8a8_default_predicate, min_size=0)
     return jq.w8a8_tree_host(params, act_scales=act_scales, predicate=pred)
+
+
+@contextlib.contextmanager
+def record_sites(model, mutate=None):
+    """Record every W8A8 site call of ``model`` as (kind, site name, args,
+    kwargs, output). ``mutate`` = (site name, wrap), where ``wrap(kind,
+    fn)`` returns the function that site runs instead (the controls)."""
+    names = {m.weight_q.data_ptr(): name for name, m in model.named_modules()
+             if quant.quantized_weight(m) is not None}
+    calls = []
+
+    def wrap(kind, fn):
+        def site(*args, **kw):
+            q = next(a for a in args if isinstance(a, quant.ActQTensor))
+            name = names[q.data.data_ptr()]
+            run = (mutate[1](kind, fn) if mutate and mutate[0] == name
+                   else fn)
+            out = run(*args, **kw)
+            calls.append((kind, name, args, kw, out))
+            return out
+        return site
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "w8a8_dense", wrap("dense", layers.w8a8_dense))
+        mp.setattr(layers, "gn_silu_conv3x3_w8a8",
+                   wrap("conv", layers.gn_silu_conv3x3_w8a8))
+        yield calls
+
+
+def reference_sites(tree):
+    """{'.'-joined module path: its quantized leaf's module dict} of a
+    reference W8A8 tree."""
+    out = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, jq.ActQTensor):
+                out[".".join(path)] = node
+            elif isinstance(value, dict):
+                walk(value, path + (key,))
+
+    walk(tree["params"], ())
+    return out
+
+
+def check_sites(calls, tree, per_token):
+    """Every recorded site call against the reference's site function on
+    the same inputs with that site's quantized leaf (and ``per_token``
+    scales for dense sites), within FLIP_REL of max |output|; and the
+    sites called are the reference's quantized sites."""
+    ref_sites = reference_sites(tree)
+    called = {name for _, name, *_ in calls}
+    assert called == set(ref_sites), sorted(called ^ set(ref_sites))
+    with reference_lax_path():
+        for kind, name, args, _, out in calls:
+            leaf = ref_sites[name]
+            bias = None if leaf.get("bias") is None else jnp.asarray(
+                leaf["bias"])
+            if kind == "dense":
+                ref = jqm.w8a8_dense(jnp.asarray(np_(args[0])),
+                                     leaf["kernel"], bias,
+                                     per_token=per_token)
+            else:
+                x, a, b = (jnp.asarray(np_(t)) for t in args[:3])
+                ref = jqm.gn_silu_conv3x3_w8a8(x, a, b, leaf["kernel"], bias)
+            ref = np.asarray(ref, dtype=np.float64)
+            err = np.abs(np_(out) - ref).max() / np.abs(ref).max()
+            assert err <= FLIP_REL, f"site {name}: relative error {err:.3g}"
+
+
+def per_sample(kind, fn):
+    """The site run on each sample alone: per-sample dynamic scales where
+    the reference scales the whole CFG batch at once."""
+    def run(x, *args, **kw):
+        return torch.cat([
+            fn(x[i:i + 1], *(t[i:i + 1] if kind == "conv" and j < 2 else t
+                             for j, t in enumerate(args)), **kw)
+            for i in range(x.shape[0])])
+    return run
+
+
+def with_per_token(flag):
+    """The dense site run with per-token scales on (or off)."""
+    def wrap(kind, fn):
+        return lambda *args, **kw: fn(*args, **{**kw, "per_token": flag})
+    return wrap
 
 
 def to_port_q(q):
@@ -303,21 +399,56 @@ def test_transform_matches_w8a8_tree_host(unet_case):
     assert quant.w8a8_calibrated(port)
 
 
-def test_w8a8_unet_matches_reference(unet_case):
+def w8a8_unet(unet_case, skip=None):
+    """The port's tiny UNet quantized at every site (but ``skip``)."""
     port = load(UNet(w8a8(port_test_config()).models.unet),
                 unet_case["params"], "unet")
-    quant.w8a8_modules(port, predicate=partial(
-        quant.w8a8_default_predicate, min_size=0))
+    quant.w8a8_modules(port, predicate=lambda path, w: (
+        ".".join(path) != skip
+        and quant.w8a8_default_predicate(path, w, min_size=0)))
+    return port
+
+
+def unet_sites(unet_case, port, mutate=None):
+    """The port's forward on the case's inputs with its site calls."""
+    with torch.no_grad(), record_sites(port, mutate) as calls:
+        out = port(*map(torch.from_numpy,
+                        (unet_case["lat"], unet_case["t"], unet_case["ctx"])))
+    return out, calls
+
+
+def test_w8a8_unet_matches_reference(unet_case):
+    port = w8a8_unet(unet_case)
     assert not quant.w8a8_calibrated(port)
-    out = port(*map(torch.from_numpy,
-                    (unet_case["lat"], unet_case["t"], unet_case["ctx"])))
+    out, calls = unet_sites(unet_case, port)
+    assert len(calls) == quant.w8a8_site_count(port)     # each site once
+    check_sites(calls, jax_w8a8_tree(unet_case["params"]), per_token=False)
     assert_within_spread(out, unet_case["ref"], unet_case["spread"])
 
 
-def test_w8a8_gpt2_matches_reference():
-    """GPT-2 W8A8 (per-token scales) against the reference's: the full
-    forward's logits, then prefill and one cached decode step, within the
-    reference's own spread (its token embeddings changed by 1e-6)."""
+@pytest.mark.parametrize("site,fault", [
+    ("mid_res_0.conv1", "per_sample"),
+    ("mid_attn.block_0.cross_attn.q", "per_sample"),
+    ("mid_attn.block_0.self_attn.qkv", "per_token"),
+    ("up_1_res_0.conv2", "unquantized"),
+])
+def test_w8a8_unet_site_check_catches(unet_case, site, fault):
+    """Controls: one site scaled per sample or per token where the
+    reference scales per tensor, or left unquantized, fails the site
+    check, at that site."""
+    mutate = {"per_sample": (site, per_sample),
+              "per_token": (site, with_per_token(True))}.get(fault)
+    port = w8a8_unet(unet_case, skip=site if fault == "unquantized" else None)
+    _, calls = unet_sites(unet_case, port, mutate)
+    with pytest.raises(AssertionError, match=re.escape(site)):
+        check_sites(calls, jax_w8a8_tree(unet_case["params"]),
+                    per_token=False)
+
+
+@pytest.fixture(scope="module")
+def gpt2_case():
+    """The tiny GPT-2's reference parameters and inputs: ids, prompt
+    lengths, one decode token and its cache mask."""
     jm = jax_test_config().models.gpt2
     rng = np.random.default_rng(9)
     ids = rng.integers(0, jm.vocab_size, (2, 12)).astype(np.int32)
@@ -325,8 +456,38 @@ def test_w8a8_gpt2_matches_reference():
     tok = np.array([3, 200], dtype=np.int32)
     valid = np.arange(16)[None, :] < plen[:, None]
     valid[:, 12] = True
+    params = jax_params(JGPT2(jm), 9, jnp.asarray(ids))
+    return dict(ids=ids, plen=plen, tok=tok, valid=valid, params=params)
+
+
+def gpt2_sites(case, mutate=None):
+    """The port's W8A8 GPT-2: its logits, prefill and one decode step,
+    flattened, with its site calls."""
+    port = load(GPT2LM(port_test_config().models.gpt2), case["params"],
+                "gpt2")
+    sites = quant.w8a8_modules(port, predicate=partial(
+        quant.w8a8_default_predicate, min_size=0))
+    tids = torch.from_numpy(case["ids"]).long()
+    with torch.no_grad(), record_sites(port, mutate) as calls:
+        logits = port(tids)
+        last, cache = port.prefill(tids, torch.from_numpy(case["plen"]).long(),
+                                   16)
+        step, _ = port.decode_step(torch.from_numpy(case["tok"]).long(), 12,
+                                   cache, torch.from_numpy(case["valid"]))
+    out = torch.cat([logits.reshape(-1), last.reshape(-1), step.reshape(-1)])
+    return port, sites, out, calls
+
+
+def test_w8a8_gpt2_matches_reference(gpt2_case):
+    """GPT-2 W8A8 (per-token scales) against the reference's: every site
+    call of the full forward, a prefill and one cached decode step, and
+    the logits within the reference's own spread (its token embeddings
+    changed by 1e-6)."""
+    jm = jax_test_config().models.gpt2
+    ids, plen, tok, valid = (gpt2_case[k] for k in ("ids", "plen", "tok",
+                                                    "valid"))
     mod = JGPT2(jm)
-    params = jax_params(mod, 9, jnp.asarray(ids))
+    params = gpt2_case["params"]
     wte = np.asarray(params["params"]["wte"]["embedding"])
 
     def reference(embedding):
@@ -345,19 +506,23 @@ def test_w8a8_gpt2_matches_reference():
     with reference_lax_path():
         ref = reference(wte).astype(np.float64)
         ref_spread = spread(reference, wte, n=2)
-    port = load(GPT2LM(port_test_config().models.gpt2), params, "gpt2")
-    sites = quant.w8a8_modules(port, predicate=partial(
-        quant.w8a8_default_predicate, min_size=0))
+    port, sites, out, calls = gpt2_sites(gpt2_case)
     assert sites == 6 * jm.num_layers          # q, k, v, out, fc1, fc2
     assert all(m.act_per_token for m in port.modules()
                if quant.quantized_weight(m) is not None)
-    tids = torch.from_numpy(ids).long()
-    logits = port(tids)
-    last, cache = port.prefill(tids, torch.from_numpy(plen).long(), 16)
-    step, _ = port.decode_step(torch.from_numpy(tok).long(), 12, cache,
-                               torch.from_numpy(valid))
-    out = torch.cat([logits.reshape(-1), last.reshape(-1), step.reshape(-1)])
+    assert len(calls) == 3 * sites             # forward, prefill, decode
+    check_sites(calls, jax_w8a8_tree(params), per_token=True)
     assert_within_spread(out, ref, ref_spread)
+
+
+@pytest.mark.parametrize("site", ["block_0.attn.q", "block_1.mlp.fc2"])
+def test_w8a8_gpt2_site_check_catches_per_tensor_scales(gpt2_case, site):
+    """Control: one GPT-2 site scaled per tensor where the reference
+    scales per token fails the site check, at that site."""
+    *_, calls = gpt2_sites(gpt2_case, (site, with_per_token(False)))
+    with pytest.raises(AssertionError, match=re.escape(site)):
+        check_sites(calls, jax_w8a8_tree(gpt2_case["params"]),
+                    per_token=True)
 
 
 # -- the pipelines ------------------------------------------------------------
@@ -408,19 +573,32 @@ def w8a8_slice_ref():
 
 
 def test_w8a8_slice_images_match_reference(w8a8_slice_ref):
-    """The W8A8 preset's tiny twin (quantized at build from the same fp
-    weights, the reference's static scales) against the reference on the
-    same x_T: within twice the reference's own spread, and at least 2
-    levels (mean 0.5)."""
+    """The W8A8 preset's tiny twin against the reference on the same x_T.
+    The preset's pipeline quantizes the reference's sites at build, with
+    dynamic scales. The images take the reference's static scales: the
+    fused fp pipeline's UNet quantized with them, from the same fp
+    weights. Every site call of the first denoise step against the
+    reference's; the images within twice the reference's own spread, and
+    at least 2 levels (mean 0.5)."""
     sd = {k: from_jax(k, v) for k, v in w8a8_slice_ref["params"].items()}
-    pipe = Text2ImagePipeline(w8a8(port_test_config()), device="cpu",
-                              state_dicts=sd,
-                              act_scales=w8a8_slice_ref["scales"])
-    assert quant.w8a8_site_count(pipe.unet) == jq.w8a8_site_count(
-        jax_w8a8_tree(w8a8_slice_ref["params"]["unet"]))
+    cfg = w8a8(port_test_config())
+    ref_tree = jax_w8a8_tree(w8a8_slice_ref["params"]["unet"],
+                             w8a8_slice_ref["scales"])
+    armed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
+    assert quant.w8a8_site_count(armed.unet) == jq.w8a8_site_count(ref_tree)
+    assert not quant.w8a8_calibrated(armed.unet)
+    pipe = Text2ImagePipeline(cfg.replace(models=dataclasses.replace(
+        cfg.models, unet_w8a8=False, lm_w8a8=False)), device="cpu",
+        state_dicts=sd)
+    quant.w8a8_modules(pipe.unet, w8a8_slice_ref["scales"], partial(
+        quant.w8a8_default_predicate, min_size=0))
     assert quant.w8a8_calibrated(pipe.unet)
-    images = pipe.generate(PROMPTS,
-                           latents=torch.from_numpy(w8a8_slice_ref["x_t"]))
+    with record_sites(pipe.unet) as calls:
+        images = pipe.generate(PROMPTS,
+                               latents=torch.from_numpy(w8a8_slice_ref["x_t"]))
+    sites = quant.w8a8_site_count(pipe.unet)
+    assert len(calls) == sites * cfg.sampler.num_steps
+    check_sites(calls[:sites], ref_tree, per_token=False)
     ref = w8a8_slice_ref["images"]
     diff = np.abs(images.astype(np.int32) - ref.astype(np.int32))
     max_spread, mean_spread = w8a8_slice_ref["spread"]
@@ -473,9 +651,10 @@ def test_w8a8_unet_tools_assertions_and_presets():
         cfg.models.unet, fused_conv=False))
     with pytest.raises(ValueError, match="fused_conv"):
         port_pipeline.w8a8_unet_tools(unfused)
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        port_pipeline.w8a8_unet_tools(dataclasses.replace(cfg.models,
-                                                          unet_int8=True))
+    for w8a8_on in (True, False):
+        with pytest.raises(ValueError, match="not ported.*mutually exclusive"):
+            port_pipeline.w8a8_unet_tools(dataclasses.replace(
+                cfg.models, unet_int8=True, unet_w8a8=w8a8_on))
     m = w8a8_serving_config().models
     assert m.unet_w8a8 and m.lm_w8a8 and m.unet.fused_conv
     assert m.unet.conv_pad_to == 128 and m.w8a8_min_size == 1 << 16
