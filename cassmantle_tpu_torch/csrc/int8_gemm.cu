@@ -15,9 +15,9 @@
 // Each epilogue step rounds on its own in fp32, then casts to bf16 or
 // fp32: the results equal the plain versions' bit for bit, since int32
 // sums are exact in any order. Ragged M (1 row in GPT-2 decode, 154 for
-// the 2 x 77-token cross-attention context) and N are masked; K and C
-// need multiples of 16 (16-byte loads). The TPU path's padding of M, K
-// and N to (32, 128) tiles is not needed.
+// the 2 x 77-token cross-attention context), N and K are masked; K and C
+// need multiples of 16. The TPU path's padding of M, K and N to (32, 128)
+// tiles is not needed.
 //
 // What bounds it (int8, H100 SXM: 1,979 TOP/s, 3.35 TB/s; 2*M*K*N or
 // 18*M*C*F operations; operands and output once each): the UNet's matmuls
@@ -26,46 +26,482 @@
 // cross-attention kv projection and every GPT-2 matmul (M = 1 in decode,
 // 32 in prefill) are bound by the bytes of the weight.
 //
-// What the design does about it: an implicit GEMM (igemm.cuh, modes
-// kMatmulS8 and kConvS8) on the int8 tensor cores (mma.sync m16n8k32),
-// the conv reading its im2col in place from the NHWC image, so that the
-// padded image and the im2col never reach device memory; split K where
-// the output tiles are too few to fill the card (the 8x8 convs, decode).
-// Not yet used: wgmma and TMA (mma.sync reaches about half of the int8
-// peak), a small-M tile for decode, and fusing the activation quantize
-// into the A-operand prologue.
+// What the designs do about it.
+// int8_matmul (w8 below, on hopper.cuh): one launch per call. TMA brings
+// 128-byte K tiles of both operands, 128-byte swizzled, into a 4-stage
+// ring of full/empty mbarriers, issued by one producer thread; consumer
+// warpgroups run wgmma m64nNk32 s8 -> s32 from shared memory. M > 256:
+// x rows on wgmma's 64-row side, two consumer warpgroups (128 x BN
+// tiles, BN 160 where it divides N, else 128). M <= 256: the operands
+// swap, so the weight streams once, 64 of its rows a block, and the
+// tokens become wgmma's N (8, 32, 128 or 160, TMA zero-filling past M).
+// Where the tiles fill the card, a persistent grid of one block per SM
+// walks them, the producer loading the next tile while the consumers
+// apply the epilogue to this one from their registers. Where they are
+// too few, a thread-block cluster of up to 8 blocks splits K; each block
+// leaves its int32 partial tile in shared memory and the cluster sums it
+// through distributed shared memory in rank order (no workspace, no
+// second kernel), 8 channels of a token at a time, so that the stores
+// are 16-byte and in order also for the swapped tile. Not yet used:
+// TMA stores, fusing the activation quantize into the producer.
+// int8_conv3x3 (igemm.cuh): an implicit GEMM on mma.sync m16n8k32 that
+// reads its im2col in place from the NHWC image, with split K through a
+// workspace and a reduce kernel where the tiles are too few (the 8x8
+// convs); a wgmma redesign is later work.
 
+#include "hopper.cuh"
 #include "igemm.cuh"
 
-// x (M, K) int8, wt (N, K) int8, row_scale fp32 (one value per row, or
-// one value with row_stride 0), col_scale (N,) fp32, bias (N,) fp32 or
-// null, out (M, N) bf16 (out_bf16) or fp32; ws (splits, M, N) int32 when
-// splits > 1. Needs K % 16 == 0. Returns a cudaError_t.
+namespace w8 {
+
+using namespace hopper;
+
+constexpr int KT = 128;      // K tile: 128 int8 values, one swizzle row
+constexpr int STAGES = 4;    // TMA ring depth
+
+// The epilogue's operands. The kernel computes a tile of D = P . Q^T
+// with P the operand on wgmma's 64-row side and Q on its N side: x and
+// the weight, or (SWAP, small M) the weight and x.
+struct Args {
+  const float* row_scale;    // per token, or one value (row_stride 0)
+  long long row_stride;
+  const float* col_scale;    // (N,)
+  const float* bias;         // (N,)
+  void* out;                 // (M, N) bf16 or fp32
+  int out_bf16;
+  int m, n;
+  int k_tiles;
+  int pairs;                 // n even, col_scale and bias 8-byte aligned
+  int octets;                // n % 8 == 0, both 16-byte aligned
+};
+
+template <bool SWAP, int BN>
+struct Shape {
+  static constexpr int kWgs = SWAP ? 1 : 2;  // consumer warpgroups
+  static constexpr int kThreads = 128 * kWgs + 32;  // + one producer warp
+  static constexpr int kRowsP = 64 * kWgs;
+  static constexpr int kBytesP = kRowsP * KT;
+  static constexpr int kBytesQ = (BN * KT + 1023) / 1024 * 1024;
+  static constexpr int kStage = kBytesP + kBytesQ;
+  static constexpr int kTxBytes = kBytesP + BN * KT;
+  // the partial tile, output-major: a row per token, its channels
+  // contiguous (pitch + 4 words: 16-byte rows, spread banks)
+  static constexpr int kTok = SWAP ? BN : kRowsP;
+  static constexpr int kCh = SWAP ? kRowsP : BN;
+  static constexpr int kPitch = kCh + 4;
+  static constexpr int kPartial = kTok * kPitch * 4;
+  static constexpr int kRing =
+      STAGES * kStage > kPartial ? STAGES * kStage : kPartial;
+  // the unsplit x-side tile's bf16 output, staged for 16-byte stores
+  // (pitch BN + 8: the accumulator layout's writes miss each other's
+  // banks)
+  static constexpr int kStgPitch = BN + 8;
+  static constexpr int kStg = SWAP ? 0 : kRowsP * kStgPitch * 2;
+  static constexpr int kBars = (kRing + kStg + 7) / 8 * 8;
+  static constexpr int kSmem = 1024 + kBars + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+// acc * row_scale * col_scale + bias, each step rounded on its own.
+__device__ __forceinline__ float epilogue(int acc, float rs, float cs,
+                                          float bias) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), bias);
+}
+
+__device__ __forceinline__ void store(const Args& a, long long idx,
+                                      float v) {
+  if (a.out_bf16) {
+    static_cast<__nv_bfloat16*>(a.out)[idx] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(a.out)[idx] = v;
+  }
+}
+
+// Two neighbouring outputs at idx (idx even when n is even).
+__device__ __forceinline__ void store2(const Args& a, long long idx,
+                                       float v0, float v1) {
+  if (a.n % 2) {
+    store(a, idx, v0);
+    store(a, idx + 1, v1);
+  } else if (a.out_bf16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.out) +
+                                       idx) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(a.out) + idx) =
+        make_float2(v0, v1);
+  }
+}
+
+// Straight from the accumulators (one block per tile, no split): a
+// thread holds two neighbouring Q rows of each of its two P rows. The
+// scales and biases are read once a tile, or once a column pair.
+template <bool SWAP, int BN>
+__device__ __forceinline__ void store_tile(const Args& a, const int* acc,
+                                           int p0, int q0,
+                                           __nv_bfloat16* stg) {
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int pr0 = p0 + (threadIdx.x / 128) * 64 + (t / 32) * 16 + lane / 4;
+  const int p_rows = SWAP ? a.n : a.m;
+  // per P row h: the row scale (tokens) or column scale and bias (the
+  // swapped tile's channels)
+  float ps[2], pb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int pr = min(pr0 + 8 * h, p_rows - 1);
+    if (SWAP) {
+      ps[h] = a.col_scale[pr];
+      pb[h] = a.bias[pr];
+    } else {
+      ps[h] = a.row_scale[pr * a.row_stride];
+      pb[h] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int qr = q0 + 8 * j + 2 * (lane % 4);
+    if (SWAP) {  // Q rows are tokens: out[qr + e][pr]
+      if (qr >= a.m) continue;
+      const bool two = qr + 1 < a.m;
+      const float rs0 = a.row_scale[qr * a.row_stride];
+      const float rs1 = two ? a.row_scale[(qr + 1) * a.row_stride] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pr = pr0 + 8 * h;
+        if (pr >= a.n) continue;
+        store(a, (long long)qr * a.n + pr,
+              epilogue(acc[4 * j + 2 * h], rs0, ps[h], pb[h]));
+        if (two) {
+          store(a, (long long)(qr + 1) * a.n + pr,
+                epilogue(acc[4 * j + 2 * h + 1], rs1, ps[h], pb[h]));
+        }
+      }
+    } else if (stg != nullptr) {  // staged: a bf16 pair at (pr, qr)
+      const int cq = min(qr, a.n - 2);  // n % 8 == 0: qr < n holds a pair
+      const float2 cs = *reinterpret_cast<const float2*>(a.col_scale + cq);
+      const float2 bs = *reinterpret_cast<const float2*>(a.bias + cq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = pr0 - p0 + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(
+            stg + r * Shape<SWAP, BN>::kStgPitch + qr - q0) =
+            __floats2bfloat162_rn(
+                epilogue(acc[4 * j + 2 * h], ps[h], cs.x, bs.x),
+                epilogue(acc[4 * j + 2 * h + 1], ps[h], cs.y, bs.y));
+      }
+    } else {     // Q rows are channels: out[pr][qr + e]
+      if (qr >= a.n) continue;
+      const bool two = qr + 1 < a.n;
+      float2 cs, bs;
+      if (two && a.pairs) {
+        cs = *reinterpret_cast<const float2*>(a.col_scale + qr);
+        bs = *reinterpret_cast<const float2*>(a.bias + qr);
+      } else {
+        cs = make_float2(a.col_scale[qr], two ? a.col_scale[qr + 1] : 0.f);
+        bs = make_float2(a.bias[qr], two ? a.bias[qr + 1] : 0.f);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pr = pr0 + 8 * h;
+        if (pr >= a.m) continue;
+        const long long idx = (long long)pr * a.n + qr;
+        const float v0 = epilogue(acc[4 * j + 2 * h], ps[h], cs.x, bs.x);
+        if (two) {
+          store2(a, idx, v0,
+                 epilogue(acc[4 * j + 2 * h + 1], ps[h], cs.y, bs.y));
+        } else {
+          store(a, idx, v0);
+        }
+      }
+    }
+  }
+  if (!SWAP && stg != nullptr) {
+    using S = Shape<SWAP, BN>;
+    named_sync(1, 128 * S::kWgs);  // the tile is staged
+    for (int u = threadIdx.x; u < S::kRowsP * (BN / 8); u += 128 * S::kWgs) {
+      const int r = u / (BN / 8);
+      const int c = 8 * (u - r * (BN / 8));
+      if (p0 + r < a.m && q0 + c < a.n) {
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) +
+                                  (long long)(p0 + r) * a.n + q0 + c) =
+            *reinterpret_cast<const uint4*>(stg + r * S::kStgPitch + c);
+      }
+    }
+  }
+}
+
+// Split K over a cluster: each block leaves its int32 partial tile in
+// shared memory (over the drained ring); after a cluster barrier every
+// block sums its share of the tile over the cluster's blocks in rank
+// order, 8 channels of a token at a time, and stores it.
+template <bool SWAP, int BN>
+__device__ __forceinline__ void reduce_tile(const Args& a, const int* acc,
+                                            int* part, int p0, int q0,
+                                            int rank, int slices) {
+  using S = Shape<SWAP, BN>;
+  constexpr int kConsumers = 128 * S::kWgs;
+  named_sync(1, kConsumers);  // every consumer is done with the ring
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pr = (threadIdx.x / 128) * 64 + (t / 32) * 16 + lane / 4 +
+                       8 * h;
+        const int qr = 8 * j + 2 * (lane % 4) + e;
+        part[SWAP ? qr * S::kPitch + pr : pr * S::kPitch + qr] =
+            acc[4 * j + 2 * h + e];
+      }
+    }
+  }
+  cluster_sync();
+  constexpr int kUnits = S::kTok * (S::kCh / 8);
+  const int tok0 = SWAP ? q0 : p0;
+  const int ch0 = SWAP ? p0 : q0;
+  const int lo = rank * kUnits / slices;
+  const int hi = (rank + 1) * kUnits / slices;
+  for (int u = lo + threadIdx.x; u < hi; u += kConsumers) {
+    const int r = u / (S::kCh / 8);
+    const int c8 = u - r * (S::kCh / 8);
+    const int tok = tok0 + r;
+    const int ch = ch0 + 8 * c8;
+    if (tok >= a.m || ch >= a.n) continue;
+    const int* src = part + r * S::kPitch + 8 * c8;
+    int sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (int q = 0; q < slices; ++q) {
+      const uint4 lo4 = ld_cluster_v4(src, q);
+      const uint4 hi4 = ld_cluster_v4(src + 4, q);
+      sum[0] += lo4.x; sum[1] += lo4.y; sum[2] += lo4.z; sum[3] += lo4.w;
+      sum[4] += hi4.x; sum[5] += hi4.y; sum[6] += hi4.z; sum[7] += hi4.w;
+    }
+    const float rs = a.row_scale[tok * a.row_stride];
+    float cs[8], bs[8], v[8];
+    if (a.octets) {  // ch + 8 <= n, 16-byte aligned
+      *reinterpret_cast<float4*>(cs) =
+          *reinterpret_cast<const float4*>(a.col_scale + ch);
+      *reinterpret_cast<float4*>(cs + 4) =
+          *reinterpret_cast<const float4*>(a.col_scale + ch + 4);
+      *reinterpret_cast<float4*>(bs) =
+          *reinterpret_cast<const float4*>(a.bias + ch);
+      *reinterpret_cast<float4*>(bs + 4) =
+          *reinterpret_cast<const float4*>(a.bias + ch + 4);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cs[j] = a.col_scale[min(ch + j, a.n - 1)];
+        bs[j] = a.bias[min(ch + j, a.n - 1)];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = epilogue(sum[j], rs, cs[j], bs[j]);
+    const long long idx = (long long)tok * a.n + ch;
+    if (a.n % 8 == 0) {  // ch + 8 <= n, 16-byte aligned
+      if (a.out_bf16) {
+        uint4 o;
+        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o2[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        }
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) + idx) =
+            o;
+      } else {
+        float4* dst = reinterpret_cast<float4*>(static_cast<float*>(a.out) +
+                                                idx);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    } else {
+      for (int j = 0; j < 8 && ch + j < a.n; ++j) store(a, idx + j, v[j]);
+    }
+  }
+  cluster_sync();
+}
+
+// Unsplit (gridDim.z == 1): a persistent grid, block x taking tiles x,
+// x + gridDim.x, ... (Q tiles fastest), so that the producer loads the
+// next tile while the consumers store this one. Split (gridDim.z = the
+// cluster's slices): block (x, 0, z) takes tile x, K slice z. Consumer
+// warpgroups come first; then one producer warp, whose first thread
+// keeps STAGES TMA loads of P and Q in flight.
+template <bool SWAP, int BN>
+__global__ void __launch_bounds__(Shape<SWAP, BN>::kThreads, 1)
+    int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap map_p,
+                             const __grid_constant__ CUtensorMap map_q,
+                             Args a) {
+  using S = Shape<SWAP, BN>;
+  constexpr int kConsumers = 128 * S::kWgs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + STAGES;
+
+  const int q_tiles = ((SWAP ? a.m : a.n) + BN - 1) / BN;
+  const int tiles = ((SWAP ? a.n : a.m) + S::kRowsP - 1) / S::kRowsP * q_tiles;
+  const int slices = gridDim.z;
+  const int rank = blockIdx.z;
+  const int kt0 = rank * a.k_tiles / slices;
+  const int kt1 = (rank + 1) * a.k_tiles / slices;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int p0 = tile / q_tiles * S::kRowsP;
+        const int q0 = tile % q_tiles * BN;
+        for (int kt = kt0; kt < kt1; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) bar_wait(&empty[s], (it / STAGES - 1) & 1);
+          unsigned char* st = smem + s * S::kStage;
+          bar_expect(&full[s], S::kTxBytes);
+          tma_load_2d(st, &map_p, &full[s], kt * KT, p0);
+          tma_load_2d(st + S::kBytesP, &map_q, &full[s], kt * KT, q0);
+        }
+      }
+    }
+    if (slices > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  int acc[BN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int p0 = tile / q_tiles * S::kRowsP;
+    const int q0 = tile % q_tiles * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    fence_regs(acc);
+    for (int kt = kt0; kt < kt1; ++kt, ++it) {
+      const int s = it % STAGES;
+      bar_wait(&full[s], (it / STAGES) & 1);
+      unsigned char* st = smem + s * S::kStage;
+      const uint64_t dp = desc_sw128(st + wg * 64 * KT);
+      const uint64_t dq = desc_sw128(st + S::kBytesP);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KT / 32; ++ks) {
+        mma_ss(acc, desc_add(dp, ks * 32), desc_add(dq, ks * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (kt > kt0) bar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    bar_arrive(&empty[(it - 1) % STAGES]);
+    if (slices == 1) {
+      // staged where the x-side tile writes bf16 rows of 16-byte pieces;
+      // the staging buffer is free once every consumer passes here
+      const bool staged = !SWAP && a.out_bf16 && a.octets;
+      if (staged) named_sync(1, kConsumers);
+      store_tile<SWAP, BN>(a, acc, p0, q0,
+                           staged ? reinterpret_cast<__nv_bfloat16*>(
+                                        smem + S::kRing)
+                                  : nullptr);
+    } else {
+      reduce_tile<SWAP, BN>(a, acc, reinterpret_cast<int*>(smem), p0, q0,
+                            rank, slices);
+    }
+  }
+}
+
+template <bool SWAP, int BN>
+cudaError_t launch(const void* x, const void* wt, const Args& a, int k,
+                   int slices, int blocks, cudaStream_t stream) {
+  using S = Shape<SWAP, BN>;
+  const void* p = SWAP ? wt : x;
+  const void* q = SWAP ? x : wt;
+  const int p_rows = SWAP ? a.n : a.m;
+  const int q_rows = SWAP ? a.m : a.n;
+  CUtensorMap map_p, map_q;
+  const uint64_t dims_p[2] = {(uint64_t)k, (uint64_t)p_rows};
+  const uint64_t dims_q[2] = {(uint64_t)k, (uint64_t)q_rows};
+  const uint64_t strides[1] = {(uint64_t)k};
+  const uint32_t box_p[2] = {KT, S::kRowsP};
+  const uint32_t box_q[2] = {KT, BN};
+  if (!encode_map(&map_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p, dims_p,
+                  strides, box_p, true) ||
+      !encode_map(&map_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, dims_q,
+                  strides, box_q, true)) {
+    return cudaErrorInvalidValue;
+  }
+  const int tiles = (p_rows + S::kRowsP - 1) / S::kRowsP *
+                    ((q_rows + BN - 1) / BN);
+  if (blocks < 1 || blocks > tiles || (slices > 1 && blocks != tiles)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(blocks, 1, slices);
+  return launch_cluster(int8_matmul_wgmma_kernel<SWAP, BN>, grid,
+                        S::kThreads, S::kSmem, slices, stream, map_p, map_q,
+                        a);
+}
+
+}  // namespace w8
+
+// x (M, K) int8, wt (N, K) int8, both 16-byte aligned; row_scale fp32
+// (one value per row, or one value with row_stride 0), col_scale and bias
+// (N,) fp32, out (M, N) bf16 (out_bf16) or fp32. The launch plan comes
+// from the caller (ops/_igemm.py::matmul_plan): swap (the weight on
+// wgmma's 64-row side), the tile's N width bn, the K slices of one
+// cluster (1 to 8) and the blocks along x (every tile when split, else a
+// persistent grid of at most one block per SM). Needs K % 16 == 0.
+// Returns a cudaError_t.
 extern "C" int cassmantle_int8_matmul(const void* x, const void* wt,
                                       const void* row_scale,
                                       long long row_stride,
                                       const void* col_scale,
-                                      const void* bias, void* out, void* ws,
+                                      const void* bias, void* out,
                                       int out_bf16, int m, int k, int n,
-                                      int splits, void* stream) {
-  if (m < 1 || n < 1 || k < 16 || k % 16) return (int)cudaErrorInvalidValue;
-  igemm::Params p{};
-  p.x = x;
-  p.w = wt;
-  p.row_scale = static_cast<const float*>(row_scale);
-  p.row_stride = row_stride;
-  p.col_scale = static_cast<const float*>(col_scale);
-  p.bias = static_cast<const float*>(bias);
-  p.out = out;
-  p.out_bf16 = out_bf16;
-  p.ws = ws;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.img_h = p.img_w = 1;
-  p.k_tiles = (k + igemm::BKB - 1) / igemm::BKB;
-  return (int)igemm::run<igemm::kMatmulS8>(
-      p, splits, static_cast<cudaStream_t>(stream));
+                                      int swap, int bn, int slices,
+                                      int blocks, void* stream) {
+  const int k_tiles = (k + w8::KT - 1) / w8::KT;
+  if (m < 1 || n < 1 || k < 16 || k % 16 || slices < 1 || slices > 8 ||
+      slices > k_tiles || bias == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uintptr_t sb = reinterpret_cast<uintptr_t>(col_scale) |
+                       reinterpret_cast<uintptr_t>(bias);
+  w8::Args a{static_cast<const float*>(row_scale), row_stride,
+             static_cast<const float*>(col_scale),
+             static_cast<const float*>(bias), out, out_bf16, m, n, k_tiles,
+             n % 2 == 0 && sb % 8 == 0, n % 8 == 0 && sb % 16 == 0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = blocks;
+  if (swap) {
+    switch (bn) {
+      case 8: return (int)w8::launch<true, 8>(x, wt, a, k, slices, g, s);
+      case 32: return (int)w8::launch<true, 32>(x, wt, a, k, slices, g, s);
+      case 128: return (int)w8::launch<true, 128>(x, wt, a, k, slices, g, s);
+      case 160: return (int)w8::launch<true, 160>(x, wt, a, k, slices, g, s);
+    }
+  } else {
+    switch (bn) {
+      case 128: return (int)w8::launch<false, 128>(x, wt, a, k, slices, g, s);
+      case 160: return (int)w8::launch<false, 160>(x, wt, a, k, slices, g, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // x (B, H, W, C) int8 NHWC, w (F, 3, 3, C) int8, col_scale and bias (F,)
@@ -94,6 +530,5 @@ extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
   p.img_h = h;
   p.img_w = width;
   p.k_tiles = 9 * ((c + igemm::BKB - 1) / igemm::BKB);
-  return (int)igemm::run<igemm::kConvS8>(
-      p, splits, static_cast<cudaStream_t>(stream));
+  return (int)igemm::run_conv(p, splits, static_cast<cudaStream_t>(stream));
 }

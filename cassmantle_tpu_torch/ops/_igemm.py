@@ -1,22 +1,44 @@
-"""Launch policy shared by the three implicit-GEMM kernels of
-``csrc/igemm.cuh`` (the fused conv, the int8 matmul and the int8 conv):
-their tile sizes and how far a launch splits its K loop.
+"""Launch policy of the port's GEMM-shaped kernels, in plain Python so
+that the CPU tests reach it:
 
-The tile constants mirror ``igemm.cuh``'s ``BM``, ``BN`` and ``BKB``; the
-wrappers size the split-K workspace from them.
+- :func:`matmul_plan` for the int8 matmul on wgmma (``csrc/int8_gemm.cu``,
+  kernel 3): orientation, tile width and the K slices of one cluster;
+- :func:`conv_plan` for the fused GroupNorm + SiLU + conv3x3 on wgmma
+  (``csrc/fused_conv.cu``, kernel 2): image rows or images a block and
+  the channel-chunk slices of one cluster;
+- :func:`split_k` for the int8 conv3x3 on mma.sync (``csrc/igemm.cuh``,
+  kernel 4), whose split K goes through a workspace.
+
+The wrappers read their plan here and the C functions take what it
+decides; the constants mirror the sources'.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
-# One block's output tile (rows x columns) and the width of a K tile in
-# bytes: igemm.cuh's BM, BN and BKB.
+# kernel 4 (igemm.cuh): one block's output tile (rows x columns) and the
+# width of a K tile in bytes: BM, BN and BKB.
 BLOCK_M = 128
 BLOCK_N = 128
 K_TILE_BYTES = 64
+
+# kernels 2 and 3 (wgmma): rows of one consumer warpgroup, the most
+# blocks of one cluster (the portable limit), kernel 3's K tile in bytes
+# and its token tiles on the swapped path, kernel 2's channel chunk,
+# output channels a block, pixels a block and halo positions.
+WGMMA_M = 64
+MAX_CLUSTER = 8
+MATMUL_K_TILE = 128
+SMALL_M = 256
+TOKEN_TILES = (8, 32, 128, 160)
+CONV_CHUNK = 64
+CONV_BN = 160
+CONV_PIXELS = 128
+CONV_HALO = 264
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,8 +50,8 @@ def sm_count(device: torch.device) -> int:
 
 def split_k(m: int, n: int, k_tiles: int, device: torch.device,
             min_k_tiles: int = 4, max_splits: int = 16) -> int:
-    """How many slices the K loop of an (m, n) implicit GEMM on
-    ``device`` splits into: 1 when its output tiles already fill the
+    """Kernel 4: how many slices the K loop of an (m, n) implicit GEMM
+    on ``device`` splits into: 1 when its output tiles already fill the
     card's SMs, else enough slices for about two blocks per SM, each at
     least ``min_k_tiles`` K tiles long."""
     sms = sm_count(device)
@@ -38,3 +60,79 @@ def split_k(m: int, n: int, k_tiles: int, device: torch.device,
         return 1
     return max(1, min(max_splits, -(-2 * sms // tiles),
                       k_tiles // min_k_tiles))
+
+
+def cluster_slices(tiles: int, k_units: int, sms: int) -> int:
+    """Blocks of one cluster that split the K loop (``k_units`` chunks
+    or tiles) of each of ``tiles`` output tiles, one block per SM: the
+    largest power of two that one wave of the card's SMs holds, at most
+    MAX_CLUSTER and ``k_units`` (so that every slice is non-empty); 1
+    when the tiles alone fill the card. Clusters above 2 blocks take at
+    most half the card: a cluster's blocks share one GPC (16 or 18 SMs
+    on an H100), and the card measured 2x slower when clusters of 4
+    were to fill it (PERF.md, PR 3). Powers of two pack the GPCs."""
+    limit = min(MAX_CLUSTER, k_units, sms // tiles)
+    slices = 1
+    while 2 * slices <= limit:
+        slices *= 2
+    while slices > 2 and tiles * slices > sms // 2:
+        slices //= 2
+    return slices
+
+
+class MatmulPlan(NamedTuple):
+    swap: bool      # the weight on wgmma's 64-row side, tokens its N
+    rows: int       # rows of the 64-row side a block (64 or 128)
+    bn: int         # wgmma N: the other side's rows a block
+    tiles: int      # output tiles
+    slices: int     # blocks of one cluster along K
+    grid: int       # blocks along x: every tile when split, else a
+                    # persistent grid of at most one block per SM
+
+
+def matmul_plan(m: int, k: int, n: int, sms: int) -> MatmulPlan:
+    """Kernel 3's launch for (m, k) x (k, n) on a card of ``sms`` SMs.
+    m <= SMALL_M swaps the operands: 64 weight rows a block, the tokens
+    padded to the smallest of TOKEN_TILES that holds them (several
+    tiles of 160 past it). Else 128 x 160 tiles where 160 divides n,
+    128 x 128 otherwise. Unsplit, a persistent grid of at most one block
+    per SM walks the tiles."""
+    k_tiles = -(-k // MATMUL_K_TILE)
+    if m <= SMALL_M:
+        bn = next((t for t in TOKEN_TILES if t >= m), TOKEN_TILES[-1])
+        rows = WGMMA_M
+        tiles = -(-n // rows) * -(-m // bn)
+        swap = True
+    else:
+        bn = 160 if n % 160 == 0 else 128
+        rows = 2 * WGMMA_M
+        tiles = -(-m // rows) * -(-n // bn)
+        swap = False
+    slices = cluster_slices(tiles, k_tiles, sms)
+    grid = tiles if slices > 1 else min(tiles, sms)
+    return MatmulPlan(swap, rows, bn, tiles, slices, grid)
+
+
+class ConvPlan(NamedTuple):
+    th: int         # image rows a block
+    imgs: int       # whole images a block (th == h when > 1)
+    tiles: int      # output tiles: pixel groups x 160-channel blocks
+    slices: int     # blocks of one cluster along the channel chunks
+
+
+def conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
+              ) -> ConvPlan:
+    """Kernel 2's launch for x (b, h, w, c) and f output channels on a
+    card of ``sms`` SMs: whole image rows a block, up to CONV_PIXELS
+    pixels and CONV_HALO halo positions ((th + 2)(w + 2) per image);
+    images small enough are packed several a block, so that the weight
+    streams once for them."""
+    th = max(1, min(h, 64, CONV_PIXELS // w))
+    imgs = 1
+    if th == h:
+        imgs = max(1, min(b, CONV_PIXELS // (h * w),
+                          CONV_HALO // ((h + 2) * (w + 2))))
+    groups = -(-b // imgs) if imgs > 1 else b * -(-h // th)
+    tiles = groups * -(-f // CONV_BN)
+    return ConvPlan(th, imgs, tiles,
+                    cluster_slices(tiles, -(-c // CONV_CHUNK), sms))

@@ -35,7 +35,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from cassmantle_tpu_torch.ops._igemm import K_TILE_BYTES, split_k
+from cassmantle_tpu_torch.ops._igemm import conv_plan, sm_count
 
 SOURCE = "fused_conv.cu"
 
@@ -93,7 +93,7 @@ def _library():
     fn = _build.load(SOURCE).cassmantle_gn_silu_conv3x3_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
     return fn
 
@@ -123,6 +123,15 @@ def _check(x, a, b, kernel, bias):
             raise ValueError("all operands must lie on x's device")
 
 
+def check_aligned16(**tensors) -> None:
+    """TMA, and the kernels' 16-byte vector loads, read from 16-byte-
+    aligned bases only: raise on any other."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned; "
+                             f"data_ptr() % 16 = {t.data_ptr() % 16}")
+
+
 def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     kernel: torch.Tensor, bias: torch.Tensor,
                     pad_to: int = 0) -> torch.Tensor:
@@ -141,17 +150,14 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     w_ohwi = kernel.permute(3, 0, 1, 2).contiguous()
     a32, b32 = a.float().contiguous(), b.float().contiguous()
     bias32 = bias.float().contiguous()
+    check_aligned16(x=x, weight=w_ohwi, a=a32, b=b32)
     out = torch.empty((bsz, h, w, f), dtype=x.dtype, device=x.device)
-    m = bsz * h * w
-    splits = split_k(m, f, 9 * -(-c // (K_TILE_BYTES // 2)), x.device)
-    ws = (torch.empty((splits, m, f), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    plan = conv_plan(bsz, h, w, c, f, sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _library()(
         x.data_ptr(), a32.data_ptr(), b32.data_ptr(), w_ohwi.data_ptr(),
-        bias32.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        bsz, h, w, c, f, splits, stream)
+        bias32.data_ptr(), out.data_ptr(), bsz, h, w, c, f, plan.th,
+        plan.imgs, plan.slices, stream)
     if err != 0:
         raise RuntimeError(f"fused conv launch failed: cudaError {err} "
                            f"(x {tuple(x.shape)}, F {f})")

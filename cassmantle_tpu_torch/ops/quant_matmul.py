@@ -39,8 +39,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from cassmantle_tpu_torch.ops._igemm import K_TILE_BYTES, split_k
-from cassmantle_tpu_torch.ops.fused_conv import round_up
+from cassmantle_tpu_torch.ops._igemm import (
+    K_TILE_BYTES,
+    matmul_plan,
+    sm_count,
+    split_k,
+)
+from cassmantle_tpu_torch.ops.fused_conv import check_aligned16, round_up
 from cassmantle_tpu_torch.ops.quant import (
     ActQTensor,
     act_absmax,
@@ -72,10 +77,9 @@ def _library(name: str):
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         if name == "cassmantle_int8_matmul":
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_void_p,
-                                                    ctypes.c_longlong]
-                           + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p])
         else:
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                            + [ctypes.c_void_p] + [ctypes.c_int] * 6
@@ -144,16 +148,15 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scale, col_scale,
     row = row.reshape(-1).contiguous()
     wt = w_q.t().contiguous()
     col, b = col.contiguous(), b.contiguous()
+    check_aligned16(x_q=x_q, weight=wt)
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    splits = split_k(m, n, -(-k // K_TILE_BYTES), x_q.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.int32, device=x_q.device)
-          if splits > 1 else None)
+    plan = matmul_plan(m, k, n, sm_count(x_q.device))
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     err = _library("cassmantle_int8_matmul")(
         x_q.data_ptr(), wt.data_ptr(), row.data_ptr(),
         1 if row.numel() == m and m > 1 else 0, col.data_ptr(),
-        b.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-        _OUT_DTYPES[out_dtype], m, k, n, splits, stream)
+        b.data_ptr(), out.data_ptr(), _OUT_DTYPES[out_dtype], m, k, n,
+        int(plan.swap), plan.bn, plan.slices, plan.grid, stream)
     if err != 0:
         raise RuntimeError(f"int8 matmul launch failed: cudaError {err} "
                            f"(M, K, N = {m}, {k}, {n})")

@@ -8,7 +8,9 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    kill switch (CASSMANTLE_NO_FUSED_CONV, CASSMANTLE_NO_W8A8) set;
 1. builds every kernel of ``cassmantle_tpu_torch/csrc/`` with ``nvcc``
    (one process per source, all at once) into the git-ignored
-   ``cassmantle_tpu_torch/_build/``;
+   ``cassmantle_tpu_torch/_build/``, and reports each kernel's registers
+   and spills and, with ``cuobjdump``, its warpgroup MMA instructions
+   (fails if a wgmma kernel spills or issues none);
 2. holds each kernel (flash attention, the fused GroupNorm-affine + SiLU +
    conv3x3, the int8 matmul, the int8 conv3x3) against its plain PyTorch
    version at every shape the main paths give it, and times the kernel,
@@ -848,10 +850,65 @@ def run_round(card: str, preset: str, cfg):
 # profiler kernel names -> the kernel they belong to
 KERNEL_PATTERNS = (
     ("flash_attention", re.compile(r"flash_fwd_kernel")),
-    ("int8_matmul", re.compile(r"(igemm_kernel|splitk_reduce)(<|ILi)0")),
-    ("int8_conv3x3", re.compile(r"(igemm_kernel|splitk_reduce)(<|ILi)1")),
-    ("gn_silu_conv3x3", re.compile(r"gn_conv_kernel|splitk_reduce(<|ILi)2")),
+    ("int8_matmul", re.compile(r"int8_matmul_wgmma_kernel")),
+    ("int8_conv3x3", re.compile(r"int8_conv_(kernel|splitk_reduce)")),
+    ("gn_silu_conv3x3", re.compile(r"gn_conv_wgmma_kernel")),
 )
+# the wgmma kernels: no spills, and warpgroup MMA instructions in SASS
+WGMMA_KERNELS = re.compile(r"int8_matmul_wgmma_kernel|gn_conv_wgmma_kernel")
+
+
+def kernel_build_report(libs) -> list:
+    """One [ptxas] line per kernel of each library (registers, shared
+    memory, spills, from the build's -Xptxas -v report) and, where the
+    toolkit has cuobjdump, one [sass] line with its count of warpgroup
+    MMA instructions (HGMMA, IGMMA). Fails if a wgmma kernel spills or,
+    with cuobjdump, issues no warpgroup MMA."""
+    import os
+
+    lines = []
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    for src, path in sorted(libs.items()):
+        try:
+            with open(path[:-3] + ".log") as f:
+                log = f.read()
+        except OSError:
+            lines.append(f"[ptxas] {src}: report not kept (built before)")
+            log = ""
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel, spill = m.group(1), ""
+            elif kernel and "spill" in line:
+                spill = line.strip()
+            elif kernel and "Used" in line:
+                used = line.split(":", 1)[1].strip()
+                lines.append(f"[ptxas] {src} {kernel}: {used}; {spill}")
+                if WGMMA_KERNELS.search(kernel) and not spill.startswith(
+                        "0 bytes stack frame, 0 bytes spill stores, "
+                        "0 bytes spill loads"):
+                    fail(f"{kernel} spills: {spill}")
+                kernel = None
+        if not os.path.exists(cuobjdump):
+            lines.append(f"[sass] {src}: cuobjdump not found, not counted")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                              text=True, timeout=300).stdout
+        counts, current = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                counts[current] = 0
+            elif current and re.search(r"\b[HI]GMMA\.", line):
+                counts[current] += 1
+        for kernel, n in sorted(counts.items()):
+            lines.append(f"[sass] {src} {kernel}: {n} warpgroup MMA "
+                         f"instructions (HGMMA/IGMMA)")
+            if WGMMA_KERNELS.search(kernel) and n == 0:
+                fail(f"{kernel} issues no wgmma")
+    return lines
 
 
 def profile_denoise(svc, steps: int = 2) -> dict:
@@ -971,15 +1028,8 @@ def main() -> int:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"[build] {sorted(libs)} in {build_s:.1f} s", flush=True)
-    for src, path in libs.items():
-        log = path[:-3] + ".log"
-        try:
-            with open(log) as f:
-                for line in f:
-                    if "registers" in line or "spill" in line:
-                        print(f"[ptxas] {src}: {line.strip()}")
-        except OSError:
-            pass                      # built before: the report is gone
+    for line in kernel_build_report(libs):
+        print(line, flush=True)
 
     rows = check_flash_kernel()
     if not all(r["ok"] for r in rows.values()):

@@ -16,7 +16,8 @@ bf16; the kernel rounds p to bf16 against its running max, the plain
 version against the row max, and the two sum in another order. The fused
 conv kernel takes the same limits: both sides round the activated input
 and the output to bf16 and sum 9*C products in fp32 in other orders (its
-exp is the fast one), so only output roundings differ. The int8 kernels
+SiLU takes tanh.approx, about 2^-11 relative error), so only roundings
+differ. The int8 kernels
 sum int32 exactly and round their fp32 epilogue step by step as the plain
 versions do: their outputs must be equal. W8A8 quantization on the card
 (scales and int8 values) must equal the CPU's bit for bit.
@@ -144,9 +145,11 @@ def _gn_conv_inputs(device, b, h, w, c, f, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,f", [
     (2, 64, 64, 320, 320),      # UNet level 0 (no split)
-    (2, 32, 32, 960, 640),      # level 1 skip concat
-    (2, 8, 8, 2560, 1280),      # 8x8 level: split K
-    (1, 7, 5, 40, 24),          # ragged tiles, C % 32 != 0
+    (2, 32, 32, 960, 640),      # level 1 skip concat (a cluster of 2)
+    (2, 16, 16, 1280, 1280),    # level 2 (a cluster of 4)
+    (2, 8, 8, 2560, 1280),      # 8x8 level: both images a block, a
+                                # cluster of 8 splits the channels
+    (1, 7, 5, 40, 24),          # ragged tiles, C % 64 != 0
     (3, 5, 64, 16, 8),          # W = 64: two rows a block, a partial group
     (1, 130, 1, 8, 8),          # W = 1: 64 rows a block, three groups
 ])
@@ -189,6 +192,11 @@ def _int8(g, shape, device):
     (1, 768, 3072, True, torch.bfloat16),      # GPT-2 decode fc1: M = 1
     (32, 3072, 768, True, torch.bfloat16),     # GPT-2 prefill fc2
     (5, 48, 33, True, torch.float32),          # odd N, fp32 out
+    (128, 1280, 1280, False, torch.bfloat16),  # mid block: swapped, split
+    (2048, 640, 640, False, torch.bfloat16),   # level 1: a cluster of 2
+    (8192, 320, 2560, False, torch.float32),   # persistent grid, fp32 out
+    (5, 48, 33, True, torch.bfloat16),         # ragged K and N, bf16 out
+    (300, 48, 33, False, torch.bfloat16),      # ragged, x on the 64-row side
 ])
 def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n, per_token,
                                         out_dtype):
@@ -246,6 +254,42 @@ def test_cuda_quantization_is_bit_identical_to_cpu(cuda_device):
         assert torch.equal(card_s.cpu(), s)
         assert torch.equal(quantize_act(x.to(cuda_device), card_s).cpu(),
                            quantize_act(x, s))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_kernels_repeat_bit_for_bit(cuda_device):
+    """Two launches on the same inputs give the same bits: the split
+    sums run in a fixed order (8x8 fused conv over a cluster of 8, the
+    mid block's int8 matmul over a cluster of 4)."""
+    x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, 2, 8, 8, 1280,
+                                                1280)
+    first = gn_silu_conv3x3(x, a, shift, kernel, bias)
+    assert torch.equal(first, gn_silu_conv3x3(x, a, shift, kernel, bias))
+    g = torch.Generator(cuda_device).manual_seed(4)
+    x_q, w_q = _int8(g, (128, 1280), cuda_device), \
+        _int8(g, (1280, 1280), cuda_device)
+    one = torch.ones((1,), device=cuda_device)
+    col = torch.full((1280,), 1e-4, device=cuda_device)
+    first = int8_matmul(x_q, w_q.t(), one, col, out_dtype=torch.float32)
+    assert torch.equal(first, int8_matmul(x_q, w_q.t(), one, col,
+                                          out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_kernels_refuse_misaligned_operands(cuda_device):
+    """TMA reads 16-byte-aligned bases only: an operand that starts
+    elsewhere raises before the launch."""
+    g = torch.Generator(cuda_device).manual_seed(5)
+    one = torch.ones((1,), device=cuda_device)
+    x_q = _int8(g, (64 * 48 + 1,), cuda_device)[1:].view(64, 48)
+    with pytest.raises(ValueError, match="aligned"):
+        int8_matmul(x_q, _int8(g, (48, 32), cuda_device), one,
+                    one.expand(32))
+    x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, 1, 4, 4, 16, 8)
+    flat = torch.empty((x.numel() + 1,), dtype=x.dtype, device=cuda_device)
+    shifted = flat[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        gn_silu_conv3x3(shifted, a, shift, kernel, bias)
 
 
 @pytest.mark.cuda
