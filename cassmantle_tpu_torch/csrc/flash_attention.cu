@@ -5,46 +5,90 @@
 // wide-head VAE dispatch). It computes softmax(q k^T * scale) v by online
 // softmax with the same arithmetic: fp32 scores, fp32 running max,
 // denominator and accumulator; p is rounded to bf16 before p.v; columns at
-// or past kv_len get -1e30 before the softmax; out = acc / l.
+// or past kv_len get -inf before the softmax (the reference's -1e30
+// underflows to the same 0); out = acc / l.
 //
-// One kernel serves the three modes of the serving path:
-//   - self attention over image tokens (SD1.5-512 with CFG: B=2, H=8,
-//     (S, D) = (4096, 40), (1024, 80), (256, 160), (64, 160));
-//   - ragged cross attention over the 77-token CLIP context: key tiles
-//     past kv_len are never loaded, and the ragged edge of the last tile
-//     is masked here, so K/V need no padding in memory;
+// The serving path's three modes (SD1.5-512 with CFG):
+//   - self attention over image tokens (B=2, H=8, (S, D) = (4096, 40),
+//     (1024, 80), (256, 160), (64, 160));
+//   - cross attention over the 77-token CLIP context (kv_len 77);
 //   - the wide head of the VAE mid block (B=1, H=1, S=4096, D=512).
 //
 // What bounds it (bf16, H100 SXM: 989 TFLOP/s, 3.35 TB/s; 4*B*H*Sq*Sk*D
 // FLOPs, q, k, v, o bytes once each): self attention at level 0 of the
-// UNet (42.9 GFLOP, 21 MB) and the VAE mid block (34.4 GFLOP) are
-// compute-bound, about 43 and 35 us; level 2 self attention and every
-// cross attention are memory-bound, a few microseconds each.
+// UNet is 42.9 GFLOP (43 us at the tensor peak), but its 268 M scores
+// each need one exponential, and the SM's special-function units issue
+// 16 ex2 a clock: about 64 us on 132 SMs at 1.98 GHz. At D = 40 the
+// exponent unit, not the tensor cores, is the limit; each score also
+// costs a few fp32 instructions (scale, max, sum, convert). Level 2 self
+// attention and every cross attention are memory-bound, a few us each.
 //
-// What the design does about it: the (Sq, Sk) score matrix never reaches
-// device memory, and neither scores nor the accumulator touch shared
-// memory. One block owns BQ query rows of one (batch, head) and walks the
-// key tiles; q, k and v are read once per block straight from the
-// caller's strided (B, S, H, D) views (the fused qkv projection's output
-// splits without a copy). K/V tiles are double-buffered in shared memory
-// with cp.async, so the next tile's load overlaps this tile's math. Both
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 x bf16 ->
-// fp32) fed by ldmatrix; each warp owns 16 query rows and keeps its
-// scores, probabilities (FA2's register reuse: the score accumulator
-// becomes the A operand of p.v), running max, denominator and output
-// accumulator in registers, so the softmax needs only quad shuffles.
-// Head dims pad to a multiple of 16 in shared memory (zero columns add
-// nothing to q.k and are never stored). Wide heads split D across WD
-// warps per row group, which exchange partial scores through shared
-// memory, so D = 512 keeps 64 accumulator registers a thread. Not yet
-// used: TMA, wgmma and warp specialisation, the levers left for closing
-// the gap to the bound.
+// Two kernels, chosen by the caller (ops/_flash_plan.py) by shape and
+// never as a rescue:
+//
+// flash_wgmma_kernel (D <= 256, D % 8 == 0, 16-byte strides and bases:
+// every UNet shape), after FlashAttention-3's structure, on hopper.cuh:
+// - Warp-specialised block: one producer thread issues TMA for the Q
+//   tile once, then keeps K and V tiles in flight through rings of 2-3
+//   stages (separate full/empty mbarriers for K and V, so q.k^T starts
+//   before V lands); one to three consumer warpgroups own 64 query rows
+//   each. setmaxnreg moves registers from the producer (32 or 24) to
+//   the consumers (232 with two, 160 with three: only D = 40's
+//   accumulators fit 160, and there 192 rows a block share each K/V tile
+//   and a third warp on each scheduler hides the softmax's latency).
+// - Both products on wgmma: S = Q K^T as m64nBKk16 with Q and K K-major
+//   in 128-byte-swizzled tiles (desc_sw128); O += P V as m64nNPk16 with
+//   P from registers (the S accumulator converted to bf16 in place: its
+//   layout is the A fragment's) and V MN-major (D contiguous, the
+//   transpose flag, desc_mn_sw128 with the D boxes LBO apart).
+// - Head-dim padding by TMA: q, k, v are 4-D maps (D, H, S, B) over the
+//   caller's strides (the fused qkv projection's views need no copy),
+//   boxes of 64 columns (128 bytes); TMA zero-fills columns d..63 of the
+//   last box and rows past Sq or kv_len. ceil(NP/16) k-steps of q.k^T
+//   and N = NP for p.v (d rounded up to an instantiated width: NP = d at
+//   every UNet width, so q.k^T takes ceil(d/16) steps). D = 80 and
+//   160 take two and three boxes.
+// - Softmax that keeps the exponent unit busy: the scale folds into one
+//   FFMA per score (s * scale * log2e - m), ex2.approx.ftz (relative
+//   error about 2^-22, far below p's bf16 rounding of 2^-9); columns are
+//   masked only in a last key tile that kv_len cuts (self attention
+//   masks nothing); row maxima and sums keep four partials a row, so
+//   that the exponentials issue back to back. Within a warpgroup tile
+//   j's q.k^T and tile j-1's p.v are issued together and the softmax of
+//   tile j runs while p.v does; the consumer warpgroups take turns
+//   issuing, in order (ping-pong on named barriers), so one's softmax
+//   overlaps the others' products. The accumulator and A-fragment registers are
+//   pinned before each wgmma.fence: anything the compiler schedules into
+//   a wgmma stage makes ptxas serialise every wgmma (C7515).
+// - A consumer warp releases a K or V stage with one arrival (lane 0),
+//   after the warpgroup's wgmma.wait.
+// - Epilogue: O / l in fp32, rounded to bf16, rows past Sq and columns
+//   past d not stored; strided output.
+// What holds it back at D = 40: a TMA box cut by the tensor's edge
+// along D (80 of its 128 bytes a row in bounds) moves at about a third
+// of the rate of a whole box, and the softmax runs at about twice the
+// exponent floor; with three consumers the loads alone take about 0.8
+// of the kernel's time and the products without the softmax as much,
+// so all three would have to fall together (PERF.md, flash attention).
+// cp.async loads by a producer warpgroup and K/V multicast to a pair of
+// blocks were each measured slower than this design.
+//
+// flash_fwd_kernel (mma.sync, the first design): D = 512 (the VAE mid
+// block: a 64 x 512 fp32 accumulator does not fit one warpgroup's
+// registers), and inputs TMA cannot describe: d % 8 != 0, a stride that
+// is not a multiple of 16 bytes, a misaligned base, scale <= 0. One
+// block owns BQ query rows and walks the key tiles; K/V tiles are
+// double-buffered with cp.async; both products on mma.sync m16n8k16 fed
+// by ldmatrix; wide heads split D across WD warps per row group, which
+// exchange partial scores through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -435,5 +479,408 @@ extern "C" int cassmantle_flash_attention_bf16(
   CASSMANTLE_FLASH_CASE(256, 64, 32, 2)
   CASSMANTLE_FLASH_CASE(512, 32, 32, 4)
 #undef CASSMANTLE_FLASH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// -- the warpgroup kernel ---------------------------------------------------
+
+namespace fa3 {
+
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+constexpr int BOX = 64;  // head-dim columns of one TMA box (128 bytes)
+
+// Shared memory of one instance: NP the padded head dim (the p.v
+// instruction's N), BK keys a tile, ST ring stages, MC the most consumer
+// warpgroups (64 query rows each). Q has one region of 64 MC rows per D
+// box; a K or V tile has one region of BK rows per box; every region is
+// a whole number of 1024-byte swizzle atoms.
+template <int NP, int BK, int ST, int MC>
+struct Geo {
+  static constexpr int kBoxes = (NP + BOX - 1) / BOX;
+  static constexpr int kQBox = 64 * MC * 128;
+  static constexpr int kQ = kBoxes * kQBox;
+  static constexpr int kKVBox = BK * 128;
+  static constexpr int kKV = kBoxes * kKVBox;  // one K or one V tile
+  static constexpr int kBars = kQ + 2 * ST * kKV;
+  static constexpr int kSmem = 1024 + kBars + (1 + 4 * ST) * 8;
+  static constexpr int kSteps = (NP + 15) / 16;  // q.k^T k-steps
+  static_assert(kSmem <= 232448, "one SM's shared memory");
+  static_assert(BK % 16 == 0 && NP % 8 == 0, "wgmma shapes");
+};
+
+struct Args {
+  bf16* o;
+  long long ob, os, oh;  // output element strides of (batch, seq, head)
+  int sq, d, kv_len;
+  float sl2;             // scale * log2(e), > 0
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023) & ~1023u) - a);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// blockIdx = (query block, head, batch); 128 x (consumers + 1) threads:
+// consumer warpgroups first (at most MC), then the producer warpgroup.
+template <int NP, int BK, int ST, int MC>
+__global__ void __launch_bounds__(128 * (MC + 1), 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, Args a) {
+  using G = Geo<NP, BK, ST, MC>;
+  constexpr int KB = G::kBoxes;
+  const float kInf = __int_as_float(0x7f800000);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* ks = smem + G::kQ;
+  unsigned char* vs = ks + ST * G::kKV;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + G::kBars);
+  uint64_t* kfull = qfull + 1;   // [ST] K tile landed
+  uint64_t* kempty = kfull + ST;  // [ST] K tile read by every consumer
+  uint64_t* vfull = kempty + ST;
+  uint64_t* vempty = vfull + ST;
+
+  const int nc = blockDim.x / 128 - 1;  // consumer warpgroups: 1 to MC
+  const int q0 = blockIdx.x * 64 * nc;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (a.kv_len + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    bar_init(qfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      bar_init(&kfull[s], 1);
+      bar_init(&vfull[s], 1);
+      bar_init(&kempty[s], 4 * nc);  // one arrival a consumer warp
+      bar_init(&vempty[s], 4 * nc);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * nc) {
+    // registers at launch, 384 x 168 or 512 x 128, go to the consumers:
+    // 128 x 32 + 256 x 232, or 128 x 24 + 384 x 160
+    if constexpr (MC == 3) {
+      regs_dec<24>();
+    } else {
+      regs_dec<32>();
+    }
+    if (threadIdx.x == 128 * nc) {
+      bar_expect(qfull, KB * 64 * nc * 128);
+      for (int x = 0; x < KB; ++x) {
+        tma_load_4d(qs + x * G::kQBox, &map_q, qfull, x * BOX, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        const uint32_t parity = (j / ST - 1) & 1;
+        if (j >= ST) bar_wait(&kempty[s], parity);
+        bar_expect(&kfull[s], G::kKV);
+        for (int x = 0; x < KB; ++x) {
+          tma_load_4d(ks + s * G::kKV + x * G::kKVBox, &map_k, &kfull[s],
+                      x * BOX, h, j * BK, b);
+        }
+        if (j >= ST) bar_wait(&vempty[s], parity);
+        bar_expect(&vfull[s], G::kKV);
+        for (int x = 0; x < KB; ++x) {
+          tma_load_4d(vs + s * G::kKV + x * G::kKVBox, &map_v, &vfull[s],
+                      x * BOX, h, j * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (MC == 3) {
+    regs_inc<160>();
+  } else {
+    regs_inc<232>();
+  }
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const bool pingpong = nc > 1;
+  const int my_bar = 1 + wg;                // named barriers 1 .. nc: whose
+  const int other_bar = 1 + (wg + 1) % nc;  // turn it is to issue, in order
+  const unsigned char* qw = qs + wg * 64 * 128;
+
+  float o[NP / 2];
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) o[i] = 0.f;
+  fence_regs(o);
+  float m0 = -kInf, m1 = -kInf;  // running max of s * sl2, rows r, r + 8
+  float l0 = 0.f, l1 = 0.f;      // this thread's share of the row sums
+  float al0 = 0.f, al1 = 0.f;    // the last tile's rescale factors
+
+  // S = Q K^T over ceil(NP / 16) k-steps (columns past d are zero)
+  auto issue_s = [&](int st) {
+    const unsigned char* kt = ks + st * G::kKV;
+#pragma unroll
+    for (int kx = 0; kx < G::kSteps; ++kx) {
+      const int box = kx / 4;
+      const uint32_t off = (kx % 4) * 32;
+      mma_ss(s, desc_add(desc_sw128(qw + box * G::kQBox), off),
+             desc_add(desc_sw128(kt + box * G::kKVBox), off), kx > 0);
+    }
+  };
+  // O += P V: P from registers, V MN-major, 16 keys a step
+  auto issue_pv = [&](int st) {
+    const unsigned char* vt = vs + st * G::kKV;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      mma_rs_mn(o, pa[kk], desc_mn_sw128(vt + kk * 16 * 128, G::kKVBox));
+    }
+  };
+  // Online softmax of tile j in the log2 domain: s becomes p (fp32);
+  // al0/al1 take the factors that rescale O and the sums.
+  auto softmax = [&](int j) {
+    const int lim = a.kv_len - j * BK;
+    if (lim < BK) {  // the ragged last tile only
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (8 * c + 2 * (lane % 4) + (e & 1) >= lim) s[4 * c + e] = -kInf;
+        }
+      }
+    }
+    // row maxima and sums with four partials a row: short dependency
+    // chains, so that the exponentials issue back to back
+    float px[8], ps[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) px[i] = -kInf;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c) {
+      px[c % 4] = fmaxf(px[c % 4], fmaxf(s[4 * c], s[4 * c + 1]));
+      px[4 + c % 4] = fmaxf(px[4 + c % 4], fmaxf(s[4 * c + 2], s[4 * c + 3]));
+    }
+    float x0 = fmaxf(fmaxf(px[0], px[1]), fmaxf(px[2], px[3]));
+    float x1 = fmaxf(fmaxf(px[4], px[5]), fmaxf(px[6], px[7]));
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+    x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+    x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+    const float n0 = fmaxf(m0, x0 * a.sl2);
+    const float n1 = fmaxf(m1, x1 * a.sl2);
+    al0 = ex2(m0 - n0);  // 0 on the first tile (m = -inf)
+    al1 = ex2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ps[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c) {
+      s[4 * c] = ex2(fmaf(s[4 * c], a.sl2, -n0));
+      s[4 * c + 1] = ex2(fmaf(s[4 * c + 1], a.sl2, -n0));
+      s[4 * c + 2] = ex2(fmaf(s[4 * c + 2], a.sl2, -n1));
+      s[4 * c + 3] = ex2(fmaf(s[4 * c + 3], a.sl2, -n1));
+      ps[c % 4] += s[4 * c] + s[4 * c + 1];
+      ps[4 + c % 4] += s[4 * c + 2] + s[4 * c + 3];
+    }
+    l0 = fmaf(l0, al0, (ps[0] + ps[1]) + (ps[2] + ps[3]));
+    l1 = fmaf(l1, al1, (ps[4] + ps[5]) + (ps[6] + ps[7]));
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int c = 0; c < NP / 8; ++c) {
+      o[4 * c] *= al0;
+      o[4 * c + 1] *= al0;
+      o[4 * c + 2] *= al1;
+      o[4 * c + 3] *= al1;
+    }
+  };
+  // p to bf16 A fragments: the accumulator's layout is the A operand's
+  auto convert = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack2(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack2(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack2(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack2(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // Pin what the next products read or write: without it the compiler
+  // may place the rescale or the conversion inside a wgmma pipeline stage,
+  // and ptxas then serialises every wgmma (C7515).
+  // a stage is free once every consumer warp has released it: after
+  // wgmma.wait, which the warpgroup passes together, its reads are done
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) bar_arrive(bar);
+  };
+  auto pin = [&]() {
+    fence_regs(o);
+    fence_regs(s);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+  };
+
+  if (pingpong && wg == nc - 1) named_arrive(1, 256);  // warpgroup 0 first
+  bar_wait(qfull, 0);
+
+  // tile 0: q.k^T alone
+  bar_wait(&kfull[0], 0);
+  pin();
+  if (pingpong) named_sync(my_bar, 256);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  if (pingpong) named_arrive(other_bar, 256);
+  wgmma_wait<0>();
+  fence_regs(s);
+  release(&kempty[0]);
+  softmax(0);
+  convert();
+
+  // tile j: q.k_j^T and p_{j-1}.v_{j-1} issued together; softmax j runs
+  // while p.v (and the other warpgroup's products) do
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = j % ST;
+    const int sp = (j - 1) % ST;
+    bar_wait(&kfull[st], (j / ST) & 1);
+    bar_wait(&vfull[sp], ((j - 1) / ST) & 1);
+      rescale();
+    pin();
+    if (pingpong) named_sync(my_bar, 256);
+    wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    issue_pv(sp);
+    wgmma_commit();
+    if (pingpong) named_arrive(other_bar, 256);
+    wgmma_wait<1>();
+    fence_regs(s);
+    release(&kempty[st]);
+    softmax(j);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    release(&vempty[sp]);
+    convert();
+  }
+
+  // the last p.v; the last warpgroup leaves no arrival behind
+  const int sl = (n_tiles - 1) % ST;
+  bar_wait(&vfull[sl], ((n_tiles - 1) / ST) & 1);
+  rescale();
+  pin();
+  if (pingpong) named_sync(my_bar, 256);
+  wgmma_fence();
+  issue_pv(sl);
+  wgmma_commit();
+  if (pingpong && wg != nc - 1) named_arrive(other_bar, 256);
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int row = q0 + wg * 64 + (t / 32) * 16 + lane / 4;
+  bf16* out = a.o + (long long)b * a.ob + (long long)h * a.oh;
+#pragma unroll
+  for (int c = 0; c < NP / 8; ++c) {
+    const int col = 8 * c + 2 * (lane % 4);  // d % 8 == 0: a whole pair
+    if (col >= a.d) continue;
+    if (row < a.sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * a.os + col) =
+          __floats2bfloat162_rn(o[4 * c] / l0, o[4 * c + 1] / l0);
+    }
+    if (row + 8 < a.sq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(row + 8) * a.os +
+                                         col) =
+          __floats2bfloat162_rn(o[4 * c + 2] / l1, o[4 * c + 3] / l1);
+    }
+  }
+}
+
+// q, k, v as 4-D maps (D, H, S, B) over the caller's element strides;
+// dimensions of size 1 take any 16-byte stride (never applied).
+inline bool encode_qkv(CUtensorMap* map, const void* base, int d, int heads,
+                       int seq, int batch, long long sb, long long ss,
+                       long long sh, int box_rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)heads, (uint64_t)seq,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {heads > 1 ? (uint64_t)sh * 2 : 16,
+                               seq > 1 ? (uint64_t)ss * 2 : 16,
+                               batch > 1 ? (uint64_t)sb * 2 : 16};
+  const uint32_t box[4] = {BOX, 1, (uint32_t)box_rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                    strides, box, true);
+}
+
+template <int NP, int BK, int ST, int MC>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
+                   const CUtensorMap& mv, const Args& a, int nc, int batch,
+                   int heads, cudaStream_t stream) {
+  using G = Geo<NP, BK, ST, MC>;
+  const dim3 grid((a.sq + 64 * nc - 1) / (64 * nc), heads, batch);
+  return launch_cluster(flash_wgmma_kernel<NP, BK, ST, MC>, grid,
+                        128 * (nc + 1), G::kSmem, 1, stream, mq, mk, mv, a);
+}
+
+}  // namespace fa3
+
+// The warpgroup kernel. q (B, Sq, H, D), k and v (B, Sk, H, D), o (B,
+// Sq, H, D): bf16 with unit stride on D, element strides on B, S, H that
+// are multiples of 8 (dimensions of size 1 aside), 16-byte-aligned bases,
+// d % 8 == 0, scale > 0. The launch plan comes from the caller
+// (ops/_flash_plan.py::flash_plan): np the padded head dim, bk keys a
+// tile, stages of the K/V rings (one instantiated triple per np), nc
+// consumer warpgroups (64 query rows each; three at np = 40 only).
+// Returns a cudaError_t.
+extern "C" int cassmantle_flash_attention_wgmma(
+    const void* q, const void* k, const void* v, void* o, int batch,
+    int heads, int sq, int d, int kv_len, float scale, long long qb,
+    long long qs, long long qh, long long kb, long long ks, long long kh,
+    long long vb, long long vs, long long vh, long long ob, long long os,
+    long long oh, int np, int bk, int stages, int nc, void* stream) {
+  if (batch < 1 || heads < 1 || sq < 1 || kv_len < 1 || d < 8 || d % 8 ||
+      d > np || batch > 65535 || heads > 65535 || !(scale > 0.f) ||
+      nc < 1 || nc > 3) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap mq, mk, mv;
+  if (!fa3::encode_qkv(&mq, q, d, heads, sq, batch, qb, qs, qh, 64 * nc) ||
+      !fa3::encode_qkv(&mk, k, d, heads, kv_len, batch, kb, ks, kh, bk) ||
+      !fa3::encode_qkv(&mv, v, d, heads, kv_len, batch, vb, vs, vh, bk)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const fa3::Args a{static_cast<fa3::bf16*>(o), ob, os, oh, sq, d, kv_len,
+                    scale * kLog2e};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CASSMANTLE_FLASH_WGMMA(NP, BK, ST, MC)                              \
+  if (np == NP && bk == BK && stages == ST && nc <= MC &&                 \
+      (MC == 2 || nc == 3)) {                                             \
+    return (int)fa3::launch<NP, BK, ST, MC>(mq, mk, mv, a, nc, batch,     \
+                                            heads, st);                   \
+  }
+  // (padded head dim, keys a tile, stages, the most consumer warpgroups):
+  // ops/_flash_plan.py::INSTANCES; D = 40 also with three consumers
+  CASSMANTLE_FLASH_WGMMA(40, 128, 3, 3)
+  CASSMANTLE_FLASH_WGMMA(40, 128, 3, 2)
+  CASSMANTLE_FLASH_WGMMA(64, 128, 3, 2)
+  CASSMANTLE_FLASH_WGMMA(80, 128, 2, 2)
+  CASSMANTLE_FLASH_WGMMA(128, 128, 2, 2)
+  CASSMANTLE_FLASH_WGMMA(160, 64, 3, 2)
+  CASSMANTLE_FLASH_WGMMA(256, 64, 2, 2)
+#undef CASSMANTLE_FLASH_WGMMA
   return (int)cudaErrorInvalidValue;
 }

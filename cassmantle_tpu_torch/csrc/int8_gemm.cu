@@ -44,13 +44,28 @@
 // second kernel), 8 channels of a token at a time, so that the stores
 // are 16-byte and in order also for the swapped tile. Not yet used:
 // TMA stores, fusing the activation quantize into the producer.
-// int8_conv3x3 (igemm.cuh): an implicit GEMM on mma.sync m16n8k32 that
-// reads its im2col in place from the NHWC image, with split K through a
-// workspace and a reduce kernel where the tiles are too few (the 8x8
-// convs); a wgmma redesign is later work.
+// int8_conv3x3 (int8_conv_wgmma_kernel below): the same mainloop, ring and
+// epilogues, with the im2col never built. The activation is already
+// int8, so there is no prologue, and the SAME border comes from TMA: for
+// a tile of whole pixel rows (or of a stretch of one row, W > 64 WGS)
+// and each tap (dy, dx), the A tile is one 4-D box of the NHWC image at
+// (c0, x0 + dx - 1, y0 + dy - 1, n0), zero-filled outside the image. B
+// is a 3-D box of the OHWI weight viewed as (C, 9, F). 128-byte boxes
+// along C; where the last chunk holds at most 64 channels its units
+// issue two 32-channel k-steps, not four (steps past C multiply TMA's
+// zeros; the count is a template argument, so that no wgmma sits in a
+// branch, which ptxas would serialise). C % 16 == 0 is kept for the
+// 16-byte strides TMA needs. One or two consumer warpgroups (64 or
+// 128 pixels a tile, BN 160 filters where 160 divides F); too few tiles
+// split the 9 x ceil(C / 128) K units over a cluster, summed in
+// distributed shared memory in rank order as for the matmul. The
+// launch plan (tile, warpgroups, slices) is ops/_igemm.py's.
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
-#include "igemm.cuh"
 
 namespace w8 {
 
@@ -75,9 +90,9 @@ struct Args {
   int octets;                // n % 8 == 0, both 16-byte aligned
 };
 
-template <bool SWAP, int BN>
+template <bool SWAP, int BN, int WGS = SWAP ? 1 : 2>
 struct Shape {
-  static constexpr int kWgs = SWAP ? 1 : 2;  // consumer warpgroups
+  static constexpr int kWgs = WGS;           // consumer warpgroups
   static constexpr int kThreads = 128 * kWgs + 32;  // + one producer warp
   static constexpr int kRowsP = 64 * kWgs;
   static constexpr int kBytesP = kRowsP * KT;
@@ -112,6 +127,13 @@ __device__ __forceinline__ float epilogue(int acc, float rs, float cs,
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), bias);
 }
 
+// The row scale of token `tok`; 1 where there is none (the conv, whose
+// activation scale is folded into col_scale): x * 1 is exact, so the
+// epilogue is then acc * col_scale + bias, each step rounded.
+__device__ __forceinline__ float row_scale(const Args& a, int tok) {
+  return a.row_scale != nullptr ? a.row_scale[tok * a.row_stride] : 1.f;
+}
+
 __device__ __forceinline__ void store(const Args& a, long long idx,
                                       float v) {
   if (a.out_bf16) {
@@ -138,15 +160,16 @@ __device__ __forceinline__ void store2(const Args& a, long long idx,
 
 // Straight from the accumulators (one block per tile, no split): a
 // thread holds two neighbouring Q rows of each of its two P rows. The
-// scales and biases are read once a tile, or once a column pair.
-template <bool SWAP, int BN>
+// scales and biases are read once a tile, or once a column pair. Output
+// rows (tokens) at or past tok_end are not stored.
+template <bool SWAP, int BN, int WGS = SWAP ? 1 : 2>
 __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
-                                           int p0, int q0,
+                                           int p0, int q0, int tok_end,
                                            __nv_bfloat16* stg) {
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
   const int pr0 = p0 + (threadIdx.x / 128) * 64 + (t / 32) * 16 + lane / 4;
-  const int p_rows = SWAP ? a.n : a.m;
+  const int p_rows = SWAP ? a.n : tok_end;
   // per P row h: the row scale (tokens) or column scale and bias (the
   // swapped tile's channels)
   float ps[2], pb[2];
@@ -157,7 +180,7 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
       ps[h] = a.col_scale[pr];
       pb[h] = a.bias[pr];
     } else {
-      ps[h] = a.row_scale[pr * a.row_stride];
+      ps[h] = row_scale(a, pr);
       pb[h] = 0.f;
     }
   }
@@ -165,10 +188,10 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
   for (int j = 0; j < BN / 8; ++j) {
     const int qr = q0 + 8 * j + 2 * (lane % 4);
     if (SWAP) {  // Q rows are tokens: out[qr + e][pr]
-      if (qr >= a.m) continue;
-      const bool two = qr + 1 < a.m;
-      const float rs0 = a.row_scale[qr * a.row_stride];
-      const float rs1 = two ? a.row_scale[(qr + 1) * a.row_stride] : 0.f;
+      if (qr >= tok_end) continue;
+      const bool two = qr + 1 < tok_end;
+      const float rs0 = row_scale(a, qr);
+      const float rs1 = two ? row_scale(a, qr + 1) : 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int pr = pr0 + 8 * h;
@@ -188,7 +211,7 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
       for (int h = 0; h < 2; ++h) {
         const int r = pr0 - p0 + 8 * h;
         *reinterpret_cast<__nv_bfloat162*>(
-            stg + r * Shape<SWAP, BN>::kStgPitch + qr - q0) =
+            stg + r * Shape<SWAP, BN, WGS>::kStgPitch + qr - q0) =
             __floats2bfloat162_rn(
                 epilogue(acc[4 * j + 2 * h], ps[h], cs.x, bs.x),
                 epilogue(acc[4 * j + 2 * h + 1], ps[h], cs.y, bs.y));
@@ -207,7 +230,7 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int pr = pr0 + 8 * h;
-        if (pr >= a.m) continue;
+        if (pr >= tok_end) continue;
         const long long idx = (long long)pr * a.n + qr;
         const float v0 = epilogue(acc[4 * j + 2 * h], ps[h], cs.x, bs.x);
         if (two) {
@@ -220,12 +243,12 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
     }
   }
   if (!SWAP && stg != nullptr) {
-    using S = Shape<SWAP, BN>;
+    using S = Shape<SWAP, BN, WGS>;
     named_sync(1, 128 * S::kWgs);  // the tile is staged
     for (int u = threadIdx.x; u < S::kRowsP * (BN / 8); u += 128 * S::kWgs) {
       const int r = u / (BN / 8);
       const int c = 8 * (u - r * (BN / 8));
-      if (p0 + r < a.m && q0 + c < a.n) {
+      if (p0 + r < tok_end && q0 + c < a.n) {
         *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.out) +
                                   (long long)(p0 + r) * a.n + q0 + c) =
             *reinterpret_cast<const uint4*>(stg + r * S::kStgPitch + c);
@@ -237,12 +260,14 @@ __device__ __forceinline__ void store_tile(const Args& a, const int* acc,
 // Split K over a cluster: each block leaves its int32 partial tile in
 // shared memory (over the drained ring); after a cluster barrier every
 // block sums its share of the tile over the cluster's blocks in rank
-// order, 8 channels of a token at a time, and stores it.
-template <bool SWAP, int BN>
+// order, 8 channels of a token at a time, and stores it (tokens before
+// tok_end).
+template <bool SWAP, int BN, int WGS = SWAP ? 1 : 2>
 __device__ __forceinline__ void reduce_tile(const Args& a, const int* acc,
                                             int* part, int p0, int q0,
-                                            int rank, int slices) {
-  using S = Shape<SWAP, BN>;
+                                            int tok_end, int rank,
+                                            int slices) {
+  using S = Shape<SWAP, BN, WGS>;
   constexpr int kConsumers = 128 * S::kWgs;
   named_sync(1, kConsumers);  // every consumer is done with the ring
   const int t = threadIdx.x % 128;
@@ -272,7 +297,7 @@ __device__ __forceinline__ void reduce_tile(const Args& a, const int* acc,
     const int c8 = u - r * (S::kCh / 8);
     const int tok = tok0 + r;
     const int ch = ch0 + 8 * c8;
-    if (tok >= a.m || ch >= a.n) continue;
+    if (tok >= tok_end || ch >= a.n) continue;
     const int* src = part + r * S::kPitch + 8 * c8;
     int sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     for (int q = 0; q < slices; ++q) {
@@ -281,7 +306,7 @@ __device__ __forceinline__ void reduce_tile(const Args& a, const int* acc,
       sum[0] += lo4.x; sum[1] += lo4.y; sum[2] += lo4.z; sum[3] += lo4.w;
       sum[4] += hi4.x; sum[5] += hi4.y; sum[6] += hi4.z; sum[7] += hi4.w;
     }
-    const float rs = a.row_scale[tok * a.row_stride];
+    const float rs = row_scale(a, tok);
     float cs[8], bs[8], v[8];
     if (a.octets) {  // ch + 8 <= n, 16-byte aligned
       *reinterpret_cast<float4*>(cs) =
@@ -415,13 +440,13 @@ __global__ void __launch_bounds__(Shape<SWAP, BN>::kThreads, 1)
       // the staging buffer is free once every consumer passes here
       const bool staged = !SWAP && a.out_bf16 && a.octets;
       if (staged) named_sync(1, kConsumers);
-      store_tile<SWAP, BN>(a, acc, p0, q0,
+      store_tile<SWAP, BN>(a, acc, p0, q0, a.m,
                            staged ? reinterpret_cast<__nv_bfloat16*>(
                                         smem + S::kRing)
                                   : nullptr);
     } else {
       reduce_tile<SWAP, BN>(a, acc, reinterpret_cast<int*>(smem), p0, q0,
-                            rank, slices);
+                            a.m, rank, slices);
     }
   }
 }
@@ -455,6 +480,164 @@ cudaError_t launch(const void* x, const void* wt, const Args& a, int k,
   return launch_cluster(int8_matmul_wgmma_kernel<SWAP, BN>, grid,
                         S::kThreads, S::kSmem, slices, stream, map_p, map_q,
                         a);
+}
+
+// -- int8 conv3x3 -------------------------------------------------------------
+
+// A conv launch's geometry (ops/_igemm.py::int8_conv_plan). A pixel
+// tile is `imgs` images x `rows` image rows x `cols` pixels of a row, at
+// most 64 WGS pixels, consecutive in NHWC order: either whole rows (cols
+// == W; imgs > 1 only with rows == H) or one stretch of a row (rows ==
+// imgs == 1).
+struct ConvGeo {
+  int batch, h, w, c;
+  int imgs, rows, cols;
+  int gi, gy, gx;  // pixel tiles along the batch, the rows, the columns
+  int units;       // K units: 9 taps x ceil(C / 128) channel chunks
+};
+
+// K unit u: channel chunk u / 9, tap u % 9 = 3 dy + dx.
+// blockIdx as in int8_matmul_wgmma_kernel (x: tile, or the persistent
+// grid; z: K slice). The producer loads, for each K unit, the tile's
+// pixels shifted by the tap as one 4-D box of the NHWC image (channels,
+// W, H, B) at (c0, x0 + dx - 1, y0 + dy - 1, n0): coordinates outside
+// the image, negative ones too, are zero-filled, which is the SAME
+// border. The weight tile is a 3-D box of the OHWI weight viewed as (C,
+// 9, F): 128 channels of one tap for BN filters.
+// TAIL: the 32-channel k-steps issued for the units of the last channel
+// chunk (2 where C % 128 is 1..64, else 4; steps past C multiply zeros).
+// Full-chunk and tail units run in two loops, each with a fixed count of
+// wgmma, so that none sits in a branch (ptxas serialises those).
+template <int BN, int WGS, int TAIL>
+__global__ void __launch_bounds__(Shape<false, BN, WGS>::kThreads, 1)
+    int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_w,
+                           Args a, ConvGeo g) {
+  using S = Shape<false, BN, WGS>;
+  constexpr int kConsumers = 128 * S::kWgs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + STAGES;
+
+  const int q_tiles = (a.n + BN - 1) / BN;
+  const int tiles = g.gi * g.gy * g.gx * q_tiles;
+  const int slices = gridDim.z;
+  const int rank = blockIdx.z;
+  const int u0 = rank * g.units / slices;
+  const int u1 = (rank + 1) * g.units / slices;
+  const int pixels = g.imgs * g.rows * g.cols;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int pt = tile / q_tiles;
+        const int q0 = tile % q_tiles * BN;
+        const int x0 = pt % g.gx * g.cols;
+        const int y0 = pt / g.gx % g.gy * g.rows;
+        const int n0 = pt / (g.gx * g.gy) * g.imgs;
+        for (int u = u0; u < u1; ++u, ++it) {
+          const int s = it % STAGES;
+          const int tap = u % 9;
+          if (it >= STAGES) bar_wait(&empty[s], (it / STAGES - 1) & 1);
+          unsigned char* st = smem + s * S::kStage;
+          bar_expect(&full[s], pixels * KT + BN * KT);
+          tma_load_4d(st, &map_x, &full[s], u / 9 * KT, x0 + tap % 3 - 1,
+                      y0 + tap / 3 - 1, n0);
+          tma_load_3d(st + S::kBytesP, &map_w, &full[s], u / 9 * KT, tap, q0);
+        }
+      }
+    }
+    if (slices > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  // units before the tail chunk's (all of them when TAIL == 4)
+  const int u_tail = TAIL == KT / 32 ? u1 : max(u0, min(u1, g.units - 9));
+  int acc[BN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int pt = tile / q_tiles;
+    const int q0 = tile % q_tiles * BN;
+    const int x0 = pt % g.gx * g.cols;
+    const int y0 = pt / g.gx % g.gy * g.rows;
+    const int n0 = pt / (g.gx * g.gy) * g.imgs;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    fence_regs(acc);
+    // one K unit: NK k-steps of 32 channels on the stage it landed in
+    auto unit = [&](int u, auto nk) {
+      const int s = it % STAGES;
+      bar_wait(&full[s], (it / STAGES) & 1);
+      unsigned char* st = smem + s * S::kStage;
+      const uint64_t dp = desc_sw128(st + wg * 64 * KT);
+      const uint64_t dq = desc_sw128(st + S::kBytesP);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < decltype(nk)::value; ++ks) {
+        mma_ss(acc, desc_add(dp, ks * 32), desc_add(dq, ks * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (u > u0) bar_arrive(&empty[(it - 1) % STAGES]);
+    };
+    for (int u = u0; u < u_tail; ++u, ++it) {
+      unit(u, std::integral_constant<int, KT / 32>());
+    }
+    for (int u = u_tail; u < u1; ++u, ++it) {
+      unit(u, std::integral_constant<int, TAIL>());
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    bar_arrive(&empty[(it - 1) % STAGES]);
+    // the tile's pixels are output rows p0 .. p0 + valid - 1
+    const int p0 = ((n0 * g.h) + y0) * g.w + x0;
+    const int valid =
+        g.imgs > 1 ? min(g.imgs, g.batch - n0) * g.h * g.w
+        : g.cols < g.w ? min(g.cols, g.w - x0)
+                       : min(g.rows, g.h - y0) * g.w;
+    if (slices == 1) {
+      const bool staged = a.out_bf16 && a.octets;
+      if (staged) named_sync(1, kConsumers);
+      store_tile<false, BN, WGS>(
+          a, acc, p0, q0, p0 + valid,
+          staged ? reinterpret_cast<__nv_bfloat16*>(smem + S::kRing)
+                 : nullptr);
+    } else {
+      reduce_tile<false, BN, WGS>(a, acc, reinterpret_cast<int*>(smem), p0,
+                                  q0, p0 + valid, rank, slices);
+    }
+  }
+}
+
+template <int BN, int WGS, int TAIL>
+cudaError_t launch_conv(const CUtensorMap& mx, const CUtensorMap& mw,
+                        const Args& a, const ConvGeo& g, int slices,
+                        int blocks, cudaStream_t stream) {
+  using S = Shape<false, BN, WGS>;
+  const int tiles = g.gi * g.gy * g.gx * ((a.n + BN - 1) / BN);
+  if (blocks < 1 || blocks > tiles || (slices > 1 && blocks != tiles) ||
+      g.imgs * g.rows * g.cols > S::kRowsP) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_cluster(int8_conv_wgmma_kernel<BN, WGS, TAIL>,
+                        dim3(blocks, 1, slices), S::kThreads, S::kSmem,
+                        slices, stream, mx, mw, a, g);
 }
 
 }  // namespace w8
@@ -504,31 +687,68 @@ extern "C" int cassmantle_int8_matmul(const void* x, const void* wt,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (B, H, W, C) int8 NHWC, w (F, 3, 3, C) int8, col_scale and bias (F,)
-// fp32, out (B, H, W, F) bf16 (out_bf16) or fp32; ws (splits, B*H*W, F)
-// int32 when splits > 1. Needs C % 16 == 0. Returns a cudaError_t.
+// x (B, H, W, C) int8 NHWC, w (F, 3, 3, C) int8 (OHWI), both 16-byte
+// aligned; col_scale and bias (F,) fp32, out (B, H, W, F) bf16 (out_bf16)
+// or fp32. The launch plan comes from the caller
+// (ops/_igemm.py::int8_conv_plan): the consumer warpgroups wgs (64
+// pixels each), the filters a tile bn, the pixel tile (imgs images x
+// rows rows x cols columns), the K slices of one cluster (1 to 8) and
+// the blocks along x. Needs C % 16 == 0. Returns a cudaError_t.
 extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
                                        const void* col_scale,
                                        const void* bias, void* out,
-                                       int out_bf16, void* ws, int batch,
-                                       int h, int width, int c, int f,
-                                       int splits, void* stream) {
-  if (batch < 1 || h < 1 || width < 1 || c < 16 || c % 16 || f < 1) {
+                                       int out_bf16, int batch, int h,
+                                       int width, int c, int f, int wgs,
+                                       int bn, int imgs, int rows, int cols,
+                                       int slices, int blocks, void* stream) {
+  const int chunks = (c + w8::KT - 1) / w8::KT;
+  if (batch < 1 || h < 1 || width < 1 || c < 16 || c % 16 || f < 1 ||
+      imgs < 1 || rows < 1 || cols < 1 || (imgs > 1 && rows != h) ||
+      (cols < width && (rows > 1 || imgs > 1)) || cols > width ||
+      rows > h || imgs > batch || slices < 1 || slices > 8 ||
+      slices > 9 * chunks || bias == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  igemm::Params p{};
-  p.x = x;
-  p.w = w;
-  p.col_scale = static_cast<const float*>(col_scale);
-  p.bias = static_cast<const float*>(bias);
-  p.out = out;
-  p.out_bf16 = out_bf16;
-  p.ws = ws;
-  p.m = batch * h * width;
-  p.n = f;
-  p.k = c;
-  p.img_h = h;
-  p.img_w = width;
-  p.k_tiles = 9 * ((c + igemm::BKB - 1) / igemm::BKB);
-  return (int)igemm::run_conv(p, splits, static_cast<cudaStream_t>(stream));
+  CUtensorMap map_x, map_w;
+  const uint64_t xd[4] = {(uint64_t)c, (uint64_t)width, (uint64_t)h,
+                          (uint64_t)batch};
+  const uint64_t xs[3] = {(uint64_t)c, (uint64_t)width * c,
+                          (uint64_t)h * width * c};
+  const uint32_t xb[4] = {w8::KT, (uint32_t)cols, (uint32_t)rows,
+                          (uint32_t)imgs};
+  const uint64_t wd[3] = {(uint64_t)c, 9, (uint64_t)f};
+  const uint64_t ws[2] = {(uint64_t)c, (uint64_t)c * 9};
+  const uint32_t wb[3] = {w8::KT, 1, (uint32_t)bn};
+  if (!hopper::encode_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, x, xd,
+                          xs, xb, true) ||
+      !hopper::encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, wd,
+                          ws, wb, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uintptr_t sb = reinterpret_cast<uintptr_t>(col_scale) |
+                       reinterpret_cast<uintptr_t>(bias);
+  const int m = batch * h * width;
+  w8::Args a{nullptr, 0, static_cast<const float*>(col_scale),
+             static_cast<const float*>(bias), out, out_bf16, m, f, 9 * chunks,
+             f % 2 == 0 && sb % 8 == 0, f % 8 == 0 && sb % 16 == 0};
+  const w8::ConvGeo g{batch, h, width, c, imgs, rows, cols,
+                      (batch + imgs - 1) / imgs, (h + rows - 1) / rows,
+                      (width + cols - 1) / cols, 9 * chunks};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tail = c % w8::KT == 0 || c % w8::KT > 64 ? 4 : 2;
+#define CASSMANTLE_INT8_CONV(BN, WGS, TAIL)                                 \
+  if (bn == BN && wgs == WGS && tail == TAIL) {                             \
+    return (int)w8::launch_conv<BN, WGS, TAIL>(map_x, map_w, a, g, slices,  \
+                                               blocks, s);                  \
+  }
+  CASSMANTLE_INT8_CONV(160, 2, 4)
+  CASSMANTLE_INT8_CONV(160, 2, 2)
+  CASSMANTLE_INT8_CONV(160, 1, 4)
+  CASSMANTLE_INT8_CONV(160, 1, 2)
+  CASSMANTLE_INT8_CONV(128, 2, 4)
+  CASSMANTLE_INT8_CONV(128, 2, 2)
+  CASSMANTLE_INT8_CONV(128, 1, 4)
+  CASSMANTLE_INT8_CONV(128, 1, 2)
+#undef CASSMANTLE_INT8_CONV
+  return (int)cudaErrorInvalidValue;
 }

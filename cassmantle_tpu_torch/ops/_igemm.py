@@ -6,8 +6,10 @@ that the CPU tests reach it:
 - :func:`conv_plan` for the fused GroupNorm + SiLU + conv3x3 on wgmma
   (``csrc/fused_conv.cu``, kernel 2): image rows or images a block and
   the channel-chunk slices of one cluster;
-- :func:`split_k` for the int8 conv3x3 on mma.sync (``csrc/igemm.cuh``,
-  kernel 4), whose split K goes through a workspace.
+- :func:`int8_conv_plan` for the int8 conv3x3 on wgmma
+  (``csrc/int8_gemm.cu``, kernel 4): the pixel tile that one TMA box per
+  tap brings, the consumer warpgroups, the filter width and the K slices
+  of one cluster.
 
 The wrappers read their plan here and the C functions take what it
 decides; the constants mirror the sources'.
@@ -20,16 +22,11 @@ from typing import NamedTuple
 
 import torch
 
-# kernel 4 (igemm.cuh): one block's output tile (rows x columns) and the
-# width of a K tile in bytes: BM, BN and BKB.
-BLOCK_M = 128
-BLOCK_N = 128
-K_TILE_BYTES = 64
-
-# kernels 2 and 3 (wgmma): rows of one consumer warpgroup, the most
-# blocks of one cluster (the portable limit), kernel 3's K tile in bytes
-# and its token tiles on the swapped path, kernel 2's channel chunk,
-# output channels a block, pixels a block and halo positions.
+# kernels 2 to 4 (wgmma): rows of one consumer warpgroup, the most
+# blocks of one cluster (the portable limit), kernel 3's and 4's K tile
+# in bytes and kernel 3's token tiles on the swapped path, kernel 2's
+# channel chunk, output channels a block, pixels a block and halo
+# positions.
 WGMMA_M = 64
 MAX_CLUSTER = 8
 MATMUL_K_TILE = 128
@@ -46,20 +43,6 @@ def sm_count(device: torch.device) -> int:
     """The number of SMs of ``device`` (132 on an H100 SXM, 114 on an
     H100 PCIe)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def split_k(m: int, n: int, k_tiles: int, device: torch.device,
-            min_k_tiles: int = 4, max_splits: int = 16) -> int:
-    """Kernel 4: how many slices the K loop of an (m, n) implicit GEMM
-    on ``device`` splits into: 1 when its output tiles already fill the
-    card's SMs, else enough slices for about two blocks per SM, each at
-    least ``min_k_tiles`` K tiles long."""
-    sms = sm_count(device)
-    tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N)
-    if tiles >= sms:
-        return 1
-    return max(1, min(max_splits, -(-2 * sms // tiles),
-                      k_tiles // min_k_tiles))
 
 
 def cluster_slices(tiles: int, k_units: int, sms: int) -> int:
@@ -136,3 +119,53 @@ def conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
     tiles = groups * -(-f // CONV_BN)
     return ConvPlan(th, imgs, tiles,
                     cluster_slices(tiles, -(-c // CONV_CHUNK), sms))
+
+
+class Int8ConvPlan(NamedTuple):
+    wgs: int        # consumer warpgroups: 64 pixels each
+    bn: int         # filters a tile (wgmma N)
+    imgs: int       # the pixel tile: images,
+    rows: int       # image rows
+    cols: int       # and pixels of a row (W, or a stretch of one row)
+    tiles: int      # output tiles: pixel tiles x filter tiles
+    k_units: int    # 9 taps x ceil(C / 128) channel chunks
+    slices: int     # blocks of one cluster along the K units
+    grid: int       # blocks along x: every tile when split, else a
+                    # persistent grid of at most one block per SM
+
+
+def conv_pixel_tile(b: int, h: int, w: int, pixels: int):
+    """(imgs, rows, cols) of a pixel tile of at most ``pixels`` that one
+    4-D TMA box (channels, W, H, B) per tap brings, its pixels
+    consecutive in NHWC order: a stretch of one row where W alone fills
+    it, else whole rows, and whole images where H rows fit."""
+    if w >= pixels:
+        return 1, 1, pixels
+    rows = min(h, pixels // w)
+    imgs = min(b, pixels // (h * w)) if rows == h else 1
+    return imgs, rows, w
+
+
+def int8_conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
+                   ) -> Int8ConvPlan:
+    """Kernel 4's launch for x (b, h, w, c) int8 and f filters on a card
+    of ``sms`` SMs: 160 filters a tile where 160 divides f, else 128;
+    pixel tiles of 128 (two consumer warpgroups) or 64 (one), whichever
+    puts more blocks on the card (within 1/8 of each other the larger
+    tile, which streams the weight half as often); where the tiles are
+    too few, a cluster splits the K units (``cluster_slices``)."""
+    bn = 160 if f % 160 == 0 else 128
+    k_units = 9 * -(-c // MATMUL_K_TILE)
+    best, best_blocks = None, 0
+    for wgs in (2, 1):
+        imgs, rows, cols = conv_pixel_tile(b, h, w, wgs * WGMMA_M)
+        tiles = (-(-b // imgs) * -(-h // rows) * -(-w // cols)
+                 * -(-f // bn))
+        slices = cluster_slices(tiles, k_units, sms)
+        grid = tiles if slices > 1 else min(tiles, sms)
+        blocks = grid * slices
+        if best is None or blocks * 8 > best_blocks * 9:
+            best = Int8ConvPlan(wgs, bn, imgs, rows, cols, tiles, k_units,
+                                slices, grid)
+            best_blocks = blocks
+    return best

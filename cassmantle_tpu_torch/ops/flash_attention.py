@@ -3,10 +3,13 @@
 Port of ``cassmantle_tpu/ops/flash_attention.py``. The TPU module has
 three entry points over one Pallas kernel (self attention, ragged cross
 attention with a ``kv_len`` mask, and the wide-head VAE variant at
-512-blocks); here one CUDA kernel (``csrc/flash_attention.cu``) serves all
-three, and :func:`flash_attention` is the single entry point:
+512-blocks); here ``csrc/flash_attention.cu`` serves all three, and
+:func:`flash_attention` is the single entry point:
 
-- on a CUDA tensor it launches the kernel (bf16 only) or raises;
+- on a CUDA tensor it launches a kernel (bf16 only) or raises: the
+  warp-specialised wgmma kernel for every UNet shape, the mma.sync kernel
+  for D = 512 and for layouts TMA cannot describe
+  (``_flash_plan.flash_plan`` decides by shape, never on failure);
 - on a CPU tensor it runs :func:`flash_attention_plain`, the same function
   with the same casts in plain PyTorch.
 
@@ -22,8 +25,15 @@ from typing import Optional
 
 import torch
 
+from cassmantle_tpu_torch.ops._flash_plan import (
+    MAX_HEAD_DIM,
+    WGMMA,
+    flash_plan,
+    tma_layout_ok,
+)
+from cassmantle_tpu_torch.ops._igemm import sm_count
+
 SOURCE = "flash_attention.cu"
-MAX_HEAD_DIM = 512
 _NEG_INF = -1e30
 
 
@@ -44,11 +54,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / denom).to(q.dtype)
 
 
-def _library():
+def _library(path: str):
     from cassmantle_tpu_torch.ops import _build
 
     lib = _build.load(SOURCE)
-    fn = lib.cassmantle_flash_attention_bf16
+    wgmma = path == WGMMA
+    fn = (lib.cassmantle_flash_attention_wgmma if wgmma
+          else lib.cassmantle_flash_attention_bf16)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = (
@@ -56,6 +68,7 @@ def _library():
             + [ctypes.c_int] * 5
             + [ctypes.c_float]
             + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * (4 if wgmma else 0)
             + [ctypes.c_void_p]
         )
     return fn
@@ -101,26 +114,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, kv_len)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    plan = flash_plan(b, sq, h, d, sm_count(q.device),
+                      all(tma_layout_ok(t.shape, t.stride(), t.data_ptr())
+                          for t in (q, k, v)), float(scale))
+    tail = ((plan.np, plan.bk, plan.stages, plan.consumers)
+            if plan.path == WGMMA else ())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library()(
+    err = _library(plan.path)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, sq, d, kv_len, float(scale),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        stream)
+        *tail, stream)
     if err != 0:
-        raise RuntimeError(f"flash attention launch failed: cudaError {err} "
-                           f"(q {tuple(q.shape)}, k {tuple(k.shape)})")
+        raise RuntimeError(f"flash attention ({plan.path}) launch failed: "
+                           f"cudaError {err} (q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)})")
     flash_attention.launches += 1
     flash_attention.shapes[(b, sq, kv_len, h, d)] += 1
+    flash_attention.paths[plan.path] += 1
     return out
 
 
-# Launch counters, written only where the kernel launches: the total, and
-# the tally per (B, Sq, kv_len, H, D). Callers reset them to measure a run.
+# Launch counters, written only where a kernel launches: the total, the
+# tally per (B, Sq, kv_len, H, D) and per path. Callers reset them to
+# measure a run.
 flash_attention.launches = 0
 flash_attention.shapes = collections.Counter()
+flash_attention.paths = collections.Counter()
 
 
 def reset_counters() -> None:
     flash_attention.launches = 0
     flash_attention.shapes.clear()
+    flash_attention.paths.clear()

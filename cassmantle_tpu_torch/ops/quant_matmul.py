@@ -40,10 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from cassmantle_tpu_torch.ops._igemm import (
-    K_TILE_BYTES,
+    int8_conv_plan,
     matmul_plan,
     sm_count,
-    split_k,
 )
 from cassmantle_tpu_torch.ops.fused_conv import check_aligned16, round_up
 from cassmantle_tpu_torch.ops.quant import (
@@ -81,8 +80,7 @@ def _library(name: str):
                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                           + [ctypes.c_void_p] + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                            + [ctypes.c_void_p])
     return fn
 
@@ -213,16 +211,14 @@ def int8_conv3x3(x_q: torch.Tensor, kernel: torch.Tensor,
     w_ohwi = kernel.permute(3, 0, 1, 2).contiguous()
     col = col_scale.float().reshape(f).contiguous()
     b = bias.float().reshape(f).contiguous()
+    check_aligned16(x_q=x_q, weight=w_ohwi)
     out = torch.empty((bsz, h, w, f), dtype=out_dtype, device=x_q.device)
-    m = bsz * h * w
-    splits = split_k(m, f, 9 * -(-c // K_TILE_BYTES), x_q.device)
-    ws = (torch.empty((splits, m, f), dtype=torch.int32, device=x_q.device)
-          if splits > 1 else None)
+    plan = int8_conv_plan(bsz, h, w, c, f, sm_count(x_q.device))
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     err = _library("cassmantle_int8_conv3x3")(
         x_q.data_ptr(), w_ohwi.data_ptr(), col.data_ptr(), b.data_ptr(),
-        out.data_ptr(), _OUT_DTYPES[out_dtype],
-        None if ws is None else ws.data_ptr(), bsz, h, w, c, f, splits,
+        out.data_ptr(), _OUT_DTYPES[out_dtype], bsz, h, w, c, f, plan.wgs,
+        plan.bn, plan.imgs, plan.rows, plan.cols, plan.slices, plan.grid,
         stream)
     if err != 0:
         raise RuntimeError(f"int8 conv launch failed: cudaError {err} "

@@ -15,7 +15,9 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    conv3x3, the int8 matmul, the int8 conv3x3) against its plain PyTorch
    version at every shape the main paths give it, and times the kernel,
    the plain version and one PyTorch library call (a yardstick the port
-   never calls) beside the card's bound for the work;
+   never calls) beside the card's bound for the work (for flash
+   attention also the floor its exponentials set, and the kernel path
+   each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
    weights and inputs (default, fused-conv and W8A8), and checks that
    images, prompt tokens, scores and blur agree;
@@ -200,6 +202,25 @@ def flash_agreement(out, ref) -> dict:
                 ok=max_abs <= limit and rel_rms <= FLASH_RMS_REL)
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+# exponentials a clock of one SM: 16 special-function lanes (ex2)
+EX2_PER_SM_CLOCK = 16
+
+
+def flash_exp_floor_ms(b, sq, sk, h, sms, clock_mhz):
+    """The least time the B*H*Sq*Sk exponentials of the online softmax
+    take on the SMs' special-function units at the highest clock."""
+    return b * h * sq * sk / (sms * EX2_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+
+
 def flash_bound(b, sq, sk, h, d):
     """(bound ms, 'bytes' or 'operations', flops, bytes): 4*B*H*Sq*Sk*D
     FLOPs at the bf16 peak; q, k, v, o read or written once."""
@@ -211,21 +232,29 @@ def flash_bound(b, sq, sk, h, d):
 
 
 def check_flash_kernel():
-    """Kernel vs plain at every main-path shape; returns per-shape rows."""
+    """Kernel vs plain at every main-path shape; returns per-shape rows,
+    each with the kernel path the shape took (wgmma or mma.sync) and the
+    floor of its exponentials."""
     import torch
     import torch.nn.functional as F
 
     from cassmantle_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        reset_counters,
     )
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_mhz()
     for name, (b, sq, sk, h, d, layout) in FLASH_SHAPES.items():
         q, k, v = flash_inputs(b, sq, sk, h, d, layout, gen)
+        reset_counters()
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
+        (path,) = flash_attention.paths
+        exp_ms = flash_exp_floor_ms(b, sq, sk, h, sms, clock)
         ref = flash_attention_plain(q, k, v)
         agree = flash_agreement(out, ref)
         finite = bool(torch.isfinite(out).all())
@@ -237,19 +266,21 @@ def check_flash_kernel():
             lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
         bound_ms, bound_by, flops, nbytes = flash_bound(b, sq, sk, h, d)
         rows[name] = dict(
-            shape=[b, sq, sk, h, d], max_abs_err=agree["max_abs_err"],
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-            mbytes=nbytes / 1e6, ok=finite and agree["ok"])
+            shape=[b, sq, sk, h, d], path=path,
+            max_abs_err=agree["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            exp_floor_ms=exp_ms, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+            ok=finite and agree["ok"])
         print(f"[kernel] flash_attention {name} (B, Sq, Sk, H, D)="
-              f"{(b, sq, sk, h, d)}: max_abs_err "
+              f"{(b, sq, sk, h, d)} path {path}: max_abs_err "
               f"{agree['max_abs_err']:.3e} (limit {agree['max_limit']:.3e}, "
               f"{agree['max_share']:.2f} of it), rel_rms_err "
               f"{agree['rel_rms_err']:.3e} ({agree['rms_share']:.2f} of "
               f"{FLASH_RMS_REL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB) -> "
+              f"{nbytes / 1e6:.2f} MB), exp floor {exp_ms * 1e3:.2f} us "
+              f"({clock:.0f} MHz) -> "
               f"{'pass' if rows[name]['ok'] else 'FAIL'}", flush=True)
         del q, k, v, out, ref, qt, kt, vt
         torch.cuda.empty_cache()
@@ -395,10 +426,24 @@ def check_int8_matmul_kernel():
     return rows
 
 
+def int8_im2col(x_q):
+    """(B*H*W, 9*C) int8: the nine SAME-padded taps of each pixel, tap
+    by tap, for the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, c = x_q.shape
+    xp = F.pad(x_q, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(b * h * w, 9 * c)
+
+
 def check_int8_conv_kernel():
     """Kernel 4 vs plain at the 14 ResBlock conv shapes, int8 operands
     uniform in [-127, 127], the weight in OHWI memory, bf16 out. No single
-    PyTorch call computes an int8 conv: library "none"."""
+    PyTorch call computes an int8 conv; the library yardstick is
+    torch._int_mm on an im2col built beforehand (M = B*H*W, K = 9C, N =
+    F): the int32 product alone, im2col prebuilt."""
     import torch
 
     from cassmantle_tpu_torch.ops.quant_matmul import (
@@ -422,13 +467,17 @@ def check_int8_conv_kernel():
         agree = exact_agreement(out, int8_conv3x3_plain(*args))
         ms = time_ms(lambda: int8_conv3x3(*args), 20)
         plain_ms = time_ms(lambda: int8_conv3x3_plain(*args), 2)
+        cols = int8_im2col(x_q)
+        w_kn = kernel.permute(3, 0, 1, 2).reshape(f, 9 * c).t()
+        library_ms = time_ms(lambda: torch._int_mm(cols, w_kn), 20)
         m = b * h * w
         ops = 18 * m * c * f
         nbytes = m * c + 9 * c * f + 2 * m * f + 8 * f
         rows[shape] = report_row(
             "int8_conv3x3", "(B, H, W, C, F)", shape, agree, ms, plain_ms,
-            None, "", ops, nbytes, PEAK_INT8_OPS)
-        del x_q, kernel, col, bias, out, args
+            library_ms, "torch._int_mm (int32 product alone, im2col "
+            "prebuilt)", ops, nbytes, PEAK_INT8_OPS)
+        del x_q, kernel, col, bias, out, args, cols, w_kn
         torch.cuda.empty_cache()
     return rows
 
@@ -849,21 +898,24 @@ def run_round(card: str, preset: str, cfg):
 
 # profiler kernel names -> the kernel they belong to
 KERNEL_PATTERNS = (
-    ("flash_attention", re.compile(r"flash_fwd_kernel")),
+    ("flash_attention", re.compile(r"flash_wgmma_kernel|flash_fwd_kernel")),
     ("int8_matmul", re.compile(r"int8_matmul_wgmma_kernel")),
-    ("int8_conv3x3", re.compile(r"int8_conv_(kernel|splitk_reduce)")),
+    ("int8_conv3x3", re.compile(r"int8_conv_wgmma_kernel")),
     ("gn_silu_conv3x3", re.compile(r"gn_conv_wgmma_kernel")),
 )
 # the wgmma kernels: no spills, and warpgroup MMA instructions in SASS
-WGMMA_KERNELS = re.compile(r"int8_matmul_wgmma_kernel|gn_conv_wgmma_kernel")
+WGMMA_KERNELS = re.compile(r"int8_matmul_wgmma_kernel|gn_conv_wgmma_kernel"
+                           r"|flash_wgmma_kernel|int8_conv_wgmma_kernel")
 
 
 def kernel_build_report(libs) -> list:
     """One [ptxas] line per kernel of each library (registers, shared
     memory, spills, from the build's -Xptxas -v report) and, where the
     toolkit has cuobjdump, one [sass] line with its count of warpgroup
-    MMA instructions (HGMMA, IGMMA). Fails if a wgmma kernel spills or,
-    with cuobjdump, issues no warpgroup MMA."""
+    MMA instructions (HGMMA, IGMMA). Fails if a wgmma kernel spills, if
+    ptxas serialises its wgmma (an info line, C7510-C7520: each wgmma
+    then waits for the last), or, with cuobjdump, if it issues no
+    warpgroup MMA."""
     import os
 
     lines = []
@@ -877,6 +929,11 @@ def kernel_build_report(libs) -> list:
             log = ""
         kernel = None
         for line in log.splitlines():
+            m = re.search(r"wgmma\.mma_async instructions are serialized.*"
+                          r"function '([^']+)'", line)
+            if m and WGMMA_KERNELS.search(m.group(1)):
+                fail(f"ptxas serialises the wgmma of {m.group(1)}: "
+                     f"{line.strip()}")
             m = re.search(r"Function properties for (\S+)", line)
             if m:
                 kernel, spill = m.group(1), ""
@@ -1087,7 +1144,8 @@ def main() -> int:
             "launches": shapes[key], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "ok": r["ok"]})
+            "library_ms": r["library_ms"], "path": r["path"],
+            "exp_floor_ms": r["exp_floor_ms"], "ok": r["ok"]})
     for kernel, preset, source, replaces in (
             ("gn_silu_conv3x3", "fusedconv", FUSED_SOURCE, FUSED_REPLACES),
             ("int8_matmul", "w8a8", INT8_SOURCE, MATMUL_REPLACES),

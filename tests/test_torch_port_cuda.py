@@ -17,7 +17,9 @@ version against the row max, and the two sum in another order. The fused
 conv kernel takes the same limits: both sides round the activated input
 and the output to bf16 and sum 9*C products in fp32 in other orders (its
 SiLU takes tanh.approx, about 2^-11 relative error), so only roundings
-differ. The int8 kernels
+differ. The flash kernel's
+path (wgmma or mma.sync) is checked where the shape or layout decides it.
+The int8 kernels
 sum int32 exactly and round their fp32 epilogue step by step as the plain
 versions do: their outputs must be equal. W8A8 quantization on the card
 (scales and int8 values) must equal the CPU's bit for bit.
@@ -82,12 +84,19 @@ def _qkv(device, b, sq, sk, h, d, seed=0):
     (2, 4096, 4096, 8, 40),     # UNet level 0 self
     (2, 4096, 77, 8, 40),       # level 0 cross (ragged last key tile)
     (2, 1024, 1024, 8, 80),     # level 1 self
+    (2, 1024, 77, 8, 80),       # level 1 cross
+    (2, 256, 256, 8, 160),      # level 2 self: one consumer warpgroup
     (2, 256, 77, 8, 160),       # level 2 cross
     (2, 64, 64, 8, 160),        # mid block self
-    (1, 4096, 4096, 1, 512),    # VAE mid block, wide head
-    (1, 200, 130, 2, 256),      # two warps per row group
+    (2, 64, 77, 8, 160),        # mid block cross
+    (1, 4096, 4096, 1, 512),    # VAE mid block, wide head: mma.sync
+    (1, 200, 130, 2, 256),      # four D boxes
     (1, 100, 33, 3, 24),        # ragged query and key tiles
-    (1, 70, 45, 2, 20),         # D % 8 != 0: element-wise tile loads
+    (1, 70, 45, 2, 20),         # D % 8 != 0: mma.sync, element loads
+    (1, 4095, 129, 2, 40),      # Sq % 128 != 0, kv_len % 128 == 1
+    (2, 100, 1, 2, 32),         # one key
+    (1, 300, 77, 2, 48),        # D 48: zero-filled columns 48..63
+    (1, 150, 200, 2, 72),       # D 72: a second box of 8 columns
 ])
 def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     q, k, v = _qkv(cuda_device, b, sq, sk, h, d)
@@ -96,9 +105,51 @@ def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     torch.cuda.synchronize()
     assert flash_attention.launches == 1
     assert flash_attention.shapes == {(b, sq, sk, h, d): 1}
+    path = "mma.sync" if d % 8 or d > 256 else "wgmma"
+    assert flash_attention.paths == {path: 1}
     ref = flash_attention_plain(q, k, v)
     assert torch.isfinite(out).all()
     assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["self", "cross"])
+@pytest.mark.parametrize("sq,h,d", [(4096, 8, 40), (1024, 8, 80),
+                                    (256, 8, 160), (64, 8, 160)])
+def test_cuda_kernel_fused_projection_views(cuda_device, layout, sq, h, d):
+    """q, k, v as the models hand them over: views of one fused qkv
+    projection (self), or q alone and k, v views of one kv projection of
+    the 77-token context (cross). TMA reads them in place: the wgmma
+    path, no copy."""
+    b, inner = 2, h * d
+    g = torch.Generator(cuda_device).manual_seed(sq + d)
+    kw = dict(generator=g, device=cuda_device, dtype=torch.bfloat16)
+    if layout == "self":
+        q, k, v = torch.randn((b, sq, 3 * inner), **kw).split(inner, dim=-1)
+    else:
+        q = torch.randn((b, sq, inner), **kw)
+        k, v = torch.randn((b, 77, 2 * inner), **kw).split(inner, dim=-1)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+    reset_counters()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.paths == {"wgmma": 1}
+    assert_agrees(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_mma_sync_for_a_misaligned_base(cuda_device):
+    """A q that starts 2 bytes past a 16-byte boundary is no TMA
+    operand: the mma.sync kernel takes it, by layout, and agrees."""
+    b, s, h, d = 1, 130, 2, 40
+    q, k, v = _qkv(cuda_device, b, s, s, h, d)
+    flat = torch.empty((q.numel() + 1,), dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape).copy_(q)
+    reset_counters()
+    out = flash_attention(shifted, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.paths == {"mma.sync": 1}
+    assert_agrees(out, flash_attention_plain(q, k, v))
 
 
 @pytest.mark.cuda
@@ -217,9 +268,14 @@ def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n, per_token,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,f", [
-    (2, 64, 64, 320, 320),
-    (2, 8, 8, 2560, 1280),      # split K
+    (2, 64, 64, 320, 320),      # two warpgroups, C % 128 == 64
+    (2, 8, 8, 2560, 1280),      # both images a tile, a cluster of 8
     (1, 5, 7, 32, 24),          # ragged tiles, C % 64 != 0
+    (2, 32, 32, 640, 640),      # four rows a tile, a cluster of 2
+    (2, 16, 16, 1280, 1280),    # one warpgroup, a cluster of 2
+    (1, 3, 1, 16, 8),           # W 1, H 3, C 16
+    (2, 3, 1, 48, 40),          # W 1, H 3, C 48: both images a tile
+    (1, 4, 130, 16, 8),         # rows wider than a tile
 ])
 def test_cuda_int8_conv_matches_plain(cuda_device, b, h, w, c, f):
     g = torch.Generator(cuda_device).manual_seed(c + f)
@@ -276,6 +332,24 @@ def test_cuda_wgmma_kernels_repeat_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_and_int8_conv_repeat_bit_for_bit(cuda_device):
+    """Flash attention (wgmma, two consumer warpgroups in turn) and the
+    int8 conv (the 8x8 level over a cluster of 8, summed in rank order)
+    give the same bits on a second launch."""
+    q, k, v = _qkv(cuda_device, 2, 1024, 1024, 8, 80)
+    first = flash_attention(q, k, v)
+    assert torch.equal(first, flash_attention(q, k, v))
+    g = torch.Generator(cuda_device).manual_seed(6)
+    x_q = _int8(g, (2, 8, 8, 1280), cuda_device)
+    kernel = _int8(g, (1280, 3, 3, 1280), cuda_device).permute(1, 2, 3, 0)
+    col = torch.full((1280,), 1e-5, device=cuda_device)
+    bias = torch.zeros((1280,), device=cuda_device)
+    first = int8_conv3x3(x_q, kernel, col, bias, out_dtype=torch.float32)
+    assert torch.equal(first, int8_conv3x3(x_q, kernel, col, bias,
+                                           out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
 def test_cuda_wgmma_kernels_refuse_misaligned_operands(cuda_device):
     """TMA reads 16-byte-aligned bases only: an operand that starts
     elsewhere raises before the launch."""
@@ -290,6 +364,10 @@ def test_cuda_wgmma_kernels_refuse_misaligned_operands(cuda_device):
     shifted = flat[1:].view(x.shape).copy_(x)
     with pytest.raises(ValueError, match="aligned"):
         gn_silu_conv3x3(shifted, a, shift, kernel, bias)
+    x8 = _int8(g, (1 * 4 * 4 * 16 + 1,), cuda_device)[1:].view(1, 4, 4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        int8_conv3x3(x8, _int8(g, (3, 3, 16, 8), cuda_device),
+                     one.expand(8), one.expand(8))
 
 
 @pytest.mark.cuda

@@ -254,17 +254,21 @@ def test_fused_slice_images_match_reference(fused_slice_ref):
 
 
 @pytest.mark.parametrize("sms", [132, 114])
-def test_split_k_follows_the_cards_sm_count(monkeypatch, sms):
-    """The implicit-GEMM kernels split K only while their 128x128 output
-    tiles leave SMs idle, for about two blocks per SM of the card at
-    hand, each slice at least 4 K tiles long."""
-    monkeypatch.setattr(_igemm, "sm_count", lambda device: sms)
-    cuda = torch.device("cuda", 0)
-    # 2 x 64 x 64 pixels x 320 channels: 64 x 3 = 192 tiles fill either card
-    assert _igemm.split_k(8192, 320, 90, cuda) == 1
-    # 2 x 8 x 8 pixels x 1280 channels: 10 tiles, up to 16 slices
-    assert _igemm.split_k(128, 1280, 9 * 40, cuda) == min(16,
-                                                          -(-2 * sms // 10))
-    # a short K loop caps the slices: 12 K tiles allow 3
-    assert _igemm.split_k(128, 1280, 12, cuda) == 3
-    assert _igemm.split_k(1, 768, 2, cuda) == 1
+def test_split_k_follows_the_cards_sm_count(sms):
+    """The int8 conv splits K, over a thread-block cluster, only while
+    its output tiles leave SMs idle, sized by the card at hand: clusters
+    above 2 blocks take at most half of its SMs."""
+    # 2 x 64 x 64 pixels: 128 tiles of 128 pixels x 160 filters fill
+    # either card, unsplit (a persistent grid where they outnumber it)
+    plan = _igemm.int8_conv_plan(2, 64, 64, 320, 320, sms)
+    assert (plan.tiles, plan.slices) == (128, 1)
+    assert plan.grid == min(128, sms)
+    # 2 x 8 x 8 pixels: 8 tiles; 8 slices are 64 blocks, half of 132 SMs
+    # but more than half of 114, which takes 4
+    plan = _igemm.int8_conv_plan(2, 8, 8, 2560, 1280, sms)
+    assert (plan.tiles, plan.slices) == (8, 8 if sms == 132 else 4)
+    # 2 x 16 x 16 pixels: 64-pixel tiles in pairs of slices fill 132
+    # SMs; on 114 the pairs would not fit, so 128-pixel tiles split in 2
+    plan = _igemm.int8_conv_plan(2, 16, 16, 1280, 1280, sms)
+    assert (plan.wgs, plan.slices) == ((1, 2) if sms == 132 else (2, 2))
+    assert plan.tiles * plan.slices <= sms

@@ -1,14 +1,19 @@
-"""The launch policy of the port's wgmma kernels (``ops/_igemm.py``), on
-the CPU: for every main-path shape of the int8 matmul (kernel 3) and the
-fused GroupNorm + SiLU + conv3x3 (kernel 2), on an H100 SXM (132 SMs)
-and an H100 PCIe (114 SMs), the plan fills the card, swaps the operands
-exactly at small M, keeps clusters within the portable limit, leaves no
-K slice empty and tiles F without waste where the policy says so."""
+"""The launch policy of the port's wgmma kernels (``ops/_igemm.py``,
+``ops/_flash_plan.py``), on the CPU: for every main-path shape of the
+int8 matmul (kernel 3), the fused GroupNorm + SiLU + conv3x3 (kernel 2),
+the int8 conv3x3 (kernel 4) and flash attention (kernel 1), on an H100
+SXM (132 SMs) and an H100 PCIe (114 SMs), the plan fills the card, swaps
+the operands exactly at small M, keeps clusters within the portable
+limit, leaves no K slice empty and tiles F without waste where the
+policy says so; kernel 4's pixel tiles, emulated with TMA's zero fill,
+give the plain conv exactly; flash attention takes the wgmma kernel at
+every UNet shape and the mma.sync kernel by shape and layout only."""
 
+import numpy as np
 import pytest
 
 import chip_smoke
-from cassmantle_tpu_torch.ops import _igemm
+from cassmantle_tpu_torch.ops import _flash_plan, _igemm
 
 SMS = (132, 114)
 MATMUL_SHAPES = sorted(set(chip_smoke.UNET_MATMUL_SHAPES)
@@ -110,3 +115,187 @@ def test_conv_plan_ragged_geometry(b, h, w):
             for n in [g * plan.imgs + i] if n < b}
     assert rows == {(n, y) for n in range(b) for y in range(h)}
     assert plan.slices == 1                      # one chunk of 40 channels
+
+
+# -- kernel 4: the int8 conv3x3 on wgmma --------------------------------------
+
+# the card tests' ragged geometries: W 7, W 1 with H 3 (C 16 and 48), a
+# row wider than a tile
+RAGGED_CONV = [(1, 5, 7, 32, 24), (1, 3, 1, 16, 8), (2, 3, 1, 48, 40),
+               (1, 4, 130, 16, 8), (3, 5, 64, 16, 8)]
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("b,h,w,c,f", CONV_SHAPES + RAGGED_CONV)
+def test_int8_conv_plan(b, h, w, c, f, sms):
+    plan = _igemm.int8_conv_plan(b, h, w, c, f, sms)
+    pixels = plan.imgs * plan.rows * plan.cols
+    assert plan.wgs in (1, 2) and pixels <= 64 * plan.wgs
+    assert plan.bn in WGMMA_S8_N and (f % 160 or plan.bn == 160)
+    # one 4-D box a tap: whole rows (whole images only with every row),
+    # or a stretch of one row
+    assert plan.cols == w or plan.rows == plan.imgs == 1
+    assert plan.imgs == 1 or plan.rows == h
+    assert plan.k_units == 9 * -(-c // _igemm.MATMUL_K_TILE)
+    if (b, h, w, c, f) in chip_smoke.CONV_SHAPES:
+        # every main-path width tiles without a partial tile
+        assert (b * h * w) % pixels == 0 and pixels == 64 * plan.wgs
+    groups = -(-b // plan.imgs) * -(-h // plan.rows) * -(-w // plan.cols)
+    assert plan.tiles == groups * -(-f // plan.bn)
+    assert_fills_and_splits(plan.tiles, plan.slices, plan.k_units, sms)
+    assert plan.grid == (plan.tiles if plan.slices > 1
+                         else min(plan.tiles, sms))
+
+
+def emulate_int8_conv(x, w_ohwi, plan):
+    """Kernel 4's tiling on the CPU: for each pixel tile and tap the A
+    tile is the 4-D box of x at (x0 + dx - 1, y0 + dy - 1, n0), zero
+    outside the image as TMA fills it; the tile's rows r < valid are the
+    output rows p0 + r. Returns the int64 (B*H*W, F) sums."""
+    b, h, w, c = x.shape
+    out = np.zeros((b * h * w, w_ohwi.shape[0]), dtype=np.int64)
+    hit = np.zeros(b * h * w, dtype=np.int64)
+    for n0 in range(0, b, plan.imgs):
+        for y0 in range(0, h, plan.rows):
+            for x0 in range(0, w, plan.cols):
+                acc = 0
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    box = np.zeros((plan.imgs, plan.rows, plan.cols, c),
+                                   dtype=np.int64)
+                    for i in range(plan.imgs):
+                        for r in range(plan.rows):
+                            for col in range(plan.cols):
+                                n, y = n0 + i, y0 + dy - 1 + r
+                                xx = x0 + dx - 1 + col
+                                if n < b and 0 <= y < h and 0 <= xx < w:
+                                    box[i, r, col] = x[n, y, xx]
+                    acc = acc + box.reshape(-1, c) @ w_ohwi[:, dy, dx].T
+                p0 = (n0 * h + y0) * w + x0
+                valid = (min(plan.imgs, b - n0) * h * w if plan.imgs > 1
+                         else min(plan.cols, w - x0) if plan.cols < w
+                         else min(plan.rows, h - y0) * w)
+                out[p0:p0 + valid] = acc[:valid]
+                hit[p0:p0 + valid] += 1
+    assert (hit == 1).all()                      # every pixel exactly once
+    return out
+
+
+@pytest.mark.parametrize("b,h,w", sorted({(b, h, w) for b, h, w, _, _
+                                          in CONV_SHAPES + RAGGED_CONV}))
+def test_int8_conv_tiles_give_the_same_border(b, h, w):
+    """The plan's tiles and shifted boxes (SAME border from the zero
+    fill) give the plain conv's int32 sums, every pixel stored once."""
+    rng = np.random.default_rng(b * 1000 + h * 10 + w)
+    c, f = 16, 8
+    x = rng.integers(-127, 128, (b, h, w, c))
+    w_ohwi = rng.integers(-127, 128, (f, 3, 3, c))
+    plan = _igemm.int8_conv_plan(b, h, w, c, f, 132)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    ref = sum(xp[:, dy:dy + h, dx:dx + w].reshape(-1, c)
+              @ w_ohwi[:, dy, dx].T for dy in range(3) for dx in range(3))
+    np.testing.assert_array_equal(emulate_int8_conv(x, w_ohwi, plan), ref)
+
+
+# -- kernel 1: flash attention ------------------------------------------------
+
+FLASH_SHAPES = sorted(chip_smoke.FLASH_SHAPES.items())
+
+
+def flash_smem(plan):
+    """The wgmma kernel's shared memory (fa3::Geo): Q regions of the
+    instance's most query rows, K and V rings, the alignment slack and
+    the mbarriers."""
+    most = _flash_plan.INSTANCES[plan.np][2]
+    q = plan.boxes * _flash_plan.WGMMA_ROWS * most * 128
+    kv = plan.boxes * plan.bk * 128
+    return 1024 + q + 2 * plan.stages * kv + (1 + 4 * plan.stages) * 8
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("name,shape", FLASH_SHAPES)
+def test_flash_plan(name, shape, sms):
+    b, sq, sk, h, d, _ = shape
+    plan = _flash_plan.flash_plan(b, sq, h, d, sms)
+    if d == 512:                                 # the VAE mid block
+        assert plan.path == _flash_plan.MMA_SYNC
+        assert (plan.bq, plan.bk) == (32, 32)
+    else:                                        # every UNet shape
+        assert plan.path == _flash_plan.WGMMA
+        assert plan.np == d                      # 40, 80, 160: no padding
+        assert (plan.bk, plan.stages) == _flash_plan.INSTANCES[d][:2]
+        assert plan.bq == 64 * plan.consumers
+        assert flash_smem(plan) <= 232448
+        blocks128 = -(-sq // 128) * h * b
+        if d == 40:                              # 192 rows fill the card
+            assert plan.consumers == 3 and -(-sq // 192) * h * b >= sms
+        else:
+            assert plan.consumers == (2 if 2 * blocks128 >= sms else 1)
+    # the grid covers every query row once
+    assert plan.grid == (-(-sq // plan.bq), h, b)
+    assert plan.grid[0] * plan.bq >= sq > (plan.grid[0] - 1) * plan.bq
+
+
+@pytest.mark.parametrize("d,boxes,ksteps", [(40, 1, 3), (80, 2, 5),
+                                            (160, 3, 10), (32, 1, 3),
+                                            (48, 1, 4), (72, 2, 5),
+                                            (256, 4, 16)])
+def test_flash_head_dim_boxes_and_ksteps(d, boxes, ksteps):
+    """64-column boxes along D (zero past d) and ceil(NP / 16) k-steps of
+    q.k^T, which is ceil(d / 16) at the UNet's 40, 80 and 160; p.v's N
+    covers d."""
+    plan = _flash_plan.flash_plan(2, 1024, 8, d, 132)
+    assert plan.path == _flash_plan.WGMMA
+    assert (plan.boxes, plan.ksteps) == (boxes, ksteps)
+    assert d <= plan.np <= 64 * plan.boxes and plan.np % 8 == 0
+    assert plan.ksteps == -(-plan.np // 16)
+    assert flash_smem(plan) <= 232448
+
+
+def test_flash_instances_fit():
+    for np_, (bk, stages, most) in _flash_plan.INSTANCES.items():
+        plan = _flash_plan.flash_plan(1, 4096, 1, np_, 132)
+        assert (plan.np, plan.bk, plan.stages) == (np_, bk, stages)
+        assert 1 <= plan.consumers <= most <= 3
+        assert flash_smem(plan) <= 232448
+
+
+@pytest.mark.parametrize("sq,h,want", [(4096, 8, 3), (1024, 8, 2),
+                                       (256, 8, 1), (300, 2, 1)])
+def test_flash_consumers_per_block(sq, h, want):
+    """D = 40 takes three consumer warpgroups where 192-row blocks fill
+    the card, else two where 128-row blocks cover half of it, else one."""
+    plan = _flash_plan.flash_plan(2, sq, h, 40, 132)
+    assert plan.consumers == want and plan.bq == 64 * want
+
+
+@pytest.mark.parametrize("d,tma_ok,scale,path", [
+    (512, True, 0.04, "mma.sync"),     # the wide head
+    (264, True, 0.06, "mma.sync"),     # past the widest wgmma instance
+    (20, True, 0.2, "mma.sync"),       # d % 8 != 0
+    (44, True, 0.15, "mma.sync"),
+    (40, False, 0.16, "mma.sync"),     # a stride or base TMA cannot take
+    (40, True, -0.16, "mma.sync"),     # a negative scale
+    (40, True, 0.16, "wgmma"),
+    (8, True, 0.35, "wgmma"),
+    (256, True, 0.06, "wgmma"),
+])
+def test_flash_path_choice(d, tma_ok, scale, path):
+    plan = _flash_plan.flash_plan(1, 300, 2, d, 132, tma_ok, scale)
+    assert plan.path == path
+    if path == "mma.sync":
+        assert plan.np >= d and plan.consumers == 0
+
+
+@pytest.mark.parametrize("shape,strides,ptr,ok", [
+    ((2, 4096, 8, 40), (4096 * 960, 960, 40, 1), 0, True),   # fused qkv
+    ((2, 77, 8, 40), (77 * 640, 640, 40, 1), 640, True),     # fused kv
+    ((1, 100, 3, 20), (6000, 60, 20, 1), 0, False),          # 40-byte rows
+    ((2, 64, 8, 40), (64 * 320, 320, 40, 1), 8, False),      # base % 16
+    ((1, 64, 1, 40), (7, 40, 3, 1), 0, True),                # size-1 dims
+    ((2, 64, 8, 40), (64 * 320, 320, 40, 2), 0, False),      # D not unit
+])
+def test_flash_tma_layout(shape, strides, ptr, ok):
+    """Byte strides must be multiples of 16 where a dimension has more
+    than one index; the base 16-byte aligned."""
+    assert _flash_plan.tma_layout_ok(shape, strides, ptr) == ok
