@@ -26,8 +26,9 @@
 // Two kernels, chosen by the caller (ops/_flash_plan.py) by shape and
 // never as a rescue:
 //
-// flash_wgmma_kernel (D <= 256, D % 8 == 0, 16-byte strides and bases:
-// every UNet shape), after FlashAttention-3's structure, on hopper.cuh:
+// flash_wgmma_kernel (D = 40, 80 or 160, the UNet's head dims, with
+// 16-byte strides and bases), after FlashAttention-3's structure, on
+// hopper.cuh:
 // - Warp-specialised block: one producer thread issues TMA for the Q
 //   tile once, then keeps K and V tiles in flight through rings of 2-3
 //   stages (separate full/empty mbarriers for K and V, so q.k^T starts
@@ -44,10 +45,9 @@
 // - Head-dim padding by TMA: q, k, v are 4-D maps (D, H, S, B) over the
 //   caller's strides (the fused qkv projection's views need no copy),
 //   boxes of 64 columns (128 bytes); TMA zero-fills columns d..63 of the
-//   last box and rows past Sq or kv_len. ceil(NP/16) k-steps of q.k^T
-//   and N = NP for p.v (d rounded up to an instantiated width: NP = d at
-//   every UNet width, so q.k^T takes ceil(d/16) steps). D = 80 and
-//   160 take two and three boxes.
+//   last box and rows past Sq or kv_len. ceil(d/16) k-steps of q.k^T
+//   and N = d for p.v (NP = d: one instance per UNet head dim). D = 80
+//   and 160 take two and three boxes.
 // - Softmax that keeps the exponent unit busy: the scale folds into one
 //   FFMA per score (s * scale * log2e - m), ex2.approx.ftz (relative
 //   error about 2^-22, far below p's bf16 rounding of 2^-9); columns are
@@ -75,8 +75,9 @@
 //
 // flash_fwd_kernel (mma.sync, the first design): D = 512 (the VAE mid
 // block: a 64 x 512 fp32 accumulator does not fit one warpgroup's
-// registers), and inputs TMA cannot describe: d % 8 != 0, a stride that
-// is not a multiple of 16 bytes, a misaligned base, scale <= 0. One
+// registers), every head dim off the UNet's (no wgmma instance), and
+// inputs TMA cannot describe: a stride that is not a multiple of 16
+// bytes, a misaligned base, scale <= 0. One
 // block owns BQ query rows and walks the key tiles; K/V tiles are
 // double-buffered with cp.async; both products on mma.sync m16n8k16 fed
 // by ldmatrix; wide heads split D across WD warps per row group, which
@@ -437,15 +438,19 @@ bool aligned16(const void* p) {
 
 // q (B, Sq, H, D), k and v (B, Sk, H, D), o (B, Sq, H, D): bf16 with unit
 // stride on D and the given element strides on B, S, H. Columns at or
-// past kv_len (1 <= kv_len <= Sk) are masked. Returns a cudaError_t.
+// past kv_len (1 <= kv_len <= Sk) are masked. The launch plan comes from
+// the caller (ops/_flash_plan.py::flash_plan): np the padded head dim
+// (d <= np), bq query rows and bk keys a block, as instantiated below,
+// and grid_x = ceil(Sq / bq) query blocks. Returns a cudaError_t.
 extern "C" int cassmantle_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int d, int kv_len, float scale, long long qb,
     long long qs, long long qh, long long kb, long long ks, long long kh,
     long long vb, long long vs, long long vh, long long ob, long long os,
-    long long oh, void* stream) {
-  if (batch < 1 || heads < 1 || sq < 1 || kv_len < 1 || d < 1 || d > 512 ||
-      batch > 65535 || heads > 65535) {
+    long long oh, int np, int bq, int bk, int grid_x, void* stream) {
+  if (batch < 1 || heads < 1 || sq < 1 || kv_len < 1 || d < 1 || d > np ||
+      batch > 65535 || heads > 65535 || bq < 1 ||
+      grid_x != (sq + bq - 1) / bq) {
     return (int)cudaErrorInvalidValue;
   }
   const Strides qst{qb, qs, qh}, kst{kb, ks, kh}, vst{vb, vs, vh},
@@ -465,13 +470,15 @@ extern "C" int cassmantle_flash_attention_bf16(
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CASSMANTLE_FLASH_CASE(DP, BQ, BK, WD)                               \
-  if (d <= DP) {                                                            \
+  if (np == DP && bq == BQ && bk == BK) {                                   \
     return (int)launch<DP, BQ, BK, WD>(qp, kp, vp, op, batch, heads, sq, d, \
                                        kv_len, scale, qst, kst, vst, ost,   \
                                        vec, st);                            \
   }
-  // Padded widths: the main path's D = 40, 80, 160, 512, plus 32 and 256
-  // for other head dims (each one held against the plain version).
+  // (padded head dim, query rows, keys a tile, warps a row group):
+  // ops/_flash_plan.py::MMA_SYNC_INSTANCES. The main path's D = 512, and
+  // the head dims off the wgmma kernel's (each one held against the
+  // plain version).
   CASSMANTLE_FLASH_CASE(32, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(48, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(80, 64, 64, 1)
@@ -828,12 +835,12 @@ inline bool encode_qkv(CUtensorMap* map, const void* base, int d, int heads,
 
 template <int NP, int BK, int ST, int MC>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
-                   const CUtensorMap& mv, const Args& a, int nc, int batch,
-                   int heads, cudaStream_t stream) {
+                   const CUtensorMap& mv, const Args& a, int nc, int grid_x,
+                   int batch, int heads, cudaStream_t stream) {
   using G = Geo<NP, BK, ST, MC>;
-  const dim3 grid((a.sq + 64 * nc - 1) / (64 * nc), heads, batch);
-  return launch_cluster(flash_wgmma_kernel<NP, BK, ST, MC>, grid,
-                        128 * (nc + 1), G::kSmem, 1, stream, mq, mk, mv, a);
+  return launch_cluster(flash_wgmma_kernel<NP, BK, ST, MC>,
+                        dim3(grid_x, heads, batch), 128 * (nc + 1),
+                        G::kSmem, 1, stream, mq, mk, mv, a);
 }
 
 }  // namespace fa3
@@ -841,20 +848,22 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
 // The warpgroup kernel. q (B, Sq, H, D), k and v (B, Sk, H, D), o (B,
 // Sq, H, D): bf16 with unit stride on D, element strides on B, S, H that
 // are multiples of 8 (dimensions of size 1 aside), 16-byte-aligned bases,
-// d % 8 == 0, scale > 0. The launch plan comes from the caller
-// (ops/_flash_plan.py::flash_plan): np the padded head dim, bk keys a
-// tile, stages of the K/V rings (one instantiated triple per np), nc
-// consumer warpgroups (64 query rows each; three at np = 40 only).
-// Returns a cudaError_t.
+// d = 40, 80 or 160, scale > 0. The launch plan comes from the caller
+// (ops/_flash_plan.py::flash_plan): np the head dim, bk keys a tile,
+// stages of the K/V rings (one instantiated triple per np), nc consumer
+// warpgroups (64 query rows each; three at np = 40 only), the D boxes
+// and q.k^T k-steps of the instance, grid_x = ceil(Sq / (64 nc)) query
+// blocks. Returns a cudaError_t.
 extern "C" int cassmantle_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int d, int kv_len, float scale, long long qb,
     long long qs, long long qh, long long kb, long long ks, long long kh,
     long long vb, long long vs, long long vh, long long ob, long long os,
-    long long oh, int np, int bk, int stages, int nc, void* stream) {
-  if (batch < 1 || heads < 1 || sq < 1 || kv_len < 1 || d < 8 || d % 8 ||
-      d > np || batch > 65535 || heads > 65535 || !(scale > 0.f) ||
-      nc < 1 || nc > 3) {
+    long long oh, int np, int bk, int stages, int nc, int boxes, int ksteps,
+    int grid_x, void* stream) {
+  if (batch < 1 || heads < 1 || sq < 1 || kv_len < 1 || d != np ||
+      batch > 65535 || heads > 65535 || !(scale > 0.f) || nc < 1 ||
+      nc > 3 || grid_x != (sq + 64 * nc - 1) / (64 * nc)) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap mq, mk, mv;
@@ -868,19 +877,17 @@ extern "C" int cassmantle_flash_attention_wgmma(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CASSMANTLE_FLASH_WGMMA(NP, BK, ST, MC)                              \
   if (np == NP && bk == BK && stages == ST && nc <= MC &&                 \
-      (MC == 2 || nc == 3)) {                                             \
-    return (int)fa3::launch<NP, BK, ST, MC>(mq, mk, mv, a, nc, batch,     \
-                                            heads, st);                   \
+      (MC == 2 || nc == 3) && boxes == fa3::Geo<NP, BK, ST, MC>::kBoxes &&  \
+      ksteps == fa3::Geo<NP, BK, ST, MC>::kSteps) {                       \
+    return (int)fa3::launch<NP, BK, ST, MC>(mq, mk, mv, a, nc, grid_x,    \
+                                            batch, heads, st);            \
   }
   // (padded head dim, keys a tile, stages, the most consumer warpgroups):
   // ops/_flash_plan.py::INSTANCES; D = 40 also with three consumers
   CASSMANTLE_FLASH_WGMMA(40, 128, 3, 3)
   CASSMANTLE_FLASH_WGMMA(40, 128, 3, 2)
-  CASSMANTLE_FLASH_WGMMA(64, 128, 3, 2)
   CASSMANTLE_FLASH_WGMMA(80, 128, 2, 2)
-  CASSMANTLE_FLASH_WGMMA(128, 128, 2, 2)
   CASSMANTLE_FLASH_WGMMA(160, 64, 3, 2)
-  CASSMANTLE_FLASH_WGMMA(256, 64, 2, 2)
 #undef CASSMANTLE_FLASH_WGMMA
   return (int)cudaErrorInvalidValue;
 }

@@ -56,7 +56,7 @@
 // zeros; the count is a template argument, so that no wgmma sits in a
 // branch, which ptxas would serialise). C % 16 == 0 is kept for the
 // 16-byte strides TMA needs. One or two consumer warpgroups (64 or
-// 128 pixels a tile, BN 160 filters where 160 divides F); too few tiles
+// 128 pixels a tile, 160 filters a tile at every F); too few tiles
 // split the 9 x ceil(C / 128) K units over a cluster, summed in
 // distributed shared memory in rank order as for the matmul. The
 // launch plan (tile, warpgroups, slices) is ops/_igemm.py's.
@@ -73,6 +73,7 @@ using namespace hopper;
 
 constexpr int KT = 128;      // K tile: 128 int8 values, one swizzle row
 constexpr int STAGES = 4;    // TMA ring depth
+constexpr int CONV_BN = 160;  // the conv's filters a tile (every F)
 
 // The epilogue's operands. The kernel computes a tile of D = P . Q^T
 // with P the operand on wgmma's 64-row side and Q on its N side: x and
@@ -503,16 +504,18 @@ struct ConvGeo {
 // W, H, B) at (c0, x0 + dx - 1, y0 + dy - 1, n0): coordinates outside
 // the image, negative ones too, are zero-filled, which is the SAME
 // border. The weight tile is a 3-D box of the OHWI weight viewed as (C,
-// 9, F): 128 channels of one tap for BN filters.
+// 9, F): 128 channels of one tap for BN = CONV_BN filters (F past a
+// multiple of 160 is zero-filled by TMA and not stored).
 // TAIL: the 32-channel k-steps issued for the units of the last channel
 // chunk (2 where C % 128 is 1..64, else 4; steps past C multiply zeros).
 // Full-chunk and tail units run in two loops, each with a fixed count of
 // wgmma, so that none sits in a branch (ptxas serialises those).
-template <int BN, int WGS, int TAIL>
-__global__ void __launch_bounds__(Shape<false, BN, WGS>::kThreads, 1)
+template <int WGS, int TAIL>
+__global__ void __launch_bounds__(Shape<false, CONV_BN, WGS>::kThreads, 1)
     int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                            const __grid_constant__ CUtensorMap map_w,
                            Args a, ConvGeo g) {
+  constexpr int BN = CONV_BN;
   using S = Shape<false, BN, WGS>;
   constexpr int kConsumers = 128 * S::kWgs;
   extern __shared__ unsigned char smem_raw[];
@@ -625,17 +628,17 @@ __global__ void __launch_bounds__(Shape<false, BN, WGS>::kThreads, 1)
   }
 }
 
-template <int BN, int WGS, int TAIL>
+template <int WGS, int TAIL>
 cudaError_t launch_conv(const CUtensorMap& mx, const CUtensorMap& mw,
                         const Args& a, const ConvGeo& g, int slices,
                         int blocks, cudaStream_t stream) {
-  using S = Shape<false, BN, WGS>;
-  const int tiles = g.gi * g.gy * g.gx * ((a.n + BN - 1) / BN);
+  using S = Shape<false, CONV_BN, WGS>;
+  const int tiles = g.gi * g.gy * g.gx * ((a.n + CONV_BN - 1) / CONV_BN);
   if (blocks < 1 || blocks > tiles || (slices > 1 && blocks != tiles) ||
       g.imgs * g.rows * g.cols > S::kRowsP) {
     return cudaErrorInvalidValue;
   }
-  return launch_cluster(int8_conv_wgmma_kernel<BN, WGS, TAIL>,
+  return launch_cluster(int8_conv_wgmma_kernel<WGS, TAIL>,
                         dim3(blocks, 1, slices), S::kThreads, S::kSmem,
                         slices, stream, mx, mw, a, g);
 }
@@ -691,7 +694,7 @@ extern "C" int cassmantle_int8_matmul(const void* x, const void* wt,
 // aligned; col_scale and bias (F,) fp32, out (B, H, W, F) bf16 (out_bf16)
 // or fp32. The launch plan comes from the caller
 // (ops/_igemm.py::int8_conv_plan): the consumer warpgroups wgs (64
-// pixels each), the filters a tile bn, the pixel tile (imgs images x
+// pixels each), the pixel tile (imgs images x
 // rows rows x cols columns), the K slices of one cluster (1 to 8) and
 // the blocks along x. Needs C % 16 == 0. Returns a cudaError_t.
 extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
@@ -699,7 +702,7 @@ extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
                                        const void* bias, void* out,
                                        int out_bf16, int batch, int h,
                                        int width, int c, int f, int wgs,
-                                       int bn, int imgs, int rows, int cols,
+                                       int imgs, int rows, int cols,
                                        int slices, int blocks, void* stream) {
   const int chunks = (c + w8::KT - 1) / w8::KT;
   if (batch < 1 || h < 1 || width < 1 || c < 16 || c % 16 || f < 1 ||
@@ -718,7 +721,7 @@ extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
                           (uint32_t)imgs};
   const uint64_t wd[3] = {(uint64_t)c, 9, (uint64_t)f};
   const uint64_t ws[2] = {(uint64_t)c, (uint64_t)c * 9};
-  const uint32_t wb[3] = {w8::KT, 1, (uint32_t)bn};
+  const uint32_t wb[3] = {w8::KT, 1, (uint32_t)w8::CONV_BN};
   if (!hopper::encode_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, x, xd,
                           xs, xb, true) ||
       !hopper::encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, wd,
@@ -736,19 +739,15 @@ extern "C" int cassmantle_int8_conv3x3(const void* x, const void* w,
                       (width + cols - 1) / cols, 9 * chunks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tail = c % w8::KT == 0 || c % w8::KT > 64 ? 4 : 2;
-#define CASSMANTLE_INT8_CONV(BN, WGS, TAIL)                                 \
-  if (bn == BN && wgs == WGS && tail == TAIL) {                             \
-    return (int)w8::launch_conv<BN, WGS, TAIL>(map_x, map_w, a, g, slices,  \
-                                               blocks, s);                  \
+#define CASSMANTLE_INT8_CONV(WGS, TAIL)                                      \
+  if (wgs == WGS && tail == TAIL) {                                         \
+    return (int)w8::launch_conv<WGS, TAIL>(map_x, map_w, a, g, slices,      \
+                                           blocks, s);                      \
   }
-  CASSMANTLE_INT8_CONV(160, 2, 4)
-  CASSMANTLE_INT8_CONV(160, 2, 2)
-  CASSMANTLE_INT8_CONV(160, 1, 4)
-  CASSMANTLE_INT8_CONV(160, 1, 2)
-  CASSMANTLE_INT8_CONV(128, 2, 4)
-  CASSMANTLE_INT8_CONV(128, 2, 2)
-  CASSMANTLE_INT8_CONV(128, 1, 4)
-  CASSMANTLE_INT8_CONV(128, 1, 2)
+  CASSMANTLE_INT8_CONV(2, 4)
+  CASSMANTLE_INT8_CONV(2, 2)
+  CASSMANTLE_INT8_CONV(1, 4)
+  CASSMANTLE_INT8_CONV(1, 2)
 #undef CASSMANTLE_INT8_CONV
   return (int)cudaErrorInvalidValue;
 }

@@ -4,15 +4,17 @@ in plain Python so that the CPU tests reach it.
 Two kernels, chosen by shape and layout, never as a rescue:
 
 - ``wgmma``: the warp-specialised kernel (TMA loads, wgmma for both
-  products). It takes d % 8 == 0 up to 256, 16-byte-aligned bases,
-  strides that are multiples of 16 bytes and a positive scale: every
-  UNet shape.
-- ``mma.sync``: the kernel of the first port, for what the first cannot
-  take: the VAE mid block's D = 512 (its 64 x 512 fp32 accumulator does
-  not fit one warpgroup's registers), d % 8 != 0, strides or bases TMA
+  products). It takes the UNet's head dims (40, 80, 160) with
+  16-byte-aligned bases, strides that are multiples of 16 bytes and a
+  positive scale: every UNet shape.
+- ``mma.sync``: the kernel of the first port, for the rest: the VAE mid
+  block's D = 512 (its 64 x 512 fp32 accumulator does not fit one
+  warpgroup's registers), any other head dim, strides or bases TMA
   cannot describe, scale <= 0.
 
-The constants mirror the source's instantiations.
+The constants name the source's instantiations: the C functions take
+the plan's instance, D boxes, k-steps and grid, and refuse any that
+they do not build.
 """
 
 from __future__ import annotations
@@ -22,19 +24,17 @@ from typing import NamedTuple, Tuple
 WGMMA = "wgmma"
 MMA_SYNC = "mma.sync"
 
-# wgmma: padded head dim (p.v's N) -> (keys a tile, K/V ring stages, the
-# most consumer warpgroups), as instantiated (fa3::launch). Head dims up
-# to 80 take 128-key tiles; wider ones 64 keys, so that O, S and P stay
-# within a consumer's registers; only D = 40's fit the 160 registers of
-# three consumers.
-INSTANCES = {40: (128, 3, 3), 64: (128, 3, 2), 80: (128, 2, 2),
-             128: (128, 2, 2), 160: (64, 3, 2), 256: (64, 2, 2)}
+# wgmma: head dim (p.v's N) -> (keys a tile, K/V ring stages, the most
+# consumer warpgroups), as instantiated (cassmantle_flash_attention_wgmma).
+# D = 40 and 80 take 128-key tiles, D = 160 64 keys, so that O, S and P
+# stay within a consumer's registers; only D = 40's fit the 160
+# registers of three consumers.
+INSTANCES = {40: (128, 3, 3), 80: (128, 2, 2), 160: (64, 3, 2)}
 BOX = 64               # head-dim columns of one TMA box (128 bytes)
 WGMMA_ROWS = 64        # query rows of one consumer warpgroup
-MAX_WGMMA_HEAD = max(INSTANCES)
 
 # mma.sync: padded head dim -> (query rows, keys a tile), as instantiated
-# (CASSMANTLE_FLASH_CASE).
+# (cassmantle_flash_attention_bf16).
 MMA_SYNC_INSTANCES = {32: (64, 64), 48: (64, 64), 80: (64, 64),
                       160: (64, 32), 256: (64, 32), 512: (32, 32)}
 MAX_HEAD_DIM = max(MMA_SYNC_INSTANCES)
@@ -42,10 +42,10 @@ MAX_HEAD_DIM = max(MMA_SYNC_INSTANCES)
 
 class FlashPlan(NamedTuple):
     path: str                    # WGMMA or MMA_SYNC
-    np: int                      # padded head dim
+    np: int                      # padded head dim (d on wgmma)
     bq: int                      # query rows a block
     bk: int                      # keys a tile
-    stages: int                  # K/V ring depth (wgmma; 2 for mma.sync)
+    stages: int                  # K/V ring depth (wgmma; 0 else)
     consumers: int               # consumer warpgroups (wgmma; 0 else)
     boxes: int                   # TMA boxes along D (wgmma; 0 else)
     ksteps: int                  # q.k^T k-steps of 16: ceil(np / 16)
@@ -70,8 +70,8 @@ def flash_plan(b: int, sq: int, h: int, d: int, sms: int,
     those blocks fill the card, else two (128 rows) where those cover at
     least half the card, else one (64 rows), so that small grids spread
     wider."""
-    if d % 8 == 0 and d <= MAX_WGMMA_HEAD and tma_ok and scale > 0:
-        np = min(n for n in INSTANCES if n >= d)
+    if d in INSTANCES and tma_ok and scale > 0:
+        np = d
         bk, stages, most = INSTANCES[np]
         if most == 3 and -(-sq // (3 * WGMMA_ROWS)) * h * b >= sms:
             nc = 3
@@ -84,4 +84,4 @@ def flash_plan(b: int, sq: int, h: int, d: int, sms: int,
                          -(-np // 16), (-(-sq // bq), h, b))
     np = min(n for n in MMA_SYNC_INSTANCES if n >= d)
     bq, bk = MMA_SYNC_INSTANCES[np]
-    return FlashPlan(MMA_SYNC, np, bq, bk, 2, 0, 0, 0, (-(-sq // bq), h, b))
+    return FlashPlan(MMA_SYNC, np, bq, bk, 0, 0, 0, 0, (-(-sq // bq), h, b))

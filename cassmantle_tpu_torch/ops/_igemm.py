@@ -25,8 +25,8 @@ import torch
 # kernels 2 to 4 (wgmma): rows of one consumer warpgroup, the most
 # blocks of one cluster (the portable limit), kernel 3's and 4's K tile
 # in bytes and kernel 3's token tiles on the swapped path, kernel 2's
-# channel chunk, output channels a block, pixels a block and halo
-# positions.
+# channel chunk, kernel 2's and 4's output channels a block, kernel 2's
+# pixels a block and halo positions.
 WGMMA_M = 64
 MAX_CLUSTER = 8
 MATMUL_K_TILE = 128
@@ -123,11 +123,10 @@ def conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
 
 class Int8ConvPlan(NamedTuple):
     wgs: int        # consumer warpgroups: 64 pixels each
-    bn: int         # filters a tile (wgmma N)
     imgs: int       # the pixel tile: images,
     rows: int       # image rows
     cols: int       # and pixels of a row (W, or a stretch of one row)
-    tiles: int      # output tiles: pixel tiles x filter tiles
+    tiles: int      # output tiles: pixel tiles x CONV_BN-filter tiles
     k_units: int    # 9 taps x ceil(C / 128) channel chunks
     slices: int     # blocks of one cluster along the K units
     grid: int       # blocks along x: every tile when split, else a
@@ -149,23 +148,23 @@ def conv_pixel_tile(b: int, h: int, w: int, pixels: int):
 def int8_conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
                    ) -> Int8ConvPlan:
     """Kernel 4's launch for x (b, h, w, c) int8 and f filters on a card
-    of ``sms`` SMs: 160 filters a tile where 160 divides f, else 128;
-    pixel tiles of 128 (two consumer warpgroups) or 64 (one), whichever
-    puts more blocks on the card (within 1/8 of each other the larger
-    tile, which streams the weight half as often); where the tiles are
-    too few, a cluster splits the K units (``cluster_slices``)."""
-    bn = 160 if f % 160 == 0 else 128
+    of ``sms`` SMs: CONV_BN filters a tile (every main-path f is a
+    multiple of it; TMA zero-fills a ragged last tile); pixel tiles of
+    128 (two consumer warpgroups) or 64 (one), whichever puts more
+    blocks on the card (within 1/8 of each other the larger tile, which
+    streams the weight half as often); where the tiles are too few, a
+    cluster splits the K units (``cluster_slices``)."""
     k_units = 9 * -(-c // MATMUL_K_TILE)
     best, best_blocks = None, 0
     for wgs in (2, 1):
         imgs, rows, cols = conv_pixel_tile(b, h, w, wgs * WGMMA_M)
         tiles = (-(-b // imgs) * -(-h // rows) * -(-w // cols)
-                 * -(-f // bn))
+                 * -(-f // CONV_BN))
         slices = cluster_slices(tiles, k_units, sms)
         grid = tiles if slices > 1 else min(tiles, sms)
         blocks = grid * slices
         if best is None or blocks * 8 > best_blocks * 9:
-            best = Int8ConvPlan(wgs, bn, imgs, rows, cols, tiles, k_units,
+            best = Int8ConvPlan(wgs, imgs, rows, cols, tiles, k_units,
                                 slices, grid)
             best_blocks = blocks
     return best

@@ -7,8 +7,9 @@ attention with a ``kv_len`` mask, and the wide-head VAE variant at
 :func:`flash_attention` is the single entry point:
 
 - on a CUDA tensor it launches a kernel (bf16 only) or raises: the
-  warp-specialised wgmma kernel for every UNet shape, the mma.sync kernel
-  for D = 512 and for layouts TMA cannot describe
+  warp-specialised wgmma kernel for every UNet shape (D = 40, 80, 160),
+  the mma.sync kernel for D = 512, other head dims and layouts TMA
+  cannot describe
   (``_flash_plan.flash_plan`` decides by shape, never on failure);
 - on a CPU tensor it runs :func:`flash_attention_plain`, the same function
   with the same casts in plain PyTorch.
@@ -68,7 +69,7 @@ def _library(path: str):
             + [ctypes.c_int] * 5
             + [ctypes.c_float]
             + [ctypes.c_longlong] * 12
-            + [ctypes.c_int] * (4 if wgmma else 0)
+            + [ctypes.c_int] * (7 if wgmma else 4)
             + [ctypes.c_void_p]
         )
     return fn
@@ -117,14 +118,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = flash_plan(b, sq, h, d, sm_count(q.device),
                       all(tma_layout_ok(t.shape, t.stride(), t.data_ptr())
                           for t in (q, k, v)), float(scale))
-    tail = ((plan.np, plan.bk, plan.stages, plan.consumers)
-            if plan.path == WGMMA else ())
+    tail = ((plan.np, plan.bk, plan.stages, plan.consumers, plan.boxes,
+             plan.ksteps) if plan.path == WGMMA
+            else (plan.np, plan.bq, plan.bk))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library(plan.path)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, h, sq, d, kv_len, float(scale),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        *tail, stream)
+        *tail, plan.grid[0], stream)
     if err != 0:
         raise RuntimeError(f"flash attention ({plan.path}) launch failed: "
                            f"cudaError {err} (q {tuple(q.shape)}, "
@@ -132,18 +134,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention.launches += 1
     flash_attention.shapes[(b, sq, kv_len, h, d)] += 1
     flash_attention.paths[plan.path] += 1
+    flash_attention.shape_paths[(b, sq, kv_len, h, d), plan.path] += 1
     return out
 
 
 # Launch counters, written only where a kernel launches: the total, the
-# tally per (B, Sq, kv_len, H, D) and per path. Callers reset them to
-# measure a run.
+# tally per (B, Sq, kv_len, H, D), per path, and per (shape, path).
+# Callers reset them to measure a run.
 flash_attention.launches = 0
 flash_attention.shapes = collections.Counter()
 flash_attention.paths = collections.Counter()
+flash_attention.shape_paths = collections.Counter()
 
 
 def reset_counters() -> None:
     flash_attention.launches = 0
     flash_attention.shapes.clear()
     flash_attention.paths.clear()
+    flash_attention.shape_paths.clear()

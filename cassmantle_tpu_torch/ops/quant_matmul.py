@@ -80,7 +80,7 @@ def _library(name: str):
                            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                            + [ctypes.c_void_p])
     return fn
 
@@ -218,8 +218,7 @@ def int8_conv3x3(x_q: torch.Tensor, kernel: torch.Tensor,
     err = _library("cassmantle_int8_conv3x3")(
         x_q.data_ptr(), w_ohwi.data_ptr(), col.data_ptr(), b.data_ptr(),
         out.data_ptr(), _OUT_DTYPES[out_dtype], bsz, h, w, c, f, plan.wgs,
-        plan.bn, plan.imgs, plan.rows, plan.cols, plan.slices, plan.grid,
-        stream)
+        plan.imgs, plan.rows, plan.cols, plan.slices, plan.grid, stream)
     if err != 0:
         raise RuntimeError(f"int8 conv launch failed: cudaError {err} "
                            f"(x {tuple(x_q.shape)}, F {f})")

@@ -27,7 +27,8 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, each with
    the counts set to 0 just before it and read just after: every kernel
    of the path launched as often as the path says (and the default round
-   none of the new ones), at checked shapes only;
+   none of the new ones), at checked shapes only, and each flash shape on
+   the kernel path its check took;
 5. profiles two denoise steps of each pipeline: host time per step, the
    device's busy time and idle share, and each kernel's part.
 
@@ -66,6 +67,9 @@ FLASH_SHAPES = {
 }
 # 50 steps x 16 transformer blocks x (self + cross) + the VAE mid block.
 ROUND_FLASH_LAUNCHES = 50 * 32 + 1
+# by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
+# block's D = 512 on mma.sync (ops/_flash_plan.py)
+ROUND_FLASH_PATHS = {"wgmma": 50 * 32, "mma.sync": 1}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -269,7 +273,6 @@ def check_flash_kernel():
             shape=[b, sq, sk, h, d], path=path,
             max_abs_err=agree["max_abs_err"], ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            exp_floor_ms=exp_ms, gflop=flops / 1e9, mbytes=nbytes / 1e6,
             ok=finite and agree["ok"])
         print(f"[kernel] flash_attention {name} (B, Sq, Sk, H, D)="
               f"{(b, sq, sk, h, d)} path {path}: max_abs_err "
@@ -785,7 +788,8 @@ def reset_all_counters() -> None:
 
 
 def read_tallies() -> dict:
-    """{kernel: Counter of launches per shape} as the counters stand."""
+    """{kernel: Counter of launches per shape} as the counters stand, and
+    under "flash_paths" the flash launches per (shape, kernel path)."""
     import collections
 
     from cassmantle_tpu_torch.ops.flash_attention import flash_attention
@@ -795,10 +799,20 @@ def read_tallies() -> dict:
         int8_matmul,
     )
 
-    return {name: collections.Counter(fn.shapes) for name, fn in (
+    tallies = {name: collections.Counter(fn.shapes) for name, fn in (
         ("flash_attention", flash_attention),
         ("gn_silu_conv3x3", gn_silu_conv3x3),
         ("int8_matmul", int8_matmul), ("int8_conv3x3", int8_conv3x3))}
+    tallies["flash_paths"] = collections.Counter(flash_attention.shape_paths)
+    return tallies
+
+
+def flash_path_totals(shape_paths) -> dict:
+    """{path: launches} from launches per (shape, path)."""
+    totals = {}
+    for (_, path), n in shape_paths.items():
+        totals[path] = totals.get(path, 0) + n
+    return totals
 
 
 def expected_tallies(preset: str) -> dict:
@@ -861,7 +875,9 @@ def run_round(card: str, preset: str, cfg):
     warm_stages = {"decode": gen.last_seconds, **t2i.last_stage_seconds}
 
     img = rc.image
-    launches = {k: sum(v.values()) for k, v in tallies.items()}
+    launches = {k: sum(v.values()) for k, v in tallies.items()
+                if k != "flash_paths"}
+    flash_paths = flash_path_totals(tallies["flash_paths"])
     checks = {
         "image_shape": img.shape == (cfg.sampler.image_size,) * 2 + (3,),
         "image_uint8": img.dtype == np.uint8,
@@ -869,6 +885,7 @@ def run_round(card: str, preset: str, cfg):
         "image_not_constant": int(img.max()) > int(img.min()),
         "second_image_ok": rc2.image.shape == img.shape,
         "flash_launches": launches["flash_attention"] == ROUND_FLASH_LAUNCHES,
+        "flash_paths": flash_paths == ROUND_FLASH_PATHS,
         "scores_finite": bool(np.all(np.isfinite(sims))),
         "scores_in_range": bool(np.all(np.abs(sims) <= 1.0 + 1e-5)),
         "blur_shapes": all(b.shape == img.shape and b.dtype == np.uint8
@@ -887,6 +904,7 @@ def run_round(card: str, preset: str, cfg):
         preset=preset, card=card, build_models_s=build_s, round_s=round_s,
         warm_round_s=warm_round_s, stages_s=stages,
         warm_stages_s=warm_stages, peak_gib=peak_gib, launches=launches,
+        flash_paths=flash_paths,
         text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
@@ -1127,6 +1145,12 @@ def main() -> int:
             fail(f"{preset}: main-path flash shapes differ from the checked "
                  f"ones: unchecked {sorted(unknown)}, never launched "
                  f"{sorted(missing)}")
+        # each shape ran in the round on the path its check took
+        for (shape, path), n in tallies[preset]["flash_paths"].items():
+            name = by_shape[shape]
+            if path != rows[name]["path"]:
+                fail(f"{preset}: flash {name} took {path} {n} times in the "
+                     f"round, {rows[name]['path']} in its check")
     for kernel, kernel_rows in checked.items():
         for preset in tallies:
             unchecked = set(tallies[preset][kernel]) - set(kernel_rows)
@@ -1135,17 +1159,19 @@ def main() -> int:
                      f"{sorted(unchecked)}")
 
     kernels = []
-    shapes = tallies["default"]["flash_attention"]
+    round_paths = tallies["default"]["flash_paths"]
     for key, name in by_shape.items():
         r = rows[name]
+        (path,) = {p for (shape, p) in round_paths if shape == key}
         kernels.append({
             "name": f"flash_attention[{name}]", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-            "launches": shapes[key], "max_abs_err": r["max_abs_err"],
+            "launches": sum(n for (shape, _), n in round_paths.items()
+                            if shape == key),
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "path": r["path"],
-            "exp_floor_ms": r["exp_floor_ms"], "ok": r["ok"]})
+            "library_ms": r["library_ms"], "path": path, "ok": r["ok"]})
     for kernel, preset, source, replaces in (
             ("gn_silu_conv3x3", "fusedconv", FUSED_SOURCE, FUSED_REPLACES),
             ("int8_matmul", "w8a8", INT8_SOURCE, MATMUL_REPLACES),

@@ -90,13 +90,15 @@ def _qkv(device, b, sq, sk, h, d, seed=0):
     (2, 64, 64, 8, 160),        # mid block self
     (2, 64, 77, 8, 160),        # mid block cross
     (1, 4096, 4096, 1, 512),    # VAE mid block, wide head: mma.sync
-    (1, 200, 130, 2, 256),      # four D boxes
-    (1, 100, 33, 3, 24),        # ragged query and key tiles
+    (1, 200, 130, 2, 256),      # D 256: mma.sync, two warps a row group
+    (1, 100, 33, 3, 24),        # ragged query and key tiles, mma.sync
+    (1, 100, 33, 3, 160),       # the same on wgmma
     (1, 70, 45, 2, 20),         # D % 8 != 0: mma.sync, element loads
     (1, 4095, 129, 2, 40),      # Sq % 128 != 0, kv_len % 128 == 1
-    (2, 100, 1, 2, 32),         # one key
-    (1, 300, 77, 2, 48),        # D 48: zero-filled columns 48..63
-    (1, 150, 200, 2, 72),       # D 72: a second box of 8 columns
+    (2, 100, 1, 2, 32),         # one key, mma.sync
+    (2, 100, 1, 2, 80),         # one key, wgmma
+    (1, 300, 77, 2, 48),        # D 48: mma.sync, padded to 48
+    (1, 150, 200, 2, 72),       # D 72: mma.sync, padded to 80
 ])
 def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     q, k, v = _qkv(cuda_device, b, sq, sk, h, d)
@@ -105,7 +107,7 @@ def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     torch.cuda.synchronize()
     assert flash_attention.launches == 1
     assert flash_attention.shapes == {(b, sq, sk, h, d): 1}
-    path = "mma.sync" if d % 8 or d > 256 else "wgmma"
+    path = "wgmma" if d in (40, 80, 160) else "mma.sync"
     assert flash_attention.paths == {path: 1}
     ref = flash_attention_plain(q, k, v)
     assert torch.isfinite(out).all()
@@ -276,6 +278,8 @@ def test_cuda_int8_matmul_matches_plain(cuda_device, m, k, n, per_token,
     (1, 3, 1, 16, 8),           # W 1, H 3, C 16
     (2, 3, 1, 48, 40),          # W 1, H 3, C 48: both images a tile
     (1, 4, 130, 16, 8),         # rows wider than a tile
+    (2, 4, 6, 64, 200),         # two filter tiles, the second ragged
+    (1, 5, 7, 32, 33),          # F odd: element stores
 ])
 def test_cuda_int8_conv_matches_plain(cuda_device, b, h, w, c, f):
     g = torch.Generator(cuda_device).manual_seed(c + f)

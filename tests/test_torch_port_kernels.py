@@ -120,9 +120,10 @@ def test_conv_plan_ragged_geometry(b, h, w):
 # -- kernel 4: the int8 conv3x3 on wgmma --------------------------------------
 
 # the card tests' ragged geometries: W 7, W 1 with H 3 (C 16 and 48), a
-# row wider than a tile
+# row wider than a tile, F past one 160-filter tile, F odd
 RAGGED_CONV = [(1, 5, 7, 32, 24), (1, 3, 1, 16, 8), (2, 3, 1, 48, 40),
-               (1, 4, 130, 16, 8), (3, 5, 64, 16, 8)]
+               (1, 4, 130, 16, 8), (3, 5, 64, 16, 8), (2, 4, 6, 64, 200),
+               (1, 5, 7, 32, 33)]
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -131,7 +132,6 @@ def test_int8_conv_plan(b, h, w, c, f, sms):
     plan = _igemm.int8_conv_plan(b, h, w, c, f, sms)
     pixels = plan.imgs * plan.rows * plan.cols
     assert plan.wgs in (1, 2) and pixels <= 64 * plan.wgs
-    assert plan.bn in WGMMA_S8_N and (f % 160 or plan.bn == 160)
     # one 4-D box a tap: whole rows (whole images only with every row),
     # or a stretch of one row
     assert plan.cols == w or plan.rows == plan.imgs == 1
@@ -141,7 +141,7 @@ def test_int8_conv_plan(b, h, w, c, f, sms):
         # every main-path width tiles without a partial tile
         assert (b * h * w) % pixels == 0 and pixels == 64 * plan.wgs
     groups = -(-b // plan.imgs) * -(-h // plan.rows) * -(-w // plan.cols)
-    assert plan.tiles == groups * -(-f // plan.bn)
+    assert plan.tiles == groups * -(-f // _igemm.CONV_BN)
     assert_fills_and_splits(plan.tiles, plan.slices, plan.k_units, sms)
     assert plan.grid == (plan.tiles if plan.slices > 1
                          else min(plan.tiles, sms))
@@ -202,16 +202,6 @@ def test_int8_conv_tiles_give_the_same_border(b, h, w):
 FLASH_SHAPES = sorted(chip_smoke.FLASH_SHAPES.items())
 
 
-def flash_smem(plan):
-    """The wgmma kernel's shared memory (fa3::Geo): Q regions of the
-    instance's most query rows, K and V rings, the alignment slack and
-    the mbarriers."""
-    most = _flash_plan.INSTANCES[plan.np][2]
-    q = plan.boxes * _flash_plan.WGMMA_ROWS * most * 128
-    kv = plan.boxes * plan.bk * 128
-    return 1024 + q + 2 * plan.stages * kv + (1 + 4 * plan.stages) * 8
-
-
 @pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("name,shape", FLASH_SHAPES)
 def test_flash_plan(name, shape, sms):
@@ -225,7 +215,6 @@ def test_flash_plan(name, shape, sms):
         assert plan.np == d                      # 40, 80, 160: no padding
         assert (plan.bk, plan.stages) == _flash_plan.INSTANCES[d][:2]
         assert plan.bq == 64 * plan.consumers
-        assert flash_smem(plan) <= 232448
         blocks128 = -(-sq // 128) * h * b
         if d == 40:                              # 192 rows fill the card
             assert plan.consumers == 3 and -(-sq // 192) * h * b >= sms
@@ -237,19 +226,27 @@ def test_flash_plan(name, shape, sms):
 
 
 @pytest.mark.parametrize("d,boxes,ksteps", [(40, 1, 3), (80, 2, 5),
-                                            (160, 3, 10), (32, 1, 3),
-                                            (48, 1, 4), (72, 2, 5),
-                                            (256, 4, 16)])
+                                            (160, 3, 10)])
 def test_flash_head_dim_boxes_and_ksteps(d, boxes, ksteps):
-    """64-column boxes along D (zero past d) and ceil(NP / 16) k-steps of
-    q.k^T, which is ceil(d / 16) at the UNet's 40, 80 and 160; p.v's N
-    covers d."""
+    """64-column boxes along D (zero past d) and ceil(d / 16) k-steps of
+    q.k^T at the UNet's 40, 80 and 160; p.v's N is d. The C function
+    refuses a plan whose boxes or k-steps differ from its instance's."""
     plan = _flash_plan.flash_plan(2, 1024, 8, d, 132)
     assert plan.path == _flash_plan.WGMMA
-    assert (plan.boxes, plan.ksteps) == (boxes, ksteps)
-    assert d <= plan.np <= 64 * plan.boxes and plan.np % 8 == 0
-    assert plan.ksteps == -(-plan.np // 16)
-    assert flash_smem(plan) <= 232448
+    assert (plan.np, plan.boxes, plan.ksteps) == (d, boxes, ksteps)
+    assert d <= 64 * plan.boxes < d + 64
+
+
+@pytest.mark.parametrize("d", [8, 24, 32, 48, 64, 72, 128, 256])
+def test_flash_other_head_dims_take_mma_sync(d):
+    """Head dims off the UNet's have no wgmma instance: the mma.sync
+    kernel takes them, padded to its smallest instance that holds d."""
+    plan = _flash_plan.flash_plan(2, 1024, 8, d, 132)
+    assert plan.path == _flash_plan.MMA_SYNC
+    assert plan.np == min(n for n in _flash_plan.MMA_SYNC_INSTANCES
+                          if n >= d)
+    assert (plan.bq, plan.bk) == _flash_plan.MMA_SYNC_INSTANCES[plan.np]
+    assert plan.grid == (-(-1024 // plan.bq), 8, 2)
 
 
 def test_flash_instances_fit():
@@ -257,7 +254,6 @@ def test_flash_instances_fit():
         plan = _flash_plan.flash_plan(1, 4096, 1, np_, 132)
         assert (plan.np, plan.bk, plan.stages) == (np_, bk, stages)
         assert 1 <= plan.consumers <= most <= 3
-        assert flash_smem(plan) <= 232448
 
 
 @pytest.mark.parametrize("sq,h,want", [(4096, 8, 3), (1024, 8, 2),
@@ -271,14 +267,16 @@ def test_flash_consumers_per_block(sq, h, want):
 
 @pytest.mark.parametrize("d,tma_ok,scale,path", [
     (512, True, 0.04, "mma.sync"),     # the wide head
-    (264, True, 0.06, "mma.sync"),     # past the widest wgmma instance
+    (264, True, 0.06, "mma.sync"),     # padded to mma.sync's 512
     (20, True, 0.2, "mma.sync"),       # d % 8 != 0
     (44, True, 0.15, "mma.sync"),
     (40, False, 0.16, "mma.sync"),     # a stride or base TMA cannot take
     (40, True, -0.16, "mma.sync"),     # a negative scale
     (40, True, 0.16, "wgmma"),
-    (8, True, 0.35, "wgmma"),
-    (256, True, 0.06, "wgmma"),
+    (8, True, 0.35, "mma.sync"),       # off the UNet's head dims
+    (256, True, 0.06, "mma.sync"),
+    (80, True, 0.11, "wgmma"),
+    (160, True, 0.08, "wgmma"),
 ])
 def test_flash_path_choice(d, tma_ok, scale, path):
     plan = _flash_plan.flash_plan(1, 300, 2, d, 132, tma_ok, scale)
