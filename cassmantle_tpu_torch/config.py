@@ -1,11 +1,12 @@
 """Typed configuration for the PyTorch/CUDA port.
 
-A copy of the part of ``cassmantle_tpu/config.py`` that the port's first
-slice reads: the SD1.5 model zoo (CLIP text tower, UNet, VAE), GPT-2 for
+A copy of the part of ``cassmantle_tpu/config.py`` that the port reads:
+the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 for
 the round's prompt text, MiniLM for guess scoring, the DDIM sampler
 settings and the few game/serving constants the round uses. Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
-configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5.
+configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
+is SDXL-base at 1024².
 
 The port keeps its own copy (it imports nothing of the JAX package);
 fields no port module reads yet are left out. The fused-conv and W8A8
@@ -33,10 +34,24 @@ class ClipTextConfig:
     # ViT-L/14 was trained with quick_gelu; OpenCLIP bigG with exact gelu.
     hidden_act: str = "quick_gelu"
 
+    @staticmethod
+    def sdxl_big() -> "ClipTextConfig":
+        """SDXL's second text tower (OpenCLIP ViT-bigG): the same module
+        at other dimensions."""
+        return ClipTextConfig(
+            vocab_size=49408,
+            hidden_size=1280,
+            intermediate_size=5120,
+            num_layers=32,
+            num_heads=20,
+            max_positions=77,
+            hidden_act="gelu",
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Diffusion UNet at SD1.5 geometry."""
+    """Diffusion UNet. Defaults = SD1.5; ``sdxl()`` = SDXL-base geometry."""
 
     sample_channels: int = 4
     base_channels: int = 320
@@ -50,6 +65,8 @@ class UNetConfig:
     num_heads: Optional[int] = 8
     context_dim: int = 768
     time_embed_dim: int = 1280
+    # SDXL micro-conditioning (added time-embedding channels); 0 disables.
+    addition_embed_dim: int = 0
     dtype: str = "bfloat16"
     # Every ResBlock's GroupNorm -> SiLU -> conv3x3 runs as one fused
     # kernel (ops/fused_conv.py): the activated tensor never reaches
@@ -66,6 +83,19 @@ class UNetConfig:
         architecture (parameter tree and numerics) alone."""
         return dataclasses.replace(self, fused_conv=False, conv_pad_to=0)
 
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        return UNetConfig(
+            base_channels=320,
+            channel_mults=(1, 2, 4),
+            attention_levels=(False, True, True),
+            transformer_depth=(0, 2, 10),
+            num_heads=None,  # head dim 64: heads = channels // 64
+            context_dim=2048,
+            time_embed_dim=1280,
+            addition_embed_dim=2816,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
@@ -75,7 +105,7 @@ class VAEConfig:
     base_channels: int = 128
     channel_mults: Tuple[int, ...] = (1, 2, 4, 4)
     blocks_per_level: int = 2
-    scaling_factor: float = 0.18215
+    scaling_factor: float = 0.18215  # SD1.5; SDXL uses 0.13025
     dtype: str = "bfloat16"
 
 
@@ -107,6 +137,8 @@ class MiniLMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelZooConfig:
     clip_text: ClipTextConfig = dataclasses.field(default_factory=ClipTextConfig)
+    # SDXL's second text tower (OpenCLIP bigG); None for SD1.5.
+    clip_text_2: Optional[ClipTextConfig] = None
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     gpt2: GPT2Config = dataclasses.field(default_factory=GPT2Config)
@@ -176,6 +208,21 @@ class FrameworkConfig:
         return dataclasses.replace(self, **kw)
 
 
+def sdxl_config() -> FrameworkConfig:
+    """SDXL-base-1.0 at 1024x1024: dual text towers (CLIP-L + OpenCLIP
+    bigG), micro-conditioned UNet, 0.13025 VAE scaling."""
+
+    return FrameworkConfig(
+        models=ModelZooConfig(
+            clip_text=ClipTextConfig(),
+            clip_text_2=ClipTextConfig.sdxl_big(),
+            unet=UNetConfig.sdxl(),
+            vae=VAEConfig(scaling_factor=0.13025),
+        ),
+        sampler=SamplerConfig(image_size=1024),
+    )
+
+
 def fusedconv_serving_config() -> FrameworkConfig:
     """DDIM-50 with every UNet ResBlock's GroupNorm -> SiLU -> conv3x3 as
     one fused kernel (and the reference's 128-channel padding flag)."""
@@ -222,4 +269,28 @@ def test_config() -> FrameworkConfig:
         sampler=SamplerConfig(num_steps=4, image_size=64, max_new_tokens=8,
                               min_new_tokens=2, prompt_pad_len=16,
                               negative_prompt=""),
+    )
+
+
+def test_sdxl_config() -> FrameworkConfig:
+    """Tiny SDXL-shaped config for CPU tests: dual towers, micro-conds."""
+
+    base = test_config()
+    tower = base.models.clip_text
+    tower2 = dataclasses.replace(tower, hidden_size=96, num_heads=4)
+    return base.replace(
+        models=dataclasses.replace(
+            base.models,
+            clip_text_2=tower2,
+            unet=UNetConfig(
+                base_channels=32, channel_mults=(1, 2), num_heads=4,
+                attention_levels=(False, True), transformer_depth=(0, 2),
+                blocks_per_level=1, context_dim=tower.hidden_size + 96,
+                time_embed_dim=128,
+                # pooled (96) + 6 sinusoidal time_ids x 32
+                addition_embed_dim=96 + 6 * 32,
+                dtype="float32",
+            ),
+            vae=dataclasses.replace(base.models.vae, scaling_factor=0.13025),
+        ),
     )

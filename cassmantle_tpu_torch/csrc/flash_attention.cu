@@ -8,11 +8,13 @@
 // or past kv_len get -inf before the softmax (the reference's -1e30
 // underflows to the same 0); out = acc / l.
 //
-// The serving path's three modes (SD1.5-512 with CFG):
-//   - self attention over image tokens (B=2, H=8, (S, D) = (4096, 40),
-//     (1024, 80), (256, 160), (64, 160));
+// The serving path's three modes (SD1.5-512 and SDXL-1024 with CFG):
+//   - self attention over image tokens (SD1.5: B=2, H=8, (S, D) =
+//     (4096, 40), (1024, 80), (256, 160), (64, 160); SDXL: B=2, D=64,
+//     (S, H) = (4096, 10), (1024, 20));
 //   - cross attention over the 77-token CLIP context (kv_len 77);
-//   - the wide head of the VAE mid block (B=1, H=1, S=4096, D=512).
+//   - the wide head of the VAE mid block (B=1, H=1, D=512, S=4096 at
+//     SD1.5, 16384 at SDXL).
 //
 // What bounds it (bf16, H100 SXM: 989 TFLOP/s, 3.35 TB/s; 4*B*H*Sq*Sk*D
 // FLOPs, q, k, v, o bytes once each): self attention at level 0 of the
@@ -26,7 +28,7 @@
 // Two kernels, chosen by the caller (ops/_flash_plan.py) by shape and
 // never as a rescue:
 //
-// flash_wgmma_kernel (D = 40, 80 or 160, the UNet's head dims, with
+// flash_wgmma_kernel (D = 40, 64, 80 or 160, the UNets' head dims, with
 // 16-byte strides and bases), after FlashAttention-3's structure, on
 // hopper.cuh:
 // - Warp-specialised block: one producer thread issues TMA for the Q
@@ -34,9 +36,9 @@
 //   stages (separate full/empty mbarriers for K and V, so q.k^T starts
 //   before V lands); one to three consumer warpgroups own 64 query rows
 //   each. setmaxnreg moves registers from the producer (32 or 24) to
-//   the consumers (232 with two, 160 with three: only D = 40's
-//   accumulators fit 160, and there 192 rows a block share each K/V tile
-//   and a third warp on each scheduler hides the softmax's latency).
+//   the consumers (232 with two, 160 with three: only D = 40's and
+//   64's accumulators fit 160, and there 192 rows a block share each K/V
+//   tile and a third warp on each scheduler hides the softmax's latency).
 // - Both products on wgmma: S = Q K^T as m64nBKk16 with Q and K K-major
 //   in 128-byte-swizzled tiles (desc_sw128); O += P V as m64nNPk16 with
 //   P from registers (the S accumulator converted to bf16 in place: its
@@ -46,8 +48,9 @@
 //   caller's strides (the fused qkv projection's views need no copy),
 //   boxes of 64 columns (128 bytes); TMA zero-fills columns d..63 of the
 //   last box and rows past Sq or kv_len. ceil(d/16) k-steps of q.k^T
-//   and N = d for p.v (NP = d: one instance per UNet head dim). D = 80
-//   and 160 take two and three boxes.
+//   and N = d for p.v (NP = d: one instance per UNet head dim). D = 64
+//   is exactly one box (no column past d); D = 80 and 160 take two and
+//   three boxes.
 // - Softmax that keeps the exponent unit busy: the scale folds into one
 //   FFMA per score (s * scale * log2e - m), ex2.approx.ftz (relative
 //   error about 2^-22, far below p's bf16 rounding of 2^-9); columns are
@@ -481,6 +484,7 @@ extern "C" int cassmantle_flash_attention_bf16(
   // plain version).
   CASSMANTLE_FLASH_CASE(32, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(48, 64, 64, 1)
+  CASSMANTLE_FLASH_CASE(64, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(80, 64, 64, 1)
   CASSMANTLE_FLASH_CASE(160, 64, 32, 1)
   CASSMANTLE_FLASH_CASE(256, 64, 32, 2)
@@ -848,12 +852,12 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
 // The warpgroup kernel. q (B, Sq, H, D), k and v (B, Sk, H, D), o (B,
 // Sq, H, D): bf16 with unit stride on D, element strides on B, S, H that
 // are multiples of 8 (dimensions of size 1 aside), 16-byte-aligned bases,
-// d = 40, 80 or 160, scale > 0. The launch plan comes from the caller
-// (ops/_flash_plan.py::flash_plan): np the head dim, bk keys a tile,
-// stages of the K/V rings (one instantiated triple per np), nc consumer
-// warpgroups (64 query rows each; three at np = 40 only), the D boxes
-// and q.k^T k-steps of the instance, grid_x = ceil(Sq / (64 nc)) query
-// blocks. Returns a cudaError_t.
+// d = 40, 64, 80 or 160, scale > 0. The launch plan comes from the
+// caller (ops/_flash_plan.py::flash_plan): np the head dim, bk keys a
+// tile, stages of the K/V rings (one instantiated triple per np), nc
+// consumer warpgroups (64 query rows each; three at np = 40 and 64
+// only), the D boxes and q.k^T k-steps of the instance, grid_x =
+// ceil(Sq / (64 nc)) query blocks. Returns a cudaError_t.
 extern "C" int cassmantle_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int d, int kv_len, float scale, long long qb,
@@ -883,9 +887,12 @@ extern "C" int cassmantle_flash_attention_wgmma(
                                             batch, heads, st);            \
   }
   // (padded head dim, keys a tile, stages, the most consumer warpgroups):
-  // ops/_flash_plan.py::INSTANCES; D = 40 also with three consumers
+  // ops/_flash_plan.py::INSTANCES; D = 40 and 64 with three consumers and
+  // with two (blocks of 128 or 64 query rows)
   CASSMANTLE_FLASH_WGMMA(40, 128, 3, 3)
   CASSMANTLE_FLASH_WGMMA(40, 128, 3, 2)
+  CASSMANTLE_FLASH_WGMMA(64, 128, 3, 3)
+  CASSMANTLE_FLASH_WGMMA(64, 128, 3, 2)
   CASSMANTLE_FLASH_WGMMA(80, 128, 2, 2)
   CASSMANTLE_FLASH_WGMMA(160, 64, 3, 2)
 #undef CASSMANTLE_FLASH_WGMMA

@@ -1,9 +1,10 @@
 """CLIP text encoder (SD's text tower).
 
 Port of ``cassmantle_tpu/models/clip_text.py``: pre-LN causal transformer
-with learned positions and quick-GELU (CLIP ViT-L/14's text model). The
-reference's pipeline runs it in fp32 over parameters stored in
-``param_dtype``; so does the port's.
+with learned positions and quick-GELU (CLIP ViT-L/14's text model). SDXL's
+second tower (OpenCLIP bigG, exact GELU) is the same module at
+``ClipTextConfig.sdxl_big()`` dimensions. The reference's pipelines run it
+in fp32 over parameters stored in ``param_dtype``; so do the port's.
 """
 
 from __future__ import annotations
@@ -59,17 +60,24 @@ class ClipTextEncoder(nn.Module):
             self.position_embedding.normal_(0.0, 0.01, generator=generator)
 
     def forward(self, input_ids: torch.Tensor) -> dict:
-        """input_ids (B, S) -> {hidden: (B, S, D), pooled: (B, D)}."""
+        """input_ids (B, S) -> {hidden: (B, S, D), pooled: (B, D),
+        penultimate: (B, S, D)}. ``penultimate`` is the state after block
+        ``num_layers - 2``, without the final LayerNorm: SDXL conditions
+        its UNet on it (diffusers' ``hidden_states[-2]``)."""
         seq = input_ids.shape[1]
         x = self.token_embedding(input_ids) \
             + self.position_embedding[None, :seq].to(self.dtype)
         causal = torch.ones((seq, seq), dtype=torch.bool,
                             device=input_ids.device).tril()[None, None]
+        penultimate = x
         for i in range(self.cfg.num_layers):
             x = getattr(self, f"block_{i}")(x, causal)
+            if i == self.cfg.num_layers - 2:
+                penultimate = x
         hidden = self.ln_final(x)
         # CLIP pools at the EOT token, the highest id of each row
         eot = input_ids.argmax(dim=-1)
         pooled = hidden[torch.arange(hidden.shape[0]), eot]
         return {"hidden": hidden.to(self.dtype),
-                "pooled": pooled.to(self.dtype)}
+                "pooled": pooled.to(self.dtype),
+                "penultimate": penultimate.to(self.dtype)}

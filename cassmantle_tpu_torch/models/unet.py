@@ -1,12 +1,15 @@
-"""Diffusion UNet at SD1.5 geometry.
+"""Diffusion UNet at SD1.5 and SDXL geometry.
 
 Port of ``cassmantle_tpu/models/unet.py``, plain forward only (the
 DeepCache and encoder-propagation modes come with their samplers). The
 public layout is the reference's: latents (B, H, W, 4) NHWC in, eps
 (B, H, W, 4) fp32 out; inside, activations are NCHW. bf16 parameters and
 activations, fp32 GroupNorm/LayerNorm statistics, fp32 softmax, fp32
-``conv_out``. Every attention site (16 transformer blocks at SD1.5, one
-self and one cross attention each) runs the flash kernel on the card.
+``conv_out``. Every attention site (16 transformer blocks at SD1.5, 70 at
+SDXL, one self and one cross attention each) runs the flash kernel on the
+card. With ``addition_embed_dim`` (SDXL) the micro-conditioning vector
+(pooled text ++ size/crop time ids) goes through ``add_fc1`` -> SiLU ->
+``add_fc2`` into the time embedding.
 
 With ``UNetConfig.fused_conv`` every ResBlock's GroupNorm -> SiLU ->
 conv3x3 runs as one fused kernel (``layers.fused_gn_silu_conv3x3``), or as
@@ -18,7 +21,7 @@ was.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -150,6 +153,10 @@ class UNet(nn.Module):
 
         self.time_fc1 = Dense(base, temb_dim, dtype=dtype)
         self.time_fc2 = Dense(temb_dim, temb_dim, dtype=dtype)
+        if cfg.addition_embed_dim:
+            self.add_fc1 = Dense(cfg.addition_embed_dim, temb_dim,
+                                 dtype=dtype)
+            self.add_fc2 = Dense(temb_dim, temb_dim, dtype=dtype)
         self.conv_in = Conv(cfg.sample_channels, base, 3, dtype=dtype)
 
         ch_in = base
@@ -201,14 +208,21 @@ class UNet(nn.Module):
         return max(1, channels // 64)
 
     def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        """latents (B, H, W, 4), timesteps (B,), context (B, S, Dc) ->
-        eps (B, H, W, 4) fp32."""
+                context: torch.Tensor,
+                addition_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """latents (B, H, W, 4), timesteps (B,), context (B, S, Dc),
+        addition_embeds (B, A) or None -> eps (B, H, W, 4) fp32. The
+        additions count only where the config has ``addition_embed_dim``,
+        as in the reference."""
         cfg, dtype = self.cfg, self.dtype
         levels = len(cfg.channel_mults)
         context = context.to(dtype)
         temb = timestep_embedding(timesteps, cfg.base_channels)
         temb = self.time_fc2(F.silu(self.time_fc1(temb.to(dtype))))
+        if cfg.addition_embed_dim and addition_embeds is not None:
+            temb = temb + self.add_fc2(F.silu(self.add_fc1(
+                addition_embeds.to(dtype))))
 
         x = latents.to(dtype).permute(0, 3, 1, 2)
         if cfg.fused_conv:

@@ -15,6 +15,12 @@ submodules after the Flax modules, so the mapping is mechanical:
   int8 data in the port's layout, as a kernel above), ``weight_scale``
   (along the out-channel axis) and, when static, ``act_scale``.
 
+SDXL's kinds (``clip_text_2``, ``unet_xl``, ``vae_xl``) follow the same
+rules, the UNet's micro-conditioning ``add_fc1``/``add_fc2`` as Dense
+leaves. bigG's optional ``text_projection`` is a bare square matrix that
+the reference applies as ``pooled @ proj``; ``SDXLPipeline`` takes it as
+it is, with no transpose.
+
 Loading HF/diffusers checkpoints waits for checkpoints in the repository.
 """
 
@@ -25,7 +31,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-KINDS = ("clip_text", "unet", "vae", "gpt2", "minilm")
+KINDS = ("clip_text", "clip_text_2", "unet", "unet_xl", "vae", "vae_xl",
+         "gpt2", "minilm")
 
 
 def _leaf(name: str, value: np.ndarray):

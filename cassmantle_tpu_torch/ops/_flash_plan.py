@@ -4,9 +4,9 @@ in plain Python so that the CPU tests reach it.
 Two kernels, chosen by shape and layout, never as a rescue:
 
 - ``wgmma``: the warp-specialised kernel (TMA loads, wgmma for both
-  products). It takes the UNet's head dims (40, 80, 160) with
-  16-byte-aligned bases, strides that are multiples of 16 bytes and a
-  positive scale: every UNet shape.
+  products). It takes the UNets' head dims (SD1.5's 40, 80, 160 and
+  SDXL's 64) with 16-byte-aligned bases, strides that are multiples of
+  16 bytes and a positive scale: every UNet shape.
 - ``mma.sync``: the kernel of the first port, for the rest: the VAE mid
   block's D = 512 (its 64 x 512 fp32 accumulator does not fit one
   warpgroup's registers), any other head dim, strides or bases TMA
@@ -26,17 +26,20 @@ MMA_SYNC = "mma.sync"
 
 # wgmma: head dim (p.v's N) -> (keys a tile, K/V ring stages, the most
 # consumer warpgroups), as instantiated (cassmantle_flash_attention_wgmma).
-# D = 40 and 80 take 128-key tiles, D = 160 64 keys, so that O, S and P
-# stay within a consumer's registers; only D = 40's fit the 160
-# registers of three consumers.
-INSTANCES = {40: (128, 3, 3), 80: (128, 2, 2), 160: (64, 3, 2)}
+# D = 40, 64 and 80 take 128-key tiles, D = 160 64 keys, so that O, S
+# and P stay within a consumer's registers; D = 40's and 64's fit the 160
+# registers of three consumers. D = 64 (SDXL) was chosen by
+# tools/sweep_flash_d64.py on the card.
+INSTANCES = {40: (128, 3, 3), 64: (128, 3, 3), 80: (128, 2, 2),
+             160: (64, 3, 2)}
 BOX = 64               # head-dim columns of one TMA box (128 bytes)
 WGMMA_ROWS = 64        # query rows of one consumer warpgroup
 
 # mma.sync: padded head dim -> (query rows, keys a tile), as instantiated
 # (cassmantle_flash_attention_bf16).
-MMA_SYNC_INSTANCES = {32: (64, 64), 48: (64, 64), 80: (64, 64),
-                      160: (64, 32), 256: (64, 32), 512: (32, 32)}
+MMA_SYNC_INSTANCES = {32: (64, 64), 48: (64, 64), 64: (64, 64),
+                      80: (64, 64), 160: (64, 32), 256: (64, 32),
+                      512: (32, 32)}
 MAX_HEAD_DIM = max(MMA_SYNC_INSTANCES)
 
 

@@ -5,13 +5,14 @@ compiles the 50 steps into one ``lax.scan``; here they are a Python loop
 of eager steps. The per-step coefficients are fp32 scalars taken in numpy
 float32, as the reference's fp32 schedule arrays give them; the latents
 stay fp32 (B, H, W, 4) NHWC. CFG runs the unconditional and conditional
-halves as one 2B UNet batch.
+halves as one 2B UNet batch; SDXL's micro-conditioning vector rides the
+same batch as the context.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -97,14 +98,23 @@ def cfg_guide(eps: torch.Tensor, guidance_scale: float) -> torch.Tensor:
 
 
 def make_cfg_denoiser(unet: Callable, context: torch.Tensor,
-                      uncond_context: torch.Tensor, guidance_scale: float
+                      uncond_context: torch.Tensor, guidance_scale: float,
+                      addition_embeds: Optional[torch.Tensor] = None,
+                      uncond_addition_embeds: Optional[torch.Tensor] = None
                       ) -> Callable[[torch.Tensor, int], torch.Tensor]:
-    """Classifier-free guidance: one 2B-batch UNet call per step."""
+    """Classifier-free guidance: one 2B-batch UNet call per step. SDXL's
+    ``addition_embeds`` (B, A) stack unconditional-first like the context;
+    an absent unconditional addition is zeros."""
     full_context = cfg_context(context, uncond_context)
+    extra = ()
+    if addition_embeds is not None:
+        if uncond_addition_embeds is None:
+            uncond_addition_embeds = torch.zeros_like(addition_embeds)
+        extra = (torch.cat([uncond_addition_embeds, addition_embeds], dim=0),)
 
     def denoise(x: torch.Tensor, t: int) -> torch.Tensor:
         x2, t2 = cfg_double(x, t)
-        return cfg_guide(unet(x2, t2, full_context), guidance_scale)
+        return cfg_guide(unet(x2, t2, full_context, *extra), guidance_scale)
 
     return denoise
 

@@ -7,7 +7,8 @@ attention with a ``kv_len`` mask, and the wide-head VAE variant at
 :func:`flash_attention` is the single entry point:
 
 - on a CUDA tensor it launches a kernel (bf16 only) or raises: the
-  warp-specialised wgmma kernel for every UNet shape (D = 40, 80, 160),
+  warp-specialised wgmma kernel for every UNet shape (D = 40, 80, 160
+  at SD1.5, 64 at SDXL),
   the mma.sync kernel for D = 512, other head dims and layouts TMA
   cannot describe
   (``_flash_plan.flash_plan`` decides by shape, never on failure);

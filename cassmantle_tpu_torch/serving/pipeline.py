@@ -12,8 +12,10 @@ The fused-conv and W8A8 presets build the same models: the UNet with
 ``fused_conv`` runs its ResBlock convs as one fused kernel, and under
 ``unet_w8a8``/``lm_w8a8`` the UNet's and GPT-2's sites quantize once, at
 build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
-Staged serving, brownout tiers, integrity sentinels and the other
-samplers are later slices.
+A config with a second text tower (``sdxl_config()``) makes the backend
+serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
+``TPUContentBackend`` does. Staged serving, brownout tiers, integrity
+sentinels and the other samplers are later slices.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ from cassmantle_tpu_torch.utils.tokenizers import (
 log = logging.getLogger(__name__)
 
 # Seed offsets of the random init, one per model (the reference's init
-# slots: CLIP 1, UNet 2, VAE 3, GPT-2 5).
-INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5}
+# slots: CLIP 1, UNet 2, VAE 3, GPT-2 5, SDXL's bigG tower 11).
+INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5,
+              "clip_text_2": 11}
 
 
 def unet_w8a8_armed(models_cfg) -> bool:
@@ -158,9 +161,11 @@ class Text2ImagePipeline:
             w8a8(self.unet)
             log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
                                          w8a8_site_count(self.unet)))
+        # SDXL's two towers share the CLIP vocabulary and one tokenization
         self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size)
-        self.pad_len = min(cfg.sampler.prompt_pad_len,
-                           m.clip_text.max_positions)
+        self.pad_len = min([cfg.sampler.prompt_pad_len] + [
+            t.max_positions for t in (m.clip_text, m.clip_text_2)
+            if t is not None])
         # pixels per latent: one 2x upsample per VAE level transition
         self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
         self.schedule = DDIMSchedule.create(cfg.sampler.num_steps)
@@ -175,13 +180,20 @@ class Text2ImagePipeline:
                                     self.cfg.models.clip_text.vocab_size)
         return torch.from_numpy(ids).long().to(self.device)
 
+    def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """The CFG conditioning of ``prompts`` and the negative prompt, as
+        :func:`make_cfg_denoiser`'s keyword arguments."""
+        ids = self._tokenize(prompts)
+        uncond_ids = self._tokenize(
+            [self.cfg.sampler.negative_prompt] * len(prompts))
+        return {"context": self.clip(ids)["hidden"],
+                "uncond_context": self.clip(uncond_ids)["hidden"]}
+
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  latents: Optional[torch.Tensor] = None) -> np.ndarray:
         """prompts -> (B, H, W, 3) uint8 host array. ``latents`` (B, h, w, 4)
         replaces the seeded x_T (the parity tests feed the reference's)."""
         s = self.cfg.sampler
-        ids = self._tokenize(prompts)
-        uncond_ids = self._tokenize([s.negative_prompt] * len(prompts))
         if latents is None:
             gen = torch.Generator(self.device).manual_seed(seed)
             latents = initial_latents(gen, len(prompts), s.image_size,
@@ -190,13 +202,12 @@ class Text2ImagePipeline:
         times = {}
         with torch.inference_mode():
             t0 = time.perf_counter()
-            ctx = self.clip(ids)["hidden"]
-            uncond = self.clip(uncond_ids)["hidden"]
+            cond = self.encode(prompts)
             synchronize(self.device)
             t1 = time.perf_counter()
             times["clip"] = t1 - t0
-            denoise = make_cfg_denoiser(self.unet, ctx, uncond,
-                                        s.guidance_scale)
+            denoise = make_cfg_denoiser(
+                self.unet, guidance_scale=s.guidance_scale, **cond)
             final = ddim_sample(denoise, latents, self.schedule)
             synchronize(self.device)
             t2 = time.perf_counter()
@@ -311,7 +322,9 @@ class RoundContent:
 
 
 class TorchContentBackend:
-    """GPT-2 episode text + diffusion image: one round's content."""
+    """GPT-2 episode text + diffusion image: one round's content. The image
+    comes from :class:`SDXLPipeline` when the config has a second text
+    tower, else from :class:`Text2ImagePipeline`."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  styles: Optional[List[str]] = None,
@@ -319,7 +332,13 @@ class TorchContentBackend:
                  state_dicts: Optional[Mapping[str, Mapping]] = None):
         sd = state_dicts or {}
         self.cfg = cfg
-        self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd)
+        if cfg.models.clip_text_2 is not None:
+            # serving/sdxl.py builds on this module
+            from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+
+            self.t2i = SDXLPipeline(cfg, device, state_dicts=sd)
+        else:
+            self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd)
         self.prompt_gen = PromptGenerator(cfg, device, sd.get("gpt2"))
         self.styles = styles or load_styles()
         self.rng = rng or random.Random(cfg.seed)

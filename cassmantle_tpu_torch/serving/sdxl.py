@@ -1,0 +1,117 @@
+"""SDXL-base text -> image: dual text towers and micro-conditioning.
+
+Port of the monolithic single-device path of
+``cassmantle_tpu/serving/sdxl.py::SDXLPipeline`` at full 1024x1024 scale
+(``sdxl_config()``). On top of :class:`Text2ImagePipeline` it adds:
+
+- two text towers (CLIP ViT-L and OpenCLIP bigG), each contributing its
+  second-to-last hidden state, concatenated into the 2048-wide UNet
+  context;
+- bigG's pooled embedding (projected when a ``text_projection`` is given)
+  and the sinusoidal size/crop time ids, fed through the UNet's
+  addition-embedding MLP (micro-conditioning);
+- the VAE with SDXL's 0.13025 scaling factor (in the config).
+
+``generate`` (inherited) is the reference's ``_sample_impl`` and
+``generate``: encode both prompts, stack the CFG batch, 50 DDIM steps,
+VAE decode, uint8. The reference's data-parallel padding, staged serving,
+brownout tiers, encoder propagation, DeepCache, consistency sampling and
+W8A8 UNet are later slices: the port's config has no field for the
+first six yet, and a W8A8 or fused-conv SDXL UNet raises
+``NotImplementedError``, as a sampler other than DDIM does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
+from cassmantle_tpu_torch.models.layers import timestep_embedding
+from cassmantle_tpu_torch.serving.pipeline import (
+    Text2ImagePipeline,
+    build_model,
+)
+from cassmantle_tpu_torch.utils.device import DeviceLike, torch_dtype
+
+
+def check_sdxl(cfg: FrameworkConfig) -> None:
+    """What the port's SDXL path serves: both towers, micro-conditioning,
+    and the plain (unfused, unquantized) UNet."""
+    m = cfg.models
+    if m.clip_text_2 is None:
+        raise ValueError("SDXL needs both text towers; use sdxl_config()")
+    if (m.unet.addition_embed_dim - m.clip_text_2.hidden_size) // 6 <= 0:
+        raise ValueError("SDXL's UNet needs micro-conditioning wider than "
+                         "the bigG pooled width")
+    if m.unet_w8a8 or m.unet.fused_conv:
+        raise NotImplementedError(
+            "the W8A8 and fused-conv SDXL UNet are not ported; the port "
+            "serves SDXL's plain bf16 UNet")
+
+
+class SDXLPipeline(Text2ImagePipeline):
+    """prompts -> (B, 1024, 1024, 3) uint8 under ``sdxl_config()`` (or the
+    tiny ``test_sdxl_config()`` on the CPU).
+
+    ``state_dicts`` takes the port ``state_dict`` of ``clip_text``,
+    ``clip_text_2``, ``unet`` and ``vae`` and, optionally, bigG's
+    ``clip_text_2_projection`` (the reference's square matrix, applied as
+    ``pooled @ proj``); absent ones are random (seeds: CLIP 1, bigG 11,
+    UNet 2, VAE 3), and with random weights there is no projection, as in
+    the reference."""
+
+    def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
+                 state_dicts: Optional[Mapping[str, object]] = None):
+        check_sdxl(cfg)
+        super().__init__(cfg, device, state_dicts)
+        m = cfg.models
+        sd = state_dicts or {}
+        param_dtype = torch_dtype(m.param_dtype)
+        with torch.device(self.device):
+            self.clip2 = build_model(ClipTextEncoder(m.clip_text_2),
+                                     "clip_text_2", self.device, cfg.seed,
+                                     sd.get("clip_text_2"), param_dtype)
+        proj = sd.get("clip_text_2_projection")
+        self.clip2_proj = (None if proj is None
+                           else proj.to(self.device, param_dtype))
+        # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings
+        self.time_id_dim = (m.unet.addition_embed_dim
+                            - m.clip_text_2.hidden_size) // 6
+
+    def _encode(self, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ids -> (context (B, S, 768 + 1280), pooled bigG (B, 1280))."""
+        out1, out2 = self.clip(ids), self.clip2(ids)
+        context = torch.cat([out1["penultimate"], out2["penultimate"]],
+                            dim=-1)
+        pooled = out2["pooled"]
+        if self.clip2_proj is not None:
+            pooled = pooled @ self.clip2_proj.to(pooled.dtype)
+        return context, pooled
+
+    def _time_ids(self, batch: int) -> torch.Tensor:
+        """SDXL's size/crop conditioning (orig_h, orig_w, crop_top,
+        crop_left, target_h, target_w), each embedded sinusoidally:
+        (batch, 6 * time_id_dim) fp32."""
+        s = float(self.cfg.sampler.image_size)
+        ids = torch.tensor([s, s, 0.0, 0.0, s, s], dtype=torch.float32,
+                           device=self.device)
+        flat = timestep_embedding(ids, self.time_id_dim).reshape(-1)
+        return flat.expand(batch, flat.shape[0])
+
+    def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Both towers over the prompts and the negative prompt: the
+        contexts and the micro-conditioning vectors of the CFG batch."""
+        ids = self._tokenize(prompts)
+        uncond_ids = self._tokenize(
+            [self.cfg.sampler.negative_prompt] * len(prompts))
+        ctx, pooled = self._encode(ids)
+        uncond_ctx, uncond_pooled = self._encode(uncond_ids)
+        time_ids = self._time_ids(len(prompts))
+        return {"context": ctx, "uncond_context": uncond_ctx,
+                "addition_embeds": torch.cat([pooled, time_ids], dim=-1),
+                "uncond_addition_embeds": torch.cat(
+                    [uncond_pooled, time_ids], dim=-1)}

@@ -4,7 +4,8 @@ Port of ``cassmantle_tpu/serving/service.py::InferenceService`` without
 its serving plumbing (batching queues, supervisor, device-loss recovery,
 overload control), which is a later slice: ``embed``, ``similarity``,
 ``blur`` and ``generate_content`` call the pipelines directly and
-synchronously.
+synchronously. The image pipeline follows the config: SD1.5 by default,
+SDXL under ``sdxl_config()`` (``TorchContentBackend``).
 """
 
 from __future__ import annotations
@@ -47,5 +48,6 @@ class InferenceService:
 
     def generate_content(self, seed: str, is_seed: bool = True
                          ) -> RoundContent:
-        """One round: GPT-2 episode text and its 512x512 uint8 image."""
+        """One round: GPT-2 episode text and its uint8 image (512x512 under
+        ``FrameworkConfig()``, 1024x1024 under ``sdxl_config()``)."""
         return self.backend.generate_sync(seed, is_seed)

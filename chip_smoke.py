@@ -19,16 +19,18 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    attention also the floor its exponentials set, and the kernel path
    each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
-   weights and inputs (default, fused-conv and W8A8), and checks that
-   images, prompt tokens, scores and blur agree;
+   weights and inputs (default, fused-conv, W8A8 and SDXL), and checks
+   that images, prompt tokens, scores and blur agree;
 4. serves one game round at full width (SD1.5 512x512, 50-step CFG DDIM,
    GPT-2-small prompt text, MiniLM scoring, blur) with seeded random
    weights under each of ``FrameworkConfig()``,
-   ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, each with
-   the counts set to 0 just before it and read just after: every kernel
-   of the path launched as often as the path says (and the default round
-   none of the new ones), at checked shapes only, and each flash shape on
-   the kernel path its check took;
+   ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, and one
+   under ``sdxl_config()`` (SDXL-base 1024x1024: CLIP-L and bigG text
+   towers, the micro-conditioned UNet, the 0.13025 VAE), each with the
+   counts set to 0 just before it and read just after: every kernel of
+   the path launched as often, and at the shapes, as the path says (and
+   the default and SDXL rounds none of the other kernels), at checked
+   shapes only, and each flash shape on the kernel path its check took;
 5. profiles two denoise steps of each pipeline: host time per step, the
    device's busy time and idle share, and each kernel's part.
 
@@ -64,12 +66,33 @@ FLASH_SHAPES = {
     "self_mid": (2, 64, 64, 8, 160, "self"),
     "cross_mid": (2, 64, 77, 8, 160, "cross"),
     "vae_mid": (1, 4096, 4096, 1, 512, "separate"),
+    # SDXL-1024 (sdxl_config()): head dim 64, 10 heads at 640 channels
+    # (64x64 latents), 20 at 1280 (32x32); the VAE mid block at 128x128
+    "self_x1": (2, 4096, 4096, 10, 64, "self"),
+    "cross_x1": (2, 4096, 77, 10, 64, "cross"),
+    "self_x2": (2, 1024, 1024, 20, 64, "self"),
+    "cross_x2": (2, 1024, 77, 20, 64, "cross"),
+    "vae_mid_xl": (1, 16384, 16384, 1, 512, "separate"),
 }
-# 50 steps x 16 transformer blocks x (self + cross) + the VAE mid block.
-ROUND_FLASH_LAUNCHES = 50 * 32 + 1
+# Flash launches per shape of one round, by model: 50 CFG steps x the
+# transformer blocks at the shape's level (each one self and one cross
+# attention), and the VAE mid block once. SD1.5: 5 blocks at each of
+# three levels, 1 in the mid block (1,601 a round). SDXL: 5 x 2 at
+# 64x64, 5 x 10 + 10 mid at 32x32 (7,001 a round).
+ROUND_FLASH = {
+    "sd15": {"self_l0": 250, "cross_l0": 250, "self_l1": 250,
+             "cross_l1": 250, "self_l2": 250, "cross_l2": 250,
+             "self_mid": 50, "cross_mid": 50, "vae_mid": 1},
+    "sdxl": {"self_x1": 500, "cross_x1": 500, "self_x2": 3000,
+             "cross_x2": 3000, "vae_mid_xl": 1},
+}
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # block's D = 512 on mma.sync (ops/_flash_plan.py)
-ROUND_FLASH_PATHS = {"wgmma": 50 * 32, "mma.sync": 1}
+ROUND_FLASH_PATHS = {"sd15": {"wgmma": 1600, "mma.sync": 1},
+                     "sdxl": {"wgmma": 7000, "mma.sync": 1}}
+# the model each served preset runs
+PRESET_MODEL = {"default": "sd15", "fusedconv": "sd15", "w8a8": "sd15",
+                "sdxl": "sdxl"}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -778,6 +801,59 @@ def check_small_fused_and_w8a8():
     return ok_all
 
 
+def check_small_sdxl():
+    """The tiny SDXL geometry (both towers, micro-conditioning, bf16 UNet
+    and VAE) on the card against the CPU, same weights and inputs, with
+    heads = channels // 64: the UNet's and the VAE's attention run the
+    flash kernel's wgmma instance at D = 64. Held as the default path is
+    (``check_small_agreement``): against an fp32 CPU run of the same
+    weights, the card strays no further than the CPU's own bf16 run does,
+    plus 0.5 of a level on the mean and 2 levels at the max."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import test_sdxl_config
+    from cassmantle_tpu_torch.ops import flash_attention
+    from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+
+    fp32_cfg = with_unet(test_sdxl_config(), num_heads=None)
+    m = fp32_cfg.models
+    cfg = fp32_cfg.replace(models=dataclasses.replace(
+        m, unet=dataclasses.replace(m.unet, dtype="bfloat16"),
+        vae=dataclasses.replace(m.vae, dtype="bfloat16"),
+        param_dtype="bfloat16"))
+    cpu = SDXLPipeline(cfg, device="cpu")
+    sd = {"clip_text": cpu.clip.state_dict(),
+          "clip_text_2": cpu.clip2.state_dict(),
+          "unet": cpu.unet.state_dict(), "vae": cpu.vae.state_dict()}
+    gpu = SDXLPipeline(cfg, device="cuda", state_dicts=sd)
+    fp32 = SDXLPipeline(fp32_cfg, device="cpu", state_dicts=sd)
+    prompts = ["A watercolor style piece depicting: a lighthouse at dusk.",
+               "A vaporwave style piece depicting: the comet market."]
+    hw = cfg.sampler.image_size // cpu.vae_scale
+    x_t = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (len(prompts), hw, hw, 4)).astype(np.float32))
+    ref = fp32.generate(prompts, latents=x_t).astype(np.int32)
+    d_cpu = np.abs(cpu.generate(prompts, latents=x_t).astype(np.int32) - ref)
+    flash_attention.reset_counters()
+    d_gpu = np.abs(gpu.generate(prompts, latents=x_t).astype(np.int32) - ref)
+    paths = flash_path_totals(flash_attention.flash_attention.shape_paths)
+    res = dict(card_vs_fp32_max=int(d_gpu.max()),
+               card_vs_fp32_mean=float(d_gpu.mean()),
+               cpu_bf16_vs_fp32_max=int(d_cpu.max()),
+               cpu_bf16_vs_fp32_mean=float(d_cpu.mean()),
+               card_decoded_finite=gpu.last_decoded_finite,
+               flash_paths=paths)
+    ok = (d_gpu.mean() <= d_cpu.mean() + 0.5
+          and d_gpu.max() <= d_cpu.max() + 2 and gpu.last_decoded_finite
+          and paths.get("wgmma", 0) > 0)
+    print(f"[small] tiny geometry, sdxl, card vs CPU: {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def reset_all_counters() -> None:
     from cassmantle_tpu_torch.ops import flash_attention, fused_conv
     from cassmantle_tpu_torch.ops import quant_matmul
@@ -815,18 +891,25 @@ def flash_path_totals(shape_paths) -> dict:
     return totals
 
 
+def round_flash_shapes(preset: str) -> dict:
+    """{(B, Sq, Sk, H, D): launches} of flash attention in one round of
+    ``preset``."""
+    return {FLASH_SHAPES[name][:5]: n
+            for name, n in ROUND_FLASH[PRESET_MODEL[preset]].items()}
+
+
 def expected_tallies(preset: str) -> dict:
-    """Launches per shape of one round of ``preset``, new kernels only
-    (flash: ROUND_FLASH_LAUNCHES at FLASH_SHAPES under every preset)."""
-    none = {"gn_silu_conv3x3": {}, "int8_matmul": {}, "int8_conv3x3": {}}
+    """Launches per shape of one round of ``preset``, every kernel."""
+    base = {"gn_silu_conv3x3": {}, "int8_matmul": {}, "int8_conv3x3": {},
+            "flash_attention": round_flash_shapes(preset)}
     per_round = {s: n * UNET_FORWARDS for s, n in CONV_SHAPES.items()}
     if preset == "fusedconv":
-        return {**none, "gn_silu_conv3x3": per_round}
+        return {**base, "gn_silu_conv3x3": per_round}
     if preset == "w8a8":
         mm = {s: n * UNET_FORWARDS for s, n in UNET_MATMUL_SHAPES.items()}
-        return {**none, "int8_conv3x3": per_round,
+        return {**base, "int8_conv3x3": per_round,
                 "int8_matmul": {**mm, **LM_MATMUL_SHAPES}}
-    return none
+    return base
 
 
 def run_round(card: str, preset: str, cfg):
@@ -878,14 +961,16 @@ def run_round(card: str, preset: str, cfg):
     launches = {k: sum(v.values()) for k, v in tallies.items()
                 if k != "flash_paths"}
     flash_paths = flash_path_totals(tallies["flash_paths"])
+    model = PRESET_MODEL[preset]
     checks = {
         "image_shape": img.shape == (cfg.sampler.image_size,) * 2 + (3,),
         "image_uint8": img.dtype == np.uint8,
         "decoded_finite": bool(t2i.last_decoded_finite),
         "image_not_constant": int(img.max()) > int(img.min()),
         "second_image_ok": rc2.image.shape == img.shape,
-        "flash_launches": launches["flash_attention"] == ROUND_FLASH_LAUNCHES,
-        "flash_paths": flash_paths == ROUND_FLASH_PATHS,
+        "flash_launches": (launches["flash_attention"]
+                           == sum(ROUND_FLASH[model].values())),
+        "flash_paths": flash_paths == ROUND_FLASH_PATHS[model],
         "scores_finite": bool(np.all(np.isfinite(sims))),
         "scores_in_range": bool(np.all(np.abs(sims) <= 1.0 + 1e-5)),
         "blur_shapes": all(b.shape == img.shape and b.dtype == np.uint8
@@ -1007,9 +1092,9 @@ def profile_denoise(svc, steps: int = 2) -> dict:
     hw = s.image_size // t2i.vae_scale
     timesteps = [int(t) for t in t2i.schedule.timesteps[:steps]]
     with torch.inference_mode():
-        ctx = t2i.clip(t2i._tokenize(["a lighthouse at dusk"]))["hidden"]
-        uncond = t2i.clip(t2i._tokenize([s.negative_prompt]))["hidden"]
-        denoise = make_cfg_denoiser(t2i.unet, ctx, uncond, s.guidance_scale)
+        denoise = make_cfg_denoiser(
+            t2i.unet, guidance_scale=s.guidance_scale,
+            **t2i.encode(["a lighthouse at dusk"]))
         gen = torch.Generator("cuda").manual_seed(3)
         x = torch.randn((1, hw, hw, 4), generator=gen, device="cuda")
 
@@ -1093,6 +1178,7 @@ def main() -> int:
     from cassmantle_tpu_torch.config import (
         FrameworkConfig,
         fusedconv_serving_config,
+        sdxl_config,
         w8a8_serving_config,
     )
     from cassmantle_tpu_torch.ops import _build
@@ -1121,10 +1207,13 @@ def main() -> int:
         fail("tiny geometry: card and CPU disagree")
     if not check_small_fused_and_w8a8():
         fail("tiny geometry, fused conv or W8A8: card and CPU disagree")
+    if not check_small_sdxl():
+        fail("tiny geometry, SDXL: card and CPU disagree")
 
     presets = (("default", FrameworkConfig()),
                ("fusedconv", fusedconv_serving_config()),
-               ("w8a8", w8a8_serving_config()))
+               ("w8a8", w8a8_serving_config()),
+               ("sdxl", sdxl_config()))
     tallies = {}
     for preset, cfg in presets:
         svc, tallies[preset], bad = run_round(card, preset, cfg)
@@ -1139,11 +1228,12 @@ def main() -> int:
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
     for preset in tallies:
         shapes = tallies[preset]["flash_attention"]
-        unknown = set(shapes) - set(by_shape)
-        missing = set(by_shape) - set(shapes)
+        want = round_flash_shapes(preset)
+        unknown = set(shapes) - set(want)
+        missing = set(want) - set(shapes)
         if unknown or missing:
             fail(f"{preset}: main-path flash shapes differ from the checked "
-                 f"ones: unchecked {sorted(unknown)}, never launched "
+                 f"ones: unexpected {sorted(unknown)}, never launched "
                  f"{sorted(missing)}")
         # each shape ran in the round on the path its check took
         for (shape, path), n in tallies[preset]["flash_paths"].items():
@@ -1159,9 +1249,11 @@ def main() -> int:
                      f"{sorted(unchecked)}")
 
     kernels = []
-    round_paths = tallies["default"]["flash_paths"]
     for key, name in by_shape.items():
         r = rows[name]
+        # launches and path from the round of the shape's own model
+        round_paths = tallies["sdxl" if name in ROUND_FLASH["sdxl"]
+                              else "default"]["flash_paths"]
         (path,) = {p for (shape, p) in round_paths if shape == key}
         kernels.append({
             "name": f"flash_attention[{name}]", "route": "cuda",

@@ -99,6 +99,10 @@ def _qkv(device, b, sq, sk, h, d, seed=0):
     (2, 100, 1, 2, 80),         # one key, wgmma
     (1, 300, 77, 2, 48),        # D 48: mma.sync, padded to 48
     (1, 150, 200, 2, 72),       # D 72: mma.sync, padded to 80
+    (1, 16384, 16384, 1, 512),  # SDXL's VAE mid block at 128x128
+    (1, 4095, 129, 2, 64),      # SDXL's head dim: ragged Sq and kv_len
+    (2, 100, 77, 3, 64),        # one ragged query block, 77 keys
+    (2, 100, 1, 2, 64),         # one key
 ])
 def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     q, k, v = _qkv(cuda_device, b, sq, sk, h, d)
@@ -107,7 +111,7 @@ def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
     torch.cuda.synchronize()
     assert flash_attention.launches == 1
     assert flash_attention.shapes == {(b, sq, sk, h, d): 1}
-    path = "wgmma" if d in (40, 80, 160) else "mma.sync"
+    path = "wgmma" if d in (40, 64, 80, 160) else "mma.sync"
     assert flash_attention.paths == {path: 1}
     ref = flash_attention_plain(q, k, v)
     assert torch.isfinite(out).all()
@@ -117,12 +121,13 @@ def test_cuda_kernel_matches_plain(cuda_device, b, sq, sk, h, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["self", "cross"])
 @pytest.mark.parametrize("sq,h,d", [(4096, 8, 40), (1024, 8, 80),
-                                    (256, 8, 160), (64, 8, 160)])
+                                    (256, 8, 160), (64, 8, 160),
+                                    (4096, 10, 64), (1024, 20, 64)])
 def test_cuda_kernel_fused_projection_views(cuda_device, layout, sq, h, d):
     """q, k, v as the models hand them over: views of one fused qkv
     projection (self), or q alone and k, v views of one kv projection of
-    the 77-token context (cross). TMA reads them in place: the wgmma
-    path, no copy."""
+    the 77-token context (cross); SD1.5's shapes and SDXL's four (head
+    dim 64). TMA reads them in place: the wgmma path, no copy."""
     b, inner = 2, h * d
     g = torch.Generator(cuda_device).manual_seed(sq + d)
     kw = dict(generator=g, device=cuda_device, dtype=torch.bfloat16)
@@ -168,6 +173,51 @@ def test_cuda_kernel_strided_views_and_kv_len(cuda_device):
                                 v[:, :257].contiguous())
     torch.cuda.synchronize()
     assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 77, 129])
+def test_cuda_kernel_d64_views_and_kv_len(cuda_device, kv_len):
+    """SDXL's head dim on wgmma: q, k, v as views of one fused projection
+    with an explicit kv_len (one key, the CLIP context, a tile and one)."""
+    b, s, h, d = 2, 300, 3, 64
+    g = torch.Generator(cuda_device).manual_seed(kv_len)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    reset_counters()
+    out = flash_attention(q, k, v, kv_len=kv_len)
+    ref = flash_attention_plain(q.contiguous(), k[:, :kv_len].contiguous(),
+                                v[:, :kv_len].contiguous())
+    torch.cuda.synchronize()
+    assert flash_attention.paths == {"wgmma": 1}
+    assert_agrees(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (300, 77)])
+def test_cuda_kernel_d64_on_mma_sync(cuda_device, sq, sk):
+    """D = 64 that TMA cannot take (a base 2 bytes past a 16-byte
+    boundary) runs the mma.sync kernel's own D = 64 instance, by layout,
+    and agrees."""
+    b, h, d = 2, 4, 64
+    q, k, v = _qkv(cuda_device, b, sq, sk, h, d, seed=sk)
+    flat = torch.empty((q.numel() + 1,), dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape).copy_(q)
+    reset_counters()
+    out = flash_attention(shifted, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.paths == {"mma.sync": 1}
+    assert_agrees(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_d64_repeats_bit_for_bit(cuda_device):
+    """SDXL's 32x32 self attention on wgmma (three consumer warpgroups in
+    turn) gives the same bits on a second launch."""
+    q, k, v = _qkv(cuda_device, 2, 1024, 1024, 20, 64)
+    first = flash_attention(q, k, v)
+    assert torch.equal(first, flash_attention(q, k, v))
 
 
 @pytest.mark.cuda

@@ -212,12 +212,13 @@ def test_flash_plan(name, shape, sms):
         assert (plan.bq, plan.bk) == (32, 32)
     else:                                        # every UNet shape
         assert plan.path == _flash_plan.WGMMA
-        assert plan.np == d                      # 40, 80, 160: no padding
-        assert (plan.bk, plan.stages) == _flash_plan.INSTANCES[d][:2]
+        assert plan.np == d                      # 40, 64, 80, 160: no pad
+        bk, stages, most = _flash_plan.INSTANCES[d]
+        assert (plan.bk, plan.stages) == (bk, stages)
         assert plan.bq == 64 * plan.consumers
         blocks128 = -(-sq // 128) * h * b
-        if d == 40:                              # 192 rows fill the card
-            assert plan.consumers == 3 and -(-sq // 192) * h * b >= sms
+        if most == 3 and -(-sq // 192) * h * b >= sms:
+            assert plan.consumers == 3           # 192 rows fill the card
         else:
             assert plan.consumers == (2 if 2 * blocks128 >= sms else 1)
     # the grid covers every query row once
@@ -225,21 +226,22 @@ def test_flash_plan(name, shape, sms):
     assert plan.grid[0] * plan.bq >= sq > (plan.grid[0] - 1) * plan.bq
 
 
-@pytest.mark.parametrize("d,boxes,ksteps", [(40, 1, 3), (80, 2, 5),
-                                            (160, 3, 10)])
+@pytest.mark.parametrize("d,boxes,ksteps", [(40, 1, 3), (64, 1, 4),
+                                            (80, 2, 5), (160, 3, 10)])
 def test_flash_head_dim_boxes_and_ksteps(d, boxes, ksteps):
     """64-column boxes along D (zero past d) and ceil(d / 16) k-steps of
-    q.k^T at the UNet's 40, 80 and 160; p.v's N is d. The C function
-    refuses a plan whose boxes or k-steps differ from its instance's."""
+    q.k^T at the UNets' 40, 64 (SDXL: one whole box), 80 and 160; p.v's N
+    is d. The C function refuses a plan whose boxes or k-steps differ
+    from its instance's."""
     plan = _flash_plan.flash_plan(2, 1024, 8, d, 132)
     assert plan.path == _flash_plan.WGMMA
     assert (plan.np, plan.boxes, plan.ksteps) == (d, boxes, ksteps)
     assert d <= 64 * plan.boxes < d + 64
 
 
-@pytest.mark.parametrize("d", [8, 24, 32, 48, 64, 72, 128, 256])
+@pytest.mark.parametrize("d", [8, 24, 32, 48, 96, 72, 128, 256])
 def test_flash_other_head_dims_take_mma_sync(d):
-    """Head dims off the UNet's have no wgmma instance: the mma.sync
+    """Head dims off the UNets' have no wgmma instance: the mma.sync
     kernel takes them, padded to its smallest instance that holds d."""
     plan = _flash_plan.flash_plan(2, 1024, 8, d, 132)
     assert plan.path == _flash_plan.MMA_SYNC
@@ -277,6 +279,9 @@ def test_flash_consumers_per_block(sq, h, want):
     (256, True, 0.06, "mma.sync"),
     (80, True, 0.11, "wgmma"),
     (160, True, 0.08, "wgmma"),
+    (64, True, 0.125, "wgmma"),        # SDXL's head dim
+    (64, False, 0.125, "mma.sync"),
+    (64, True, -0.125, "mma.sync"),
 ])
 def test_flash_path_choice(d, tma_ok, scale, path):
     plan = _flash_plan.flash_plan(1, 300, 2, d, 132, tma_ok, scale)
@@ -297,3 +302,51 @@ def test_flash_tma_layout(shape, strides, ptr, ok):
     """Byte strides must be multiples of 16 where a dimension has more
     than one index; the base 16-byte aligned."""
     assert _flash_plan.tma_layout_ok(shape, strides, ptr) == ok
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("name,blocks", [("self_x1", 440), ("cross_x1", 440),
+                                         ("self_x2", 240), ("cross_x2", 240)])
+def test_flash_d64_sdxl_grids(name, blocks, sms):
+    """SDXL's four UNet shapes (head dim 64) on the wgmma kernel with three
+    consumer warpgroups (192 query rows a block): ceil(4096 / 192) x 10
+    heads x 2 = 440 blocks at 64x64 latents and ceil(1024 / 192) x 20 x 2
+    = 240 at 32x32; both fill the card."""
+    b, sq, _, h, d, _ = chip_smoke.FLASH_SHAPES[name]
+    plan = _flash_plan.flash_plan(b, sq, h, d, sms)
+    assert (plan.path, plan.np, plan.consumers, plan.bq) == (
+        _flash_plan.WGMMA, 64, 3, 192)
+    assert (plan.boxes, plan.ksteps) == (1, 4)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] == blocks >= sms
+
+
+@pytest.mark.parametrize("shape,strides", [
+    ((2, 4096, 10, 64), (4096 * 640 + 4, 640, 64, 1)),    # batch stride
+    ((1, 300, 2, 64), (300 * 130, 130, 65, 1)),           # 130-byte rows
+])
+def test_flash_d64_takes_mma_sync_where_tma_cannot(shape, strides):
+    """A D = 64 operand that TMA cannot describe goes to the mma.sync
+    kernel at its own D = 64 instance (no padding to 80), by layout."""
+    assert not _flash_plan.tma_layout_ok(shape, strides, 0)
+    b, sq, h, d = shape
+    plan = _flash_plan.flash_plan(b, sq, h, d, 132, tma_ok=False)
+    assert (plan.path, plan.np) == (_flash_plan.MMA_SYNC, 64)
+    assert (plan.bq, plan.bk) == _flash_plan.MMA_SYNC_INSTANCES[64]
+    assert plan.grid == (-(-sq // plan.bq), h, b)
+
+
+def test_flash_round_counts_follow_the_models():
+    """chip_smoke's per-model flash counts: SD1.5 launches 1,601 a round
+    (wgmma 1,600, mma.sync 1), SDXL 7,001 (wgmma 7,000, mma.sync 1), each
+    shape of a round on the path the plan gives it at 132 SMs."""
+    for model, want in (("sd15", 1601), ("sdxl", 7001)):
+        counts = chip_smoke.ROUND_FLASH[model]
+        assert sum(counts.values()) == want
+        paths = {}
+        for name, n in counts.items():
+            b, sq, _, h, d, _ = chip_smoke.FLASH_SHAPES[name]
+            path = _flash_plan.flash_plan(b, sq, h, d, 132).path
+            paths[path] = paths.get(path, 0) + n
+        assert paths == chip_smoke.ROUND_FLASH_PATHS[model]
+    assert set(chip_smoke.FLASH_SHAPES) == set(
+        chip_smoke.ROUND_FLASH["sd15"]) | set(chip_smoke.ROUND_FLASH["sdxl"])
