@@ -10,7 +10,7 @@ the int8 matmul kernel with per-token activation scales.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -77,40 +77,59 @@ class GPT2LM(nn.Module):
             x, _ = block(x, mask=mask)
         return self._logits(self.ln_f(x))
 
+    def new_cache(self, batch: int, max_len: int, device=None) -> Cache:
+        """Zeroed per-layer (k, v) caches, each (batch, max_len, H, D) in
+        the attention's dtype."""
+        c = self.cfg
+        shape = (batch, max_len, c.num_heads, c.hidden_size // c.num_heads)
+        return [tuple(torch.zeros(shape, dtype=self.dtype, device=device)
+                      for _ in range(2)) for _ in range(c.num_layers)]
+
     def prefill(self, input_ids: torch.Tensor, prompt_len: torch.Tensor,
-                max_len: int) -> Tuple[torch.Tensor, Cache]:
+                max_len: int, cache: Optional[Cache] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """input_ids (B, P) right-padded, prompt_len (B,) -> (logits of
         the last real token (B, V), per-layer (k, v) caches, each
-        (B, max_len, H, D), zero past P)."""
+        (B, max_len, H, D), zero past P). A given ``cache``
+        (:meth:`new_cache`) is written in place, so a decode graph that
+        reads it sees the new prompt; else new caches are made."""
         b, p = input_ids.shape
         if p > max_len:
             raise ValueError(f"prompt bucket {p} > cache length {max_len}")
+        if cache is None:
+            cache = self.new_cache(b, max_len, input_ids.device)
+        else:
+            for ck, cv in cache:
+                ck[:, p:].zero_()
+                cv[:, p:].zero_()
         dev = input_ids.device
         positions = torch.arange(p, device=dev)[None, :]
         x = self.wte(input_ids) + self.wpe(positions)
         causal = torch.ones((p, p), dtype=torch.bool, device=dev).tril()
         valid = positions < prompt_len[:, None]
         mask = causal[None, None] & valid[:, None, None, :]
-        cache: Cache = []
-        for block in self.blocks():
+        for block, (ck, cv) in zip(self.blocks(), cache):
             x, (k, v) = block(x, mask=mask, return_kv=True)
-            ck = k.new_zeros((b, max_len) + k.shape[2:])
-            cv = v.new_zeros((b, max_len) + v.shape[2:])
             ck[:, :p] = k
             cv[:, :p] = v
-            cache.append((ck, cv))
         logits = self._logits(self.ln_f(x))
         last = logits[torch.arange(b, device=dev), prompt_len - 1]
         return last, cache
 
-    def decode_step(self, token: torch.Tensor, index: int, cache: Cache,
+    def decode_step(self, token: torch.Tensor,
+                    index: Union[int, torch.Tensor], cache: Cache,
                     valid: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        """One cached step: token (B,) at position ``index``; ``valid``
-        (B, max_len) marks the cache positions to attend, this one
-        included. The caches update in place; returns (logits (B, V),
-        cache)."""
-        dev = token.device
-        pos = torch.full((1, 1), index, dtype=torch.long, device=dev)
+        """One cached step: token (B,) at position ``index``, an int or
+        a one-element int64 tensor on the device (the decode graph's
+        form: no host value in the step); ``valid`` (B, max_len) marks the
+        cache positions to attend, this one included. The caches update
+        in place; returns (logits (B, V), cache)."""
+        if isinstance(index, torch.Tensor):
+            index = index.reshape(1)
+            pos = index.reshape(1, 1)
+        else:
+            pos = torch.full((1, 1), index, dtype=torch.long,
+                             device=token.device)
         x = self.wte(token[:, None]) + self.wpe(pos)
         mask = valid[:, None, None, :]
         new_cache: Cache = []

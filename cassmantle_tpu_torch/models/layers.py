@@ -48,10 +48,10 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
     """Sinusoidal diffusion-timestep embedding, fp32. (B,) -> (B, dim)."""
     half = dim // 2
-    freqs = torch.exp(
-        -math.log(max_period)
-        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
-        / half)
+    steps = torch.arange(half, dtype=torch.float32, device=timesteps.device)
+    # divided by a device tensor: an IEEE divide on every device
+    freqs = torch.exp(-math.log(max_period) * steps
+                      / steps.new_full((), half))
     args = timesteps.float()[:, None] * freqs[None, :]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2:
@@ -210,6 +210,14 @@ class LayerNorm32(nn.Module):
         return x * a + b
 
 
+def _per_channel(t: torch.Tensor, channels: int) -> torch.Tensor:
+    """(B, G) per-group values -> (B, C), each repeated over its group's
+    channels (``repeat_interleave`` as a broadcast copy: no host value is
+    read, so it can be captured in a CUDA graph)."""
+    b, g = t.shape
+    return t[:, :, None].expand(b, g, channels // g).reshape(b, channels)
+
+
 class _GroupNormCore(nn.Module):
     """GroupNorm of an NCHW tensor with fp32 statistics: per-(batch, group)
     mean and E[x^2] in fp32, then out = x * a + b with the per-(batch,
@@ -233,12 +241,13 @@ class _GroupNormCore(nn.Module):
         g = self.num_groups
         x32 = x.float()
         dims = tuple(range(2, x.ndim))
-        n_group = x32[0, 0].numel() * (c // g)
+        # divided by a device tensor: an IEEE divide on every device
+        n_group = x32.new_full((), x32[0, 0].numel() * (c // g))
         mean = x32.sum(dim=dims).reshape(b, g, -1).sum(-1) / n_group
         ex2 = x32.square().sum(dim=dims).reshape(b, g, -1).sum(-1) / n_group
         inv = torch.rsqrt(ex2 - mean.square() + self.eps)      # (B, G)
-        a = inv.repeat_interleave(c // g, dim=-1) * self.weight.float()
-        shift = self.bias.float() - mean.repeat_interleave(c // g, dim=-1) * a
+        a = _per_channel(inv, c) * self.weight.float()
+        shift = self.bias.float() - _per_channel(mean, c) * a
         return a, shift
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -248,8 +257,8 @@ class _GroupNormCore(nn.Module):
         mean = x32.mean(dim=-1)                                # (B, G)
         var = x32.square().mean(dim=-1) - mean.square()
         inv = torch.rsqrt(var + self.eps)
-        inv_c = inv.repeat_interleave(c // g, dim=-1)          # (B, C)
-        mean_c = mean.repeat_interleave(c // g, dim=-1)
+        inv_c = _per_channel(inv, c)                           # (B, C)
+        mean_c = _per_channel(mean, c)
         a = inv_c * self.weight.float()[None, :]
         shift = self.bias.float()[None, :] - mean_c * a
         shape = (b, c) + (1,) * (x.ndim - 2)
@@ -342,7 +351,9 @@ class MultiHeadAttention(nn.Module):
         call's k/v into the caches at ``index`` IN PLACE (the port updates
         the preallocated cache rather than copying it each step) and
         attends over the whole cache under the caller's ``mask``; returns
-        (out, (cache_k, cache_v))."""
+        (out, (cache_k, cache_v)). ``index`` is the first position (an
+        int), or the positions themselves as an int64 tensor of one per
+        token on the cache's device (a CUDA graph's step reads it there)."""
         ctx = x if context is None else context
         if self.fused_qkv:
             if kv_cache is not None or return_kv:
@@ -362,9 +373,13 @@ class MultiHeadAttention(nn.Module):
         kv_out = None
         if kv_cache is not None:
             cache_k, cache_v, index = kv_cache
-            s = k.shape[-3]
-            cache_k[:, index:index + s] = k.to(cache_k.dtype)
-            cache_v[:, index:index + s] = v.to(cache_v.dtype)
+            if isinstance(index, torch.Tensor):
+                cache_k.index_copy_(1, index, k.to(cache_k.dtype))
+                cache_v.index_copy_(1, index, v.to(cache_v.dtype))
+            else:
+                s = k.shape[-3]
+                cache_k[:, index:index + s] = k.to(cache_k.dtype)
+                cache_v[:, index:index + s] = v.to(cache_v.dtype)
             k, v = cache_k, cache_v
             kv_out = (cache_k, cache_v)
         elif return_kv:

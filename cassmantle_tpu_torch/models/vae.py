@@ -23,6 +23,15 @@ from cassmantle_tpu_torch.models.layers import (
 from cassmantle_tpu_torch.utils.device import torch_dtype
 
 
+def unscale_latents(latents: torch.Tensor, scaling_factor: float
+                    ) -> torch.Tensor:
+    """latents / scaling_factor, divided by a 0-dim fp32 tensor on the
+    latents' device: an IEEE divide on every device, as the reference's
+    (CUDA divides by a host scalar as a multiply by its reciprocal)."""
+    return latents / latents.new_full((), scaling_factor,
+                                      dtype=torch.float32)
+
+
 class VAEResBlock(nn.Module):
     """GN/SiLU/conv3x3 x2 + skip."""
 
@@ -87,7 +96,8 @@ class VAEDecoder(nn.Module):
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) scaled latents -> (B, 8h, 8w, 3) in [-1, 1]."""
         cfg = self.cfg
-        z = (latents / cfg.scaling_factor).to(self.dtype).permute(0, 3, 1, 2)
+        z = unscale_latents(latents, cfg.scaling_factor)
+        z = z.to(self.dtype).permute(0, 3, 1, 2)
         x = self.conv_in(self.post_quant_conv(z))
         x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
         for lvl in reversed(range(len(cfg.channel_mults))):

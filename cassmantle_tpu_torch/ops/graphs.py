@@ -1,0 +1,155 @@
+"""One step function captured into a CUDA graph and replayed.
+
+The reference compiles its hot loops whole: ``jax.jit`` over the
+sampler's ``lax.scan`` (``cassmantle_tpu/serving/pipeline.py``
+``dp_sharded_sampler``) and over the greedy decode's. The port's
+counterpart captures ONE step of such a loop (a CFG DDIM step, a GPT-2
+decode step) into a ``torch.cuda.CUDAGraph`` over static buffers and
+replays it once per step: the host issues one graph launch a step
+instead of thousands of eager ones. The step itself keeps its loop
+state on the device (a step counter in a device tensor, advanced inside
+the graph), so nothing is copied between host and device between
+replays.
+
+:class:`CapturedStep` does the capture:
+
+- a warm-up run of the step on a side stream, so every kernel library is
+  built (``ops/_build.py``), every launch plan computed and every
+  cuBLAS/cuDNN handle made before capture;
+- the capture, over the buffers the step reads and writes (the caller
+  owns them; they must stay put);
+- :meth:`CapturedStep.replay`.
+
+Launch tallies: the kernel wrappers count their launches in Python when
+they launch. A replay runs no Python, so the capture's tally (what the
+step's wrappers counted while it was captured) is kept and added on
+every replay, and what the warm-up and the capture counted is taken off
+again: the counters still mean "launches that ran". A capture that
+raises propagates its error; nothing falls back to eager.
+"""
+
+from __future__ import annotations
+
+import collections
+import gc
+import time
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from cassmantle_tpu_torch.ops.flash_attention import flash_attention
+from cassmantle_tpu_torch.ops.fused_conv import gn_silu_conv3x3
+from cassmantle_tpu_torch.ops.quant_matmul import int8_conv3x3, int8_matmul
+
+# Every launch counter of the kernel wrappers: (wrapper, attribute).
+COUNTERS = (
+    (flash_attention, ("launches", "shapes", "paths", "shape_paths")),
+    (gn_silu_conv3x3, ("launches", "shapes")),
+    (int8_matmul, ("launches", "shapes")),
+    (int8_conv3x3, ("launches", "shapes")),
+)
+
+Tally = Dict[Tuple[Callable, str], object]
+
+
+def snapshot() -> Tally:
+    """A copy of every launch counter as it stands."""
+    return {(fn, attr): (collections.Counter(getattr(fn, attr))
+                         if isinstance(getattr(fn, attr), collections.Counter)
+                         else getattr(fn, attr))
+            for fn, attrs in COUNTERS for attr in attrs}
+
+
+def difference(after: Tally, before: Tally) -> Tally:
+    """What the counters gained from ``before`` to ``after`` (Counters
+    keep only their changed keys)."""
+    out = {}
+    for key, value in after.items():
+        if isinstance(value, collections.Counter):
+            out[key] = collections.Counter(
+                {k: n - before[key].get(k, 0) for k, n in value.items()
+                 if n != before[key].get(k, 0)})
+        else:
+            out[key] = value - before[key]
+    return out
+
+
+def add(tally: Tally, times: int = 1) -> None:
+    """Add ``times`` x ``tally`` to the live counters (negative: take it
+    off); a Counter key that reaches 0 is dropped, as if never counted."""
+    for (fn, attr), delta in tally.items():
+        if isinstance(delta, collections.Counter):
+            counter = getattr(fn, attr)
+            for k, n in delta.items():
+                counter[k] += times * n
+                if counter[k] == 0:
+                    del counter[k]
+        else:
+            setattr(fn, attr, getattr(fn, attr) + times * delta)
+
+
+class CapturedStep:
+    """``fn`` (no arguments; reads and writes buffers that stay put)
+    warmed up, captured into a CUDA graph and replayed by
+    :meth:`replay`. ``output`` is what ``fn`` returned at capture: a
+    replay rewrites those tensors in place.
+
+    Host seconds of the set-up are kept: ``warmup_s``, ``capture_s``
+    (the step's Python under capture) and ``instantiate_s`` (ending the
+    capture, which instantiates the graph); ``pool_bytes`` is the device
+    memory the capture reserved for the graph's private pool."""
+
+    def __init__(self, fn: Callable[[], object]):
+        self.fn = fn
+        self.replays = 0
+        start = snapshot()
+        try:
+            t0 = time.perf_counter()
+            self._warm_up()
+            self.warmup_s = time.perf_counter() - t0
+            warm = snapshot()
+            self._capture()
+            self.tally = difference(snapshot(), warm)
+        finally:
+            add(difference(snapshot(), start), -1)
+
+    def _warm_up(self) -> None:
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.fn()
+        current.wait_stream(side)
+        torch.cuda.synchronize()
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph releases the allocator's cached blocks before it
+        # captures; release them first, so the pool's bytes are what the
+        # capture reserved
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self.output = self.fn()
+            t1 = time.perf_counter()
+        self.instantiate_s = time.perf_counter() - t1
+        self.capture_s = t1 - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph = graph
+
+    def replay(self):
+        """Launch the graph on the current stream (no sync) and count
+        the kernels it launches."""
+        self.graph.replay()
+        add(self.tally)
+        self.replays += 1
+        return self.output
+
+    def stats(self) -> dict:
+        """The set-up's seconds and the pool's bytes, for reports."""
+        return {"warmup_s": self.warmup_s, "capture_s": self.capture_s,
+                "instantiate_s": self.instantiate_s,
+                "pool_bytes": self.pool_bytes}

@@ -16,6 +16,12 @@ A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
 ``TPUContentBackend`` does. Staged serving, brownout tiers, integrity
 sentinels and the other samplers are later slices.
+
+On CUDA the two loops run as the reference compiles them, whole: the 50
+CFG DDIM steps replay one captured step graph per batch size
+(``ops/ddim.py::DDIMGraph``), and the GPT-2 decode steps one captured
+step per (padded batch, prompt bucket, max_new) (``ops/decode.py``).
+CLIP, x_T, the prefill and the VAE run eagerly.
 """
 
 from __future__ import annotations
@@ -37,12 +43,14 @@ from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.unet import UNet
 from cassmantle_tpu_torch.models.vae import VAEDecoder, postprocess_images
 from cassmantle_tpu_torch.ops.ddim import (
+    DDIMGraph,
     DDIMSchedule,
+    cfg_denoiser,
+    cfg_inputs,
     ddim_sample,
     initial_latents,
-    make_cfg_denoiser,
 )
-from cassmantle_tpu_torch.ops.decode import greedy_decode
+from cassmantle_tpu_torch.ops.decode import GreedyDecodeState, greedy_decode
 from cassmantle_tpu_torch.ops.fused_conv import describe as fc_describe
 from cassmantle_tpu_torch.ops.quant import (
     w8a8_calibrated,
@@ -169,6 +177,9 @@ class Text2ImagePipeline:
         # pixels per latent: one 2x upsample per VAE level transition
         self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
         self.schedule = DDIMSchedule.create(cfg.sampler.num_steps)
+        # the captured CFG DDIM step of each batch size (CUDA), made on
+        # first use
+        self.step_graphs: Dict[int, DDIMGraph] = {}
         # host seconds of the last generate() per stage, each ended by a
         # device synchronize; and whether the last decode was finite
         # before its uint8 quantisation
@@ -182,12 +193,33 @@ class Text2ImagePipeline:
 
     def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         """The CFG conditioning of ``prompts`` and the negative prompt, as
-        :func:`make_cfg_denoiser`'s keyword arguments."""
+        :func:`cfg_inputs`'s keyword arguments."""
         ids = self._tokenize(prompts)
         uncond_ids = self._tokenize(
             [self.cfg.sampler.negative_prompt] * len(prompts))
         return {"context": self.clip(ids)["hidden"],
                 "uncond_context": self.clip(uncond_ids)["hidden"]}
+
+    def denoise(self, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
+                graphed: Optional[bool] = None) -> torch.Tensor:
+        """The 50 CFG DDIM steps from x_T under ``cond`` (:meth:`encode`'s
+        output) -> the final latents. ``graphed`` (default: on CUDA)
+        replays the captured step of this batch size, captured on first
+        use, as the reference jits its sampler per batch; a capture
+        failure raises. ``graphed=False`` runs the same steps eagerly."""
+        s = self.cfg.sampler
+        inputs = cfg_inputs(**cond)
+        make_denoise = partial(cfg_denoiser, self.unet,
+                               guidance_scale=s.guidance_scale)
+        if graphed is None:
+            graphed = self.device.type == "cuda"
+        if not graphed:
+            return ddim_sample(make_denoise(**inputs), latents, self.schedule)
+        graph = self.step_graphs.get(latents.shape[0])
+        if graph is None:
+            graph = DDIMGraph(make_denoise, self.schedule, latents, **inputs)
+            self.step_graphs[latents.shape[0]] = graph
+        return graph(latents, **inputs)
 
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  latents: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -206,9 +238,7 @@ class Text2ImagePipeline:
             synchronize(self.device)
             t1 = time.perf_counter()
             times["clip"] = t1 - t0
-            denoise = make_cfg_denoiser(
-                self.unet, guidance_scale=s.guidance_scale, **cond)
-            final = ddim_sample(denoise, latents, self.schedule)
+            final = self.denoise(latents, cond)
             synchronize(self.device)
             t2 = time.perf_counter()
             times["denoise"] = t2 - t1
@@ -247,6 +277,9 @@ class PromptGenerator:
                      "activation scales)", w8a8_site_count(self.model))
         self.tokenizer = load_tokenizer("gpt2", m.vocab_size)
         self.last_seconds = 0.0
+        # decode states and their captured step (CUDA), per (padded
+        # batch, prompt bucket, max_new, eos), made on first use
+        self.decode_graphs: Dict[tuple, GreedyDecodeState] = {}
 
     def _bucket_for(self, n_tokens: int, max_new: int, limit: int) -> int:
         return next(
@@ -255,12 +288,16 @@ class PromptGenerator:
             limit)
 
     def decode_ids_batch(self, seed_texts: Sequence[str],
-                         max_new_tokens: Optional[int] = None
+                         max_new_tokens: Optional[int] = None,
+                         graphed: Optional[bool] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """N seed texts -> (tokens (N, max_new), gen_len (N,)) host arrays.
         Rows group by their own prompt bucket (so a row decodes at the
         same positions whatever it is batched with); each group's batch
-        pads to the next BATCH_BUCKETS size with 1-token dummy rows."""
+        pads to the next BATCH_BUCKETS size with 1-token dummy rows. On
+        CUDA (``graphed`` None or True) each group's decode steps replay
+        the captured step of its (batch, bucket, max_new), captured on
+        first use; ``graphed=False`` runs them eagerly."""
         if not seed_texts:
             raise ValueError("decode_ids_batch needs at least one prompt")
         m = self.mcfg
@@ -293,7 +330,8 @@ class PromptGenerator:
             with torch.inference_mode():
                 tokens, gen_len = greedy_decode(
                     self.model, torch.from_numpy(ids).to(self.device),
-                    torch.from_numpy(lens).to(self.device), max_new, eos)
+                    torch.from_numpy(lens).to(self.device), max_new, eos,
+                    graphs=self.decode_graphs, graphed=graphed)
             out_tokens[idxs] = tokens[:n].cpu().numpy()
             out_len[idxs] = gen_len[:n].cpu().numpy()
         return out_tokens, out_len

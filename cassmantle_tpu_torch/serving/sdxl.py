@@ -14,9 +14,11 @@ Port of the monolithic single-device path of
 
 ``generate`` (inherited) is the reference's ``_sample_impl`` and
 ``generate``: encode both prompts, stack the CFG batch, 50 DDIM steps,
-VAE decode, uint8. The reference's data-parallel padding, staged serving,
-brownout tiers, encoder propagation, DeepCache, consistency sampling and
-W8A8 UNet are later slices: the port's config has no field for the
+VAE decode, uint8. On the card the steps replay one captured step graph
+per batch size, whose static inputs include the CFG addition embeds.
+The reference's data-parallel padding, staged serving, brownout tiers,
+encoder propagation, DeepCache, consistency sampling and W8A8 UNet are
+later slices: the port's config has no field for the
 first six yet, and a W8A8 or fused-conv SDXL UNet raises
 ``NotImplementedError``, as a sampler other than DDIM does.
 """
@@ -77,9 +79,12 @@ class SDXLPipeline(Text2ImagePipeline):
         proj = sd.get("clip_text_2_projection")
         self.clip2_proj = (None if proj is None
                            else proj.to(self.device, param_dtype))
-        # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings
+        # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings;
+        # the time ids depend on the config alone: built once, here (a host
+        # to device copy, never inside a step)
         self.time_id_dim = (m.unet.addition_embed_dim
                             - m.clip_text_2.hidden_size) // 6
+        self.time_ids = self._time_ids(1)
 
     def _encode(self, ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,7 +115,7 @@ class SDXLPipeline(Text2ImagePipeline):
             [self.cfg.sampler.negative_prompt] * len(prompts))
         ctx, pooled = self._encode(ids)
         uncond_ctx, uncond_pooled = self._encode(uncond_ids)
-        time_ids = self._time_ids(len(prompts))
+        time_ids = self.time_ids.expand(len(prompts), -1)
         return {"context": ctx, "uncond_context": uncond_ctx,
                 "addition_embeds": torch.cat([pooled, time_ids], dim=-1),
                 "uncond_addition_embeds": torch.cat(

@@ -30,9 +30,21 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    counts set to 0 just before it and read just after: every kernel of
    the path launched as often, and at the shapes, as the path says (and
    the default and SDXL rounds none of the other kernels), at checked
-   shapes only, and each flash shape on the kernel path its check took;
-5. profiles two denoise steps of each pipeline: host time per step, the
-   device's busy time and idle share, and each kernel's part.
+   shapes only, and each flash shape on the kernel path its check took.
+   The 50 CFG steps replay one captured CUDA graph of the step, and the
+   GPT-2 decode steps one of the decode step (``ops/graphs.py``): the
+   counts add each replay's launches;
+5. holds each served graph against the eager steps it replaces
+   ([graphs]): the final latents of a 50-step graphed denoise bit-equal
+   to the eager loop's on the same x_T and conditioning, and (default,
+   W8A8) the 96 decode tokens equal, with each graph's capture and
+   instantiate seconds and pool bytes;
+6. profiles the served step (graph replays) and the eager step beside
+   it: host time per step, the device's busy time and idle share, device
+   kernels and host launch calls per step, and each kernel's part; the
+   profiled replays must show the step's kernels (flash, and the fused
+   conv or the int8 kernels of the preset), the witness that a replay
+   launches them.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -41,6 +53,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
@@ -1071,45 +1084,160 @@ def kernel_build_report(libs) -> list:
     return lines
 
 
-def profile_denoise(svc, steps: int = 2) -> dict:
-    """Where a denoise step's time goes, at full width: the host seconds
-    of ``steps`` CFG UNet steps (no profiler attached), then the same
-    steps under ``torch.profiler`` for the device's busy time (the sum of
-    its kernel and copy times: one stream, so they never overlap), the
-    idle share, and each kernel's part of the busy time. The step's bound
-    adds aten's FLOP count at the bf16 peak to the kernels' own work (the
-    counter cannot see inside them): attention and the fused conv at the
-    bf16 peak, the int8 products at the int8 peak."""
-    import torch
+# host API calls that enqueue device work, copy between host and
+# device, or wait for the device, as the profiler names them
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Launch)")
+HOST_COPY = re.compile(r"^cu(da)?Memcpy")
+HOST_SYNC = re.compile(r"^cu(da)?\w*Synchronize")
+
+
+def trace_counts(prof, steps: int) -> dict:
+    """From a profiler window over ``steps`` steps: the device's busy ms
+    per step (the sum of its kernel and copy times: one stream, so they
+    never overlap), its events (kernels and copies) per step, each
+    kernel's ms and launches per step, the host's launch calls per step
+    (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...), and its copy and
+    synchronize calls that start between its first and last launch call
+    (the window's own closing synchronize, and the profiler's, fall
+    outside)."""
     from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    host = [e for e in cpu if HOST_LAUNCH.search(e.name)]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    first = min((e.time_range.start for e in host), default=0)
+    last = max((e.time_range.start for e in host), default=0)
+    between = [e.name for e in cpu if first < e.time_range.start < last]
+    out = {"device_busy_ms": busy_us / 1e3 / steps,
+           "kernels_per_step": len(device) / steps,
+           "host_launches_per_step": len(host) / steps,
+           "host_launch_calls": dict(collections.Counter(
+               e.name for e in host)),
+           "host_copy_calls": sum(bool(HOST_COPY.search(n))
+                                  for n in between),
+           "host_sync_calls": sum(bool(HOST_SYNC.search(n))
+                                  for n in between)}
+    for kernel, pattern in KERNEL_PATTERNS:
+        events = [e for e in device if pattern.search(e.name)]
+        if events:
+            us = sum(e.time_range.elapsed_us() for e in events)
+            out[f"{kernel}_ms"] = us / 1e3 / steps
+            out[f"{kernel}_share_of_busy"] = us / max(busy_us, 1e-9)
+            out[f"{kernel}_launches_per_step"] = len(events) / steps
+    return out
+
+
+def graph_witness(counts: dict, preset: str) -> dict:
+    """What the profiled graph replays launched against what one CFG
+    step of ``preset`` launches: the UNet's flash shapes (on the wgmma
+    kernel), and the fused conv's or the int8 kernels' sites; and that
+    no host copy or synchronize call sat between the replays."""
+    model = PRESET_MODEL[preset]
+    want = {"flash_attention": sum(
+        n for name, n in ROUND_FLASH[model].items()
+        if not name.startswith("vae")) // UNET_FORWARDS}
+    if preset == "fusedconv":
+        want["gn_silu_conv3x3"] = sum(CONV_SHAPES.values())
+    if preset == "w8a8":
+        want["int8_conv3x3"] = sum(CONV_SHAPES.values())
+        want["int8_matmul"] = sum(UNET_MATMUL_SHAPES.values())
+    seen = {k: counts.get(f"{k}_launches_per_step", 0) for k in want}
+    quiet = counts["host_copy_calls"] == counts["host_sync_calls"] == 0
+    return {"want_per_step": want, "seen_per_step": seen,
+            "host_copy_calls": counts["host_copy_calls"],
+            "host_sync_calls": counts["host_sync_calls"],
+            "ok": seen == want and quiet}
+
+
+def profile_denoise(svc, preset: str, steps: int = 2,
+                    replays: int = 10) -> dict:
+    """Where a denoise step's time goes, at full width, for the step the
+    pipeline serves (a replay of its captured CFG DDIM step) and, beside
+    it, for the eager step it replaces:
+
+    - served: host ms per step over a whole 50-step graphed denoise (no
+      profiler attached, ending in a sync), then ``replays`` replays
+      under ``torch.profiler`` for the device's busy time, the idle share
+      (against the unprofiled wall, and against the profiled window's,
+      which carries the first launch's latency and the closing sync), the
+      device's kernels per step, the host's launch calls per step, each
+      kernel's part, and the witness that the replays launched the
+      kernels (``graph_witness``);
+    - eager: the same readings for ``steps`` eager CFG UNet steps
+      (``eager_*``);
+    - the step's bound: aten's FLOP count at the bf16 peak plus the
+      kernels' own work (the counter cannot see inside them): attention
+      and the fused conv at the bf16 peak, the int8 products at the int8
+      peak;
+    - the eager stages around the loop: device kernels and host launch
+      calls of the CLIP encode and of the VAE decode."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
-    from cassmantle_tpu_torch.ops.ddim import make_cfg_denoiser
+    from cassmantle_tpu_torch.models.vae import postprocess_images
+    from cassmantle_tpu_torch.ops.ddim import cfg_inputs, make_cfg_denoiser
+    from cassmantle_tpu_torch.utils.device import synchronize
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t2i = svc.backend.t2i
+    dev = t2i.device
     s = t2i.cfg.sampler
     hw = s.image_size // t2i.vae_scale
-    timesteps = [int(t) for t in t2i.schedule.timesteps[:steps]]
+    ts = t2i.schedule.coefficients(dev).timesteps
+    timesteps = [ts[i:i + 1] for i in range(steps)]
     with torch.inference_mode():
+        cond = t2i.encode(["a lighthouse at dusk"])
+        inputs = cfg_inputs(**cond)
         denoise = make_cfg_denoiser(
-            t2i.unet, guidance_scale=s.guidance_scale,
-            **t2i.encode(["a lighthouse at dusk"]))
-        gen = torch.Generator("cuda").manual_seed(3)
-        x = torch.randn((1, hw, hw, 4), generator=gen, device="cuda")
+            t2i.unet, guidance_scale=s.guidance_scale, **cond)
+        gen = torch.Generator(dev).manual_seed(3)
+        x = torch.randn((1, hw, hw, 4), generator=gen, device=dev)
 
-        def run():
+        def eager():
             for t in timesteps:
                 denoise(x, t)
-            torch.cuda.synchronize()
+            synchronize(dev)
 
-        run()                                        # warm
+        eager()                                       # warm
         t0 = time.perf_counter()
-        run()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
+        eager()
+        eager_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            eager()
+            eager_window_ms = (time.perf_counter() - t0) * 1e3 / steps
+        eager_counts = trace_counts(prof, steps)
+
+        graph = t2i.step_graphs[1]                    # the round's
+        graph(x, **inputs)                            # warm
+        synchronize(dev)
+        t0 = time.perf_counter()
+        final = graph(x, **inputs)
+        synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / graph.num_steps
+        graph.x.copy_(x)
+        graph.step.zero_()
+        replays = min(replays, graph.num_steps)
+        synchronize(dev)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(replays):
+                graph.graph.replay()
+            synchronize(dev)
+            window_ms = (time.perf_counter() - t0) * 1e3 / replays
+        counts = trace_counts(prof, replays)
+
+        with profile(activities=acts) as prof:
+            t2i.encode(["a lighthouse at dusk"])
+            synchronize(dev)
+        clip = trace_counts(prof, 1)
+        with profile(activities=acts) as prof:
+            postprocess_images(t2i.vae(final))
+            synchronize(dev)
+        vae = trace_counts(prof, 1)
+
         reset_all_counters()
         with FlopCounterMode(display=False) as counter:
             denoise(x, timesteps[0])
@@ -1125,26 +1253,95 @@ def profile_denoise(svc, steps: int = 2) -> dict:
             for (b, h, w, c, f), n in t["int8_conv3x3"].items())
     bound_ms = (bf16_flops / PEAK_BF16_FLOPS
                 + int8_ops / PEAK_INT8_OPS) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in device)
-    report = {"step_wall_ms": wall_ms,
+    report = {"step_wall_ms": wall_ms, "eager_step_wall_ms": eager_wall_ms,
               "step_bf16_tflop": bf16_flops / 1e12,
               "step_int8_tops": int8_ops / 1e12, "step_bound_ms": bound_ms,
               "bound_share_of_wall": bound_ms / wall_ms}
-    if not device:
-        return {**report, "device_busy_ms": "not measured"}
-    busy_ms = busy_us / 1e3 / steps
-    report.update(device_busy_ms=busy_ms,
-                  idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-                  bound_share_of_busy=bound_ms / busy_ms,
-                  kernels_per_step=len(device) / steps)
-    for kernel, pattern in KERNEL_PATTERNS:
-        us = sum(e.time_range.elapsed_us() for e in device
-                 if pattern.search(e.name))
-        if us:
-            report[f"{kernel}_ms"] = us / 1e3 / steps
-            report[f"{kernel}_share_of_busy"] = us / max(busy_us, 1e-9)
+    if not eager_counts["kernels_per_step"] or not counts["kernels_per_step"]:
+        # the profiler saw no device work: no busy time, and no witness
+        return {**report, "device_busy_ms": "not measured",
+                "graph_witness": {"ok": False, "seen": "no device events"}}
+    # idle share against the unprofiled wall (clamped at 0: the traced
+    # kernels run a little longer than untraced ones), and unclamped
+    # against the profiled window's own wall
+    busy = counts["device_busy_ms"]
+    report.update(counts, idle_share=max(0.0, 1.0 - busy / wall_ms),
+                  window_wall_ms=window_ms,
+                  window_idle_share=1.0 - busy / window_ms,
+                  bound_share_of_busy=bound_ms / busy,
+                  graph_witness=graph_witness(counts, preset))
+    report.update({f"eager_{k}": v for k, v in eager_counts.items()})
+    eager_busy = eager_counts["device_busy_ms"]
+    report.update(
+        eager_idle_share=max(0.0, 1.0 - eager_busy / eager_wall_ms),
+        eager_window_wall_ms=eager_window_ms,
+        eager_window_idle_share=1.0 - eager_busy / eager_window_ms)
+    report.update({f"clip_{k}": clip[k] for k in (
+        "kernels_per_step", "host_launches_per_step", "device_busy_ms")})
+    report.update({f"vae_{k}": vae[k] for k in (
+        "kernels_per_step", "host_launches_per_step", "device_busy_ms")})
     return report
+
+
+def check_graphs(svc, preset: str, card: str) -> bool:
+    """The served graphs against the eager steps they replace, on the
+    card at full width: the final latents of a whole 50-step graphed
+    denoise against the eager step loop on the same x_T and conditioning
+    (bit-equal), and for the default and W8A8 presets the 96 greedy
+    decode tokens of one prompt (batch bucket 1, prompt bucket 32),
+    graphed against eager (equal); with each graph's capture and
+    instantiate seconds and its pool's bytes. One [graphs] line."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.utils.device import synchronize
+
+    t2i, gen = svc.backend.t2i, svc.backend.prompt_gen
+    dev = t2i.device
+    s = t2i.cfg.sampler
+    hw = s.image_size // t2i.vae_scale
+    with torch.inference_mode():
+        cond = t2i.encode(["A watercolor style piece depicting: a "
+                           "lighthouse at dusk."])
+        x = torch.randn((1, hw, hw, 4), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+        t0 = time.perf_counter()
+        eager = t2i.denoise(x, cond, graphed=False)
+        synchronize(dev)
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graphed = t2i.denoise(x, cond, graphed=True)
+        synchronize(dev)
+        graphed_s = time.perf_counter() - t0
+        diff = (eager - graphed).abs()
+    res = {"card": card, "denoise_bit_equal": bool(torch.equal(eager,
+                                                              graphed)),
+           "denoise_max_abs_diff": diff.max().item(),
+           "denoise_values_differing": int((diff > 0).sum().item()),
+           "denoise_finite": bool(torch.isfinite(graphed).all()),
+           "denoise_eager_s": eager_s, "denoise_graphed_s": graphed_s,
+           "denoise_graphs": {str(b): g.graph.stats()
+                              for b, g in t2i.step_graphs.items()}}
+    ok = res["denoise_bit_equal"] and res["denoise_finite"]
+    if preset in ("default", "w8a8"):
+        seed = ["The Night the Trains Sang"]
+        t0 = time.perf_counter()
+        tok_e, len_e = gen.decode_ids_batch(seed, graphed=False)
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok_g, len_g = gen.decode_ids_batch(seed, graphed=True)
+        graphed_s = time.perf_counter() - t0
+        equal = (np.array_equal(tok_e, tok_g)
+                 and np.array_equal(len_e, len_g))
+        res.update(decode_tokens_equal=equal, decode_tokens=tok_g.shape[1],
+                   decode_eager_s=eager_s, decode_graphed_s=graphed_s,
+                   decode_graphs={str(k): st.graph.stats()
+                                  for k, st in gen.decode_graphs.items()
+                                  if st.graph is not None})
+        ok = ok and equal
+    print(f"[graphs] {preset}: {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def kernel_entries(kernel, rows, tally, source, replaces):
@@ -1219,8 +1416,15 @@ def main() -> int:
         svc, tallies[preset], bad = run_round(card, preset, cfg)
         if bad:
             fail(f"round-{preset} checks failed: {bad}")
+        if not check_graphs(svc, preset, card):
+            fail(f"{preset}: the graphed loops disagree with the eager "
+                 f"steps")
+        prof = profile_denoise(svc, preset)
         print(f"[profile] {preset} denoise step at full width ({card}): "
-              f"{json.dumps(profile_denoise(svc))}", flush=True)
+              f"{json.dumps(prof)}", flush=True)
+        if not prof["graph_witness"]["ok"]:
+            fail(f"{preset}: the profiled graph replays did not launch the "
+                 f"step's kernels: {prof['graph_witness']}")
         del svc
         torch.cuda.empty_cache()
 

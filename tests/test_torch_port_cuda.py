@@ -438,3 +438,166 @@ def test_cuda_int8_kernels_refuse_what_they_do_not_take(cuda_device):
         int8_conv3x3(_int8(g, (1, 4, 4, 24), cuda_device),
                      _int8(g, (3, 3, 24, 8), cuda_device), one.expand(8),
                      one.expand(8))
+
+
+# -- the compiled loops: CUDA graphs of the DDIM and decode steps -------------
+
+def _tiny_bf16(cfg, **unet_kw):
+    """A tiny config with the serving dtype policy (bf16 UNet and VAE
+    compute and parameter storage), so the kernels run; ``unet_kw``
+    replaces UNet fields."""
+    import dataclasses
+
+    m = cfg.models
+    return cfg.replace(models=dataclasses.replace(
+        m, unet=dataclasses.replace(m.unet, dtype="bfloat16", **unet_kw),
+        vae=dataclasses.replace(m.vae, dtype="bfloat16"),
+        param_dtype="bfloat16"))
+
+
+def _all_counters():
+    from cassmantle_tpu_torch.ops import graphs
+
+    return {(fn.__name__, attr): dict(v) if isinstance(v, dict) else v
+            for (fn, attr), v in graphs.snapshot().items()}
+
+
+def _reset_all():
+    reset_counters()
+    reset_conv_counters()
+    reset_int8_counters()
+
+
+@pytest.mark.cuda
+def test_cuda_ddim_update_and_vae_scaling_bit_equal_to_cpu(cuda_device):
+    """The DDIM update divides by the device tensor c_x and the VAE its
+    latents by a device tensor of the scaling factor: IEEE divides on the
+    card, bit-equal to the CPU's (and so to the reference's). Control: a
+    division by the host value, which CUDA computes as a multiply by its
+    reciprocal, departs from the CPU somewhere in the same data."""
+    from cassmantle_tpu_torch.models.vae import unscale_latents
+    from cassmantle_tpu_torch.ops.ddim import DDIMSchedule, ddim_update
+
+    g = torch.Generator().manual_seed(7)
+    x, eps = (torch.randn((2, 64, 64, 4), generator=g) for _ in range(2))
+    cpu_c = DDIMSchedule.create(50).coefficients("cpu")
+    card_c = DDIMSchedule.create(50).coefficients(cuda_device)
+    assert torch.equal(card_c.table.cpu(), cpu_c.table)
+    for i in (0, 17, 49):
+        cpu = ddim_update(x, eps, *cpu_c.table[i])
+        card = ddim_update(x.to(cuda_device), eps.to(cuda_device),
+                           *card_c.table[i])
+        assert torch.equal(card.cpu(), cpu)
+    lat = torch.randn((2, 128, 128, 4), generator=g) * 5
+    for factor in (0.18215, 0.13025):
+        assert torch.equal(unscale_latents(lat.to(cuda_device),
+                                           factor).cpu(),
+                           unscale_latents(lat, factor))
+    assert not torch.equal((lat.to(cuda_device) / 0.18215).cpu(),
+                           lat / 0.18215)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_step_counts_replayed_launches(cuda_device):
+    """A flash launch captured in a graph: the warm-up and the capture
+    leave the counters as they were, each replay adds its launch (shape
+    and path too), and the replayed output equals an eager launch's."""
+    from cassmantle_tpu_torch.ops.graphs import CapturedStep
+
+    q, k, v = _qkv(cuda_device, 2, 256, 256, 8, 40)
+    out = torch.zeros_like(q)
+    _reset_all()
+    step = CapturedStep(lambda: out.copy_(flash_attention(q, k, v)))
+    assert flash_attention.launches == 0 and not flash_attention.shapes
+    for _ in range(3):
+        step.replay()
+    torch.cuda.synchronize()
+    shape = (2, 256, 256, 8, 40)
+    assert flash_attention.launches == 3
+    assert dict(flash_attention.shapes) == {shape: 3}
+    assert dict(flash_attention.shape_paths) == {(shape, "wgmma"): 3}
+    assert step.pool_bytes >= 0 and step.capture_s > 0
+    assert torch.equal(out, flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["default", "fused_conv", "w8a8", "sdxl"])
+def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
+    """The tiny pipeline's CFG DDIM loop as replays of its step graph
+    equals the eager step loop bit for bit on the same x_T and
+    conditioning, and counts the same launches of every kernel per shape.
+    A second graphed call reuses the graph."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import test_config, test_sdxl_config
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+    from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+
+    if preset == "sdxl":
+        cfg = _tiny_bf16(test_sdxl_config(), num_heads=None)
+        pipe = SDXLPipeline(cfg, device=cuda_device)
+    else:
+        kw = {} if preset == "default" else {"fused_conv": True,
+                                             "conv_pad_to": 128}
+        cfg = _tiny_bf16(test_config(), **kw)
+        if preset == "w8a8":
+            cfg = cfg.replace(models=dataclasses.replace(
+                cfg.models, unet_w8a8=True, w8a8_min_size=0))
+        pipe = Text2ImagePipeline(cfg, device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(8)
+    hw = cfg.sampler.image_size // pipe.vae_scale
+    x_t = torch.randn((2, hw, hw, 4), generator=g, device=cuda_device)
+    runs = {}
+    with torch.inference_mode():
+        cond = pipe.encode(["a lighthouse at dusk", "the comet market"])
+        for graphed in (False, True, True):
+            _reset_all()
+            final = pipe.denoise(x_t, cond, graphed=graphed)
+            torch.cuda.synchronize()
+            runs.setdefault(graphed, []).append((final, _all_counters()))
+    (eager, eager_n), = runs[False]
+    for final, n in runs[True]:
+        assert torch.equal(final, eager)
+        assert n == eager_n
+    assert eager_n["flash_attention", "launches"] > 0
+    if preset == "fused_conv":
+        assert eager_n["gn_silu_conv3x3", "launches"] > 0
+    if preset == "w8a8":
+        assert eager_n["int8_matmul", "launches"] > 0
+        assert eager_n["int8_conv3x3", "launches"] > 0
+    assert list(pipe.step_graphs) == [2]
+    assert pipe.step_graphs[2].graph.replays == 2 * cfg.sampler.num_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_cuda_decode_graph_equals_eager(cuda_device, w8a8):
+    """Greedy decode with its step graph replayed equals the eager steps:
+    the same tokens and lengths, the same launches (W8A8: the int8
+    matmul inside the graph), at two batch buckets; a second call reuses
+    the kept graph."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+
+    cfg = test_config()
+    if w8a8:
+        cfg = cfg.replace(models=dataclasses.replace(
+            cfg.models, lm_w8a8=True, w8a8_min_size=0))
+    gen = PromptGenerator(cfg, device=cuda_device)
+    for seeds in (["The Night the Trains Sang"],
+                  ["Chapter two: the harbor", "a", "The comet market at "
+                   "dusk, where the archivists trade"]):
+        out = {}
+        for graphed in (False, True, True):
+            _reset_all()
+            toks, lens = gen.decode_ids_batch(seeds, graphed=graphed)
+            out.setdefault(graphed, []).append((toks, lens,
+                                                _all_counters()))
+        (toks, lens, n), = out[False]
+        for t, ln, c in out[True]:
+            assert (t == toks).all() and (ln == lens).all()
+            assert c == n
+        assert (n["int8_matmul", "launches"] > 0) == w8a8
+    assert all(s.graph is not None for s in gen.decode_graphs.values())

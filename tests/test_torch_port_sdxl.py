@@ -267,7 +267,8 @@ def test_cfg_denoiser_with_additions(sdxl_ref, uncond):
                              addition_embeds=torch.from_numpy(add),
                              uncond_addition_embeds=uadd_t)
     with torch.inference_mode():
-        out = port(torch.from_numpy(x), 501)
+        out = port(torch.from_numpy(x),
+                   torch.tensor([501], dtype=torch.int32))
     assert_rel(out, ref, 1e-4)
 
 
