@@ -12,7 +12,9 @@ The port keeps its own copy (it imports nothing of the JAX package);
 fields no port module reads yet are left out. The fused-conv and W8A8
 serving presets (:func:`fusedconv_serving_config`,
 :func:`w8a8_serving_config`) change how the UNet's and GPT-2's hot sites
-execute, not the parameter tree.
+execute, not the parameter tree; :func:`encprop_serving_config` and
+:func:`deepcache_serving_config` change which UNet forwards the DDIM loop
+runs (and the first runs the VAE decoder on the fused conv).
 """
 
 from __future__ import annotations
@@ -107,6 +109,15 @@ class VAEConfig:
     blocks_per_level: int = 2
     scaling_factor: float = 0.18215  # SD1.5; SDXL uses 0.13025
     dtype: str = "bfloat16"
+    # Every decoder ResBlock's GroupNorm -> SiLU -> conv3x3 as one fused
+    # kernel, as ``UNetConfig.fused_conv`` (the same kernel, at widths
+    # 64-512 at SD1.5); the decoder then runs channels-last. Same
+    # parameters; CASSMANTLE_NO_FUSED_CONV=1 selects the unfused path.
+    fused_conv: bool = False
+
+    def arch(self) -> "VAEConfig":
+        """This config with the execution-strategy flag cleared."""
+        return dataclasses.replace(self, fused_conv=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +185,20 @@ class SamplerConfig:
     image_size: int = 512
     # CFG negative conditioning; "" is the plain unconditional arm.
     negative_prompt: str = "blurry, distorted, fake, abstract, negative"
+    # Deep-feature reuse (DeepCache): steps run in full/shallow pairs,
+    # the shallow pass (level 0 only) reusing the full pass's deep
+    # activation. DDIM at eta 0, even num_steps.
+    deepcache: bool = False
+    # Encoder propagation (Faster Diffusion): full UNet forwards only at
+    # the key steps (the first ``encprop_dense_steps``, then every
+    # ``encprop_stride``-th); the steps between run the decoder alone
+    # against the key step's skip stack and mid-block output, batched
+    # per segment. Composes with ``deepcache`` (the second step of a
+    # segment then runs shallow). DDIM at eta 0;
+    # CASSMANTLE_NO_ENCPROP=1 serves full forwards at every step.
+    encprop: bool = False
+    encprop_stride: int = 3
+    encprop_dense_steps: int = 5
     min_new_tokens: int = 32
     max_new_tokens: int = 96
     prompt_pad_len: int = 77
@@ -240,6 +265,22 @@ def w8a8_serving_config() -> FrameworkConfig:
     base = fusedconv_serving_config()
     return base.replace(models=dataclasses.replace(
         base.models, unet_w8a8=True, lm_w8a8=True))
+
+
+def encprop_serving_config() -> FrameworkConfig:
+    """DDIM-50 with encoder propagation (20 key forwards: 5 dense, then
+    every 3rd; 30 decoder-only steps, batched per segment) and the VAE
+    decoder's ResBlocks on the fused conv kernel."""
+    base = FrameworkConfig()
+    return base.replace(
+        sampler=dataclasses.replace(base.sampler, encprop=True),
+        models=dataclasses.replace(base.models, vae=dataclasses.replace(
+            base.models.vae, fused_conv=True)))
+
+
+def deepcache_serving_config() -> FrameworkConfig:
+    """DDIM-50 with deep-feature reuse: 25 full/shallow step pairs."""
+    return FrameworkConfig(sampler=SamplerConfig(deepcache=True))
 
 
 def test_config() -> FrameworkConfig:

@@ -17,21 +17,31 @@
 // SD1.5-512 UNet's 14 shapes carry 0.6 to 1.9 GFLOP on 1.5 to 59 MB, so
 // the 64x64 to 16x16 levels are compute-bound (8 to 46 us at the peak)
 // and the 8x8 levels, whose 2560 x 1280 weights dominate the bytes, are
-// memory-bound (9 and 18 us).
+// memory-bound (9 and 18 us). The VAE decoder's 28 ResBlock convs (W = 64
+// to 512 at SD1.5, to 1024 at SDXL; C and F 128 to 512) carry 19 to 155
+// GFLOP each and are all compute-bound (20 to 156 us at the peak).
 //
 // What the design does about it (on hopper.cuh), one launch per call:
-// - The activated tensor never reaches device memory. A block owns whole
-//   image rows (TH rows of one image, or whole images packed, at most
-//   128 pixels) and 160 output channels. For each 64-channel chunk, TMA
-//   brings the raw (TH + 2) x (W + 2) halo of x, zero outside the
-//   tensor, into shared memory; seven builder warps activate it once
-//   into one of two halo buffers (positions outside the image are
-//   written as zeros, never activated), one chunk ahead of the products.
+// - The activated tensor never reaches device memory. A block owns a
+//   pixel tile of at most 128 pixels and BN output channels (160; 128
+//   where 128 divides F and 160 does not, as at the VAE's F = 128, 256
+//   and 512, which 160-wide blocks would fill to 80%): TH rows of
+//   a TW-column stretch of one image (TW = W up to 64, whole rows; past
+//   64, 2 rows of a 64-column stretch, the last stretch ragged), or
+//   whole images packed. For each 64-channel chunk, TMA brings the raw
+//   (TH + 2) x (TW + 2) halo of x, its box starting one row and one
+//   column before the tile and zero outside the tensor, into shared
+//   memory; seven builder warps activate it once into one of two halo
+//   buffers (positions outside the image are written as zeros, never
+//   activated), one chunk ahead of the products. A stretch's halo is
+//   (2 + 2)(64 + 2) = 264 positions, the W = 64 tile's, so one shared-
+//   memory layout serves every width; each stretch re-reads the two
+//   columns it shares with its neighbours (1/32 more x).
 //   SiLU takes one MUFU op: silu(u) = h + h tanh(h), h = u / 2, with
 //   tanh.approx (the activation would otherwise bound the 64x64 level).
 // - Two consumer warpgroups (64 pixels each) gather A with ldmatrix from
 //   the activated halo, each lane at its pixel's shifted position for
-//   each of the nine taps, and issue wgmma m64n160k16 with A in
+//   each of the nine taps, and issue wgmma m64nBNk16 with A in
 //   registers; the two warpgroups' gathers and products interleave. B,
 //   the weight, streams through a 4-stage ring of 128-byte-swizzled TMA
 //   tiles over the OHWI weight viewed as (F, 9, C), issued by one
@@ -60,19 +70,26 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int CH = 64;             // channels per chunk (128 bytes)
-constexpr int BN = 160;            // output channels per block
 constexpr int STAGES = 4;          // weight ring depth
-constexpr int HALO_POS = 264;      // imgs (TH + 2)(W + 2) at most
+constexpr int HALO_POS = 264;      // imgs (TH + 2)(TW + 2) at most
 constexpr int HPITCH = 144;        // bytes per activated halo position
-constexpr int B_TILE = BN * 128;   // one weight tile: 160 rows x 128 B
-constexpr int RAW_OFF = STAGES * B_TILE;
-constexpr int HALO_OFF = RAW_OFF + HALO_POS * 128;
-constexpr int BAR_OFF = HALO_OFF + 2 * HALO_POS * HPITCH;
-constexpr int SMEM = 1024 + BAR_OFF + 16 * 8;
 constexpr int BUILDERS = 224;      // producer warps 1..7: the halo
 constexpr int THREADS = 512;       // 2 consumer + 2 producer warpgroups
-constexpr int PPITCH = BN + 4;     // floats a row of the partial tile
-static_assert(128 * PPITCH * 4 <= BAR_OFF, "partial tile fits");
+
+// Shared memory of the instance with BN output channels a block (160,
+// or 128 where 128 divides F and 160 does not): the weight ring of
+// BN x 128-byte tiles, the raw halo, two activated halos, the barriers;
+// the fp32 partial tile reuses the ring and halos after the mainloop.
+template <int BN>
+struct Smem {
+  static constexpr int B_TILE = BN * 128;   // one weight tile
+  static constexpr int RAW_OFF = STAGES * B_TILE;
+  static constexpr int HALO_OFF = RAW_OFF + HALO_POS * 128;
+  static constexpr int BAR_OFF = HALO_OFF + 2 * HALO_POS * HPITCH;
+  static constexpr int BYTES = 1024 + BAR_OFF + 16 * 8;
+  static constexpr int PPITCH = BN + 4;     // floats a partial-tile row
+  static_assert(128 * PPITCH * 4 <= BAR_OFF, "partial tile fits");
+};
 
 struct Args {
   const float* a;     // (batch, C) GroupNorm affine
@@ -80,7 +97,7 @@ struct Args {
   const float* bias;  // (F,)
   bf16* out;          // (batch, H, W, F)
   int batch, h, w, c, f;
-  int th, imgs;       // image rows a block, images a block
+  int th, tw, imgs;   // image rows, columns and images a block
   int chunks;         // ceil(C / 64)
 };
 
@@ -123,25 +140,33 @@ __device__ __forceinline__ uint4 gn_silu8(uint4 raw, const float* av,
   return res;
 }
 
-// Tile row r (0..127) -> image, row and column in the block's images;
+// Tile row r (0..127) -> image, row and column in the block's tile;
 // false past the tile's valid pixels.
 __device__ __forceinline__ bool tile_pixel(const Args& p, int n0, int y0,
-                                           int r, int& img, int& ry,
-                                           int& rx) {
-  const int per = p.th * p.w;
+                                           int x0, int r, int& img,
+                                           int& ry, int& rx) {
+  const int per = p.th * p.tw;
   img = r / per;
   const int rr = r - img * per;
-  ry = rr / p.w;
-  rx = rr - ry * p.w;
-  return img < p.imgs && n0 + img < p.batch && y0 + ry < p.h;
+  ry = rr / p.tw;
+  rx = rr - ry * p.tw;
+  return img < p.imgs && n0 + img < p.batch && y0 + ry < p.h &&
+         x0 + rx < p.w;
 }
 
 // blockIdx.x: pixel group (images n0 .. n0 + imgs - 1, rows y0 .. y0 +
-// th - 1); blockIdx.y: 160 output channels; blockIdx.z: this block's
-// share of the channel chunks, its rank in the cluster.
+// th - 1, columns x0 .. x0 + tw - 1); blockIdx.y: BN output channels;
+// blockIdx.z: this block's share of the channel chunks, its rank in the
+// cluster.
+template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     gn_conv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w, Args p) {
+  constexpr int B_TILE = Smem<BN>::B_TILE;
+  constexpr int RAW_OFF = Smem<BN>::RAW_OFF;
+  constexpr int HALO_OFF = Smem<BN>::HALO_OFF;
+  constexpr int BAR_OFF = Smem<BN>::BAR_OFF;
+  constexpr int PPITCH = Smem<BN>::PPITCH;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* raw = smem + RAW_OFF;
@@ -153,15 +178,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* halo_empty = halo_full + 2;  // [2] halo gathered
   float* part = reinterpret_cast<float*>(smem);  // after the mainloop
 
-  const int gpi = p.imgs > 1 ? 1 : (p.h + p.th - 1) / p.th;
+  const int sx = (p.w + p.tw - 1) / p.tw;  // column stretches a row
+  const int gpi = p.imgs > 1 ? 1 : (p.h + p.th - 1) / p.th * sx;
   const int n0 = blockIdx.x / gpi * p.imgs;
-  const int y0 = blockIdx.x % gpi * p.th;
+  const int gi = blockIdx.x % gpi;
+  const int y0 = gi / sx * p.th;
+  const int x0 = gi % sx * p.tw;
   const int f0 = blockIdx.y * BN;
   const int slices = gridDim.z;
   const int rank = blockIdx.z;
   const int ch0 = rank * p.chunks / slices;
   const int ch1 = (rank + 1) * p.chunks / slices;
-  const int hw2 = p.w + 2;
+  const int hw2 = p.tw + 2;
   const int npos = p.imgs * (p.th + 2) * hw2;
   const uint32_t raw_bytes = npos * 128;
 
@@ -199,7 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int cc = bt % 8;  // this thread's 8 channels of the chunk
       if (bt == 0 && ch0 < ch1) {
         bar_expect(raw_full, raw_bytes);
-        tma_load_4d(raw, &map_x, raw_full, ch0 * CH, -1, y0 - 1, n0);
+        tma_load_4d(raw, &map_x, raw_full, ch0 * CH, x0 - 1, y0 - 1, n0);
       }
       for (int ch = ch0, jl = 0; ch < ch1; ++ch, ++jl) {
         const int hb = jl & 1;
@@ -220,8 +248,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (; pos < npos; pos += kStep) {
           const int n = n0 + img;
           const int y = y0 + hy - 1;
+          const int xx = x0 + hx - 1;
           const bool inside = c < p.c && n < p.batch && y >= 0 && y < p.h &&
-                              hx >= 1 && hx <= p.w;
+                              xx >= 0 && xx < p.w;
           uint4 v = make_uint4(0, 0, 0, 0);
           if (inside) {
             if (img != cur) {
@@ -252,7 +281,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (bt == 0 && ch + 1 < ch1) {
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           bar_expect(raw_full, raw_bytes);
-          tma_load_4d(raw, &map_x, raw_full, (ch + 1) * CH, -1, y0 - 1, n0);
+          tma_load_4d(raw, &map_x, raw_full, (ch + 1) * CH, x0 - 1, y0 - 1,
+                      n0);
         }
         bar_arrive(&halo_full[hb]);
       }
@@ -271,7 +301,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   {
     int img, ry, rx;
     const int r = wg * 64 + (t / 32) * 16 + (lane & 15);
-    hoff = tile_pixel(p, n0, y0, r, img, ry, rx)
+    hoff = tile_pixel(p, n0, y0, x0, r, img, ry, rx)
                ? ((img * (p.th + 2) + ry) * hw2 + rx) * HPITCH
                : 0;
     hoff += (lane >> 4) * 16;
@@ -328,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int i = u / (BN / 8);
     const int f = f0 + 8 * (u - i * (BN / 8));
     int img, ry, rx;
-    if (f >= p.f || !tile_pixel(p, n0, y0, i, img, ry, rx)) continue;
+    if (f >= p.f || !tile_pixel(p, n0, y0, x0, i, img, ry, rx)) continue;
     const float* src = part + i * PPITCH + (f - f0);
     float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int q = 0; q < slices; ++q) {
@@ -344,7 +374,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       sum[7] = __fadd_rn(sum[7], __uint_as_float(hi4.w));
     }
     const long long pix =
-        ((long long)(n0 + img) * p.h + y0 + ry) * p.w + rx;
+        ((long long)(n0 + img) * p.h + y0 + ry) * p.w + x0 + rx;
     bf16* dst = p.out + pix * p.f + f;
     if (p.f % 8 == 0) {  // f + 8 <= F, 16-byte aligned
       uint4 o;
@@ -367,49 +397,68 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 }  // namespace gn
 
+namespace gn {
+
+// The weight's map (its box BN filters deep) and the launch of the BN
+// instance.
+template <int BN>
+int launch(const CUtensorMap& map_x, const void* w, const uint64_t (&wd)[3],
+           const uint64_t (&ws)[2], const Args& p, int groups, int slices,
+           cudaStream_t stream) {
+  CUtensorMap map_w;
+  const uint32_t wb[3] = {CH, 1, BN};
+  if (!hopper::encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, wd,
+                          ws, wb, true)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(groups, (p.f + BN - 1) / BN, slices);
+  return (int)hopper::launch_cluster(gn_conv_wgmma_kernel<BN>, grid, THREADS,
+                                     Smem<BN>::BYTES, slices, stream, map_x,
+                                     map_w, p);
+}
+
+}  // namespace gn
+
 // x (B, H, W, C) bf16 NHWC, a and b (B, C) fp32, w (F, 3, 3, C) bf16,
 // bias (F,) fp32, out (B, H, W, F) bf16, all contiguous, x and w 16-byte
 // aligned. The launch plan comes from the caller
-// (ops/_igemm.py::conv_plan): th image rows, or imgs whole images, a
-// block (imgs (th + 2)(W + 2) <= 264 halo positions, th W imgs <= 128
-// pixels) and the channel-chunk slices of one cluster (1 to 8). Needs
+// (ops/_igemm.py::conv_plan): th image rows of a tw-column stretch, or
+// imgs whole images, a block (imgs (th + 2)(tw + 2) <= 264 halo
+// positions, th tw imgs <= 128 pixels), bn output channels a block (160
+// or 128) and the channel-chunk slices of one cluster (1 to 8). Needs
 // C % 8 == 0. Returns a cudaError_t.
 extern "C" int cassmantle_gn_silu_conv3x3_bf16(
     const void* x, const void* a, const void* b, const void* w,
     const void* bias, void* out, int batch, int h, int width, int c, int f,
-    int th, int imgs, int slices, void* stream) {
+    int th, int tw, int imgs, int bn, int slices, void* stream) {
   const int chunks = (c + gn::CH - 1) / gn::CH;
   if (batch < 1 || h < 1 || width < 1 || c < 8 || c % 8 || f < 1 ||
-      th < 1 || imgs < 1 || (imgs > 1 && th != h) ||
-      th * width * imgs > 128 ||
-      imgs * (th + 2) * (width + 2) > gn::HALO_POS || slices < 1 ||
-      slices > 8 || slices > chunks) {
+      th < 1 || tw < 1 || tw > width || imgs < 1 ||
+      (imgs > 1 && (th != h || tw != width)) || th * tw * imgs > 128 ||
+      imgs * (th + 2) * (tw + 2) > gn::HALO_POS || (bn != 160 && bn != 128) ||
+      slices < 1 || slices > 8 || slices > chunks) {
     return (int)cudaErrorInvalidValue;
   }
-  CUtensorMap map_x, map_w;
+  CUtensorMap map_x;
   const uint64_t xd[4] = {(uint64_t)c, (uint64_t)width, (uint64_t)h,
                           (uint64_t)batch};
   const uint64_t xs[3] = {(uint64_t)c * 2, (uint64_t)width * c * 2,
                           (uint64_t)h * width * c * 2};
-  const uint32_t xb[4] = {gn::CH, (uint32_t)width + 2, (uint32_t)th + 2,
+  const uint32_t xb[4] = {gn::CH, (uint32_t)tw + 2, (uint32_t)th + 2,
                           (uint32_t)imgs};
   const uint64_t wd[3] = {(uint64_t)c, 9, (uint64_t)f};
   const uint64_t ws[2] = {(uint64_t)c * 2, (uint64_t)c * 18};
-  const uint32_t wb[3] = {gn::CH, 1, gn::BN};
   if (!hopper::encode_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, xd,
-                          xs, xb, false) ||
-      !hopper::encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, wd,
-                          ws, wb, true)) {
+                          xs, xb, false)) {
     return (int)cudaErrorInvalidValue;
   }
   gn::Args p{static_cast<const float*>(a), static_cast<const float*>(b),
              static_cast<const float*>(bias), static_cast<gn::bf16*>(out),
-             batch, h, width, c, f, th, imgs, chunks};
+             batch, h, width, c, f, th, tw, imgs, chunks};
   const int groups = imgs > 1 ? (batch + imgs - 1) / imgs
-                              : batch * ((h + th - 1) / th);
-  const dim3 grid(groups, (f + gn::BN - 1) / gn::BN, slices);
-  return (int)hopper::launch_cluster(gn::gn_conv_wgmma_kernel, grid,
-                                     gn::THREADS, gn::SMEM, slices,
-                                     static_cast<cudaStream_t>(stream), map_x,
-                                     map_w, p);
+                              : batch * ((h + th - 1) / th) *
+                                    ((width + tw - 1) / tw);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bn == 128 ? gn::launch<128>(map_x, w, wd, ws, p, groups, slices, st)
+                   : gn::launch<160>(map_x, w, wd, ws, p, groups, slices, st);
 }

@@ -1,9 +1,12 @@
 """Diffusion UNet at SD1.5 and SDXL geometry.
 
-Port of ``cassmantle_tpu/models/unet.py``, plain forward only (the
-DeepCache and encoder-propagation modes come with their samplers). The
-public layout is the reference's: latents (B, H, W, 4) NHWC in, eps
-(B, H, W, 4) fp32 out; inside, activations are NCHW. bf16 parameters and
+Port of ``cassmantle_tpu/models/unet.py``: the plain forward and the
+reference's two feature-reuse mode pairs, DeepCache (``return_deep`` /
+``deep_cache``) and encoder propagation (``return_skips`` /
+``skips_cache``). The public layout is the reference's: latents
+(B, H, W, 4) NHWC in, eps (B, H, W, 4) fp32 out; inside, activations are
+NCHW, and the caches the modes hand out are those NCHW activations (the
+reference's NHWC ones, permuted). bf16 parameters and
 activations, fp32 GroupNorm/LayerNorm statistics, fp32 softmax, fp32
 ``conv_out``. Every attention site (16 transformer blocks at SD1.5, 70 at
 SDXL, one self and one cross attention each) runs the flash kernel on the
@@ -21,7 +24,7 @@ was.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -207,16 +210,41 @@ class UNet(nn.Module):
             return self.cfg.num_heads
         return max(1, channels // 64)
 
-    def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor,
-                addition_embeds: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, latents: Optional[torch.Tensor],
+                timesteps: torch.Tensor, context: torch.Tensor,
+                addition_embeds: Optional[torch.Tensor] = None,
+                deep_cache: Optional[torch.Tensor] = None,
+                return_deep: bool = False,
+                skips_cache: Optional[Tuple[Sequence[torch.Tensor],
+                                            torch.Tensor]] = None,
+                return_skips: bool = False):
         """latents (B, H, W, 4), timesteps (B,), context (B, S, Dc),
         addition_embeds (B, A) or None -> eps (B, H, W, 4) fp32. The
         additions count only where the config has ``addition_embed_dim``,
-        as in the reference."""
+        as in the reference.
+
+        Feature reuse, as the reference's forward:
+        - ``return_deep``: also return the activation entering level 0 of
+          the up path (after level 1's upsample conv); ``deep_cache=``
+          that activation runs conv_in, the level-0 down blocks, then the
+          level-0 up blocks from it, skipping every deeper level and the
+          mid block.
+        - ``return_skips``: also return ``(skip stack, up-path entry)``,
+          the down path's skips and the mid block's output;
+          ``skips_cache=`` that pair runs the up path alone against it,
+          with a fresh time embedding (``latents`` may be None).
+        Both return flags combine (eps, deep, (skips, entry)); the two
+        cache inputs exclude each other."""
         cfg, dtype = self.cfg, self.dtype
         levels = len(cfg.channel_mults)
+        decoder_only = skips_cache is not None
+        shallow_only = deep_cache is not None
+        assert not (decoder_only and shallow_only), (
+            "deep_cache and skips_cache are mutually exclusive modes")
+        assert latents is not None or decoder_only, (
+            "latents may be None only with skips_cache")
+        assert not (return_skips and (shallow_only or decoder_only)), (
+            "return_skips needs the full encoder to have run")
         context = context.to(dtype)
         temb = timestep_embedding(timesteps, cfg.base_channels)
         temb = self.time_fc2(F.silu(self.time_fc1(temb.to(dtype))))
@@ -224,27 +252,40 @@ class UNet(nn.Module):
             temb = temb + self.add_fc2(F.silu(self.add_fc1(
                 addition_embeds.to(dtype))))
 
-        x = latents.to(dtype).permute(0, 3, 1, 2)
-        if cfg.fused_conv:
-            x = x.contiguous(memory_format=torch.channels_last)
-        x = self.conv_in(x)
-        skips = [x]
-        for lvl in range(levels):
-            for blk in range(cfg.blocks_per_level):
-                x = getattr(self, f"down_{lvl}_res_{blk}")(x, temb)
-                attn = getattr(self, f"down_{lvl}_attn_{blk}", None)
-                if attn is not None:
-                    x = attn(x, context)
-                skips.append(x)
-            if lvl != levels - 1:
-                x = getattr(self, f"down_{lvl}_downsample")(x)
-                skips.append(x)
+        if decoder_only:
+            cached_skips, up_entry = skips_cache
+            skips = [s.to(dtype) for s in cached_skips]
+            x = up_entry.to(dtype)
+        else:
+            x = latents.to(dtype).permute(0, 3, 1, 2)
+            if cfg.fused_conv:
+                x = x.contiguous(memory_format=torch.channels_last)
+            x = self.conv_in(x)
+            skips = [x]
+            for lvl in range(1 if shallow_only else levels):
+                for blk in range(cfg.blocks_per_level):
+                    x = getattr(self, f"down_{lvl}_res_{blk}")(x, temb)
+                    attn = getattr(self, f"down_{lvl}_attn_{blk}", None)
+                    if attn is not None:
+                        x = attn(x, context)
+                    skips.append(x)
+                if lvl != levels - 1 and not shallow_only:
+                    x = getattr(self, f"down_{lvl}_downsample")(x)
+                    skips.append(x)
+        skips_out = tuple(skips) if return_skips else None
 
-        x = self.mid_res_0(x, temb)
-        x = self.mid_attn(x, context)
-        x = self.mid_res_1(x, temb)
+        if not shallow_only and not decoder_only:
+            x = self.mid_res_0(x, temb)
+            x = self.mid_attn(x, context)
+            x = self.mid_res_1(x, temb)
+        up_entry_out = x if return_skips else None
 
-        for lvl in reversed(range(levels)):
+        deep_out = None
+        if shallow_only:
+            x = deep_cache.to(dtype)
+        for lvl in [0] if shallow_only else reversed(range(levels)):
+            if lvl == 0 and return_deep:
+                deep_out = x
             for blk in range(cfg.blocks_per_level + 1):
                 x = torch.cat([x, skips.pop()], dim=1)
                 x = getattr(self, f"up_{lvl}_res_{blk}")(x, temb)
@@ -255,5 +296,14 @@ class UNet(nn.Module):
                 x = getattr(self, f"up_{lvl}_upsample")(
                     nearest_upsample_2x(x))
 
+        assert not skips, f"unconsumed skips: {len(skips)}"
+
         x = self.conv_out(F.silu(self.norm_out(x)))
-        return x.float().permute(0, 2, 3, 1).contiguous()
+        eps = x.float().permute(0, 2, 3, 1).contiguous()
+        if return_deep and return_skips:
+            return eps, deep_out, (skips_out, up_entry_out)
+        if return_deep:
+            return eps, deep_out
+        if return_skips:
+            return eps, (skips_out, up_entry_out)
+        return eps

@@ -5,6 +5,14 @@ encoder comes with img2img). Latents (B, h, w, 4) NHWC in, (B, 8h, 8w, 3)
 fp32 NHWC out; NCHW inside. bf16 compute over fp32-stored parameters,
 fp32 GroupNorm statistics (eps 1e-6), fp32 ``conv_out``. The mid block's
 single-head attention over H*W tokens at D = 512 runs the flash kernel.
+
+With ``VAEConfig.fused_conv`` every ResBlock's GroupNorm -> SiLU ->
+conv3x3 runs as the fused kernel (``layers.fused_gn_silu_conv3x3``, at
+widths 64 to 512 for SD1.5's 512² image); the parameters are the same,
+and the decoder runs channels-last (NHWC memory under NCHW shapes),
+converted once before ``post_quant_conv``, so the kernel reads every
+level's activation without a copy. CASSMANTLE_NO_FUSED_CONV, read per
+call, selects the unfused path.
 """
 
 from __future__ import annotations
@@ -16,10 +24,13 @@ from torch import nn
 from cassmantle_tpu_torch.config import VAEConfig
 from cassmantle_tpu_torch.models.layers import (
     Conv,
+    Conv3x3Params,
     GroupNorm32,
     MultiHeadAttention,
+    fused_gn_silu_conv3x3,
     nearest_upsample_2x,
 )
+from cassmantle_tpu_torch.ops.fused_conv import kill_switch_set
 from cassmantle_tpu_torch.utils.device import torch_dtype
 
 
@@ -33,21 +44,30 @@ def unscale_latents(latents: torch.Tensor, scaling_factor: float
 
 
 class VAEResBlock(nn.Module):
-    """GN/SiLU/conv3x3 x2 + skip."""
+    """GN/SiLU/conv3x3 x2 + skip; ``fused_conv`` runs each GN/SiLU/conv3x3
+    as one fused kernel unless CASSMANTLE_NO_FUSED_CONV is set."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_conv: bool = False):
         super().__init__()
+        self.fused_conv = fused_conv
+        conv3 = (Conv3x3Params if fused_conv
+                 else lambda i, o, dtype: Conv(i, o, 3, dtype=dtype))
         self.norm1 = GroupNorm32(in_channels, eps=1e-6)
-        self.conv1 = Conv(in_channels, out_channels, 3, dtype=dtype)
+        self.conv1 = conv3(in_channels, out_channels, dtype=dtype)
         self.norm2 = GroupNorm32(out_channels, eps=1e-6)
-        self.conv2 = Conv(out_channels, out_channels, 3, dtype=dtype)
+        self.conv2 = conv3(out_channels, out_channels, dtype=dtype)
         self.skip = (Conv(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
 
+    def _gn_silu_conv(self, x, norm, conv):
+        if self.fused_conv and not kill_switch_set():
+            return fused_gn_silu_conv3x3(x, norm, conv)
+        return conv(F.silu(norm(x)))
+
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._gn_silu_conv(x, self.norm1, self.conv1)
+        h = self._gn_silu_conv(h, self.norm2, self.conv2)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
@@ -74,30 +94,36 @@ class VAEDecoder(nn.Module):
         self.dtype = dtype
         mults = cfg.channel_mults
         ch = cfg.base_channels * mults[-1]
+        def res(c_in: int, c_out: int) -> VAEResBlock:
+            return VAEResBlock(c_in, c_out, dtype, cfg.fused_conv)
+
         self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels,
                                     1, dtype=dtype)
         self.conv_in = Conv(cfg.latent_channels, ch, 3, dtype=dtype)
-        self.mid_res_0 = VAEResBlock(ch, ch, dtype)
+        self.mid_res_0 = res(ch, ch)
         self.mid_attn = VAEAttnBlock(ch, dtype)
-        self.mid_res_1 = VAEResBlock(ch, ch, dtype)
+        self.mid_res_1 = res(ch, ch)
         ch_in = ch
         for lvl in reversed(range(len(mults))):
             ch = cfg.base_channels * mults[lvl]
             for blk in range(cfg.blocks_per_level + 1):
-                self.add_module(f"up_{lvl}_res_{blk}",
-                                VAEResBlock(ch_in, ch, dtype))
+                self.add_module(f"up_{lvl}_res_{blk}", res(ch_in, ch))
                 ch_in = ch
             if lvl != 0:
                 self.add_module(f"up_{lvl}_upsample",
                                 Conv(ch, ch, 3, dtype=dtype))
         self.norm_out = GroupNorm32(ch_in, eps=1e-6)
         self.conv_out = Conv(ch_in, 3, 3, dtype=torch.float32)
+        if cfg.fused_conv:
+            self.to(memory_format=torch.channels_last)
 
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) scaled latents -> (B, 8h, 8w, 3) in [-1, 1]."""
         cfg = self.cfg
         z = unscale_latents(latents, cfg.scaling_factor)
         z = z.to(self.dtype).permute(0, 3, 1, 2)
+        if cfg.fused_conv:
+            z = z.contiguous(memory_format=torch.channels_last)
         x = self.conv_in(self.post_quant_conv(z))
         x = self.mid_res_1(self.mid_attn(self.mid_res_0(x)))
         for lvl in reversed(range(len(cfg.channel_mults))):

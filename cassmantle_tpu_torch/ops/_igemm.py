@@ -4,8 +4,8 @@ that the CPU tests reach it:
 - :func:`matmul_plan` for the int8 matmul on wgmma (``csrc/int8_gemm.cu``,
   kernel 3): orientation, tile width and the K slices of one cluster;
 - :func:`conv_plan` for the fused GroupNorm + SiLU + conv3x3 on wgmma
-  (``csrc/fused_conv.cu``, kernel 2): image rows or images a block and
-  the channel-chunk slices of one cluster;
+  (``csrc/fused_conv.cu``, kernel 2): image rows of a column stretch,
+  or images, a block and the channel-chunk slices of one cluster;
 - :func:`int8_conv_plan` for the int8 conv3x3 on wgmma
   (``csrc/int8_gemm.cu``, kernel 4): the pixel tile that one TMA box per
   tap brings, the consumer warpgroups, the filter width and the K slices
@@ -26,7 +26,7 @@ import torch
 # blocks of one cluster (the portable limit), kernel 3's and 4's K tile
 # in bytes and kernel 3's token tiles on the swapped path, kernel 2's
 # channel chunk, kernel 2's and 4's output channels a block, kernel 2's
-# pixels a block and halo positions.
+# pixels a block, halo positions and widest column stretch.
 WGMMA_M = 64
 MAX_CLUSTER = 8
 MATMUL_K_TILE = 128
@@ -36,6 +36,7 @@ CONV_CHUNK = 64
 CONV_BN = 160
 CONV_PIXELS = 128
 CONV_HALO = 264
+CONV_COLS = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,26 +99,37 @@ def matmul_plan(m: int, k: int, n: int, sms: int) -> MatmulPlan:
 
 class ConvPlan(NamedTuple):
     th: int         # image rows a block
+    tw: int         # image columns a block: W, or a stretch of CONV_COLS
     imgs: int       # whole images a block (th == h when > 1)
-    tiles: int      # output tiles: pixel groups x 160-channel blocks
+    bn: int         # output channels a block: CONV_BN, or 128
+    tiles: int      # output tiles: pixel groups x bn-channel blocks
     slices: int     # blocks of one cluster along the channel chunks
 
 
 def conv_plan(b: int, h: int, w: int, c: int, f: int, sms: int
               ) -> ConvPlan:
     """Kernel 2's launch for x (b, h, w, c) and f output channels on a
-    card of ``sms`` SMs: whole image rows a block, up to CONV_PIXELS
-    pixels and CONV_HALO halo positions ((th + 2)(w + 2) per image);
-    images small enough are packed several a block, so that the weight
-    streams once for them."""
-    th = max(1, min(h, 64, CONV_PIXELS // w))
+    card of ``sms`` SMs: a block owns th image rows of a tw-column
+    stretch, up to CONV_PIXELS pixels and CONV_HALO halo positions
+    ((th + 2)(tw + 2) per image). W <= CONV_COLS takes whole rows
+    (tw = W); a wider W takes 2-row tiles of a CONV_COLS stretch, whose
+    halo is the 264 positions of the W = 64 tile, with a ragged last
+    stretch where CONV_COLS does not divide W. Images small enough are
+    packed several a block, so that the weight streams once for them.
+    Blocks take CONV_BN output channels (every UNet F is a multiple),
+    or 128 where 128 divides F and CONV_BN does not (the VAE's 128, 256
+    and 512, which CONV_BN-wide blocks would fill to 80%)."""
+    tw = min(w, CONV_COLS)
+    th = max(1, min(h, 64, CONV_PIXELS // tw))
     imgs = 1
-    if th == h:
+    if th == h and tw == w:
         imgs = max(1, min(b, CONV_PIXELS // (h * w),
                           CONV_HALO // ((h + 2) * (w + 2))))
-    groups = -(-b // imgs) if imgs > 1 else b * -(-h // th)
-    tiles = groups * -(-f // CONV_BN)
-    return ConvPlan(th, imgs, tiles,
+    groups = (-(-b // imgs) if imgs > 1
+              else b * -(-h // th) * -(-w // tw))
+    bn = 128 if f % CONV_BN and f % 128 == 0 else CONV_BN
+    tiles = groups * -(-f // bn)
+    return ConvPlan(th, tw, imgs, bn, tiles,
                     cluster_slices(tiles, -(-c // CONV_CHUNK), sms))
 
 

@@ -19,12 +19,32 @@ IEEE division on every device (CUDA computes a division by a host scalar
 as a multiply by its reciprocal). CFG runs the unconditional and
 conditional halves as one 2B UNet batch; SDXL's micro-conditioning
 vector rides the same batch as the context.
+
+The reference's two feature-reuse loops are here too, on the same
+device step counter:
+
+- DeepCache (:func:`ddim_sample_deepcache`): steps in full/shallow
+  pairs, the shallow pass reusing the full pass's deep activation;
+- encoder propagation (:func:`encprop_sample` with :func:`ddim_spec`):
+  full forwards at the key steps of :func:`encprop_key_indices` (a dense
+  prefix, then one a segment of ``stride`` steps), the rest of each
+  segment from ONE decoder-only forward at batch P x 2B against the key
+  step's skip stack and up-path entry; optionally the second step of a
+  segment as a DeepCache shallow pass.
+
+On the card each loop replays captured bodies (:class:`SamplerGraph`):
+DDIM one step graph; DeepCache one pair graph; encprop a key-step graph
+(the dense prefix) and a segment graph (key forward, decoder-only
+forward, ``stride`` updates), plus a tail graph where ``stride`` does
+not divide the steps after the prefix, as the reference compiles a
+dense scan, a segment scan and an unrolled tail.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional
+import os
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,35 +146,46 @@ def ddim_sample(denoise: Denoiser, latents: torch.Tensor,
     return x
 
 
-class DDIMGraph:
-    """:func:`ddim_sample` with one captured CUDA graph of
-    :func:`ddim_step`, replayed once per step.
+class SamplerGraph:
+    """A sampler loop as replays of captured bodies, the counterpart of
+    the reference's jitted scans.
 
-    ``make_denoise(**inputs)`` builds the denoiser over the conditioning
-    tensors it is given; here it gets static copies of ``inputs`` (the
-    example call's), which each call overwrites in place. The latents
-    (first the example's x_T, on which the warm-up runs step 0) and the
-    step counter are static buffers too. A call copies x_T and the
-    inputs into them, resets the counter and replays the graph once per
-    step: no host copy and no sync between replays."""
+    ``phases`` lists ``(name, count, start, body)`` in loop order:
+    ``body(denoisers, x, step)`` advances the latents ``x`` from the
+    step that the device counter ``step`` names, and the counter with
+    it; it is captured once (the counter set to ``start``, the phase's
+    first step, for the warm-up) and replayed ``count`` times.
+    ``make_denoisers(**inputs)`` builds what the bodies call, over
+    static copies of ``inputs`` (the example call's), which each call
+    overwrites in place. The latents and the counter are static buffers
+    too. A call copies x_T and the inputs in, resets the counter and
+    replays every phase: no host copy and no sync between replays.
+    ``phases`` keeps ``(name, count, start, graph)`` of each phase that
+    runs, ``graphs`` each one's :class:`CapturedStep` by name."""
 
-    def __init__(self, make_denoise: Callable[..., Denoiser],
-                 schedule: DDIMSchedule, latents: torch.Tensor,
-                 **inputs: Optional[torch.Tensor]):
+    def __init__(self, make_denoisers: Callable[..., object],
+                 phases: Sequence[Tuple[str, int, int, Callable]],
+                 latents: torch.Tensor, **inputs: Optional[torch.Tensor]):
         dev = latents.device
-        self.num_steps = len(schedule.timesteps)
-        self.coeffs = schedule.coefficients(dev)
         self.inputs: Dict[str, torch.Tensor] = {
             k: v.clone() for k, v in inputs.items() if v is not None}
         self.x = latents.to(torch.float32, copy=True)
         self.step = torch.zeros((1,), dtype=torch.long, device=dev)
-        denoise = make_denoise(**self.inputs)
+        denoisers = make_denoisers(**self.inputs)
+        self.phases: List[Tuple[str, int, int, CapturedStep]] = []
+        self.graphs: Dict[str, CapturedStep] = {}
+        for name, count, start, body in phases:
+            if count <= 0:
+                continue
 
-        def step() -> torch.Tensor:
-            return self.x.copy_(ddim_step(denoise, self.x, self.coeffs,
-                                          self.step))
+            def fn(body=body) -> torch.Tensor:
+                return self.x.copy_(body(denoisers, self.x, self.step))
 
-        self.graph = CapturedStep(step)
+            self.step.fill_(start)
+            graph = CapturedStep(fn, reset=lambda start=start:
+                                 self.step.fill_(start))
+            self.phases.append((name, count, start, graph))
+            self.graphs[name] = graph
 
     def __call__(self, latents: torch.Tensor,
                  **inputs: Optional[torch.Tensor]) -> torch.Tensor:
@@ -163,9 +194,277 @@ class DDIMGraph:
                 self.inputs[k].copy_(v)
         self.x.copy_(latents)
         self.step.zero_()
-        for _ in range(self.num_steps):
-            self.graph.replay()
+        for _, count, _, graph in self.phases:
+            for _ in range(count):
+                graph.replay()
         return self.x.clone()
+
+
+class DDIMGraph(SamplerGraph):
+    """:func:`ddim_sample` with one captured CUDA graph of
+    :func:`ddim_step` (``graph``), replayed once per step; the warm-up
+    runs step 0 on the example call's x_T. ``make_denoise(**inputs)``
+    builds the denoiser over the conditioning tensors it is given."""
+
+    def __init__(self, make_denoise: Callable[..., Denoiser],
+                 schedule: DDIMSchedule, latents: torch.Tensor,
+                 **inputs: Optional[torch.Tensor]):
+        self.num_steps = len(schedule.timesteps)
+        coeffs = schedule.coefficients(latents.device)
+        super().__init__(
+            make_denoise,
+            [("step", self.num_steps, 0,
+              lambda denoise, x, step: ddim_step(denoise, x, coeffs, step))],
+            latents, **inputs)
+        self.graph = self.graphs["step"]
+
+
+# -- DeepCache ----------------------------------------------------------------
+
+# full(x, t) -> (guided eps, deep activation); shallow(x, t, deep) -> eps
+DenoiserPair = Tuple[Callable, Callable]
+
+
+def deepcache_pair_step(pair: DenoiserPair, x: torch.Tensor,
+                        coeffs: DDIMCoefficients,
+                        step: torch.Tensor) -> torch.Tensor:
+    """Two :func:`ddim_step`s from device ``step``: a full forward whose
+    deep activation the second step's shallow forward reuses; ``step``
+    advances by two in place."""
+    full, shallow = pair
+    deep = []
+
+    def first(x, t):
+        eps, d = full(x, t)
+        deep.append(d)
+        return eps
+
+    x = ddim_step(first, x, coeffs, step)
+    return ddim_step(lambda x, t: shallow(x, t, deep[0]), x, coeffs, step)
+
+
+def check_deepcache_steps(num_steps: int) -> None:
+    if num_steps % 2:
+        raise ValueError(f"deepcache pairing needs an even step count, got "
+                         f"{num_steps}")
+
+
+def ddim_sample_deepcache(denoise_full: Callable, denoise_shallow: Callable,
+                          latents: torch.Tensor,
+                          schedule: DDIMSchedule) -> torch.Tensor:
+    """DDIM (eta 0) in full/shallow pairs, eagerly, one
+    :func:`deepcache_pair_step` a pair; even step count."""
+    n = len(schedule.timesteps)
+    check_deepcache_steps(n)
+    coeffs = schedule.coefficients(latents.device)
+    step = torch.zeros((1,), dtype=torch.long, device=latents.device)
+    x = latents
+    for _ in range(n // 2):
+        x = deepcache_pair_step((denoise_full, denoise_shallow), x, coeffs,
+                                step)
+    return x
+
+
+class DeepCacheGraph(SamplerGraph):
+    """:func:`ddim_sample_deepcache` as one captured pair graph
+    (full, update, shallow, update), replayed T / 2 times.
+    ``make_pair(**inputs)`` returns (full, shallow)."""
+
+    def __init__(self, make_pair: Callable[..., DenoiserPair],
+                 schedule: DDIMSchedule, latents: torch.Tensor,
+                 **inputs: Optional[torch.Tensor]):
+        n = len(schedule.timesteps)
+        check_deepcache_steps(n)
+        coeffs = schedule.coefficients(latents.device)
+        super().__init__(
+            make_pair,
+            [("pair", n // 2, 0, lambda pair, x, step: deepcache_pair_step(
+                pair, x, coeffs, step))],
+            latents, **inputs)
+
+
+# -- encoder propagation (Faster Diffusion) -----------------------------------
+#
+# The UNet's encoder (conv_in, the down levels, the mid block) drifts
+# slowly across adjacent steps, and the decoder never reads x_t: a
+# propagated step's eps depends only on the key step's encoder cache and
+# its own timestep, so a segment's propagated steps batch into one
+# decoder forward.
+
+
+def encprop_disabled() -> bool:
+    """True when CASSMANTLE_NO_ENCPROP is set to a truthy value: an
+    encprop-configured pipeline built then serves full forwards at every
+    step."""
+    return os.environ.get("CASSMANTLE_NO_ENCPROP", "").lower() \
+        not in ("", "0", "false", "no", "off")
+
+
+def encprop_key_indices(num_steps: int, stride: int,
+                        dense_steps: int = 0) -> np.ndarray:
+    """Key-step indices: the first ``dense_steps`` steps, then every
+    ``stride``-th step (step 0 always a key)."""
+    if stride < 1:
+        raise ValueError(f"encprop stride must be >= 1, got {stride}")
+    if not 0 <= dense_steps <= num_steps:
+        raise ValueError(f"dense_steps {dense_steps} outside "
+                         f"[0, {num_steps}]")
+    dense = list(range(dense_steps))
+    rest = list(range(dense_steps, num_steps, stride))
+    return np.asarray(dense + rest, dtype=np.int64)
+
+
+def _encprop_plan(num_steps: int, stride: int, dense_steps: int):
+    """(dense prefix length, full-segment count, tail length)."""
+    rest = num_steps - dense_steps
+    return dense_steps, rest // stride, rest % stride
+
+
+def encprop_step_counts(num_steps: int, stride: int, dense_steps: int,
+                        deepcache: bool = False):
+    """(key, shallow, propagated) forwards of a schedule. Composed with
+    DeepCache, the second step of each segment of two or more steps runs
+    shallow (it reads x_t) and is not a propagated step."""
+    keys = len(encprop_key_indices(num_steps, stride, dense_steps))
+    shallow = 0
+    if deepcache:
+        _, nseg, tail = _encprop_plan(num_steps, stride, dense_steps)
+        shallow = (nseg if stride >= 2 else 0) + (1 if tail >= 2 else 0)
+    return keys, shallow, num_steps - keys - shallow
+
+
+def ddim_spec(coeffs: DDIMCoefficients) -> dict:
+    """DDIM's solver spec for :func:`encprop_sample`, on the device: the
+    timesteps, the coefficient columns (c_eps, c_x, c_x0, c_dir), a
+    one-tensor carry and :func:`ddim_update`."""
+    return {
+        "timesteps": coeffs.timesteps,
+        "coefs": coeffs.table.unbind(dim=1),
+        "init": lambda latents: (latents,),
+        "x_for": lambda carry, coefs_i: carry[0],
+        "update": lambda carry, eps, coefs_i: (
+            ddim_update(carry[0], eps, *coefs_i),),
+        "final": lambda carry: carry[0],
+    }
+
+
+def _spec_at(spec: dict, index: torch.Tensor):
+    """The timesteps and coefficients at device ``index``."""
+    return (spec["timesteps"].index_select(0, index),
+            tuple(a.index_select(0, index) for a in spec["coefs"]))
+
+
+def encprop_key_step(spec: dict, denoise_key: Callable, carry: tuple,
+                     step: torch.Tensor):
+    """A key step at device ``step`` (advanced by one):
+    (carry, encoder cache, the rest of the key's outputs)."""
+    t, coefs = _spec_at(spec, step)
+    out = denoise_key(spec["x_for"](carry, coefs), t)
+    carry = spec["update"](carry, out[0], coefs)
+    step.add_(1)
+    return carry, out[1], out[2:]
+
+
+def encprop_segment(spec: dict, denoise_key: Callable,
+                    denoise_prop: Callable,
+                    denoise_shallow: Optional[Callable], carry: tuple,
+                    step: torch.Tensor, length: int,
+                    batch_props: bool = True) -> tuple:
+    """One segment of ``length`` steps from device ``step`` (advanced by
+    ``length``): its key step, the DeepCache shallow step where
+    ``denoise_shallow`` is given, and the rest off one batched decoder
+    forward (``batch_props=False``: one decoder forward a step)."""
+    carry, cache, rest = encprop_key_step(spec, denoise_key, carry, step)
+    start = 1
+    if denoise_shallow is not None and length > 1:
+        t, coefs = _spec_at(spec, step)
+        eps = denoise_shallow(spec["x_for"](carry, coefs), t, rest[0])
+        carry = spec["update"](carry, eps, coefs)
+        step.add_(1)
+        start = 2
+    p = length - start
+    if p > 0 and batch_props:
+        offsets = torch.arange(p, device=step.device)
+        eps_all = denoise_prop(cache,
+                               spec["timesteps"].index_select(0, step
+                                                              + offsets))
+    for j in range(p):
+        t, coefs = _spec_at(spec, step)
+        eps = eps_all[j] if batch_props else denoise_prop(cache, t)[0]
+        carry = spec["update"](carry, eps, coefs)
+        step.add_(1)
+    return carry
+
+
+def encprop_sample(spec: dict, denoise_key: Callable, denoise_prop: Callable,
+                   latents: torch.Tensor, stride: int, dense_steps: int = 0,
+                   denoise_shallow: Optional[Callable] = None,
+                   batch_props: bool = True) -> torch.Tensor:
+    """The encoder-propagation loop, eagerly, on a device step counter:
+    ``dense_steps`` key steps, then segments of ``stride`` steps (a key
+    step and ``stride - 1`` propagated ones), then a shorter tail.
+
+    ``denoise_key(x, t) -> (eps, cache[, deep])``;
+    ``denoise_prop(cache, ts (P,)) -> (P, B, ...)`` eps;
+    ``denoise_shallow(x, t, deep)`` composes DeepCache (``denoise_key``
+    then returns the deep activation too). At stride 1 every step is a
+    key step: the plain sampler's arithmetic."""
+    n = int(spec["timesteps"].shape[0])
+    dense, nseg, tail = _encprop_plan(n, stride, dense_steps)
+    step = torch.zeros((1,), dtype=torch.long, device=latents.device)
+    carry = spec["init"](latents)
+    for _ in range(dense):
+        carry, _, _ = encprop_key_step(spec, denoise_key, carry, step)
+    for length in [stride] * nseg + ([tail] if tail else []):
+        carry = encprop_segment(spec, denoise_key, denoise_prop,
+                                denoise_shallow, carry, step, length,
+                                batch_props)
+    return spec["final"](carry)
+
+
+def ddim_sample_encprop(denoise_key: Callable, denoise_prop: Callable,
+                        latents: torch.Tensor, schedule: DDIMSchedule,
+                        stride: int, dense_steps: int = 0,
+                        denoise_shallow: Optional[Callable] = None,
+                        batch_props: bool = True) -> torch.Tensor:
+    """DDIM (eta 0) with encoder propagation: :func:`encprop_sample`
+    over :func:`ddim_spec`."""
+    return encprop_sample(
+        ddim_spec(schedule.coefficients(latents.device)), denoise_key,
+        denoise_prop, latents, stride, dense_steps,
+        denoise_shallow=denoise_shallow, batch_props=batch_props)
+
+
+class EncpropGraph(SamplerGraph):
+    """:func:`ddim_sample_encprop` as captured bodies: a key-step graph
+    replayed ``dense_steps`` times, a segment graph (key forward at 2B,
+    the shallow forward where composed, one decoder-only forward at
+    P x 2B, ``stride`` updates; the counter advances by ``stride``)
+    replayed once a segment, and a tail graph where ``stride`` does not
+    divide the steps after the prefix. ``make_denoisers(**inputs)``
+    returns (key, prop, shallow or None). The graphs hold DDIM's
+    one-tensor carry."""
+
+    def __init__(self, make_denoisers: Callable[..., tuple],
+                 schedule: DDIMSchedule, latents: torch.Tensor,
+                 stride: int, dense_steps: int,
+                 **inputs: Optional[torch.Tensor]):
+        n = len(schedule.timesteps)
+        dense, nseg, tail = _encprop_plan(n, stride, dense_steps)
+        spec = ddim_spec(schedule.coefficients(latents.device))
+
+        def key(dn, x, step):
+            return encprop_key_step(spec, dn[0], (x,), step)[0][0]
+
+        def segment(length):
+            return lambda dn, x, step: encprop_segment(
+                spec, dn[0], dn[1], dn[2], (x,), step, length)[0]
+
+        super().__init__(make_denoisers, [
+            ("key", dense, 0, key),
+            ("segment", nseg, dense, segment(stride)),
+            ("tail", 1 if tail else 0, n - tail, segment(tail))],
+            latents, **inputs)
 
 
 def cfg_inputs(context: torch.Tensor, uncond_context: torch.Tensor,
@@ -221,6 +520,102 @@ def make_cfg_denoiser(unet: Callable, context: torch.Tensor,
     context."""
     return cfg_denoiser(unet, guidance_scale=guidance_scale, **cfg_inputs(
         context, uncond_context, addition_embeds, uncond_addition_embeds))
+
+
+def cfg_denoiser_pair(unet: Callable, context: torch.Tensor,
+                      guidance_scale: float,
+                      additions: Optional[torch.Tensor] = None
+                      ) -> DenoiserPair:
+    """DeepCache's CFG pair over the stacked 2B conditioning:
+    ``full(x, t)`` -> (guided eps, the 2B batch's deep activation),
+    ``shallow(x, t, deep)`` -> guided eps; each guidance half reuses its
+    own deep rows."""
+
+    def full(x, t):
+        x2, t2 = cfg_double(x, t)
+        eps, deep = unet(x2, t2, context, additions, return_deep=True)
+        return cfg_guide(eps, guidance_scale), deep
+
+    def shallow(x, t, deep):
+        x2, t2 = cfg_double(x, t)
+        return cfg_guide(unet(x2, t2, context, additions, deep_cache=deep),
+                         guidance_scale)
+
+    return full, shallow
+
+
+def make_cfg_denoiser_pair(unet: Callable, context: torch.Tensor,
+                           uncond_context: torch.Tensor,
+                           guidance_scale: float,
+                           addition_embeds: Optional[torch.Tensor] = None,
+                           uncond_addition_embeds: Optional[torch.Tensor]
+                           = None) -> DenoiserPair:
+    """:func:`cfg_denoiser_pair` over the conditioning of one call."""
+    return cfg_denoiser_pair(unet, guidance_scale=guidance_scale,
+                             **cfg_inputs(context, uncond_context,
+                                          addition_embeds,
+                                          uncond_addition_embeds))
+
+
+def _tile_rows(t: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, ...) -> (P*B, ...), row b of copy p at p*B + b (the
+    reference's ``jnp.tile``): a copy, in t's memory format."""
+    return torch.cat([t] * p, dim=0)
+
+
+def cfg_denoiser_encprop(unet: Callable, context: torch.Tensor,
+                         guidance_scale: float,
+                         additions: Optional[torch.Tensor] = None,
+                         deepcache: bool = False):
+    """Encoder propagation's CFG denoisers over the stacked 2B
+    conditioning: (key, prop, shallow or None).
+
+    - ``key(x, t)`` -> (guided eps, encoder cache[, deep activation]);
+    - ``prop(cache, ts (P,))`` -> (P, B, H, W, 4) guided eps: the cache's
+      2B rows tiled P times (copy p at timestep ts[p]), ONE decoder-only
+      forward at P x 2B; each row is computed as a single step's;
+    - ``shallow(x, t, deep)``: DeepCache's shallow pass, with
+      ``deepcache``."""
+    b2 = context.shape[0]
+
+    def key(x, t):
+        x2, t2 = cfg_double(x, t)
+        if deepcache:
+            eps, deep, cache = unet(x2, t2, context, additions,
+                                    return_deep=True, return_skips=True)
+            return cfg_guide(eps, guidance_scale), cache, deep
+        eps, cache = unet(x2, t2, context, additions, return_skips=True)
+        return cfg_guide(eps, guidance_scale), cache
+
+    def prop(cache, ts):
+        p = ts.shape[0]
+        skips, entry = cache
+        tiled = (tuple(_tile_rows(s, p) for s in skips),
+                 _tile_rows(entry, p))
+        t_all = ts[:, None].expand(p, b2).reshape(-1)
+        eps = unet(None, t_all, _tile_rows(context, p),
+                   None if additions is None else _tile_rows(additions, p),
+                   skips_cache=tiled)
+        eps_uncond, eps_cond = eps.reshape((p, b2) + eps.shape[1:]).chunk(
+            2, dim=1)
+        return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+
+    shallow = (cfg_denoiser_pair(unet, context, guidance_scale,
+                                 additions)[1] if deepcache else None)
+    return key, prop, shallow
+
+
+def make_cfg_denoiser_encprop(unet: Callable, context: torch.Tensor,
+                              uncond_context: torch.Tensor,
+                              guidance_scale: float,
+                              addition_embeds: Optional[torch.Tensor] = None,
+                              uncond_addition_embeds: Optional[torch.Tensor]
+                              = None, deepcache: bool = False):
+    """:func:`cfg_denoiser_encprop` over the conditioning of one call."""
+    return cfg_denoiser_encprop(
+        unet, guidance_scale=guidance_scale, deepcache=deepcache,
+        **cfg_inputs(context, uncond_context, addition_embeds,
+                     uncond_addition_embeds))
 
 
 def initial_latents(generator: torch.Generator, batch: int, image_size: int,

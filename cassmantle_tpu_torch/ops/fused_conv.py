@@ -93,7 +93,7 @@ def _library():
     fn = _build.load(SOURCE).cassmantle_gn_silu_conv3x3_bf16
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
     return fn
 
@@ -112,9 +112,9 @@ def _check(x, a, b, kernel, bias):
         raise ValueError(f"shapes disagree: x {tuple(x.shape)}, a "
                          f"{tuple(a.shape)}, b {tuple(b.shape)}, kernel "
                          f"{tuple(kernel.shape)}, bias {tuple(bias.shape)}")
-    if c % 8 or f % 2 or x.shape[2] > 64:
-        raise ValueError(f"the kernel needs C % 8 == 0, F even and W <= 64; "
-                         f"got C={c}, F={f}, W={x.shape[2]}")
+    if c % 8 or f % 2:
+        raise ValueError(f"the kernel needs C % 8 == 0 and F even; got "
+                         f"C={c}, F={f}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC (run the model "
                          "channels-last)")
@@ -157,7 +157,7 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     err = _library()(
         x.data_ptr(), a32.data_ptr(), b32.data_ptr(), w_ohwi.data_ptr(),
         bias32.data_ptr(), out.data_ptr(), bsz, h, w, c, f, plan.th,
-        plan.imgs, plan.slices, stream)
+        plan.tw, plan.imgs, plan.bn, plan.slices, stream)
     if err != 0:
         raise RuntimeError(f"fused conv launch failed: cudaError {err} "
                            f"(x {tuple(x.shape)}, F {f})")

@@ -33,7 +33,7 @@ from __future__ import annotations
 import collections
 import gc
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -92,14 +92,17 @@ class CapturedStep:
     """``fn`` (no arguments; reads and writes buffers that stay put)
     warmed up, captured into a CUDA graph and replayed by
     :meth:`replay`. ``output`` is what ``fn`` returned at capture: a
-    replay rewrites those tensors in place.
+    replay rewrites those tensors in place. ``reset``, where given, runs
+    between the warm-up and the capture (it puts back loop state that
+    the warm-up advanced).
 
     Host seconds of the set-up are kept: ``warmup_s``, ``capture_s``
     (the step's Python under capture) and ``instantiate_s`` (ending the
     capture, which instantiates the graph); ``pool_bytes`` is the device
     memory the capture reserved for the graph's private pool."""
 
-    def __init__(self, fn: Callable[[], object]):
+    def __init__(self, fn: Callable[[], object],
+                 reset: Optional[Callable[[], object]] = None):
         self.fn = fn
         self.replays = 0
         start = snapshot()
@@ -107,6 +110,8 @@ class CapturedStep:
             t0 = time.perf_counter()
             self._warm_up()
             self.warmup_s = time.perf_counter() - t0
+            if reset is not None:
+                reset()
             warm = snapshot()
             self._capture()
             self.tally = difference(snapshot(), warm)

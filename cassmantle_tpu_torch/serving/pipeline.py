@@ -17,9 +17,16 @@ serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
 ``TPUContentBackend`` does. Staged serving, brownout tiers, integrity
 sentinels and the other samplers are later slices.
 
-On CUDA the two loops run as the reference compiles them, whole: the 50
-CFG DDIM steps replay one captured step graph per batch size
-(``ops/ddim.py::DDIMGraph``), and the GPT-2 decode steps one captured
+The denoise stage serves the reference's ``run_cfg_denoise`` branches
+that the port has: plain CFG DDIM, DeepCache (``sampler.deepcache``) and
+encoder propagation (``sampler.encprop``, alone or composed with
+DeepCache; ``CASSMANTLE_NO_ENCPROP`` read at build), each at eta 0, with
+the reference's validation (``check_sampler``).
+
+On CUDA the two loops run as the reference compiles them, whole: the
+CFG DDIM loop replays its captured bodies per batch size (one step graph;
+DeepCache's pair graph; encprop's key and segment graphs;
+``ops/ddim.py::SamplerGraph``), and the GPT-2 decode steps one captured
 step per (padded batch, prompt bucket, max_new) (``ops/decode.py``).
 CLIP, x_T, the prefill and the VAE run eagerly.
 """
@@ -45,9 +52,20 @@ from cassmantle_tpu_torch.models.vae import VAEDecoder, postprocess_images
 from cassmantle_tpu_torch.ops.ddim import (
     DDIMGraph,
     DDIMSchedule,
+    DeepCacheGraph,
+    EncpropGraph,
+    SamplerGraph,
     cfg_denoiser,
+    cfg_denoiser_encprop,
+    cfg_denoiser_pair,
     cfg_inputs,
+    check_deepcache_steps,
     ddim_sample,
+    ddim_sample_deepcache,
+    ddim_sample_encprop,
+    encprop_disabled,
+    encprop_key_indices,
+    encprop_step_counts,
     initial_latents,
 )
 from cassmantle_tpu_torch.ops.decode import GreedyDecodeState, greedy_decode
@@ -132,12 +150,27 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
     return module.eval()
 
 
-def check_sampler(sampler_cfg) -> None:
-    """The port's image path is CFG DDIM at eta 0; other samplers wait."""
-    if sampler_cfg.kind != "ddim" or sampler_cfg.eta != 0.0:
+def check_sampler(sampler_cfg) -> str:
+    """The port's image path is CFG DDIM at eta 0: plain, with DeepCache
+    or with encoder propagation (composable with DeepCache); other
+    samplers wait. Validates the reference's way (``deepcache_schedule``:
+    an even step count; ``encprop_plan``: stride >= 1, the dense prefix
+    within the steps) and returns the loop the config serves: "encprop"
+    (unless CASSMANTLE_NO_ENCPROP, read here, is set), "deepcache" or
+    "ddim"."""
+    s = sampler_cfg
+    if s.kind != "ddim" or s.eta != 0.0:
         raise NotImplementedError(
-            f"sampler {sampler_cfg.kind!r} eta={sampler_cfg.eta} is not "
+            f"sampler {s.kind!r} eta={s.eta} is not "
             f"ported; the port serves DDIM at eta=0")
+    if s.deepcache:
+        check_deepcache_steps(s.num_steps)
+    if s.encprop:
+        encprop_key_indices(s.num_steps, s.encprop_stride,
+                            s.encprop_dense_steps)
+        if not encprop_disabled():
+            return "encprop"
+    return "deepcache" if s.deepcache else "ddim"
 
 
 class Text2ImagePipeline:
@@ -145,7 +178,7 @@ class Text2ImagePipeline:
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None):
-        check_sampler(cfg.sampler)
+        self.sampler_mode = check_sampler(cfg.sampler)
         w8a8 = w8a8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -163,8 +196,9 @@ class Text2ImagePipeline:
                                     cfg.seed, sd.get("unet"), param_dtype)
             self.vae = build_model(VAEDecoder(m.vae), "vae", self.device,
                                    cfg.seed, sd.get("vae"))
-        if fc_describe(m.unet):
-            log.info("%s", fc_describe(m.unet))
+        for part in (m.unet, m.vae):
+            if fc_describe(part):
+                log.info("%s", fc_describe(part))
         if w8a8 is not None:
             w8a8(self.unet)
             log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
@@ -176,10 +210,17 @@ class Text2ImagePipeline:
             if t is not None])
         # pixels per latent: one 2x upsample per VAE level transition
         self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
-        self.schedule = DDIMSchedule.create(cfg.sampler.num_steps)
-        # the captured CFG DDIM step of each batch size (CUDA), made on
-        # first use
-        self.step_graphs: Dict[int, DDIMGraph] = {}
+        s = cfg.sampler
+        self.schedule = DDIMSchedule.create(s.num_steps)
+        # (key, shallow, propagated) UNet forwards of a trajectory when
+        # encoder propagation serves, else None
+        self.encprop_counts = (
+            encprop_step_counts(s.num_steps, s.encprop_stride,
+                                s.encprop_dense_steps, s.deepcache)
+            if self.sampler_mode == "encprop" else None)
+        # the captured loop of each batch size (CUDA), made on first use:
+        # a DDIMGraph, DeepCacheGraph or EncpropGraph by sampler_mode
+        self.step_graphs: Dict[int, SamplerGraph] = {}
         # host seconds of the last generate() per stage, each ended by a
         # device synchronize; and whether the last decode was finite
         # before its uint8 quantisation
@@ -202,22 +243,44 @@ class Text2ImagePipeline:
 
     def denoise(self, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
                 graphed: Optional[bool] = None) -> torch.Tensor:
-        """The 50 CFG DDIM steps from x_T under ``cond`` (:meth:`encode`'s
-        output) -> the final latents. ``graphed`` (default: on CUDA)
-        replays the captured step of this batch size, captured on first
+        """The CFG DDIM steps from x_T under ``cond`` (:meth:`encode`'s
+        output) -> the final latents, the denoise stage both pipelines
+        share: the plain loop, DeepCache's full/shallow pairs or encoder
+        propagation, by ``sampler_mode``. ``graphed`` (default: on CUDA)
+        replays the captured loop of this batch size, captured on first
         use, as the reference jits its sampler per batch; a capture
         failure raises. ``graphed=False`` runs the same steps eagerly."""
         s = self.cfg.sampler
         inputs = cfg_inputs(**cond)
-        make_denoise = partial(cfg_denoiser, self.unet,
-                               guidance_scale=s.guidance_scale)
+        gs = s.guidance_scale
+        mode = self.sampler_mode
         if graphed is None:
             graphed = self.device.type == "cuda"
-        if not graphed:
-            return ddim_sample(make_denoise(**inputs), latents, self.schedule)
+        if mode == "encprop":
+            make = partial(cfg_denoiser_encprop, self.unet,
+                           guidance_scale=gs, deepcache=s.deepcache)
+            stride, dense = s.encprop_stride, s.encprop_dense_steps
+            if not graphed:
+                key, prop, shallow = make(**inputs)
+                return ddim_sample_encprop(key, prop, latents, self.schedule,
+                                           stride, dense,
+                                           denoise_shallow=shallow)
+            build = partial(EncpropGraph, make, self.schedule, latents,
+                            stride, dense)
+        elif mode == "deepcache":
+            make = partial(cfg_denoiser_pair, self.unet, guidance_scale=gs)
+            if not graphed:
+                return ddim_sample_deepcache(*make(**inputs), latents,
+                                             self.schedule)
+            build = partial(DeepCacheGraph, make, self.schedule, latents)
+        else:
+            make = partial(cfg_denoiser, self.unet, guidance_scale=gs)
+            if not graphed:
+                return ddim_sample(make(**inputs), latents, self.schedule)
+            build = partial(DDIMGraph, make, self.schedule, latents)
         graph = self.step_graphs.get(latents.shape[0])
         if graph is None:
-            graph = DDIMGraph(make_denoise, self.schedule, latents, **inputs)
+            graph = build(**inputs)
             self.step_graphs[latents.shape[0]] = graph
         return graph(latents, **inputs)
 

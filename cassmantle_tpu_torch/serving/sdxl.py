@@ -14,12 +14,14 @@ Port of the monolithic single-device path of
 
 ``generate`` (inherited) is the reference's ``_sample_impl`` and
 ``generate``: encode both prompts, stack the CFG batch, 50 DDIM steps,
-VAE decode, uint8. On the card the steps replay one captured step graph
-per batch size, whose static inputs include the CFG addition embeds.
-The reference's data-parallel padding, staged serving, brownout tiers,
-encoder propagation, DeepCache, consistency sampling and W8A8 UNet are
-later slices: the port's config has no field for the
-first six yet, and a W8A8 or fused-conv SDXL UNet raises
+VAE decode, uint8. The denoise stage is the one both pipelines share
+(``Text2ImagePipeline.denoise``), so DeepCache and encoder propagation
+serve here as at SD1.5, the CFG addition embeds riding each forward's
+batch. On the card the loop replays its captured bodies per batch size,
+whose static inputs include the addition embeds. The reference's
+data-parallel padding, staged serving, brownout tiers, consistency
+sampling and W8A8 UNet are later slices: the port's config has no field
+for the first four yet, and a W8A8 or fused-conv SDXL UNet raises
 ``NotImplementedError``, as a sampler other than DDIM does.
 """
 

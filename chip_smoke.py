@@ -13,27 +13,35 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    (fails if a wgmma kernel spills or issues none);
 2. holds each kernel (flash attention, the fused GroupNorm-affine + SiLU +
    conv3x3, the int8 matmul, the int8 conv3x3) against its plain PyTorch
-   version at every shape the main paths give it, and times the kernel,
+   version at every shape the main paths give it (the fused conv also at
+   the SD1.5 and SDXL VAE decoders' widths, 64 to 1024; flash also at the
+   decoder-only forward's batch 4), and times the kernel,
    the plain version and one PyTorch library call (a yardstick the port
    never calls) beside the card's bound for the work (for flash
    attention also the floor its exponentials set, and the kernel path
    each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
-   weights and inputs (default, fused-conv, W8A8 and SDXL), and checks
-   that images, prompt tokens, scores and blur agree;
+   weights and inputs (default, fused-conv, W8A8, SDXL, encoder
+   propagation and DeepCache), and checks that images, prompt tokens,
+   scores and blur agree;
 4. serves one game round at full width (SD1.5 512x512, 50-step CFG DDIM,
    GPT-2-small prompt text, MiniLM scoring, blur) with seeded random
    weights under each of ``FrameworkConfig()``,
-   ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, and one
+   ``fusedconv_serving_config()`` and ``w8a8_serving_config()``, one
    under ``sdxl_config()`` (SDXL-base 1024x1024: CLIP-L and bigG text
-   towers, the micro-conditioned UNet, the 0.13025 VAE), each with the
+   towers, the micro-conditioned UNet, the 0.13025 VAE), and one under
+   each of ``encprop_serving_config()`` (20 key forwards, 15 batched
+   decoder-only forwards, the fused VAE decoder) and
+   ``deepcache_serving_config()`` (25 full/shallow pairs), each with the
    counts set to 0 just before it and read just after: every kernel of
    the path launched as often, and at the shapes, as the path says (and
    the default and SDXL rounds none of the other kernels), at checked
    shapes only, and each flash shape on the kernel path its check took.
-   The 50 CFG steps replay one captured CUDA graph of the step, and the
+   The 50 CFG steps replay captured CUDA graphs (one of the step; encprop
+   a key-step and a segment graph; DeepCache a pair graph), and the
    GPT-2 decode steps one of the decode step (``ops/graphs.py``): the
-   counts add each replay's launches;
+   counts add each replay's launches, and each graph must have replayed
+   as often as its loop says;
 5. holds each served graph against the eager steps it replaces
    ([graphs]): the final latents of a 50-step graphed denoise bit-equal
    to the eager loop's on the same x_T and conditioning, and (default,
@@ -44,7 +52,8 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    kernels and host launch calls per step, and each kernel's part; the
    profiled replays must show the step's kernels (flash, and the fused
    conv or the int8 kernels of the preset), the witness that a replay
-   launches them.
+   launches them. Under encprop and DeepCache each captured body is
+   profiled the same way, with the whole loop's host ms and idle share.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -54,7 +63,9 @@ prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -86,7 +97,45 @@ FLASH_SHAPES = {
     "self_x2": (2, 1024, 1024, 20, 64, "self"),
     "cross_x2": (2, 1024, 77, 20, 64, "cross"),
     "vae_mid_xl": (1, 16384, 16384, 1, 512, "separate"),
+    # the encoder-propagation preset's decoder-only forward: the up path's
+    # levels at batch 4 (2 propagated steps x the CFG pair)
+    "self_l0_b4": (4, 4096, 4096, 8, 40, "self"),
+    "cross_l0_b4": (4, 4096, 77, 8, 40, "cross"),
+    "self_l1_b4": (4, 1024, 1024, 8, 80, "self"),
+    "cross_l1_b4": (4, 1024, 77, 8, 80, "cross"),
+    "self_l2_b4": (4, 256, 256, 8, 160, "self"),
+    "cross_l2_b4": (4, 256, 77, 8, 160, "cross"),
 }
+# Flash launches of one SD1.5 UNet forward by mode (its transformer
+# blocks, one self and one cross attention each): a full forward runs 16
+# (5 at each of three levels, 1 in the mid block); the decoder-only
+# forward of encoder propagation the up path's 9 (3 a level), at batch 4;
+# DeepCache's shallow forward level 0's 5 (2 down, 3 up).
+UNET_FLASH = {
+    "full": {"self_l0": 5, "cross_l0": 5, "self_l1": 5, "cross_l1": 5,
+             "self_l2": 5, "cross_l2": 5, "self_mid": 1, "cross_mid": 1},
+    "decoder_only": {"self_l0_b4": 3, "cross_l0_b4": 3, "self_l1_b4": 3,
+                     "cross_l1_b4": 3, "self_l2_b4": 3, "cross_l2_b4": 3},
+    "shallow": {"self_l0": 5, "cross_l0": 5},
+}
+# UNet forwards of one 50-step round by sampler: encoder propagation runs
+# 20 key (full) forwards (5 dense, then one per segment of 3) and one
+# decoder-only forward for the 2 propagated steps of each of the 15
+# segments; DeepCache 25 full and 25 shallow forwards.
+SAMPLER_FORWARDS = {"encprop": {"full": 20, "decoder_only": 15},
+                    "deepcache": {"full": 25, "shallow": 25}}
+
+
+def sampler_flash(sampler: str) -> dict:
+    """Flash launches per shape of one SD1.5 round under ``sampler``: its
+    UNet forwards' and the VAE mid block's one."""
+    out = {"vae_mid": 1}
+    for mode, forwards in SAMPLER_FORWARDS[sampler].items():
+        for name, n in UNET_FLASH[mode].items():
+            out[name] = out.get(name, 0) + n * forwards
+    return out
+
+
 # Flash launches per shape of one round, by model: 50 CFG steps x the
 # transformer blocks at the shape's level (each one self and one cross
 # attention), and the VAE mid block once. SD1.5: 5 blocks at each of
@@ -98,14 +147,20 @@ ROUND_FLASH = {
              "self_mid": 50, "cross_mid": 50, "vae_mid": 1},
     "sdxl": {"self_x1": 500, "cross_x1": 500, "self_x2": 3000,
              "cross_x2": 3000, "vae_mid_xl": 1},
+    # 20 x 32 + 15 x 18 + 1 = 911 and 25 x 32 + 25 x 10 + 1 = 1,051
+    "encprop": sampler_flash("encprop"),
+    "deepcache": sampler_flash("deepcache"),
 }
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # block's D = 512 on mma.sync (ops/_flash_plan.py)
 ROUND_FLASH_PATHS = {"sd15": {"wgmma": 1600, "mma.sync": 1},
-                     "sdxl": {"wgmma": 7000, "mma.sync": 1}}
-# the model each served preset runs
+                     "sdxl": {"wgmma": 7000, "mma.sync": 1},
+                     "encprop": {"wgmma": 910, "mma.sync": 1},
+                     "deepcache": {"wgmma": 1050, "mma.sync": 1}}
+# the model (and loop) each served preset runs
 PRESET_MODEL = {"default": "sd15", "fusedconv": "sd15", "w8a8": "sd15",
-                "sdxl": "sdxl"}
+                "sdxl": "sdxl", "encprop": "encprop",
+                "deepcache": "deepcache"}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -137,6 +192,18 @@ CONV_SHAPES = {
     (2, 16, 16, 640, 1280): 1, (2, 16, 16, 1280, 1280): 6,
     (2, 16, 16, 1920, 1280): 1, (2, 16, 16, 2560, 1280): 2,
     (2, 8, 8, 1280, 1280): 11, (2, 8, 8, 2560, 1280): 3,
+}
+# Every ResBlock conv3x3 of one VAE decode (one image): (B, H, W, C, F) ->
+# launches (mid block 2 ResBlocks, 3 a level, 2 convs each: 28). The
+# fused kernel runs SD1.5's under encprop_serving_config() (18 of them
+# at W > 64); SDXL's six shapes are checked, not served.
+VAE_CONV_SHAPES = {
+    "sd15": {(1, 64, 64, 512, 512): 10, (1, 128, 128, 512, 512): 6,
+             (1, 256, 256, 512, 256): 1, (1, 256, 256, 256, 256): 5,
+             (1, 512, 512, 256, 128): 1, (1, 512, 512, 128, 128): 5},
+    "sdxl": {(1, 128, 128, 512, 512): 10, (1, 256, 256, 512, 512): 6,
+             (1, 512, 512, 512, 256): 1, (1, 512, 512, 256, 256): 5,
+             (1, 1024, 1024, 256, 128): 1, (1, 1024, 1024, 128, 128): 5},
 }
 # Every W8A8 dense site of one UNet forward, (M, K, N) -> launches (16
 # transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
@@ -376,10 +443,12 @@ def exact_agreement(out, ref) -> dict:
 
 
 def check_fused_conv_kernel():
-    """Kernel 2 vs plain at the 14 ResBlock conv shapes, bf16 unit-normal
-    x, affine a in [0.5, 1.5) with a nonzero shift, weights ~ N(0, 1/9C)
-    in the models' OHWI memory. Library yardstick: one cuDNN conv of the
-    pre-activated tensor (the conv alone)."""
+    """Kernel 2 vs plain at the UNet's 14 ResBlock conv shapes and the
+    VAE decoders' (SD1.5's six, W 64 to 512, and SDXL's six, W 128 to
+    1024: 2-row tiles of 64-column stretches past W = 64), bf16
+    unit-normal x, affine a in [0.5, 1.5) with a nonzero shift, weights
+    ~ N(0, 1/9C) in the models' OHWI memory. Library yardstick: one cuDNN
+    conv of the pre-activated tensor (the conv alone)."""
     import torch
     import torch.nn.functional as F
 
@@ -390,7 +459,8 @@ def check_fused_conv_kernel():
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(1)
-    for shape in CONV_SHAPES:
+    vae = {**VAE_CONV_SHAPES["sd15"], **VAE_CONV_SHAPES["sdxl"]}
+    for shape in list(CONV_SHAPES) + list(vae):
         b, h, w, c, f = shape
         kw = dict(generator=gen, device="cuda")
         x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
@@ -867,6 +937,72 @@ def check_small_sdxl():
     return ok
 
 
+def check_small_samplers():
+    """The tiny geometry (bf16 UNet and VAE) under encoder propagation (4
+    steps, stride 3, one dense key: key forwards at steps 0 and 1, one
+    decoder-only forward for steps 2 and 3; the fused VAE decoder) and
+    under DeepCache (two full/shallow pairs), on the card (graphed) and on
+    the CPU from the same weights and inputs. Held as the default path is
+    (``check_small_agreement``): against an fp32 CPU run of the same
+    weights, the card strays no further than the CPU's own bf16 run does,
+    plus 0.5 of a level on the mean and 2 levels at the max."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.ops import flash_attention, fused_conv
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+
+    prompts = ["A watercolor style piece depicting: a lighthouse at dusk.",
+               "A vaporwave style piece depicting: the comet market."]
+    ok_all = True
+    for name, kw in (("encprop", dict(encprop=True, encprop_dense_steps=1)),
+                     ("deepcache", dict(deepcache=True))):
+        cfgs = []
+        for base in (tiny_bf16_config(), test_config()):
+            m = base.models
+            cfgs.append(base.replace(
+                sampler=dataclasses.replace(base.sampler, **kw),
+                models=dataclasses.replace(m, vae=dataclasses.replace(
+                    m.vae, fused_conv=name == "encprop"))))
+        cfg, fp32_cfg = cfgs
+        cpu = Text2ImagePipeline(cfg, device="cpu")
+        sd = {"clip_text": cpu.clip.state_dict(),
+              "unet": cpu.unet.state_dict(), "vae": cpu.vae.state_dict()}
+        gpu = Text2ImagePipeline(cfg, device="cuda", state_dicts=sd)
+        fp32 = Text2ImagePipeline(fp32_cfg, device="cpu", state_dicts=sd)
+        hw = cfg.sampler.image_size // cpu.vae_scale
+        x_t = torch.from_numpy(np.random.default_rng(11).standard_normal(
+            (len(prompts), hw, hw, 4)).astype(np.float32))
+        ref = fp32.generate(prompts, latents=x_t).astype(np.int32)
+        d_cpu = np.abs(cpu.generate(prompts, latents=x_t).astype(np.int32)
+                       - ref)
+        reset_all_counters()
+        d_gpu = np.abs(gpu.generate(prompts, latents=x_t).astype(np.int32)
+                       - ref)
+        res = dict(card_vs_fp32_max=int(d_gpu.max()),
+                   card_vs_fp32_mean=float(d_gpu.mean()),
+                   cpu_bf16_vs_fp32_max=int(d_cpu.max()),
+                   cpu_bf16_vs_fp32_mean=float(d_cpu.mean()),
+                   card_decoded_finite=gpu.last_decoded_finite,
+                   sampler_mode=gpu.sampler_mode,
+                   encprop_step_counts=gpu.encprop_counts,
+                   graphs=sorted(gpu.step_graphs[2].graphs),
+                   flash_launches=flash_attention.flash_attention.launches,
+                   fused_conv_launches=fused_conv.gn_silu_conv3x3.launches)
+        ok = (d_gpu.mean() <= d_cpu.mean() + 0.5
+              and d_gpu.max() <= d_cpu.max() + 2 and gpu.last_decoded_finite
+              and gpu.sampler_mode == name == cpu.sampler_mode
+              and res["flash_launches"] > 0
+              and (res["fused_conv_launches"] > 0) == (name == "encprop"))
+        print(f"[small] tiny geometry, {name}, card vs CPU: "
+              f"{json.dumps(res)} -> {'pass' if ok else 'FAIL'}", flush=True)
+        ok_all = ok_all and ok
+    return ok_all
+
+
 def reset_all_counters() -> None:
     from cassmantle_tpu_torch.ops import flash_attention, fused_conv
     from cassmantle_tpu_torch.ops import quant_matmul
@@ -918,11 +1054,31 @@ def expected_tallies(preset: str) -> dict:
     per_round = {s: n * UNET_FORWARDS for s, n in CONV_SHAPES.items()}
     if preset == "fusedconv":
         return {**base, "gn_silu_conv3x3": per_round}
+    if preset == "encprop":     # the fused VAE decoder, once a round
+        return {**base, "gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15"])}
     if preset == "w8a8":
         mm = {s: n * UNET_FORWARDS for s, n in UNET_MATMUL_SHAPES.items()}
         return {**base, "int8_conv3x3": per_round,
                 "int8_matmul": {**mm, **LM_MATMUL_SHAPES}}
     return base
+
+
+# replays a round's denoise makes of each captured body, by sampler: the
+# DDIM step 50 times; encprop's key step over the 5 dense keys and its
+# segment (key forward, decoder-only forward, 3 updates) 15 times;
+# DeepCache's full/shallow pair 25 times
+GRAPH_REPLAYS = {"ddim": {"step": 50}, "encprop": {"key": 5, "segment": 15},
+                 "deepcache": {"pair": 25}}
+
+
+def unet_forwards(replays: dict) -> dict:
+    """UNet forwards by mode that a denoise's replays ran."""
+    if "pair" in replays:
+        return {"full": replays["pair"], "shallow": replays["pair"]}
+    if "segment" in replays:
+        return {"full": replays.get("key", 0) + replays["segment"],
+                "decoder_only": replays["segment"]}
+    return {"full": replays.get("step", 0)}
 
 
 def run_round(card: str, preset: str, cfg):
@@ -949,6 +1105,8 @@ def run_round(card: str, preset: str, cfg):
     t0 = time.perf_counter()
     rc = svc.generate_content("The Night the Trains Sang")
     round_s = time.perf_counter() - t0
+    replays = {name: g.replays for name, g in
+               svc.backend.t2i.step_graphs[1].graphs.items()}
     t1 = time.perf_counter()
     sims = svc.similarity(pairs)
     score_s = time.perf_counter() - t1
@@ -997,12 +1155,28 @@ def run_round(card: str, preset: str, cfg):
     }
     for kernel, want in expected_tallies(preset).items():
         checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
+    mode = t2i.sampler_mode
+    checks["sampler_mode"] = mode == {"encprop": "encprop",
+                                      "deepcache": "deepcache"}.get(
+                                          preset, "ddim")
+    checks["graph_replays"] = replays == GRAPH_REPLAYS[mode]
+    if mode != "ddim":
+        checks["unet_forwards"] = (unet_forwards(replays)
+                                   == SAMPLER_FORWARDS[mode])
+    checks["encprop_step_counts"] = t2i.encprop_counts == (
+        (20, 0, 30) if mode == "encprop" else None)
     checks = {k: bool(v) for k, v in checks.items()}
     report = dict(
         preset=preset, card=card, build_models_s=build_s, round_s=round_s,
         warm_round_s=warm_round_s, stages_s=stages,
         warm_stages_s=warm_stages, peak_gib=peak_gib, launches=launches,
         flash_paths=flash_paths,
+        launches_per_shape={k: {"x".join(map(str, shape)): n
+                                for shape, n in sorted(tallies[k].items())}
+                            for k in ("flash_attention", "gn_silu_conv3x3")},
+        sampler_mode=mode, graph_replays=replays,
+        unet_forwards=unet_forwards(replays),
+        encprop_step_counts=t2i.encprop_counts,
         text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
@@ -1128,6 +1302,40 @@ def trace_counts(prof, steps: int) -> dict:
     return out
 
 
+def device_profile():
+    """``torch.profiler`` over the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def profile_replays(step, n: int, reset, dev):
+    """``n`` replays of the captured ``step`` under ``torch.profiler``,
+    after ``reset()`` and a sync: (trace counts, host ms per replay)."""
+    from cassmantle_tpu_torch.utils.device import synchronize
+
+    reset()
+    synchronize(dev)
+    with device_profile() as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step.replay()
+        synchronize(dev)
+        window_ms = (time.perf_counter() - t0) * 1e3 / n
+    return trace_counts(prof, n), window_ms
+
+
+def replay_launches(counts: dict, kernel: str) -> int:
+    """A kernel's launches per replay from a window of graph replays:
+    every replay of a graph launches the same kernels, and the profiler
+    at times drops a device record (on an H100, windows of 10 replays
+    have read up to 6 events fewer than 10 times a replay's), so the
+    window's count per replay rounds up. A replay that launched one
+    kernel fewer would read a whole launch fewer, dropped records or
+    not, as long as fewer than one a replay of the kernel's dropped."""
+    return math.ceil(counts.get(f"{kernel}_launches_per_step", 0) - 1e-9)
+
+
 def graph_witness(counts: dict, preset: str) -> dict:
     """What the profiled graph replays launched against what one CFG
     step of ``preset`` launches: the UNet's flash shapes (on the wgmma
@@ -1142,7 +1350,7 @@ def graph_witness(counts: dict, preset: str) -> dict:
     if preset == "w8a8":
         want["int8_conv3x3"] = sum(CONV_SHAPES.values())
         want["int8_matmul"] = sum(UNET_MATMUL_SHAPES.values())
-    seen = {k: counts.get(f"{k}_launches_per_step", 0) for k in want}
+    seen = {k: replay_launches(counts, k) for k in want}
     quiet = counts["host_copy_calls"] == counts["host_sync_calls"] == 0
     return {"want_per_step": want, "seen_per_step": seen,
             "host_copy_calls": counts["host_copy_calls"],
@@ -1158,12 +1366,12 @@ def profile_denoise(svc, preset: str, steps: int = 2,
 
     - served: host ms per step over a whole 50-step graphed denoise (no
       profiler attached, ending in a sync), then ``replays`` replays
-      under ``torch.profiler`` for the device's busy time, the idle share
-      (against the unprofiled wall, and against the profiled window's,
-      which carries the first launch's latency and the closing sync), the
-      device's kernels per step, the host's launch calls per step, each
-      kernel's part, and the witness that the replays launched the
-      kernels (``graph_witness``);
+      under ``torch.profiler`` (``profile_replays``) for the device's
+      busy time, the idle share (against the unprofiled wall, and
+      against the profiled window's, which carries the first launch's
+      latency and the closing sync), the device's kernels per step, the
+      host's launch calls per step, each kernel's part, and the witness
+      that the replays launched the kernels (``graph_witness``);
     - eager: the same readings for ``steps`` eager CFG UNet steps
       (``eager_*``);
     - the step's bound: aten's FLOP count at the bf16 peak plus the
@@ -1173,14 +1381,12 @@ def profile_denoise(svc, preset: str, steps: int = 2,
     - the eager stages around the loop: device kernels and host launch
       calls of the CLIP encode and of the VAE decode."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
 
     from cassmantle_tpu_torch.models.vae import postprocess_images
     from cassmantle_tpu_torch.ops.ddim import cfg_inputs, make_cfg_denoiser
     from cassmantle_tpu_torch.utils.device import synchronize
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t2i = svc.backend.t2i
     dev = t2i.device
     s = t2i.cfg.sampler
@@ -1204,7 +1410,7 @@ def profile_denoise(svc, preset: str, steps: int = 2,
         t0 = time.perf_counter()
         eager()
         eager_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=acts) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             eager()
             eager_window_ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -1217,23 +1423,16 @@ def profile_denoise(svc, preset: str, steps: int = 2,
         final = graph(x, **inputs)
         synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3 / graph.num_steps
-        graph.x.copy_(x)
-        graph.step.zero_()
         replays = min(replays, graph.num_steps)
-        synchronize(dev)
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(replays):
-                graph.graph.replay()
-            synchronize(dev)
-            window_ms = (time.perf_counter() - t0) * 1e3 / replays
-        counts = trace_counts(prof, replays)
+        counts, window_ms = profile_replays(
+            graph.graph, replays,
+            lambda: (graph.x.copy_(x), graph.step.zero_()), dev)
 
-        with profile(activities=acts) as prof:
+        with device_profile() as prof:
             t2i.encode(["a lighthouse at dusk"])
             synchronize(dev)
         clip = trace_counts(prof, 1)
-        with profile(activities=acts) as prof:
+        with device_profile() as prof:
             postprocess_images(t2i.vae(final))
             synchronize(dev)
         vae = trace_counts(prof, 1)
@@ -1283,6 +1482,85 @@ def profile_denoise(svc, preset: str, steps: int = 2,
     return report
 
 
+# flash launches per replay of each captured body of the encprop and
+# DeepCache loops: a key forward; a key forward and a decoder-only one;
+# a full forward and a shallow one
+BODY_FLASH = {"key": 32, "segment": 32 + 18, "pair": 32 + 10}
+
+
+def profile_loop(svc, replays: int = 5) -> dict:
+    """Where a graphed encprop or DeepCache denoise's time goes, at full
+    width: host ms of a whole 50-step graphed denoise (no profiler
+    attached, ending in a sync); for each captured body, ``replays``
+    replays from its first step under ``torch.profiler``
+    (``profile_replays``): host ms, device busy ms, device kernels and
+    host launch calls per replay, each kernel's part, and the witness
+    that a replay launches the body's flash kernels with no host copy or
+    synchronize call between the
+    replays; the loop's busy ms (each body's busy ms x its replays in a
+    denoise) and idle share; and the eager VAE decode's kernels, busy ms
+    and fused-conv part."""
+    import torch
+
+    from cassmantle_tpu_torch.models.vae import postprocess_images
+    from cassmantle_tpu_torch.ops.ddim import cfg_inputs
+    from cassmantle_tpu_torch.utils.device import synchronize
+
+    t2i = svc.backend.t2i
+    dev = t2i.device
+    hw = t2i.cfg.sampler.image_size // t2i.vae_scale
+    report = {"bodies": {}}
+    busy_ms, witness_ok = 0.0, True
+    with torch.inference_mode():
+        inputs = cfg_inputs(**t2i.encode(["a lighthouse at dusk"]))
+        x = torch.randn((1, hw, hw, 4), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        graph = t2i.step_graphs[1]                    # the round's
+        graph(x, **inputs)                            # warm
+        synchronize(dev)
+        t0 = time.perf_counter()
+        final = graph(x, **inputs)
+        synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        for name, count, start, g in graph.phases:
+            n = min(replays, count)
+            counts, window_ms = profile_replays(
+                g, n, lambda start=start: (graph.x.copy_(x),
+                                           graph.step.fill_(start)), dev)
+            if not counts["kernels_per_step"]:
+                return {**report, "device_busy_ms": "not measured",
+                        "graph_witness": {"ok": False,
+                                          "seen": "no device events"}}
+            witness = {
+                "want_flash_per_replay": BODY_FLASH[name],
+                "seen_flash_per_replay": replay_launches(
+                    counts, "flash_attention"),
+                "host_copy_calls": counts["host_copy_calls"],
+                "host_sync_calls": counts["host_sync_calls"]}
+            witness["ok"] = (witness["want_flash_per_replay"]
+                             == witness["seen_flash_per_replay"]
+                             and counts["host_copy_calls"]
+                             == counts["host_sync_calls"] == 0)
+            witness_ok = witness_ok and witness["ok"]
+            busy_ms += count * counts["device_busy_ms"]
+            report["bodies"][name] = {
+                "replays_a_denoise": count, "window_host_ms": window_ms,
+                **{k: v for k, v in counts.items()
+                   if k != "host_launch_calls"},
+                "graph_witness": witness}
+        with device_profile() as prof:
+            postprocess_images(t2i.vae(final))
+            synchronize(dev)
+        vae = trace_counts(prof, 1)
+    report.update(
+        denoise_wall_ms=wall_ms, denoise_busy_ms=busy_ms,
+        idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        graph_witness={"ok": witness_ok},
+        **{f"vae_{k}": v for k, v in vae.items()
+           if k != "host_launch_calls"})
+    return report
+
+
 def check_graphs(svc, preset: str, card: str) -> bool:
     """The served graphs against the eager steps they replace, on the
     card at full width: the final latents of a whole 50-step graphed
@@ -1320,8 +1598,9 @@ def check_graphs(svc, preset: str, card: str) -> bool:
            "denoise_values_differing": int((diff > 0).sum().item()),
            "denoise_finite": bool(torch.isfinite(graphed).all()),
            "denoise_eager_s": eager_s, "denoise_graphed_s": graphed_s,
-           "denoise_graphs": {str(b): g.graph.stats()
-                              for b, g in t2i.step_graphs.items()}}
+           "denoise_graphs": {f"{b}/{name}": g.stats()
+                              for b, sg in t2i.step_graphs.items()
+                              for name, g in sg.graphs.items()}}
     ok = res["denoise_bit_equal"] and res["denoise_finite"]
     if preset in ("default", "w8a8"):
         seed = ["The Night the Trains Sang"]
@@ -1374,6 +1653,8 @@ def main() -> int:
 
     from cassmantle_tpu_torch.config import (
         FrameworkConfig,
+        deepcache_serving_config,
+        encprop_serving_config,
         fusedconv_serving_config,
         sdxl_config,
         w8a8_serving_config,
@@ -1406,11 +1687,15 @@ def main() -> int:
         fail("tiny geometry, fused conv or W8A8: card and CPU disagree")
     if not check_small_sdxl():
         fail("tiny geometry, SDXL: card and CPU disagree")
+    if not check_small_samplers():
+        fail("tiny geometry, encprop or DeepCache: card and CPU disagree")
 
     presets = (("default", FrameworkConfig()),
                ("fusedconv", fusedconv_serving_config()),
                ("w8a8", w8a8_serving_config()),
-               ("sdxl", sdxl_config()))
+               ("sdxl", sdxl_config()),
+               ("encprop", encprop_serving_config()),
+               ("deepcache", deepcache_serving_config()))
     tallies = {}
     for preset, cfg in presets:
         svc, tallies[preset], bad = run_round(card, preset, cfg)
@@ -1419,13 +1704,21 @@ def main() -> int:
         if not check_graphs(svc, preset, card):
             fail(f"{preset}: the graphed loops disagree with the eager "
                  f"steps")
-        prof = profile_denoise(svc, preset)
-        print(f"[profile] {preset} denoise step at full width ({card}): "
-              f"{json.dumps(prof)}", flush=True)
+        if preset in SAMPLER_FORWARDS:
+            prof = profile_loop(svc)
+            print(f"[profile] {preset} graphed denoise at full width "
+                  f"({card}): {json.dumps(prof)}", flush=True)
+        else:
+            prof = profile_denoise(svc, preset)
+            print(f"[profile] {preset} denoise step at full width ({card}): "
+                  f"{json.dumps(prof)}", flush=True)
         if not prof["graph_witness"]["ok"]:
             fail(f"{preset}: the profiled graph replays did not launch the "
                  f"step's kernels: {prof['graph_witness']}")
-        del svc
+        # the graphs' closures hold the service in reference cycles:
+        # collect them, so the next round's peak memory is its own
+        del svc, prof
+        gc.collect()
         torch.cuda.empty_cache()
 
     by_shape = {(b, sq, sk, h, d): name
@@ -1455,9 +1748,11 @@ def main() -> int:
     kernels = []
     for key, name in by_shape.items():
         r = rows[name]
-        # launches and path from the round of the shape's own model
-        round_paths = tallies["sdxl" if name in ROUND_FLASH["sdxl"]
-                              else "default"]["flash_paths"]
+        # launches and path from the first round whose model runs the
+        # shape: default for SD1.5's, sdxl, encprop for the batch-4 ones
+        preset = next(p for p in ("default", "sdxl", "encprop")
+                      if name in ROUND_FLASH[PRESET_MODEL[p]])
+        round_paths = tallies[preset]["flash_paths"]
         (path,) = {p for (shape, p) in round_paths if shape == key}
         kernels.append({
             "name": f"flash_attention[{name}]", "route": "cuda",
@@ -1468,12 +1763,17 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "path": path, "ok": r["ok"]})
-    for kernel, preset, source, replaces in (
-            ("gn_silu_conv3x3", "fusedconv", FUSED_SOURCE, FUSED_REPLACES),
-            ("int8_matmul", "w8a8", INT8_SOURCE, MATMUL_REPLACES),
-            ("int8_conv3x3", "w8a8", INT8_SOURCE, CONV_REPLACES)):
-        kernels += kernel_entries(kernel, checked[kernel],
-                                  tallies[preset][kernel], source, replaces)
+    for kernel, presets, source, replaces in (
+            ("gn_silu_conv3x3", ("fusedconv", "encprop"), FUSED_SOURCE,
+             FUSED_REPLACES),
+            ("int8_matmul", ("w8a8",), INT8_SOURCE, MATMUL_REPLACES),
+            ("int8_conv3x3", ("w8a8",), INT8_SOURCE, CONV_REPLACES)):
+        # launches in the rounds of the presets that serve the kernel
+        # (the UNet's shapes at fusedconv, the VAE's at encprop)
+        tally = sum((tallies[p][kernel] for p in presets),
+                    collections.Counter())
+        kernels += kernel_entries(kernel, checked[kernel], tally, source,
+                                  replaces)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,14 @@ and norm scales perturbed away from the trivial zeros and ones so their
 mapping is exercised. The same numpy arrays feed both sides.
 """
 
+import types
+
 import jax
 import numpy as np
 import torch
 
 from cassmantle_tpu_torch.models.weights import from_jax, state_dict_from_tree
+from cassmantle_tpu_torch.ops.graphs import CapturedStep
 
 
 def jax_params(module, seed, *args, method=None):
@@ -63,3 +66,18 @@ def assert_rel(port, ref, tol):
 
 def randn(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+class EagerStep(CapturedStep):
+    """``CapturedStep`` without the graph, for the CPU: the "capture" runs
+    the step's Python once, as a capture does (the wrappers count there),
+    and a replay calls the step."""
+
+    def _warm_up(self):
+        self.fn()
+
+    def _capture(self):
+        self.capture_s = self.instantiate_s = 0.0
+        self.pool_bytes = 0
+        self.output = self.fn()
+        self.graph = types.SimpleNamespace(replay=self.fn)

@@ -255,6 +255,12 @@ def _gn_conv_inputs(device, b, h, w, c, f, seed=0):
     (1, 7, 5, 40, 24),          # ragged tiles, C % 64 != 0
     (3, 5, 64, 16, 8),          # W = 64: two rows a block, a partial group
     (1, 130, 1, 8, 8),          # W = 1: 64 rows a block, three groups
+    (1, 128, 128, 512, 512),    # VAE 128x128: 2-row tiles of 64 columns
+    (1, 512, 512, 128, 128),    # VAE 512x512: eight stretches a row
+    (2, 5, 100, 72, 40),        # ragged W: stretches of 64 and 36, odd H
+    (1, 3, 65, 16, 8),          # W = 65: a last stretch of one column
+    (1, 16, 130, 64, 384),      # 128-channel blocks, stretches 64, 64, 2
+    (1, 8, 8, 1024, 256),       # 128-channel blocks, a cluster of 8
 ])
 def test_cuda_fused_conv_matches_plain(cuda_device, b, h, w, c, f):
     x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, b, h, w, c, f)
@@ -277,8 +283,8 @@ def test_cuda_fused_conv_refuses_what_it_does_not_take(cuda_device):
         gn_silu_conv3x3(*_gn_conv_inputs(cuda_device, 1, 4, 4, 12, 8))
     with pytest.raises(ValueError):                     # not NHWC memory
         gn_silu_conv3x3(x.transpose(1, 2), a, shift, kernel, bias)
-    with pytest.raises(ValueError):                     # W > 64
-        gn_silu_conv3x3(*_gn_conv_inputs(cuda_device, 1, 2, 65, 16, 8))
+    with pytest.raises(ValueError):                     # F odd
+        gn_silu_conv3x3(*_gn_conv_inputs(cuda_device, 1, 2, 65, 16, 7))
 
 
 # -- int8 matmul and conv3x3 --------------------------------------------------
@@ -521,12 +527,14 @@ def test_cuda_captured_step_counts_replayed_launches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["default", "fused_conv", "w8a8", "sdxl"])
+@pytest.mark.parametrize("preset", ["default", "fused_conv", "w8a8", "sdxl",
+                                    "encprop", "deepcache"])
 def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
-    """The tiny pipeline's CFG DDIM loop as replays of its step graph
-    equals the eager step loop bit for bit on the same x_T and
-    conditioning, and counts the same launches of every kernel per shape.
-    A second graphed call reuses the graph."""
+    """The tiny pipeline's CFG DDIM loop as replays of its captured
+    bodies (the step; encprop's key step and segment, 4 steps at stride 3
+    after one dense key; DeepCache's pair) equals the eager loop bit for
+    bit on the same x_T and conditioning, and counts the same launches of
+    every kernel per shape. A second graphed call reuses the graphs."""
     import dataclasses
 
     from cassmantle_tpu_torch.config import test_config, test_sdxl_config
@@ -539,10 +547,18 @@ def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
     else:
         kw = {} if preset == "default" else {"fused_conv": True,
                                              "conv_pad_to": 128}
+        if preset in ("encprop", "deepcache"):
+            kw = {}
         cfg = _tiny_bf16(test_config(), **kw)
         if preset == "w8a8":
             cfg = cfg.replace(models=dataclasses.replace(
                 cfg.models, unet_w8a8=True, w8a8_min_size=0))
+        if preset == "encprop":
+            cfg = cfg.replace(sampler=dataclasses.replace(
+                cfg.sampler, encprop=True, encprop_dense_steps=1))
+        if preset == "deepcache":
+            cfg = cfg.replace(sampler=dataclasses.replace(
+                cfg.sampler, deepcache=True))
         pipe = Text2ImagePipeline(cfg, device=cuda_device)
     g = torch.Generator(cuda_device).manual_seed(8)
     hw = cfg.sampler.image_size // pipe.vae_scale
@@ -566,7 +582,10 @@ def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
         assert eager_n["int8_matmul", "launches"] > 0
         assert eager_n["int8_conv3x3", "launches"] > 0
     assert list(pipe.step_graphs) == [2]
-    assert pipe.step_graphs[2].graph.replays == 2 * cfg.sampler.num_steps
+    want = {"encprop": {"key": 1, "segment": 1},
+            "deepcache": {"pair": 2}}.get(preset, {"step": 4})
+    assert {k: g.replays for k, g in pipe.step_graphs[2].graphs.items()} \
+        == {k: 2 * n for k, n in want.items()}
 
 
 @pytest.mark.cuda

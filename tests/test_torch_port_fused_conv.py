@@ -78,6 +78,8 @@ def _conv_inputs(seed, b, h, w, c, f):
     (2, 6, 6, 40, 24, 128),     # pad_to: C and F padded, outputs sliced off
     (1, 5, 7, 8, 12, 0),        # odd height and width
     (2, 4, 4, 96, 64, 32),      # skip-concat width, pad_to a divisor of C
+    (1, 3, 128, 16, 24, 0),     # W = 128: the VAE's stretch-tiled widths
+    (1, 2, 100, 8, 16, 0),      # W = 100: a ragged last stretch
 ])
 def test_plain_matches_reference(b, h, w, c, f, pad_to):
     args = _conv_inputs(b * h + c, b, h, w, c, f)

@@ -60,24 +60,9 @@ from cassmantle_tpu_torch.ops.ddim import (
 from cassmantle_tpu_torch.ops.decode import greedy_decode
 from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
 
-from _torch_port_common import assert_rel, jax_params, load, randn
+from _torch_port_common import EagerStep, assert_rel, jax_params, load, randn
 
 CTX_LEN = 16
-
-
-class EagerStep(graphs.CapturedStep):
-    """``CapturedStep`` without the graph: the "capture" runs the step's
-    Python once, as a capture does (the wrappers count there), and a
-    replay calls the step."""
-
-    def _warm_up(self):
-        self.fn()
-
-    def _capture(self):
-        self.capture_s = self.instantiate_s = 0.0
-        self.pool_bytes = 0
-        self.output = self.fn()
-        self.graph = types.SimpleNamespace(replay=self.fn)
 
 
 # -- the DDIM step ------------------------------------------------------------

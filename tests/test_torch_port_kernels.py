@@ -117,6 +117,84 @@ def test_conv_plan_ragged_geometry(b, h, w):
     assert plan.slices == 1                      # one chunk of 40 channels
 
 
+# the VAE decoders' ResBlock convs (B, H, W, C, F): SD1.5 at 512² (W 64 to
+# 512) and SDXL at 1024² (W 128 to 1024)
+VAE_CONV_SHAPES = sorted(set(chip_smoke.VAE_CONV_SHAPES["sd15"])
+                         | set(chip_smoke.VAE_CONV_SHAPES["sdxl"]))
+
+
+def _covered_pixels(plan, b, h, w):
+    """Every (image, row, column) of the plan's blocks, as the kernel
+    walks them (``fused_conv.cu``: blockIdx.x -> n0, y0, x0; tile row r
+    -> image, row, column; pixels past the image dropped), with
+    repeats."""
+    sx = -(-w // plan.tw)
+    gpi = 1 if plan.imgs > 1 else -(-h // plan.th) * sx
+    groups = (-(-b // plan.imgs) if plan.imgs > 1
+              else b * -(-h // plan.th) * sx)
+    out = []
+    for g in range(groups):
+        n0, gi = g // gpi * plan.imgs, g % gpi
+        y0, x0 = gi // sx * plan.th, gi % sx * plan.tw
+        for r in range(_igemm.CONV_PIXELS):
+            img, rr = divmod(r, plan.th * plan.tw)
+            ry, rx = divmod(rr, plan.tw)
+            if (img < plan.imgs and n0 + img < b and y0 + ry < h
+                    and x0 + rx < w):
+                out.append((n0 + img, y0 + ry, x0 + rx))
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,c,f", VAE_CONV_SHAPES + [
+    (1, 5, 100, 72, 40), (2, 3, 65, 16, 8), (1, 4, 130, 16, 8)])
+def test_conv_plan_stretch_tiles_cover_each_pixel_once(b, h, w, c, f):
+    """Past W = 64 a block takes 2 rows of a 64-column stretch (the last
+    stretch ragged): every output pixel exactly once, 128 pixels and the
+    264 halo positions of the W = 64 tile, and at the VAE's sizes at
+    least 128 tiles, unsplit."""
+    plan = _igemm.conv_plan(b, h, w, c, f, 132)
+    assert plan.tw == _igemm.CONV_COLS and plan.imgs == 1
+    assert plan.th * plan.tw <= _igemm.CONV_PIXELS
+    assert (plan.th + 2) * (plan.tw + 2) <= _igemm.CONV_HALO
+    pixels = _covered_pixels(plan, b, h, w)
+    assert len(pixels) == len(set(pixels)) == b * h * w
+    assert plan.tiles == (b * -(-h // plan.th) * -(-w // plan.tw)
+                          * -(-f // plan.bn))
+    if (b, h, w, c, f) in VAE_CONV_SHAPES:
+        # F 128, 256 and 512 in whole 128-channel blocks
+        assert plan.bn == 128 and f % plan.bn == 0
+        assert plan.slices == 1 and plan.tiles >= 128
+
+
+def _plan_before_stretches(b, h, w, c, f, sms):
+    """Kernel 2's plan as it stood for W <= 64 (whole image rows)."""
+    th = max(1, min(h, 64, _igemm.CONV_PIXELS // w))
+    imgs = 1
+    if th == h:
+        imgs = max(1, min(b, _igemm.CONV_PIXELS // (h * w),
+                          _igemm.CONV_HALO // ((h + 2) * (w + 2))))
+    groups = -(-b // imgs) if imgs > 1 else b * -(-h // th)
+    tiles = groups * -(-f // _igemm.CONV_BN)
+    return th, imgs, tiles, _igemm.cluster_slices(
+        tiles, -(-c // _igemm.CONV_CHUNK), sms)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("b,h,w,c,f", CONV_SHAPES + [
+    (1, 7, 5, 40, 24), (3, 5, 64, 16, 8), (1, 130, 1, 8, 8),
+    (4, 4, 4, 40, 24), (2, 4, 6, 64, 200)])
+def test_conv_plan_unchanged_up_to_w64(b, h, w, c, f, sms):
+    """Every W <= 64 shape whose F is not a multiple of 128 alone (the
+    UNet's 14, the card tests' ragged ones) plans whole rows of
+    160-channel blocks exactly as before the stretch tiles."""
+    plan = _igemm.conv_plan(b, h, w, c, f, sms)
+    assert plan.tw == w and plan.bn == _igemm.CONV_BN
+    assert (plan.th, plan.imgs, plan.tiles, plan.slices) == \
+        _plan_before_stretches(b, h, w, c, f, sms)
+    pixels = _covered_pixels(plan, b, h, w)
+    assert len(pixels) == len(set(pixels)) == b * h * w
+
+
 # -- kernel 4: the int8 conv3x3 on wgmma --------------------------------------
 
 # the card tests' ragged geometries: W 7, W 1 with H 3 (C 16 and 48), a
@@ -337,9 +415,12 @@ def test_flash_d64_takes_mma_sync_where_tma_cannot(shape, strides):
 
 def test_flash_round_counts_follow_the_models():
     """chip_smoke's per-model flash counts: SD1.5 launches 1,601 a round
-    (wgmma 1,600, mma.sync 1), SDXL 7,001 (wgmma 7,000, mma.sync 1), each
-    shape of a round on the path the plan gives it at 132 SMs."""
-    for model, want in (("sd15", 1601), ("sdxl", 7001)):
+    (wgmma 1,600, mma.sync 1), SDXL 7,001 (wgmma 7,000, mma.sync 1), the
+    encoder-propagation round 911 (20 x 32 + 15 x 18 + 1) and DeepCache's
+    1,051 (25 x 32 + 25 x 10 + 1), each shape of a round on the path the
+    plan gives it at 132 SMs."""
+    for model, want in (("sd15", 1601), ("sdxl", 7001), ("encprop", 911),
+                        ("deepcache", 1051)):
         counts = chip_smoke.ROUND_FLASH[model]
         assert sum(counts.values()) == want
         paths = {}
@@ -348,5 +429,5 @@ def test_flash_round_counts_follow_the_models():
             path = _flash_plan.flash_plan(b, sq, h, d, 132).path
             paths[path] = paths.get(path, 0) + n
         assert paths == chip_smoke.ROUND_FLASH_PATHS[model]
-    assert set(chip_smoke.FLASH_SHAPES) == set(
-        chip_smoke.ROUND_FLASH["sd15"]) | set(chip_smoke.ROUND_FLASH["sdxl"])
+    assert set(chip_smoke.FLASH_SHAPES) == set().union(
+        *map(set, chip_smoke.ROUND_FLASH.values()))
