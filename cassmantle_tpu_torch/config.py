@@ -1,9 +1,10 @@
 """Typed configuration for the PyTorch/CUDA port.
 
 A copy of the part of ``cassmantle_tpu/config.py`` that the port reads:
-the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 for
-the round's prompt text, MiniLM for guess scoring, the DDIM sampler
-settings and the few game/serving constants the round uses. Defaults are
+the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 or
+Mistral-7B for the round's prompt text, MiniLM for guess scoring, the
+DDIM sampler and text decode settings, speculative decode, and the few
+game/serving constants the round uses. Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
 is SDXL-base at 1024².
@@ -14,7 +15,11 @@ serving presets (:func:`fusedconv_serving_config`,
 :func:`w8a8_serving_config`) change how the UNet's and GPT-2's hot sites
 execute, not the parameter tree; :func:`encprop_serving_config` and
 :func:`deepcache_serving_config` change which UNet forwards the DDIM loop
-runs (and the first runs the VAE decoder on the fused conv).
+runs (and the first runs the VAE decoder on the fused conv);
+:func:`spec_decode_serving_config` decodes the prompt text by draft and
+verify, to the same tokens. The reference has no Mistral preset: a
+config sets ``models.mistral = MistralConfig()``, as its server's
+``--lm mistral`` does.
 """
 
 from __future__ import annotations
@@ -133,6 +138,35 @@ class GPT2Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class MistralConfig:
+    """Mistral-7B-Instruct-class causal LM, the reference game's own prompt
+    model: RoPE positions, grouped-query attention (8 KV heads), a
+    sliding attention window, RMSNorm and a SwiGLU MLP. Defaults are the
+    7B geometry; ``tiny()`` is the CPU-test variant."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    max_positions: int = 4096
+    sliding_window: int = 4096
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    @staticmethod
+    def tiny() -> "MistralConfig":
+        return MistralConfig(
+            vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+            max_positions=64, sliding_window=16, dtype="float32",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class MiniLMConfig:
     """all-MiniLM-L6-v2-class sentence encoder for guess scoring."""
 
@@ -153,14 +187,18 @@ class ModelZooConfig:
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     gpt2: GPT2Config = dataclasses.field(default_factory=GPT2Config)
+    # The prompt LM is Mistral-7B-class when set, else GPT-2.
+    mistral: Optional[MistralConfig] = None
     minilm: MiniLMConfig = dataclasses.field(default_factory=MiniLMConfig)
-    # Storage dtype of the UNet, CLIP and GPT-2 parameters (the VAE and
+    # Storage dtype of the UNet, CLIP and prompt-LM parameters (the VAE and
     # MiniLM keep fp32 storage, as in the reference). Each layer casts
     # its parameters to its compute dtype where it uses them.
     param_dtype: str = "bfloat16"
-    # Weights-only int8 (w8a16) of the UNet in the reference. Not ported:
-    # w8a8_unet_tools refuses it, with the reference's exclusivity error
-    # (both rewrite the same weights).
+    # Weights-only int8 (w8a16) of the prompt LM and of the UNet in the
+    # reference. Not ported: PromptGenerator and w8a8_unet_tools refuse
+    # them (the UNet's with the reference's exclusivity error: both
+    # rewrite the same weights).
+    lm_int8: bool = False
     unet_int8: bool = False
     # W8A8 serving (ops/quant.py, ops/quant_matmul.py): int8 weights and
     # activations at every attention, GEGLU and ResBlock-conv site of the
@@ -202,8 +240,31 @@ class SamplerConfig:
     min_new_tokens: int = 32
     max_new_tokens: int = 96
     prompt_pad_len: int = 77
-    # 0 is greedy decode, the only text decode this slice ports.
+    # 0 is greedy decode (the reference's decode mode); above 0, top-k
+    # sampling: a categorical draw over the ``text_top_k`` largest logits
+    # divided by the temperature.
     text_temperature: float = 0.0
+    text_top_k: int = 40
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecDecodeConfig:
+    """Speculative decode of the prompt text (``ops/decode.py``
+    ``speculative_decode``): a draft proposes ``gamma`` tokens and the
+    target scores all gamma+1 positions in one ``decode_chunk`` forward.
+    Serves only greedy decodes (temperature 0), where acceptance is an
+    exact argmax match and the tokens are greedy decode's;
+    ``CASSMANTLE_NO_SPEC_DECODE=1`` turns it off."""
+
+    # "off" | "ngram" (prompt lookup: the continuation of the latest
+    # earlier match of the last ``ngram`` tokens) | "draft_model" (a
+    # smaller GPT-2 with its own cache)
+    mode: str = "off"
+    gamma: int = 4
+    ngram: int = 3
+    # the "draft_model" draft: a GPT-2 config with the target's vocabulary;
+    # equal to the target's GPT-2 config, the target drafts for itself
+    draft_model: Optional[GPT2Config] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +288,8 @@ class FrameworkConfig:
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     game: GameConfig = dataclasses.field(default_factory=GameConfig)
+    spec_decode: SpecDecodeConfig = dataclasses.field(
+        default_factory=SpecDecodeConfig)
     seed: int = 0
 
     def replace(self, **kw) -> "FrameworkConfig":
@@ -281,6 +344,14 @@ def encprop_serving_config() -> FrameworkConfig:
 def deepcache_serving_config() -> FrameworkConfig:
     """DDIM-50 with deep-feature reuse: 25 full/shallow step pairs."""
     return FrameworkConfig(sampler=SamplerConfig(deepcache=True))
+
+
+def spec_decode_serving_config() -> FrameworkConfig:
+    """The default config with the prompt LM decoded speculatively by the
+    n-gram prompt-lookup draft (gamma 4, suffix 3): the same tokens as
+    greedy decode."""
+    return FrameworkConfig(
+        spec_decode=SpecDecodeConfig(mode="ngram", gamma=4, ngram=3))
 
 
 def test_config() -> FrameworkConfig:

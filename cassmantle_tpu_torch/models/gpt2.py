@@ -1,9 +1,10 @@
 """GPT-2-class causal LM for the round's prompt text.
 
 Port of ``cassmantle_tpu/models/gpt2.py``: ``prefill`` over the
-right-padded prompt bucket seeds a fixed-size KV cache, and
-``decode_step`` extends it one token at a time (``ops/decode.py`` drives
-the loop). Attention is masked, so it takes the plain path. Under
+right-padded prompt bucket seeds a fixed-size KV cache, ``decode_step``
+extends it one token at a time (``ops/decode.py`` drives the loop), and
+``decode_chunk`` appends several tokens in one forward (speculative
+decode's verify). Attention is masked, so it takes the plain path. Under
 ``lm_w8a8`` the q, k, v, out, fc1 and fc2 projections of every block run
 the int8 matmul kernel with per-token activation scales.
 """
@@ -21,6 +22,7 @@ from cassmantle_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
     TransformerMLP,
+    chunk_causal_mask,
 )
 from cassmantle_tpu_torch.utils.device import torch_dtype
 
@@ -137,3 +139,26 @@ class GPT2LM(nn.Module):
             x, kv = block(x, mask=mask, kv_cache=(ck, cv, index))
             new_cache.append(kv)
         return self._logits(self.ln_f(x))[:, 0], new_cache
+
+    def decode_chunk(self, tokens: torch.Tensor,
+                     index: Union[int, torch.Tensor], cache: Cache,
+                     valid: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """S cached positions in one forward: tokens (B, S) at cache
+        positions ``index .. index + S - 1`` (``index`` an int or a
+        one-element int64 tensor on the device; the k/v append there by
+        ``index_copy_``); ``valid`` (B, max_len) marks the positions to
+        attend, the chunk's included, and query j attends only positions
+        ``<= index + j`` (``chunk_causal_mask``), so logits[:, j] are what
+        ``decode_step`` gives after tokens[:, :j + 1] one at a time. The
+        caches update in place; returns (logits (B, S, V), cache)."""
+        s = tokens.shape[1]
+        if isinstance(index, torch.Tensor):
+            index = index.reshape(1)
+        positions = index + torch.arange(s, device=tokens.device)
+        x = self.wte(tokens) + self.wpe(positions[None, :])
+        mask = chunk_causal_mask(valid, index, s)
+        new_cache: Cache = []
+        for block, (ck, cv) in zip(self.blocks(), cache):
+            x, kv = block(x, mask=mask, kv_cache=(ck, cv, positions))
+            new_cache.append(kv)
+        return self._logits(self.ln_f(x)), new_cache

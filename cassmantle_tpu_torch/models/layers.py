@@ -24,7 +24,7 @@ the reference's NHWC at their public boundary.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +57,28 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+def chunk_causal_mask(valid: torch.Tensor, index: Union[int, torch.Tensor],
+                      length: int, window: Optional[int] = None
+                      ) -> torch.Tensor:
+    """Mask of a ``length``-token decode chunk appended at cache position
+    ``index`` (an int, or a one-element tensor on ``valid``'s device, so
+    the mask builds under a CUDA graph capture without a host value).
+
+    ``valid`` (B, max_len) marks the cache positions to attend (prompt and
+    chunk, as one decode step's valid mask); query j sits at ``index + j``
+    and attends only positions ``<= index + j`` (and, with ``window``,
+    ``> index + j - window``). Returns (B, 1, length, max_len). Positions
+    past an accepted prefix roll back by dropping out of the next chunk's
+    ``valid``; its append then overwrites them."""
+    dev = valid.device
+    cache_pos = torch.arange(valid.shape[-1], device=dev)
+    q_pos = index + torch.arange(length, device=dev)
+    ok = cache_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok = ok & (cache_pos[None, :] > q_pos[:, None] - window)
+    return valid[:, None, None, :] & ok[None, None]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ submodules after the Flax modules, so the mapping is mechanical:
   int8 data in the port's layout, as a kernel above), ``weight_scale``
   (along the out-channel axis) and, when static, ``act_scale``.
 
-SDXL's kinds (``clip_text_2``, ``unet_xl``, ``vae_xl``) follow the same
+SDXL's kinds (``clip_text_2``, ``unet_xl``, ``vae_xl``) and Mistral's
+(``mistral``: bias-free Dense leaves, RMSNorm ``scale``) follow the same
 rules, the UNet's micro-conditioning ``add_fc1``/``add_fc2`` as Dense
 leaves. bigG's optional ``text_projection`` is a bare square matrix that
 the reference applies as ``pooled @ proj``; ``SDXLPipeline`` takes it as
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 KINDS = ("clip_text", "clip_text_2", "unet", "unet_xl", "vae", "vae_xl",
-         "gpt2", "minilm")
+         "gpt2", "mistral", "minilm")
 
 
 def _leaf(name: str, value: np.ndarray):

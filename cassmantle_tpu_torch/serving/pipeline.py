@@ -3,7 +3,8 @@ the content backend that makes one round.
 
 Port of the monolithic path of ``cassmantle_tpu/serving/pipeline.py``:
 ``Text2ImagePipeline.generate`` (CLIP encode -> CFG DDIM -> VAE decode ->
-uint8), ``PromptGenerator`` (bucketed greedy GPT-2 decode, trimmed to two
+uint8), ``PromptGenerator`` (bucketed GPT-2 or Mistral-7B decode: greedy,
+top-k sampled, or speculative under ``spec_decode``; trimmed to two
 sentences) and ``TPUContentBackend.generate_sync`` as
 :class:`TorchContentBackend`. Models are built at the configured width
 with seeded random weights, or from given state dicts (the parity tests
@@ -26,15 +27,17 @@ the reference's validation (``check_sampler``).
 On CUDA the two loops run as the reference compiles them, whole: the
 CFG DDIM loop replays its captured bodies per batch size (one step graph;
 DeepCache's pair graph; encprop's key and segment graphs;
-``ops/ddim.py::SamplerGraph``), and the GPT-2 decode steps one captured
-step per (padded batch, prompt bucket, max_new) (``ops/decode.py``).
-CLIP, x_T, the prefill and the VAE run eagerly.
+``ops/ddim.py::SamplerGraph``), the prompt LM's decode steps one captured
+step per (padded batch, prompt bucket, max_new, sampler), and a
+speculative decode one captured draft/verify chunk per shape
+(``ops/decode.py``). CLIP, x_T, the prefill and the VAE run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import random
 import time
 from functools import partial
@@ -47,6 +50,7 @@ from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
+from cassmantle_tpu_torch.models.mistral import MistralLM
 from cassmantle_tpu_torch.models.unet import UNet
 from cassmantle_tpu_torch.models.vae import VAEDecoder, postprocess_images
 from cassmantle_tpu_torch.ops.ddim import (
@@ -68,7 +72,14 @@ from cassmantle_tpu_torch.ops.ddim import (
     encprop_step_counts,
     initial_latents,
 )
-from cassmantle_tpu_torch.ops.decode import GreedyDecodeState, greedy_decode
+from cassmantle_tpu_torch.ops.decode import (
+    GreedyDecodeState,
+    ModelDraft,
+    NgramDraft,
+    SpecDecodeState,
+    greedy_decode,
+    speculative_decode,
+)
 from cassmantle_tpu_torch.ops.fused_conv import describe as fc_describe
 from cassmantle_tpu_torch.ops.quant import (
     w8a8_calibrated,
@@ -100,9 +111,10 @@ from cassmantle_tpu_torch.utils.tokenizers import (
 log = logging.getLogger(__name__)
 
 # Seed offsets of the random init, one per model (the reference's init
-# slots: CLIP 1, UNet 2, VAE 3, GPT-2 5, SDXL's bigG tower 11).
-INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5,
-              "clip_text_2": 11}
+# slots: CLIP 1, UNet 2, VAE 3, the prompt LM 5 (GPT-2 or Mistral), the
+# speculative decode's GPT-2 draft 6, SDXL's bigG tower 11).
+INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5, "mistral": 5,
+              "gpt2_draft": 6, "clip_text_2": 11}
 
 
 def unet_w8a8_armed(models_cfg) -> bool:
@@ -147,6 +159,43 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
         init_weights(module, gen)
     if storage_dtype is not None:
         module.to(storage_dtype)
+    return module.eval()
+
+
+def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
+                   device: torch.device, seed: int,
+                   state_dict: Optional[Mapping] = None,
+                   storage_dtype: Optional[torch.dtype] = None
+                   ) -> torch.nn.Module:
+    """:func:`build_model` for a model too large to hold in fp32 beside its
+    stored copy (Mistral-7B: 29 GB in fp32, 14.5 GB in bf16). The module
+    is made on the meta device, then each top-level submodule in turn is
+    made on ``device`` in fp32, filled from ``state_dict`` or the seeded
+    init (in build_model's order) and cast to ``storage_dtype``: the peak
+    is the stored footprint plus one submodule in fp32. The module may
+    hold no parameter or buffer of its own."""
+    with torch.device("meta"):
+        module = factory()
+    if (next(module.parameters(recurse=False), None) is not None
+            or next(module.buffers(), None) is not None):
+        raise ValueError("build_streamed fills submodule parameters only")
+    gen = (None if state_dict is not None else
+           torch.Generator(device).manual_seed(seed + INIT_SEEDS[kind]))
+    for name, child in module.named_children():
+        child.to_empty(device=device)
+        if gen is not None:
+            init_weights(child, gen)
+        else:
+            prefix = f"{name}."
+            child.load_state_dict({k[len(prefix):]: v
+                                   for k, v in state_dict.items()
+                                   if k.startswith(prefix)})
+        if storage_dtype is not None:
+            child.to(storage_dtype)
+    if state_dict is not None:
+        unexpected = set(state_dict) - set(module.state_dict())
+        if unexpected:
+            raise ValueError(f"unexpected keys {sorted(unexpected)}")
     return module.eval()
 
 
@@ -315,34 +364,111 @@ class Text2ImagePipeline:
 
 
 class PromptGenerator:
-    """Story-episode text: bucketed greedy GPT-2 decode."""
+    """Story-episode text: bucketed decode of the prompt LM, GPT-2 or, when
+    ``cfg.models.mistral`` is set, Mistral-7B. Greedy at
+    ``text_temperature`` 0, else top-``text_top_k`` sampled with a seed
+    that advances per call; greedy decodes run speculatively under
+    ``cfg.spec_decode`` (same tokens)."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256)
     BATCH_BUCKETS = (1, 2, 4, 8)
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
-                 state_dict: Optional[Mapping] = None):
-        if cfg.sampler.text_temperature > 0.0:
-            raise NotImplementedError("the port decodes greedily "
-                                      "(text_temperature=0)")
+                 state_dict: Optional[Mapping] = None,
+                 draft_state_dict: Optional[Mapping] = None):
+        models = cfg.models
+        if models.lm_int8:
+            raise NotImplementedError(
+                "lm_int8 (weights-only int8 of the prompt LM) is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.mcfg = m = cfg.models.gpt2
-        with torch.device(self.device):
-            self.model = build_model(GPT2LM(m), "gpt2", self.device,
-                                     cfg.seed, state_dict,
-                                     torch_dtype(cfg.models.param_dtype))
-        if lm_w8a8_armed(cfg.models):
-            # no static scales: the LM quantizes activations per token
-            w8a8_modules(self.model, predicate=partial(
-                w8a8_default_predicate, min_size=cfg.models.w8a8_min_size))
-            log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
-                     "activation scales)", w8a8_site_count(self.model))
-        self.tokenizer = load_tokenizer("gpt2", m.vocab_size)
+        param_dtype = torch_dtype(models.param_dtype)
+        t0 = time.perf_counter()
+        if models.mistral is not None:
+            if lm_w8a8_armed(models):
+                raise NotImplementedError(
+                    "lm_w8a8 with Mistral: its projections are plain Dense "
+                    "layers in the reference, with no int8 site")
+            self.mcfg = m = models.mistral
+            kind = "mistral"
+            self.model = build_streamed(partial(MistralLM, m), kind,
+                                        self.device, cfg.seed, state_dict,
+                                        param_dtype)
+        else:
+            self.mcfg = m = models.gpt2
+            kind = "gpt2"
+            with torch.device(self.device):
+                self.model = build_model(GPT2LM(m), kind, self.device,
+                                         cfg.seed, state_dict, param_dtype)
+            if lm_w8a8_armed(models):
+                # no static scales: the LM quantizes activations per token
+                w8a8_modules(self.model, predicate=partial(
+                    w8a8_default_predicate, min_size=models.w8a8_min_size))
+                log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
+                         "activation scales)", w8a8_site_count(self.model))
+        synchronize(self.device)
+        # host seconds of building the LM, and its parameters' bytes
+        self.build_seconds = time.perf_counter() - t0
+        self.param_bytes = sum(t.numel() * t.element_size()
+                               for t in self.model.parameters())
+        self.tokenizer = load_tokenizer(kind, m.vocab_size)
         self.last_seconds = 0.0
-        # decode states and their captured step (CUDA), per (padded
-        # batch, prompt bucket, max_new, eos), made on first use
+        # the sampling seed of the next call that gives none
+        self._decode_calls = 0
+        # decode states and their captured step or chunk (CUDA), per
+        # decode shape, made on first use
         self.decode_graphs: Dict[tuple, GreedyDecodeState] = {}
+        self.spec_graphs: Dict[tuple, SpecDecodeState] = {}
+        self._init_spec_decode(cfg, draft_state_dict, param_dtype)
+
+    def _init_spec_decode(self, cfg: FrameworkConfig,
+                          draft_state_dict: Optional[Mapping],
+                          param_dtype: torch.dtype) -> None:
+        """The draft of speculative decode (``spec_draft``, None when off):
+        an :class:`NgramDraft`, or a :class:`ModelDraft` over a GPT-2 with
+        the target's vocabulary (the target itself when the draft config
+        is the target's GPT-2 config). The counts of the last speculative
+        decode land in ``last_spec_stats``."""
+        spec = cfg.spec_decode
+        self.spec_draft = None
+        self.last_spec_stats: Optional[dict] = None
+        if spec.mode == "off":
+            return
+        if spec.mode == "ngram":
+            self.spec_draft = NgramDraft(ngram=spec.ngram)
+            return
+        if spec.mode != "draft_model":
+            raise ValueError(f"unknown spec_decode.mode {spec.mode!r}")
+        d = spec.draft_model
+        if d is None:
+            raise ValueError("spec_decode.mode='draft_model' needs a "
+                             "draft_model config")
+        if d.vocab_size != self.mcfg.vocab_size:
+            raise ValueError(
+                f"the draft and the target must share a vocabulary "
+                f"({d.vocab_size} vs {self.mcfg.vocab_size}): acceptance "
+                f"compares token ids")
+        if cfg.models.mistral is None and d == cfg.models.gpt2:
+            self.spec_draft = ModelDraft(self.model)
+            return
+        with torch.device(self.device):
+            draft = build_model(GPT2LM(d), "gpt2_draft", self.device,
+                                cfg.seed, draft_state_dict, param_dtype)
+        self.spec_draft = ModelDraft(draft)
+
+    def _spec_enabled(self, bucket: int, max_new: int) -> bool:
+        """Per bucket group: speculative decode serves greedy decodes only,
+        only while the chunk's scratch tail fits the position table, and
+        only with CASSMANTLE_NO_SPEC_DECODE (read here) clear."""
+        if self.spec_draft is None:
+            return False
+        if self.cfg.sampler.text_temperature > 0.0:
+            return False
+        if os.environ.get("CASSMANTLE_NO_SPEC_DECODE", "").lower() \
+                not in ("", "0", "false", "no", "off"):
+            return False
+        gamma = self.cfg.spec_decode.gamma
+        return bucket + max_new + gamma + 1 <= self.mcfg.max_positions
 
     def _bucket_for(self, n_tokens: int, max_new: int, limit: int) -> int:
         return next(
@@ -352,24 +478,31 @@ class PromptGenerator:
 
     def decode_ids_batch(self, seed_texts: Sequence[str],
                          max_new_tokens: Optional[int] = None,
+                         seed: Optional[int] = None,
                          graphed: Optional[bool] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """N seed texts -> (tokens (N, max_new), gen_len (N,)) host arrays.
         Rows group by their own prompt bucket (so a row decodes at the
         same positions whatever it is batched with); each group's batch
-        pads to the next BATCH_BUCKETS size with 1-token dummy rows. On
-        CUDA (``graphed`` None or True) each group's decode steps replay
-        the captured step of its (batch, bucket, max_new), captured on
-        first use; ``graphed=False`` runs them eagerly."""
+        pads to the next BATCH_BUCKETS size with 1-token dummy rows. A
+        sampled decode draws from a generator seeded with ``seed`` (None:
+        a count of calls, so sampled text varies from call to call). On
+        CUDA (``graphed`` None or True) each group's decode replays the
+        captured step (or speculative chunk) of its shape, captured on
+        first use; ``graphed=False`` runs the same steps eagerly."""
         if not seed_texts:
             raise ValueError("decode_ids_batch needs at least one prompt")
         m = self.mcfg
-        max_new = max_new_tokens or self.cfg.sampler.max_new_tokens
+        s = self.cfg.sampler
+        max_new = max_new_tokens or s.max_new_tokens
         limit = m.max_positions - max_new - 1
         rows = []
         for text in seed_texts:
             toks = self.tokenizer.encode(text)
             rows.append(toks[-limit:] if len(toks) > limit else toks)
+        if seed is None:
+            seed = self._decode_calls
+            self._decode_calls += 1
         groups: Dict[int, List[int]] = {}
         for i, toks in enumerate(rows):
             groups.setdefault(self._bucket_for(len(toks), max_new, limit),
@@ -380,6 +513,7 @@ class PromptGenerator:
         # never be emitted: vocab_size is an unreachable sentinel
         eos = (self.tokenizer.eos_id if self.tokenizer.eos_id < m.vocab_size
                else m.vocab_size)
+        spec_stats = []
         for bucket, idxs in groups.items():
             n = len(idxs)
             n_pad = next((b for b in self.BATCH_BUCKETS if n <= b), n)
@@ -390,18 +524,46 @@ class PromptGenerator:
                 toks = rows[src]
                 ids[row, : len(toks)] = np.asarray(toks) % m.vocab_size
                 lens[row] = max(1, len(toks))
+            ids_t = torch.from_numpy(ids).to(self.device)
+            lens_t = torch.from_numpy(lens).to(self.device)
             with torch.inference_mode():
-                tokens, gen_len = greedy_decode(
-                    self.model, torch.from_numpy(ids).to(self.device),
-                    torch.from_numpy(lens).to(self.device), max_new, eos,
-                    graphs=self.decode_graphs, graphed=graphed)
+                if self._spec_enabled(bucket, max_new):
+                    # the pad rows never hold back the lockstep commit
+                    row_mask = torch.from_numpy(np.arange(n_pad) < n)
+                    tokens, gen_len, stats = speculative_decode(
+                        self.model, ids_t, lens_t, max_new, eos,
+                        self.cfg.spec_decode.gamma, self.spec_draft,
+                        row_mask.to(self.device), graphs=self.spec_graphs,
+                        graphed=graphed)
+                    spec_stats.append(stats)
+                else:
+                    gen = None
+                    if s.text_temperature > 0.0:
+                        gen = torch.Generator(self.device).manual_seed(seed)
+                    tokens, gen_len = greedy_decode(
+                        self.model, ids_t, lens_t, max_new, eos,
+                        graphs=self.decode_graphs, graphed=graphed,
+                        temperature=s.text_temperature, top_k=s.text_top_k,
+                        generator=gen)
             out_tokens[idxs] = tokens[:n].cpu().numpy()
             out_len[idxs] = gen_len[:n].cpu().numpy()
+        self._record_spec_stats(spec_stats)
         return out_tokens, out_len
+
+    def _record_spec_stats(self, spec_stats: List[torch.Tensor]) -> None:
+        """One host transfer of the decode's speculative counts, after its
+        groups: chunks (verify forwards), drafted and accepted tokens."""
+        if not spec_stats:
+            return
+        chunks, drafted, accepted = torch.stack(spec_stats).sum(
+            dim=0).tolist()
+        self.last_spec_stats = {
+            "chunks": chunks, "drafted": drafted, "accepted": accepted,
+            "accept_rate": (accepted / drafted) if drafted else 0.0}
 
     def generate_batch(self, seed_texts: Sequence[str],
                        max_new_tokens: Optional[int] = None) -> List[str]:
-        """Greedy continuations, each trimmed to two sentences."""
+        """Continuations, each trimmed to two sentences."""
         t0 = time.perf_counter()
         tokens, lengths = self.decode_ids_batch(seed_texts, max_new_tokens)
         self.last_seconds = time.perf_counter() - t0
@@ -423,7 +585,7 @@ class RoundContent:
 
 
 class TorchContentBackend:
-    """GPT-2 episode text + diffusion image: one round's content. The image
+    """Prompt-LM episode text + diffusion image: one round's content. The image
     comes from :class:`SDXLPipeline` when the config has a second text
     tower, else from :class:`Text2ImagePipeline`."""
 
@@ -440,7 +602,9 @@ class TorchContentBackend:
             self.t2i = SDXLPipeline(cfg, device, state_dicts=sd)
         else:
             self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd)
-        self.prompt_gen = PromptGenerator(cfg, device, sd.get("gpt2"))
+        lm = "gpt2" if cfg.models.mistral is None else "mistral"
+        self.prompt_gen = PromptGenerator(cfg, device, sd.get(lm),
+                                          sd.get("gpt2_draft"))
         self.styles = styles or load_styles()
         self.rng = rng or random.Random(cfg.seed)
         self._round = 0

@@ -3,8 +3,8 @@
 Copy of the byte fallback of ``cassmantle_tpu/utils/tokenizers.py``: the
 repository ships no vocabulary files, so the reference's
 ``load_tokenizer`` returns :class:`ByteTokenizer` for every model, and so
-does this one. The BPE and WordPiece tokenizers come with real
-checkpoints.
+does this one. The BPE, WordPiece and SentencePiece tokenizers
+come with real checkpoints.
 """
 
 from __future__ import annotations
@@ -48,9 +48,9 @@ class ByteTokenizer(Tokenizer):
 
 
 def load_tokenizer(kind: str, vocab_size: int) -> Tokenizer:
-    """kind in {'gpt2', 'clip', 'minilm'}: the byte fallback, as the
-    reference's ``load_tokenizer`` gives without vocabulary files."""
-    if kind not in ("gpt2", "clip", "minilm"):
+    """kind in {'gpt2', 'clip', 'minilm', 'mistral'}: the byte fallback, as
+    the reference's ``load_tokenizer`` gives without vocabulary files."""
+    if kind not in ("gpt2", "clip", "minilm", "mistral"):
         raise ValueError(f"unknown tokenizer kind {kind!r}")
     return ByteTokenizer(max(vocab_size, 259))
 

@@ -22,8 +22,8 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
    weights and inputs (default, fused-conv, W8A8, SDXL, encoder
-   propagation and DeepCache), and checks that images, prompt tokens,
-   scores and blur agree;
+   propagation, DeepCache and the Mistral prompt LM), and checks that
+   images, prompt tokens, logits, scores and blur agree;
 4. serves one game round at full width (SD1.5 512x512, 50-step CFG DDIM,
    GPT-2-small prompt text, MiniLM scoring, blur) with seeded random
    weights under each of ``FrameworkConfig()``,
@@ -53,7 +53,23 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    profiled replays must show the step's kernels (flash, and the fused
    conv or the int8 kernels of the preset), the witness that a replay
    launches them. Under encprop and DeepCache each captured body is
-   profiled the same way, with the whole loop's host ms and idle share.
+   profiled the same way, with the whole loop's host ms and idle share;
+7. serves a round with Mistral-7B as the prompt LM ([round-mistral]: 32
+   layers of 4096, GQA 32/8, bf16, seeded random weights built submodule
+   by submodule; the image path as at default), with the LM's build
+   seconds, parameter bytes, prefill ms and graphed decode ms per token
+   beside the weight-read bound; its 96 graphed decode tokens equal the
+   eager ones ([graphs]); profiles a decode-step replay ([profile]: busy
+   ms, idle share, kernels, the fp32 LM head's share); the tiny Mistral
+   geometry on the card against the CPU ([small] mistral);
+8. speculative decode against greedy ([spec]): GPT-2 under
+   ``spec_decode_serving_config()``, Mistral-7B with the n-gram draft,
+   and with a GPT-2-small draft at vocabulary 32,000: tokens, the
+   chunks / drafted / accepted counts, decode seconds, host reads; where
+   tokens part, the greedy chain's top-2 gap there may not exceed twice
+   the drift between the verify forward's logits and greedy's there;
+9. Mistral-7B top-k sampled decode ([sampled], T 0.7, k 40): graphed
+   equal to eager for one seed, every token in its step's top 40.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -160,7 +176,7 @@ ROUND_FLASH_PATHS = {"sd15": {"wgmma": 1600, "mma.sync": 1},
 # the model (and loop) each served preset runs
 PRESET_MODEL = {"default": "sd15", "fusedconv": "sd15", "w8a8": "sd15",
                 "sdxl": "sdxl", "encprop": "encprop",
-                "deepcache": "deepcache"}
+                "deepcache": "deepcache", "mistral": "sd15"}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -1003,6 +1019,58 @@ def check_small_samplers():
     return ok_all
 
 
+def check_small_mistral():
+    """The tiny Mistral geometry (2 layers, 4 query and 2 KV heads of 16,
+    window 16) on the card against the CPU from the same weights: in fp32
+    (TF32 off) the greedy tokens of three prompts over two buckets are
+    equal (the card's graphed decode); in bf16 the card's logits stray
+    from the fp32 CPU logits (relative to their largest) no further than
+    twice the CPU's own bf16 run does."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import MistralConfig, test_config
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+
+    base = test_config()
+    cfg32 = base.replace(models=dataclasses.replace(
+        base.models, mistral=MistralConfig.tiny()))
+    cfg16 = cfg32.replace(models=dataclasses.replace(
+        cfg32.models, param_dtype="bfloat16", mistral=dataclasses.replace(
+            MistralConfig.tiny(), dtype="bfloat16")))
+    cpu = PromptGenerator(cfg32, device="cpu")
+    sd = cpu.model.state_dict()
+    gpu = PromptGenerator(cfg32, device="cuda", state_dict=sd)
+    seeds = ["The Night the Trains Sang", "Chapter two: the harbor",
+             "The comet market at dusk, where the archivists trade"]
+    tok_c, len_c = cpu.decode_ids_batch(seeds)
+    tok_g, len_g = gpu.decode_ids_batch(seeds)
+    ids = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg32.models.mistral.vocab_size, (2, 24)))
+    with torch.inference_mode():
+        ref = cpu.model(ids)
+        cpu16 = PromptGenerator(cfg16, device="cpu", state_dict=sd).model(ids)
+        gpu16 = PromptGenerator(cfg16, device="cuda",
+                                state_dict=sd).model(ids.cuda()).cpu()
+    scale = float(ref.abs().max())
+    d_cpu = (cpu16.float() - ref).abs() / scale
+    d_gpu = (gpu16.float() - ref).abs() / scale
+    res = dict(tokens_equal=bool(np.array_equal(tok_c, tok_g)
+                                 and np.array_equal(len_c, len_g)),
+               tokens=tok_g.shape[1],
+               bf16_card_vs_fp32_max_rel=float(d_gpu.max()),
+               bf16_card_vs_fp32_mean_rel=float(d_gpu.mean()),
+               bf16_cpu_vs_fp32_max_rel=float(d_cpu.max()),
+               bf16_cpu_vs_fp32_mean_rel=float(d_cpu.mean()))
+    ok = (res["tokens_equal"] and d_gpu.max() <= 2 * d_cpu.max()
+          and d_gpu.mean() <= 2 * d_cpu.mean())
+    print(f"[small] tiny geometry, mistral, card vs CPU: {json.dumps(res)} "
+          f"-> {'pass' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def reset_all_counters() -> None:
     from cassmantle_tpu_torch.ops import flash_attention, fused_conv
     from cassmantle_tpu_torch.ops import quant_matmul
@@ -1166,6 +1234,7 @@ def run_round(card: str, preset: str, cfg):
     checks["encprop_step_counts"] = t2i.encprop_counts == (
         (20, 0, 30) if mode == "encprop" else None)
     checks = {k: bool(v) for k, v in checks.items()}
+    lm = lm_decode_times(gen) if preset == "mistral" else None
     report = dict(
         preset=preset, card=card, build_models_s=build_s, round_s=round_s,
         warm_round_s=warm_round_s, stages_s=stages,
@@ -1180,7 +1249,7 @@ def run_round(card: str, preset: str, cfg):
         text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
-        checks=checks)
+        lm=lm, checks=checks)
     print(f"[round-{preset}] {json.dumps(report)}", flush=True)
     bad = [k for k, v in checks.items() if not v]
     return svc, tallies, bad
@@ -1565,8 +1634,8 @@ def check_graphs(svc, preset: str, card: str) -> bool:
     """The served graphs against the eager steps they replace, on the
     card at full width: the final latents of a whole 50-step graphed
     denoise against the eager step loop on the same x_T and conditioning
-    (bit-equal), and for the default and W8A8 presets the 96 greedy
-    decode tokens of one prompt (batch bucket 1, prompt bucket 32),
+    (bit-equal), and for the default, W8A8 and Mistral presets the 96
+    greedy decode tokens of one prompt (batch bucket 1, prompt bucket 32),
     graphed against eager (equal); with each graph's capture and
     instantiate seconds and its pool's bytes. One [graphs] line."""
     import numpy as np
@@ -1602,7 +1671,7 @@ def check_graphs(svc, preset: str, card: str) -> bool:
                               for b, sg in t2i.step_graphs.items()
                               for name, g in sg.graphs.items()}}
     ok = res["denoise_bit_equal"] and res["denoise_finite"]
-    if preset in ("default", "w8a8"):
+    if preset in ("default", "w8a8", "mistral"):
         seed = ["The Night the Trains Sang"]
         t0 = time.perf_counter()
         tok_e, len_e = gen.decode_ids_batch(seed, graphed=False)
@@ -1620,6 +1689,403 @@ def check_graphs(svc, preset: str, card: str) -> bool:
         ok = ok and equal
     print(f"[graphs] {preset}: {json.dumps(res)} -> "
           f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+LM_TEXT = "The Night the Trains Sang"
+SPEC_GAMMA = 4
+
+
+def mistral_config():
+    """``FrameworkConfig()`` with Mistral-7B as the prompt LM, as the
+    reference server's ``--lm mistral`` builds it."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig, MistralConfig
+
+    base = FrameworkConfig()
+    return base.replace(models=dataclasses.replace(
+        base.models, mistral=MistralConfig()))
+
+
+def lm_inputs(gen, text: str = LM_TEXT):
+    """One prompt as ``PromptGenerator.decode_ids_batch`` lays it out at
+    batch 1: (ids (1, bucket), prompt_len (1,)) on the card, and EOS."""
+    import numpy as np
+    import torch
+
+    m, tok = gen.mcfg, gen.tokenizer
+    max_new = gen.cfg.sampler.max_new_tokens
+    toks = tok.encode(text)
+    bucket = gen._bucket_for(len(toks), max_new, m.max_positions - max_new - 1)
+    ids = np.full((1, bucket), tok.pad_id % m.vocab_size, dtype=np.int64)
+    ids[0, :len(toks)] = np.asarray(toks) % m.vocab_size
+    eos = tok.eos_id if tok.eos_id < m.vocab_size else m.vocab_size
+    return (torch.from_numpy(ids).cuda(), torch.tensor([len(toks)]).cuda(),
+            eos)
+
+
+def lm_decode_state(gen, ids):
+    """The captured greedy decode state the round's prompt decode made."""
+    return next(s for k, s in gen.decode_graphs.items()
+                if k[:2] == tuple(ids.shape) and k[4] == 0.0
+                and s.graph is not None)
+
+
+def lm_decode_times(gen, reps: int = 5) -> dict:
+    """The prompt LM at full width, after a round: its build seconds and
+    parameter bytes; the eager prefill of the round's prompt (bucket 32)
+    and the graphed greedy decode, ms per token over the 95 replays of a
+    decode, between CUDA events; beside it the weight-read bound, the
+    parameter bytes at the card's memory rate."""
+    import torch
+
+    ids, lens, _ = lm_inputs(gen)
+    state = lm_decode_state(gen, ids)
+    steps = state.max_new - 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        state.start(ids, lens)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            state.start(ids, lens)
+        end.record()
+        torch.cuda.synchronize()
+        prefill_ms = start.elapsed_time(end) / reps
+        start.record()
+        for _ in range(steps):
+            state.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / steps
+    bound_ms = gen.param_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"build_s": gen.build_seconds, "param_bytes": gen.param_bytes,
+            "params": sum(p.numel() for p in gen.model.parameters()),
+            "prefill_ms": prefill_ms, "prompt_bucket": ids.shape[1],
+            "decode_ms_per_token": step_ms,
+            "weight_read_bound_ms_per_token": bound_ms,
+            "decode_x_bound": step_ms / bound_ms,
+            "decode_steps_s": step_ms * steps / 1e3}
+
+
+def profile_decode(svc, replays: int = 10) -> dict:
+    """Where a graphed decode step of the prompt LM goes, at full width:
+    host ms per step over a whole graphed decode (no profiler, ending in a
+    sync), then ``replays`` replays under ``torch.profiler`` for the
+    device's busy ms, idle share and kernels a step; the fp32 LM head
+    alone (``_logits`` on one bf16 hidden row, CUDA events) and its
+    share of the busy time; the weight-read bound. The witness: a
+    replay is one ``cudaGraphLaunch``, with no host copy or synchronize
+    between replays."""
+    import torch
+
+    from cassmantle_tpu_torch.utils.device import synchronize
+
+    gen = svc.backend.prompt_gen
+    dev = gen.device
+    ids, lens, _ = lm_inputs(gen)
+    state = lm_decode_state(gen, ids)
+    steps = state.max_new - 1
+    with torch.inference_mode():
+        state.start(ids, lens)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state.graph.replay()
+        synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts, window_ms = profile_replays(
+            state.graph, replays, lambda: state.start(ids, lens), dev)
+        hidden = torch.randn((1, 1, gen.mcfg.hidden_size), device=dev,
+                             dtype=torch.bfloat16)
+        head_ms = time_ms(lambda: gen.model._logits(hidden), 20)
+    bound_ms = gen.param_bytes / PEAK_BYTES_PER_S * 1e3
+    report = {"step_wall_ms": wall_ms, "window_wall_ms": window_ms,
+              "weight_read_bound_ms": bound_ms, "lm_head_ms": head_ms}
+    if not counts["kernels_per_step"]:
+        return {**report, "device_busy_ms": "not measured",
+                "graph_witness": {"ok": False, "seen": "no device events"}}
+    busy = counts["device_busy_ms"]
+    witness = {"host_launch_calls": counts["host_launch_calls"],
+               "host_copy_calls": counts["host_copy_calls"],
+               "host_sync_calls": counts["host_sync_calls"]}
+    witness["ok"] = (set(counts["host_launch_calls"]) == {"cudaGraphLaunch"}
+                     and counts["host_launches_per_step"] == 1
+                     and counts["host_copy_calls"] == 0
+                     and counts["host_sync_calls"] == 0)
+    report.update(counts, idle_share=max(0.0, 1.0 - busy / wall_ms),
+                  window_idle_share=1.0 - busy / window_ms,
+                  lm_head_share_of_busy=head_ms / busy,
+                  busy_x_bound=busy / bound_ms, graph_witness=witness)
+    return report
+
+
+class ChunkRecorder:
+    """A target LM whose ``decode_chunk`` logits (and prefill logits, as
+    the chunk before the first) are kept with their first cache
+    position: what a speculative decode saw at every position it
+    verified. Eager only (it reads the position on the host)."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.chunks = model, model.cfg, []
+
+    def new_cache(self, *args):
+        return self.model.new_cache(*args)
+
+    def prefill(self, ids, lens, max_len, cache=None):
+        logits, cache = self.model.prefill(ids, lens, max_len, cache)
+        self.chunks.append((ids.shape[1] - 1, logits[:, None].clone()))
+        return logits, cache
+
+    def decode_step(self, *args):
+        return self.model.decode_step(*args)
+
+    def decode_chunk(self, tokens, index, cache, valid):
+        logits, cache = self.model.decode_chunk(tokens, index, cache, valid)
+        self.chunks.append((int(index.reshape(-1)[0]), logits.clone()))
+        return logits, cache
+
+    def logits_at(self, position: int):
+        """The logits the decode committed from at cache ``position``: the
+        last forward that started at or before it."""
+        first, logits = [c for c in self.chunks if c[0] <= position][-1]
+        return logits[:, position - first]
+
+
+def stepped_logits(model, ids, lens, tokens, col: int, chunk_width: int,
+                   max_len: int):
+    """Greedy's chain re-fed one ``decode_step`` at a time over a cache of
+    ``max_len`` positions: the logits that picked token ``col``; and a
+    ``decode_chunk`` of the ``chunk_width`` tokens before it over that
+    same cache, that position's logits again (the chunk's own drift,
+    without the chunk-written history of a speculative decode)."""
+    import torch
+
+    p = ids.shape[1]
+    pos = torch.arange(max_len, device=ids.device)[None, :]
+    prompt_valid = pos < lens[:, None]
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids, lens, max_len)
+        stepped = logits
+        for j in range(col):
+            valid = prompt_valid | ((pos >= p) & (pos <= p + j))
+            stepped, cache = model.decode_step(tokens[:, j].long(), p + j,
+                                               cache, valid)
+        w = min(chunk_width, col)
+        chunk_last = stepped
+        if w:
+            valid = prompt_valid | ((pos >= p) & (pos <= p + col - 1))
+            chunk, _ = model.decode_chunk(tokens[:, col - w:col].long(),
+                                          p + col - w, cache, valid)
+            chunk_last = chunk[:, -1]
+    return stepped.float(), chunk_last.float()
+
+
+def spec_against_greedy(name, model, draft, ids, lens, eos, graphs,
+                        spec_graphs):
+    """One speculative decode (gamma 4, graphed) against the plain greedy
+    decode (graphed) of the same model and prompt, each run twice and
+    timed warm; then the same speculative decode eagerly, its verify
+    logits recorded (``ChunkRecorder``; its tokens must equal the graphed
+    run's). At the first token where greedy and speculative decode part
+    (else at the last), the drift between the two forwards that chose it:
+    max |verify logits - greedy's stepped logits| of that row. A
+    divergence whose greedy top-2 gap exceeds twice that drift fails: two
+    forwards that round apart can swap two logits at most twice their
+    drift apart, so a wider gap means a fault, not rounding. Returns the
+    report and the speculative tokens."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.decode import (
+        greedy_decode,
+        speculative_decode,
+    )
+
+    max_new = 96
+    p = ids.shape[1]
+    times = {}
+    with torch.inference_mode():
+        for kind, run in (
+                ("greedy", lambda: greedy_decode(
+                    model, ids, lens, max_new, eos, graphs=graphs)),
+                ("spec", lambda: speculative_decode(
+                    model, ids, lens, max_new, eos, SPEC_GAMMA, draft,
+                    graphs=spec_graphs))):
+            for attempt in ("cold", "warm"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                times[f"{kind}_{attempt}_s"] = time.perf_counter() - t0
+            times[kind] = out
+        (g_tok, g_len), (s_tok, s_len, stats) = times.pop("greedy"), \
+            times.pop("spec")
+        recorder = ChunkRecorder(model)
+        e_tok, _, e_stats = speculative_decode(
+            recorder, ids, lens, max_new, eos, SPEC_GAMMA, draft,
+            graphed=False)
+    state = next(s for k, s in spec_graphs.items()
+                 if k[:3] == (1, p, max_new) and k[5] == draft)
+    chunks, drafted, accepted = stats.tolist()
+    differ = (g_tok != s_tok).nonzero().tolist()
+    row, col = differ[0] if differ else (0, max_new - 1)
+    greedy_logits, chunk_logits = stepped_logits(
+        model, ids, lens, g_tok, col, SPEC_GAMMA + 1, p + max_new)
+    # the same steps over the speculative decode's longer cache (its
+    # scratch tail of gamma + 1 positions)
+    long_logits, _ = stepped_logits(model, ids, lens, g_tok, col,
+                                    SPEC_GAMMA + 1,
+                                    p + max_new + SPEC_GAMMA + 1)
+    spec_logits = recorder.logits_at(p + col - 1).float()
+    top2 = greedy_logits[row].topk(2).values
+    res = {"tokens_equal": not differ,
+           "lengths_equal": bool(torch.equal(g_len, s_len)),
+           "tokens_agreeing": int((g_tok == s_tok).sum()),
+           "first_divergence": differ[0] if differ else None,
+           "eager_spec_equals_graphed": bool(torch.equal(e_tok, s_tok)
+                                             and torch.equal(e_stats, stats)),
+           "drift_at_step": col,
+           "verify_vs_step_drift": float(
+               (spec_logits[row] - greedy_logits[row]).abs().max()),
+           "same_cache_chunk_vs_step_drift": float(
+               (chunk_logits[row] - greedy_logits[row]).abs().max()),
+           "longer_cache_step_drift": float(
+               (long_logits[row] - greedy_logits[row]).abs().max()),
+           "greedy_top2_gap": float(top2[0] - top2[1]),
+           "chunks": chunks, "drafted": drafted, "accepted": accepted,
+           "accept_rate": accepted / drafted if drafted else 0.0,
+           "tokens_per_chunk": max_new / chunks,
+           "host_reads": state.host_reads, **times,
+           "spec_over_greedy": times["spec_warm_s"] / times["greedy_warm_s"]}
+    res["ok"] = res["eager_spec_equals_graphed"] and (
+        not differ
+        or res["greedy_top2_gap"] <= 2 * res["verify_vs_step_drift"])
+    print(f"[spec] {name}: {json.dumps(res)} -> "
+          f"{'pass' if res['ok'] else 'FAIL'}", flush=True)
+    return res, s_tok
+
+
+def check_spec(svc) -> bool:
+    """Three speculative decodes, each against plain greedy decode on the
+    same model and prompt (``spec_against_greedy``):
+    ``spec_decode_serving_config()`` (GPT-2-small, n-gram draft, gamma 4;
+    its serving path, ``decode_ids_batch``, must take the speculative
+    branch and give the same tokens); Mistral-7B (the round's model) with
+    the n-gram draft; Mistral-7B with a GPT-2-small draft at vocabulary
+    32,000 (``ModelDraft``, seeded random weights, bf16)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import (
+        GPT2Config,
+        spec_decode_serving_config,
+    )
+    from cassmantle_tpu_torch.models.gpt2 import GPT2LM
+    from cassmantle_tpu_torch.ops.decode import ModelDraft, NgramDraft
+    from cassmantle_tpu_torch.serving.pipeline import (
+        PromptGenerator,
+        build_model,
+    )
+
+    ok = True
+    cfg = spec_decode_serving_config()
+    gen = PromptGenerator(cfg)
+    ids, lens, eos = lm_inputs(gen)
+    res, spec_tok = spec_against_greedy(
+        "gpt2 spec_decode_serving_config (ngram)", gen.model, gen.spec_draft,
+        ids, lens, eos, gen.decode_graphs, gen.spec_graphs)
+    served, _ = gen.decode_ids_batch([LM_TEXT])
+    served_ok = (gen.last_spec_stats is not None
+                 and np.array_equal(served, spec_tok.cpu().numpy()))
+    print(f"[spec] gpt2 serving path: spec branch taken "
+          f"{gen.last_spec_stats is not None}, stats {gen.last_spec_stats}, "
+          f"tokens equal the decode above {served_ok}", flush=True)
+    ok = ok and res["ok"] and served_ok
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm = svc.backend.prompt_gen
+    ids, lens, eos = lm_inputs(lm)
+    spec_graphs = {}
+    res, _ = spec_against_greedy("mistral-7b ngram", lm.model,
+                                 NgramDraft(ngram=cfg.spec_decode.ngram), ids,
+                                 lens, eos, lm.decode_graphs, spec_graphs)
+    ok = ok and res["ok"]
+    dev = lm.device
+    with torch.device(dev):
+        draft = build_model(GPT2LM(dataclasses.replace(
+            GPT2Config(), vocab_size=lm.mcfg.vocab_size)), "gpt2_draft", dev,
+            0, storage_dtype=torch.bfloat16)
+    res, _ = spec_against_greedy(
+        "mistral-7b gpt2-small draft (vocab 32000)", lm.model,
+        ModelDraft(draft), ids, lens, eos, lm.decode_graphs, spec_graphs)
+    ok = ok and res["ok"]
+    del draft, spec_graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_sampled(svc) -> bool:
+    """Mistral-7B top-k sampled decode (temperature 0.7, top_k 40): the
+    graphed decode equals the eager one for the same generator seed (the
+    noise is drawn outside the graph), a second seed samples otherwise,
+    and every token up to and with the first EOS lies in its step's top
+    40 (the chain re-fed one eager step at a time)."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.decode import greedy_decode
+
+    lm = svc.backend.prompt_gen
+    model, dev = lm.model, lm.device
+    ids, lens, eos = lm_inputs(lm)
+    p, max_new, temp, top_k = ids.shape[1], 96, 0.7, 40
+    graphs = {}
+
+    def run(graphed, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = greedy_decode(model, ids, lens, max_new, eos, graphs=graphs,
+                            graphed=graphed, temperature=temp, top_k=top_k,
+                            generator=gen)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        (eager, n_eager), eager_s = run(False, 7)
+        (cold, _), cold_s = run(True, 7)
+        (warm, n_warm), warm_s = run(True, 7)
+        (other, _), _ = run(True, 8)
+        n_check = min(int(n_warm[0]) + 1, max_new)
+        pos = torch.arange(p + max_new, device=dev)[None, :]
+        logits, cache = model.prefill(ids, lens, p + max_new)
+        in_top_k = 0
+        for j in range(n_check):
+            top = logits.topk(top_k, dim=-1).indices
+            in_top_k += int((top == warm[:, j:j + 1].long()).any())
+            valid = (pos < lens[:, None]) | ((pos >= p) & (pos <= p + j))
+            logits, cache = model.decode_step(warm[:, j].long(), p + j,
+                                              cache, valid)
+    res = {"graphed_equals_eager": bool(torch.equal(eager, cold)
+                                        and torch.equal(eager, warm)
+                                        and torch.equal(n_eager, n_warm)),
+           "other_seed_differs": not bool(torch.equal(other, warm)),
+           "checked_tokens": n_check, "in_top_k": in_top_k,
+           "gen_len": int(n_warm[0]), "distinct_tokens": int(
+               warm.unique().numel()),
+           "eager_s": eager_s, "graphed_cold_s": cold_s,
+           "graphed_warm_s": warm_s}
+    ok = (res["graphed_equals_eager"] and res["other_seed_differs"]
+          and in_top_k == n_check)
+    print(f"[sampled] mistral-7b T {temp} top_k {top_k}: {json.dumps(res)} "
+          f"-> {'pass' if ok else 'FAIL'}", flush=True)
+    del graphs
     return ok
 
 
@@ -1689,6 +2155,8 @@ def main() -> int:
         fail("tiny geometry, SDXL: card and CPU disagree")
     if not check_small_samplers():
         fail("tiny geometry, encprop or DeepCache: card and CPU disagree")
+    if not check_small_mistral():
+        fail("tiny geometry, Mistral: card and CPU disagree")
 
     presets = (("default", FrameworkConfig()),
                ("fusedconv", fusedconv_serving_config()),
@@ -1720,6 +2188,30 @@ def main() -> int:
         del svc, prof
         gc.collect()
         torch.cuda.empty_cache()
+
+    # Mistral-7B as the round's prompt LM, at full width in bf16; its
+    # decode-step profile, then speculative and sampled decodes over it
+    svc, tallies["mistral"], bad = run_round(card, "mistral",
+                                             mistral_config())
+    if bad:
+        fail(f"round-mistral checks failed: {bad}")
+    if not check_graphs(svc, "mistral", card):
+        fail("mistral: the graphed decode disagrees with the eager steps")
+    prof = profile_decode(svc)
+    print(f"[profile] mistral decode step at full width ({card}): "
+          f"{json.dumps(prof)}", flush=True)
+    if not prof["graph_witness"]["ok"]:
+        fail(f"mistral: a decode-step replay is not one graph launch "
+             f"free of host copies and syncs: {prof['graph_witness']}")
+    if not check_spec(svc):
+        fail("speculative decode parted from greedy beyond the "
+             "step-vs-chunk drift")
+    if not check_sampled(svc):
+        fail("mistral: the sampled decode's graph disagrees with the eager "
+             "steps, or a token left its top-k")
+    del svc, prof
+    gc.collect()
+    torch.cuda.empty_cache()
 
     by_shape = {(b, sq, sk, h, d): name
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}

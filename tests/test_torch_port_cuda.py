@@ -620,3 +620,76 @@ def test_cuda_decode_graph_equals_eager(cuda_device, w8a8):
             assert c == n
         assert (n["int8_matmul", "launches"] > 0) == w8a8
     assert all(s.graph is not None for s in gen.decode_graphs.values())
+
+
+def _tiny_lm_config(family, **sampler):
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import MistralConfig, test_config
+
+    cfg = test_config()
+    if family == "mistral":
+        cfg = cfg.replace(models=dataclasses.replace(
+            cfg.models, mistral=MistralConfig.tiny()))
+    return cfg.replace(sampler=dataclasses.replace(cfg.sampler, **sampler))
+
+
+# bucket 32 at batch 1; then bucket 32 at batch 3 (padded to 4) and the
+# 55-token bucket, where the scratch tail leaves no room to speculate
+SEED_TEXTS = (["The Night the Trains Sang"],
+              ["Chapter two: the harbor", "b c d b c d b c d", "the tide",
+               "The comet market at dusk, where the archivists trade"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gpt2", "mistral"])
+def test_cuda_sampled_decode_graph_equals_eager(cuda_device, family):
+    """Top-k sampled decode (T 0.7, k 40) with its step graph replayed
+    equals the eager steps for the same seed, at two batch buckets (the
+    noise is drawn outside the graph from the seeded generator); a second
+    seed samples otherwise."""
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+
+    cfg = _tiny_lm_config(family, text_temperature=0.7, text_top_k=40,
+                          max_new_tokens=16)
+    gen = PromptGenerator(cfg, device=cuda_device)
+    for seeds in SEED_TEXTS:
+        eager = gen.decode_ids_batch(seeds, seed=3, graphed=False)
+        for _ in range(2):
+            graphed = gen.decode_ids_batch(seeds, seed=3, graphed=True)
+            assert all((g == e).all() for g, e in zip(graphed, eager))
+        other, _ = gen.decode_ids_batch(seeds, seed=4, graphed=True)
+        assert not (other == eager[0]).all()
+    assert all(s.graph is not None for s in gen.decode_graphs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,mode", [("gpt2", "ngram"),
+                                         ("gpt2", "draft_model"),
+                                         ("mistral", "ngram")])
+def test_cuda_spec_decode_graph_equals_eager(cuda_device, family, mode):
+    """Speculative decode with its chunk graph replayed until the stop
+    flag reads true equals the eager chunks: tokens, lengths and stats,
+    at two batch buckets (the second with a dummy pad row), twice (the
+    capture puts the loop state back); one host read a chunk."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import GPT2Config, SpecDecodeConfig
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+
+    draft = GPT2Config(vocab_size=256, hidden_size=32, num_layers=1,
+                       num_heads=2, max_positions=64, dtype="float32")
+    spec = SpecDecodeConfig(mode=mode, gamma=4, ngram=2,
+                            draft_model=draft if mode != "ngram" else None)
+    cfg = dataclasses.replace(_tiny_lm_config(family), spec_decode=spec)
+    gen = PromptGenerator(cfg, device=cuda_device)
+    for seeds in SEED_TEXTS:
+        eager = gen.decode_ids_batch(seeds, graphed=False)
+        eager_stats = gen.last_spec_stats
+        for _ in range(2):
+            graphed = gen.decode_ids_batch(seeds, graphed=True)
+            assert all((g == e).all() for g, e in zip(graphed, eager))
+            assert gen.last_spec_stats == eager_stats
+    states = gen.spec_graphs.values()
+    assert states and all(s.graph is not None for s in states)
+    assert all(s.host_reads == s.graph.replays // 2 for s in states)

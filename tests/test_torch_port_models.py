@@ -237,4 +237,4 @@ def test_from_jax_layouts():
     assert set(sd) == {"d.weight", "d.bias", "c.weight", "n.norm.weight",
                        "e.weight", "position_embedding"}
     with pytest.raises(ValueError):
-        from_jax("mistral", tree)
+        from_jax("moe", tree)

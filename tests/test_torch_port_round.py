@@ -77,7 +77,8 @@ def test_config_matches_reference(which):
 
 
 @pytest.mark.parametrize("kind,vocab", [("gpt2", 256), ("clip", 1024),
-                                        ("minilm", 30522)])
+                                        ("minilm", 30522),
+                                        ("mistral", 32000)])
 def test_tokenizers_match_reference(kind, vocab):
     port, ref = load_tokenizer(kind, vocab), jax_tokenizer(None, kind, vocab)
     assert (port.vocab_size, port.eos_id, port.pad_id) == \
