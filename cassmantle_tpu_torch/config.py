@@ -3,7 +3,7 @@
 A copy of the part of ``cassmantle_tpu/config.py`` that the port reads:
 the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 or
 Mistral-7B for the round's prompt text, MiniLM for guess scoring, the
-DDIM sampler and text decode settings, speculative decode, and the few
+sampler and text decode settings, speculative decode, and the few
 game/serving constants the round uses. Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
@@ -16,6 +16,9 @@ serving presets (:func:`fusedconv_serving_config`,
 execute, not the parameter tree; :func:`encprop_serving_config` and
 :func:`deepcache_serving_config` change which UNet forwards the DDIM loop
 runs (and the first runs the VAE decoder on the fused conv);
+:func:`fast_serving_config`, :func:`turbo_serving_config` and
+:func:`lcm_serving_config` serve the other samplers (DPM-Solver++(2M),
+with DeepCache pairs, and four consistency steps);
 :func:`spec_decode_serving_config` decodes the prompt text by draft and
 verify, to the same tokens. The reference has no Mistral preset: a
 config sets ``models.mistral = MistralConfig()``, as its server's
@@ -214,7 +217,9 @@ class ModelZooConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
-    """Image sampler and greedy text decode settings."""
+    """Image sampler and greedy text decode settings. ``kind``: "ddim",
+    "euler" or "dpmpp_2m" (ops/samplers.py); ``eta`` > 0 (DDIM only) is
+    refused by the pipelines, as the reference's draw no step key."""
 
     kind: str = "ddim"
     num_steps: int = 50
@@ -225,18 +230,29 @@ class SamplerConfig:
     negative_prompt: str = "blurry, distorted, fake, abstract, negative"
     # Deep-feature reuse (DeepCache): steps run in full/shallow pairs,
     # the shallow pass (level 0 only) reusing the full pass's deep
-    # activation. DDIM at eta 0, even num_steps.
+    # activation. DDIM at eta 0 with even num_steps, or DPM++(2M) (an odd
+    # count ends on an unpaired full step).
     deepcache: bool = False
     # Encoder propagation (Faster Diffusion): full UNet forwards only at
     # the key steps (the first ``encprop_dense_steps``, then every
     # ``encprop_stride``-th); the steps between run the decoder alone
     # against the key step's skip stack and mid-block output, batched
     # per segment. Composes with ``deepcache`` (the second step of a
-    # segment then runs shallow). DDIM at eta 0;
+    # segment then runs shallow). Every sampler kind at eta 0;
     # CASSMANTLE_NO_ENCPROP=1 serves full forwards at every step.
     encprop: bool = False
     encprop_stride: int = 3
     encprop_dense_steps: int = 5
+    # Few-step consistency serving (ops/samplers.py): ``num_steps`` (1-8)
+    # direct x0 predictions through the boundary parameterization, on the
+    # grid of ``consistency_teacher_steps``. Not with deepcache or
+    # encprop; CASSMANTLE_NO_CONSISTENCY=1 (read at build) serves the
+    # teacher path instead: ``kind`` at ``consistency_teacher_steps``.
+    consistency: bool = False
+    # The deployed UNet is a consistency-distilled student (the
+    # reference's brownout ladder reads it; kept for the config's parity).
+    consistency_available: bool = False
+    consistency_teacher_steps: int = 50
     min_new_tokens: int = 32
     max_new_tokens: int = 96
     prompt_pad_len: int = 77
@@ -344,6 +360,27 @@ def encprop_serving_config() -> FrameworkConfig:
 def deepcache_serving_config() -> FrameworkConfig:
     """DDIM-50 with deep-feature reuse: 25 full/shallow step pairs."""
     return FrameworkConfig(sampler=SamplerConfig(deepcache=True))
+
+
+def fast_serving_config() -> FrameworkConfig:
+    """Low-latency serving: DPM-Solver++(2M) at 25 steps."""
+    return FrameworkConfig(
+        sampler=SamplerConfig(kind="dpmpp_2m", num_steps=25))
+
+
+def turbo_serving_config() -> FrameworkConfig:
+    """DPM-Solver++(2M) at 24 steps with DeepCache: 12 full/shallow
+    pairs."""
+    return FrameworkConfig(
+        sampler=SamplerConfig(kind="dpmpp_2m", num_steps=24, deepcache=True))
+
+
+def lcm_serving_config() -> FrameworkConfig:
+    """Few-step serving: four consistency steps on the 50-step teacher
+    grid (a consistency-distilled UNet's sampler);
+    CASSMANTLE_NO_CONSISTENCY=1 reverts to the teacher's DDIM-50."""
+    return FrameworkConfig(
+        sampler=SamplerConfig(consistency=True, num_steps=4))
 
 
 def spec_decode_serving_config() -> FrameworkConfig:

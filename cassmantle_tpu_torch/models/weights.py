@@ -15,6 +15,7 @@ submodules after the Flax modules, so the mapping is mechanical:
   int8 data in the port's layout, as a kernel above), ``weight_scale``
   (along the out-channel axis) and, when static, ``act_scale``.
 
+The VAE encoder (``vae_enc``, img2img's) maps by the same rules.
 SDXL's kinds (``clip_text_2``, ``unet_xl``, ``vae_xl``) and Mistral's
 (``mistral``: bias-free Dense leaves, RMSNorm ``scale``) follow the same
 rules, the UNet's micro-conditioning ``add_fc1``/``add_fc2`` as Dense
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 KINDS = ("clip_text", "clip_text_2", "unet", "unet_xl", "vae", "vae_xl",
-         "gpt2", "mistral", "minilm")
+         "vae_enc", "gpt2", "mistral", "minilm")
 
 
 def _leaf(name: str, value: np.ndarray):

@@ -1,16 +1,17 @@
-"""DDIM sampler (eta = 0) with classifier-free guidance.
+"""DDIM sampler with classifier-free guidance, and the captured loops.
 
 Port of the main sampler of ``cassmantle_tpu/ops/ddim.py``. The reference
 compiles the 50 steps into one ``lax.scan``: each step reads its
 timestep and coefficients from the schedule arrays by the scan's index,
 with no host round trip. The port keeps the same loop state on the
 device: :meth:`DDIMSchedule.coefficients` uploads the timesteps and the
-per-step coefficients once, and :func:`ddim_step` reads step i's values
-by a gather at a step counter held in a device tensor, which it advances
-in place. That step runs eagerly in :func:`ddim_sample` (the CPU path,
-and the card's reference run) and, on the card, as the replays of one
-captured CUDA graph in :class:`DDIMGraph`, the counterpart of the
-reference's jitted scan. Both run the same arithmetic.
+per-step coefficients once (:meth:`DDIMSchedule.spec`), and
+:func:`spec_step` reads step i's values by a gather at a step counter
+held in a device tensor, which it advances in place. That step runs
+eagerly in :func:`ddim_sample` (the CPU path, and the card's reference
+run) and, on the card, as the replays of one captured CUDA graph in
+:class:`SpecGraph`, the counterpart of the reference's jitted scan. Both
+run the same arithmetic.
 
 The coefficients are fp32, taken in numpy float32 as the reference's
 fp32 schedule arrays give them (sqrt is correctly rounded); the latents
@@ -32,12 +33,26 @@ device step counter:
   step's skip stack and up-path entry; optionally the second step of a
   segment as a DeepCache shallow pass.
 
-On the card each loop replays captured bodies (:class:`SamplerGraph`):
-DDIM one step graph; DeepCache one pair graph; encprop a key-step graph
-(the dense prefix) and a segment graph (key forward, decoder-only
-forward, ``stride`` updates), plus a tail graph where ``stride`` does
-not divide the steps after the prefix, as the reference compiles a
-dense scan, a segment scan and an unrolled tail.
+At eta > 0 (:func:`ddim_sample` with a key) the step adds
+sigma_t-scaled noise drawn from the reference's ``split`` chain
+(``utils/jax_random.py``), all steps' noise before the loop.
+
+A solver "spec" (:func:`ddim_spec`; Euler's, DPM-Solver++(2M)'s and the
+consistency sampler's in ``ops/samplers.py``) is the device form of a
+schedule that the generic loops step through: the timesteps, the
+per-step coefficient columns, ``init(latents) -> carry`` (a tuple of
+latent-shaped tensors: DPM++ carries its multistep history beside x),
+``x_for``, ``update`` and ``final``. :func:`spec_step` is one step of it.
+
+On the card each loop replays captured bodies (:class:`SamplerGraph`,
+whose carry is static buffers that each call resets and each body
+writes in place): a spec's one step graph (:class:`SpecGraph`);
+DeepCache one pair graph (and an unpaired tail graph for an odd DPM++
+count; :class:`SpecDeepCacheGraph`); encprop a key-step graph (the
+dense prefix) and a segment graph (key forward, decoder-only forward,
+``stride`` updates), plus a tail graph where ``stride`` does not divide
+the steps after the prefix, as the reference compiles a dense scan, a
+segment scan and an unrolled tail.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import numpy as np
 import torch
 
 from cassmantle_tpu_torch.ops.graphs import CapturedStep
+from cassmantle_tpu_torch.utils import jax_random
 
 # denoise(x (B, H, W, 4), t (1,) int32 on x's device) -> guided eps
 Denoiser = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -89,10 +105,11 @@ class DDIMSchedule:
 
     @staticmethod
     def create(num_steps: int, num_train_steps: int = 1000,
-               beta_start: float = 0.00085,
-               beta_end: float = 0.012) -> "DDIMSchedule":
+               beta_start: float = 0.00085, beta_end: float = 0.012,
+               start: int = 0) -> "DDIMSchedule":
+        """``start`` > 0 drops the first steps (img2img tails)."""
         ab_full = alpha_bars_full(num_train_steps, beta_start, beta_end)
-        ts = strided_timesteps(num_steps, num_train_steps)
+        ts = strided_timesteps(num_steps, num_train_steps)[start:]
         ab = ab_full[ts].astype(np.float32)
         ab_prev = np.concatenate([ab_full[ts[1:]], [1.0]]).astype(np.float32)
         return DDIMSchedule(timesteps=ts, alpha_bars=ab,
@@ -109,6 +126,37 @@ class DDIMSchedule:
             torch.from_numpy(self.timesteps.astype(np.int32)).to(device),
             torch.from_numpy(table.astype(np.float32)).to(device))
 
+    def spec(self, latents: torch.Tensor) -> dict:
+        """The eta-0 solver spec on ``latents``' device."""
+        return ddim_spec(self.coefficients(latents.device))
+
+    def eta_spec(self, eta: float, noise: torch.Tensor) -> dict:
+        """The solver spec at ``eta`` > 0 over the step noise ``noise``
+        (T, B, H, W, 4): sigma_t = eta sqrt((1 - ᾱ_prev) / (1 - ᾱ_t))
+        sqrt(1 - ᾱ_t / ᾱ_prev) and the direction's sqrt(max(1 - ᾱ_prev -
+        sigma_t^2, 0)), in float32 as the reference's scan computes them."""
+        one, zero = np.float32(1.0), np.float32(0.0)
+        a_t, a_prev = self.alpha_bars, self.alpha_bars_prev
+        sigma = (np.float32(eta) * np.sqrt((one - a_prev) / (one - a_t))
+                 * np.sqrt(one - a_t / a_prev))
+        table = np.stack([np.sqrt(one - a_t), np.sqrt(a_t), np.sqrt(a_prev),
+                          np.sqrt(np.maximum(one - a_prev - sigma * sigma,
+                                             zero)), sigma], axis=1)
+        dev = noise.device
+        cols = torch.from_numpy(table.astype(np.float32)).to(dev).unbind(1)
+
+        def update(carry, eps, c):
+            x = ddim_update(carry[0], eps, *c[:4])
+            return (x + c[4] * c[5][0],)
+
+        return {"timesteps": torch.from_numpy(
+                    self.timesteps.astype(np.int32)).to(dev),
+                "coefs": cols + (noise,),
+                "init": lambda latents: (latents,),
+                "x_for": lambda carry, c: carry[0],
+                "update": update,
+                "final": lambda carry: carry[0]}
+
 
 def ddim_update(x: torch.Tensor, eps: torch.Tensor, c_eps: torch.Tensor,
                 c_x: torch.Tensor, c_x0: torch.Tensor,
@@ -119,31 +167,56 @@ def ddim_update(x: torch.Tensor, eps: torch.Tensor, c_eps: torch.Tensor,
     return c_x0 * x0 + c_dir * eps
 
 
-def ddim_step(denoise: Denoiser, x: torch.Tensor, coeffs: DDIMCoefficients,
-              step: torch.Tensor) -> torch.Tensor:
-    """x_t -> x_{t-1} at the step that ``step`` ((1,) int64 on x's
-    device) names: its timestep and coefficients are gathered on the
-    device, and ``step`` advances by one in place."""
-    t = coeffs.timesteps.index_select(0, step)
-    c = coeffs.table.index_select(0, step).unbind(dim=1)
-    x = ddim_update(x, denoise(x, t), *c)
-    step.add_(1)
-    return x
+def ddim_step_noise(key: torch.Tensor, num_steps: int,
+                    shape: Sequence[int]) -> torch.Tensor:
+    """(T, *shape) step noise of the reference's eta > 0 loop, on
+    ``key``'s device: each step splits the carried key and draws
+    ``normal(sub, shape)``."""
+    out = []
+    for _ in range(num_steps):
+        key, sub = jax_random.split(key)
+        out.append(jax_random.normal(sub, shape))
+    return torch.stack(out)
 
 
 def ddim_sample(denoise: Denoiser, latents: torch.Tensor,
-                schedule: DDIMSchedule, eta: float = 0.0) -> torch.Tensor:
-    """Run the DDIM loop eagerly, one :func:`ddim_step` a step:
+                schedule: DDIMSchedule, eta: float = 0.0,
+                key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the DDIM loop eagerly, one :func:`spec_step` a step:
     ``denoise(x_t, t)`` predicts the (guided) noise; ``latents`` is x_T.
-    Returns the final latents."""
-    if eta != 0.0:
-        raise NotImplementedError("the port's DDIM is deterministic (eta=0)")
-    coeffs = schedule.coefficients(latents.device)
+    Returns the final latents. At ``eta`` > 0 each step adds noise drawn
+    from ``key`` (a ``utils/jax_random`` key) as the reference's
+    ``split`` chain draws it; eta 0 draws nothing."""
+    if eta > 0.0:
+        if key is None:
+            raise ValueError("eta > 0 requires an rng key")
+        noise = ddim_step_noise(key.to(latents.device),
+                                len(schedule.timesteps), latents.shape)
+        return sample_spec(schedule.eta_spec(eta, noise), denoise, latents)
+    return sample_spec(schedule.spec(latents), denoise, latents)
+
+
+def spec_step(spec: dict, denoise: Denoiser, carry: tuple,
+              step: torch.Tensor) -> tuple:
+    """One step of solver ``spec`` at device ``step`` (advanced by one):
+    the timestep and coefficients gathered there, one denoiser call on
+    ``x_for(carry)``, ``update``."""
+    t, coefs = _spec_at(spec, step)
+    carry = spec["update"](carry, denoise(spec["x_for"](carry, coefs), t),
+                           coefs)
+    step.add_(1)
+    return carry
+
+
+def sample_spec(spec: dict, denoise: Denoiser,
+                latents: torch.Tensor) -> torch.Tensor:
+    """Solver ``spec``'s whole loop, eagerly, one :func:`spec_step` a
+    step: ``init(latents)``, the steps, ``final``."""
     step = torch.zeros((1,), dtype=torch.long, device=latents.device)
-    x = latents
-    for _ in range(len(schedule.timesteps)):
-        x = ddim_step(denoise, x, coeffs, step)
-    return x
+    carry = spec["init"](latents)
+    for _ in range(int(spec["timesteps"].shape[0])):
+        carry = spec_step(spec, denoise, carry, step)
+    return spec["final"](carry)
 
 
 class SamplerGraph:
@@ -151,25 +224,34 @@ class SamplerGraph:
     the reference's jitted scans.
 
     ``phases`` lists ``(name, count, start, body)`` in loop order:
-    ``body(denoisers, x, step)`` advances the latents ``x`` from the
-    step that the device counter ``step`` names, and the counter with
-    it; it is captured once (the counter set to ``start``, the phase's
-    first step, for the warm-up) and replayed ``count`` times.
+    ``body(denoisers, carry, step)`` advances the carry (a tuple of
+    latent-shaped tensors) from the step that the device counter
+    ``step`` names, and the counter with it, and returns the new carry;
+    it is captured once (the counter set to ``start``, the phase's first
+    step, for the warm-up) and replayed ``count`` times.
     ``make_denoisers(**inputs)`` builds what the bodies call, over
     static copies of ``inputs`` (the example call's), which each call
-    overwrites in place. The latents and the counter are static buffers
-    too. A call copies x_T and the inputs in, resets the counter and
-    replays every phase: no host copy and no sync between replays.
-    ``phases`` keeps ``(name, count, start, graph)`` of each phase that
-    runs, ``graphs`` each one's :class:`CapturedStep` by name."""
+    overwrites in place. ``init(latents)`` (default: ``(latents,)``)
+    makes the carry from x_T; the carry (``carry``, ``x`` its first
+    tensor) and the counter are static buffers too, written in place by
+    each body. A call copies the inputs in, sets the carry from x_T,
+    resets the counter and replays every phase: no host copy and no
+    sync between replays; it returns a copy of ``x``. ``phases`` keeps
+    ``(name, count, start, graph)`` of each phase that runs, ``graphs``
+    each one's :class:`CapturedStep` by name."""
 
     def __init__(self, make_denoisers: Callable[..., object],
                  phases: Sequence[Tuple[str, int, int, Callable]],
-                 latents: torch.Tensor, **inputs: Optional[torch.Tensor]):
+                 latents: torch.Tensor,
+                 init: Optional[Callable[[torch.Tensor], tuple]] = None,
+                 **inputs: Optional[torch.Tensor]):
         dev = latents.device
+        self.init = init or (lambda lat: (lat,))
         self.inputs: Dict[str, torch.Tensor] = {
             k: v.clone() for k, v in inputs.items() if v is not None}
-        self.x = latents.to(torch.float32, copy=True)
+        self.carry = tuple(t.to(torch.float32, copy=True)
+                           for t in self.init(latents))
+        self.x = self.carry[0]
         self.step = torch.zeros((1,), dtype=torch.long, device=dev)
         denoisers = make_denoisers(**self.inputs)
         self.phases: List[Tuple[str, int, int, CapturedStep]] = []
@@ -178,8 +260,11 @@ class SamplerGraph:
             if count <= 0:
                 continue
 
-            def fn(body=body) -> torch.Tensor:
-                return self.x.copy_(body(denoisers, self.x, self.step))
+            def fn(body=body) -> tuple:
+                out = body(denoisers, self.carry, self.step)
+                for buf, value in zip(self.carry, out):
+                    buf.copy_(value)
+                return self.carry
 
             self.step.fill_(start)
             graph = CapturedStep(fn, reset=lambda start=start:
@@ -187,35 +272,43 @@ class SamplerGraph:
             self.phases.append((name, count, start, graph))
             self.graphs[name] = graph
 
+    def reset(self, latents: torch.Tensor, start: int = 0) -> None:
+        """Set the carry from x_T ``latents`` and the counter to
+        ``start``."""
+        for buf, value in zip(self.carry, self.init(latents)):
+            buf.copy_(value)
+        self.step.fill_(start)
+
     def __call__(self, latents: torch.Tensor,
                  **inputs: Optional[torch.Tensor]) -> torch.Tensor:
         for k, v in inputs.items():
             if v is not None:
                 self.inputs[k].copy_(v)
-        self.x.copy_(latents)
-        self.step.zero_()
+        self.reset(latents)
         for _, count, _, graph in self.phases:
             for _ in range(count):
                 graph.replay()
         return self.x.clone()
 
 
-class DDIMGraph(SamplerGraph):
-    """:func:`ddim_sample` with one captured CUDA graph of
-    :func:`ddim_step` (``graph``), replayed once per step; the warm-up
-    runs step 0 on the example call's x_T. ``make_denoise(**inputs)``
-    builds the denoiser over the conditioning tensors it is given."""
+class SpecGraph(SamplerGraph):
+    """:func:`sample_spec` with one captured graph of :func:`spec_step`
+    (``graph``), replayed once a step; the warm-up runs step 0 on the
+    example call's x_T. ``schedule.spec(latents)`` gives the solver spec
+    (DDIM, Euler, DPM++, consistency, an img2img tail), whose ``init``
+    makes the carry; ``make_denoise(**inputs)`` builds the denoiser over
+    the conditioning tensors it is given."""
 
-    def __init__(self, make_denoise: Callable[..., Denoiser],
-                 schedule: DDIMSchedule, latents: torch.Tensor,
-                 **inputs: Optional[torch.Tensor]):
-        self.num_steps = len(schedule.timesteps)
-        coeffs = schedule.coefficients(latents.device)
+    def __init__(self, make_denoise: Callable[..., Denoiser], schedule,
+                 latents: torch.Tensor, **inputs: Optional[torch.Tensor]):
+        spec = schedule.spec(latents)
+        self.num_steps = int(spec["timesteps"].shape[0])
         super().__init__(
             make_denoise,
             [("step", self.num_steps, 0,
-              lambda denoise, x, step: ddim_step(denoise, x, coeffs, step))],
-            latents, **inputs)
+              lambda denoise, carry, step: spec_step(spec, denoise, carry,
+                                                     step))],
+            latents, init=spec["init"], **inputs)
         self.graph = self.graphs["step"]
 
 
@@ -223,24 +316,6 @@ class DDIMGraph(SamplerGraph):
 
 # full(x, t) -> (guided eps, deep activation); shallow(x, t, deep) -> eps
 DenoiserPair = Tuple[Callable, Callable]
-
-
-def deepcache_pair_step(pair: DenoiserPair, x: torch.Tensor,
-                        coeffs: DDIMCoefficients,
-                        step: torch.Tensor) -> torch.Tensor:
-    """Two :func:`ddim_step`s from device ``step``: a full forward whose
-    deep activation the second step's shallow forward reuses; ``step``
-    advances by two in place."""
-    full, shallow = pair
-    deep = []
-
-    def first(x, t):
-        eps, d = full(x, t)
-        deep.append(d)
-        return eps
-
-    x = ddim_step(first, x, coeffs, step)
-    return ddim_step(lambda x, t: shallow(x, t, deep[0]), x, coeffs, step)
 
 
 def check_deepcache_steps(num_steps: int) -> None:
@@ -253,34 +328,67 @@ def ddim_sample_deepcache(denoise_full: Callable, denoise_shallow: Callable,
                           latents: torch.Tensor,
                           schedule: DDIMSchedule) -> torch.Tensor:
     """DDIM (eta 0) in full/shallow pairs, eagerly, one
-    :func:`deepcache_pair_step` a pair; even step count."""
-    n = len(schedule.timesteps)
-    check_deepcache_steps(n)
-    coeffs = schedule.coefficients(latents.device)
+    :func:`deepcache_spec_pair` a pair; even step count."""
+    check_deepcache_steps(len(schedule.timesteps))
+    return sample_spec_deepcache(schedule.spec(latents), denoise_full,
+                                 denoise_shallow, latents)
+
+
+def deepcache_spec_pair(spec: dict, pair: DenoiserPair, carry: tuple,
+                        step: torch.Tensor) -> tuple:
+    """Two :func:`spec_step`s of solver ``spec`` from device ``step``: a
+    full forward, then a shallow one reusing its deep activation; the
+    carry (DPM++'s multistep history with it) threads through both."""
+    full, shallow = pair
+    deep = []
+
+    def first(x, t):
+        eps, d = full(x, t)
+        deep.append(d)
+        return eps
+
+    carry = spec_step(spec, first, carry, step)
+    return spec_step(spec, lambda x, t: shallow(x, t, deep[0]), carry, step)
+
+
+def deepcache_spec_tail(spec: dict, pair: DenoiserPair, carry: tuple,
+                        step: torch.Tensor) -> tuple:
+    """The unpaired full step that ends an odd count."""
+    return spec_step(spec, lambda x, t: pair[0](x, t)[0], carry, step)
+
+
+def sample_spec_deepcache(spec: dict, denoise_full: Callable,
+                          denoise_shallow: Callable,
+                          latents: torch.Tensor) -> torch.Tensor:
+    """Solver ``spec`` in full/shallow pairs, eagerly; an odd count ends
+    on an unpaired full step."""
+    n = int(spec["timesteps"].shape[0])
+    pair = (denoise_full, denoise_shallow)
     step = torch.zeros((1,), dtype=torch.long, device=latents.device)
-    x = latents
+    carry = spec["init"](latents)
     for _ in range(n // 2):
-        x = deepcache_pair_step((denoise_full, denoise_shallow), x, coeffs,
-                                step)
-    return x
+        carry = deepcache_spec_pair(spec, pair, carry, step)
+    if n % 2:
+        carry = deepcache_spec_tail(spec, pair, carry, step)
+    return spec["final"](carry)
 
 
-class DeepCacheGraph(SamplerGraph):
-    """:func:`ddim_sample_deepcache` as one captured pair graph
-    (full, update, shallow, update), replayed T / 2 times.
+class SpecDeepCacheGraph(SamplerGraph):
+    """:func:`sample_spec_deepcache` as a captured pair graph (full,
+    update, shallow, update) replayed T // 2 times and, for an odd T
+    (DPM++), a captured tail graph (one full step) replayed once.
     ``make_pair(**inputs)`` returns (full, shallow)."""
 
-    def __init__(self, make_pair: Callable[..., DenoiserPair],
-                 schedule: DDIMSchedule, latents: torch.Tensor,
-                 **inputs: Optional[torch.Tensor]):
-        n = len(schedule.timesteps)
-        check_deepcache_steps(n)
-        coeffs = schedule.coefficients(latents.device)
-        super().__init__(
-            make_pair,
-            [("pair", n // 2, 0, lambda pair, x, step: deepcache_pair_step(
-                pair, x, coeffs, step))],
-            latents, **inputs)
+    def __init__(self, make_pair: Callable[..., DenoiserPair], schedule,
+                 latents: torch.Tensor, **inputs: Optional[torch.Tensor]):
+        spec = schedule.spec(latents)
+        n = int(spec["timesteps"].shape[0])
+        super().__init__(make_pair, [
+            ("pair", n // 2, 0, lambda pair, carry, step:
+             deepcache_spec_pair(spec, pair, carry, step)),
+            ("tail", n % 2, n - 1, lambda pair, carry, step:
+             deepcache_spec_tail(spec, pair, carry, step))],
+            latents, init=spec["init"], **inputs)
 
 
 # -- encoder propagation (Faster Diffusion) -----------------------------------
@@ -436,35 +544,34 @@ def ddim_sample_encprop(denoise_key: Callable, denoise_prop: Callable,
 
 
 class EncpropGraph(SamplerGraph):
-    """:func:`ddim_sample_encprop` as captured bodies: a key-step graph
+    """:func:`encprop_sample` as captured bodies: a key-step graph
     replayed ``dense_steps`` times, a segment graph (key forward at 2B,
     the shallow forward where composed, one decoder-only forward at
     P x 2B, ``stride`` updates; the counter advances by ``stride``)
     replayed once a segment, and a tail graph where ``stride`` does not
-    divide the steps after the prefix. ``make_denoisers(**inputs)``
-    returns (key, prop, shallow or None). The graphs hold DDIM's
-    one-tensor carry."""
+    divide the steps after the prefix. ``schedule.spec(latents)`` gives
+    the solver (DDIM, Euler or DPM++) and its carry;
+    ``make_denoisers(**inputs)`` returns (key, prop, shallow or None)."""
 
-    def __init__(self, make_denoisers: Callable[..., tuple],
-                 schedule: DDIMSchedule, latents: torch.Tensor,
-                 stride: int, dense_steps: int,
+    def __init__(self, make_denoisers: Callable[..., tuple], schedule,
+                 latents: torch.Tensor, stride: int, dense_steps: int,
                  **inputs: Optional[torch.Tensor]):
-        n = len(schedule.timesteps)
+        spec = schedule.spec(latents)
+        n = int(spec["timesteps"].shape[0])
         dense, nseg, tail = _encprop_plan(n, stride, dense_steps)
-        spec = ddim_spec(schedule.coefficients(latents.device))
 
-        def key(dn, x, step):
-            return encprop_key_step(spec, dn[0], (x,), step)[0][0]
+        def key(dn, carry, step):
+            return encprop_key_step(spec, dn[0], carry, step)[0]
 
         def segment(length):
-            return lambda dn, x, step: encprop_segment(
-                spec, dn[0], dn[1], dn[2], (x,), step, length)[0]
+            return lambda dn, carry, step: encprop_segment(
+                spec, dn[0], dn[1], dn[2], carry, step, length)
 
         super().__init__(make_denoisers, [
             ("key", dense, 0, key),
             ("segment", nseg, dense, segment(stride)),
             ("tail", 1 if tail else 0, n - tail, segment(tail))],
-            latents, **inputs)
+            latents, init=spec["init"], **inputs)
 
 
 def cfg_inputs(context: torch.Tensor, uncond_context: torch.Tensor,

@@ -6,7 +6,8 @@ Port of the monolithic path of ``cassmantle_tpu/serving/pipeline.py``:
 uint8), ``PromptGenerator`` (bucketed GPT-2 or Mistral-7B decode: greedy,
 top-k sampled, or speculative under ``spec_decode``; trimmed to two
 sentences) and ``TPUContentBackend.generate_sync`` as
-:class:`TorchContentBackend`. Models are built at the configured width
+:class:`TorchContentBackend`, and ``Text2ImagePipeline.generate_img2img``
+(the VAE encoder, then a schedule tail from the noised encoding). Models are built at the configured width
 with seeded random weights, or from given state dicts (the parity tests
 carry the reference's parameters over with ``models.weights.from_jax``).
 The fused-conv and W8A8 presets build the same models: the UNet with
@@ -15,19 +16,25 @@ The fused-conv and W8A8 presets build the same models: the UNet with
 build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
 A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
-``TPUContentBackend`` does. Staged serving, brownout tiers, integrity
-sentinels and the other samplers are later slices.
+``TPUContentBackend`` does. Staged serving, brownout tiers and integrity
+sentinels are later slices.
 
-The denoise stage serves the reference's ``run_cfg_denoise`` branches
-that the port has: plain CFG DDIM, DeepCache (``sampler.deepcache``) and
-encoder propagation (``sampler.encprop``, alone or composed with
-DeepCache; ``CASSMANTLE_NO_ENCPROP`` read at build), each at eta 0, with
-the reference's validation (``check_sampler``).
+The denoise stage is the reference's ``run_cfg_denoise``, in its order:
+few-step consistency sampling (``sampler.consistency``), encoder
+propagation over any kind (alone or composed with DeepCache), DeepCache
+(DDIM or DPM++), else the plain loop of ``sampler.kind`` (DDIM, Euler,
+DPM-Solver++(2M)); validated at build as the reference validates
+(:func:`deepcache_schedule`, :func:`encprop_plan`,
+:func:`consistency_plan`; :func:`sampler_mode`), with the kill switches
+``CASSMANTLE_NO_ENCPROP`` and ``CASSMANTLE_NO_CONSISTENCY`` read at build.
+DDIM at eta > 0 is refused as the reference's pipelines refuse it (they
+call the sampler without a key).
 
 On CUDA the two loops run as the reference compiles them, whole: the
-CFG DDIM loop replays its captured bodies per batch size (one step graph;
-DeepCache's pair graph; encprop's key and segment graphs;
-``ops/ddim.py::SamplerGraph``), the prompt LM's decode steps one captured
+CFG sampler loop replays its captured bodies per batch size (one step
+graph; DeepCache's pair graph; encprop's key and segment graphs;
+``ops/ddim.py::SamplerGraph``), img2img's tail one step graph per
+(strength steps, batch), the prompt LM's decode steps one captured
 step per (padded batch, prompt bucket, max_new, sampler), and a
 speculative decode one captured draft/verify chunk per shape
 (``ops/decode.py``). CLIP, x_T, the prefill and the VAE run eagerly.
@@ -52,25 +59,27 @@ from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.mistral import MistralLM
 from cassmantle_tpu_torch.models.unet import UNet
-from cassmantle_tpu_torch.models.vae import VAEDecoder, postprocess_images
+from cassmantle_tpu_torch.models.vae import (
+    VAEDecoder,
+    VAEEncoder,
+    postprocess_images,
+)
 from cassmantle_tpu_torch.ops.ddim import (
-    DDIMGraph,
-    DDIMSchedule,
-    DeepCacheGraph,
     EncpropGraph,
     SamplerGraph,
+    SpecDeepCacheGraph,
+    SpecGraph,
     cfg_denoiser,
     cfg_denoiser_encprop,
     cfg_denoiser_pair,
     cfg_inputs,
-    check_deepcache_steps,
-    ddim_sample,
-    ddim_sample_deepcache,
-    ddim_sample_encprop,
     encprop_disabled,
     encprop_key_indices,
+    encprop_sample,
     encprop_step_counts,
     initial_latents,
+    sample_spec,
+    sample_spec_deepcache,
 )
 from cassmantle_tpu_torch.ops.decode import (
     GreedyDecodeState,
@@ -89,6 +98,13 @@ from cassmantle_tpu_torch.ops.quant import (
 )
 from cassmantle_tpu_torch.ops.quant_matmul import describe as w8a8_describe
 from cassmantle_tpu_torch.ops.quant_matmul import w8a8_disabled
+from cassmantle_tpu_torch.ops.samplers import (
+    SAMPLER_KINDS,
+    consistency_disabled,
+    img2img_start,
+    make_schedule,
+)
+from cassmantle_tpu_torch.utils import jax_random
 from cassmantle_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
@@ -111,10 +127,11 @@ from cassmantle_tpu_torch.utils.tokenizers import (
 log = logging.getLogger(__name__)
 
 # Seed offsets of the random init, one per model (the reference's init
-# slots: CLIP 1, UNet 2, VAE 3, the prompt LM 5 (GPT-2 or Mistral), the
-# speculative decode's GPT-2 draft 6, SDXL's bigG tower 11).
-INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "gpt2": 5, "mistral": 5,
-              "gpt2_draft": 6, "clip_text_2": 11}
+# slots: CLIP 1, UNet 2, VAE 3, the VAE encoder 4, the prompt LM 5 (GPT-2
+# or Mistral), the speculative decode's GPT-2 draft 6, SDXL's bigG
+# tower 11).
+INIT_SEEDS = {"clip_text": 1, "unet": 2, "vae": 3, "vae_enc": 4, "gpt2": 5,
+              "mistral": 5, "gpt2_draft": 6, "clip_text_2": 11}
 
 
 def unet_w8a8_armed(models_cfg) -> bool:
@@ -199,40 +216,136 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
     return module.eval()
 
 
-def check_sampler(sampler_cfg) -> str:
-    """The port's image path is CFG DDIM at eta 0: plain, with DeepCache
-    or with encoder propagation (composable with DeepCache); other
-    samplers wait. Validates the reference's way (``deepcache_schedule``:
-    an even step count; ``encprop_plan``: stride >= 1, the dense prefix
-    within the steps) and returns the loop the config serves: "encprop"
-    (unless CASSMANTLE_NO_ENCPROP, read here, is set), "deepcache" or
-    "ddim"."""
+def _require(ok: bool, message: str) -> None:
+    """The reference's ``assert``: an AssertionError with its message
+    (raised, so it holds under ``python -O`` too)."""
+    if not ok:
+        raise AssertionError(message)
+
+
+def deepcache_schedule(sampler_cfg) -> None:
+    """Validate a DeepCache sampler config as the reference does: eta 0,
+    DDIM with an even step count or DPM++(2M) with any."""
     s = sampler_cfg
-    if s.kind != "ddim" or s.eta != 0.0:
-        raise NotImplementedError(
-            f"sampler {s.kind!r} eta={s.eta} is not "
-            f"ported; the port serves DDIM at eta=0")
+    _require(s.eta == 0.0,
+             "deepcache needs eta=0 (the paired loop is deterministic)")
+    if s.kind == "ddim":
+        _require(s.num_steps % 2 == 0,
+                 "ddim deepcache pairing needs an even step count")
+        return
+    _require(s.kind == "dpmpp_2m", f"deepcache composes with ddim or "
+             f"dpmpp_2m, not {s.kind!r}")
+
+
+def encprop_plan(sampler_cfg) -> Tuple[int, int, int]:
+    """Validate an encoder-propagation config as the reference does and
+    return (stride, dense_steps, key forwards): eta 0, any sampler kind,
+    stride >= 1, the dense prefix within the steps, and DeepCache's own
+    kind rule when composed."""
+    s = sampler_cfg
+    _require(s.eta == 0.0, "encprop needs eta=0 (the propagated decoder "
+             "loop is deterministic)")
+    _require(s.kind in SAMPLER_KINDS,
+             f"encprop composes with {SAMPLER_KINDS}, not {s.kind!r}")
+    _require(s.encprop_stride >= 1,
+             f"encprop stride must be >= 1, got {s.encprop_stride}")
+    _require(0 <= s.encprop_dense_steps <= s.num_steps,
+             "encprop dense prefix outside the step count")
     if s.deepcache:
-        check_deepcache_steps(s.num_steps)
+        _require(s.kind in ("ddim", "dpmpp_2m"), f"deepcache composes with "
+                 f"ddim or dpmpp_2m, not {s.kind!r}")
+    keys = encprop_key_indices(s.num_steps, s.encprop_stride,
+                               s.encprop_dense_steps)
+    return s.encprop_stride, s.encprop_dense_steps, len(keys)
+
+
+def consistency_plan(sampler_cfg) -> int:
+    """Validate a few-step consistency config as the reference does and
+    return its step count: eta 0, 1-8 steps, neither DeepCache nor
+    encprop, and a teacher grid longer than the steps."""
+    s = sampler_cfg
+    _require(s.eta == 0.0, "consistency sampling is deterministic (eta=0)")
+    _require(1 <= s.num_steps <= 8, (
+        f"consistency serving is the few-step path (1-8 steps), got "
+        f"{s.num_steps}; the teacher schedule lives in "
+        f"consistency_teacher_steps"))
+    _require(not s.deepcache,
+             "consistency does not compose with deepcache (no paired loop)")
+    _require(not s.encprop,
+             "consistency does not compose with encprop (no key schedule)")
+    _require(s.consistency_teacher_steps > s.num_steps, (
+        f"consistency_teacher_steps ({s.consistency_teacher_steps}) must "
+        f"exceed num_steps ({s.num_steps}): the student only ever trains "
+        f"on the teacher discretization's query points "
+        f"(ops/samplers.py::ConsistencySchedule), and the kill switch "
+        f"reverts to this schedule"))
+    return s.num_steps
+
+
+def effective_sampler_cfg(sampler_cfg):
+    """The sampler config that is served: with consistency configured and
+    CASSMANTLE_NO_CONSISTENCY (read here) set, the teacher path, the
+    configured kind at ``consistency_teacher_steps``."""
+    if sampler_cfg.consistency and consistency_disabled():
+        return dataclasses.replace(
+            sampler_cfg, consistency=False,
+            num_steps=sampler_cfg.consistency_teacher_steps)
+    return sampler_cfg
+
+
+def effective_sampler_steps(sampler_cfg) -> int:
+    """The step count of the served schedule (:func:`effective_sampler_cfg`)."""
+    return effective_sampler_cfg(sampler_cfg).num_steps
+
+
+def sampler_mode(sampler_cfg) -> str:
+    """Validate ``sampler_cfg`` as the reference's pipelines do when they
+    are built (:func:`deepcache_schedule`, :func:`encprop_plan`,
+    :func:`consistency_plan`, then the kind) and return the loop the
+    effective config serves, in ``run_cfg_denoise``'s order:
+    "consistency", "encprop" (unless CASSMANTLE_NO_ENCPROP, read here, is
+    set), "deepcache", else the kind ("ddim", "euler", "dpmpp_2m")."""
+    s = sampler_cfg
+    if s.deepcache:
+        deepcache_schedule(s)
     if s.encprop:
-        encprop_key_indices(s.num_steps, s.encprop_stride,
-                            s.encprop_dense_steps)
-        if not encprop_disabled():
-            return "encprop"
-    return "deepcache" if s.deepcache else "ddim"
+        encprop_plan(s)
+    if s.consistency:
+        consistency_plan(s)
+    eff = effective_sampler_cfg(s)
+    if eff.consistency:
+        return "consistency"
+    if eff.kind not in SAMPLER_KINDS:
+        raise ValueError(f"unknown sampler kind {eff.kind!r}; "
+                         f"choose from {SAMPLER_KINDS}")
+    if eff.encprop and not encprop_disabled():
+        return "encprop"
+    return "deepcache" if eff.deepcache else eff.kind
+
+
+def check_eta(sampler_cfg) -> None:
+    """DDIM at eta > 0 needs a step key, and the reference's pipelines
+    call their sampler without one: its error."""
+    if sampler_cfg.kind == "ddim" and sampler_cfg.eta > 0.0:
+        raise ValueError("eta > 0 requires an rng key")
 
 
 class Text2ImagePipeline:
-    """prompts -> (B, H, W, 3) uint8 images: CLIP -> CFG DDIM -> VAE."""
+    """prompts -> (B, H, W, 3) uint8 images: CLIP -> the CFG sampler loop
+    -> VAE; and images + prompts -> images (:meth:`generate_img2img`)."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None):
-        self.sampler_mode = check_sampler(cfg.sampler)
+        self.sampler_mode = sampler_mode(cfg.sampler)
+        # the config served: the teacher's under the consistency kill switch
+        self.sampler_cfg = effective_sampler_cfg(cfg.sampler)
         w8a8 = w8a8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
         m = cfg.models
         sd = state_dicts or {}
+        # the encoder's weights, kept for its build on first use
+        self._vae_enc_state = sd.get("vae_enc")
         param_dtype = torch_dtype(m.param_dtype)
         with torch.device(self.device):
             # the reference's pipeline runs CLIP in fp32 over parameters
@@ -259,8 +372,9 @@ class Text2ImagePipeline:
             if t is not None])
         # pixels per latent: one 2x upsample per VAE level transition
         self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
-        s = cfg.sampler
-        self.schedule = DDIMSchedule.create(s.num_steps)
+        s = self.sampler_cfg
+        self.schedule = make_schedule(s.kind, s.num_steps, s.consistency,
+                                      s.consistency_teacher_steps)
         # (key, shallow, propagated) UNet forwards of a trajectory when
         # encoder propagation serves, else None
         self.encprop_counts = (
@@ -268,8 +382,12 @@ class Text2ImagePipeline:
                                 s.encprop_dense_steps, s.deepcache)
             if self.sampler_mode == "encprop" else None)
         # the captured loop of each batch size (CUDA), made on first use:
-        # a DDIMGraph, DeepCacheGraph or EncpropGraph by sampler_mode
+        # by sampler_mode, a SpecGraph, SpecDeepCacheGraph or EncpropGraph
         self.step_graphs: Dict[int, SamplerGraph] = {}
+        # img2img: the VAE encoder (built on first use) and the captured
+        # tail of each (strength steps, batch)
+        self.vae_enc: Optional[VAEEncoder] = None
+        self.img2img_graphs: Dict[Tuple[int, int], SamplerGraph] = {}
         # host seconds of the last generate() per stage, each ended by a
         # device synchronize; and whether the last decode was finite
         # before its uint8 quantisation
@@ -292,17 +410,20 @@ class Text2ImagePipeline:
 
     def denoise(self, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
                 graphed: Optional[bool] = None) -> torch.Tensor:
-        """The CFG DDIM steps from x_T under ``cond`` (:meth:`encode`'s
+        """The CFG sampler steps from x_T under ``cond`` (:meth:`encode`'s
         output) -> the final latents, the denoise stage both pipelines
-        share: the plain loop, DeepCache's full/shallow pairs or encoder
-        propagation, by ``sampler_mode``. ``graphed`` (default: on CUDA)
-        replays the captured loop of this batch size, captured on first
-        use, as the reference jits its sampler per batch; a capture
-        failure raises. ``graphed=False`` runs the same steps eagerly."""
-        s = self.cfg.sampler
+        share (the reference's ``run_cfg_denoise``), by ``sampler_mode``:
+        consistency, encoder propagation, DeepCache pairs, or the kind's
+        plain loop. ``graphed`` (default: on CUDA) replays the captured
+        loop of this batch size, captured on first use, as the reference
+        jits its sampler per batch; a capture failure raises.
+        ``graphed=False`` runs the same steps eagerly."""
+        s = self.sampler_cfg
+        check_eta(s)
         inputs = cfg_inputs(**cond)
         gs = s.guidance_scale
         mode = self.sampler_mode
+        schedule = self.schedule
         if graphed is None:
             graphed = self.device.type == "cuda"
         if mode == "encprop":
@@ -311,22 +432,23 @@ class Text2ImagePipeline:
             stride, dense = s.encprop_stride, s.encprop_dense_steps
             if not graphed:
                 key, prop, shallow = make(**inputs)
-                return ddim_sample_encprop(key, prop, latents, self.schedule,
-                                           stride, dense,
-                                           denoise_shallow=shallow)
-            build = partial(EncpropGraph, make, self.schedule, latents,
-                            stride, dense)
+                return encprop_sample(schedule.spec(latents), key, prop,
+                                      latents, stride, dense,
+                                      denoise_shallow=shallow)
+            build = partial(EncpropGraph, make, schedule, latents, stride,
+                            dense)
         elif mode == "deepcache":
             make = partial(cfg_denoiser_pair, self.unet, guidance_scale=gs)
             if not graphed:
-                return ddim_sample_deepcache(*make(**inputs), latents,
-                                             self.schedule)
-            build = partial(DeepCacheGraph, make, self.schedule, latents)
+                return sample_spec_deepcache(schedule.spec(latents),
+                                             *make(**inputs), latents)
+            build = partial(SpecDeepCacheGraph, make, schedule, latents)
         else:
             make = partial(cfg_denoiser, self.unet, guidance_scale=gs)
             if not graphed:
-                return ddim_sample(make(**inputs), latents, self.schedule)
-            build = partial(DDIMGraph, make, self.schedule, latents)
+                return sample_spec(schedule.spec(latents), make(**inputs),
+                                   latents)
+            build = partial(SpecGraph, make, schedule, latents)
         graph = self.step_graphs.get(latents.shape[0])
         if graph is None:
             graph = build(**inputs)
@@ -361,6 +483,105 @@ class Text2ImagePipeline:
             times["vae"] = time.perf_counter() - t2
         self.last_stage_seconds = times
         return images.cpu().numpy()
+
+    # -- img2img ----------------------------------------------------------
+    def _ensure_encoder(self) -> VAEEncoder:
+        """The VAE encoder, built on first use (only img2img needs it):
+        from ``state_dicts["vae_enc"]`` or the seeded init, fp32 storage
+        as the decoder's."""
+        if self.vae_enc is None:
+            with torch.device(self.device):
+                self.vae_enc = build_model(
+                    VAEEncoder(self.cfg.models.vae), "vae_enc", self.device,
+                    self.cfg.seed, self._vae_enc_state)
+        return self.vae_enc
+
+    def img2img_tail(self, x: torch.Tensor, cond: Dict[str, torch.Tensor],
+                     k: int, graphed: Optional[bool] = None
+                     ) -> torch.Tensor:
+        """The last ``k`` steps of the configured kind's schedule from the
+        prepared state ``x`` under ``cond``: DDIM, Euler (k-space,
+        prescaled) or DPM++ (first order at its first step). On CUDA
+        (``graphed`` None or True) one captured step graph per (k,
+        batch), captured on first use, as the reference jits per k."""
+        s = self.cfg.sampler
+        _, schedule = img2img_start(s.kind, s.num_steps, s.num_steps - k)
+        inputs = cfg_inputs(**cond)
+        make = partial(cfg_denoiser, self.unet,
+                       guidance_scale=s.guidance_scale)
+        if graphed is None:
+            graphed = self.device.type == "cuda"
+        if not graphed:
+            return sample_spec(schedule.spec(x), make(**inputs), x)
+        key = (k, x.shape[0])
+        graph = self.img2img_graphs.get(key)
+        if graph is None:
+            graph = SpecGraph(make, schedule, x, **inputs)
+            self.img2img_graphs[key] = graph
+        return graph(x, **inputs)
+
+    def generate_img2img(self, images: np.ndarray, prompts: Sequence[str],
+                         strength: float = 0.6, seed: int = 0,
+                         graphed: Optional[bool] = None) -> np.ndarray:
+        """Image-conditioned generation: (B, H, W, 3) uint8 images and
+        prompts -> (B, H, W, 3) uint8. The VAE encoder's sample of the
+        images is noised to schedule step ``num_steps - k``, k =
+        round(strength * num_steps) clamped to [1, num_steps], and the
+        last k steps of the configured sampler denoise it, as the
+        reference's ``generate_img2img``: its keys ``split(PRNGKey(seed))``
+        (the encoder's sample, the noise) drawn as ``jax.random`` draws
+        them. DeepCache, encprop and consistency configs are refused, as
+        the reference refuses them; so is DDIM at eta > 0."""
+        if not 0.0 < strength <= 1.0:
+            raise AssertionError(f"strength {strength} outside (0, 1]")
+        s = self.cfg.sampler
+        if s.deepcache:
+            raise NotImplementedError(
+                "img2img does not support deepcache (schedule tails have "
+                "arbitrary parity); use a non-deepcache config for "
+                "image-conditioned generation")
+        if s.encprop:
+            raise NotImplementedError(
+                "img2img does not support encoder propagation (strength "
+                "tails start mid-schedule, where the dense-prefix key "
+                "accounting no longer holds); use a non-encprop config "
+                "for image-conditioned generation")
+        if s.consistency:
+            raise NotImplementedError(
+                "img2img does not support the few-step consistency "
+                "sampler (the student is trained to map noise states on "
+                "the schedule, not arbitrary strength tails); use a "
+                "non-consistency config for image-conditioned generation")
+        check_eta(s)
+        encoder = self._ensure_encoder()
+        steps = s.num_steps
+        k = max(1, min(steps, int(round(strength * steps))))
+        prepare, _ = img2img_start(s.kind, steps, steps - k)
+        times = {}
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            pixels = torch.from_numpy(np.asarray(images, dtype=np.uint8)).to(
+                self.device).float()
+            imgf = pixels / pixels.new_full((), 127.5) - 1.0
+            cond = self.encode(prompts)
+            rng_enc, rng_noise = jax_random.split(
+                jax_random.PRNGKey(seed, self.device))
+            lat0 = encoder(imgf, rng_enc)
+            x = prepare(lat0, jax_random.normal(rng_noise, lat0.shape))
+            synchronize(self.device)
+            t1 = time.perf_counter()
+            times["encode"] = t1 - t0
+            final = self.img2img_tail(x, cond, k, graphed)
+            synchronize(self.device)
+            t2 = time.perf_counter()
+            times["denoise"] = t2 - t1
+            decoded = self.vae(final)
+            out = postprocess_images(decoded)
+            self.last_decoded_finite = bool(torch.isfinite(decoded).all())
+            synchronize(self.device)
+            times["vae"] = time.perf_counter() - t2
+        self.last_stage_seconds = times
+        return out.cpu().numpy()
 
 
 class PromptGenerator:

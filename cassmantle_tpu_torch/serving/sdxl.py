@@ -13,22 +13,25 @@ Port of the monolithic single-device path of
 - the VAE with SDXL's 0.13025 scaling factor (in the config).
 
 ``generate`` (inherited) is the reference's ``_sample_impl`` and
-``generate``: encode both prompts, stack the CFG batch, 50 DDIM steps,
-VAE decode, uint8. The denoise stage is the one both pipelines share
-(``Text2ImagePipeline.denoise``), so DeepCache and encoder propagation
-serve here as at SD1.5, the CFG addition embeds riding each forward's
-batch. On the card the loop replays its captured bodies per batch size,
-whose static inputs include the addition embeds. The reference's
-data-parallel padding, staged serving, brownout tiers, consistency
-sampling and W8A8 UNet are later slices: the port's config has no field
-for the first four yet, and a W8A8 or fused-conv SDXL UNet raises
-``NotImplementedError``, as a sampler other than DDIM does.
+``generate``: encode both prompts, stack the CFG batch, the sampler loop
+(50 DDIM steps by default), VAE decode, uint8. The denoise stage is the
+one both pipelines share (``Text2ImagePipeline.denoise``, the
+reference's ``run_cfg_denoise``), so every sampler kind, consistency,
+DeepCache and encoder propagation serve here as at SD1.5, the CFG
+addition embeds riding each forward's batch. On the card the loop
+replays its captured bodies per batch size, whose static inputs include
+the addition embeds. The reference's SDXL pipeline has no img2img; nor
+has this one. Its data-parallel padding, staged serving, brownout tiers
+and W8A8 UNet are later slices: the port's config has no field for the
+first three yet, and a W8A8 or fused-conv SDXL UNet raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from cassmantle_tpu_torch.config import FrameworkConfig
@@ -108,6 +111,13 @@ class SDXLPipeline(Text2ImagePipeline):
                            device=self.device)
         flat = timestep_embedding(ids, self.time_id_dim).reshape(-1)
         return flat.expand(batch, flat.shape[0])
+
+    def generate_img2img(self, images: np.ndarray, prompts: Sequence[str],
+                         strength: float = 0.6, seed: int = 0,
+                         graphed: Optional[bool] = None) -> np.ndarray:
+        raise NotImplementedError(
+            "img2img is an SD1.5 pipeline path; the reference's SDXL "
+            "pipeline has none")
 
     def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Both towers over the prompts and the negative prompt: the

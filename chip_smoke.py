@@ -22,8 +22,12 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
    weights and inputs (default, fused-conv, W8A8, SDXL, encoder
-   propagation, DeepCache and the Mistral prompt LM), and checks that
-   images, prompt tokens, logits, scores and blur agree;
+   propagation, DeepCache, Euler, DPM-Solver++(2M) alone, with DeepCache
+   and under encoder propagation, consistency sampling, img2img with the
+   VAE encoder, and the Mistral prompt LM), and checks that images,
+   prompt tokens, logits, scores and blur agree; and holds
+   ``utils/jax_random.py``'s keys, bits and uniforms on the card equal to
+   the CPU's ([jax_random]);
 4. serves one game round at full width (SD1.5 512x512, 50-step CFG DDIM,
    GPT-2-small prompt text, MiniLM scoring, blur) with seeded random
    weights under each of ``FrameworkConfig()``,
@@ -32,16 +36,22 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    towers, the micro-conditioned UNet, the 0.13025 VAE), and one under
    each of ``encprop_serving_config()`` (20 key forwards, 15 batched
    decoder-only forwards, the fused VAE decoder) and
-   ``deepcache_serving_config()`` (25 full/shallow pairs), each with the
+   ``deepcache_serving_config()`` (25 full/shallow pairs), one under
+   each of ``fast_serving_config()`` (DPM-Solver++(2M)
+   at 25 steps), ``turbo_serving_config()`` (DPM++ at 24 steps in 12
+   DeepCache pairs) and ``lcm_serving_config()`` (four consistency
+   steps), and one img2img call (``generate_img2img`` at strength 0.6:
+   the fused VAE encoder, the last 30 of DDIM's 50 steps, the fused
+   decoder) on a served round's image, each with the
    counts set to 0 just before it and read just after: every kernel of
    the path launched as often, and at the shapes, as the path says (and
    the default and SDXL rounds none of the other kernels), at checked
    shapes only, and each flash shape on the kernel path its check took.
-   The 50 CFG steps replay captured CUDA graphs (one of the step; encprop
-   a key-step and a segment graph; DeepCache a pair graph), and the
-   GPT-2 decode steps one of the decode step (``ops/graphs.py``): the
-   counts add each replay's launches, and each graph must have replayed
-   as often as its loop says;
+   The CFG steps replay captured CUDA graphs (one of the step; encprop
+   a key-step and a segment graph; DeepCache a pair graph; img2img's tail
+   a step graph), and the GPT-2 decode steps one of the decode step
+   (``ops/graphs.py``): the counts add each replay's launches, and each
+   graph must have replayed as often as its loop says;
 5. holds each served graph against the eager steps it replaces
    ([graphs]): the final latents of a 50-step graphed denoise bit-equal
    to the eager loop's on the same x_T and conditioning, and (default,
@@ -52,8 +62,9 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    kernels and host launch calls per step, and each kernel's part; the
    profiled replays must show the step's kernels (flash, and the fused
    conv or the int8 kernels of the preset), the witness that a replay
-   launches them. Under encprop and DeepCache each captured body is
-   profiled the same way, with the whole loop's host ms and idle share;
+   launches them. Under encprop, DeepCache, fast, turbo, lcm and img2img
+   each captured body is profiled the same way, with the whole loop's
+   host ms and idle share (and img2img's eager VAE encoder);
 7. serves a round with Mistral-7B as the prompt LM ([round-mistral]: 32
    layers of 4096, GQA 32/8, bf16, seeded random weights built submodule
    by submodule; the image path as at default), with the LM's build
@@ -134,18 +145,28 @@ UNET_FLASH = {
                      "cross_l1_b4": 3, "self_l2_b4": 3, "cross_l2_b4": 3},
     "shallow": {"self_l0": 5, "cross_l0": 5},
 }
-# UNet forwards of one 50-step round by sampler: encoder propagation runs
-# 20 key (full) forwards (5 dense, then one per segment of 3) and one
-# decoder-only forward for the 2 propagated steps of each of the 15
-# segments; DeepCache 25 full and 25 shallow forwards.
+# UNet forwards of one round by preset, where they differ from DDIM-50's
+# 50 full: encoder propagation runs 20 key (full) forwards (5 dense, then
+# one per segment of 3) and one decoder-only forward for the 2 propagated
+# steps of each of the 15 segments; DeepCache 25 full and 25 shallow
+# forwards; DPM-Solver++(2M) 25 (fast), or 12 full/shallow pairs with
+# DeepCache (turbo); the consistency sampler 4 (lcm); img2img at strength
+# 0.6 the last 30 of DDIM's 50 steps.
 SAMPLER_FORWARDS = {"encprop": {"full": 20, "decoder_only": 15},
-                    "deepcache": {"full": 25, "shallow": 25}}
+                    "deepcache": {"full": 25, "shallow": 25},
+                    "fast": {"full": 25},
+                    "turbo": {"full": 12, "shallow": 12},
+                    "lcm": {"full": 4},
+                    "img2img": {"full": 30}}
+# VAE mid blocks a round: the decoder's; img2img's encoder adds one
+VAE_MIDS = {"img2img": 2}
+IMG2IMG_STRENGTH = 0.6
 
 
 def sampler_flash(sampler: str) -> dict:
     """Flash launches per shape of one SD1.5 round under ``sampler``: its
-    UNet forwards' and the VAE mid block's one."""
-    out = {"vae_mid": 1}
+    UNet forwards' and the VAE mid blocks' (one a decoder or encoder)."""
+    out = {"vae_mid": VAE_MIDS.get(sampler, 1)}
     for mode, forwards in SAMPLER_FORWARDS[sampler].items():
         for name, n in UNET_FLASH[mode].items():
             out[name] = out.get(name, 0) + n * forwards
@@ -163,20 +184,23 @@ ROUND_FLASH = {
              "self_mid": 50, "cross_mid": 50, "vae_mid": 1},
     "sdxl": {"self_x1": 500, "cross_x1": 500, "self_x2": 3000,
              "cross_x2": 3000, "vae_mid_xl": 1},
-    # 20 x 32 + 15 x 18 + 1 = 911 and 25 x 32 + 25 x 10 + 1 = 1,051
-    "encprop": sampler_flash("encprop"),
-    "deepcache": sampler_flash("deepcache"),
+    # 20 x 32 + 15 x 18 + 1 = 911 and 25 x 32 + 25 x 10 + 1 = 1,051;
+    # 25 x 32 + 1 = 801 (fast), 12 x 32 + 12 x 10 + 1 = 505 (turbo),
+    # 4 x 32 + 1 = 129 (lcm), 30 x 32 + 2 = 962 (img2img)
+    **{sampler: sampler_flash(sampler) for sampler in SAMPLER_FORWARDS},
 }
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
-# block's D = 512 on mma.sync (ops/_flash_plan.py)
-ROUND_FLASH_PATHS = {"sd15": {"wgmma": 1600, "mma.sync": 1},
-                     "sdxl": {"wgmma": 7000, "mma.sync": 1},
-                     "encprop": {"wgmma": 910, "mma.sync": 1},
-                     "deepcache": {"wgmma": 1050, "mma.sync": 1}}
+# blocks' D = 512 on mma.sync (ops/_flash_plan.py)
+ROUND_FLASH_PATHS = {
+    model: {"wgmma": sum(n for name, n in counts.items()
+                         if not name.startswith("vae")),
+            "mma.sync": sum(n for name, n in counts.items()
+                            if name.startswith("vae"))}
+    for model, counts in ROUND_FLASH.items()}
 # the model (and loop) each served preset runs
 PRESET_MODEL = {"default": "sd15", "fusedconv": "sd15", "w8a8": "sd15",
-                "sdxl": "sdxl", "encprop": "encprop",
-                "deepcache": "deepcache", "mistral": "sd15"}
+                "sdxl": "sdxl", "mistral": "sd15",
+                **{sampler: sampler for sampler in SAMPLER_FORWARDS}}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -212,7 +236,10 @@ CONV_SHAPES = {
 # Every ResBlock conv3x3 of one VAE decode (one image): (B, H, W, C, F) ->
 # launches (mid block 2 ResBlocks, 3 a level, 2 convs each: 28). The
 # fused kernel runs SD1.5's under encprop_serving_config() (18 of them
-# at W > 64); SDXL's six shapes are checked, not served.
+# at W > 64); SDXL's six shapes are checked, not served. The SD1.5
+# encoder's (img2img's, 2 ResBlocks a level and the mid block's 2: 20)
+# raise the channels where the decoder lowers them: C 128 -> F 256 at
+# 256x256 and 256 -> 512 at 128x128.
 VAE_CONV_SHAPES = {
     "sd15": {(1, 64, 64, 512, 512): 10, (1, 128, 128, 512, 512): 6,
              (1, 256, 256, 512, 256): 1, (1, 256, 256, 256, 256): 5,
@@ -220,6 +247,9 @@ VAE_CONV_SHAPES = {
     "sdxl": {(1, 128, 128, 512, 512): 10, (1, 256, 256, 512, 512): 6,
              (1, 512, 512, 512, 256): 1, (1, 512, 512, 256, 256): 5,
              (1, 1024, 1024, 256, 128): 1, (1, 1024, 1024, 128, 128): 5},
+    "sd15_enc": {(1, 512, 512, 128, 128): 4, (1, 256, 256, 128, 256): 1,
+                 (1, 256, 256, 256, 256): 3, (1, 128, 128, 256, 512): 1,
+                 (1, 128, 128, 512, 512): 3, (1, 64, 64, 512, 512): 8},
 }
 # Every W8A8 dense site of one UNet forward, (M, K, N) -> launches (16
 # transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
@@ -459,9 +489,10 @@ def exact_agreement(out, ref) -> dict:
 
 
 def check_fused_conv_kernel():
-    """Kernel 2 vs plain at the UNet's 14 ResBlock conv shapes and the
-    VAE decoders' (SD1.5's six, W 64 to 512, and SDXL's six, W 128 to
-    1024: 2-row tiles of 64-column stretches past W = 64), bf16
+    """Kernel 2 vs plain at the UNet's 14 ResBlock conv shapes, the VAE
+    decoders' (SD1.5's six, W 64 to 512, and SDXL's six, W 128 to 1024:
+    2-row tiles of 64-column stretches past W = 64) and the SD1.5
+    encoder's two that rise in channels (128 -> 256, 256 -> 512), bf16
     unit-normal x, affine a in [0.5, 1.5) with a nonzero shift, weights
     ~ N(0, 1/9C) in the models' OHWI memory. Library yardstick: one cuDNN
     conv of the pre-activated tensor (the conv alone)."""
@@ -475,7 +506,8 @@ def check_fused_conv_kernel():
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(1)
-    vae = {**VAE_CONV_SHAPES["sd15"], **VAE_CONV_SHAPES["sdxl"]}
+    vae = {**VAE_CONV_SHAPES["sd15"], **VAE_CONV_SHAPES["sdxl"],
+           **VAE_CONV_SHAPES["sd15_enc"]}
     for shape in list(CONV_SHAPES) + list(vae):
         b, h, w, c, f = shape
         kw = dict(generator=gen, device="cuda")
@@ -953,15 +985,36 @@ def check_small_sdxl():
     return ok
 
 
+# [small] sampler cases: (name, sampler fields, the loop served, fused
+# VAE); the tiny geometry's 4 steps unless named
+SMALL_SAMPLERS = (
+    ("encprop", dict(encprop=True, encprop_dense_steps=1), "encprop", True),
+    ("deepcache", dict(deepcache=True), "deepcache", False),
+    ("euler", dict(kind="euler"), "euler", False),
+    ("dpmpp_2m", dict(kind="dpmpp_2m", num_steps=5), "dpmpp_2m", False),
+    ("dpmpp_2m_deepcache", dict(kind="dpmpp_2m", num_steps=5,
+                                deepcache=True), "deepcache", False),
+    ("encprop_dpmpp_2m", dict(kind="dpmpp_2m", encprop=True,
+                              encprop_dense_steps=1), "encprop", True),
+    ("consistency", dict(consistency=True, num_steps=4), "consistency",
+     False),
+    ("img2img", dict(kind="ddim"), "ddim", True),
+)
+
+
 def check_small_samplers():
-    """The tiny geometry (bf16 UNet and VAE) under encoder propagation (4
-    steps, stride 3, one dense key: key forwards at steps 0 and 1, one
-    decoder-only forward for steps 2 and 3; the fused VAE decoder) and
-    under DeepCache (two full/shallow pairs), on the card (graphed) and on
-    the CPU from the same weights and inputs. Held as the default path is
-    (``check_small_agreement``): against an fp32 CPU run of the same
-    weights, the card strays no further than the CPU's own bf16 run does,
-    plus 0.5 of a level on the mean and 2 levels at the max."""
+    """The tiny geometry (bf16 UNet and VAE) under every sampler loop but
+    plain DDIM, on the card (graphed) and on the CPU from the same
+    weights and inputs: encoder propagation (4 steps, stride 3, one
+    dense key: key forwards at steps 0 and 1, one decoder-only forward
+    for steps 2 and 3; the fused VAE decoder), DeepCache (two
+    full/shallow pairs), Euler, DPM-Solver++(2M) (5 steps), DPM++ with
+    DeepCache (two pairs and an unpaired step), encprop over DPM++, four
+    consistency steps, and img2img (the fused VAE encoder, strength 0.6 of
+    4 DDIM steps, seed 3, on a random uint8 image). Held as the default
+    path is (``check_small_agreement``): against an fp32 CPU run of the
+    same weights, the card strays no further than the CPU's own bf16 run
+    does, plus 0.5 of a level on the mean and 2 levels at the max."""
     import dataclasses
 
     import numpy as np
@@ -974,30 +1027,39 @@ def check_small_samplers():
     prompts = ["A watercolor style piece depicting: a lighthouse at dusk.",
                "A vaporwave style piece depicting: the comet market."]
     ok_all = True
-    for name, kw in (("encprop", dict(encprop=True, encprop_dense_steps=1)),
-                     ("deepcache", dict(deepcache=True))):
+    for name, kw, mode, fused_vae in SMALL_SAMPLERS:
         cfgs = []
         for base in (tiny_bf16_config(), test_config()):
             m = base.models
             cfgs.append(base.replace(
                 sampler=dataclasses.replace(base.sampler, **kw),
                 models=dataclasses.replace(m, vae=dataclasses.replace(
-                    m.vae, fused_conv=name == "encprop"))))
+                    m.vae, fused_conv=fused_vae))))
         cfg, fp32_cfg = cfgs
         cpu = Text2ImagePipeline(cfg, device="cpu")
         sd = {"clip_text": cpu.clip.state_dict(),
               "unet": cpu.unet.state_dict(), "vae": cpu.vae.state_dict()}
+        if name == "img2img":
+            sd["vae_enc"] = cpu._ensure_encoder().state_dict()
         gpu = Text2ImagePipeline(cfg, device="cuda", state_dicts=sd)
         fp32 = Text2ImagePipeline(fp32_cfg, device="cpu", state_dicts=sd)
-        hw = cfg.sampler.image_size // cpu.vae_scale
-        x_t = torch.from_numpy(np.random.default_rng(11).standard_normal(
-            (len(prompts), hw, hw, 4)).astype(np.float32))
-        ref = fp32.generate(prompts, latents=x_t).astype(np.int32)
-        d_cpu = np.abs(cpu.generate(prompts, latents=x_t).astype(np.int32)
-                       - ref)
+        if name == "img2img":
+            images = np.random.default_rng(12).integers(
+                0, 256, (len(prompts), cfg.sampler.image_size,
+                         cfg.sampler.image_size, 3), dtype=np.uint8)
+            run = lambda p: p.generate_img2img(          # noqa: E731
+                images, prompts, 0.6, seed=3)
+        else:
+            hw = cfg.sampler.image_size // cpu.vae_scale
+            x_t = torch.from_numpy(np.random.default_rng(11).standard_normal(
+                (len(prompts), hw, hw, 4)).astype(np.float32))
+            run = lambda p: p.generate(prompts, latents=x_t)  # noqa: E731
+        ref = run(fp32).astype(np.int32)
+        d_cpu = np.abs(run(cpu).astype(np.int32) - ref)
         reset_all_counters()
-        d_gpu = np.abs(gpu.generate(prompts, latents=x_t).astype(np.int32)
-                       - ref)
+        d_gpu = np.abs(run(gpu).astype(np.int32) - ref)
+        graphs = (gpu.img2img_graphs if name == "img2img"
+                  else gpu.step_graphs)
         res = dict(card_vs_fp32_max=int(d_gpu.max()),
                    card_vs_fp32_mean=float(d_gpu.mean()),
                    cpu_bf16_vs_fp32_max=int(d_cpu.max()),
@@ -1005,18 +1067,61 @@ def check_small_samplers():
                    card_decoded_finite=gpu.last_decoded_finite,
                    sampler_mode=gpu.sampler_mode,
                    encprop_step_counts=gpu.encprop_counts,
-                   graphs=sorted(gpu.step_graphs[2].graphs),
+                   graphs={str(k): sorted(g.graphs)
+                           for k, g in graphs.items()},
                    flash_launches=flash_attention.flash_attention.launches,
                    fused_conv_launches=fused_conv.gn_silu_conv3x3.launches)
         ok = (d_gpu.mean() <= d_cpu.mean() + 0.5
               and d_gpu.max() <= d_cpu.max() + 2 and gpu.last_decoded_finite
-              and gpu.sampler_mode == name == cpu.sampler_mode
+              and gpu.sampler_mode == mode == cpu.sampler_mode
+              and len(graphs) == 1
               and res["flash_launches"] > 0
-              and (res["fused_conv_launches"] > 0) == (name == "encprop"))
+              and (res["fused_conv_launches"] > 0) == fused_vae)
         print(f"[small] tiny geometry, {name}, card vs CPU: "
               f"{json.dumps(res)} -> {'pass' if ok else 'FAIL'}", flush=True)
         ok_all = ok_all and ok
     return ok_all
+
+
+def check_jax_random():
+    """``utils/jax_random.py`` on the card against the CPU: keys (PRNGKey,
+    split, fold_in chains), bits and uniforms bit for bit; normals (XLA's
+    erfinv polynomial over torch's log1p, which may round otherwise on
+    the card) within 4 float32 ulps. One [jax_random] line."""
+    import torch
+
+    from cassmantle_tpu_torch.utils import jax_random as jr
+
+    res, ok = {}, True
+    for seed in (0, 1, 0x1C3, 2 ** 32 - 1):
+        keys = {}
+        for dev in ("cpu", "cuda"):
+            key = jr.PRNGKey(seed, dev)
+            chain = [key]
+            for t in (999, 20):
+                chain.append(jr.fold_in(chain[-1], t))
+            chain += list(jr.split(chain[-1], 3))
+            keys[dev] = torch.stack(chain)
+        equal = torch.equal(keys["cpu"], keys["cuda"].cpu())
+        ok = ok and equal
+        for shape in ((7,), (2, 64, 64, 4), (1, 128, 128, 4)):
+            k_cpu, k_gpu = keys["cpu"][-1], keys["cuda"][-1]
+            bits = torch.equal(jr.random_bits(k_cpu, shape),
+                               jr.random_bits(k_gpu, shape).cpu())
+            uni = torch.equal(jr.uniform(k_cpu, shape, -1.0, 1.0),
+                              jr.uniform(k_gpu, shape, -1.0, 1.0).cpu())
+            n_cpu = jr.normal(k_cpu, shape)
+            n_gpu = jr.normal(k_gpu, shape).cpu()
+            ulps = (n_cpu.view(torch.int32).long()
+                    - n_gpu.view(torch.int32).long()).abs()
+            res[f"{seed}/{'x'.join(map(str, shape))}"] = dict(
+                keys_equal=equal, bits_equal=bits, uniform_equal=uni,
+                normal_max_ulps=int(ulps.max()),
+                normal_values_differing=int((ulps > 0).sum()))
+            ok = ok and bits and uni and int(ulps.max()) <= 4
+    print(f"[jax_random] card vs CPU: {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def check_small_mistral():
@@ -1124,6 +1229,10 @@ def expected_tallies(preset: str) -> dict:
         return {**base, "gn_silu_conv3x3": per_round}
     if preset == "encprop":     # the fused VAE decoder, once a round
         return {**base, "gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15"])}
+    if preset == "img2img":     # the fused VAE encoder and decoder
+        return {**base, "gn_silu_conv3x3": dict(
+            collections.Counter(VAE_CONV_SHAPES["sd15"])
+            + collections.Counter(VAE_CONV_SHAPES["sd15_enc"]))}
     if preset == "w8a8":
         mm = {s: n * UNET_FORWARDS for s, n in UNET_MATMUL_SHAPES.items()}
         return {**base, "int8_conv3x3": per_round,
@@ -1131,12 +1240,20 @@ def expected_tallies(preset: str) -> dict:
     return base
 
 
-# replays a round's denoise makes of each captured body, by sampler: the
+# replays a round's denoise makes of each captured body, by preset: the
 # DDIM step 50 times; encprop's key step over the 5 dense keys and its
 # segment (key forward, decoder-only forward, 3 updates) 15 times;
-# DeepCache's full/shallow pair 25 times
-GRAPH_REPLAYS = {"ddim": {"step": 50}, "encprop": {"key": 5, "segment": 15},
-                 "deepcache": {"pair": 25}}
+# DeepCache's full/shallow pair 25 times; DPM++'s step 25 times (fast),
+# its pair 12 times (turbo); the consistency step 4 times; img2img's
+# DDIM tail step 30 times
+GRAPH_REPLAYS = {"encprop": {"key": 5, "segment": 15},
+                 "deepcache": {"pair": 25}, "fast": {"step": 25},
+                 "turbo": {"pair": 12}, "lcm": {"step": 4},
+                 "img2img": {"step": 30}}
+# the loop each preset's pipeline serves (Text2ImagePipeline.sampler_mode)
+SAMPLER_MODE = {"encprop": "encprop", "deepcache": "deepcache",
+                "fast": "dpmpp_2m", "turbo": "deepcache",
+                "lcm": "consistency"}
 
 
 def unet_forwards(replays: dict) -> dict:
@@ -1224,13 +1341,12 @@ def run_round(card: str, preset: str, cfg):
     for kernel, want in expected_tallies(preset).items():
         checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
     mode = t2i.sampler_mode
-    checks["sampler_mode"] = mode == {"encprop": "encprop",
-                                      "deepcache": "deepcache"}.get(
-                                          preset, "ddim")
-    checks["graph_replays"] = replays == GRAPH_REPLAYS[mode]
-    if mode != "ddim":
+    checks["sampler_mode"] = mode == SAMPLER_MODE.get(preset, "ddim")
+    checks["graph_replays"] = replays == GRAPH_REPLAYS.get(preset,
+                                                           {"step": 50})
+    if preset in SAMPLER_FORWARDS:
         checks["unet_forwards"] = (unet_forwards(replays)
-                                   == SAMPLER_FORWARDS[mode])
+                                   == SAMPLER_FORWARDS[preset])
     checks["encprop_step_counts"] = t2i.encprop_counts == (
         (20, 0, 30) if mode == "encprop" else None)
     checks = {k: bool(v) for k, v in checks.items()}
@@ -1252,6 +1368,104 @@ def run_round(card: str, preset: str, cfg):
         lm=lm, checks=checks)
     print(f"[round-{preset}] {json.dumps(report)}", flush=True)
     bad = [k for k, v in checks.items() if not v]
+    return svc, tallies, bad
+
+
+def img2img_config():
+    """``FrameworkConfig()`` (DDIM-50) with the VAE on the fused conv:
+    img2img runs the encoder's and the decoder's ResBlocks on kernel 2."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+
+    base = FrameworkConfig()
+    return base.replace(models=dataclasses.replace(
+        base.models, vae=dataclasses.replace(base.models.vae,
+                                             fused_conv=True)))
+
+
+def img2img_steps(cfg) -> int:
+    """The tail's steps at IMG2IMG_STRENGTH, as generate_img2img takes
+    them."""
+    steps = cfg.sampler.num_steps
+    return max(1, min(steps, int(round(IMG2IMG_STRENGTH * steps))))
+
+
+def run_img2img(card: str, preset: str, cfg):
+    """One full-width img2img call (``Text2ImagePipeline.
+    generate_img2img``: the VAE encoder, the noised encoding, the last 30
+    of DDIM's 50 steps, the decoder) on the image of a round served
+    first, with every launch counter set to 0 just before it and read
+    just after: flash at the UNet's shapes 30 times a forward's and at
+    both VAE mid blocks, kernel 2 at the encoder's 20 and the decoder's
+    28 ResBlock convs, the tail graph replayed 30 times. Returns the
+    service, the tallies and the failed checks."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.serving.service import InferenceService
+
+    t0 = time.perf_counter()
+    svc = InferenceService(cfg)                     # device="cuda"
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    base = svc.generate_content("The Night the Trains Sang").image[None]
+    t2i = svc.backend.t2i
+    prompt = ["A watercolor style piece depicting: the harbor at dawn."]
+    k = img2img_steps(cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counters()
+    t0 = time.perf_counter()
+    out = t2i.generate_img2img(base, prompt, IMG2IMG_STRENGTH, seed=1)
+    round_s = time.perf_counter() - t0
+    tallies = read_tallies()
+    stages = dict(t2i.last_stage_seconds)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    replays = {name: g.replays for name, g in
+               t2i.img2img_graphs[(k, 1)].graphs.items()}
+    t0 = time.perf_counter()
+    out2 = t2i.generate_img2img(base, prompt, IMG2IMG_STRENGTH, seed=2)
+    warm_s = time.perf_counter() - t0
+    warm_stages = dict(t2i.last_stage_seconds)
+
+    img = out[0]
+    launches = {k_: sum(v.values()) for k_, v in tallies.items()
+                if k_ != "flash_paths"}
+    flash_paths = flash_path_totals(tallies["flash_paths"])
+    checks = {
+        "image_shape": out.shape == base.shape,
+        "image_uint8": out.dtype == np.uint8,
+        "decoded_finite": bool(t2i.last_decoded_finite),
+        "image_not_constant": int(img.max()) > int(img.min()),
+        "other_seed_differs": not np.array_equal(out2, out),
+        "tail_steps": k == SAMPLER_FORWARDS["img2img"]["full"],
+        "flash_launches": (launches["flash_attention"]
+                           == sum(ROUND_FLASH["img2img"].values())),
+        "flash_paths": flash_paths == ROUND_FLASH_PATHS["img2img"],
+        "graph_replays": replays == GRAPH_REPLAYS["img2img"],
+        "unet_forwards": unet_forwards(replays)
+        == SAMPLER_FORWARDS["img2img"],
+    }
+    for kernel, want in expected_tallies("img2img").items():
+        checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
+    checks = {k_: bool(v) for k_, v in checks.items()}
+    report = dict(
+        preset=preset, card=card, build_models_s=build_s,
+        strength=IMG2IMG_STRENGTH, tail_steps=k, round_s=round_s,
+        warm_round_s=warm_s, stages_s=stages, warm_stages_s=warm_stages,
+        peak_gib=peak_gib, launches=launches, flash_paths=flash_paths,
+        launches_per_shape={k_: {"x".join(map(str, shape)): n
+                                 for shape, n in sorted(tallies[k_].items())}
+                            for k_ in ("flash_attention", "gn_silu_conv3x3")},
+        graph_replays=replays, unet_forwards=unet_forwards(replays),
+        input_mean=float(base.mean()), image_mean=float(img.mean()),
+        image_std=float(img.std()),
+        mean_abs_change=float(np.abs(img.astype(np.int32)
+                                     - base[0].astype(np.int32)).mean()),
+        checks=checks)
+    print(f"[round-img2img] {json.dumps(report)}", flush=True)
+    bad = [k_ for k_, v in checks.items() if not v]
     return svc, tallies, bad
 
 
@@ -1460,7 +1674,7 @@ def profile_denoise(svc, preset: str, steps: int = 2,
     dev = t2i.device
     s = t2i.cfg.sampler
     hw = s.image_size // t2i.vae_scale
-    ts = t2i.schedule.coefficients(dev).timesteps
+    ts = torch.from_numpy(t2i.schedule.timesteps.astype("int32")).to(dev)
     timesteps = [ts[i:i + 1] for i in range(steps)]
     with torch.inference_mode():
         cond = t2i.encode(["a lighthouse at dusk"])
@@ -1494,8 +1708,7 @@ def profile_denoise(svc, preset: str, steps: int = 2,
         wall_ms = (time.perf_counter() - t0) * 1e3 / graph.num_steps
         replays = min(replays, graph.num_steps)
         counts, window_ms = profile_replays(
-            graph.graph, replays,
-            lambda: (graph.x.copy_(x), graph.step.zero_()), dev)
+            graph.graph, replays, lambda: graph.reset(x), dev)
 
         with device_profile() as prof:
             t2i.encode(["a lighthouse at dusk"])
@@ -1551,40 +1764,45 @@ def profile_denoise(svc, preset: str, steps: int = 2,
     return report
 
 
-# flash launches per replay of each captured body of the encprop and
-# DeepCache loops: a key forward; a key forward and a decoder-only one;
-# a full forward and a shallow one
-BODY_FLASH = {"key": 32, "segment": 32 + 18, "pair": 32 + 10}
+# flash launches per replay of each captured body of a graphed loop: a
+# step (one full forward); encprop's key forward, and its key forward and
+# decoder-only one; DeepCache's full forward and shallow one, and the
+# unpaired full step that ends an odd DPM++ count
+BODY_FLASH = {"step": 32, "key": 32, "segment": 32 + 18, "pair": 32 + 10,
+              "tail": 32}
 
 
-def profile_loop(svc, replays: int = 5) -> dict:
-    """Where a graphed encprop or DeepCache denoise's time goes, at full
-    width: host ms of a whole 50-step graphed denoise (no profiler
-    attached, ending in a sync); for each captured body, ``replays``
-    replays from its first step under ``torch.profiler``
-    (``profile_replays``): host ms, device busy ms, device kernels and
-    host launch calls per replay, each kernel's part, and the witness
-    that a replay launches the body's flash kernels with no host copy or
-    synchronize call between the
-    replays; the loop's busy ms (each body's busy ms x its replays in a
-    denoise) and idle share; and the eager VAE decode's kernels, busy ms
-    and fused-conv part."""
+def profile_loop(svc, preset: str, replays: int = 5) -> dict:
+    """Where a graphed loop's time goes, at full width (the encprop,
+    DeepCache, fast, turbo and lcm denoise, and img2img's tail): host ms
+    of a whole graphed loop (no profiler attached, ending in a sync); for
+    each captured body, ``replays`` replays from its first step under
+    ``torch.profiler`` (``profile_replays``): host ms, device busy ms,
+    device kernels and host launch calls per replay, each kernel's part,
+    and the witness that a replay launches the body's flash kernels with
+    no host copy or synchronize call between the replays; the loop's busy
+    ms (each body's busy ms x its replays in a loop) and idle share; the
+    eager VAE decode's kernels, busy ms and fused-conv part, and for
+    img2img the eager VAE encoder's."""
     import torch
 
     from cassmantle_tpu_torch.models.vae import postprocess_images
     from cassmantle_tpu_torch.ops.ddim import cfg_inputs
+    from cassmantle_tpu_torch.utils import jax_random
     from cassmantle_tpu_torch.utils.device import synchronize
 
     t2i = svc.backend.t2i
     dev = t2i.device
-    hw = t2i.cfg.sampler.image_size // t2i.vae_scale
+    size = t2i.cfg.sampler.image_size
+    hw = size // t2i.vae_scale
     report = {"bodies": {}}
     busy_ms, witness_ok = 0.0, True
     with torch.inference_mode():
         inputs = cfg_inputs(**t2i.encode(["a lighthouse at dusk"]))
         x = torch.randn((1, hw, hw, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(3))
-        graph = t2i.step_graphs[1]                    # the round's
+        graph = (t2i.img2img_graphs[(img2img_steps(t2i.cfg), 1)]
+                 if preset == "img2img" else t2i.step_graphs[1])
         graph(x, **inputs)                            # warm
         synchronize(dev)
         t0 = time.perf_counter()
@@ -1594,8 +1812,7 @@ def profile_loop(svc, replays: int = 5) -> dict:
         for name, count, start, g in graph.phases:
             n = min(replays, count)
             counts, window_ms = profile_replays(
-                g, n, lambda start=start: (graph.x.copy_(x),
-                                           graph.step.fill_(start)), dev)
+                g, n, lambda start=start: graph.reset(x, start), dev)
             if not counts["kernels_per_step"]:
                 return {**report, "device_busy_ms": "not measured",
                         "graph_witness": {"ok": False,
@@ -1621,6 +1838,18 @@ def profile_loop(svc, replays: int = 5) -> dict:
             postprocess_images(t2i.vae(final))
             synchronize(dev)
         vae = trace_counts(prof, 1)
+        if preset == "img2img":
+            images = torch.rand((1, size, size, 3), device=dev,
+                                generator=torch.Generator(dev).manual_seed(4))
+            key = jax_random.PRNGKey(0, dev)
+            t2i.vae_enc(images * 2.0 - 1.0, key)        # warm
+            synchronize(dev)
+            with device_profile() as prof:
+                t2i.vae_enc(images * 2.0 - 1.0, key)
+                synchronize(dev)
+            enc = trace_counts(prof, 1)
+            report.update({f"vae_encoder_{k}": v for k, v in enc.items()
+                           if k != "host_launch_calls"})
     report.update(
         denoise_wall_ms=wall_ms, denoise_busy_ms=busy_ms,
         idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
@@ -1632,9 +1861,10 @@ def profile_loop(svc, replays: int = 5) -> dict:
 
 def check_graphs(svc, preset: str, card: str) -> bool:
     """The served graphs against the eager steps they replace, on the
-    card at full width: the final latents of a whole 50-step graphed
-    denoise against the eager step loop on the same x_T and conditioning
-    (bit-equal), and for the default, W8A8 and Mistral presets the 96
+    card at full width: the final latents of a whole graphed denoise (for
+    img2img its 30-step tail) against the eager step loop on the same
+    x_T and conditioning (bit-equal), and for the default, W8A8 and
+    Mistral presets the 96
     greedy decode tokens of one prompt (batch bucket 1, prompt bucket 32),
     graphed against eager (equal); with each graph's capture and
     instantiate seconds and its pool's bytes. One [graphs] line."""
@@ -1647,17 +1877,28 @@ def check_graphs(svc, preset: str, card: str) -> bool:
     dev = t2i.device
     s = t2i.cfg.sampler
     hw = s.image_size // t2i.vae_scale
+    if preset == "img2img":
+        k = img2img_steps(t2i.cfg)
+        loop = lambda x, cond, graphed: t2i.img2img_tail(   # noqa: E731
+            x, cond, k, graphed=graphed)
+        graphs = {f"{key[1]}/tail{key[0]}/{name}": g
+                  for key, sg in t2i.img2img_graphs.items()
+                  for name, g in sg.graphs.items()}
+    else:
+        loop = t2i.denoise
+        graphs = {f"{b}/{name}": g for b, sg in t2i.step_graphs.items()
+                  for name, g in sg.graphs.items()}
     with torch.inference_mode():
         cond = t2i.encode(["A watercolor style piece depicting: a "
                            "lighthouse at dusk."])
         x = torch.randn((1, hw, hw, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(5))
         t0 = time.perf_counter()
-        eager = t2i.denoise(x, cond, graphed=False)
+        eager = loop(x, cond, graphed=False)
         synchronize(dev)
         eager_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        graphed = t2i.denoise(x, cond, graphed=True)
+        graphed = loop(x, cond, graphed=True)
         synchronize(dev)
         graphed_s = time.perf_counter() - t0
         diff = (eager - graphed).abs()
@@ -1667,9 +1908,7 @@ def check_graphs(svc, preset: str, card: str) -> bool:
            "denoise_values_differing": int((diff > 0).sum().item()),
            "denoise_finite": bool(torch.isfinite(graphed).all()),
            "denoise_eager_s": eager_s, "denoise_graphed_s": graphed_s,
-           "denoise_graphs": {f"{b}/{name}": g.stats()
-                              for b, sg in t2i.step_graphs.items()
-                              for name, g in sg.graphs.items()}}
+           "denoise_graphs": {name: g.stats() for name, g in graphs.items()}}
     ok = res["denoise_bit_equal"] and res["denoise_finite"]
     if preset in ("default", "w8a8", "mistral"):
         seed = ["The Night the Trains Sang"]
@@ -2121,8 +2360,11 @@ def main() -> int:
         FrameworkConfig,
         deepcache_serving_config,
         encprop_serving_config,
+        fast_serving_config,
         fusedconv_serving_config,
+        lcm_serving_config,
         sdxl_config,
+        turbo_serving_config,
         w8a8_serving_config,
     )
     from cassmantle_tpu_torch.ops import _build
@@ -2153,8 +2395,11 @@ def main() -> int:
         fail("tiny geometry, fused conv or W8A8: card and CPU disagree")
     if not check_small_sdxl():
         fail("tiny geometry, SDXL: card and CPU disagree")
+    if not check_jax_random():
+        fail("jax_random: the card's keys, bits or uniforms differ from "
+             "the CPU's")
     if not check_small_samplers():
-        fail("tiny geometry, encprop or DeepCache: card and CPU disagree")
+        fail("tiny geometry, a sampler loop: card and CPU disagree")
     if not check_small_mistral():
         fail("tiny geometry, Mistral: card and CPU disagree")
 
@@ -2163,17 +2408,22 @@ def main() -> int:
                ("w8a8", w8a8_serving_config()),
                ("sdxl", sdxl_config()),
                ("encprop", encprop_serving_config()),
-               ("deepcache", deepcache_serving_config()))
+               ("deepcache", deepcache_serving_config()),
+               ("fast", fast_serving_config()),
+               ("turbo", turbo_serving_config()),
+               ("lcm", lcm_serving_config()),
+               ("img2img", img2img_config()))
     tallies = {}
     for preset, cfg in presets:
-        svc, tallies[preset], bad = run_round(card, preset, cfg)
+        run = run_img2img if preset == "img2img" else run_round
+        svc, tallies[preset], bad = run(card, preset, cfg)
         if bad:
             fail(f"round-{preset} checks failed: {bad}")
         if not check_graphs(svc, preset, card):
             fail(f"{preset}: the graphed loops disagree with the eager "
                  f"steps")
         if preset in SAMPLER_FORWARDS:
-            prof = profile_loop(svc)
+            prof = profile_loop(svc, preset)
             print(f"[profile] {preset} graphed denoise at full width "
                   f"({card}): {json.dumps(prof)}", flush=True)
         else:
@@ -2256,12 +2506,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "path": path, "ok": r["ok"]})
     for kernel, presets, source, replaces in (
-            ("gn_silu_conv3x3", ("fusedconv", "encprop"), FUSED_SOURCE,
-             FUSED_REPLACES),
+            ("gn_silu_conv3x3", ("fusedconv", "encprop", "img2img"),
+             FUSED_SOURCE, FUSED_REPLACES),
             ("int8_matmul", ("w8a8",), INT8_SOURCE, MATMUL_REPLACES),
             ("int8_conv3x3", ("w8a8",), INT8_SOURCE, CONV_REPLACES)):
         # launches in the rounds of the presets that serve the kernel
-        # (the UNet's shapes at fusedconv, the VAE's at encprop)
+        # (the UNet's shapes at fusedconv, the VAE decoder's at encprop,
+        # at img2img the encoder's and the decoder's again)
         tally = sum((tallies[p][kernel] for p in presets),
                     collections.Counter())
         kernels += kernel_entries(kernel, checked[kernel], tally, source,

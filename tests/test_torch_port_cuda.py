@@ -261,6 +261,8 @@ def _gn_conv_inputs(device, b, h, w, c, f, seed=0):
     (1, 3, 65, 16, 8),          # W = 65: a last stretch of one column
     (1, 16, 130, 64, 384),      # 128-channel blocks, stretches 64, 64, 2
     (1, 8, 8, 1024, 256),       # 128-channel blocks, a cluster of 8
+    (1, 256, 256, 128, 256),    # VAE encoder: channels rise 128 -> 256
+    (1, 128, 128, 256, 512),    # VAE encoder: channels rise 256 -> 512
 ])
 def test_cuda_fused_conv_matches_plain(cuda_device, b, h, w, c, f):
     x, a, shift, kernel, bias = _gn_conv_inputs(cuda_device, b, h, w, c, f)
@@ -526,15 +528,34 @@ def test_cuda_captured_step_counts_replayed_launches(cuda_device):
     assert torch.equal(out, flash_attention(q, k, v))
 
 
+# the sampler fields of the new samplers' tiny cases, and their graph
+# replays a call: DPM++ (fast), DPM++ in DeepCache pairs with an
+# unpaired tail (turbo, 5 steps), consistency (lcm), Euler under encoder
+# propagation, DPM++ under encprop composed with DeepCache
+SAMPLER_CASES = {
+    "fast": (dict(kind="dpmpp_2m"), {"step": 4}),
+    "turbo": (dict(kind="dpmpp_2m", num_steps=5, deepcache=True),
+              {"pair": 2, "tail": 1}),
+    "lcm": (dict(consistency=True), {"step": 4}),
+    "encprop_euler": (dict(kind="euler", encprop=True,
+                           encprop_dense_steps=1), {"key": 1, "segment": 1}),
+    "encprop_dpmpp_deepcache": (dict(kind="dpmpp_2m", encprop=True,
+                                     deepcache=True, encprop_dense_steps=1),
+                                {"key": 1, "segment": 1}),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("preset", ["default", "fused_conv", "w8a8", "sdxl",
-                                    "encprop", "deepcache"])
+                                    "encprop", "deepcache",
+                                    *SAMPLER_CASES])
 def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
-    """The tiny pipeline's CFG DDIM loop as replays of its captured
+    """The tiny pipeline's CFG sampler loop as replays of its captured
     bodies (the step; encprop's key step and segment, 4 steps at stride 3
-    after one dense key; DeepCache's pair) equals the eager loop bit for
-    bit on the same x_T and conditioning, and counts the same launches of
-    every kernel per shape. A second graphed call reuses the graphs."""
+    after one dense key; DeepCache's pair; the new samplers' steps, pairs
+    and tails, ``SAMPLER_CASES``) equals the eager loop bit for bit on the
+    same x_T and conditioning, and counts the same launches of every
+    kernel per shape. A second graphed call reuses the graphs."""
     import dataclasses
 
     from cassmantle_tpu_torch.config import test_config, test_sdxl_config
@@ -559,6 +580,9 @@ def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
         if preset == "deepcache":
             cfg = cfg.replace(sampler=dataclasses.replace(
                 cfg.sampler, deepcache=True))
+        if preset in SAMPLER_CASES:
+            cfg = cfg.replace(sampler=dataclasses.replace(
+                cfg.sampler, **SAMPLER_CASES[preset][0]))
         pipe = Text2ImagePipeline(cfg, device=cuda_device)
     g = torch.Generator(cuda_device).manual_seed(8)
     hw = cfg.sampler.image_size // pipe.vae_scale
@@ -583,9 +607,75 @@ def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
         assert eager_n["int8_conv3x3", "launches"] > 0
     assert list(pipe.step_graphs) == [2]
     want = {"encprop": {"key": 1, "segment": 1},
-            "deepcache": {"pair": 2}}.get(preset, {"step": 4})
+            "deepcache": {"pair": 2},
+            **{k: v[1] for k, v in SAMPLER_CASES.items()}}.get(
+                preset, {"step": 4})
     assert {k: g.replays for k, g in pipe.step_graphs[2].graphs.items()} \
         == {k: 2 * n for k, n in want.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ddim", "euler", "dpmpp_2m"])
+def test_cuda_img2img_graph_equals_eager(cuda_device, kind):
+    """img2img on the tiny geometry with the fused VAE: the tail's
+    captured step graph equals the eager tail bit for bit (the whole
+    uint8 image, encoder and decoder included, from one seed), with the
+    same launches of every kernel per shape; kernel 2 runs in the
+    encoder and the decoder."""
+    import dataclasses
+
+    import numpy as np
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+
+    cfg = _tiny_bf16(test_config())
+    cfg = cfg.replace(
+        sampler=dataclasses.replace(cfg.sampler, kind=kind),
+        models=dataclasses.replace(cfg.models, vae=dataclasses.replace(
+            cfg.models.vae, fused_conv=True)))
+    pipe = Text2ImagePipeline(cfg, device=cuda_device)
+    images = np.random.default_rng(9).integers(0, 256, (2, 64, 64, 3),
+                                               dtype=np.uint8)
+    runs = {}
+    for graphed in (False, True, True):
+        _reset_all()
+        out = pipe.generate_img2img(images, ["a harbor", "a comet"], 0.6,
+                                    seed=3, graphed=graphed)
+        runs.setdefault(graphed, []).append((out, _all_counters()))
+    (eager, eager_n), = runs[False]
+    for out, n in runs[True]:
+        np.testing.assert_array_equal(out, eager)
+        assert n == eager_n
+    assert eager_n["flash_attention", "launches"] > 0
+    assert eager_n["gn_silu_conv3x3", "launches"] > 0
+    assert list(pipe.img2img_graphs) == [(2, 2)]
+    assert pipe.img2img_graphs[(2, 2)].graph.replays == 4
+
+
+@pytest.mark.cuda
+def test_cuda_jax_random_equal_to_cpu(cuda_device):
+    """The reference's streams on the card: keys (PRNGKey, fold_in,
+    split), bits and uniforms bit-equal to the CPU's; normals within 4
+    float32 ulps (torch's log1p inside XLA's erfinv polynomial)."""
+    from cassmantle_tpu_torch.utils import jax_random as jr
+
+    for seed in (0, 0x1C3, 2 ** 32 - 1):
+        keys = {}
+        for dev in ("cpu", cuda_device):
+            key = jr.fold_in(jr.PRNGKey(seed, dev), 901)
+            keys[str(dev)] = torch.cat([key[None], jr.split(key, 3)])
+        assert torch.equal(keys["cpu"], keys["cuda"].cpu())
+        k_cpu, k_gpu = keys["cpu"][-1], keys["cuda"][-1]
+        for shape in ((7,), (2, 64, 64, 4)):
+            assert torch.equal(jr.random_bits(k_cpu, shape),
+                               jr.random_bits(k_gpu, shape).cpu())
+            lo = -0.99999994
+            assert torch.equal(jr.uniform(k_cpu, shape, lo, 1.0),
+                               jr.uniform(k_gpu, shape, lo, 1.0).cpu())
+            ulps = (jr.normal(k_cpu, shape).view(torch.int32).long()
+                    - jr.normal(k_gpu, shape).cpu().view(torch.int32).long())
+            assert ulps.abs().max() <= 4
 
 
 @pytest.mark.cuda

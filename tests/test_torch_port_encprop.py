@@ -416,7 +416,7 @@ def test_deepcache_graph_body_matches_the_eager_loop(sampler_case,
     inputs = _inputs(c)
     x_t = torch.from_numpy(c["x_t"])
     with torch.inference_mode():
-        graph = port_ddim.DeepCacheGraph(make, sched, x_t, **inputs)
+        graph = port_ddim.SpecDeepCacheGraph(make, sched, x_t, **inputs)
         got = graph(x_t, **inputs)
         want = port_ddim.ddim_sample_deepcache(*make(**inputs), x_t, sched)
     assert torch.equal(got, want)
@@ -594,20 +594,46 @@ def test_kill_switch_serves_full_forwards(sampler_case, monkeypatch):
 
 
 @pytest.mark.parametrize("sampler_kw,error,match", [
-    (dict(encprop=True, eta=0.5), NotImplementedError, "eta=0.5"),
-    (dict(deepcache=True, eta=0.5), NotImplementedError, "eta=0.5"),
-    (dict(encprop=True, kind="euler"), NotImplementedError, "'euler'"),
-    (dict(deepcache=True, kind="dpmpp_2m"), NotImplementedError,
-     "'dpmpp_2m'"),
-    (dict(deepcache=True, num_steps=5), ValueError, "even step count"),
+    (dict(encprop=True, eta=0.5), AssertionError, "encprop needs eta=0"),
+    (dict(deepcache=True, eta=0.5), AssertionError, "deepcache needs eta=0"),
+    (dict(deepcache=True, kind="euler"), AssertionError, "not 'euler'"),
+    (dict(consistency=True, num_steps=9), AssertionError, "1-8 steps"),
+    (dict(deepcache=True, num_steps=5), AssertionError, "even step count"),
     (dict(encprop=True, deepcache=True, num_steps=5,
-          encprop_dense_steps=1), ValueError, "even step count"),
-    (dict(encprop=True, encprop_stride=0), ValueError, "stride"),
-    (dict(encprop=True), ValueError, "dense_steps"),    # 5 dense of 4
+          encprop_dense_steps=1), AssertionError, "even step count"),
+    (dict(encprop=True, encprop_stride=0), AssertionError, "stride"),
+    (dict(encprop=True), AssertionError, "dense prefix"),   # 5 dense of 4
+    (dict(consistency=True, deepcache=True), AssertionError,
+     "does not compose with deepcache"),
+    (dict(consistency=True, encprop=True, encprop_dense_steps=1),
+     AssertionError, "does not compose with encprop"),
+    (dict(consistency=True, eta=0.5), AssertionError, "deterministic"),
+    (dict(consistency=True, consistency_teacher_steps=4), AssertionError,
+     "must exceed num_steps"),
+    (dict(encprop=True, encprop_dense_steps=1, kind="heun"),
+     AssertionError, "encprop composes with"),
+    (dict(encprop=True, deepcache=True, encprop_dense_steps=1,
+          kind="euler"), AssertionError, "deepcache composes with"),
+    (dict(kind="heun"), ValueError, "unknown sampler kind"),
 ])
 def test_refusals(sampler_kw, error, match):
+    """The reference's build-time rejections (``deepcache_schedule``,
+    ``encprop_plan``, ``consistency_plan``, ``make_sampler``'s kind),
+    with its exceptions and messages; the reference raises each too."""
+    from cassmantle_tpu.ops.samplers import make_sampler as jax_make_sampler
+    from cassmantle_tpu.serving import pipeline as jpipeline
+
     with pytest.raises(error, match=match):
-        port_pipeline.check_sampler(_tiny(**sampler_kw).sampler)
+        port_pipeline.sampler_mode(_tiny(**sampler_kw).sampler)
+    ref = dataclasses.replace(jax_test_config().sampler, **sampler_kw)
+    with pytest.raises(error, match=match):
+        if ref.deepcache:
+            jpipeline.deepcache_schedule(ref)
+        if ref.encprop:
+            jpipeline.encprop_plan(ref)
+        if ref.consistency:
+            jpipeline.consistency_plan(ref)
+        jax_make_sampler(ref.kind, ref.num_steps, ref.eta)
 
 
 def test_presets_match_reference_fields():
@@ -623,5 +649,5 @@ def test_presets_match_reference_fields():
                     getattr(ref.sampler, f.name), (name, f.name)
         assert port.models.vae.fused_conv == ref.models.vae.fused_conv
         assert port.models.unet.fused_conv == ref.models.unet.fused_conv
-        assert port_pipeline.check_sampler(port.sampler) == name.split(
+        assert port_pipeline.sampler_mode(port.sampler) == name.split(
             "_")[0]

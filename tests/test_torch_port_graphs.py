@@ -10,7 +10,7 @@ latents within 1e-4 of the reference's largest value, uint8 images within
 2 levels (mean 0.5); greedy tokens and lengths exactly equal.
 
 A CUDA graph cannot be captured here. Where a test runs a graphed path
-(``DDIMGraph``, ``greedy_decode(graphed=True)``), ``CapturedStep`` is
+(``SpecGraph``, ``greedy_decode(graphed=True)``), ``CapturedStep`` is
 swapped for :class:`EagerStep`, which keeps every piece of it but the
 graph: the warm-up runs the step once, the "capture" records nothing and
 a replay calls the step. That holds the static-buffer logic (inputs
@@ -55,7 +55,8 @@ from cassmantle_tpu_torch.ops.ddim import (
     cfg_denoiser,
     cfg_inputs,
     ddim_sample,
-    ddim_step,
+    ddim_spec,
+    spec_step,
 )
 from cassmantle_tpu_torch.ops.decode import greedy_decode
 from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
@@ -108,22 +109,23 @@ def unet_case(request):
 
 
 def test_device_ddim_step_loop_matches_reference_scan(unet_case):
-    """The step the graph captures (:func:`ddim_step`: timestep and
-    coefficients gathered at a device step counter, advanced in place),
-    looped eagerly, lands on the reference's ``lax.scan`` (fp32; 1e-4 of
-    the largest latent); the counter ends at T."""
+    """The step the graph captures (:func:`spec_step` over DDIM's spec:
+    timestep and coefficients gathered at a device step counter,
+    advanced in place), looped eagerly, lands on the reference's
+    ``lax.scan`` (fp32; 1e-4 of the largest latent); the counter ends at
+    T."""
     c = unet_case
     sched = DDIMSchedule.create(c["port_cfg"].sampler.num_steps)
-    coeffs = sched.coefficients("cpu")
+    spec = ddim_spec(sched.coefficients("cpu"))
     denoise = cfg_denoiser(c["unet"], guidance_scale=7.5,
                            **cfg_inputs(**c["cond"]))
     step = torch.zeros((1,), dtype=torch.long)
-    x = torch.from_numpy(c["x_t"])
+    carry = (torch.from_numpy(c["x_t"]),)
     with torch.inference_mode():
         for _ in range(len(sched.timesteps)):
-            x = ddim_step(denoise, x, coeffs, step)
+            carry = spec_step(spec, denoise, carry, step)
     assert int(step) == len(sched.timesteps)
-    assert_rel(x, c["final"], 1e-4)
+    assert_rel(carry[0], c["final"], 1e-4)
 
 
 def test_schedule_coefficients_are_the_reference_values():
@@ -160,8 +162,8 @@ def test_ddim_update_divides_like_the_reference():
 
 def test_graphed_sampler_matches_eager_and_reference(unet_case,
                                                      monkeypatch):
-    """``DDIMGraph`` (static x_T, conditioning and counter, one step
-    replayed T times; :class:`EagerStep` in place of the graph) equals
+    """``SpecGraph`` over DDIM (static x_T, conditioning and counter, one
+    step replayed T times; :class:`EagerStep` in place of the graph) equals
     :func:`ddim_sample` bit for bit, also on a second call with other
     inputs after the warm-up moved its buffers, and the reference within
     1e-4."""
@@ -172,7 +174,7 @@ def test_graphed_sampler_matches_eager_and_reference(unet_case,
     inputs = cfg_inputs(**c["cond"])
     x_t = torch.from_numpy(c["x_t"])
     with torch.inference_mode():
-        graph = port_ddim.DDIMGraph(make, sched, x_t, **inputs)
+        graph = port_ddim.SpecGraph(make, sched, x_t, **inputs)
         got = graph(x_t, **inputs)
         eager = ddim_sample(make(**inputs), x_t, sched)
         assert torch.equal(got, eager)

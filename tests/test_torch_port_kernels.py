@@ -416,11 +416,14 @@ def test_flash_d64_takes_mma_sync_where_tma_cannot(shape, strides):
 def test_flash_round_counts_follow_the_models():
     """chip_smoke's per-model flash counts: SD1.5 launches 1,601 a round
     (wgmma 1,600, mma.sync 1), SDXL 7,001 (wgmma 7,000, mma.sync 1), the
-    encoder-propagation round 911 (20 x 32 + 15 x 18 + 1) and DeepCache's
-    1,051 (25 x 32 + 25 x 10 + 1), each shape of a round on the path the
+    encoder-propagation round 911 (20 x 32 + 15 x 18 + 1), DeepCache's
+    1,051 (25 x 32 + 25 x 10 + 1), DPM++'s 801 (25 x 32 + 1), turbo's 505
+    (12 x 32 + 12 x 10 + 1), lcm's 129 (4 x 32 + 1) and img2img's 962 (30
+    x 32 and both VAE mid blocks), each shape of a round on the path the
     plan gives it at 132 SMs."""
     for model, want in (("sd15", 1601), ("sdxl", 7001), ("encprop", 911),
-                        ("deepcache", 1051)):
+                        ("deepcache", 1051), ("fast", 801), ("turbo", 505),
+                        ("lcm", 129), ("img2img", 962)):
         counts = chip_smoke.ROUND_FLASH[model]
         assert sum(counts.values()) == want
         paths = {}
