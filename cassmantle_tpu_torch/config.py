@@ -249,9 +249,6 @@ class SamplerConfig:
     # encprop; CASSMANTLE_NO_CONSISTENCY=1 (read at build) serves the
     # teacher path instead: ``kind`` at ``consistency_teacher_steps``.
     consistency: bool = False
-    # The deployed UNet is a consistency-distilled student (the
-    # reference's brownout ladder reads it; kept for the config's parity).
-    consistency_available: bool = False
     consistency_teacher_steps: int = 50
     min_new_tokens: int = 32
     max_new_tokens: int = 96

@@ -42,7 +42,8 @@ consistency sampler's in ``ops/samplers.py``) is the device form of a
 schedule that the generic loops step through: the timesteps, the
 per-step coefficient columns, ``init(latents) -> carry`` (a tuple of
 latent-shaped tensors: DPM++ carries its multistep history beside x),
-``x_for``, ``update`` and ``final``. :func:`spec_step` is one step of it.
+``x_for`` and ``update``; a loop's result is the carry's first tensor,
+x. :func:`spec_step_outputs` is one step of it.
 
 On the card each loop replays captured bodies (:class:`SamplerGraph`,
 whose carry is static buffers that each call resets and each body
@@ -154,8 +155,7 @@ class DDIMSchedule:
                 "coefs": cols + (noise,),
                 "init": lambda latents: (latents,),
                 "x_for": lambda carry, c: carry[0],
-                "update": update,
-                "final": lambda carry: carry[0]}
+                "update": update}
 
 
 def ddim_update(x: torch.Tensor, eps: torch.Tensor, c_eps: torch.Tensor,
@@ -196,27 +196,37 @@ def ddim_sample(denoise: Denoiser, latents: torch.Tensor,
     return sample_spec(schedule.spec(latents), denoise, latents)
 
 
+def spec_step_outputs(spec: dict, denoise: Callable, carry: tuple,
+                      step: torch.Tensor) -> Tuple[tuple, tuple]:
+    """One step of solver ``spec`` at device ``step`` (advanced by one):
+    the timestep and coefficients gathered there, one call of
+    ``denoise(x, t) -> (eps, *outputs)`` on ``x_for(carry)``, ``update``.
+    Returns (carry, outputs): a key step's encoder cache, a full step's
+    deep activation."""
+    t, coefs = _spec_at(spec, step)
+    eps, *outputs = denoise(spec["x_for"](carry, coefs), t)
+    carry = spec["update"](carry, eps, coefs)
+    step.add_(1)
+    return carry, tuple(outputs)
+
+
 def spec_step(spec: dict, denoise: Denoiser, carry: tuple,
               step: torch.Tensor) -> tuple:
-    """One step of solver ``spec`` at device ``step`` (advanced by one):
-    the timestep and coefficients gathered there, one denoiser call on
-    ``x_for(carry)``, ``update``."""
-    t, coefs = _spec_at(spec, step)
-    carry = spec["update"](carry, denoise(spec["x_for"](carry, coefs), t),
-                           coefs)
-    step.add_(1)
-    return carry
+    """:func:`spec_step_outputs` over a denoiser that returns eps alone;
+    returns the carry."""
+    return spec_step_outputs(spec, lambda x, t: (denoise(x, t),), carry,
+                             step)[0]
 
 
 def sample_spec(spec: dict, denoise: Denoiser,
                 latents: torch.Tensor) -> torch.Tensor:
     """Solver ``spec``'s whole loop, eagerly, one :func:`spec_step` a
-    step: ``init(latents)``, the steps, ``final``."""
+    step from ``init(latents)``; returns x."""
     step = torch.zeros((1,), dtype=torch.long, device=latents.device)
     carry = spec["init"](latents)
     for _ in range(int(spec["timesteps"].shape[0])):
         carry = spec_step(spec, denoise, carry, step)
-    return spec["final"](carry)
+    return carry[0]
 
 
 class SamplerGraph:
@@ -340,21 +350,14 @@ def deepcache_spec_pair(spec: dict, pair: DenoiserPair, carry: tuple,
     full forward, then a shallow one reusing its deep activation; the
     carry (DPM++'s multistep history with it) threads through both."""
     full, shallow = pair
-    deep = []
-
-    def first(x, t):
-        eps, d = full(x, t)
-        deep.append(d)
-        return eps
-
-    carry = spec_step(spec, first, carry, step)
-    return spec_step(spec, lambda x, t: shallow(x, t, deep[0]), carry, step)
+    carry, (deep,) = spec_step_outputs(spec, full, carry, step)
+    return spec_step(spec, lambda x, t: shallow(x, t, deep), carry, step)
 
 
 def deepcache_spec_tail(spec: dict, pair: DenoiserPair, carry: tuple,
                         step: torch.Tensor) -> tuple:
     """The unpaired full step that ends an odd count."""
-    return spec_step(spec, lambda x, t: pair[0](x, t)[0], carry, step)
+    return spec_step_outputs(spec, pair[0], carry, step)[0]
 
 
 def sample_spec_deepcache(spec: dict, denoise_full: Callable,
@@ -370,7 +373,7 @@ def sample_spec_deepcache(spec: dict, denoise_full: Callable,
         carry = deepcache_spec_pair(spec, pair, carry, step)
     if n % 2:
         carry = deepcache_spec_tail(spec, pair, carry, step)
-    return spec["final"](carry)
+    return carry[0]
 
 
 class SpecDeepCacheGraph(SamplerGraph):
@@ -452,7 +455,6 @@ def ddim_spec(coeffs: DDIMCoefficients) -> dict:
         "x_for": lambda carry, coefs_i: carry[0],
         "update": lambda carry, eps, coefs_i: (
             ddim_update(carry[0], eps, *coefs_i),),
-        "final": lambda carry: carry[0],
     }
 
 
@@ -460,17 +462,6 @@ def _spec_at(spec: dict, index: torch.Tensor):
     """The timesteps and coefficients at device ``index``."""
     return (spec["timesteps"].index_select(0, index),
             tuple(a.index_select(0, index) for a in spec["coefs"]))
-
-
-def encprop_key_step(spec: dict, denoise_key: Callable, carry: tuple,
-                     step: torch.Tensor):
-    """A key step at device ``step`` (advanced by one):
-    (carry, encoder cache, the rest of the key's outputs)."""
-    t, coefs = _spec_at(spec, step)
-    out = denoise_key(spec["x_for"](carry, coefs), t)
-    carry = spec["update"](carry, out[0], coefs)
-    step.add_(1)
-    return carry, out[1], out[2:]
 
 
 def encprop_segment(spec: dict, denoise_key: Callable,
@@ -482,13 +473,12 @@ def encprop_segment(spec: dict, denoise_key: Callable,
     ``length``): its key step, the DeepCache shallow step where
     ``denoise_shallow`` is given, and the rest off one batched decoder
     forward (``batch_props=False``: one decoder forward a step)."""
-    carry, cache, rest = encprop_key_step(spec, denoise_key, carry, step)
+    carry, (cache, *rest) = spec_step_outputs(spec, denoise_key, carry,
+                                              step)
     start = 1
     if denoise_shallow is not None and length > 1:
-        t, coefs = _spec_at(spec, step)
-        eps = denoise_shallow(spec["x_for"](carry, coefs), t, rest[0])
-        carry = spec["update"](carry, eps, coefs)
-        step.add_(1)
+        carry = spec_step(spec, lambda x, t: denoise_shallow(x, t, rest[0]),
+                          carry, step)
         start = 2
     p = length - start
     if p > 0 and batch_props:
@@ -522,12 +512,12 @@ def encprop_sample(spec: dict, denoise_key: Callable, denoise_prop: Callable,
     step = torch.zeros((1,), dtype=torch.long, device=latents.device)
     carry = spec["init"](latents)
     for _ in range(dense):
-        carry, _, _ = encprop_key_step(spec, denoise_key, carry, step)
+        carry, _ = spec_step_outputs(spec, denoise_key, carry, step)
     for length in [stride] * nseg + ([tail] if tail else []):
         carry = encprop_segment(spec, denoise_key, denoise_prop,
                                 denoise_shallow, carry, step, length,
                                 batch_props)
-    return spec["final"](carry)
+    return carry[0]
 
 
 def ddim_sample_encprop(denoise_key: Callable, denoise_prop: Callable,
@@ -561,7 +551,7 @@ class EncpropGraph(SamplerGraph):
         dense, nseg, tail = _encprop_plan(n, stride, dense_steps)
 
         def key(dn, carry, step):
-            return encprop_key_step(spec, dn[0], carry, step)[0]
+            return spec_step_outputs(spec, dn[0], carry, step)[0]
 
         def segment(length):
             return lambda dn, carry, step: encprop_segment(

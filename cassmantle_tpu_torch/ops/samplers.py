@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -40,10 +40,6 @@ import torch
 from cassmantle_tpu_torch.ops.ddim import (
     DDIMSchedule,
     alpha_bars_full,
-    ddim_sample,
-    encprop_sample,
-    sample_spec,
-    sample_spec_deepcache,
     strided_timesteps,
 )
 from cassmantle_tpu_torch.utils import jax_random
@@ -161,28 +157,7 @@ class ConsistencySchedule:
                                                      dev),),
                 "init": lambda lat: (lat,),
                 "x_for": lambda carry, c: carry[0],
-                "update": update,
-                "final": lambda carry: carry[0]}
-
-
-def consistency_sample(denoise: Callable, latents: torch.Tensor,
-                       schedule: ConsistencySchedule) -> torch.Tensor:
-    """Multistep consistency sampling, eagerly: one denoiser call a step
-    maps the state to an x0 estimate, then re-noises it to the next
-    timestep (the last step's ᾱ_next is 1: its update is the x0)."""
-    return sample_spec(schedule.spec(latents), denoise, latents)
-
-
-def make_consistency_sampler(num_steps: int, teacher_steps: int = 50):
-    """``sample(denoise, latents, key=None)`` over ``num_steps``
-    consistency steps on the ``teacher_steps`` grid (``key`` is ignored:
-    the re-noise ladder is deterministic)."""
-    schedule = ConsistencySchedule.create(num_steps, teacher_steps)
-
-    def sample(denoise, latents, key=None):
-        return consistency_sample(denoise, latents, schedule)
-
-    return sample
+                "update": update}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,38 +181,20 @@ class EulerSchedule:
         return EulerSchedule(timesteps=ts, sigmas=sig, prescaled=prescaled)
 
     def spec(self, latents: torch.Tensor) -> dict:
-        return euler_spec(self, latents, self.prescaled)
-
-
-def euler_spec(schedule: EulerSchedule, latents: torch.Tensor,
-               prescaled: bool = False) -> dict:
-    """Euler's solver spec on ``latents``' device: the denoiser sees
-    x / sqrt(1 + s^2), and x += (s_next - s) eps. The carry enters
-    k-space as x_T s_0, or as it is when ``prescaled``."""
-    dev = latents.device
-    sig = schedule.sigmas
-    s, s_next = sig[:-1], sig[1:]
-    cols = (_column(np.sqrt(np.float32(1.0) + s * s), dev),
-            _column(s_next - s, dev))
-    sigma0 = _column(sig[0], dev)
-    return {"timesteps": _timesteps(schedule.timesteps, dev),
-            "coefs": cols,
-            "init": ((lambda lat: (lat,)) if prescaled
-                     else (lambda lat: (lat * sigma0,))),
-            "x_for": lambda carry, c: carry[0] / c[0],
-            "update": lambda carry, eps, c: (carry[0] + c[1] * eps,),
-            "final": lambda carry: carry[0]}
-
-
-def euler_sample(denoise: Callable, latents: torch.Tensor,
-                 schedule: EulerSchedule,
-                 prescaled: bool = False) -> torch.Tensor:
-    """Deterministic Euler over the k-diffusion ODE, eagerly; ``latents``
-    standard normal (or, ``prescaled``, already in k-space); returns VP
-    x0 latents (sigma -> 0)."""
-    return sample_spec(euler_spec(schedule, latents,
-                                  prescaled or schedule.prescaled),
-                       denoise, latents)
+        """The solver spec on ``latents``' device: the denoiser sees
+        x / sqrt(1 + s^2), and x += (s_next - s) eps. The carry enters
+        k-space as x_T s_0, or as it is when ``prescaled``."""
+        dev = latents.device
+        s, s_next = self.sigmas[:-1], self.sigmas[1:]
+        cols = (_column(np.sqrt(np.float32(1.0) + s * s), dev),
+                _column(s_next - s, dev))
+        sigma0 = _column(self.sigmas[0], dev)
+        return {"timesteps": _timesteps(self.timesteps, dev),
+                "coefs": cols,
+                "init": ((lambda lat: (lat,)) if self.prescaled
+                         else (lambda lat: (lat * sigma0,))),
+                "x_for": lambda carry, c: carry[0] / c[0],
+                "update": lambda carry, eps, c: (carry[0] + c[1] * eps,)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,68 +245,23 @@ class DPMppSchedule:
             c_skip=_f32(c_skip), c_d0=_f32(c_d0), c_d1=_f32(c_d1))
 
     def spec(self, latents: torch.Tensor) -> dict:
-        return dpmpp_2m_spec(self, latents)
+        """The solver spec on ``latents``' device; the carry is (x, m1),
+        m1 entering as zeros."""
+        dev = latents.device
+        cols = tuple(_column(a, dev) for a in (
+            self.alphas, self.sigmas, self.c_skip, self.c_d0, self.c_d1))
 
+        def update(carry, eps, c):
+            x, m1 = carry
+            alpha, sigma, c_skip, c_d0, c_d1 = c
+            m0 = (x - sigma * eps) / alpha
+            return (c_skip * x + c_d0 * m0 + c_d1 * m1, m0)
 
-def dpmpp_2m_spec(schedule: DPMppSchedule, latents: torch.Tensor) -> dict:
-    """DPM++(2M)'s solver spec on ``latents``' device; the carry is
-    (x, m1), m1 entering as zeros."""
-    dev = latents.device
-    cols = tuple(_column(a, dev) for a in (
-        schedule.alphas, schedule.sigmas, schedule.c_skip, schedule.c_d0,
-        schedule.c_d1))
-
-    def update(carry, eps, c):
-        x, m1 = carry
-        alpha, sigma, c_skip, c_d0, c_d1 = c
-        m0 = (x - sigma * eps) / alpha
-        return (c_skip * x + c_d0 * m0 + c_d1 * m1, m0)
-
-    return {"timesteps": _timesteps(schedule.timesteps, dev),
-            "coefs": cols,
-            "init": lambda lat: (lat, torch.zeros_like(lat)),
-            "x_for": lambda carry, c: carry[0],
-            "update": update,
-            "final": lambda carry: carry[0]}
-
-
-def dpmpp_2m_sample(denoise: Callable, latents: torch.Tensor,
-                    schedule: DPMppSchedule) -> torch.Tensor:
-    """DPM-Solver++(2M), eagerly; x stays in VP space."""
-    return sample_spec(dpmpp_2m_spec(schedule, latents), denoise, latents)
-
-
-def dpmpp_2m_sample_deepcache(denoise_full: Callable,
-                              denoise_shallow: Callable,
-                              latents: torch.Tensor,
-                              schedule: DPMppSchedule) -> torch.Tensor:
-    """DPM++(2M) in full/shallow DeepCache pairs, eagerly; the multistep
-    history threads through the pairs, and an odd count ends on an
-    unpaired full step."""
-    return sample_spec_deepcache(dpmpp_2m_spec(schedule, latents),
-                                 denoise_full, denoise_shallow, latents)
-
-
-def make_encprop_sampler(kind: str, num_steps: int, stride: int,
-                         dense_steps: int = 0, deepcache: bool = False):
-    """(kind, steps, key schedule) -> ``sample(denoise_key, denoise_prop,
-    latents, denoise_shallow=None, batch_props=True)``, encoder
-    propagation over any sampler kind; euler with DeepCache is refused,
-    as the plain DeepCache loop refuses it."""
-    if deepcache and kind not in ("ddim", "dpmpp_2m"):
-        raise AssertionError(
-            f"deepcache composes with ddim or dpmpp_2m, not {kind!r}")
-    schedule = make_schedule(kind, num_steps)
-
-    def sample(dk, dp, latents, denoise_shallow=None, batch_props=True):
-        if kind == "euler" and denoise_shallow is not None:
-            raise AssertionError("euler has no deepcache loop")
-        return encprop_sample(schedule.spec(latents), dk, dp, latents,
-                              stride, dense_steps,
-                              denoise_shallow=denoise_shallow,
-                              batch_props=batch_props)
-
-    return sample
+        return {"timesteps": _timesteps(self.timesteps, dev),
+                "coefs": cols,
+                "init": lambda lat: (lat, torch.zeros_like(lat)),
+                "x_for": lambda carry, c: carry[0],
+                "update": update}
 
 
 def img2img_start(kind: str, num_steps: int, start: int):
@@ -377,36 +289,6 @@ def img2img_start(kind: str, num_steps: int, start: int):
     schedule = (DDIMSchedule.create(num_steps, start=start) if kind == "ddim"
                 else DPMppSchedule.create(num_steps, start))
     return prepare, schedule
-
-
-def make_img2img_sampler(kind: str, num_steps: int, start: int,
-                         eta: float = 0.0):
-    """Tail sampling from schedule position ``start``: ``(prepare,
-    sample)``, ``prepare(x0_latents, noise)`` the state at ``start`` and
-    ``sample(denoise, x, key=None)`` the remaining steps -> x0 latents
-    (the same ODE as :func:`make_sampler`'s)."""
-    prepare, schedule = img2img_start(kind, num_steps, start)
-
-    def sample(denoise, x, key=None):
-        if kind == "ddim":
-            return ddim_sample(denoise, x, schedule, eta=eta, key=key)
-        return sample_spec(schedule.spec(x), denoise, x)
-
-    return prepare, sample
-
-
-def make_sampler(kind: str, num_steps: int, eta: float = 0.0):
-    """(kind, steps) -> ``sample(denoise, latents, key=None)`` -> x0
-    latents, ``latents`` standard normal for every kind (eta applies to
-    DDIM alone, as in the reference)."""
-    schedule = make_schedule(kind, num_steps)
-
-    def sample(denoise, latents, key=None):
-        if kind == "ddim":
-            return ddim_sample(denoise, latents, schedule, eta=eta, key=key)
-        return sample_spec(schedule.spec(latents), denoise, latents)
-
-    return sample
 
 
 def make_schedule(kind: str, num_steps: int, consistency: bool = False,

@@ -385,9 +385,10 @@ class Text2ImagePipeline:
         # by sampler_mode, a SpecGraph, SpecDeepCacheGraph or EncpropGraph
         self.step_graphs: Dict[int, SamplerGraph] = {}
         # img2img: the VAE encoder (built on first use) and the captured
-        # tail of each (strength steps, batch)
+        # tail of each (strength steps, latent shape (B, h, w, 4))
         self.vae_enc: Optional[VAEEncoder] = None
-        self.img2img_graphs: Dict[Tuple[int, int], SamplerGraph] = {}
+        self.img2img_graphs: Dict[Tuple[int, Tuple[int, ...]],
+                                  SamplerGraph] = {}
         # host seconds of the last generate() per stage, each ended by a
         # device synchronize; and whether the last decode was finite
         # before its uint8 quantisation
@@ -503,7 +504,8 @@ class Text2ImagePipeline:
         prepared state ``x`` under ``cond``: DDIM, Euler (k-space,
         prescaled) or DPM++ (first order at its first step). On CUDA
         (``graphed`` None or True) one captured step graph per (k,
-        batch), captured on first use, as the reference jits per k."""
+        latent shape), captured on first use, as the reference jits per
+        k and shape."""
         s = self.cfg.sampler
         _, schedule = img2img_start(s.kind, s.num_steps, s.num_steps - k)
         inputs = cfg_inputs(**cond)
@@ -513,7 +515,7 @@ class Text2ImagePipeline:
             graphed = self.device.type == "cuda"
         if not graphed:
             return sample_spec(schedule.spec(x), make(**inputs), x)
-        key = (k, x.shape[0])
+        key = (k, tuple(x.shape))
         graph = self.img2img_graphs.get(key)
         if graph is None:
             graph = SpecGraph(make, schedule, x, **inputs)

@@ -1422,8 +1422,9 @@ def run_img2img(card: str, preset: str, cfg):
     tallies = read_tallies()
     stages = dict(t2i.last_stage_seconds)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    hw = cfg.sampler.image_size // t2i.vae_scale
     replays = {name: g.replays for name, g in
-               t2i.img2img_graphs[(k, 1)].graphs.items()}
+               t2i.img2img_graphs[k, (1, hw, hw, 4)].graphs.items()}
     t0 = time.perf_counter()
     out2 = t2i.generate_img2img(base, prompt, IMG2IMG_STRENGTH, seed=2)
     warm_s = time.perf_counter() - t0
@@ -1801,7 +1802,7 @@ def profile_loop(svc, preset: str, replays: int = 5) -> dict:
         inputs = cfg_inputs(**t2i.encode(["a lighthouse at dusk"]))
         x = torch.randn((1, hw, hw, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(3))
-        graph = (t2i.img2img_graphs[(img2img_steps(t2i.cfg), 1)]
+        graph = (t2i.img2img_graphs[img2img_steps(t2i.cfg), tuple(x.shape)]
                  if preset == "img2img" else t2i.step_graphs[1])
         graph(x, **inputs)                            # warm
         synchronize(dev)
@@ -1881,7 +1882,7 @@ def check_graphs(svc, preset: str, card: str) -> bool:
         k = img2img_steps(t2i.cfg)
         loop = lambda x, cond, graphed: t2i.img2img_tail(   # noqa: E731
             x, cond, k, graphed=graphed)
-        graphs = {f"{key[1]}/tail{key[0]}/{name}": g
+        graphs = {f"{key[1][0]}/tail{key[0]}/{name}": g
                   for key, sg in t2i.img2img_graphs.items()
                   for name, g in sg.graphs.items()}
     else:

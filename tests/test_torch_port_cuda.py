@@ -649,8 +649,8 @@ def test_cuda_img2img_graph_equals_eager(cuda_device, kind):
         assert n == eager_n
     assert eager_n["flash_attention", "launches"] > 0
     assert eager_n["gn_silu_conv3x3", "launches"] > 0
-    assert list(pipe.img2img_graphs) == [(2, 2)]
-    assert pipe.img2img_graphs[(2, 2)].graph.replays == 4
+    assert list(pipe.img2img_graphs) == [(2, (2, 32, 32, 4))]
+    assert pipe.img2img_graphs[2, (2, 32, 32, 4)].graph.replays == 4
 
 
 @pytest.mark.cuda

@@ -189,7 +189,7 @@ def test_generate_img2img_matches_reference(img2img_trees, kind, strength,
 
 
 def test_img2img_tail_graph_equals_eager(img2img_trees, monkeypatch):
-    """The tail as one captured step graph per (k, batch)
+    """The tail as one captured step graph per (k, latent shape)
     (:class:`EagerStep` for the graph) equals the eager tail bit for bit;
     a second strength captures its own graph."""
     monkeypatch.setattr(port_ddim, "CapturedStep", EagerStep)
@@ -203,9 +203,31 @@ def test_img2img_tail_graph_equals_eager(img2img_trees, monkeypatch):
         graphed = pipe.generate_img2img(images, PROMPTS, strength, 4,
                                         graphed=True)
         np.testing.assert_array_equal(graphed, eager)
-    assert sorted(pipe.img2img_graphs) == [(3, 2), (6, 2)]
-    assert pipe.img2img_graphs[(6, 2)].graph.replays == 2 * 6
-    assert len(pipe.img2img_graphs[(6, 2)].carry) == 2
+    lat = (2, 32, 32, 4)
+    assert sorted(pipe.img2img_graphs) == [(3, lat), (6, lat)]
+    assert pipe.img2img_graphs[6, lat].graph.replays == 2 * 6
+    assert len(pipe.img2img_graphs[6, lat].carry) == 2
+
+
+def test_img2img_tail_graph_per_image_size(img2img_trees, monkeypatch):
+    """Images of another size at the same batch and strength capture a
+    tail graph of their own (the reference's jit retraces per shape),
+    each equal to the eager tail bit for bit."""
+    monkeypatch.setattr(port_ddim, "CapturedStep", EagerStep)
+    _, cfg = _configs(kind="dpmpp_2m", num_steps=10)
+    sd = {k: from_jax(k, v) for k, v in img2img_trees.items()}
+    pipe = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
+    for size in (64, 32, 64):
+        images = _images(110, size=size)
+        eager = pipe.generate_img2img(images, PROMPTS, 0.3, 5,
+                                      graphed=False)
+        graphed = pipe.generate_img2img(images, PROMPTS, 0.3, 5,
+                                        graphed=True)
+        assert graphed.shape == images.shape
+        np.testing.assert_array_equal(graphed, eager)
+    assert sorted(pipe.img2img_graphs) == [(3, (2, 16, 16, 4)),
+                                           (3, (2, 32, 32, 4))]
+    assert pipe.img2img_graphs[3, (2, 32, 32, 4)].graph.replays == 2 * 3
 
 
 @pytest.mark.parametrize("strength,k", [(0.6, 6), (0.05, 1), (0.25, 2),
@@ -219,7 +241,7 @@ def test_img2img_strength_steps(img2img_trees, strength, k, monkeypatch):
         "vae_enc": from_jax("vae_enc", img2img_trees["vae_enc"])})
     pipe.generate_img2img(_images(109, b=1), PROMPTS[:1], strength, 0,
                           graphed=True)
-    assert list(pipe.img2img_graphs) == [(k, 1)]
+    assert list(pipe.img2img_graphs) == [(k, (1, 32, 32, 4))]
 
 
 @pytest.mark.parametrize("sampler_kw,error,match", [

@@ -225,7 +225,9 @@ def _x(np_array=X_T):
 def test_make_sampler_matches_reference(kind, n):
     jx, px = _x()
     ref = jsamplers.make_sampler(kind, n)(jden, jx)
-    assert_rel(port_samplers.make_sampler(kind, n)(pden, px), ref, TOY_REL)
+    schedule = port_samplers.make_schedule(kind, n)
+    assert_rel(port_ddim.sample_spec(schedule.spec(px), pden, px), ref,
+               TOY_REL)
 
 
 @pytest.mark.parametrize("n,teacher", [(1, 50), (2, 50), (4, 50), (8, 50),
@@ -233,7 +235,9 @@ def test_make_sampler_matches_reference(kind, n):
 def test_consistency_sample_matches_reference(n, teacher):
     jx, px = _x()
     ref = jsamplers.make_consistency_sampler(n, teacher)(jden, jx)
-    got = port_samplers.make_consistency_sampler(n, teacher)(pden, px)
+    schedule = port_samplers.make_schedule("ddim", n, consistency=True,
+                                           teacher_steps=teacher)
+    got = port_ddim.sample_spec(schedule.spec(px), pden, px)
     assert_rel(got, ref, TOY_REL)
 
 
@@ -263,14 +267,14 @@ def test_img2img_sampler_matches_reference(kind, n, start):
     """``prepare`` (VP or k-space entry at ``start``) equal, the tail
     within 1e-5."""
     jprep, jsample = jsamplers.make_img2img_sampler(kind, n, start)
-    pprep, psample = port_samplers.make_img2img_sampler(kind, n, start)
+    pprep, schedule = port_samplers.img2img_start(kind, n, start)
     jx0, px0 = _x()
     jn, pn = _x(NOISE)
     ref_x = np.asarray(jprep(jx0, jn))
     got_x = pprep(px0, pn)
     np.testing.assert_array_equal(got_x.numpy(), ref_x)
-    assert_rel(psample(pden, got_x), jsample(jden, jnp.asarray(ref_x)),
-               TOY_REL)
+    assert_rel(port_ddim.sample_spec(schedule.spec(got_x), pden, got_x),
+               jsample(jden, jnp.asarray(ref_x)), TOY_REL)
 
 
 @pytest.mark.parametrize("n", [6, 7, 24, 25])
@@ -279,8 +283,8 @@ def test_dpmpp_deepcache_matches_reference(n):
     jx, px = _x()
     ref = jsamplers.dpmpp_2m_sample_deepcache(
         jfull, jshallow, jx, jsamplers.DPMppSchedule.create(n))
-    got = port_samplers.dpmpp_2m_sample_deepcache(
-        pfull, pshallow, px, port_samplers.DPMppSchedule.create(n))
+    got = port_ddim.sample_spec_deepcache(
+        port_samplers.DPMppSchedule.create(n).spec(px), pfull, pshallow, px)
     assert_rel(got, ref, TOY_REL)
 
 
@@ -296,25 +300,29 @@ def test_encprop_sampler_matches_reference(kind, deepcache, n, stride,
     ref = jsamplers.make_encprop_sampler(kind, n, stride, dense, deepcache)(
         jkey(deepcache), jprop, jx,
         denoise_shallow=jshallow if deepcache else None)
-    got = port_samplers.make_encprop_sampler(kind, n, stride, dense,
-                                             deepcache)(
-        pkey(deepcache), pprop, px,
+    got = port_ddim.encprop_sample(
+        port_samplers.make_schedule(kind, n).spec(px), pkey(deepcache),
+        pprop, px, stride, dense,
         denoise_shallow=pshallow if deepcache else None)
     assert_rel(got, ref, TOY_REL)
 
 
 def test_encprop_sampler_refusals_match_reference():
+    """Encoder propagation over euler with DeepCache, and an unknown
+    kind, are refused when the pipeline is built, with the reference's
+    sampler factories' errors."""
+    s = _tiny(kind="euler", encprop=True, encprop_dense_steps=0,
+              deepcache=True).sampler
     with pytest.raises(AssertionError, match="not 'euler'"):
-        port_samplers.make_encprop_sampler("euler", 8, 3, 0, deepcache=True)
-    sample = port_samplers.make_encprop_sampler("euler", 8, 3, 0)
-    with pytest.raises(AssertionError, match="no deepcache loop"):
-        sample(pkey(True), pprop, torch.from_numpy(X_T),
-               denoise_shallow=pshallow)
-    for make in (port_samplers.make_sampler,
-                 port_samplers.make_encprop_sampler):
+        jsamplers.make_encprop_sampler("euler", 8, 3, 0, deepcache=True)
+    for check in (port_pipeline.encprop_plan, port_pipeline.sampler_mode):
+        with pytest.raises(AssertionError, match="not 'euler'"):
+            check(s)
+    for make in (jsamplers.make_sampler, port_samplers.make_schedule):
         with pytest.raises(ValueError, match="unknown sampler kind"):
-            make("heun", 8, 3) if make is not port_samplers.make_sampler \
-                else make("heun", 8)
+            make("heun", 8)
+    with pytest.raises(ValueError, match="unknown sampler kind"):
+        port_pipeline.sampler_mode(_tiny(kind="heun").sampler)
 
 
 # -- the graph bodies, run eagerly ---------------------------------------------
@@ -375,8 +383,8 @@ def test_spec_deepcache_graph_equals_the_eager_loop(n, monkeypatch):
                                              **_toy_inputs())
         for lat in (x_t, x_t * 0.5):
             got = graph(lat, **_toy_inputs())
-            want = port_samplers.dpmpp_2m_sample_deepcache(
-                pfull, pshallow, lat, schedule)
+            want = port_ddim.sample_spec_deepcache(
+                schedule.spec(lat), pfull, pshallow, lat)
             assert torch.equal(got, want)
     replays = {k: g.replays for k, g in graph.graphs.items()}
     assert replays == ({"pair": 6, "tail": 2} if n % 2 else {"pair": 6})
@@ -397,9 +405,8 @@ def test_encprop_graph_over_each_solver(kind, deepcache, monkeypatch):
                                        **_toy_inputs())
         for lat in (x_t, x_t * 0.5):
             got = graph(lat, **_toy_inputs())
-            want = port_samplers.make_encprop_sampler(
-                kind, 8, 3, 1, deepcache)(
-                pkey(deepcache), pprop, lat,
+            want = port_ddim.encprop_sample(
+                schedule.spec(lat), pkey(deepcache), pprop, lat, 3, 1,
                 denoise_shallow=pshallow if deepcache else None)
             assert torch.equal(got, want)
     assert {k: g.replays for k, g in graph.graphs.items()} == {
