@@ -1,0 +1,36 @@
+"""Deterministic fault injection (a copy of ``cassmantle_tpu/chaos``).
+
+``fault_point`` is the no-op-unless-armed hook at the serving seam's
+boundaries; ``configure`` arms a seeded plan from a spec string
+(``disarm`` drops it); ``status()`` describes the armed plan.
+"""
+
+from cassmantle_tpu_torch.chaos.core import (
+    FAULT_POINTS,
+    KINDS,
+    ChaosInjected,
+    ChaosPartition,
+    ChaosPlan,
+    ChaosRule,
+    armed,
+    configure,
+    disarm,
+    fault_point,
+    parse_spec,
+    status,
+)
+
+__all__ = [
+    "FAULT_POINTS",
+    "KINDS",
+    "ChaosInjected",
+    "ChaosPartition",
+    "ChaosPlan",
+    "ChaosRule",
+    "armed",
+    "configure",
+    "disarm",
+    "fault_point",
+    "parse_spec",
+    "status",
+]

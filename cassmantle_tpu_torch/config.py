@@ -282,8 +282,40 @@ class SpecDecodeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
-    # Padded batch buckets of the scorer's device encode.
+    """The serving seam's bounds, at the reference's defaults
+    (``cassmantle_tpu/config.py::ServingConfig``)."""
+
+    # Padded batch buckets of the scorer's device encode; 2048 covers the
+    # guesses and answers of 1k pairs in one dispatch.
     score_batch_sizes: Tuple[int, ...] = (8, 64, 256, 1024, 2048)
+    # The batching queues (serving/queue.py): the coalescing window and
+    # the static bound on pending submissions.
+    max_queue_delay_ms: float = 25.0
+    max_pending: int = 4096
+    # Per-request deadline (None: none): bounds a wedged dispatch, sized
+    # for a cold first call (kernel builds, graph captures); not a
+    # latency target.
+    submit_deadline_s: Optional[float] = 300.0
+    # Dispatch watchdog: a handler running longer has wedged the dispatch
+    # thread, which is disowned and replaced (None: off).
+    dispatch_hang_s: Optional[float] = 300.0
+    # The pending bound while the supervisor reports degraded.
+    degraded_max_pending: int = 256
+    # Adaptive (AIMD) admission (serving/overload.py): the latency target
+    # of queue wait + batch service, and the floor of the limit;
+    # CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 reverts to the static bounds.
+    queue_latency_target_s: float = 1.0
+    admission_min_pending: int = 8
+    # Background work (round generation) sheds at this fraction of the
+    # limit, first under pressure.
+    admission_background_fraction: float = 0.5
+    # Starvation bound: after this many consecutive batches dispatched
+    # with background work pending, the oldest background item heads the
+    # next batch.
+    background_every_batches: int = 8
+    # Event-loop lag (the server.loop_lag_s gauge) above which background
+    # submissions shed; interactive ones shed at 4x.
+    loop_lag_shed_s: float = 0.25
 
 
 @dataclasses.dataclass(frozen=True)

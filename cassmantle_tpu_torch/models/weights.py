@@ -24,11 +24,14 @@ the reference applies as ``pooled @ proj``; ``SDXLPipeline`` takes it as
 it is, with no transpose.
 
 Loading HF/diffusers checkpoints waits for checkpoints in the repository.
+
+:class:`ParamSnapshot` keeps host copies of a served model's parameters
+and copies them back in place: the device-loss rebuild's reload.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,3 +91,37 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     if kind not in KINDS:
         raise ValueError(f"unknown model kind {kind!r}; one of {KINDS}")
     return state_dict_from_tree(params)
+
+
+class ParamSnapshot:
+    """Host copies of ``tensors`` (parameters and buffers on the device),
+    taken while the device is healthy; :meth:`restore` copies them back
+    into the same tensors in place, so anything holding their addresses
+    (the captured CUDA graphs) stays valid. The port's counterpart of the
+    reference's checkpoint re-upload in ``reload_params``."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        seen = set()
+        self._pairs = []
+        for t in tensors:
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            self._pairs.append((t, t.detach().to("cpu", copy=True)))
+        self.nbytes = sum(h.numel() * h.element_size()
+                          for _, h in self._pairs)
+
+    def restore(self) -> None:
+        with torch.inference_mode():
+            for live, host in self._pairs:
+                live.copy_(host)
+
+
+def module_tensors(*modules: Optional[torch.nn.Module]
+                   ) -> List[torch.Tensor]:
+    """Every parameter and buffer of ``modules`` (None skipped)."""
+    out: List[torch.Tensor] = []
+    for m in modules:
+        if m is not None:
+            out += list(m.parameters()) + list(m.buffers())
+    return out

@@ -20,6 +20,25 @@ replays.
   owns them; they must stay put);
 - :meth:`CapturedStep.replay`.
 
+Captures run while other threads use the card (the serving seam scores
+guesses on its dispatch thread while a round's first call captures its
+denoise graph in an executor thread). So a capture is made in
+``capture_error_mode="thread_local"`` on a side stream its thread owns:
+another thread's synchronizing or allocating CUDA calls neither fail
+nor invalidate it. And nothing here synchronizes the whole device or
+empties the allocator's cache (``torch.cuda.graph`` does both on entry,
+so its context manager is not used): the warm-up waits on its thread's
+own stream (:func:`thread_stream`), and ``pool_bytes`` is read from the graph's own private pool.
+Device-wide ``torch.cuda.synchronize`` would wait on a capturing stream
+of another thread and break that capture; the port's serving paths wait
+on their own stream (``utils/device.py::synchronize``).
+
+:func:`no_new_captures` is the capture sentinel, the counterpart of the
+reference's ``utils/jit_sentinel.no_new_compiles``: a block during which
+any :class:`CapturedStep` captures raises :class:`NewCaptureError` (the
+device-loss recovery warms under it: a rebuild reloads parameters in
+place, so every graph stays valid).
+
 Launch tallies: the kernel wrappers count their launches in Python when
 they launch. A replay runs no Python, so the capture's tally (what the
 step's wrappers counted while it was captured) is kept and added on
@@ -31,7 +50,8 @@ raises propagates its error; nothing falls back to eager.
 from __future__ import annotations
 
 import collections
-import gc
+import contextlib
+import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -50,6 +70,52 @@ COUNTERS = (
 )
 
 Tally = Dict[Tuple[Callable, str], object]
+
+# captures made in this process (every CapturedStep, any thread)
+_captures = 0
+_captures_lock = threading.Lock()
+_local = threading.local()
+
+
+def thread_stream() -> "torch.cuda.Stream":
+    """This thread's own side stream for warm-ups and captures, made on
+    its first use. Pool streams are handed out round-robin (32 a
+    device), so one per thread keeps the capturing threads (fewer than
+    32) on streams no other thread enqueues to."""
+    stream = getattr(_local, "stream", None)
+    if stream is None:
+        stream = _local.stream = torch.cuda.Stream()
+    return stream
+
+
+class NewCaptureError(RuntimeError):
+    """A CUDA graph was captured inside a :func:`no_new_captures` block."""
+
+
+def _note_capture() -> None:
+    global _captures
+    with _captures_lock:
+        _captures += 1
+
+
+def capture_count() -> int:
+    """Captures made in this process so far."""
+    with _captures_lock:
+        return _captures
+
+
+@contextlib.contextmanager
+def no_new_captures():
+    """Raise :class:`NewCaptureError` at the end of the block when any
+    :class:`CapturedStep` (in any thread) captured inside it: the steady
+    state after warm-up captures nothing."""
+    before = capture_count()
+    yield
+    new = capture_count() - before
+    if new:
+        raise NewCaptureError(
+            f"{new} CUDA graph capture(s) inside a no_new_captures block: "
+            f"a path that should replay its graphs captured new ones")
 
 
 def snapshot() -> Tally:
@@ -88,6 +154,13 @@ def add(tally: Tally, times: int = 1) -> None:
             setattr(fn, attr, getattr(fn, attr) + times * delta)
 
 
+def pool_bytes(pool) -> int:
+    """Device bytes of the segments in the allocator's private pool
+    ``pool`` (a graph's ``pool()``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 class CapturedStep:
     """``fn`` (no arguments; reads and writes buffers that stay put)
     warmed up, captured into a CUDA graph and replayed by
@@ -99,7 +172,7 @@ class CapturedStep:
     Host seconds of the set-up are kept: ``warmup_s``, ``capture_s``
     (the step's Python under capture) and ``instantiate_s`` (ending the
     capture, which instantiates the graph); ``pool_bytes`` is the device
-    memory the capture reserved for the graph's private pool."""
+    memory of the graph's private pool."""
 
     def __init__(self, fn: Callable[[], object],
                  reset: Optional[Callable[[], object]] = None):
@@ -115,34 +188,36 @@ class CapturedStep:
             warm = snapshot()
             self._capture()
             self.tally = difference(snapshot(), warm)
+            _note_capture()
         finally:
             add(difference(snapshot(), start), -1)
 
     def _warm_up(self) -> None:
         current = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
+        side = thread_stream()
         side.wait_stream(current)
         with torch.cuda.stream(side):
             self.fn()
         current.wait_stream(side)
-        torch.cuda.synchronize()
+        side.synchronize()
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph releases the allocator's cached blocks before it
-        # captures; release them first, so the pool's bytes are what the
-        # capture reserved
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
+        current = torch.cuda.current_stream()
+        side = thread_stream()
+        side.wait_stream(current)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self.output = self.fn()
-            t1 = time.perf_counter()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.output = self.fn()
+                t1 = time.perf_counter()
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
         self.instantiate_s = time.perf_counter() - t1
         self.capture_s = t1 - t0
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.pool_bytes = pool_bytes(graph.pool())
         self.graph = graph
 
     def replay(self):

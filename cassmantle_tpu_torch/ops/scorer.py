@@ -1,27 +1,51 @@
-"""Batched embedding similarity scorer (MiniLM on the device).
+"""Batched embedding similarity scorer: the scoring ladder.
 
-Port of the device rung of ``cassmantle_tpu/ops/scorer.py::
-EmbeddingScorer``: guesses and answers tokenize on the host, pad into one
-of a few fixed (batch, seq) buckets, embed in one device call per bucket
-chunk and score as a cosine. The reference's int8 wordlist table and
-host LRU (rungs above the device) come in a later slice.
+Port of ``cassmantle_tpu/ops/scorer.py::EmbeddingScorer`` (``:58-335``).
+:meth:`EmbeddingScorer.embed` climbs the ladder: rung 0, the int8
+wordlist table (``ops/embed_table.py``, ``scorer.table_hits`` /
+``scorer.table_oov``); then the host LRU of unit embeddings; then the
+device: guesses and answers tokenize on the host, pad into one of a few
+fixed (batch, seq) buckets and embed in one MiniLM forward per bucket
+chunk, with the per-row integrity verdict (``finite_verdict``) computed
+on the device beside it and read back with the rows. A row the verdict
+rejects comes back NaN and never enters the LRU.
+
+The port makes its own table: :meth:`EmbeddingScorer.build_table`
+embeds the game's wordlist (``data/wordlist.txt`` with the seeds' and
+styles' words) through this scorer's encoder on its device in buckets of
+2,048, quantizes it with the reference's scheme and caches it in the
+git-ignored ``cassmantle_tpu_torch/_build/`` under its signature.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+import os
+import threading
+import time
+from collections import OrderedDict
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from cassmantle_tpu_torch.chaos import fault_point
 from cassmantle_tpu_torch.config import MiniLMConfig
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.minilm import MiniLMEncoder
+from cassmantle_tpu_torch.models.weights import ParamSnapshot, module_tensors
+from cassmantle_tpu_torch.ops import embed_table as et
+from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils.device import DeviceLike, resolve_device
+from cassmantle_tpu_torch.utils.logging import get_logger, metrics
+from cassmantle_tpu_torch.utils.text import load_wordlist
 from cassmantle_tpu_torch.utils.tokenizers import load_tokenizer
+
+log = get_logger("scorer")
 
 # Seed offset of the scorer's random init (the reference's init slot).
 INIT_SEED = 7
+# Rows per device forward when building the table.
+TABLE_BUCKET = 2048
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -32,17 +56,26 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class EmbeddingScorer:
-    """Owns the encoder, its tokenizer and the batch buckets."""
+    """Owns the encoder, its tokenizer, the batch buckets, the LRU and the
+    int8 table (``table``: an :class:`~.embed_table.EmbedTable`, or None
+    for none; the service passes the one :meth:`build_table` makes)."""
 
     def __init__(self, cfg: MiniLMConfig, device: DeviceLike = "cuda",
                  seq_len: int = 16,
                  batch_buckets: Sequence[int] = (8, 64, 256, 1024),
-                 state_dict: Optional[Mapping] = None, seed: int = 0):
+                 state_dict: Optional[Mapping] = None, seed: int = 0,
+                 embed_cache_size: int = 2048,
+                 table: Optional[et.EmbedTable] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seq_len = min(seq_len, cfg.max_positions)
         self.batch_buckets = tuple(batch_buckets)
         self.tokenizer = load_tokenizer("minilm", cfg.vocab_size)
+        # text -> unit embedding; a short-hold leaf lock (dict updates
+        # only: the device encode runs outside it)
+        self._embed_cache: OrderedDict = OrderedDict()
+        self._embed_cache_size = embed_cache_size
+        self._embed_cache_lock = threading.Lock()
         with torch.device(self.device):
             self.model = MiniLMEncoder(cfg)
         if state_dict is not None:
@@ -51,7 +84,70 @@ class EmbeddingScorer:
             gen = torch.Generator(self.device).manual_seed(seed + INIT_SEED)
             init_weights(self.model, gen)
         self.model.eval()
+        self.weights_fp = et.weights_fingerprint(
+            state_dict, device=self.device.type, seed=seed + INIT_SEED)
+        self._snapshot = None
+        self.table: Optional[et.EmbedTable] = None
+        self.arm_table(table)
 
+    # -- the table -------------------------------------------------------
+    def arm_table(self, table: Optional[et.EmbedTable]) -> None:
+        """Serve rung 0 from ``table`` (None: no rung 0)."""
+        if table is not None and table.dim != self.cfg.hidden_size:
+            raise ValueError(f"embed table dim {table.dim} != scorer "
+                             f"hidden size {self.cfg.hidden_size}")
+        self.table = table
+        if table is not None:
+            metrics.gauge("scorer.table_rows", len(table))
+
+    def table_signature(self, words: Sequence[str]) -> str:
+        return et.table_signature(self.cfg, self.seq_len,
+                                  [et.normalize_key(w) for w in words],
+                                  self.weights_fp)
+
+    def build_table(self, words: Optional[Sequence[str]] = None,
+                    path: Optional[str] = None) -> Tuple[et.EmbedTable,
+                                                         dict]:
+        """The int8 table of ``words`` (default: the game's wordlist) made
+        with this scorer's encoder, loaded from ``path`` (default: the
+        cache file of its signature) when that holds it, else embedded on
+        this scorer's device in buckets of 2,048 rows, written there and
+        loaded. Returns (table, stats: seconds, bytes, rows, built)."""
+        t0 = time.perf_counter()
+        words = list(dict.fromkeys(
+            et.normalize_key(w) for w in (words or load_wordlist())))
+        sig = self.table_signature(words)
+        path = path or et.cache_path(sig)
+        table = et.EmbedTable.load(path, expected_signature=sig)
+        built = table is None
+        if built:
+            rows = [self._embed_device(words[i:i + TABLE_BUCKET],
+                                       TABLE_BUCKET)[0]
+                    for i in range(0, len(words), TABLE_BUCKET)]
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            et.write_table(path, words, np.concatenate(rows), self.cfg,
+                           self.seq_len, self.weights_fp)
+            table = et.EmbedTable.load(path, expected_signature=sig)
+        return table, {"seconds": time.perf_counter() - t0,
+                       "bytes": os.path.getsize(path), "rows": len(words),
+                       "built": built}
+
+    # -- device-loss rebuild ----------------------------------------------
+    def snapshot_params(self) -> None:
+        """Keep host copies of the encoder's parameters (at service
+        start) for :meth:`reload_params`."""
+        self._snapshot = ParamSnapshot(module_tensors(self.model))
+
+    def reload_params(self) -> None:
+        """Device-loss rebuild: copy the snapshot back into the encoder in
+        place. The LRU and the table hold host arrays addressed by text,
+        so neither needs invalidating."""
+        if self._snapshot is None:
+            raise RuntimeError("reload_params needs a snapshot_params() "
+                               "taken while the device was healthy")
+        self._snapshot.restore()
+
+    # -- host-side batching ----------------------------------------------
     def _tokenize_batch(self, texts: Sequence[str], batch: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
         ids = np.full((batch, self.seq_len), self.tokenizer.pad_id,
@@ -65,28 +161,126 @@ class EmbeddingScorer:
             mask[i, : len(toks)] = 1
         return ids, mask
 
-    def embed(self, texts: Sequence[str]) -> np.ndarray:
-        """(n,) texts -> (n, D) unit embeddings, fp32 host array."""
+    def _embed_device(self, texts: Sequence[str],
+                      batch: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """The uncached device path: (n,) texts -> ((n, D) unit
+        embeddings, (n,) validity), one encode per bucket chunk. Validity
+        is the device verdict with the copied rows' own finiteness (all
+        True under the integrity kill switch)."""
         n = len(texts)
-        if n == 0:
-            return np.zeros((0, self.cfg.hidden_size), dtype=np.float32)
-        batch = pick_bucket(n, self.batch_buckets)
-        chunks = []
+        batch = batch or pick_bucket(n, self.batch_buckets)
+        out_chunks, ok_chunks = [], []
         for start in range(0, n, batch):
             chunk = texts[start:start + batch]
             ids, mask = self._tokenize_batch(chunk, batch)
+            fault_point("device.lost", peer="scorer")
             with torch.inference_mode():
                 emb = self.model(torch.from_numpy(ids).to(self.device),
                                  torch.from_numpy(mask).to(self.device))
-            chunks.append(emb[: len(chunk)].cpu().numpy())
-        return np.concatenate(chunks, axis=0)
+                # the verdict rides the rows' copy: one host read a dispatch
+                both = torch.cat([emb.float(), integrity.finite_verdict(
+                    emb)[:, None].float()], dim=1).cpu().numpy()
+            emb, verdict = both[:, :-1], both[:, -1] > 0.5
+            metrics.inc("scorer.dispatches")
+            rows = integrity.poison(emb[: len(chunk)], peer="scorer")
+            out_chunks.append(rows)
+            if integrity.integrity_disabled():
+                ok_chunks.append(np.ones(len(chunk), dtype=bool))
+            else:
+                ok_chunks.append(verdict[: len(chunk)]
+                                 & np.isfinite(rows).all(axis=-1))
+        return np.concatenate(out_chunks), np.concatenate(ok_chunks)
+
+    def embed(self, texts: Sequence[str]) -> np.ndarray:
+        """(n,) texts -> (n, D) unit embeddings, fp32 host array, through
+        the ladder: int8 table, LRU, device. Only the unique texts that
+        missed both reach the device; ``scorer.embed_cache_misses``
+        counts them, ``scorer.embed_cache_hits`` the LRU's rows. Rows the
+        integrity verdict rejects are NaN (and not cached)."""
+        n = len(texts)
+        if n == 0:
+            return np.zeros((0, self.cfg.hidden_size), dtype=np.float32)
+        out = np.zeros((n, self.cfg.hidden_size), dtype=np.float32)
+        table = (self.table if self.table is not None
+                 and not et.embed_table_disabled() else None)
+        if table is not None:
+            rest: List[int] = []
+            for i, text in enumerate(texts):
+                row = table.lookup(text)
+                if row is None:
+                    rest.append(i)
+                else:
+                    out[i] = row
+            metrics.inc("scorer.table_hits", n - len(rest))
+            metrics.inc("scorer.table_oov", len(rest))
+        else:
+            rest = list(range(n))
+        miss_rows: "OrderedDict[str, list]" = OrderedDict()
+        with self._embed_cache_lock:
+            for i in rest:
+                emb = self._embed_cache.get(texts[i])
+                if emb is not None:
+                    self._embed_cache.move_to_end(texts[i])
+                    out[i] = emb
+                else:
+                    miss_rows.setdefault(texts[i], []).append(i)
+        if miss_rows:
+            fresh, ok = self._embed_device(list(miss_rows))
+            bad_members: List[int] = []
+            with self._embed_cache_lock:
+                for row, valid, (text, idxs) in zip(fresh, ok,
+                                                    miss_rows.items()):
+                    if not valid:
+                        out[idxs] = np.nan
+                        bad_members.extend(idxs)
+                        continue
+                    out[idxs] = row
+                    if self._embed_cache_size > 0:
+                        self._embed_cache[text] = row.copy()
+                        self._embed_cache.move_to_end(text)
+                        while len(self._embed_cache) > \
+                                self._embed_cache_size:
+                            self._embed_cache.popitem(last=False)
+            if bad_members:
+                integrity.note_invalid("scorer", "encode",
+                                       sorted(bad_members))
+        metrics.inc("scorer.texts", n)
+        metrics.inc("scorer.embed_cache_misses", len(miss_rows))
+        metrics.inc("scorer.embed_cache_hits", len(rest) - len(miss_rows))
+        return out
 
     def similarity(self, pairs: Sequence[Tuple[str, str]]) -> np.ndarray:
         """[(guess, answer)] -> cosine similarity per pair, one device
-        batch for all guesses and answers."""
+        batch for all guesses and answers that missed the table and LRU."""
         if not pairs:
             return np.zeros((0,), dtype=np.float32)
         texts = [g for g, _ in pairs] + [a for _, a in pairs]
         emb = self.embed(texts)
         n = len(pairs)
         return np.sum(emb[:n] * emb[n:], axis=-1)
+
+    def table_scores(self, pairs: Sequence[Tuple[str, str]]):
+        """Rung 0 for the service: [(guess, answer)] -> (scores, served)
+        through the int8 table, or None with no table or under the kill
+        switch. Pairs ``served`` completed with no device dispatch."""
+        if self.table is None or et.embed_table_disabled():
+            return None
+        return self.table.score_pairs(list(pairs))
+
+    def pin_answers(self, words: Sequence[str]) -> int:
+        """Pin round answers missing from the table: embedded once through
+        the LRU and device rungs, quantized with the table's scheme and
+        overlaid. Returns the rows pinned (``scorer.table_pins``)."""
+        if self.table is None or et.embed_table_disabled():
+            return 0
+        todo: List[str] = []
+        for w in words:
+            key = et.normalize_key(w)
+            if key and key not in todo and not self.table.contains(key):
+                todo.append(key)
+        if not todo:
+            return 0
+        for w, row in zip(todo, self.embed(todo)):
+            self.table.pin(w, row)
+        return len(todo)

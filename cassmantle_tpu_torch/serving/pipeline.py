@@ -7,7 +7,8 @@ uint8), ``PromptGenerator`` (bucketed GPT-2 or Mistral-7B decode: greedy,
 top-k sampled, or speculative under ``spec_decode``; trimmed to two
 sentences) and ``TPUContentBackend.generate_sync`` as
 :class:`TorchContentBackend`, and ``Text2ImagePipeline.generate_img2img``
-(the VAE encoder, then a schedule tail from the noised encoding). Models are built at the configured width
+(the VAE encoder, then a schedule tail from the noised encoding). Models
+are built at the configured width
 with seeded random weights, or from given state dicts (the parity tests
 carry the reference's parameters over with ``models.weights.from_jax``).
 The fused-conv and W8A8 presets build the same models: the UNet with
@@ -16,8 +17,22 @@ The fused-conv and W8A8 presets build the same models: the UNet with
 build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
 A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
-``TPUContentBackend`` does. Staged serving, brownout tiers and integrity
-sentinels are later slices.
+``TPUContentBackend`` does. Staged serving and brownout tiers are later
+slices.
+
+Serving seam: each pipeline serializes its device work under its own
+dispatch lock (``_dispatch_lock``, as the reference's), since its CUDA
+graphs replay over static buffers that two overlapping calls would
+overwrite; the image paths run in an executor thread
+(:meth:`TorchContentBackend.generate`) while the scorer and the prompt
+decode run on the batching queue's dispatch thread. The integrity
+sentinels sit where the reference has them (``serving/integrity.py``):
+the ``device.lost`` fault point inside each dispatch, ``poison`` and the
+degenerate-frame verdict on the uint8 batch, the token-range verdict on
+the decoded ids; :meth:`PromptGenerator.generate_batch` returns a
+rejected row as an ``OutputInvalid`` in its slot. ``reload_params``
+copies the parameters snapshotted at service start back in place
+(:class:`ParamSnapshot`), so every captured graph stays valid.
 
 The denoise stage is the reference's ``run_cfg_denoise``, in its order:
 few-step consistency sampling (``sampler.consistency``), encoder
@@ -42,10 +57,13 @@ speculative decode one captured draft/verify chunk per shape
 
 from __future__ import annotations
 
+import asyncio
+import contextvars
 import dataclasses
 import logging
 import os
 import random
+import threading
 import time
 from functools import partial
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -53,12 +71,14 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cassmantle_tpu_torch.chaos import fault_point
 from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.mistral import MistralLM
 from cassmantle_tpu_torch.models.unet import UNet
+from cassmantle_tpu_torch.models.weights import ParamSnapshot, module_tensors
 from cassmantle_tpu_torch.models.vae import (
     VAEDecoder,
     VAEEncoder,
@@ -104,6 +124,7 @@ from cassmantle_tpu_torch.ops.samplers import (
     img2img_start,
     make_schedule,
 )
+from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils import jax_random
 from cassmantle_tpu_torch.utils.device import (
     DeviceLike,
@@ -111,6 +132,7 @@ from cassmantle_tpu_torch.utils.device import (
     synchronize,
     torch_dtype,
 )
+from cassmantle_tpu_torch.utils.locks import OrderedLock
 from cassmantle_tpu_torch.utils.text import (
     is_wordlike,
     load_styles,
@@ -330,9 +352,37 @@ def check_eta(sampler_cfg) -> None:
         raise ValueError("eta > 0 requires an rng key")
 
 
-class Text2ImagePipeline:
+class _ReloadsParams:
+    """The device-loss rebuild of a pipeline with a ``_dispatch_lock`` and
+    ``param_tensors()``: host copies of the served parameters, taken at
+    service start while the device is healthy, copied back in place under
+    the lock, so the captured graphs keep their buffers and stay valid."""
+
+    _snapshot: Optional[ParamSnapshot] = None
+
+    def snapshot_params(self) -> ParamSnapshot:
+        with self._dispatch_lock:
+            self._snapshot = ParamSnapshot(self.param_tensors())
+        return self._snapshot
+
+    def reload_params(self) -> None:
+        """Raises without a snapshot, and on a context an error left
+        unusable (a sticky CUDA error)."""
+        if self._snapshot is None:
+            raise RuntimeError("reload_params needs a snapshot_params() "
+                               "taken while the device was healthy")
+        with self._dispatch_lock:
+            self._snapshot.restore()
+            synchronize(self.device)
+
+
+class Text2ImagePipeline(_ReloadsParams):
     """prompts -> (B, H, W, 3) uint8 images: CLIP -> the CFG sampler loop
     -> VAE; and images + prompts -> images (:meth:`generate_img2img`)."""
+
+    # the name its fault points, integrity verdicts and lock carry
+    PIPELINE = "t2i"
+    LOCK_RANK = 10
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None):
@@ -342,6 +392,11 @@ class Text2ImagePipeline:
         w8a8 = w8a8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # serializes this pipeline's device work: its graphs replay over
+        # static buffers (x_t, the conditioning) that two overlapping
+        # calls would overwrite
+        self._dispatch_lock = OrderedLock(
+            f"pipeline.{self.PIPELINE}_dispatch", rank=self.LOCK_RANK)
         m = cfg.models
         sd = state_dicts or {}
         # the encoder's weights, kept for its build on first use
@@ -394,6 +449,10 @@ class Text2ImagePipeline:
         # before its uint8 quantisation
         self.last_stage_seconds: Dict[str, float] = {}
         self.last_decoded_finite = True
+
+    def param_tensors(self) -> List[torch.Tensor]:
+        """The parameters and buffers the pipeline serves from."""
+        return module_tensors(self.clip, self.unet, self.vae, self.vae_enc)
 
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
@@ -459,7 +518,21 @@ class Text2ImagePipeline:
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  latents: Optional[torch.Tensor] = None) -> np.ndarray:
         """prompts -> (B, H, W, 3) uint8 host array. ``latents`` (B, h, w, 4)
-        replaces the seeded x_T (the parity tests feed the reference's)."""
+        replaces the seeded x_T (the parity tests feed the reference's).
+        The device work runs under the dispatch lock; a degenerate
+        (constant) frame raises ``OutputInvalid``."""
+        with self._dispatch_lock:
+            fault_point("device.lost", peer=self.PIPELINE)
+            images = self._generate_locked(prompts, seed, latents)
+        out = integrity.poison(images, peer=self.PIPELINE)
+        # the host-side sentinel on the uint8 batch already copied back:
+        # the verdict stays out of the captured graphs
+        integrity.enforce(np.ones(len(out), dtype=bool),
+                          pipeline=self.PIPELINE, stage="sample", images=out)
+        return out
+
+    def _generate_locked(self, prompts: Sequence[str], seed: int,
+                         latents: Optional[torch.Tensor]) -> np.ndarray:
         s = self.cfg.sampler
         if latents is None:
             gen = torch.Generator(self.device).manual_seed(seed)
@@ -533,7 +606,9 @@ class Text2ImagePipeline:
         reference's ``generate_img2img``: its keys ``split(PRNGKey(seed))``
         (the encoder's sample, the noise) drawn as ``jax.random`` draws
         them. DeepCache, encprop and consistency configs are refused, as
-        the reference refuses them; so is DDIM at eta > 0."""
+        the reference refuses them; so is DDIM at eta > 0. The device work
+        runs under the dispatch lock; a degenerate frame raises
+        ``OutputInvalid``."""
         if not 0.0 < strength <= 1.0:
             raise AssertionError(f"strength {strength} outside (0, 1]")
         s = self.cfg.sampler
@@ -555,6 +630,18 @@ class Text2ImagePipeline:
                 "the schedule, not arbitrary strength tails); use a "
                 "non-consistency config for image-conditioned generation")
         check_eta(s)
+        with self._dispatch_lock:
+            out = self._img2img_locked(images, prompts, strength, seed,
+                                       graphed)
+        integrity.enforce(np.ones(len(out), dtype=bool),
+                          pipeline=self.PIPELINE, stage="img2img",
+                          images=out)
+        return out
+
+    def _img2img_locked(self, images: np.ndarray, prompts: Sequence[str],
+                        strength: float, seed: int,
+                        graphed: Optional[bool]) -> np.ndarray:
+        s = self.cfg.sampler
         encoder = self._ensure_encoder()
         steps = s.num_steps
         k = max(1, min(steps, int(round(strength * steps))))
@@ -586,7 +673,7 @@ class Text2ImagePipeline:
         return out.cpu().numpy()
 
 
-class PromptGenerator:
+class PromptGenerator(_ReloadsParams):
     """Story-episode text: bucketed decode of the prompt LM, GPT-2 or, when
     ``cfg.models.mistral`` is set, Mistral-7B. Greedy at
     ``text_temperature`` 0, else top-``text_top_k`` sampled with a seed
@@ -595,6 +682,7 @@ class PromptGenerator:
 
     PROMPT_BUCKETS = (32, 64, 128, 256)
     BATCH_BUCKETS = (1, 2, 4, 8)
+    PIPELINE = "prompt"
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dict: Optional[Mapping] = None,
@@ -605,6 +693,10 @@ class PromptGenerator:
                 "lm_int8 (weights-only int8 of the prompt LM) is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
+        # serializes the decodes: their graphs replay over static KV
+        # caches and token buffers
+        self._dispatch_lock = OrderedLock("pipeline.prompt_dispatch",
+                                          rank=12)
         param_dtype = torch_dtype(models.param_dtype)
         t0 = time.perf_counter()
         if models.mistral is not None:
@@ -679,6 +771,12 @@ class PromptGenerator:
                                 cfg.seed, draft_state_dict, param_dtype)
         self.spec_draft = ModelDraft(draft)
 
+    def param_tensors(self) -> List[torch.Tensor]:
+        """The parameters and buffers of the LM and of a separate draft."""
+        draft = getattr(self.spec_draft, "model", None)
+        return module_tensors(self.model,
+                              None if draft is self.model else draft)
+
     def _spec_enabled(self, bucket: int, max_new: int) -> bool:
         """Per bucket group: speculative decode serves greedy decodes only,
         only while the chunk's scratch tail fits the position table, and
@@ -712,7 +810,18 @@ class PromptGenerator:
         a count of calls, so sampled text varies from call to call). On
         CUDA (``graphed`` None or True) each group's decode replays the
         captured step (or speculative chunk) of its shape, captured on
-        first use; ``graphed=False`` runs the same steps eagerly."""
+        first use; ``graphed=False`` runs the same steps eagerly. Each
+        group decodes under the dispatch lock."""
+        tokens, lengths, _ = self._decode(seed_texts, max_new_tokens, seed,
+                                          graphed)
+        return tokens, lengths
+
+    def _decode(self, seed_texts: Sequence[str],
+                max_new_tokens: Optional[int], seed: Optional[int],
+                graphed: Optional[bool]
+                ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, ...]]:
+        """:meth:`decode_ids_batch`, and the rows whose tokens fall outside
+        the vocabulary (the integrity sentinel)."""
         if not seed_texts:
             raise ValueError("decode_ids_batch needs at least one prompt")
         m = self.mcfg
@@ -737,6 +846,7 @@ class PromptGenerator:
         eos = (self.tokenizer.eos_id if self.tokenizer.eos_id < m.vocab_size
                else m.vocab_size)
         spec_stats = []
+        bad_members = set()
         for bucket, idxs in groups.items():
             n = len(idxs)
             n_pad = next((b for b in self.BATCH_BUCKETS if n <= b), n)
@@ -747,31 +857,57 @@ class PromptGenerator:
                 toks = rows[src]
                 ids[row, : len(toks)] = np.asarray(toks) % m.vocab_size
                 lens[row] = max(1, len(toks))
-            ids_t = torch.from_numpy(ids).to(self.device)
-            lens_t = torch.from_numpy(lens).to(self.device)
-            with torch.inference_mode():
-                if self._spec_enabled(bucket, max_new):
-                    # the pad rows never hold back the lockstep commit
-                    row_mask = torch.from_numpy(np.arange(n_pad) < n)
-                    tokens, gen_len, stats = speculative_decode(
-                        self.model, ids_t, lens_t, max_new, eos,
-                        self.cfg.spec_decode.gamma, self.spec_draft,
-                        row_mask.to(self.device), graphs=self.spec_graphs,
-                        graphed=graphed)
-                    spec_stats.append(stats)
-                else:
-                    gen = None
-                    if s.text_temperature > 0.0:
-                        gen = torch.Generator(self.device).manual_seed(seed)
-                    tokens, gen_len = greedy_decode(
-                        self.model, ids_t, lens_t, max_new, eos,
-                        graphs=self.decode_graphs, graphed=graphed,
-                        temperature=s.text_temperature, top_k=s.text_top_k,
-                        generator=gen)
-            out_tokens[idxs] = tokens[:n].cpu().numpy()
-            out_len[idxs] = gen_len[:n].cpu().numpy()
+            with self._dispatch_lock:
+                fault_point("device.lost", peer=self.PIPELINE)
+                tokens, gen_len = self._decode_group(
+                    ids, lens, n, bucket, max_new, eos, seed, graphed,
+                    spec_stats)
+                # copied out under the lock: a graph's output buffers are
+                # the next replay's
+                tokens = tokens[:n].cpu().numpy()
+                gen_len = gen_len[:n].cpu().numpy()
+            toks_host = integrity.poison(tokens, peer=self.PIPELINE)
+            if not integrity.integrity_disabled():
+                # tokens are ints: their range is the sentinel (garbage
+                # buffers and the chaos poison's -1 fall outside it)
+                ok = ((toks_host >= 0)
+                      & (toks_host < m.vocab_size)).all(axis=1)
+                bad_members.update(idxs[row]
+                                   for row in np.nonzero(~ok)[0])
+            out_tokens[idxs] = toks_host
+            out_len[idxs] = gen_len
         self._record_spec_stats(spec_stats)
-        return out_tokens, out_len
+        return out_tokens, out_len, tuple(sorted(bad_members))
+
+    def _decode_group(self, ids: np.ndarray, lens: np.ndarray, n: int,
+                      bucket: int, max_new: int, eos: int, seed: int,
+                      graphed: Optional[bool],
+                      spec_stats: List[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One bucket group's decode on the device (under the lock)."""
+        s = self.cfg.sampler
+        n_pad = ids.shape[0]
+        ids_t = torch.from_numpy(ids).to(self.device)
+        lens_t = torch.from_numpy(lens).to(self.device)
+        with torch.inference_mode():
+            if self._spec_enabled(bucket, max_new):
+                # the pad rows never hold back the lockstep commit
+                row_mask = torch.from_numpy(np.arange(n_pad) < n)
+                tokens, gen_len, stats = speculative_decode(
+                    self.model, ids_t, lens_t, max_new, eos,
+                    self.cfg.spec_decode.gamma, self.spec_draft,
+                    row_mask.to(self.device), graphs=self.spec_graphs,
+                    graphed=graphed)
+                spec_stats.append(stats.clone())
+                return tokens, gen_len
+            gen = None
+            if s.text_temperature > 0.0:
+                gen = torch.Generator(self.device).manual_seed(seed)
+            return greedy_decode(
+                self.model, ids_t, lens_t, max_new, eos,
+                graphs=self.decode_graphs, graphed=graphed,
+                temperature=s.text_temperature, top_k=s.text_top_k,
+                generator=gen)
 
     def _record_spec_stats(self, spec_stats: List[torch.Tensor]) -> None:
         """One host transfer of the decode's speculative counts, after its
@@ -785,18 +921,31 @@ class PromptGenerator:
             "accept_rate": (accepted / drafted) if drafted else 0.0}
 
     def generate_batch(self, seed_texts: Sequence[str],
-                       max_new_tokens: Optional[int] = None) -> List[str]:
-        """Continuations, each trimmed to two sentences."""
+                       max_new_tokens: Optional[int] = None) -> List:
+        """Continuations, each trimmed to two sentences. A row the
+        integrity sentinel rejected comes back as an ``OutputInvalid``
+        instance in its slot (not raised): the prompt queue fails that
+        request alone while the batch's other rows serve."""
         t0 = time.perf_counter()
-        tokens, lengths = self.decode_ids_batch(seed_texts, max_new_tokens)
+        tokens, lengths, bad = self._decode(seed_texts, max_new_tokens,
+                                            None, None)
         self.last_seconds = time.perf_counter() - t0
-        return [two_sentences(self.tokenizer.decode(
+        if bad:
+            integrity.note_invalid(self.PIPELINE, "decode", sorted(bad))
+        return [integrity.OutputInvalid(self.PIPELINE, "decode", [i])
+                if i in bad else
+                two_sentences(self.tokenizer.decode(
                     tokens[i, : lengths[i]].tolist()))
                 for i in range(len(seed_texts))]
 
     def generate(self, seed_text: str,
                  max_new_tokens: Optional[int] = None) -> str:
-        return self.generate_batch([seed_text], max_new_tokens)[0]
+        """One continuation; raises ``OutputInvalid`` when the sentinel
+        rejects the row."""
+        out = self.generate_batch([seed_text], max_new_tokens)[0]
+        if isinstance(out, Exception):
+            raise out
+        return out
 
 
 @dataclasses.dataclass
@@ -805,6 +954,9 @@ class RoundContent:
 
     prompt_text: str          # the two-sentence episode text
     image: np.ndarray         # uint8 HWC RGB
+    # what the round drew for its image: the styled prompt and the seed
+    image_prompt: str = ""
+    image_seed: int = 0
 
 
 class TorchContentBackend:
@@ -832,6 +984,8 @@ class TorchContentBackend:
         self.rng = rng or random.Random(cfg.seed)
         self._round = 0
         self.text_fallbacks = 0
+        # concurrent rounds draw their style and image seed one at a time
+        self._draw_lock = threading.Lock()
 
     def _style_prompt(self, prompt: str) -> str:
         style = self.rng.choice(self.styles)
@@ -839,9 +993,12 @@ class TorchContentBackend:
 
     def generate_sync(self, seed: str, is_seed: bool = True,
                       text: Optional[str] = None) -> RoundContent:
-        """``text`` injects an already-decoded continuation; None decodes
-        here. Degenerate text (fewer words than the round masks, plus one)
-        falls back to the deterministic template."""
+        """``text`` injects an already-decoded continuation (the service's
+        prompt queue batches decodes across concurrent rounds); None
+        decodes here. Degenerate text (fewer words than the round masks,
+        plus one) falls back to the deterministic template. The round's
+        style and image seed are drawn in call order (``rng``,
+        ``_round``) and returned with the content."""
         if text is None:
             text = self.prompt_gen.generate(seed)
         text = sanitize_text(text)
@@ -849,7 +1006,20 @@ class TorchContentBackend:
         if wordy < self.cfg.game.num_masked + 1:
             self.text_fallbacks += 1
             text = template_text(seed)
-        self._round += 1
-        images = self.t2i.generate([self._style_prompt(text)],
-                                   seed=self._round)
-        return RoundContent(prompt_text=text, image=images[0])
+        with self._draw_lock:
+            self._round += 1
+            image_seed = self._round
+            prompt = self._style_prompt(text)
+        images = self.t2i.generate([prompt], seed=image_seed)
+        return RoundContent(prompt_text=text, image=images[0],
+                            image_prompt=prompt, image_seed=image_seed)
+
+    async def generate(self, seed: str, is_seed: bool = True,
+                       text: Optional[str] = None) -> RoundContent:
+        """:meth:`generate_sync` in the event loop's default executor,
+        with the caller's context copied onto the worker thread (the
+        reference's ``TPUContentBackend.generate``)."""
+        loop = asyncio.get_running_loop()
+        ctx = contextvars.copy_context()
+        return await loop.run_in_executor(
+            None, ctx.run, self.generate_sync, seed, is_seed, text)

@@ -29,7 +29,7 @@ first three yet, and a W8A8 or fused-conv SDXL UNet raises
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ import torch
 from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.layers import timestep_embedding
+from cassmantle_tpu_torch.models.weights import module_tensors
 from cassmantle_tpu_torch.serving.pipeline import (
     Text2ImagePipeline,
     build_model,
@@ -70,6 +71,9 @@ class SDXLPipeline(Text2ImagePipeline):
     UNet 2, VAE 3), and with random weights there is no projection, as in
     the reference."""
 
+    PIPELINE = "sdxl"
+    LOCK_RANK = 11
+
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, object]] = None):
         check_sdxl(cfg)
@@ -90,6 +94,14 @@ class SDXLPipeline(Text2ImagePipeline):
         self.time_id_dim = (m.unet.addition_embed_dim
                             - m.clip_text_2.hidden_size) // 6
         self.time_ids = self._time_ids(1)
+
+    def param_tensors(self) -> List[torch.Tensor]:
+        """The SD1.5 pipeline's, bigG's tower and projection, and the time
+        ids built at start."""
+        extra = [t for t in (self.clip2_proj, self.time_ids)
+                 if t is not None]
+        return (super().param_tensors() + module_tensors(self.clip2)
+                + extra)
 
     def _encode(self, ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -33,9 +33,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for queued device work (a no-op on the CPU)."""
+    """Wait for the work this thread queued on its current stream (a no-op
+    on the CPU). Not the whole device: a device-wide synchronize would
+    also wait on another thread's capturing stream and break its CUDA
+    graph capture (``ops/graphs.py``)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 TORCH_DTYPES = {

@@ -80,7 +80,24 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    tokens part, the greedy chain's top-2 gap there may not exceed twice
    the drift between the verify forward's logits and greedy's there;
 9. Mistral-7B top-k sampled decode ([sampled], T 0.7, k 40): graphed
-   equal to eager for one seed, every token in its step's top 40.
+   equal to eager for one seed, every token in its step's top 40;
+10. the serving seam ([serve]): ``InferenceService(FrameworkConfig())``
+   behind its batching queues, supervisor and int8 table: (a) 1,024
+   concurrent one-pair ``similarity`` calls of out-of-vocabulary guesses
+   coalesce into bucketed dispatches, scores within 1e-5 of one direct
+   call, with per-guess latency and device ms a dispatch; (b) the same
+   through rung 0 (in-vocabulary guesses, pinned answers): no dispatch,
+   scores within 1e-2 of fp32; (c) four concurrent rounds, one cold,
+   while guesses are scored: one prompt batch of four, each text the
+   lone batch decode's, each image bit-equal to a lone ``t2i.generate``
+   of what the round drew, flash launched 4 x 1,601 times; (d) a
+   poisoned member floors its own request only; (e) a chaos
+   ``device.lost`` recovers in place, the image after equal to the one
+   before with no new capture; (f) a device-side assert in a child
+   process classifies as a device loss, an out-of-memory error does
+   not. After the SDXL round, ``[serve-sdxl]``: its service serves one
+   round while guesses are scored (``BASELINE.json``'s fifth
+   configuration on one card).
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -89,6 +106,7 @@ prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import gc
 import json
@@ -675,13 +693,14 @@ def check_small_agreement():
     from cassmantle_tpu_torch.serving.service import InferenceService
 
     cfg = tiny_bf16_config()
-    cpu = InferenceService(cfg, device="cpu")
+    # no int8 table: the scores below come from each side's device rung
+    cpu = InferenceService(cfg, device="cpu", table=None)
     b = cpu.backend
     sd = {"clip_text": b.t2i.clip.state_dict(),
           "unet": b.t2i.unet.state_dict(), "vae": b.t2i.vae.state_dict(),
           "gpt2": b.prompt_gen.model.state_dict(),
           "minilm": cpu.scorer.model.state_dict()}
-    gpu = InferenceService(cfg, device="cuda", state_dicts=sd)
+    gpu = InferenceService(cfg, device="cuda", state_dicts=sd, table=None)
     fp32 = Text2ImagePipeline(test_config(), device="cpu", state_dicts=sd)
     prompts = ["A watercolor style piece depicting: a lighthouse at dusk.",
                "A vaporwave style piece depicting: the comet market."]
@@ -700,8 +719,8 @@ def check_small_agreement():
              ("comet", "archive"), ("a quiet harbor", "harbor"),
              ("orchard", "an orchard at dusk"), ("teal", "silver"),
              ("Caravan", "caravan"), ("glacier", "canyon")]
-    sim_err = float(np.abs(cpu.similarity(pairs)
-                           - gpu.similarity(pairs)).max())
+    sim_err = float(np.abs(asyncio.run(cpu.similarity(pairs))
+                           - asyncio.run(gpu.similarity(pairs))).max())
     blur_err = max(int(np.abs(cpu.blur(img_c[0], r).astype(np.int32)
                               - gpu.blur(img_c[0], r).astype(np.int32)).max())
                    for r in (0.0, 5.0, 15.0))
@@ -1279,6 +1298,8 @@ def run_round(card: str, preset: str, cfg):
     svc = InferenceService(cfg)                     # device="cuda"
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    if svc.table_stats and svc.table_stats["built"] and not TABLE_BUILD:
+        TABLE_BUILD.update(svc.table_stats)
     pairs = [("lighthouse", "lighthouse"), ("crimson", "amber"),
              ("comet", "archive"), ("a quiet harbor", "harbor"),
              ("orchard", "an orchard at dusk"), ("teal", "silver"),
@@ -1288,12 +1309,12 @@ def run_round(card: str, preset: str, cfg):
     torch.cuda.reset_peak_memory_stats()
     reset_all_counters()
     t0 = time.perf_counter()
-    rc = svc.generate_content("The Night the Trains Sang")
+    rc = asyncio.run(svc.generate_content("The Night the Trains Sang"))
     round_s = time.perf_counter() - t0
     replays = {name: g.replays for name, g in
                svc.backend.t2i.step_graphs[1].graphs.items()}
     t1 = time.perf_counter()
-    sims = svc.similarity(pairs)
+    sims = asyncio.run(svc.similarity(pairs))
     score_s = time.perf_counter() - t1
     blurred = {}
     t1 = time.perf_counter()
@@ -1309,7 +1330,7 @@ def run_round(card: str, preset: str, cfg):
 
     # a second round, warm, for the steady-state time
     t0 = time.perf_counter()
-    rc2 = svc.generate_content("Chapter two: the harbor")
+    rc2 = asyncio.run(svc.generate_content("Chapter two: the harbor"))
     warm_round_s = time.perf_counter() - t0
     warm_stages = {"decode": gen.last_seconds, **t2i.last_stage_seconds}
 
@@ -1409,7 +1430,8 @@ def run_img2img(card: str, preset: str, cfg):
     svc = InferenceService(cfg)                     # device="cuda"
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    base = svc.generate_content("The Night the Trains Sang").image[None]
+    base = asyncio.run(svc.generate_content(
+        "The Night the Trains Sang")).image[None]
     t2i = svc.backend.t2i
     prompt = ["A watercolor style piece depicting: the harbor at dawn."]
     k = img2img_steps(cfg)
@@ -2329,6 +2351,415 @@ def check_sampled(svc) -> bool:
     return ok
 
 
+# -- the serving seam ([serve], [serve-sdxl]) ---------------------------------
+
+SERVE_GUESSES = 1024
+SERVE_ANSWERS = ("lighthouse", "harbor", "comet", "orchard")
+SERVE_SEEDS = ("The Night the Trains Sang", "A Winter Without Clocks",
+               "Salt Roads and Silver Rivers", "Keeper of the Paper Storms")
+SERVE_PROMPT = "A watercolor style piece depicting: a lighthouse at dusk."
+# the table build of the first service built here (a later one loads
+# the cached file): seconds, bytes, rows
+TABLE_BUILD = {}
+
+
+def oov_pairs(tag: str, n: int = SERVE_GUESSES) -> list:
+    """n one-pair guesses no table holds and no LRU has seen."""
+    return [(f"{tag}{i}q{i * 7919 % 104729}x", SERVE_ANSWERS[i % 4])
+            for i in range(n)]
+
+
+def latency_ms(lat: list) -> dict:
+    """Percentiles of the served guesses' seconds (None: a guess the
+    adaptive admission shed, a 503 with Retry-After to its player)."""
+    import numpy as np
+
+    served = [t for t in lat if t is not None]
+    out = {"n": len(served), "shed": len(lat) - len(served)}
+    if served:
+        ms = np.asarray(served) * 1e3
+        out.update(p50_ms=float(np.percentile(ms, 50)),
+                   p99_ms=float(np.percentile(ms, 99)),
+                   max_ms=float(ms.max()))
+    return out
+
+
+def timings_now() -> dict:
+    """{histogram: (count, sum of seconds)} of the metrics registry."""
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    return {k: (v["count"], v["count"] * v["mean_s"])
+            for k, v in metrics.snapshot()["timings"].items()}
+
+
+def mean_since(before: dict, name: str):
+    """Mean seconds of ``name``'s observations since ``before``."""
+    n0, s0 = before.get(name, (0, 0.0))
+    n1, s1 = timings_now().get(name, (0, 0.0))
+    return (s1 - s0) / (n1 - n0) if n1 > n0 else None
+
+
+async def timed_guesses(svc, pairs) -> tuple:
+    """Each pair as its own awaited ``similarity`` call, all at once:
+    (scores, per-call seconds); a shed guess scores NaN and times None."""
+    import numpy as np
+
+    from cassmantle_tpu_torch.serving.queue import OverloadShed
+
+    async def one(pair):
+        t0 = time.perf_counter()
+        try:
+            out = await svc.similarity([pair])
+        except OverloadShed:
+            return np.nan, None
+        return out[0], time.perf_counter() - t0
+
+    res = await asyncio.gather(*(one(p) for p in pairs))
+    return (np.asarray([r[0] for r in res], dtype=np.float32),
+            [r[1] for r in res])
+
+
+async def guesses_during(svc, work, tag: str) -> tuple:
+    """Waves of 1,024 fresh out-of-vocabulary guesses while ``work`` (a
+    list of awaitables) runs: (work's results, guess seconds, waves)."""
+    task = asyncio.gather(*work)
+    lat, waves = [], 0
+    while not task.done():
+        _, wave = await timed_guesses(svc, oov_pairs(f"{tag}{waves}w"))
+        lat += wave
+        waves += 1
+        if all(t is None for t in wave):
+            await asyncio.sleep(0.05)     # shed whole: the limiter's back-off
+    return await task, lat, waves
+
+
+class DispatchRecorder:
+    """Wraps the scorer's device rung: the texts and bucket of each
+    dispatch."""
+
+    def __init__(self, scorer):
+        from cassmantle_tpu_torch.ops.scorer import pick_bucket
+
+        self.scorer, self.real = scorer, scorer._embed_device
+        self.calls = []
+
+        def recording(texts, batch=None):
+            self.calls.append((len(texts), batch or pick_bucket(
+                len(texts), scorer.batch_buckets)))
+            return self.real(texts, batch)
+
+        scorer._embed_device = recording
+
+    def close(self):
+        self.scorer._embed_device = self.real
+
+
+def classifier_child() -> dict:
+    """A device-side assert in a child process (its CUDA context is lost
+    for good; the parent's stays healthy): the child prints what
+    ``classify_device_loss`` says of the error."""
+    import os
+
+    code = (
+        "import json, torch\n"
+        "from cassmantle_tpu_torch.serving.device_recovery import "
+        "classify_device_loss\n"
+        "x = torch.zeros(4, device='cuda')\n"
+        "try:\n"
+        "    y = x[torch.tensor([1 << 20], device='cuda')]\n"
+        "    torch.cuda.synchronize()\n"
+        "    out = {'raised': None}\n"
+        "except Exception as exc:\n"
+        "    out = {'raised': type(exc).__name__, 'msg': str(exc)[:160],\n"
+        "           'reason': classify_device_loss(exc)}\n"
+        "print(json.dumps(out))\n")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        return {"raised": None, "stderr": proc.stderr[-400:]}
+    return json.loads(lines[-1])
+
+
+def check_serve(card: str) -> bool:
+    """The serving seam at full width: ``InferenceService(FrameworkConfig())``
+    scoring 1,024 concurrent guesses through the device rung (a) and rung
+    0 (b), four concurrent rounds, one cold, while guesses are scored (c),
+    the integrity drill (d), the device-loss drill (e) and the classifier
+    on real CUDA errors (f)."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch import chaos
+    from cassmantle_tpu_torch.config import FrameworkConfig
+    from cassmantle_tpu_torch.ops import graphs
+    from cassmantle_tpu_torch.serving.device_recovery import (
+        classify_device_loss,
+    )
+    from cassmantle_tpu_torch.serving.service import InferenceService
+    from cassmantle_tpu_torch.utils.logging import metrics
+    from cassmantle_tpu_torch.utils.text import load_wordlist
+
+    count = metrics.counter_total
+    t0 = time.perf_counter()
+    svc = InferenceService(FrameworkConfig())
+    build_s = time.perf_counter() - t0
+    scorer = svc.scorer
+    checks, report = {}, {"card": card, "build_s": build_s,
+                          "table": TABLE_BUILD or svc.table_stats}
+
+    # (a) 1,024 concurrent guesses through the device rung
+    rec = DispatchRecorder(scorer)
+    pairs = oov_pairs("a")
+    batches, items = count("score.batches"), count("score.items")
+    hists = timings_now()
+    scores, lat = asyncio.run(timed_guesses(svc, pairs))
+    queue_layer = {"queue_wait_mean_s": mean_since(hists,
+                                                   "score.queue_wait_s"),
+                   "batch_service_mean_s": mean_since(hists,
+                                                      "score.batch_s")}
+    rec.close()
+    scorer._embed_cache.clear()
+    direct = scorer.similarity(pairs)
+    a = {"score_batches": count("score.batches") - batches,
+         "score_items": count("score.items") - items,
+         "dispatches": rec.calls, **latency_ms(lat), **queue_layer,
+         "max_abs_err_vs_direct": float(np.abs(scores - direct).max())}
+    rows, bucket = rec.calls[0]
+    ids = torch.zeros((bucket, scorer.seq_len), dtype=torch.long,
+                      device="cuda")
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        a["device_ms_per_dispatch"] = time_ms(
+            lambda: scorer.model(ids, mask), iters=3)
+    checks["a_coalesced"] = (a["shed"] == 0 and a["score_batches"] <= 2
+                             and len(rec.calls) == a["score_batches"]
+                             and all(b in (1024, 2048)
+                                     for _, b in rec.calls))
+    checks["a_scores"] = a["max_abs_err_vs_direct"] <= 1e-5
+    report["a"] = a
+
+    # (b) the same 1,024 through rung 0: in-vocabulary guesses, answers
+    # pinned
+    words = [w for w in load_wordlist() if w.isalpha()][:SERVE_GUESSES]
+    answers = ("nightglass", "emberfall", "quietude", "moonwharf")
+    pinned = svc.pin_answers(answers)
+    in_vocab = [(w, answers[i % 4]) for i, w in enumerate(words)]
+    batches = count("score.batches")
+    hits = count("scorer.table_hits")
+    scores_b, lat_b = asyncio.run(timed_guesses(svc, in_vocab))
+    texts = list(dict.fromkeys(words + list(answers)))
+    emb = dict(zip(texts, scorer._embed_device(texts)[0]))
+    fp32 = np.asarray([emb[g] @ emb[t] for g, t in in_vocab])
+    b = {"score_batches": count("score.batches") - batches,
+         "table_hits": count("scorer.table_hits") - hits,
+         "pinned": pinned, **latency_ms(lat_b),
+         "max_abs_err_vs_fp32": float(np.abs(scores_b - fp32).max()),
+         "table_rows": len(scorer.table)}
+    checks["b_no_dispatch"] = b["score_batches"] == 0
+    checks["b_table_hits"] = b["table_hits"] == 2 * len(in_vocab)
+    checks["b_fidelity"] = b["max_abs_err_vs_fp32"] <= 1e-2
+    report["b"] = b
+
+    # (c) four concurrent rounds, one cold, while guesses are scored
+    backend = svc.backend
+    given = {}
+    real_sync = backend.generate_sync
+
+    def recording_sync(seed, is_seed=True, text=None):
+        given[seed] = text
+        return real_sync(seed, is_seed, text)
+
+    backend.generate_sync = recording_sync
+    prompt_batches = count("prompt.batches")
+    prompt_items = count("prompt.items")
+    captures = graphs.capture_count()
+    hists = timings_now()
+    reset_all_counters()
+
+    async def rounds():
+        async def one(seed):
+            t = time.perf_counter()
+            rc = await svc.content_backend.generate(seed, True)
+            return rc, time.perf_counter() - t
+
+        t = time.perf_counter()
+        out, lat_c, waves = await guesses_during(
+            svc, [one(s) for s in SERVE_SEEDS], "c")
+        return out, lat_c, waves, time.perf_counter() - t
+
+    served, lat_c, waves, wall = asyncio.run(rounds())
+    tallies = read_tallies()
+    new_captures = graphs.capture_count() - captures
+    queue_layer = {f"{q}_{k}": mean_since(hists, f"{q}.{h}")
+                   for q in ("score", "prompt")
+                   for k, h in (("queue_wait_mean_s", "queue_wait_s"),
+                                ("batch_service_mean_s", "batch_s"))}
+    del backend.generate_sync        # the class's method again, no cycle
+    gen = backend.prompt_gen
+    lone = dict(zip(SERVE_SEEDS, gen.generate_batch(list(SERVE_SEEDS))))
+    single = {sd: gen.generate(sd) for sd in SERVE_SEEDS}
+    same_image = []
+    for rc, _ in served:
+        again = backend.t2i.generate([rc.image_prompt], seed=rc.image_seed)
+        same_image.append(bool(np.array_equal(again[0], rc.image)))
+    c = {"round_s": [r[1] for r in served], "wall_s": wall,
+         "guess_waves": waves, **latency_ms(lat_c), **queue_layer,
+         "idle_p50_ms": a["p50_ms"], "idle_p99_ms": a["p99_ms"],
+         "prompt_batches": count("prompt.batches") - prompt_batches,
+         "prompt_items": count("prompt.items") - prompt_items,
+         "decode_batch_shapes": sorted({k[0] for k in gen.decode_graphs}),
+         "captures": new_captures,
+         "flash_launches": sum(tallies["flash_attention"].values()),
+         "texts_equal_lone_batch": [given.get(sd) == lone[sd]
+                                    for sd in SERVE_SEEDS],
+         "texts_equal_lone_single": [lone[sd] == single[sd]
+                                     for sd in SERVE_SEEDS],
+         "images_equal_lone": same_image,
+         "image_seeds": [rc.image_seed for rc, _ in served]}
+    checks["c_one_decode_batch"] = (c["prompt_batches"] == 1
+                                    and c["prompt_items"] == 4
+                                    and 4 in c["decode_batch_shapes"])
+    checks["c_texts"] = all(c["texts_equal_lone_batch"])
+    checks["c_images"] = all(same_image) and sorted(
+        c["image_seeds"]) == [1, 2, 3, 4]
+    checks["c_cold_captured"] = c["captures"] >= 2
+    checks["c_flash"] = c["flash_launches"] == 4 * sum(
+        ROUND_FLASH["sd15"].values())
+
+    # the same four rounds warm, under the guess waves and alone: what the
+    # guesses' host work costs the rounds
+    async def warm_rounds(waves_on: bool):
+        async def one(seed):
+            t = time.perf_counter()
+            await svc.content_backend.generate(seed, True)
+            return time.perf_counter() - t
+
+        t = time.perf_counter()
+        work = [one(sd) for sd in SERVE_SEEDS]
+        if waves_on:
+            out, lat_w, _ = await guesses_during(svc, work, "cw")
+        else:
+            out, lat_w = await asyncio.gather(*work), []
+        return out, lat_w, time.perf_counter() - t
+
+    warm, lat_w, wall_w = asyncio.run(warm_rounds(True))
+    alone, _, wall_alone = asyncio.run(warm_rounds(False))
+    c["warm_under_guesses"] = {"round_s": warm, "wall_s": wall_w,
+                               **latency_ms(lat_w)}
+    c["warm_alone"] = {"round_s": alone, "wall_s": wall_alone,
+                       "stages_s": backend.t2i.last_stage_seconds,
+                       "decode_s": gen.last_seconds}
+    report["c"] = c
+
+    # (d) integrity: one poisoned member of one score batch
+    pairs_d = oov_pairs("d", 64)
+    invalid = count("pipeline.output_invalid")
+    chaos.configure("seed=10;device.poison=raise:peer=scorer,times=1")
+    try:
+        scores_d, _ = asyncio.run(timed_guesses(svc, pairs_d))
+    finally:
+        chaos.disarm()
+    scorer._embed_cache.clear()
+    direct_d = scorer.similarity(pairs_d)
+    floored = np.nonzero(scores_d == 0.0)[0]
+    keep = np.ones(len(pairs_d), bool)
+    keep[floored] = False
+    d = {"floored": floored.tolist(),
+         "output_invalid": count("pipeline.output_invalid") - invalid,
+         "max_abs_err_others": float(np.abs(scores_d[keep]
+                                            - direct_d[keep]).max())}
+    checks["d_one_member"] = len(floored) == 1 and d["output_invalid"] == 1
+    checks["d_others_real"] = d["max_abs_err_others"] <= 1e-5
+    report["d"] = d
+
+    # (e) the device-loss drill
+    t2i = backend.t2i
+    before = t2i.generate([SERVE_PROMPT], seed=7)
+    captures = graphs.capture_count()
+    recoveries = count("device.recoveries")
+    chaos.configure("seed=11;device.lost=raise:peer=scorer,times=1")
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        asyncio.run(svc.similarity([("lost zq guess", "harbor")]))
+    except chaos.ChaosInjected as exc:
+        raised = type(exc).__name__
+    finally:
+        chaos.disarm()
+    lost_state = svc.supervisor.status()["state"]
+    svc.recovery.join(timeout=300)
+    recover_s = time.perf_counter() - t0
+    state = svc.supervisor.status()["state"]
+    with graphs.no_new_captures():
+        after = t2i.generate([SERVE_PROMPT], seed=7)
+    e = {"raised": raised, "state_after_loss": lost_state,
+         "state_after_recovery": state, "recover_s": recover_s,
+         "recoveries": count("device.recoveries") - recoveries,
+         "image_equal": bool(np.array_equal(before, after)),
+         "new_captures": graphs.capture_count() - captures}
+    checks["e_recovered"] = (raised is not None and state == "ok"
+                             and e["recoveries"] == 1
+                             and not svc.recovery.permanent)
+    checks["e_same_image"] = e["image_equal"] and e["new_captures"] == 0
+    report["e"] = e
+
+    # (f) the classifier on real CUDA errors
+    child = classifier_child()
+    try:
+        torch.empty(1 << 50, dtype=torch.uint8, device="cuda")
+        oom = {"raised": None}
+    except torch.OutOfMemoryError as exc:
+        oom = {"raised": type(exc).__name__,
+               "reason": classify_device_loss(exc)}
+    torch.cuda.empty_cache()
+    report["f"] = {"child": child, "oom": oom}
+    checks["f_assert_is_loss"] = bool(child.get("reason"))
+    checks["f_oom_is_not"] = (oom["raised"] == "OutOfMemoryError"
+                              and oom["reason"] is None)
+
+    asyncio.run(svc.stop())
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[serve] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_serve_sdxl(svc, card: str) -> bool:
+    """``BASELINE.json``'s fifth configuration on one card: one SDXL round
+    served while waves of 1,024 concurrent guesses are scored, on the
+    service the ``[round-sdxl]`` phase built."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counters()
+
+    async def run():
+        t = time.perf_counter()
+        out, lat, waves = await guesses_during(
+            svc, [svc.content_backend.generate(SERVE_SEEDS[1], True)], "x")
+        return out[0], lat, waves, time.perf_counter() - t
+
+    rc, lat, waves, round_s = asyncio.run(run())
+    flash = sum(read_tallies()["flash_attention"].values())
+    asyncio.run(svc.stop())
+    res = {"card": card, "round_s": round_s, "guess_waves": waves,
+           **latency_ms(lat), "flash_launches": flash,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "image_shape": list(rc.image.shape)}
+    ok = (flash == sum(ROUND_FLASH["sdxl"].values())
+          and rc.image.shape == (1024, 1024, 3) and res["n"] > 0)
+    print(f"[serve-sdxl] {json.dumps(res)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
 def kernel_entries(kernel, rows, tally, source, replaces):
     """The kernels-line entries of one kernel: every checked shape, with
     its launches in its path's round."""
@@ -2434,11 +2865,21 @@ def main() -> int:
         if not prof["graph_witness"]["ok"]:
             fail(f"{preset}: the profiled graph replays did not launch the "
                  f"step's kernels: {prof['graph_witness']}")
+        if preset == "sdxl" and not check_serve_sdxl(svc, card):
+            fail("serve-sdxl: the SDXL round under 1,024 concurrent "
+                 "guesses failed its checks")
         # the graphs' closures hold the service in reference cycles:
         # collect them, so the next round's peak memory is its own
         del svc, prof
         gc.collect()
         torch.cuda.empty_cache()
+
+    # the serving seam: queues, supervisor, integrity, device-loss recovery
+    # and the int8 table at FrameworkConfig()
+    if not check_serve(card):
+        fail("serve: the serving seam failed a check")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # Mistral-7B as the round's prompt LM, at full width in bf16; its
     # decode-step profile, then speculative and sampled decodes over it

@@ -6,8 +6,16 @@ Flax's initializers, which take tens of seconds at CPU-test sizes), with
 values drawn from a seeded numpy generator: kernels lecun-normal, biases
 and norm scales perturbed away from the trivial zeros and ones so their
 mapping is exercised. The same numpy arrays feed both sides.
+
+Under pytest-xdist, importing this module caps torch's intra-op threads
+at the worker's share of the host's cores (``cap_torch_threads``): each
+worker's torch otherwise starts a thread per core, and six workers'
+spinning OpenMP pools on one host spend most of the CPU waiting on each
+other (the port's four slowest files took 777 s under ``-n 4`` uncapped,
+175 s capped at two threads each, on an 8-core host).
 """
 
+import os
 import types
 
 import jax
@@ -16,6 +24,17 @@ import torch
 
 from cassmantle_tpu_torch.models.weights import from_jax, state_dict_from_tree
 from cassmantle_tpu_torch.ops.graphs import CapturedStep
+
+
+def cap_torch_threads():
+    """Under xdist, torch's intra-op threads: the host's cores over the
+    workers (at least 1); outside xdist, torch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+cap_torch_threads()
 
 
 def jax_params(module, seed, *args, method=None):

@@ -783,3 +783,57 @@ def test_cuda_spec_decode_graph_equals_eager(cuda_device, family, mode):
     states = gen.spec_graphs.values()
     assert states and all(s.graph is not None for s in states)
     assert all(s.host_reads == s.graph.replays // 2 for s in states)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_scoring_thread(cuda_device):
+    """Captures while another thread scores guesses (the serving seam's
+    dispatch thread encoding, allocating and copying each batch back to
+    the host): every capture completes, the scoring thread never fails,
+    and each graph replays to its eager result. Captures are thread-local
+    on the capturing thread's own stream, with no device-wide synchronize
+    or cache release inside the window."""
+    import threading
+    import time
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.ops.graphs import CapturedStep
+    from cassmantle_tpu_torch.ops.scorer import EmbeddingScorer
+
+    scorer = EmbeddingScorer(test_config().models.minilm, cuda_device,
+                             batch_buckets=(64,), embed_cache_size=0)
+    stop, errors, scored = threading.Event(), [], [0]
+
+    def score():
+        while not stop.is_set():
+            try:
+                scorer.embed([f"guess {scored[0]} {j}" for j in range(48)])
+            except Exception as exc:       # surfaced below
+                errors.append(exc)
+                return
+            scored[0] += 1
+
+    thread = threading.Thread(target=score)
+    thread.start()
+    try:
+        while scored[0] < 2 and thread.is_alive():
+            time.sleep(0.01)
+        g = torch.Generator(cuda_device).manual_seed(5)
+        cases = []
+        for _ in range(24):
+            x = torch.randn((512, 512), generator=g, device=cuda_device)
+            out = torch.empty_like(x)
+
+            def step(x=x, out=out):
+                return out.copy_(torch.tanh(x @ x.T) * 0.5 + x.softmax(-1))
+
+            cases.append((CapturedStep(step), step, x, out))
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not errors, errors
+    assert scored[0] > 2
+    for captured, step, x, out in cases:
+        captured.replay()
+        replayed = out.clone()
+        assert torch.equal(replayed, step().clone())

@@ -27,6 +27,8 @@ from cassmantle_tpu_torch.ops.flash_attention import (
     reset_counters,
 )
 
+import _torch_port_common  # noqa: F401 (caps torch's threads under xdist)
+
 ATOL = 1e-5
 
 

@@ -9,13 +9,13 @@ prompts, strength, seed)`` is held seed for seed against the reference's
 own ``Text2ImagePipeline._img2img_impl`` (CLIP, the encoder at
 ``split(PRNGKey(seed))[0]``, the noise at ``[1]``, the configured kind's
 schedule tail, the VAE) on the same trees: uint8 images within 2 levels
-(mean 0.5). The fused encoder (the plain version of kernel 2 at every
-ResBlock) is held to the reference's unfused one. The tail's graph
-(:class:`EagerStep` for the CUDA graph) equals its eager loop bit for bit.
+(mean 0.5), in ``test_torch_port_img2img_reference.py``. The fused
+encoder (the plain version of kernel 2 at every ResBlock) is held to the
+reference's unfused one. The tail's graph (:class:`EagerStep` for the
+CUDA graph) equals its eager loop bit for bit.
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -24,13 +24,7 @@ import pytest
 import torch
 
 from cassmantle_tpu.config import test_config as jax_test_config
-from cassmantle_tpu.models.clip_text import ClipTextEncoder as JClip
-from cassmantle_tpu.models.unet import UNet as JUNet
-from cassmantle_tpu.models.vae import VAEDecoder as JVAE
 from cassmantle_tpu.models.vae import VAEEncoder as JEncoder
-from cassmantle_tpu.serving import pipeline as jpipeline
-from cassmantle_tpu.serving.pipeline import tokenize_clip_prompts as jax_tok
-from cassmantle_tpu.utils.tokenizers import load_tokenizer as jax_tokenizer
 from cassmantle_tpu_torch import config as port_config
 from cassmantle_tpu_torch.models.vae import VAEEncoder, VAEResBlock
 from cassmantle_tpu_torch.models.weights import from_jax
@@ -41,15 +35,11 @@ from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
 from cassmantle_tpu_torch.utils import jax_random
 
 from _torch_port_common import EagerStep, assert_rel, jax_params, load
+from _torch_port_img2img import PROMPTS, reference_trees
+from _torch_port_img2img import configs as _configs
+from _torch_port_img2img import images as _images
 
 REL = 1e-4
-PROMPTS = ["A watercolor style piece depicting: a lighthouse at dusk.",
-           "A vaporwave style piece depicting: the comet market."]
-
-
-def _images(seed, b=2, size=64):
-    return np.random.default_rng(seed).integers(0, 256, (b, size, size, 3),
-                                                dtype=np.uint8)
 
 
 # -- the encoder ---------------------------------------------------------------
@@ -108,84 +98,13 @@ def test_vae_encoder_state_dict_names_are_the_references(encoder_case):
     assert port.down_0_downsample.stride == 2
 
 
-# -- generate_img2img against the reference's impl -----------------------------
-
-def _reference_img2img(cfg, params, images, prompts, strength, seed):
-    """The reference's ``Text2ImagePipeline._img2img_impl`` (jitted per k
-    in its ``generate_img2img``), called on a stand-in for its pipeline
-    with the same modules, on the uint8 -> [-1, 1] input it makes."""
-    m, s = cfg.models, cfg.sampler
-    tok = jax_tokenizer(None, "clip", m.clip_text.vocab_size)
-    pad = min(s.prompt_pad_len, m.clip_text.max_positions)
-    ids = jnp.asarray(jax_tok(tok, prompts, pad, m.clip_text.vocab_size))
-    uids = jnp.asarray(jax_tok(tok, [s.negative_prompt] * len(prompts), pad,
-                               m.clip_text.vocab_size))
-    me = types.SimpleNamespace(
-        cfg=cfg, clip=JClip(m.clip_text), unet_apply=JUNet(m.unet).apply,
-        vae=JVAE(m.vae), vae_enc=JEncoder(m.vae))
-    steps = s.num_steps
-    k = max(1, min(steps, int(round(strength * steps))))
-    imgf = jnp.asarray(np.asarray(images, dtype=np.float32) / 127.5 - 1.0)
-    out = jpipeline.Text2ImagePipeline._img2img_impl(
-        me, k, {"clip": params["clip_text"], "unet": params["unet"],
-                "vae": params["vae"], "vae_enc": params["vae_enc"]},
-        ids, uids, imgf, jax.random.PRNGKey(seed))
-    return np.asarray(out), k
-
+# -- generate_img2img's graphs and validation -----------------------------------
 
 @pytest.fixture(scope="module")
 def img2img_trees():
     """Seeded reference trees of CLIP, the UNet, the decoder and the
     encoder at test_config() sizes."""
-    cfg = jax_test_config()
-    m, s = cfg.models, cfg.sampler
-    pad = min(s.prompt_pad_len, m.clip_text.max_positions)
-    lat = jnp.zeros((1, 32, 32, 4))
-    return {
-        "clip_text": jax_params(JClip(m.clip_text), 103,
-                                jnp.zeros((1, pad), jnp.int32)),
-        "unet": jax_params(JUNet(m.unet), 104, lat,
-                           jnp.zeros((1,), jnp.int32),
-                           jnp.zeros((1, pad, m.unet.context_dim))),
-        "vae": jax_params(JVAE(m.vae), 105, lat),
-        "vae_enc": jax_params(JEncoder(m.vae), 106,
-                              jnp.zeros((1, 64, 64, 3)),
-                              jax.random.PRNGKey(0)),
-    }
-
-
-def _configs(**sampler_kw):
-    out = []
-    for mod in (jax_test_config, port_config.test_config):
-        cfg = mod()
-        out.append(cfg.replace(sampler=dataclasses.replace(
-            cfg.sampler, **sampler_kw)))
-    return out
-
-
-@pytest.mark.parametrize("kind", ["ddim", "euler", "dpmpp_2m"])
-@pytest.mark.parametrize("strength,seed", [(0.6, 0), (0.3, 7), (1.0, 3)])
-def test_generate_img2img_matches_reference(img2img_trees, kind, strength,
-                                            seed):
-    """Seed for seed: the port's ``generate_img2img`` within 2 uint8
-    levels (mean 0.5) of the reference's, under each sampler kind (10
-    steps: strengths 0.3, 0.6 and 1.0 run tails of 3, 6 and 10)."""
-    ref_cfg, cfg = _configs(kind=kind, num_steps=10)
-    images = _images(107 + seed)
-    ref, k = _reference_img2img(ref_cfg, img2img_trees, images, PROMPTS,
-                                strength, seed)
-    pipe = Text2ImagePipeline(
-        cfg, device="cpu",
-        state_dicts={k_: from_jax(k_, v) for k_, v in img2img_trees.items()})
-    got = pipe.generate_img2img(images, PROMPTS, strength, seed)
-    assert got.shape == ref.shape == images.shape and got.dtype == np.uint8
-    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
-    assert diff.max() <= 2 and diff.mean() <= 0.5, (diff.max(), diff.mean())
-    assert pipe.last_decoded_finite
-    assert set(pipe.last_stage_seconds) == {"encode", "denoise", "vae"}
-    # another seed draws another encoder sample and noise
-    other = pipe.generate_img2img(images, PROMPTS, strength, seed + 1)
-    assert not np.array_equal(other, got)
+    return reference_trees()
 
 
 def test_img2img_tail_graph_equals_eager(img2img_trees, monkeypatch):

@@ -15,6 +15,8 @@ import pytest
 import chip_smoke
 from cassmantle_tpu_torch.ops import _flash_plan, _igemm
 
+import _torch_port_common  # noqa: F401 (caps torch's threads under xdist)
+
 SMS = (132, 114)
 MATMUL_SHAPES = sorted(set(chip_smoke.UNET_MATMUL_SHAPES)
                        | set(chip_smoke.LM_MATMUL_SHAPES))

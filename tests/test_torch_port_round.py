@@ -11,6 +11,7 @@ it. GPT-2 parameters are the reference ``PromptGenerator``'s own, carried
 across with ``from_jax``.
 """
 
+import asyncio
 import dataclasses
 import random
 
@@ -36,6 +37,8 @@ from cassmantle_tpu_torch.utils.tokenizers import (
     load_tokenizer,
     tokenize_clip_prompts,
 )
+
+import _torch_port_common  # noqa: F401 (caps torch's threads under xdist)
 
 STYLES = ["Watercolor", "Art deco", "Vaporwave"]
 SEEDS = ["The Night the Trains Sang", "Chapter two: the harbor",
@@ -170,12 +173,14 @@ def test_round_logic_matches_reference(ref_backend, monkeypatch):
 def test_service_serves_a_round_on_the_cpu():
     """InferenceService on the CPU: a round's text and uint8 image from
     the port's own pipeline (the image the pipeline makes for that style
-    prompt and round seed), unit embeddings, scores in [-1, 1], blur."""
+    prompt and round seed), unit embeddings, scores in [-1, 1], blur;
+    ``generate_content`` and ``similarity`` awaited, through the queues
+    (no int8 table: the pairs score on the device rung)."""
     cfg = port_config.test_config()
-    svc = InferenceService(cfg, device="cpu")
+    svc = InferenceService(cfg, device="cpu", table=None)
     backend = svc.backend
     styles_rng = random.Random(cfg.seed)
-    rc = svc.generate_content(SEEDS[0])
+    rc = asyncio.run(svc.generate_content(SEEDS[0]))
     size = cfg.sampler.image_size
     assert rc.image.shape == (size, size, 3) and rc.image.dtype == np.uint8
     assert rc.prompt_text.strip()
@@ -188,7 +193,8 @@ def test_service_serves_a_round_on_the_cpu():
     emb = svc.embed(["lighthouse", "comet", ""])
     assert emb.shape == (3, cfg.models.minilm.hidden_size)
     np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
-    sims = svc.similarity([("lighthouse", "lighthouse"), ("teal", "amber")])
+    sims = asyncio.run(svc.similarity([("lighthouse", "lighthouse"),
+                                       ("teal", "amber")]))
     assert sims.shape == (2,) and np.all(np.abs(sims) <= 1 + 1e-6)
     assert sims[0] == pytest.approx(1.0, abs=1e-5)
     for radius in (0.0, 5.0, 15.0):

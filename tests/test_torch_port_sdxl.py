@@ -11,6 +11,7 @@ steps within 1e-4 of the reference's largest value; uint8 images within
 2 levels (mean 0.5), as the SD1.5 slice.
 """
 
+import asyncio
 import dataclasses
 import types
 
@@ -314,8 +315,9 @@ def test_backend_selects_sdxl_pipeline():
     assert isinstance(sdxl.t2i, SDXLPipeline)
     sd15 = TorchContentBackend(port_test_config(), device="cpu")
     assert type(sd15.t2i) is Text2ImagePipeline
-    svc = InferenceService(port_test_sdxl_config(), device="cpu")
-    rc = svc.generate_content("The Night the Trains Sang")
+    svc = InferenceService(port_test_sdxl_config(), device="cpu",
+                           table=None)
+    rc = asyncio.run(svc.generate_content("The Night the Trains Sang"))
     assert rc.image.shape == (64, 64, 3) and rc.image.dtype == np.uint8
     assert svc.backend.t2i.last_decoded_finite
 
