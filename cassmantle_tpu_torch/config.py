@@ -302,8 +302,7 @@ class ServingConfig:
     # The pending bound while the supervisor reports degraded.
     degraded_max_pending: int = 256
     # Adaptive (AIMD) admission (serving/overload.py): the latency target
-    # of queue wait + batch service, and the floor of the limit;
-    # CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 reverts to the static bounds.
+    # of queue wait + batch service, and the floor of the limit.
     queue_latency_target_s: float = 1.0
     admission_min_pending: int = 8
     # Background work (round generation) sheds at this fraction of the

@@ -25,13 +25,13 @@ it is, with no transpose.
 
 Loading HF/diffusers checkpoints waits for checkpoints in the repository.
 
-:class:`ParamSnapshot` keeps host copies of a served model's parameters
-and copies them back in place: the device-loss rebuild's reload.
+:class:`Rebuilds` keeps the recipe of each served model and runs it
+again into the same tensors: the device-loss rebuild's reload.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,28 +93,51 @@ def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     return state_dict_from_tree(params)
 
 
-class ParamSnapshot:
-    """Host copies of ``tensors`` (parameters and buffers on the device),
-    taken while the device is healthy; :meth:`restore` copies them back
-    into the same tensors in place, so anything holding their addresses
-    (the captured CUDA graphs) stays valid. The port's counterpart of the
-    reference's checkpoint re-upload in ``reload_params``."""
+class Rebuilds:
+    """The device-loss rebuild's reload, with no resident copy of the
+    weights: each served module (or tensor) is kept beside the recipe
+    that built it (:meth:`add`), and :meth:`reload` runs every recipe
+    again into a fresh object and copies it into the live tensors in
+    place, so anything holding their addresses (the captured CUDA graphs)
+    stays valid. A seeded recipe draws the same values again from its
+    generator; one that loads a caller's ``state_dict`` keeps a reference
+    to it. The peak during a reload is the served models plus the
+    largest one built afresh. The port's counterpart of the reference's
+    checkpoint re-upload in ``reload_params``."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor]):
-        seen = set()
-        self._pairs = []
-        for t in tensors:
-            if id(t) in seen:
-                continue
-            seen.add(id(t))
-            self._pairs.append((t, t.detach().to("cpu", copy=True)))
-        self.nbytes = sum(h.numel() * h.element_size()
-                          for _, h in self._pairs)
+    def __init__(self) -> None:
+        self._items: List[Tuple[object, Callable[[], object]]] = []
 
-    def restore(self) -> None:
-        with torch.inference_mode():
-            for live, host in self._pairs:
-                live.copy_(host)
+    def add(self, make: Callable[[], object]):
+        """Build with ``make`` (a module or a tensor) and keep the recipe."""
+        built = make()
+        self._items.append((built, make))
+        return built
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every parameter and buffer the recipes built."""
+        return [t for live, _ in self._items for t in _tensors(live)]
+
+    def reload(self) -> None:
+        """Raises when a recipe no longer builds what is served, and on a
+        context an error left unusable (a sticky CUDA error)."""
+        for live, make in self._items:
+            fresh = _tensors(make())
+            served = _tensors(live)
+            if [(t.shape, t.dtype) for t in fresh] != [
+                    (t.shape, t.dtype) for t in served]:
+                raise RuntimeError(
+                    f"a rebuild made other tensors than the served "
+                    f"{type(live).__name__}'s")
+            with torch.no_grad():
+                for dst, src in zip(served, fresh):
+                    dst.copy_(src)
+            del fresh
+
+
+def _tensors(built) -> List[torch.Tensor]:
+    return [built] if isinstance(built, torch.Tensor) else \
+        module_tensors(built)
 
 
 def module_tensors(*modules: Optional[torch.nn.Module]

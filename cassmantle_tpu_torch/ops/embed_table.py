@@ -59,15 +59,6 @@ CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 
 
-def embed_table_disabled() -> bool:
-    """Kill switch: ``CASSMANTLE_NO_EMBED_TABLE=1`` skips the table rung
-    everywhere (scorer ladder, service fast path, answer pinning),
-    reverting bit-exactly to the LRU/device path. Read per call so an
-    operator toggle takes effect without a restart."""
-    return os.environ.get(
-        "CASSMANTLE_NO_EMBED_TABLE", "").lower() in ("1", "true", "yes", "on")
-
-
 def normalize_key(text: str) -> str:
     """Table lookup key: NFKC + casefold + strip (the engine lowercases
     and strips both sides of a scored pair, and the tokenizers lowercase,
@@ -96,22 +87,19 @@ def scorer_signature(mcfg, seq_len: int) -> str:
     return _digest("scorer", mcfg, seq_len)
 
 
-def weights_fingerprint(state_dict=None, *, device: str = "cpu",
-                        seed: int = 0) -> str:
+def weights_fingerprint(state_dict) -> str:
     """Identity of the encoder parameters the rows come from: sha256 of
-    the given state dict's tensors (sorted by name), else the port's
-    seeded init marker, which names the device (a ``torch.Generator``
-    draws differently on the CPU and on CUDA)."""
-    if state_dict is not None:
-        h = hashlib.sha256()
-        for name in sorted(state_dict):
-            t = state_dict[name]
-            h.update(name.encode("utf-8"))
-            h.update(np.ascontiguousarray(
-                t.detach().cpu().float().numpy()
-                if hasattr(t, "detach") else np.asarray(t)).tobytes())
-        return "sha256:" + h.hexdigest()[:16]
-    return f"torch-init:{device}:seed{seed}"
+    the served encoder's state dict (its tensors sorted by name, in
+    fp32), so a change of the weights, of the init that drew them or of
+    the model's code gives another signature."""
+    h = hashlib.sha256()
+    for name in sorted(state_dict):
+        t = state_dict[name]
+        h.update(name.encode("utf-8"))
+        h.update(np.ascontiguousarray(
+            t.detach().cpu().float().numpy()
+            if hasattr(t, "detach") else np.asarray(t)).tobytes())
+    return "sha256:" + h.hexdigest()[:16]
 
 
 def cache_path(signature: str) -> str:

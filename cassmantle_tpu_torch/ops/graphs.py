@@ -35,9 +35,11 @@ on their own stream (``utils/device.py::synchronize``).
 
 :func:`no_new_captures` is the capture sentinel, the counterpart of the
 reference's ``utils/jit_sentinel.no_new_compiles``: a block during which
-any :class:`CapturedStep` captures raises :class:`NewCaptureError` (the
-device-loss recovery warms under it: a rebuild reloads parameters in
-place, so every graph stays valid).
+its own thread captures a :class:`CapturedStep` raises
+:class:`NewCaptureError` (the device-loss recovery warms under it: a
+rebuild reloads parameters in place, so every graph stays valid). It
+counts its thread's captures only: a cold round capturing its first
+graph in an executor thread meanwhile is not the block's work.
 
 Launch tallies: the kernel wrappers count their launches in Python when
 they launch. A replay runs no Python, so the capture's tally (what the
@@ -71,7 +73,8 @@ COUNTERS = (
 
 Tally = Dict[Tuple[Callable, str], object]
 
-# captures made in this process (every CapturedStep, any thread)
+# captures made in this process (every CapturedStep, any thread); each
+# thread's own count is ``_local.captures``
 _captures = 0
 _captures_lock = threading.Lock()
 _local = threading.local()
@@ -96,22 +99,28 @@ def _note_capture() -> None:
     global _captures
     with _captures_lock:
         _captures += 1
+    _local.captures = _thread_captures() + 1
+
+
+def _thread_captures() -> int:
+    return getattr(_local, "captures", 0)
 
 
 def capture_count() -> int:
-    """Captures made in this process so far."""
+    """Captures made in this process so far (every thread)."""
     with _captures_lock:
         return _captures
 
 
 @contextlib.contextmanager
 def no_new_captures():
-    """Raise :class:`NewCaptureError` at the end of the block when any
-    :class:`CapturedStep` (in any thread) captured inside it: the steady
-    state after warm-up captures nothing."""
-    before = capture_count()
+    """Raise :class:`NewCaptureError` at the end of the block when the
+    calling thread captured a :class:`CapturedStep` inside it: the steady
+    state after warm-up captures nothing. Other threads' captures do not
+    count."""
+    before = _thread_captures()
     yield
-    new = capture_count() - before
+    new = _thread_captures() - before
     if new:
         raise NewCaptureError(
             f"{new} CUDA graph capture(s) inside a no_new_captures block: "

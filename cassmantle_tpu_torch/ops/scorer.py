@@ -32,7 +32,7 @@ from cassmantle_tpu_torch.chaos import fault_point
 from cassmantle_tpu_torch.config import MiniLMConfig
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.minilm import MiniLMEncoder
-from cassmantle_tpu_torch.models.weights import ParamSnapshot, module_tensors
+from cassmantle_tpu_torch.models.weights import Rebuilds
 from cassmantle_tpu_torch.ops import embed_table as et
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -76,17 +76,21 @@ class EmbeddingScorer:
         self._embed_cache: OrderedDict = OrderedDict()
         self._embed_cache_size = embed_cache_size
         self._embed_cache_lock = threading.Lock()
-        with torch.device(self.device):
-            self.model = MiniLMEncoder(cfg)
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
-        else:
-            gen = torch.Generator(self.device).manual_seed(seed + INIT_SEED)
-            init_weights(self.model, gen)
-        self.model.eval()
-        self.weights_fp = et.weights_fingerprint(
-            state_dict, device=self.device.type, seed=seed + INIT_SEED)
-        self._snapshot = None
+
+        def encoder() -> MiniLMEncoder:
+            with torch.device(self.device):
+                model = MiniLMEncoder(cfg)
+            if state_dict is not None:
+                model.load_state_dict(state_dict)
+            else:
+                gen = torch.Generator(self.device).manual_seed(
+                    seed + INIT_SEED)
+                init_weights(model, gen)
+            return model.eval()
+
+        self._rebuilds = Rebuilds()
+        self.model = self._rebuilds.add(encoder)
+        self.weights_fp = et.weights_fingerprint(self.model.state_dict())
         self.table: Optional[et.EmbedTable] = None
         self.arm_table(table)
 
@@ -133,19 +137,11 @@ class EmbeddingScorer:
                        "built": built}
 
     # -- device-loss rebuild ----------------------------------------------
-    def snapshot_params(self) -> None:
-        """Keep host copies of the encoder's parameters (at service
-        start) for :meth:`reload_params`."""
-        self._snapshot = ParamSnapshot(module_tensors(self.model))
-
     def reload_params(self) -> None:
-        """Device-loss rebuild: copy the snapshot back into the encoder in
-        place. The LRU and the table hold host arrays addressed by text,
-        so neither needs invalidating."""
-        if self._snapshot is None:
-            raise RuntimeError("reload_params needs a snapshot_params() "
-                               "taken while the device was healthy")
-        self._snapshot.restore()
+        """Device-loss rebuild: the encoder's recipe runs again into its
+        parameters in place. The LRU and the table hold host arrays
+        addressed by text, so neither needs invalidating."""
+        self._rebuilds.reload()
 
     # -- host-side batching ----------------------------------------------
     def _tokenize_batch(self, texts: Sequence[str], batch: int
@@ -202,8 +198,7 @@ class EmbeddingScorer:
         if n == 0:
             return np.zeros((0, self.cfg.hidden_size), dtype=np.float32)
         out = np.zeros((n, self.cfg.hidden_size), dtype=np.float32)
-        table = (self.table if self.table is not None
-                 and not et.embed_table_disabled() else None)
+        table = self.table
         if table is not None:
             rest: List[int] = []
             for i, text in enumerate(texts):
@@ -262,9 +257,9 @@ class EmbeddingScorer:
 
     def table_scores(self, pairs: Sequence[Tuple[str, str]]):
         """Rung 0 for the service: [(guess, answer)] -> (scores, served)
-        through the int8 table, or None with no table or under the kill
-        switch. Pairs ``served`` completed with no device dispatch."""
-        if self.table is None or et.embed_table_disabled():
+        through the int8 table, or None with no table. Pairs ``served``
+        completed with no device dispatch."""
+        if self.table is None:
             return None
         return self.table.score_pairs(list(pairs))
 
@@ -272,7 +267,7 @@ class EmbeddingScorer:
         """Pin round answers missing from the table: embedded once through
         the LRU and device rungs, quantized with the table's scheme and
         overlaid. Returns the rows pinned (``scorer.table_pins``)."""
-        if self.table is None or et.embed_table_disabled():
+        if self.table is None:
             return 0
         todo: List[str] = []
         for w in words:

@@ -14,15 +14,12 @@ computed Retry-After from the predicted-wait estimator (depth x the
 observed per-item service time), and a request whose predicted wait
 already exceeds its deadline is rejected at submit. Background work
 (round generation) sheds first, at ``background_fraction`` of the limit
-and on event-loop lag. ``CASSMANTLE_NO_ADAPTIVE_ADMISSION=1`` reverts
-every queue to the static ``max_pending`` / ``degraded_max_pending``
-pair.
+and on event-loop lag.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -33,17 +30,6 @@ log = get_logger("overload")
 
 PRIORITY_INTERACTIVE = "interactive"
 PRIORITY_BACKGROUND = "background"
-
-
-def _env_flag(name: str) -> bool:
-    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
-
-
-def adaptive_admission_disabled() -> bool:
-    """CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 reverts every queue to the
-    static max_pending/degraded_max_pending pair.
-    Read at service build like the other serving kill switches."""
-    return _env_flag("CASSMANTLE_NO_ADAPTIVE_ADMISSION")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,13 +273,9 @@ def peer_advert() -> Dict[str, object]:
     return {"shed": 1} if shedding() else {}
 
 
-def make_admission(name: str, cfg) -> Optional[AdaptiveLimiter]:
-    """The per-queue adaptive limiter from a FrameworkConfig, or None
-    with CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 — reverting the queue to
-    the static max_pending/degraded_max_pending pair exactly. Shared
-    by the real InferenceService and the drill's FakeQueuedScorer."""
-    if adaptive_admission_disabled():
-        return None
+def make_admission(name: str, cfg) -> AdaptiveLimiter:
+    """The per-queue adaptive limiter from a FrameworkConfig, registered
+    for :func:`status_block`."""
     s = cfg.serving
     limiter = AdaptiveLimiter(
         name,

@@ -31,8 +31,8 @@ the ``device.lost`` fault point inside each dispatch, ``poison`` and the
 degenerate-frame verdict on the uint8 batch, the token-range verdict on
 the decoded ids; :meth:`PromptGenerator.generate_batch` returns a
 rejected row as an ``OutputInvalid`` in its slot. ``reload_params``
-copies the parameters snapshotted at service start back in place
-(:class:`ParamSnapshot`), so every captured graph stays valid.
+runs each served model's recipe again into its live tensors in place
+(``models/weights.py::Rebuilds``), so every captured graph stays valid.
 
 The denoise stage is the reference's ``run_cfg_denoise``, in its order:
 few-step consistency sampling (``sampler.consistency``), encoder
@@ -78,7 +78,7 @@ from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.mistral import MistralLM
 from cassmantle_tpu_torch.models.unet import UNet
-from cassmantle_tpu_torch.models.weights import ParamSnapshot, module_tensors
+from cassmantle_tpu_torch.models.weights import Rebuilds
 from cassmantle_tpu_torch.models.vae import (
     VAEDecoder,
     VAEEncoder,
@@ -353,26 +353,22 @@ def check_eta(sampler_cfg) -> None:
 
 
 class _ReloadsParams:
-    """The device-loss rebuild of a pipeline with a ``_dispatch_lock`` and
-    ``param_tensors()``: host copies of the served parameters, taken at
-    service start while the device is healthy, copied back in place under
-    the lock, so the captured graphs keep their buffers and stay valid."""
+    """The device-loss rebuild of a pipeline with a ``_dispatch_lock``: it
+    builds what it serves through ``self._rebuilds``, whose recipes run
+    again into the same tensors under the lock, so the captured graphs
+    keep their buffers and stay valid."""
 
-    _snapshot: Optional[ParamSnapshot] = None
+    _rebuilds: Rebuilds
 
-    def snapshot_params(self) -> ParamSnapshot:
-        with self._dispatch_lock:
-            self._snapshot = ParamSnapshot(self.param_tensors())
-        return self._snapshot
+    def param_tensors(self) -> List[torch.Tensor]:
+        """The parameters and buffers the pipeline serves from."""
+        return self._rebuilds.tensors()
 
     def reload_params(self) -> None:
-        """Raises without a snapshot, and on a context an error left
-        unusable (a sticky CUDA error)."""
-        if self._snapshot is None:
-            raise RuntimeError("reload_params needs a snapshot_params() "
-                               "taken while the device was healthy")
+        """Raises on a context an error left unusable (a sticky CUDA
+        error)."""
         with self._dispatch_lock:
-            self._snapshot.restore()
+            self._rebuilds.reload()
             synchronize(self.device)
 
 
@@ -402,22 +398,28 @@ class Text2ImagePipeline(_ReloadsParams):
         # the encoder's weights, kept for its build on first use
         self._vae_enc_state = sd.get("vae_enc")
         param_dtype = torch_dtype(m.param_dtype)
-        with torch.device(self.device):
-            # the reference's pipeline runs CLIP in fp32 over parameters
-            # stored in param_dtype, the UNet in its own dtype over
-            # param_dtype storage, and the VAE over fp32 storage
-            self.clip = build_model(ClipTextEncoder(m.clip_text), "clip_text",
-                                    self.device, cfg.seed, sd.get("clip_text"),
-                                    param_dtype)
-            self.unet = build_model(UNet(m.unet), "unet", self.device,
-                                    cfg.seed, sd.get("unet"), param_dtype)
-            self.vae = build_model(VAEDecoder(m.vae), "vae", self.device,
-                                   cfg.seed, sd.get("vae"))
+        self._rebuilds = Rebuilds()
+
+        def unet() -> UNet:
+            model = self._build(partial(UNet, m.unet), "unet",
+                                sd.get("unet"), param_dtype)
+            if w8a8 is not None:
+                w8a8(model)
+            return model
+
+        # the reference's pipeline runs CLIP in fp32 over parameters
+        # stored in param_dtype, the UNet in its own dtype over
+        # param_dtype storage, and the VAE over fp32 storage
+        self.clip = self._rebuilds.add(partial(
+            self._build, partial(ClipTextEncoder, m.clip_text), "clip_text",
+            sd.get("clip_text"), param_dtype))
+        self.unet = self._rebuilds.add(unet)
+        self.vae = self._rebuilds.add(partial(
+            self._build, partial(VAEDecoder, m.vae), "vae", sd.get("vae")))
         for part in (m.unet, m.vae):
             if fc_describe(part):
                 log.info("%s", fc_describe(part))
         if w8a8 is not None:
-            w8a8(self.unet)
             log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
                                          w8a8_site_count(self.unet)))
         # SDXL's two towers share the CLIP vocabulary and one tokenization
@@ -450,9 +452,15 @@ class Text2ImagePipeline(_ReloadsParams):
         self.last_stage_seconds: Dict[str, float] = {}
         self.last_decoded_finite = True
 
-    def param_tensors(self) -> List[torch.Tensor]:
-        """The parameters and buffers the pipeline serves from."""
-        return module_tensors(self.clip, self.unet, self.vae, self.vae_enc)
+    def _build(self, factory: Callable[[], torch.nn.Module], kind: str,
+               state_dict: Optional[Mapping],
+               storage_dtype: Optional[torch.dtype] = None
+               ) -> torch.nn.Module:
+        """:func:`build_model` of ``factory()``, made on this device."""
+        with torch.device(self.device):
+            module = factory()
+        return build_model(module, kind, self.device, self.cfg.seed,
+                           state_dict, storage_dtype)
 
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
@@ -564,10 +572,9 @@ class Text2ImagePipeline(_ReloadsParams):
         from ``state_dicts["vae_enc"]`` or the seeded init, fp32 storage
         as the decoder's."""
         if self.vae_enc is None:
-            with torch.device(self.device):
-                self.vae_enc = build_model(
-                    VAEEncoder(self.cfg.models.vae), "vae_enc", self.device,
-                    self.cfg.seed, self._vae_enc_state)
+            self.vae_enc = self._rebuilds.add(partial(
+                self._build, partial(VAEEncoder, self.cfg.models.vae),
+                "vae_enc", self._vae_enc_state))
         return self.vae_enc
 
     def img2img_tail(self, x: torch.Tensor, cond: Dict[str, torch.Tensor],
@@ -698,6 +705,7 @@ class PromptGenerator(_ReloadsParams):
         self._dispatch_lock = OrderedLock("pipeline.prompt_dispatch",
                                           rank=12)
         param_dtype = torch_dtype(models.param_dtype)
+        self._rebuilds = Rebuilds()
         t0 = time.perf_counter()
         if models.mistral is not None:
             if lm_w8a8_armed(models):
@@ -706,19 +714,27 @@ class PromptGenerator(_ReloadsParams):
                     "layers in the reference, with no int8 site")
             self.mcfg = m = models.mistral
             kind = "mistral"
-            self.model = build_streamed(partial(MistralLM, m), kind,
-                                        self.device, cfg.seed, state_dict,
-                                        param_dtype)
+            self.model = self._rebuilds.add(partial(
+                build_streamed, partial(MistralLM, m), kind, self.device,
+                cfg.seed, state_dict, param_dtype))
         else:
             self.mcfg = m = models.gpt2
             kind = "gpt2"
-            with torch.device(self.device):
-                self.model = build_model(GPT2LM(m), kind, self.device,
-                                         cfg.seed, state_dict, param_dtype)
+
+            def gpt2() -> GPT2LM:
+                with torch.device(self.device):
+                    model = build_model(GPT2LM(m), kind, self.device,
+                                        cfg.seed, state_dict, param_dtype)
+                if lm_w8a8_armed(models):
+                    # no static scales: the LM quantizes activations per
+                    # token
+                    w8a8_modules(model, predicate=partial(
+                        w8a8_default_predicate,
+                        min_size=models.w8a8_min_size))
+                return model
+
+            self.model = self._rebuilds.add(gpt2)
             if lm_w8a8_armed(models):
-                # no static scales: the LM quantizes activations per token
-                w8a8_modules(self.model, predicate=partial(
-                    w8a8_default_predicate, min_size=models.w8a8_min_size))
                 log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
                          "activation scales)", w8a8_site_count(self.model))
         synchronize(self.device)
@@ -734,6 +750,8 @@ class PromptGenerator(_ReloadsParams):
         # decode shape, made on first use
         self.decode_graphs: Dict[tuple, GreedyDecodeState] = {}
         self.spec_graphs: Dict[tuple, SpecDecodeState] = {}
+        # (seed texts, max_new, seed, graphed) of the last decode
+        self._last_call: Optional[tuple] = None
         self._init_spec_decode(cfg, draft_state_dict, param_dtype)
 
     def _init_spec_decode(self, cfg: FrameworkConfig,
@@ -766,16 +784,13 @@ class PromptGenerator(_ReloadsParams):
         if cfg.models.mistral is None and d == cfg.models.gpt2:
             self.spec_draft = ModelDraft(self.model)
             return
-        with torch.device(self.device):
-            draft = build_model(GPT2LM(d), "gpt2_draft", self.device,
-                                cfg.seed, draft_state_dict, param_dtype)
-        self.spec_draft = ModelDraft(draft)
 
-    def param_tensors(self) -> List[torch.Tensor]:
-        """The parameters and buffers of the LM and of a separate draft."""
-        draft = getattr(self.spec_draft, "model", None)
-        return module_tensors(self.model,
-                              None if draft is self.model else draft)
+        def draft() -> GPT2LM:
+            with torch.device(self.device):
+                return build_model(GPT2LM(d), "gpt2_draft", self.device,
+                                   cfg.seed, draft_state_dict, param_dtype)
+
+        self.spec_draft = ModelDraft(self._rebuilds.add(draft))
 
     def _spec_enabled(self, bucket: int, max_new: int) -> bool:
         """Per bucket group: speculative decode serves greedy decodes only,
@@ -877,7 +892,17 @@ class PromptGenerator(_ReloadsParams):
             out_tokens[idxs] = toks_host
             out_len[idxs] = gen_len
         self._record_spec_stats(spec_stats)
+        self._last_call = (list(seed_texts), max_new, seed, graphed)
         return out_tokens, out_len, tuple(sorted(bad_members))
+
+    def replay_last_decode(self) -> bool:
+        """The last decode again, at its shapes and seed: on CUDA, replays
+        of the graphs it captured (the recovery warm). False when nothing
+        was decoded yet."""
+        if self._last_call is None:
+            return False
+        self._decode(*self._last_call)
+        return True
 
     def _decode_group(self, ids: np.ndarray, lens: np.ndarray, n: int,
                       bucket: int, max_new: int, eos: int, seed: int,

@@ -29,7 +29,8 @@ first three yet, and a W8A8 or fused-conv SDXL UNet raises
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from functools import partial
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,11 +38,7 @@ import torch
 from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.layers import timestep_embedding
-from cassmantle_tpu_torch.models.weights import module_tensors
-from cassmantle_tpu_torch.serving.pipeline import (
-    Text2ImagePipeline,
-    build_model,
-)
+from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
 from cassmantle_tpu_torch.utils.device import DeviceLike, torch_dtype
 
 
@@ -81,27 +78,18 @@ class SDXLPipeline(Text2ImagePipeline):
         m = cfg.models
         sd = state_dicts or {}
         param_dtype = torch_dtype(m.param_dtype)
-        with torch.device(self.device):
-            self.clip2 = build_model(ClipTextEncoder(m.clip_text_2),
-                                     "clip_text_2", self.device, cfg.seed,
-                                     sd.get("clip_text_2"), param_dtype)
+        self.clip2 = self._rebuilds.add(partial(
+            self._build, partial(ClipTextEncoder, m.clip_text_2),
+            "clip_text_2", sd.get("clip_text_2"), param_dtype))
         proj = sd.get("clip_text_2_projection")
-        self.clip2_proj = (None if proj is None
-                           else proj.to(self.device, param_dtype))
+        self.clip2_proj = (None if proj is None else self._rebuilds.add(
+            partial(proj.to, self.device, param_dtype)))
         # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings;
         # the time ids depend on the config alone: built once, here (a host
         # to device copy, never inside a step)
         self.time_id_dim = (m.unet.addition_embed_dim
                             - m.clip_text_2.hidden_size) // 6
-        self.time_ids = self._time_ids(1)
-
-    def param_tensors(self) -> List[torch.Tensor]:
-        """The SD1.5 pipeline's, bigG's tower and projection, and the time
-        ids built at start."""
-        extra = [t for t in (self.clip2_proj, self.time_ids)
-                 if t is not None]
-        return (super().param_tensors() + module_tensors(self.clip2)
-                + extra)
+        self.time_ids = self._rebuilds.add(partial(self._time_ids, 1))
 
     def _encode(self, ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

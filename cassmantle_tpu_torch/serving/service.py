@@ -17,8 +17,9 @@ Port of ``cassmantle_tpu/serving/service.py::InferenceService``
 - one :class:`ServingSupervisor` owns the breakers, the dispatch
   watchdog and the ``device_lost`` state; dispatch exceptions are
   classified by the :class:`DeviceRecoveryManager`, whose single-flight
-  rebuild reloads every pipeline's parameters in place and warms the
-  scorer under ``no_new_captures``;
+  rebuild reloads every pipeline's parameters in place and warms under
+  ``no_new_captures`` (a scorer dispatch and a replay of the prompt
+  LM's last decode);
 - the integrity sentinels fail only the bad members of a batch.
 
 The image pipeline follows the config: SD1.5 by default, SDXL under
@@ -71,9 +72,7 @@ log = get_logger("service")
 class InferenceService:
     """``table``: ``"auto"`` builds (or loads from the cache) the int8
     table of the game's wordlist with the service's own scorer; an
-    :class:`EmbedTable` is used as given; None serves without rung 0.
-    At start the service keeps host copies of every served parameter for
-    the device-loss rebuild (:meth:`rebuild_device_state`)."""
+    :class:`EmbedTable` is used as given; None serves without rung 0."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
@@ -92,9 +91,6 @@ class InferenceService:
         self.scorer.arm_table(table)
         self.backend = TorchContentBackend(cfg, self.device,
                                            state_dicts=sd)
-        self.scorer.snapshot_params()
-        for pipe in self._pipelines():
-            pipe.snapshot_params()
         self._warm_count = 0
         self.recovery = DeviceRecoveryManager(
             supervisor=self.supervisor,
@@ -244,21 +240,24 @@ class InferenceService:
 
     # -- device-loss rebuild -------------------------------------------------
     def rebuild_device_state(self) -> None:
-        """One rebuild attempt (on the recovery thread): copy every
-        pipeline's and the scorer's parameter snapshot back in place.
-        Raises on failure (a sticky CUDA error fails every attempt); the
-        manager owns the retries."""
+        """One rebuild attempt (on the recovery thread): every pipeline's
+        and the scorer's models are built again on the device and copied
+        into the served parameters in place. Raises on failure (a sticky
+        CUDA error fails every attempt); the manager owns the retries."""
         for pipe in self._pipelines():
             pipe.reload_params()
         self.scorer.reload_params()
 
     def _warm_after_recovery(self) -> None:
-        """One real dispatch through the scorer under
-        ``no_new_captures``: a rebuild must leave every graph valid. A
-        fresh word each time keeps the LRU from answering instead."""
+        """One real dispatch through the scorer (eager: it owns no graph)
+        and the prompt LM's last decode again, which replays the graphs
+        it captured, under ``no_new_captures``: a rebuild must leave
+        every graph valid. A fresh word each time keeps the LRU from
+        answering instead."""
         self._warm_count += 1
         with no_new_captures():
             self.scorer.embed([f"recovery warm {self._warm_count}"])
+            self.backend.prompt_gen.replay_last_decode()
 
     async def stop(self) -> None:
         await self.score_queue.stop()

@@ -221,6 +221,57 @@ def test_no_new_captures_catches_a_capture(monkeypatch):
     assert graphs.capture_count() == before + 1
 
 
+def test_no_new_captures_counts_its_own_thread_only():
+    """Another thread's capture inside the block (a cold round capturing
+    its first graph in the executor) is not the block's: no raise; the
+    process-wide count still sees it."""
+    before = graphs.capture_count()
+    with graphs.no_new_captures():
+        other = threading.Thread(target=EagerStep, args=(lambda: None,))
+        other.start()
+        other.join()
+    assert graphs.capture_count() == before + 1
+
+
+def test_recovery_warm_survives_a_capture_on_another_thread(svc,
+                                                           monkeypatch):
+    """A capture on another thread while the recovery warms does not fail
+    the recovery; the warm replays the prompt LM's last decode (same
+    tokens) and a capture on the warm's own thread does fail it."""
+    gen = svc.backend.prompt_gen
+    first = gen.decode_ids_batch(SEEDS[:2])
+    replays = []
+    real_decode = gen._decode
+
+    def decode(*args):
+        replays.append(real_decode(*args))
+        return replays[-1]
+
+    monkeypatch.setattr(gen, "_decode", decode)
+    real_embed = svc.scorer.embed
+
+    def embed_while_another_thread_captures(texts):
+        other = threading.Thread(target=EagerStep, args=(lambda: None,))
+        other.start()
+        other.join()
+        return real_embed(texts)
+
+    monkeypatch.setattr(svc.scorer, "embed",
+                        embed_while_another_thread_captures)
+    svc._warm_after_recovery()
+    assert len(replays) == 1
+    np.testing.assert_array_equal(replays[0][0], first[0])
+    np.testing.assert_array_equal(replays[0][1], first[1])
+
+    def embed_and_capture_here(texts):
+        EagerStep(lambda: None)
+        return real_embed(texts)
+
+    monkeypatch.setattr(svc.scorer, "embed", embed_and_capture_here)
+    with pytest.raises(graphs.NewCaptureError):
+        svc._warm_after_recovery()
+
+
 def test_concurrent_generates_never_overlap_the_unet():
     """Fault 1: the dispatch lock serializes a pipeline's device work.
     Two threads generate at once; the UNet's forwards (entry and exit

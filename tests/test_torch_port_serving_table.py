@@ -192,5 +192,30 @@ def test_port_builds_and_caches_its_own_table(scorers, tmp_path):
     assert float(err.max()) < 1e-2, err.max()
     assert port.weights_fp.startswith("sha256:")
     fresh = EmbeddingScorer(port_test_config().models.minilm, "cpu")
-    assert fresh.weights_fp == "torch-init:cpu:seed7"
+    assert fresh.weights_fp.startswith("sha256:")
+    assert fresh.weights_fp != port.weights_fp
     assert fresh.table_signature(words) != port.table_signature(words)
+
+
+def test_a_changed_weight_never_arms_the_cached_table(tmp_path):
+    """The signature digests the served encoder's weights themselves: a
+    scorer whose weights differ from the cached table's in one element
+    neither loads that table nor serves its rows; it builds its own."""
+    words = WORDS + OOV
+    path = str(tmp_path / "table.bin")
+    cfg = port_test_config().models.minilm
+    first = EmbeddingScorer(cfg, "cpu")
+    first.build_table(words, path=path)
+    state = {k: v.clone() for k, v in first.model.state_dict().items()}
+    name = sorted(state)[0]
+    state[name].view(-1)[0] += 1e-3
+    changed = EmbeddingScorer(cfg, "cpu", state_dict=state)
+    assert changed.weights_fp != first.weights_fp
+    sig = changed.table_signature(words)
+    assert sig != first.table_signature(words)
+    assert pet.EmbedTable.load(path, expected_signature=sig) is None
+    table, stats = changed.build_table(words, path=path)
+    assert stats["built"]
+    assert pet.read_header(path)["signature"] == sig
+    np.testing.assert_allclose(
+        table.lookup(OOV[0]), changed.embed([OOV[0]])[0], atol=1e-2)
