@@ -87,12 +87,15 @@ def scorer_signature(mcfg, seq_len: int) -> str:
     return _digest("scorer", mcfg, seq_len)
 
 
-def weights_fingerprint(state_dict) -> str:
-    """Identity of the encoder parameters the rows come from: sha256 of
-    the served encoder's state dict (its tensors sorted by name, in
-    fp32), so a change of the weights, of the init that drew them or of
-    the model's code gives another signature."""
+def weights_fingerprint(state_dict, tokenizer: str = "") -> str:
+    """Identity of what the rows come from: sha256 of the served
+    encoder's state dict (its tensors sorted by name, in fp32) and of
+    ``tokenizer`` (``utils/tokenizers.py::tokenizer_identity``: its class
+    and a digest of its vocabulary file), so a change of the weights, of
+    the init that drew them, of the model's code or of the tokenizer's
+    ids gives another signature."""
     h = hashlib.sha256()
+    h.update(tokenizer.encode("utf-8"))
     for name in sorted(state_dict):
         t = state_dict[name]
         h.update(name.encode("utf-8"))

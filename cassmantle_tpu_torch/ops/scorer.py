@@ -14,7 +14,13 @@ The port makes its own table: :meth:`EmbeddingScorer.build_table`
 embeds the game's wordlist (``data/wordlist.txt`` with the seeds' and
 styles' words) through this scorer's encoder on its device in buckets of
 2,048, quantizes it with the reference's scheme and caches it in the
-git-ignored ``cassmantle_tpu_torch/_build/`` under its signature.
+git-ignored ``cassmantle_tpu_torch/_build/`` under its signature, which
+binds the encoder's weights and its tokenizer's vocabulary.
+
+From a weights directory (``weights_dir``) the encoder loads
+``minilm.safetensors`` and the tokenizer ``minilm_vocab.txt``, as the
+reference's scorer does; without them, the seeded init and the byte
+tokenizer.
 """
 
 from __future__ import annotations
@@ -32,13 +38,21 @@ from cassmantle_tpu_torch.chaos import fault_point
 from cassmantle_tpu_torch.config import MiniLMConfig
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.minilm import MiniLMEncoder
-from cassmantle_tpu_torch.models.weights import Rebuilds
+from cassmantle_tpu_torch.models.weights import (
+    Rebuilds,
+    add_model,
+    convert_minilm,
+    fill_,
+)
 from cassmantle_tpu_torch.ops import embed_table as et
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils.device import DeviceLike, resolve_device
 from cassmantle_tpu_torch.utils.logging import get_logger, metrics
 from cassmantle_tpu_torch.utils.text import load_wordlist
-from cassmantle_tpu_torch.utils.tokenizers import load_tokenizer
+from cassmantle_tpu_torch.utils.tokenizers import (
+    load_tokenizer,
+    tokenizer_identity,
+)
 
 log = get_logger("scorer")
 
@@ -46,6 +60,7 @@ log = get_logger("scorer")
 INIT_SEED = 7
 # Rows per device forward when building the table.
 TABLE_BUCKET = 2048
+CHECKPOINT = "minilm.safetensors"
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -65,32 +80,41 @@ class EmbeddingScorer:
                  batch_buckets: Sequence[int] = (8, 64, 256, 1024),
                  state_dict: Optional[Mapping] = None, seed: int = 0,
                  embed_cache_size: int = 2048,
-                 table: Optional[et.EmbedTable] = None):
+                 table: Optional[et.EmbedTable] = None,
+                 weights_dir: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seq_len = min(seq_len, cfg.max_positions)
         self.batch_buckets = tuple(batch_buckets)
-        self.tokenizer = load_tokenizer("minilm", cfg.vocab_size)
+        self.tokenizer = load_tokenizer("minilm", cfg.vocab_size,
+                                        weights_dir)
         # text -> unit embedding; a short-hold leaf lock (dict updates
         # only: the device encode runs outside it)
         self._embed_cache: OrderedDict = OrderedDict()
         self._embed_cache_size = embed_cache_size
         self._embed_cache_lock = threading.Lock()
 
-        def encoder() -> MiniLMEncoder:
+        def encoder(weights: Optional[Mapping]) -> MiniLMEncoder:
             with torch.device(self.device):
                 model = MiniLMEncoder(cfg)
-            if state_dict is not None:
-                model.load_state_dict(state_dict)
+            if weights is not None:
+                fill_(model, weights)
             else:
                 gen = torch.Generator(self.device).manual_seed(
                     seed + INIT_SEED)
                 init_weights(model, gen)
             return model.eval()
 
+        def convert(tensors):
+            return convert_minilm(tensors, cfg.num_layers)
+
         self._rebuilds = Rebuilds()
-        self.model = self._rebuilds.add(encoder)
-        self.weights_fp = et.weights_fingerprint(self.model.state_dict())
+        self.model, self.loaded_real_weights = add_model(
+            self._rebuilds, encoder, "minilm", weights_dir, CHECKPOINT,
+            convert, state_dict)
+        # the table's rows depend on the weights and on the tokenizer's ids
+        self.weights_fp = et.weights_fingerprint(
+            self.model.state_dict(), tokenizer_identity(self.tokenizer))
         self.table: Optional[et.EmbedTable] = None
         self.arm_table(table)
 

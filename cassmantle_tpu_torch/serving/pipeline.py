@@ -20,6 +20,16 @@ serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
 ``TPUContentBackend`` does. Staged serving and brownout tiers are later
 slices.
 
+Weights: each pipeline takes a ``weights_dir`` beside ``state_dicts`` and
+loads every model it serves from the reference's file there
+(``clip_text.safetensors``, ``unet.safetensors``, ``vae.safetensors``,
+the VAE encoder from ``vae.safetensors`` at its first use;
+``gpt2.safetensors``, or ``mistral.safetensors`` or its shards, and
+``gpt2_draft.safetensors``) through ``models/weights.py::maybe_load``; a
+model whose file is absent, unreadable or incomplete serves the seeded
+init, and a model given both ways raises. ``loaded_real_weights`` says
+whether every stage came from a file, as the reference's does.
+
 Serving seam: each pipeline serializes its device work under its own
 dispatch lock (``_dispatch_lock``, as the reference's), since its CUDA
 graphs replay over static buffers that two overlapping calls would
@@ -78,7 +88,15 @@ from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
 from cassmantle_tpu_torch.models.mistral import MistralLM
 from cassmantle_tpu_torch.models.unet import UNet
-from cassmantle_tpu_torch.models.weights import Rebuilds
+from cassmantle_tpu_torch.models.weights import (
+    CHECKPOINT_FILES,
+    Rebuilds,
+    add_model,
+    checkpoint_paths,
+    convert_gpt2,
+    converter_for,
+    fill_,
+)
 from cassmantle_tpu_torch.models.vae import (
     VAEDecoder,
     VAEEncoder,
@@ -189,10 +207,11 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
                 seed: int, state_dict: Optional[Mapping] = None,
                 storage_dtype: Optional[torch.dtype] = None
                 ) -> torch.nn.Module:
-    """Fill ``module`` (already on ``device``) from ``state_dict`` or a
-    seeded random init, then store its parameters in ``storage_dtype``."""
+    """Fill ``module`` (already on ``device``) from ``state_dict`` (a dict
+    or a checkpoint's :class:`Converted` plan, copied tensor by tensor) or
+    a seeded random init, then store its parameters in ``storage_dtype``."""
     if state_dict is not None:
-        module.load_state_dict(state_dict)
+        fill_(module, state_dict)
     else:
         gen = torch.Generator(device).manual_seed(seed + INIT_SEEDS[kind])
         init_weights(module, gen)
@@ -212,7 +231,9 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
     made on ``device`` in fp32, filled from ``state_dict`` or the seeded
     init (in build_model's order) and cast to ``storage_dtype``: the peak
     is the stored footprint plus one submodule in fp32. The module may
-    hold no parameter or buffer of its own."""
+    hold no parameter or buffer of its own. A checkpoint's
+    :class:`Converted` plan converts each submodule's tensors as it is
+    filled, from the mapped file."""
     with torch.device("meta"):
         module = factory()
     if (next(module.parameters(recurse=False), None) is not None
@@ -226,9 +247,8 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
             init_weights(child, gen)
         else:
             prefix = f"{name}."
-            child.load_state_dict({k[len(prefix):]: v
-                                   for k, v in state_dict.items()
-                                   if k.startswith(prefix)})
+            fill_(child, {k[len(prefix):]: state_dict[k]
+                          for k in state_dict if k.startswith(prefix)})
         if storage_dtype is not None:
             child.to(storage_dtype)
     if state_dict is not None:
@@ -379,9 +399,12 @@ class Text2ImagePipeline(_ReloadsParams):
     # the name its fault points, integrity verdicts and lock carry
     PIPELINE = "t2i"
     LOCK_RANK = 10
+    # the checkpoint kinds of its UNet and VAE decoder (models/weights.py)
+    UNET_KIND, VAE_KIND = "unet", "vae"
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
-                 state_dicts: Optional[Mapping[str, Mapping]] = None):
+                 state_dicts: Optional[Mapping[str, Mapping]] = None,
+                 weights_dir: Optional[str] = None):
         self.sampler_mode = sampler_mode(cfg.sampler)
         # the config served: the teacher's under the consistency kill switch
         self.sampler_cfg = effective_sampler_cfg(cfg.sampler)
@@ -395,14 +418,19 @@ class Text2ImagePipeline(_ReloadsParams):
             f"pipeline.{self.PIPELINE}_dispatch", rank=self.LOCK_RANK)
         m = cfg.models
         sd = state_dicts or {}
+        self.weights_dir = weights_dir
         # the encoder's weights, kept for its build on first use
         self._vae_enc_state = sd.get("vae_enc")
+        if self._vae_enc_state is not None and checkpoint_paths(
+                weights_dir, CHECKPOINT_FILES["vae_enc"]):
+            raise ValueError("vae_enc: given in state_dicts and in "
+                             f"{CHECKPOINT_FILES['vae_enc']}; give one")
         param_dtype = torch_dtype(m.param_dtype)
         self._rebuilds = Rebuilds()
 
-        def unet() -> UNet:
-            model = self._build(partial(UNet, m.unet), "unet",
-                                sd.get("unet"), param_dtype)
+        def unet(weights: Optional[Mapping]) -> UNet:
+            model = self._build(partial(UNet, m.unet), "unet", weights,
+                                param_dtype)
             if w8a8 is not None:
                 w8a8(model)
             return model
@@ -410,12 +438,19 @@ class Text2ImagePipeline(_ReloadsParams):
         # the reference's pipeline runs CLIP in fp32 over parameters
         # stored in param_dtype, the UNet in its own dtype over
         # param_dtype storage, and the VAE over fp32 storage
-        self.clip = self._rebuilds.add(partial(
-            self._build, partial(ClipTextEncoder, m.clip_text), "clip_text",
-            sd.get("clip_text"), param_dtype))
-        self.unet = self._rebuilds.add(unet)
-        self.vae = self._rebuilds.add(partial(
-            self._build, partial(VAEDecoder, m.vae), "vae", sd.get("vae")))
+        self.clip, clip_file = self._add(
+            partial(self._build, partial(ClipTextEncoder, m.clip_text),
+                    "clip_text", storage_dtype=param_dtype),
+            "clip_text", sd.get("clip_text"))
+        self.unet, unet_file = self._add(
+            unet, self.UNET_KIND, sd.get("unet"),
+            param_dtype if w8a8 is not None else None)
+        self.vae, vae_file = self._add(
+            partial(self._build, partial(VAEDecoder, m.vae), "vae"),
+            self.VAE_KIND, sd.get("vae"))
+        # True only when every stage came from a checkpoint (the
+        # reference's flag: quality checks refuse a seeded stage)
+        self.loaded_real_weights = clip_file and unet_file and vae_file
         for part in (m.unet, m.vae):
             if fc_describe(part):
                 log.info("%s", fc_describe(part))
@@ -423,7 +458,8 @@ class Text2ImagePipeline(_ReloadsParams):
             log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
                                          w8a8_site_count(self.unet)))
         # SDXL's two towers share the CLIP vocabulary and one tokenization
-        self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size)
+        self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size,
+                                        weights_dir)
         self.pad_len = min([cfg.sampler.prompt_pad_len] + [
             t.max_positions for t in (m.clip_text, m.clip_text_2)
             if t is not None])
@@ -461,6 +497,17 @@ class Text2ImagePipeline(_ReloadsParams):
             module = factory()
         return build_model(module, kind, self.device, self.cfg.seed,
                            state_dict, storage_dtype)
+
+    def _add(self, build: Callable[[Optional[Mapping]], torch.nn.Module],
+             kind: str, state_dict: Optional[Mapping],
+             quant_dtype: Optional[torch.dtype] = None
+             ) -> Tuple[torch.nn.Module, bool]:
+        """:func:`add_model` of checkpoint ``kind`` from this pipeline's
+        weights directory."""
+        return add_model(self._rebuilds, build, kind, self.weights_dir,
+                         CHECKPOINT_FILES[kind],
+                         converter_for(kind, self.cfg.models), state_dict,
+                         quant_dtype)
 
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
@@ -569,12 +616,13 @@ class Text2ImagePipeline(_ReloadsParams):
     # -- img2img ----------------------------------------------------------
     def _ensure_encoder(self) -> VAEEncoder:
         """The VAE encoder, built on first use (only img2img needs it):
-        from ``state_dicts["vae_enc"]`` or the seeded init, fp32 storage
-        as the decoder's."""
+        from the encoder half of ``vae.safetensors`` in the weights
+        directory, ``state_dicts["vae_enc"]`` or the seeded init, fp32
+        storage as the decoder's."""
         if self.vae_enc is None:
-            self.vae_enc = self._rebuilds.add(partial(
-                self._build, partial(VAEEncoder, self.cfg.models.vae),
-                "vae_enc", self._vae_enc_state))
+            self.vae_enc, _ = self._add(
+                partial(self._build, partial(VAEEncoder, self.cfg.models.vae),
+                        "vae_enc"), "vae_enc", self._vae_enc_state)
         return self.vae_enc
 
     def img2img_tail(self, x: torch.Tensor, cond: Dict[str, torch.Tensor],
@@ -693,7 +741,8 @@ class PromptGenerator(_ReloadsParams):
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dict: Optional[Mapping] = None,
-                 draft_state_dict: Optional[Mapping] = None):
+                 draft_state_dict: Optional[Mapping] = None,
+                 weights_dir: Optional[str] = None):
         models = cfg.models
         if models.lm_int8:
             raise NotImplementedError(
@@ -705,6 +754,7 @@ class PromptGenerator(_ReloadsParams):
         self._dispatch_lock = OrderedLock("pipeline.prompt_dispatch",
                                           rank=12)
         param_dtype = torch_dtype(models.param_dtype)
+        self.weights_dir = weights_dir
         self._rebuilds = Rebuilds()
         t0 = time.perf_counter()
         if models.mistral is not None:
@@ -714,17 +764,18 @@ class PromptGenerator(_ReloadsParams):
                     "layers in the reference, with no int8 site")
             self.mcfg = m = models.mistral
             kind = "mistral"
-            self.model = self._rebuilds.add(partial(
-                build_streamed, partial(MistralLM, m), kind, self.device,
-                cfg.seed, state_dict, param_dtype))
+            build = partial(build_streamed, partial(MistralLM, m), kind,
+                            self.device, cfg.seed,
+                            storage_dtype=param_dtype)
+            quant = None
         else:
             self.mcfg = m = models.gpt2
             kind = "gpt2"
 
-            def gpt2() -> GPT2LM:
+            def build(weights: Optional[Mapping]) -> GPT2LM:
                 with torch.device(self.device):
                     model = build_model(GPT2LM(m), kind, self.device,
-                                        cfg.seed, state_dict, param_dtype)
+                                        cfg.seed, weights, param_dtype)
                 if lm_w8a8_armed(models):
                     # no static scales: the LM quantizes activations per
                     # token
@@ -733,16 +784,20 @@ class PromptGenerator(_ReloadsParams):
                         min_size=models.w8a8_min_size))
                 return model
 
-            self.model = self._rebuilds.add(gpt2)
-            if lm_w8a8_armed(models):
-                log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
-                         "activation scales)", w8a8_site_count(self.model))
+            quant = param_dtype if lm_w8a8_armed(models) else None
+        # mistral.safetensors or its shards, or gpt2.safetensors
+        self.model, self.loaded_real_weights = add_model(
+            self._rebuilds, build, kind, weights_dir, CHECKPOINT_FILES[kind],
+            converter_for(kind, models), state_dict, quant)
+        if quant is not None:
+            log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
+                     "activation scales)", w8a8_site_count(self.model))
         synchronize(self.device)
         # host seconds of building the LM, and its parameters' bytes
         self.build_seconds = time.perf_counter() - t0
         self.param_bytes = sum(t.numel() * t.element_size()
                                for t in self.model.parameters())
-        self.tokenizer = load_tokenizer(kind, m.vocab_size)
+        self.tokenizer = load_tokenizer(kind, m.vocab_size, weights_dir)
         self.last_seconds = 0.0
         # the sampling seed of the next call that gives none
         self._decode_calls = 0
@@ -785,12 +840,17 @@ class PromptGenerator(_ReloadsParams):
             self.spec_draft = ModelDraft(self.model)
             return
 
-        def draft() -> GPT2LM:
+        def draft(weights: Optional[Mapping]) -> GPT2LM:
             with torch.device(self.device):
                 return build_model(GPT2LM(d), "gpt2_draft", self.device,
-                                   cfg.seed, draft_state_dict, param_dtype)
+                                   cfg.seed, weights, param_dtype)
 
-        self.spec_draft = ModelDraft(self._rebuilds.add(draft))
+        model, _ = add_model(
+            self._rebuilds, draft, "gpt2_draft", self.weights_dir,
+            "gpt2_draft.safetensors",
+            lambda t: convert_gpt2(t, d.num_layers, d.hidden_size),
+            draft_state_dict)
+        self.spec_draft = ModelDraft(model)
 
     def _spec_enabled(self, bucket: int, max_new: int) -> bool:
         """Per bucket group: speculative decode serves greedy decodes only,
@@ -987,24 +1047,29 @@ class RoundContent:
 class TorchContentBackend:
     """Prompt-LM episode text + diffusion image: one round's content. The image
     comes from :class:`SDXLPipeline` when the config has a second text
-    tower, else from :class:`Text2ImagePipeline`."""
+    tower, else from :class:`Text2ImagePipeline`. ``weights_dir``: the
+    checkpoints and vocabularies every model loads from (absent files:
+    the seeded init)."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  styles: Optional[List[str]] = None,
                  rng: Optional[random.Random] = None,
-                 state_dicts: Optional[Mapping[str, Mapping]] = None):
+                 state_dicts: Optional[Mapping[str, Mapping]] = None,
+                 weights_dir: Optional[str] = None):
         sd = state_dicts or {}
         self.cfg = cfg
         if cfg.models.clip_text_2 is not None:
             # serving/sdxl.py builds on this module
             from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
 
-            self.t2i = SDXLPipeline(cfg, device, state_dicts=sd)
+            self.t2i = SDXLPipeline(cfg, device, state_dicts=sd,
+                                    weights_dir=weights_dir)
         else:
-            self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd)
+            self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd,
+                                          weights_dir=weights_dir)
         lm = "gpt2" if cfg.models.mistral is None else "mistral"
         self.prompt_gen = PromptGenerator(cfg, device, sd.get(lm),
-                                          sd.get("gpt2_draft"))
+                                          sd.get("gpt2_draft"), weights_dir)
         self.styles = styles or load_styles()
         self.rng = rng or random.Random(cfg.seed)
         self._round = 0

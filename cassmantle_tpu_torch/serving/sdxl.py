@@ -12,6 +12,11 @@ Port of the monolithic single-device path of
   addition-embedding MLP (micro-conditioning);
 - the VAE with SDXL's 0.13025 scaling factor (in the config).
 
+From a weights directory it loads the reference's files:
+``clip_text.safetensors``, ``clip_text_2.safetensors`` (read once for the
+bigG tower and its ``text_projection``), ``unet_xl.safetensors`` and
+``vae_xl.safetensors``.
+
 ``generate`` (inherited) is the reference's ``_sample_impl`` and
 ``generate``: encode both prompts, stack the CFG batch, the sampler loop
 (50 DDIM steps by default), VAE decode, uint8. The denoise stage is the
@@ -38,6 +43,16 @@ import torch
 from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.layers import timestep_embedding
+from cassmantle_tpu_torch.models.weights import (
+    CHECKPOINT_FILES,
+    checkpoint_paths,
+    convert_clip_text_projection,
+    convert_tensors,
+    converter_for,
+    load_checkpoint_tensors,
+    refill_from_file,
+    reread,
+)
 from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
 from cassmantle_tpu_torch.utils.device import DeviceLike, torch_dtype
 
@@ -66,24 +81,59 @@ class SDXLPipeline(Text2ImagePipeline):
     ``clip_text_2_projection`` (the reference's square matrix, applied as
     ``pooled @ proj``); absent ones are random (seeds: CLIP 1, bigG 11,
     UNet 2, VAE 3), and with random weights there is no projection, as in
-    the reference."""
+    the reference. ``weights_dir``: the checkpoints above; bigG's
+    projection comes from its file when that holds one."""
 
     PIPELINE = "sdxl"
     LOCK_RANK = 11
+    UNET_KIND, VAE_KIND = "unet_xl", "vae_xl"
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
-                 state_dicts: Optional[Mapping[str, object]] = None):
+                 state_dicts: Optional[Mapping[str, object]] = None,
+                 weights_dir: Optional[str] = None):
         check_sdxl(cfg)
-        super().__init__(cfg, device, state_dicts)
+        super().__init__(cfg, device, state_dicts, weights_dir)
         m = cfg.models
         sd = state_dicts or {}
         param_dtype = torch_dtype(m.param_dtype)
-        self.clip2 = self._rebuilds.add(partial(
-            self._build, partial(ClipTextEncoder, m.clip_text_2),
-            "clip_text_2", sd.get("clip_text_2"), param_dtype))
+        kind, filename = "clip_text_2", CHECKPOINT_FILES["clip_text_2"]
+        convert = converter_for(kind, m)
+        given = sd.get(kind)
         proj = sd.get("clip_text_2_projection")
-        self.clip2_proj = (None if proj is None else self._rebuilds.add(
-            partial(proj.to, self.device, param_dtype)))
+        if (given is not None or proj is not None) and checkpoint_paths(
+                weights_dir, filename):
+            raise ValueError(f"{kind}: given in state_dicts and as "
+                             f"{filename} in {weights_dir}; give one")
+        # read once: the file carries the tower and its text_projection
+        tensors = (None if given is not None else
+                   load_checkpoint_tensors(weights_dir, filename, kind))
+        tower = convert_tensors(tensors, convert, kind)
+        build = partial(self._build, partial(ClipTextEncoder, m.clip_text_2),
+                        kind, storage_dtype=param_dtype)
+        if tower is None:
+            self.clip2 = self._rebuilds.add(partial(build, given))
+        else:
+            self.clip2 = self._rebuilds.add(partial(build, tower),
+                                            refill_from_file(
+                                                weights_dir, filename,
+                                                convert, kind))
+        self.loaded_real_weights = self.loaded_real_weights and (
+            tower is not None)
+        self.clip2_proj = None
+        if proj is not None:
+            self.clip2_proj = self._rebuilds.add(
+                partial(proj.to, self.device, param_dtype))
+        elif tower is not None and "text_projection.weight" in tensors:
+            # real SDXL conditions on text_projection(pooled), the text
+            # embeds of CLIPTextModelWithProjection
+
+            def refill(live: torch.Tensor) -> None:
+                live.copy_(convert_clip_text_projection(
+                    reread(weights_dir, filename, convert, kind).src))
+
+            self.clip2_proj = self._rebuilds.add(partial(
+                convert_clip_text_projection(tensors).to, self.device,
+                param_dtype, copy=True), refill)
         # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings;
         # the time ids depend on the config alone: built once, here (a host
         # to device copy, never inside a step)

@@ -72,10 +72,15 @@ log = get_logger("service")
 class InferenceService:
     """``table``: ``"auto"`` builds (or loads from the cache) the int8
     table of the game's wordlist with the service's own scorer; an
-    :class:`EmbedTable` is used as given; None serves without rung 0."""
+    :class:`EmbedTable` is used as given; None serves without rung 0.
+    ``weights_dir``: the checkpoints and vocabularies every model loads
+    from (``models/weights.py::CHECKPOINT_FILES``; absent ones: the
+    seeded init), as the reference's ``InferenceService(cfg,
+    weights_dir=...)``."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
+                 weights_dir: Optional[str] = None,
                  table: Union[str, EmbedTable, None] = "auto") -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -84,13 +89,15 @@ class InferenceService:
         self.scorer = EmbeddingScorer(
             cfg.models.minilm, self.device,
             batch_buckets=cfg.serving.score_batch_sizes,
-            state_dict=sd.get("minilm"), seed=cfg.seed)
+            state_dict=sd.get("minilm"), seed=cfg.seed,
+            weights_dir=weights_dir)
         self.table_stats: Optional[dict] = None
         if table == "auto":
             table, self.table_stats = self.scorer.build_table()
         self.scorer.arm_table(table)
         self.backend = TorchContentBackend(cfg, self.device,
-                                           state_dicts=sd)
+                                           state_dicts=sd,
+                                           weights_dir=weights_dir)
         self._warm_count = 0
         self.recovery = DeviceRecoveryManager(
             supervisor=self.supervisor,

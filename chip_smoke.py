@@ -99,7 +99,26 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    process classifies as a device loss, an out-of-memory error does
    not. After the SDXL round, ``[serve-sdxl]``: its service serves one
    round while guesses are scored (``BASELINE.json``'s fifth
-   configuration on one card).
+   configuration on one card);
+11. weights from a directory: ``[weights]`` writes fp16 files under the
+   published names and shapes of ``data/manifests`` (seeded N(0, 0.02)
+   values, unit norm scales, zero biases; about 3 GB) and synthetic
+   vocabularies into the git-ignored ``cassmantle_tpu_torch/_build/``,
+   serves ``InferenceService(FrameworkConfig(), weights_dir=...)`` from
+   them and checks that every published key is consumed or ignored, that
+   every served tensor equals its file's converted tensor, that the BPE
+   and WordPiece tokenizers serve, the round checks of
+   ``[round-default]`` (``[round-weights]``, ``[graphs] weights``), an
+   image other than the seeded service's, and a second boot verifying
+   the fingerprint sidecars, with each file's load seconds and GB/s;
+   ``[weights-rebuild]`` runs ``[serve]`` (e)'s drill on that service,
+   its recipes reading the files again (the rebuild's rise in
+   ``max_memory_allocated`` at most the largest tensor in fp32 plus 64
+   MiB, beside the seeded recipe's rise); ``[weights-mistral]`` builds
+   Mistral at full width, cut to 4 layers, from two BF16 shards through
+   ``build_streamed`` (peak at most the bf16 footprint plus one fp32
+   submodule, tensors equal to the shards', graphed decode = eager). The
+   files are removed after.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -112,8 +131,11 @@ import asyncio
 import collections
 import gc
 import json
+import logging
 import math
+import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -218,7 +240,8 @@ ROUND_FLASH_PATHS = {
                             if name.startswith("vae"))}
     for model, counts in ROUND_FLASH.items()}
 # the model (and loop) each served preset runs
-PRESET_MODEL = {"default": "sd15", "fusedconv": "sd15", "w8a8": "sd15",
+PRESET_MODEL = {"default": "sd15", "weights": "sd15", "fusedconv": "sd15",
+                "w8a8": "sd15",
                 "sdxl": "sdxl", "mistral": "sd15",
                 **{sampler: sampler for sampler in SAMPLER_FORWARDS}}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
@@ -1287,17 +1310,19 @@ def unet_forwards(replays: dict) -> dict:
     return {"full": replays.get("step", 0)}
 
 
-def run_round(card: str, preset: str, cfg):
-    """One full-width round of ``cfg`` through InferenceService with every
-    launch counter set to 0 just before it and read just after; returns
-    the service, the tallies and the failed checks."""
+def run_round(card: str, preset: str, cfg, svc=None):
+    """One full-width round of ``cfg`` through InferenceService (``svc``,
+    or one built here) with every launch counter set to 0 just before it
+    and read just after; returns the service, the tallies and the failed
+    checks."""
     import numpy as np
     import torch
 
     from cassmantle_tpu_torch.serving.service import InferenceService
 
     t0 = time.perf_counter()
-    svc = InferenceService(cfg)                     # device="cuda"
+    if svc is None:
+        svc = InferenceService(cfg)                 # device="cuda"
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     if svc.table_stats and svc.table_stats["built"] and not TABLE_BUILD:
@@ -1964,7 +1989,7 @@ def check_graphs(svc, preset: str, card: str) -> bool:
            "denoise_eager_s": eager_s, "denoise_graphed_s": graphed_s,
            "denoise_graphs": {name: g.stats() for name, g in graphs.items()}}
     ok = res["denoise_bit_equal"] and res["denoise_finite"]
-    if preset in ("default", "w8a8", "mistral"):
+    if preset in ("default", "w8a8", "mistral", "weights"):
         seed = ["The Night the Trains Sang"]
         t0 = time.perf_counter()
         tok_e, len_e = gen.decode_ids_batch(seed, graphed=False)
@@ -2392,6 +2417,10 @@ SERVE_PROMPT = "A watercolor style piece depicting: a lighthouse at dusk."
 # the table build of the first service built here (a later one loads
 # the cached file): seconds, bytes, rows
 TABLE_BUILD = {}
+# [serve]'s device-loss drill on the seeded service: its image of
+# SERVE_PROMPT at seed 7 (which the service from files must not give) and
+# the rise of max_memory_allocated across its recovery
+SERVE_DRILL = {}
 
 
 def oov_pairs(tag: str, n: int = SERVE_GUESSES) -> list:
@@ -2512,6 +2541,83 @@ def classifier_child() -> dict:
     if not lines:
         return {"raised": None, "stderr": proc.stderr[-400:]}
     return json.loads(lines[-1])
+
+
+def device_loss_drill(svc) -> dict:
+    """[serve] (e): corrupt a served UNet weight as a lost device leaves
+    it, raise a chaos ``device.lost`` in a score dispatch, and let the
+    recovery manager rebuild every model in place and warm (the scorer
+    and a replay of the last decode). Returns the recovery seconds, the
+    rise of ``max_memory_allocated`` over the allocation before the loss,
+    across the whole recovery and across the rebuild alone (what its
+    recipes add), whether the image after equals the one before with no
+    new capture, and (``image``) that image."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch import chaos
+    from cassmantle_tpu_torch.ops import graphs
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    count = metrics.counter_total
+    backend = svc.backend
+    t2i = backend.t2i
+    before = t2i.generate([SERVE_PROMPT], seed=7)
+    captures = graphs.capture_count()
+    recoveries = count("device.recoveries")
+    warm_decodes = []
+    real_decode = backend.prompt_gen._decode
+    backend.prompt_gen._decode = lambda *a: (
+        warm_decodes.append(a[0]) or real_decode(*a))
+    with torch.no_grad():              # what a lost device leaves behind
+        t2i.unet.conv_in.weight.add_(1.0)
+    # the rebuild's own rise, apart from the warm's activations after it
+    rebuild_rise = []
+    real_rebuild = svc.recovery.rebuild
+
+    def rebuild():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at = torch.cuda.memory_allocated()
+        real_rebuild()
+        torch.cuda.synchronize()
+        rebuild_rise.append(torch.cuda.max_memory_allocated() - at)
+
+    svc.recovery.rebuild = rebuild
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    chaos.configure("seed=11;device.lost=raise:peer=scorer,times=1")
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        asyncio.run(svc.similarity([("lost zq guess", "harbor")]))
+    except chaos.ChaosInjected as exc:
+        raised = type(exc).__name__
+    finally:
+        chaos.disarm()
+    lost_state = svc.supervisor.status()["state"]
+    svc.recovery.join(timeout=300)
+    recover_s = time.perf_counter() - t0
+    peak_rise = torch.cuda.max_memory_allocated() - base
+    svc.recovery.rebuild = real_rebuild
+    del backend.prompt_gen._decode
+    state = svc.supervisor.status()["state"]
+    with graphs.no_new_captures():
+        after = t2i.generate([SERVE_PROMPT], seed=7)
+    e = {"raised": raised, "state_after_loss": lost_state,
+         "state_after_recovery": state, "recover_s": recover_s,
+         "recovery_peak_rise_bytes": peak_rise,
+         "rebuild_peak_rise_bytes": max(rebuild_rise, default=None),
+         "recoveries": count("device.recoveries") - recoveries,
+         "warm_decode_rows": [len(t) for t in warm_decodes],
+         "image_equal": bool(np.array_equal(before, after)),
+         "new_captures": graphs.capture_count() - captures}
+    e["recovered"] = (raised is not None and state == "ok"
+                      and e["recoveries"] == 1 and len(warm_decodes) == 1
+                      and not svc.recovery.permanent)
+    e["image"] = before
+    return e
 
 
 def check_serve(card: str) -> bool:
@@ -2707,42 +2813,10 @@ def check_serve(card: str) -> bool:
     report["d"] = d
 
     # (e) the device-loss drill
-    t2i = backend.t2i
-    before = t2i.generate([SERVE_PROMPT], seed=7)
-    captures = graphs.capture_count()
-    recoveries = count("device.recoveries")
-    warm_decodes = []
-    real_decode = backend.prompt_gen._decode
-    backend.prompt_gen._decode = lambda *a: (
-        warm_decodes.append(a[0]) or real_decode(*a))
-    with torch.no_grad():              # what a lost device leaves behind
-        t2i.unet.conv_in.weight.add_(1.0)
-    chaos.configure("seed=11;device.lost=raise:peer=scorer,times=1")
-    t0 = time.perf_counter()
-    raised = None
-    try:
-        asyncio.run(svc.similarity([("lost zq guess", "harbor")]))
-    except chaos.ChaosInjected as exc:
-        raised = type(exc).__name__
-    finally:
-        chaos.disarm()
-    lost_state = svc.supervisor.status()["state"]
-    svc.recovery.join(timeout=300)
-    recover_s = time.perf_counter() - t0
-    del backend.prompt_gen._decode
-    state = svc.supervisor.status()["state"]
-    with graphs.no_new_captures():
-        after = t2i.generate([SERVE_PROMPT], seed=7)
-    e = {"raised": raised, "state_after_loss": lost_state,
-         "state_after_recovery": state, "recover_s": recover_s,
-         "recoveries": count("device.recoveries") - recoveries,
-         "warm_decode_rows": [len(t) for t in warm_decodes],
-         "image_equal": bool(np.array_equal(before, after)),
-         "new_captures": graphs.capture_count() - captures}
-    checks["e_recovered"] = (raised is not None and state == "ok"
-                             and e["recoveries"] == 1
-                             and len(warm_decodes) == 1
-                             and not svc.recovery.permanent)
+    e = device_loss_drill(svc)
+    SERVE_DRILL["image"] = e.pop("image")
+    SERVE_DRILL["peak_rise_bytes"] = e["rebuild_peak_rise_bytes"]
+    checks["e_recovered"] = e.pop("recovered")
     checks["e_same_image"] = e["image_equal"] and e["new_captures"] == 0
     report["e"] = e
 
@@ -2800,6 +2874,496 @@ def check_serve_sdxl(svc, card: str) -> bool:
     return ok
 
 
+# -- weights from a directory ------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MANIFEST_DIR = os.path.join(REPO, "data", "manifests")
+# where the weights phases write their files (git-ignored), removed after
+WEIGHTS_DIR = os.path.join(REPO, "cassmantle_tpu_torch", "_build",
+                           "smoke_weights")
+# the SD1.5 service's files and the manifests of their published tensors
+SD15_FILES = {"clip_text": ("clip_text.safetensors", "clip_full"),
+              "unet": ("unet.safetensors", "unet_sd15"),
+              "vae": ("vae.safetensors", "vae_sd15"),
+              "gpt2": ("gpt2.safetensors", "gpt2"),
+              "minilm": ("minilm.safetensors", "minilm")}
+WEIGHT_STD = 0.02              # N(0, 0.02) leaves; norm scales 1, biases 0
+POOL_VALUES = 1 << 24          # the seeded pool windows are cut from
+MISTRAL_SMOKE_LAYERS = 4       # [weights-mistral]'s depth cut (of 32)
+ST_DTYPES = {"F16": ("float16", 2), "BF16": ("bfloat16", 2)}
+
+
+def load_manifest(name: str) -> dict:
+    with open(os.path.join(MANIFEST_DIR, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def leaf_fill(key: str, shape) -> str:
+    """How the smoke checkpoints fill a published tensor, at the scale of
+    the port's seeded init: "zeros" for biases, "ones" for the norms'
+    scales (every 1-D weight of these models), else "normal"."""
+    if key.endswith(".bias"):
+        return "zeros"
+    if key.endswith(".weight") and len(shape) == 1:
+        return "ones"
+    return "normal"
+
+
+def value_pool(dtype: str, seed: int):
+    """POOL_VALUES draws of N(0, WEIGHT_STD) from a seeded numpy
+    generator, as the bytes of ``dtype`` ("F16" or "BF16")."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(POOL_VALUES, dtype=np.float32)
+                         * np.float32(WEIGHT_STD))
+    return x.to(getattr(torch, ST_DTYPES[dtype][0])).view(
+        torch.int16).numpy().tobytes()
+
+
+def write_safetensors(path: str, shapes: dict, dtype: str, pool: bytes,
+                      seed: int) -> dict:
+    """A safetensors file of ``shapes`` (name -> shape) in ``dtype``,
+    written here without the safetensors package: the 8-byte header
+    length, the JSON header, then each tensor's bytes in name order.
+    Biases are 0 and norm scales 1 (:func:`leaf_fill`); every other
+    tensor is the pool read from a seeded offset onwards, wrapping.
+    Returns {name: pool offset in values} of the pooled tensors."""
+    import numpy as np
+    import torch
+
+    itemsize = ST_DTYPES[dtype][1]
+    one = torch.ones((), dtype=getattr(torch, ST_DTYPES[dtype][0])).view(
+        torch.int16).item()
+    header, offsets, pos = {}, {}, 0
+    for key in sorted(shapes):
+        n = math.prod(shapes[key]) * itemsize
+        header[key] = {"dtype": dtype, "shape": list(shapes[key]),
+                       "data_offsets": [pos, pos + n]}
+        pos += n
+    blob = json.dumps({"__metadata__": {"format": "pt"}, **header}).encode()
+    blob += b" " * (-len(blob) % 8)
+    rng = np.random.default_rng(seed)
+    zeros = bytes(1 << 24)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for key in sorted(shapes):
+            numel = math.prod(shapes[key])
+            fill = leaf_fill(key, shapes[key])
+            if fill == "ones":
+                f.write(np.full(numel, one, np.int16).tobytes())
+                continue
+            left = numel * itemsize
+            if fill == "zeros":
+                while left:
+                    f.write(zeros[:min(left, len(zeros))])
+                    left -= min(left, len(zeros))
+                continue
+            start = int(rng.integers(0, POOL_VALUES))
+            offsets[key] = start
+            at = start * itemsize
+            while left:
+                chunk = pool[at:at + left]
+                f.write(chunk)
+                left -= len(chunk)
+                at = 0
+    return offsets
+
+
+def pool_values(pool: bytes, dtype: str, start: int, numel: int):
+    """What :func:`write_safetensors` wrote for a pooled tensor, as a
+    flat CPU tensor."""
+    import numpy as np
+    import torch
+
+    bits = np.frombuffer(pool, dtype=np.int16)
+    idx = (np.arange(numel, dtype=np.int64) + start) % POOL_VALUES
+    return torch.from_numpy(bits[idx].copy()).view(
+        getattr(torch, ST_DTYPES[dtype][0]))
+
+
+def greedy_merges(seqs, n: int) -> list:
+    """``n`` greedy most-frequent-pair BPE merges over symbol sequences."""
+    counts = collections.Counter(tuple(q) for q in seqs)
+    merges = []
+    for _ in range(n):
+        pairs = collections.Counter()
+        for sym, c in counts.items():
+            for pair in zip(sym, sym[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=pairs.get)
+        merges.append(best)
+        merged = collections.Counter()
+        for sym, c in counts.items():
+            out, i = [], 0
+            while i < len(sym):
+                if i < len(sym) - 1 and (sym[i], sym[i + 1]) == best:
+                    out.append(sym[i] + sym[i + 1])
+                    i += 2
+                else:
+                    out.append(sym[i])
+                    i += 1
+            merged[tuple(out)] += c
+        counts = merged
+    return merges
+
+
+def write_vocab_files(path: str, n_merges: int = 96) -> None:
+    """Small synthetic vocabularies under the reference's file names, from
+    the game's seeds and styles: byte-level BPE for GPT-2 and CLIP (its
+    word-final ``</w>``), a WordPiece list for MiniLM and a SentencePiece
+    BPE ``tokenizer.json`` (``▁`` marks, byte fallback) for Mistral."""
+    from cassmantle_tpu_torch.utils.tokenizers import (
+        SentencePieceBPETokenizer,
+        _bytes_to_unicode,
+    )
+
+    text = []
+    for name in ("seeds.txt", "styles.txt"):
+        with open(os.path.join(REPO, "data", name), encoding="utf-8") as f:
+            text += f.read().lower().split()
+    b2u = _bytes_to_unicode()
+    for kind, end in (("gpt2", ""), ("clip", "</w>")):
+        seqs = []
+        for w in text:
+            sym = [b2u[b] for b in w.encode("utf-8")]
+            sym[-1] += end
+            seqs.append(sym)
+        merges = greedy_merges(seqs, n_merges)
+        symbols = list(b2u.values()) + [s + end for s in b2u.values()
+                                        if end] + [a + b for a, b in merges]
+        vocab = {s: i for i, s in enumerate(dict.fromkeys(symbols))}
+        if kind == "clip":
+            vocab["<|startoftext|>"] = len(vocab)
+        vocab["<|endoftext|>"] = len(vocab)
+        with open(os.path.join(path, f"{kind}_vocab.json"), "w") as f:
+            json.dump(vocab, f)
+        with open(os.path.join(path, f"{kind}_merges.txt"), "w") as f:
+            f.write("#version: 0.2\n")
+            f.writelines(f"{a} {b}\n" for a, b in merges)
+    chars = sorted({c for w in text for c in w if c.isalnum()})
+    common = [w for w, _ in collections.Counter(text).most_common(300)
+              if w.isalnum()]
+    pieces = (["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + chars
+              + [f"##{c}" for c in chars] + common)
+    with open(os.path.join(path, "minilm_vocab.txt"), "w") as f:
+        f.writelines(f"{p}\n" for p in dict.fromkeys(pieces))
+    mark = SentencePieceBPETokenizer.WORD_MARK
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    words = [mark + w for w in text]
+    for c in sorted({c for w in words for c in w}):
+        vocab.setdefault(c, len(vocab))
+    merges = greedy_merges([list(w) for w in words], n_merges)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    with open(os.path.join(path, "mistral_tokenizer.json"), "w") as f:
+        json.dump({"model": {"type": "BPE", "vocab": vocab,
+                             "merges": [f"{a} {b}" for a, b in merges]},
+                   "added_tokens": [{"content": "<s>", "id": 1},
+                                    {"content": "</s>", "id": 2}]}, f)
+
+
+class LogCollector(logging.Handler):
+    """The records of one ``cassmantle.*`` logger (that tree does not
+    propagate to the root)."""
+
+    def __init__(self, name: str) -> None:
+        super().__init__()
+        self.records = []
+        self.logger = logging.getLogger(name)
+        self.logger.addHandler(self)
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+    def close(self) -> None:
+        self.logger.removeHandler(self)
+        super().close()
+
+
+def served_equals_files(module, plan) -> bool:
+    """Every tensor ``module`` serves equals, bit for bit, the converted
+    checkpoint ``plan`` cast to the served tensor's dtype."""
+    import torch
+
+    served = module.state_dict()
+    if set(served) != set(plan):
+        return False
+    return all(torch.equal(t, plan[k].to(t.device, t.dtype))
+               for k, t in served.items())
+
+
+def check_weights(card: str):
+    """[weights] and [weights-rebuild]: ``InferenceService(FrameworkConfig(),
+    weights_dir=...)`` from fp16 checkpoints under the published names and
+    shapes of ``data/manifests`` (seeded values at the scale of the
+    port's init) and synthetic vocabularies. Checks (a) every manifest
+    key consumed or ignored by design, (b) every served tensor equal to
+    the converter's output of its file, (c) ``loaded_real_weights`` and
+    the BPE and WordPiece tokenizers, (d) the round checks of
+    [round-default] and graphed = eager, (e) an image other than the
+    seeded service's, then the device-loss drill from the files, and (f)
+    a second boot verifying the recorded sidecars. Returns (passed, the
+    round's launch tallies)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+    from cassmantle_tpu_torch.models import weights as pw
+    from cassmantle_tpu_torch.serving.service import InferenceService
+    from cassmantle_tpu_torch.utils import checkpoint
+    from cassmantle_tpu_torch.utils.logging import metrics
+    from cassmantle_tpu_torch.utils.tokenizers import (
+        BPETokenizer,
+        WordPieceTokenizer,
+    )
+
+    cfg = FrameworkConfig()
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    pool = value_pool("F16", 21)
+    t0 = time.perf_counter()
+    written, pooled = {}, {}
+    for i, (kind, (name, manifest)) in enumerate(SD15_FILES.items()):
+        inv = load_manifest(manifest)["tensors"]
+        path = os.path.join(WEIGHTS_DIR, name)
+        pooled[kind] = write_safetensors(path, inv, "F16", pool, 100 + i)
+        written[kind] = os.path.getsize(path)
+    write_vocab_files(WEIGHTS_DIR)
+    write_s = time.perf_counter() - t0
+    report = {"card": card, "write_s": write_s,
+              "file_bytes": written}
+    checks = {}
+
+    # (a) every published key consumed or ignored by design, with the
+    # manifests' optional keys as meta stubs beside the file's tensors
+    logs = LogCollector("cassmantle.weights")
+    plans, read_bytes = {}, {}
+    stub = torch.empty((), device="meta")
+    for kind, (name, manifest) in [*SD15_FILES.items(),
+                                   ("vae_enc", SD15_FILES["vae"])]:
+        tensors = pw.load_checkpoint_tensors(WEIGHTS_DIR, name, kind)
+        extra = {k: stub.expand(tuple(v)) for k, v in
+                 load_manifest(manifest)["optional"].items()}
+        pw.converter_for(kind, cfg.models)({**tensors, **extra})
+        if kind == "vae_enc":
+            continue
+        plans[kind] = plan = pw.converter_for(kind, cfg.models)(tensors)
+        read_bytes[kind] = sum(
+            tensors[k].numel() * tensors[k].element_size()
+            for k in {src for key in plan for src in plan.sources(key)})
+        # the reader gives back what was written
+        for key in sorted(pooled[kind])[:3]:
+            want = pool_values(pool, "F16", pooled[kind][key],
+                               tensors[key].numel())
+            checks[f"a_read_{kind}"] = checks.get(f"a_read_{kind}", True) \
+                and torch.equal(tensors[key].reshape(-1), want)
+    logs.close()
+    warned = [r.getMessage() for r in logs.records
+              if r.levelno >= logging.WARNING]
+    checks["a_consumed_or_ignored"] = not warned
+    report["a_warnings"] = warned[:4]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mismatches = metrics.counter_total("checkpoint.fingerprint_mismatch")
+    t0 = time.perf_counter()
+    svc = InferenceService(cfg, weights_dir=WEIGHTS_DIR)
+    torch.cuda.synchronize()
+    report["boot_s"] = time.perf_counter() - t0
+    report["boot_peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 30
+    report["served_gib"] = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    t2i, gen, scorer = svc.backend.t2i, svc.backend.prompt_gen, svc.scorer
+    served = {"clip_text": t2i.clip, "unet": t2i.unet, "vae": t2i.vae,
+              "gpt2": gen.model, "minilm": scorer.model}
+
+    # (b) served = converter output of the file, cast to storage
+    checks["b_served_equal_files"] = all(
+        served_equals_files(served[k], plans[k]) for k in SD15_FILES)
+    # (c)
+    checks["c_loaded_real_weights"] = bool(
+        t2i.loaded_real_weights and gen.loaded_real_weights
+        and scorer.loaded_real_weights)
+    checks["c_tokenizers"] = (isinstance(t2i.tokenizer, BPETokenizer)
+                              and isinstance(gen.tokenizer, BPETokenizer)
+                              and isinstance(scorer.tokenizer,
+                                             WordPieceTokenizer))
+    # each file's load as boot runs it after building the module: read
+    # under the fingerprint, convert, copy into the served tensors
+    loads = {}
+    for kind, (name, _) in SD15_FILES.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.fill_(served[kind], pw.reread(
+            WEIGHTS_DIR, name, pw.converter_for(kind, cfg.models), kind))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loads[name] = {"s": dt, "bytes_read": read_bytes[kind],
+                       "gb_per_s": read_bytes[kind] / dt / 1e9}
+    report["load"] = loads
+    checks["b_served_equal_after_reload"] = all(
+        served_equals_files(served[k], plans[k]) for k in SD15_FILES)
+    del plans
+
+    # (d) the round checks of [round-default], and graphed = eager
+    svc, tallies, bad = run_round(card, "weights", cfg, svc=svc)
+    checks["d_round"] = not bad
+    report["d_failed"] = bad
+    checks["d_graphs"] = check_graphs(svc, "weights", card)
+    # (e) not the seeded service's image
+    image = t2i.generate([SERVE_PROMPT], seed=7)
+    checks["e_other_than_seeded"] = (
+        "image" in SERVE_DRILL
+        and not np.array_equal(image, SERVE_DRILL["image"]))
+
+    # [weights-rebuild]: the device-loss drill, its recipes from files
+    drill = device_loss_drill(svc)
+    drill.pop("image")
+    largest = max(t.numel() for m in served.values()
+                  for t in m.state_dict().values())
+    bound = 4 * largest + (64 << 20)
+    rebuild_ok = (drill.pop("recovered") and drill["image_equal"]
+                  and drill["new_captures"] == 0
+                  and drill["rebuild_peak_rise_bytes"] <= bound)
+    line = {"card": card, **drill, "bound_bytes": bound,
+            "seeded_recipe_peak_rise_bytes": SERVE_DRILL.get(
+                "peak_rise_bytes")}
+    print(f"[weights-rebuild] {json.dumps(line)} -> "
+          f"{'pass' if rebuild_ok else 'FAIL'}", flush=True)
+    asyncio.run(svc.stop())
+    del svc, t2i, gen, scorer, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) a second boot from the same directory verifies the sidecars
+    sidecars = {}
+    for name, _ in SD15_FILES.values():
+        path = os.path.join(WEIGHTS_DIR, name)
+        sidecars[name] = (checkpoint.read_fingerprint(path)
+                          == checkpoint.fingerprint_file(path))
+    t0 = time.perf_counter()
+    again = InferenceService(cfg, weights_dir=WEIGHTS_DIR)
+    report["second_boot_s"] = time.perf_counter() - t0
+    checks["f_sidecars_recorded"] = all(sidecars.values())
+    checks["f_second_boot_verified"] = (
+        again.backend.t2i.loaded_real_weights
+        and metrics.counter_total("checkpoint.fingerprint_mismatch")
+        == mismatches)
+    asyncio.run(again.stop())
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[weights] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    return ok and rebuild_ok, tallies
+
+
+def check_weights_mistral(card: str) -> bool:
+    """[weights-mistral]: ``mistral_config()`` at full width with its
+    depth cut to MISTRAL_SMOKE_LAYERS, from two BF16 shards under the
+    published names of ``data/manifests/mistral.json`` and a synthetic
+    ``mistral_tokenizer.json``, built through ``build_streamed``: the
+    build's peak at or below the stored bf16 footprint plus the largest
+    submodule in fp32, the served tensors bit-equal to the shards', and
+    one graphed greedy decode equal to the eager one."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.models import weights as pw
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+    from cassmantle_tpu_torch.utils.tokenizers import (
+        SentencePieceBPETokenizer,
+    )
+
+    base = mistral_config()
+    m = dataclasses.replace(base.models.mistral,
+                            num_layers=MISTRAL_SMOKE_LAYERS)
+    cfg = base.replace(models=dataclasses.replace(base.models, mistral=m))
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    inv = load_manifest("mistral")["tensors"]
+    keep = {k: v for k, v in inv.items()
+            if not k.startswith("model.layers.")
+            or int(k.split(".")[2]) < MISTRAL_SMOKE_LAYERS}
+    keys = sorted(keep)
+    pool = value_pool("BF16", 31)
+    t0 = time.perf_counter()
+    nbytes = 0
+    for i, part in enumerate((keys[: len(keys) // 2],
+                              keys[len(keys) // 2:])):
+        path = os.path.join(WEIGHTS_DIR, f"mistral-{i + 1:05d}.safetensors")
+        write_safetensors(path, {k: keep[k] for k in part}, "BF16", pool,
+                          200 + i)
+        nbytes += os.path.getsize(path)
+    write_vocab_files(WEIGHTS_DIR)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = PromptGenerator(cfg, weights_dir=WEIGHTS_DIR)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    stored = sum(t.numel() * t.element_size()
+                 for t in gen.model.state_dict().values())
+    largest_fp32 = max(sum(t.numel() for t in c.state_dict().values()) * 4
+                       for c in gen.model.children())
+    plan = pw.maybe_load(WEIGHTS_DIR, "mistral.safetensors",
+                         pw.converter_for("mistral", cfg.models), "mistral")
+    # the rebuild's path over the same shards, now in the page cache:
+    # straight into the served bf16 tensors, no fp32 submodule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw.fill_(gen.model, plan)
+    torch.cuda.synchronize()
+    refill_s = time.perf_counter() - t0
+    seed = [LM_TEXT]
+    tok_e, len_e = gen.decode_ids_batch(seed, graphed=False)
+    tok_g, len_g = gen.decode_ids_batch(seed, graphed=True)
+    checks = {
+        "loaded_real_weights": bool(gen.loaded_real_weights),
+        "sentencepiece": isinstance(gen.tokenizer, SentencePieceBPETokenizer),
+        "peak_within_bound": peak <= stored + largest_fp32,
+        "served_equal_shards": served_equals_files(gen.model, plan),
+        "graphed_equals_eager": bool(np.array_equal(tok_e, tok_g)
+                                     and np.array_equal(len_e, len_g)),
+    }
+    report = {"card": card,
+              "depth": f"{MISTRAL_SMOKE_LAYERS} of 32 layers (cut)",
+              "shards": 2, "shard_bytes": nbytes, "write_s": write_s,
+              "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9,
+              "refill_s": refill_s,
+              "refill_gb_per_s": nbytes / refill_s / 1e9,
+              "peak_bytes": peak, "stored_bytes": stored,
+              "largest_submodule_fp32_bytes": largest_fp32,
+              "decode_tokens": int(len_g[0]),
+              "checks": {k: bool(v) for k, v in checks.items()}}
+    del gen, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    ok = all(checks.values())
+    print(f"[weights-mistral] {json.dumps(report)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def kernel_entries(kernel, rows, tally, source, replaces):
     """The kernels-line entries of one kernel: every checked shape, with
     its launches in its path's round."""
@@ -2814,8 +3378,6 @@ def kernel_entries(kernel, rows, tally, source, replaces):
 
 
 def main() -> int:
-    import os
-
     import torch
 
     if not torch.cuda.is_available():
@@ -2920,6 +3482,14 @@ def main() -> int:
         fail("serve: the serving seam failed a check")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the same service from a weights directory, its rebuild from the
+    # files, and Mistral from two shards
+    ok, tallies["weights"] = check_weights(card)
+    if not ok:
+        fail("weights: the service from a weights directory failed a check")
+    if not check_weights_mistral(card):
+        fail("weights-mistral: Mistral from its shards failed a check")
 
     # Mistral-7B as the round's prompt LM, at full width in bf16; its
     # decode-step profile, then speculative and sampled decodes over it

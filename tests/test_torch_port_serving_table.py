@@ -197,6 +197,41 @@ def test_port_builds_and_caches_its_own_table(scorers, tmp_path):
     assert fresh.table_signature(words) != port.table_signature(words)
 
 
+
+def test_a_new_tokenizer_never_arms_the_cached_table(tmp_path):
+    """The signature binds the tokenizer too: the same seeded weights with
+    a WordPiece vocabulary (minilm_vocab.txt in the weights directory) in
+    place of the byte tokenizer neither load the table the byte tokenizer
+    made nor serve its rows; they build their own, and a changed
+    vocabulary file changes the signature again."""
+    from _torch_port_weights import write_vocab_files
+
+    words = WORDS + OOV
+    path = str(tmp_path / "table.bin")
+    cfg = port_test_config().models.minilm
+    byte = EmbeddingScorer(cfg, "cpu")
+    byte.build_table(words, path=path)
+    vocab_dir = tmp_path / "weights"
+    vocab_dir.mkdir()
+    write_vocab_files(str(vocab_dir))
+    wp = EmbeddingScorer(cfg, "cpu", weights_dir=str(vocab_dir))
+    assert type(wp.tokenizer).__name__ == "WordPieceTokenizer"
+    assert all(np.array_equal(a, b) for a, b in zip(
+        byte.model.state_dict().values(), wp.model.state_dict().values()))
+    sig = wp.table_signature(words)
+    assert wp.weights_fp != byte.weights_fp
+    assert sig != byte.table_signature(words)
+    assert pet.EmbedTable.load(path, expected_signature=sig) is None
+    table, stats = wp.build_table(words, path=path)
+    assert stats["built"]
+    assert pet.read_header(path)["signature"] == sig
+    np.testing.assert_allclose(
+        table.lookup(OOV[0]), wp.embed([OOV[0]])[0], atol=1e-2)
+    with open(vocab_dir / "minilm_vocab.txt", "a") as f:
+        f.write("zyzzyva\n")
+    edited = EmbeddingScorer(cfg, "cpu", weights_dir=str(vocab_dir))
+    assert edited.table_signature(words) != sig
+
 def test_a_changed_weight_never_arms_the_cached_table(tmp_path):
     """The signature digests the served encoder's weights themselves: a
     scorer whose weights differ from the cached table's in one element
