@@ -1,6 +1,7 @@
 """Deterministic fault injection (a copy of ``cassmantle_tpu/chaos``).
 
-``fault_point`` is the no-op-unless-armed hook at the serving seam's
+``fault_point`` (and its awaitable twin ``afault_point``) is the
+no-op-unless-armed hook at the serving seam's
 boundaries; ``configure`` arms a seeded plan from a spec string
 (``disarm`` drops it); ``status()`` describes the armed plan.
 """
@@ -12,6 +13,7 @@ from cassmantle_tpu_torch.chaos.core import (
     ChaosPartition,
     ChaosPlan,
     ChaosRule,
+    afault_point,
     armed,
     configure,
     disarm,
@@ -27,6 +29,7 @@ __all__ = [
     "ChaosPartition",
     "ChaosPlan",
     "ChaosRule",
+    "afault_point",
     "armed",
     "configure",
     "disarm",

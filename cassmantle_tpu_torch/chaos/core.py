@@ -46,6 +46,10 @@ FAULT_POINTS: Dict[str, str] = {
     "device.lost": "accelerator-runtime loss at a dispatch point "
                    "(serving dispatch regions; peer=scorer, t2i, sdxl "
                    "or prompt)",
+    "round.generate": "content generation attempt "
+                      "(engine/rounds.py; breaker-guarded)",
+    "overload.brownout": "brownout-ladder tier evaluation "
+                         "(serving/overload.py)",
 }
 
 KINDS = ("raise", "flake", "latency", "wedge", "partition")
@@ -233,6 +237,28 @@ class ChaosPlan:
                                  f"(peer={peer})")
         raise ChaosInjected(f"chaos: injected failure at {name}")
 
+    async def ahit(self, name: str, peer: Optional[str] = None) -> None:
+        """The async fault point's body (generation, store operations)."""
+        import asyncio
+
+        rule = self._decide(name, peer)
+        if rule is None:
+            return
+        self._record(rule, name, peer)
+        if rule.kind == "latency":
+            await asyncio.sleep(rule.delay_s)
+            return
+        if rule.kind == "wedge":
+            deadline = time.monotonic() + rule.wedge_s
+            while not rule.release.is_set() and \
+                    time.monotonic() < deadline:
+                await asyncio.sleep(0.02)
+            return
+        if rule.kind == "partition":
+            raise ChaosPartition(f"chaos: partitioned {name} "
+                                 f"(peer={peer})")
+        raise ChaosInjected(f"chaos: injected failure at {name}")
+
     # -- control -----------------------------------------------------------
     def status(self) -> Dict[str, object]:
         with self._lock:
@@ -256,11 +282,32 @@ class ChaosPlan:
 _PLAN: Optional[ChaosPlan] = None
 
 
+class _Done:
+    """A reusable already-done awaitable: ``await afault_point(...)``
+    while disarmed costs one global check and one empty iterator."""
+
+    __slots__ = ()
+
+    def __await__(self):
+        return iter(())
+
+
+_DONE = _Done()
+
+
 def fault_point(name: str, peer: Optional[str] = None) -> None:
     """Sync fault point: a no-op unless a plan is armed."""
     if _PLAN is None:
         return
     _PLAN.hit(name, peer)
+
+
+def afault_point(name: str, peer: Optional[str] = None):
+    """Awaitable fault point: ``await afault_point("x")``. Disarmed it
+    returns a shared no-op awaitable (no coroutine allocation)."""
+    if _PLAN is None:
+        return _DONE
+    return _PLAN.ahit(name, peer)
 
 
 def armed() -> bool:

@@ -3,8 +3,8 @@
 A copy of the part of ``cassmantle_tpu/config.py`` that the port reads:
 the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 or
 Mistral-7B for the round's prompt text, MiniLM for guess scoring, the
-sampler and text decode settings, speculative decode, and the few
-game/serving constants the round uses. Defaults are
+sampler and text decode settings, speculative decode, the serving
+seam's bounds, the SLO engine's settings and the game's constants. Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
 is SDXL-base at 1024².
@@ -249,6 +249,12 @@ class SamplerConfig:
     # encprop; CASSMANTLE_NO_CONSISTENCY=1 (read at build) serves the
     # teacher path instead: ``kind`` at ``consistency_teacher_steps``.
     consistency: bool = False
+    # The deployed UNet IS a consistency-distilled student, though
+    # serving defaults to the teacher schedule: the signal that lets the
+    # brownout ladder's few-step tier step INTO consistency sampling
+    # (serving/overload.py). An undistilled UNet leaves it False, and
+    # the ladder falls through to the resolution tier instead.
+    consistency_available: bool = False
     consistency_teacher_steps: int = 50
     min_new_tokens: int = 32
     max_new_tokens: int = 96
@@ -315,15 +321,62 @@ class ServingConfig:
     # Event-loop lag (the server.loop_lag_s gauge) above which background
     # submissions shed; interactive ones shed at 4x.
     loop_lag_shed_s: float = 0.25
+    # The SLO-driven brownout ladder (serving/overload.py): the dwell
+    # before stepping UP a quality tier on sustained fast-window burn,
+    # and (the hysteresis) before stepping DOWN after the slow window
+    # recovers. CASSMANTLE_NO_BROWNOUT=1 pins tier 0.
+    brownout_step_up_dwell_s: float = 10.0
+    brownout_step_down_dwell_s: float = 30.0
+    # The SLO objectives the ladder watches (obs/slo.py names);
+    # replication lag is absent: quality tiers cannot fix a store.
+    brownout_objectives: Tuple[str, ...] = ("score_latency",
+                                            "round_generation")
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """The SLO burn-rate engine's settings (obs/slo.py), at the
+    reference's defaults."""
+
+    # Evaluation cadence of the server's background loop (not ported
+    # yet: nothing reads it until the server does).
+    slo_eval_interval_s: float = 10.0
+    # Multi-window burn rates: trip on the fast window, recover on the
+    # slow one.
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
+    # Default objective thresholds: p99 bound of a scored guess, the
+    # round-generation success ratio, the replication-lag bound.
+    slo_score_p99_s: float = 2.0
+    slo_generation_ratio: float = 0.9
+    slo_repl_lag_max: float = 512.0
+    # The canary prober's objectives: success ratio and p99 bound.
+    probe_success_ratio: float = 0.95
+    probe_p99_s: float = 3.0
 
 
 @dataclasses.dataclass(frozen=True)
 class GameConfig:
+    """Round and game constants (engine/game.py), at the reference's
+    defaults."""
+
+    min_score: float = 0.01
+    # Seconds a round is current before the buffered one is promoted.
+    time_per_prompt: float = 900.0
+    # Fraction of a round after which the next one is buffered.
+    buffer_at_fraction: float = 0.7
     # Masked words per round: generated text needs at least this many
     # words plus one, or the round falls back to template text.
     num_masked: int = 2
+    episodes_per_story: int = 20
     min_blur: float = 0.0
     max_blur: float = 15.0
+    # The store lock's lease and how long a caller waits to take it.
+    lock_timeout: float = 120.0
+    acquire_timeout: float = 2.0
+    # Round-reserve ring (engine/reserve.py): archived rounds rotated in
+    # while generation is dark. 0 disables.
+    reserve_capacity: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +385,7 @@ class FrameworkConfig:
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     game: GameConfig = dataclasses.field(default_factory=GameConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     spec_decode: SpecDecodeConfig = dataclasses.field(
         default_factory=SpecDecodeConfig)
     seed: int = 0
@@ -446,6 +500,8 @@ def test_config() -> FrameworkConfig:
         sampler=SamplerConfig(num_steps=4, image_size=64, max_new_tokens=8,
                               min_new_tokens=2, prompt_pad_len=16,
                               negative_prompt=""),
+        game=GameConfig(time_per_prompt=2.0, lock_timeout=5.0,
+                        acquire_timeout=0.5),
     )
 
 

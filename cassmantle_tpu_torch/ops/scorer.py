@@ -48,7 +48,7 @@ from cassmantle_tpu_torch.ops import embed_table as et
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils.device import DeviceLike, resolve_device
 from cassmantle_tpu_torch.utils.logging import get_logger, metrics
-from cassmantle_tpu_torch.utils.text import load_wordlist
+from cassmantle_tpu_torch.server.assets import load_wordlist
 from cassmantle_tpu_torch.utils.tokenizers import (
     load_tokenizer,
     tokenizer_identity,
@@ -159,6 +159,12 @@ class EmbeddingScorer:
         return table, {"seconds": time.perf_counter() - t0,
                        "bytes": os.path.getsize(path), "rows": len(words),
                        "built": built}
+
+    def clear_embed_cache(self) -> None:
+        """Forget every cached embedding: the next :meth:`embed` of any
+        text runs on the device."""
+        with self._embed_cache_lock:
+            self._embed_cache.clear()
 
     # -- device-loss rebuild ----------------------------------------------
     def reload_params(self) -> None:

@@ -17,8 +17,16 @@ The fused-conv and W8A8 presets build the same models: the UNet with
 build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
 A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
-``TPUContentBackend`` does. Staged serving and brownout tiers are later
-slices.
+``TPUContentBackend`` does. Staged serving is a later slice.
+
+Brownout tiers (``serving/overload.py``): while the ladder is above tier
+0, ``generate`` serves the tier's degraded ``SamplerConfig``
+(``degraded_sampler_cfg``: fewer steps, a wider encprop stride, the
+few-step consistency loop, half the size) as its own
+:class:`SamplerVariant`, keyed as the reference keys its variants
+(:func:`tier_key`): its schedule, its latents at the tier's size and its
+own captured graphs per batch. Tier 0 is the untouched full path, bit for
+bit; ``pipeline.brownout_images`` counts the degraded images.
 
 Weights: each pipeline takes a ``weights_dir`` beside ``state_dicts`` and
 loads every model it serves from the reference's file there
@@ -83,6 +91,7 @@ import torch
 
 from cassmantle_tpu_torch.chaos import fault_point
 from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.engine.rounds import RoundContent
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.gpt2 import GPT2LM
 from cassmantle_tpu_torch.models.layers import init_weights
@@ -142,7 +151,12 @@ from cassmantle_tpu_torch.ops.samplers import (
     img2img_start,
     make_schedule,
 )
+from cassmantle_tpu_torch.server.assets import load_styles
 from cassmantle_tpu_torch.serving import integrity
+from cassmantle_tpu_torch.serving.overload import (
+    degraded_sampler_cfg,
+    quality_overrides,
+)
 from cassmantle_tpu_torch.utils import jax_random
 from cassmantle_tpu_torch.utils.device import (
     DeviceLike,
@@ -151,9 +165,9 @@ from cassmantle_tpu_torch.utils.device import (
     torch_dtype,
 )
 from cassmantle_tpu_torch.utils.locks import OrderedLock
+from cassmantle_tpu_torch.utils.logging import metrics
 from cassmantle_tpu_torch.utils.text import (
     is_wordlike,
-    load_styles,
     sanitize_text,
     template_text,
     tokenize_words,
@@ -365,6 +379,38 @@ def sampler_mode(sampler_cfg) -> str:
     return "deepcache" if eff.deepcache else eff.kind
 
 
+class SamplerVariant:
+    """One served sampler config and what its denoise needs: the loop
+    (:func:`sampler_mode`), its schedule, the encprop forward counts and
+    the captured loop of each batch size (CUDA, made on first use: a
+    SpecGraph, SpecDeepCacheGraph or EncpropGraph). A pipeline serves its
+    own config's variant, and one more per brownout tier that engages
+    (:meth:`Text2ImagePipeline.tier_variant`). Building one validates the
+    config and builds its schedule on the host; nothing touches the
+    device until its first denoise."""
+
+    def __init__(self, sampler_cfg) -> None:
+        self.mode = sampler_mode(sampler_cfg)
+        # the config served: the teacher's under the consistency kill switch
+        s = self.sampler_cfg = effective_sampler_cfg(sampler_cfg)
+        self.schedule = make_schedule(s.kind, s.num_steps, s.consistency,
+                                      s.consistency_teacher_steps)
+        # (key, shallow, propagated) UNet forwards of a trajectory when
+        # encoder propagation serves, else None
+        self.encprop_counts = (
+            encprop_step_counts(s.num_steps, s.encprop_stride,
+                                s.encprop_dense_steps, s.deepcache)
+            if self.mode == "encprop" else None)
+        self.step_graphs: Dict[int, SamplerGraph] = {}
+
+
+def tier_key(sampler_cfg) -> Tuple[int, int, int, bool]:
+    """The reference's cache key of a degraded config: (steps, encprop
+    stride, image size, consistency)."""
+    s = sampler_cfg
+    return (s.num_steps, s.encprop_stride, s.image_size, s.consistency)
+
+
 def check_eta(sampler_cfg) -> None:
     """DDIM at eta > 0 needs a step key, and the reference's pipelines
     call their sampler without one: its error."""
@@ -405,9 +451,11 @@ class Text2ImagePipeline(_ReloadsParams):
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
                  weights_dir: Optional[str] = None):
-        self.sampler_mode = sampler_mode(cfg.sampler)
-        # the config served: the teacher's under the consistency kill switch
-        self.sampler_cfg = effective_sampler_cfg(cfg.sampler)
+        # the configured sampler's loop, schedule and captured graphs
+        self.full_variant = SamplerVariant(cfg.sampler)
+        # the brownout tiers' variants, by tier_key, built as they engage
+        self.tier_variants: Dict[Tuple[int, int, int, bool],
+                                 SamplerVariant] = {}
         w8a8 = w8a8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -465,18 +513,6 @@ class Text2ImagePipeline(_ReloadsParams):
             if t is not None])
         # pixels per latent: one 2x upsample per VAE level transition
         self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
-        s = self.sampler_cfg
-        self.schedule = make_schedule(s.kind, s.num_steps, s.consistency,
-                                      s.consistency_teacher_steps)
-        # (key, shallow, propagated) UNet forwards of a trajectory when
-        # encoder propagation serves, else None
-        self.encprop_counts = (
-            encprop_step_counts(s.num_steps, s.encprop_stride,
-                                s.encprop_dense_steps, s.deepcache)
-            if self.sampler_mode == "encprop" else None)
-        # the captured loop of each batch size (CUDA), made on first use:
-        # by sampler_mode, a SpecGraph, SpecDeepCacheGraph or EncpropGraph
-        self.step_graphs: Dict[int, SamplerGraph] = {}
         # img2img: the VAE encoder (built on first use) and the captured
         # tail of each (strength steps, latent shape (B, h, w, 4))
         self.vae_enc: Optional[VAEEncoder] = None
@@ -524,7 +560,8 @@ class Text2ImagePipeline(_ReloadsParams):
                 "uncond_context": self.clip(uncond_ids)["hidden"]}
 
     def denoise(self, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
-                graphed: Optional[bool] = None) -> torch.Tensor:
+                graphed: Optional[bool] = None,
+                variant: Optional[SamplerVariant] = None) -> torch.Tensor:
         """The CFG sampler steps from x_T under ``cond`` (:meth:`encode`'s
         output) -> the final latents, the denoise stage both pipelines
         share (the reference's ``run_cfg_denoise``), by ``sampler_mode``:
@@ -532,13 +569,16 @@ class Text2ImagePipeline(_ReloadsParams):
         plain loop. ``graphed`` (default: on CUDA) replays the captured
         loop of this batch size, captured on first use, as the reference
         jits its sampler per batch; a capture failure raises.
-        ``graphed=False`` runs the same steps eagerly."""
-        s = self.sampler_cfg
+        ``graphed=False`` runs the same steps eagerly. ``variant`` (default:
+        the pipeline's own config) is the sampler config served, a
+        brownout tier's with its own graphs."""
+        v = variant or self.full_variant
+        s = v.sampler_cfg
         check_eta(s)
         inputs = cfg_inputs(**cond)
         gs = s.guidance_scale
-        mode = self.sampler_mode
-        schedule = self.schedule
+        mode = v.mode
+        schedule = v.schedule
         if graphed is None:
             graphed = self.device.type == "cuda"
         if mode == "encprop":
@@ -564,31 +604,71 @@ class Text2ImagePipeline(_ReloadsParams):
                 return sample_spec(schedule.spec(latents), make(**inputs),
                                    latents)
             build = partial(SpecGraph, make, schedule, latents)
-        graph = self.step_graphs.get(latents.shape[0])
+        graph = v.step_graphs.get(latents.shape[0])
         if graph is None:
             graph = build(**inputs)
-            self.step_graphs[latents.shape[0]] = graph
+            v.step_graphs[latents.shape[0]] = graph
         return graph(latents, **inputs)
+
+    # -- brownout tiers (serving/overload.py) ------------------------------
+    def tier_variant(self, tier) -> Optional[SamplerVariant]:
+        """The variant a brownout tier serves, or None for the untouched
+        full-quality path (tier 0, or a delta equal to the configured
+        sampler). Each delta is planned once and cached by
+        :func:`tier_key`; its graphs capture at its first denoise, so only
+        the tiers that engage hold a graph pool. A delta the config cannot
+        take (its plan raises before any device work) is counted at
+        ``pipeline.brownout_delta_unusable`` and serves full quality, as
+        the reference's does; anything the device raises propagates."""
+        if tier is None:
+            return None
+        scfg = degraded_sampler_cfg(self.cfg.sampler, tier)
+        if scfg == self.cfg.sampler:
+            return None
+        key = tier_key(scfg)
+        variant = self.tier_variants.get(key)
+        if variant is None:
+            try:
+                variant = SamplerVariant(scfg)
+                check_eta(variant.sampler_cfg)
+            except (AssertionError, ValueError):
+                # the ladder believes it engaged a cheaper tier while this
+                # config serves full quality: invisible in the tier
+                # gauge, so the mismatch has its own counter
+                metrics.inc("pipeline.brownout_delta_unusable")
+                log.exception("brownout tier delta unusable for this "
+                              "config; serving full quality")
+                return None
+            self.tier_variants[key] = variant
+        return variant
 
     def generate(self, prompts: Sequence[str], seed: int = 0,
                  latents: Optional[torch.Tensor] = None) -> np.ndarray:
         """prompts -> (B, H, W, 3) uint8 host array. ``latents`` (B, h, w, 4)
         replaces the seeded x_T (the parity tests feed the reference's).
         The device work runs under the dispatch lock; a degenerate
-        (constant) frame raises ``OutputInvalid``."""
+        (constant) frame raises ``OutputInvalid``. The active brownout
+        tier (``serving/overload.py::quality_overrides``) serves its own
+        variant (:meth:`tier_variant`): its steps, loop and size, through
+        its own captured graphs; tier 0 is the untouched path."""
         with self._dispatch_lock:
+            variant = self.tier_variant(quality_overrides())
             fault_point("device.lost", peer=self.PIPELINE)
-            images = self._generate_locked(prompts, seed, latents)
+            images = self._generate_locked(prompts, seed, latents, variant)
         out = integrity.poison(images, peer=self.PIPELINE)
         # the host-side sentinel on the uint8 batch already copied back:
         # the verdict stays out of the captured graphs
         integrity.enforce(np.ones(len(out), dtype=bool),
                           pipeline=self.PIPELINE, stage="sample", images=out)
+        if variant is not None:
+            metrics.inc("pipeline.brownout_images", len(out))
         return out
 
     def _generate_locked(self, prompts: Sequence[str], seed: int,
-                         latents: Optional[torch.Tensor]) -> np.ndarray:
-        s = self.cfg.sampler
+                         latents: Optional[torch.Tensor],
+                         variant: Optional[SamplerVariant] = None
+                         ) -> np.ndarray:
+        s = (variant or self.full_variant).sampler_cfg
         if latents is None:
             gen = torch.Generator(self.device).manual_seed(seed)
             latents = initial_latents(gen, len(prompts), s.image_size,
@@ -601,7 +681,7 @@ class Text2ImagePipeline(_ReloadsParams):
             synchronize(self.device)
             t1 = time.perf_counter()
             times["clip"] = t1 - t0
-            final = self.denoise(latents, cond)
+            final = self.denoise(latents, cond, variant=variant)
             synchronize(self.device)
             t2 = time.perf_counter()
             times["denoise"] = t2 - t1
@@ -1031,17 +1111,6 @@ class PromptGenerator(_ReloadsParams):
         if isinstance(out, Exception):
             raise out
         return out
-
-
-@dataclasses.dataclass
-class RoundContent:
-    """One round's generated content."""
-
-    prompt_text: str          # the two-sentence episode text
-    image: np.ndarray         # uint8 HWC RGB
-    # what the round drew for its image: the styled prompt and the seed
-    image_prompt: str = ""
-    image_seed: int = 0
 
 
 class TorchContentBackend:

@@ -137,15 +137,22 @@ class _DispatchWorker:
             if not cf.set_running_or_notify_cancel():
                 continue
             started.set()
+            del started
+            outcome, failed = None, False
             try:
-                result = fn(*args)
+                outcome = fn(*args)
             except BaseException as exc:  # noqa: BLE001 — carried to waiter
-                cf.set_exception(exc)
+                outcome, failed = exc, True
                 del exc
+            # drop the handler and its arguments BEFORE completing: the
+            # waiter may drop the service and collect it the moment the
+            # future resolves, while this frame would still hold it
+            del fn, args
+            if failed:
+                cf.set_exception(outcome)
             else:
-                cf.set_result(result)
-                del result
-            del fn, args, cf, started
+                cf.set_result(outcome)
+            del outcome, cf
 
     def _ensure(self) -> None:
         if self._thread is None or not self._thread.is_alive():

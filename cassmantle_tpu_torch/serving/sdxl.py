@@ -25,11 +25,13 @@ reference's ``run_cfg_denoise``), so every sampler kind, consistency,
 DeepCache and encoder propagation serve here as at SD1.5, the CFG
 addition embeds riding each forward's batch. On the card the loop
 replays its captured bodies per batch size, whose static inputs include
-the addition embeds. The reference's SDXL pipeline has no img2img; nor
-has this one. Its data-parallel padding, staged serving, brownout tiers
-and W8A8 UNet are later slices: the port's config has no field for the
-first three yet, and a W8A8 or fused-conv SDXL UNet raises
-``NotImplementedError``.
+the addition embeds. A brownout tier serves its own variant as at SD1.5,
+its micro-conditioning time ids at the tier's image size (built once a
+size, swapped into the addition embeds by ``denoise``). The reference's
+SDXL pipeline has no img2img; nor has this one. Its data-parallel
+padding, staged serving and W8A8 UNet are later slices: the port's config
+has no field for the first two yet, and a W8A8 or fused-conv SDXL UNet
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +55,10 @@ from cassmantle_tpu_torch.models.weights import (
     refill_from_file,
     reread,
 )
-from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+from cassmantle_tpu_torch.serving.pipeline import (
+    SamplerVariant,
+    Text2ImagePipeline,
+)
 from cassmantle_tpu_torch.utils.device import DeviceLike, torch_dtype
 
 
@@ -140,6 +145,8 @@ class SDXLPipeline(Text2ImagePipeline):
         self.time_id_dim = (m.unet.addition_embed_dim
                             - m.clip_text_2.hidden_size) // 6
         self.time_ids = self._rebuilds.add(partial(self._time_ids, 1))
+        # a brownout tier's, by image size, built as its tier engages
+        self.tier_time_ids: Dict[int, torch.Tensor] = {}
 
     def _encode(self, ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,11 +159,13 @@ class SDXLPipeline(Text2ImagePipeline):
             pooled = pooled @ self.clip2_proj.to(pooled.dtype)
         return context, pooled
 
-    def _time_ids(self, batch: int) -> torch.Tensor:
+    def _time_ids(self, batch: int,
+                  image_size: Optional[int] = None) -> torch.Tensor:
         """SDXL's size/crop conditioning (orig_h, orig_w, crop_top,
-        crop_left, target_h, target_w), each embedded sinusoidally:
-        (batch, 6 * time_id_dim) fp32."""
-        s = float(self.cfg.sampler.image_size)
+        crop_left, target_h, target_w) at ``image_size`` (default: the
+        configured size), each embedded sinusoidally: (batch,
+        6 * time_id_dim) fp32."""
+        s = float(image_size or self.cfg.sampler.image_size)
         ids = torch.tensor([s, s, 0.0, 0.0, s, s], dtype=torch.float32,
                            device=self.device)
         flat = timestep_embedding(ids, self.time_id_dim).reshape(-1)
@@ -171,7 +180,8 @@ class SDXLPipeline(Text2ImagePipeline):
 
     def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Both towers over the prompts and the negative prompt: the
-        contexts and the micro-conditioning vectors of the CFG batch."""
+        contexts and the micro-conditioning vectors of the CFG batch, at
+        the configured size."""
         ids = self._tokenize(prompts)
         uncond_ids = self._tokenize(
             [self.cfg.sampler.negative_prompt] * len(prompts))
@@ -182,3 +192,24 @@ class SDXLPipeline(Text2ImagePipeline):
                 "addition_embeds": torch.cat([pooled, time_ids], dim=-1),
                 "uncond_addition_embeds": torch.cat(
                     [uncond_pooled, time_ids], dim=-1)}
+
+    def denoise(self, latents: torch.Tensor, cond: Dict[str, torch.Tensor],
+                graphed: Optional[bool] = None,
+                variant: Optional[SamplerVariant] = None) -> torch.Tensor:
+        """:meth:`Text2ImagePipeline.denoise`; a brownout tier at another
+        image size conditions on its own: the time-id columns of both
+        addition vectors swapped for the tier size's, built once a size
+        (the reference's tier impl builds its own)."""
+        size = (variant.sampler_cfg.image_size if variant is not None
+                else self.cfg.sampler.image_size)
+        if size != self.cfg.sampler.image_size:
+            ids = self.tier_time_ids.get(size)
+            if ids is None:
+                ids = self._rebuilds.add(partial(self._time_ids, 1, size))
+                self.tier_time_ids[size] = ids
+            width = ids.shape[-1]
+            cond = {**cond, **{
+                key: torch.cat([cond[key][:, :-width],
+                                ids.expand(len(cond[key]), -1)], dim=-1)
+                for key in ("addition_embeds", "uncond_addition_embeds")}}
+        return super().denoise(latents, cond, graphed, variant)

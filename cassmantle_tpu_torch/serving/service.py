@@ -50,9 +50,9 @@ from cassmantle_tpu_torch.serving.overload import (
     make_admission,
     note_table_served,
 )
+from cassmantle_tpu_torch.engine.rounds import RoundContent
 from cassmantle_tpu_torch.serving.pipeline import (
     PromptGenerator,
-    RoundContent,
     TorchContentBackend,
 )
 from cassmantle_tpu_torch.serving.queue import (
@@ -76,16 +76,20 @@ class InferenceService:
     ``weights_dir``: the checkpoints and vocabularies every model loads
     from (``models/weights.py::CHECKPOINT_FILES``; absent ones: the
     seeded init), as the reference's ``InferenceService(cfg,
-    weights_dir=...)``."""
+    weights_dir=...)``. ``supervisor``: the one a served ``Game`` shares
+    (its content breaker guards round generation while the queues report
+    to it), as the reference's server passes one in; None builds the
+    service's own."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
                  weights_dir: Optional[str] = None,
-                 table: Union[str, EmbedTable, None] = "auto") -> None:
+                 table: Union[str, EmbedTable, None] = "auto",
+                 supervisor: Optional[ServingSupervisor] = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         sd = state_dicts or {}
-        self.supervisor = ServingSupervisor()
+        self.supervisor = supervisor or ServingSupervisor()
         self.scorer = EmbeddingScorer(
             cfg.models.minilm, self.device,
             batch_buckets=cfg.serving.score_batch_sizes,
@@ -102,7 +106,7 @@ class InferenceService:
         self.recovery = DeviceRecoveryManager(
             supervisor=self.supervisor,
             rebuild=self.rebuild_device_state,
-            warm=self._warm_after_recovery)
+            warm=self.warm_after_recovery)
         self.supervisor.recovery = self.recovery
         s = cfg.serving
         queue_kw = dict(
@@ -255,7 +259,7 @@ class InferenceService:
             pipe.reload_params()
         self.scorer.reload_params()
 
-    def _warm_after_recovery(self) -> None:
+    def warm_after_recovery(self) -> None:
         """One real dispatch through the scorer (eager: it owns no graph)
         and the prompt LM's last decode again, which replays the graphs
         it captured, under ``no_new_captures``: a rebuild must leave

@@ -1,6 +1,6 @@
 """Circuit breaker for the device-facing dispatch paths.
 
-A copy of ``cassmantle_tpu/utils/circuit.py`` (``:23-176``):
+A copy of ``cassmantle_tpu/utils/circuit.py``:
 
 - **closed**: normal operation; failures are counted in a sliding window;
 - **open**: too many recent failures; calls fail fast until
@@ -29,6 +29,10 @@ OPEN = "open"
 HALF_OPEN = "half_open"
 
 _STATE_GAUGE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
+
+
+class CircuitOpen(Exception):
+    """Raised (or returned as a fast-fail) when the breaker rejects a call."""
 
 
 class CircuitBreaker:

@@ -3,7 +3,8 @@
 A copy of ``cassmantle_tpu/utils/logging.py`` trimmed to what the serving
 seam uses: :func:`get_logger` (``:84-100``) and the :class:`Metrics`
 registry (``:184-419``: counters, gauges, fixed-bucket histograms,
-``counter_total``, ``gauge_values``, ``timer``, ``snapshot``). The
+``counter_total``, ``gauge_values``, ``hist_totals``, ``timer``,
+``snapshot``). The
 Prometheus/OpenMetrics expositions, exemplars and federation belong to
 the server, a later slice.
 """
@@ -156,6 +157,32 @@ class Metrics:
         with self._lock:
             return [v for (n, _), v in self._gauges.items() if n == name]
 
+    def hist_totals(self, name: str
+                    ) -> Optional[Tuple[Tuple[float, ...],
+                                        Tuple[int, ...], int]]:
+        """(bounds, bucket counts, total) for a histogram, summed across
+        label sets sharing the first-seen bounds (one process = one
+        bucket ladder per name by construction); None when the series
+        has never been observed. The SLO engine's latency objectives
+        read this (obs/slo.py)."""
+        with self._lock:
+            bounds = None
+            counts: List[int] = []
+            total = 0
+            for (n, _), h in self._hists.items():
+                if n != name:
+                    continue
+                if bounds is None:
+                    bounds = h.bounds
+                    counts = list(h.counts)
+                    total = h.total
+                elif h.bounds == bounds:
+                    counts = [a + b for a, b in zip(counts, h.counts)]
+                    total += h.total
+            if bounds is None:
+                return None
+            return bounds, tuple(counts), total
+
     def snapshot(self) -> Dict[str, object]:
         """Flat counters and gauges, and ``{count, mean_s, p50_s, p99_s}``
         per histogram (the reference's JSON shape)."""
@@ -172,5 +199,27 @@ class Metrics:
                     for k, h in self._hists.items() if h.total},
             }
 
+
+class _NullMetrics:
+    """A no-op registry with the Metrics emission surface: a canary Game
+    runs the real engine paths but leaves no marks on player-facing
+    series. Reads are not supported: nothing aggregates from a null
+    sink."""
+
+    def inc(self, name, value=1.0, labels=None):
+        pass
+
+    def gauge(self, name, value, labels=None):
+        pass
+
+    def observe(self, name, value, labels=None, buckets=None):
+        pass
+
+    @contextmanager
+    def timer(self, name, labels=None):
+        yield
+
+
+NULL_METRICS = _NullMetrics()
 
 metrics = Metrics()

@@ -5,7 +5,11 @@
 Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
 
 0. prints the card's name and power limit; fails without CUDA, or with a
-   kill switch (CASSMANTLE_NO_FUSED_CONV, CASSMANTLE_NO_W8A8) set;
+   kill switch (CASSMANTLE_NO_FUSED_CONV, CASSMANTLE_NO_W8A8) set; derives
+   from each served preset's config, at full quality and at every
+   brownout tier (``degraded_sampler_cfg``), the shapes its round
+   launches each kernel at, and fails if phase 2 does not check one of
+   them or a round's table below differs from the derivation;
 1. builds every kernel of ``cassmantle_tpu_torch/csrc/`` with ``nvcc``
    (one process per source, all at once) into the git-ignored
    ``cassmantle_tpu_torch/_build/``, and reports each kernel's registers
@@ -15,9 +19,13 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    conv3x3, the int8 matmul, the int8 conv3x3) against its plain PyTorch
    version at every shape the main paths give it (the fused conv also at
    the SD1.5 and SDXL VAE decoders' widths, 64 to 1024; flash also at the
-   decoder-only forward's batch 4), and times the kernel,
-   the plain version and one PyTorch library call (a yardstick the port
-   never calls) beside the card's bound for the work (for flash
+   decoder-only forward's batch 4; and the brownout tiers' shapes: flash
+   at SD1.5 256x256 down to the mid block's S = 16, at SDXL 512x512 and
+   at the decoder-only forward's batch 8 at 512x512 and 256x256, kernels
+   2 and 4 at the 256x256 UNet's convs down to W = 4, kernel 2 at the
+   SD1.5 VAE decoder's at 256x256, kernel 3 at its M), and times the
+   kernel, the plain version and one PyTorch library call (a yardstick
+   the port never calls) beside the card's bound for the work (for flash
    attention also the floor its exponentials set, and the kernel path
    each shape takes);
 3. runs the tiny test geometry on the card and on the CPU from the same
@@ -118,7 +126,36 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    Mistral at full width, cut to 4 layers, from two BF16 shards through
    ``build_streamed`` (peak at most the bf16 footprint plus one fp32
    submodule, tensors equal to the shards', graphed decode = eager). The
-   files are removed after.
+   files are removed after;
+12. the brownout ladder ([brownout]): the ladder stepped by its drill
+   lever (the ``overload.brownout`` fault point, through an SLO engine)
+   and one round served at each tier that changes the config:
+   ``FrameworkConfig()`` at tiers 1 (DDIM-30) and 4 (256x256), with
+   ``consistency_available`` at tier 3 (four consistency steps),
+   ``fusedconv_serving_config()`` and ``w8a8_serving_config()`` at tier
+   4, ``encprop_serving_config()`` at tiers 2 (stride 5) and 4 (stride
+   5 at 256x256: the decoder-only forward at batch 8 and the fused VAE
+   decoder at 256x256) and ``sdxl_config()`` at tiers 1 and 4
+   (512x512): the image size, the
+   tier variant's graph replays and every kernel's launches per shape
+   against the tier's config, at checked shapes only; the tier graph's
+   final latents bit-equal to the eager loop's; a repeated tier reusing
+   its variant with no new capture; back at tier 0, the image bit-equal
+   to the one before the ladder moved; at the default preset, the tier
+   graphs still valid after a rebuild of every model and its warm; and
+   ``pipeline.brownout_delta_unusable`` 0. Each tier's round, capture
+   seconds, pool MB and peak GiB;
+13. the game ([game]): a ``Game`` on the ``[serve]`` service (its content
+   backend, embed, similarity, blur, supervisor and answer pins; a
+   ``MemoryStore``; 8 s rounds): startup and a buffered next round, 1,024
+   sessions (``init_client``, ``fetch_prompt_json``, a guess at both
+   masks, half on rung 0 and half on the device rung, the masked image),
+   scores equal to direct similarity (1e-5 on the device rung, 1e-2 of
+   fp32 on rung 0), one promotion through the round timer (sessions
+   reset, the buffered text current), and at tier 5 coarser blur buckets
+   rounding up and the next buffered round at 256x256 under guess waves,
+   counted in ``pipeline.brownout_images`` with its launches. Guess p50
+   and p99, render p50 and promotion seconds.
 
 Prints one ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
@@ -174,6 +211,38 @@ FLASH_SHAPES = {
     "cross_l1_b4": (4, 1024, 77, 8, 80, "cross"),
     "self_l2_b4": (4, 256, 256, 8, 160, "self"),
     "cross_l2_b4": (4, 256, 77, 8, 160, "cross"),
+    # the brownout tiers' shapes (serving/overload.py DEFAULT_TIERS). SD1.5
+    # at 256x256 (tier 4: latent 32x32, so the UNet's levels at 32, 16 and
+    # 8 and its mid block at 4; level 2 at 8x8 is self_mid's shape) and its
+    # VAE mid block at 32x32
+    "self_l0_256": (2, 1024, 1024, 8, 40, "self"),
+    "cross_l0_256": (2, 1024, 77, 8, 40, "cross"),
+    "self_l1_256": (2, 256, 256, 8, 80, "self"),
+    "cross_l1_256": (2, 256, 77, 8, 80, "cross"),
+    "self_mid_256": (2, 16, 16, 8, 160, "self"),
+    "cross_mid_256": (2, 16, 77, 8, 160, "cross"),
+    "vae_mid_256": (1, 1024, 1024, 1, 512, "separate"),
+    # SDXL at 512x512 (tier 4: latent 64x64; its VAE mid block at 64x64
+    # is vae_mid's shape)
+    "self_x1_512": (2, 1024, 1024, 10, 64, "self"),
+    "cross_x1_512": (2, 1024, 77, 10, 64, "cross"),
+    "self_x2_512": (2, 256, 256, 20, 64, "self"),
+    "cross_x2_512": (2, 256, 77, 20, 64, "cross"),
+    # encoder propagation at stride 5 (tier 2): 4 propagated steps a
+    # segment, so the decoder-only forward at batch 8
+    "self_l0_b8": (8, 4096, 4096, 8, 40, "self"),
+    "cross_l0_b8": (8, 4096, 77, 8, 40, "cross"),
+    "self_l1_b8": (8, 1024, 1024, 8, 80, "self"),
+    "cross_l1_b8": (8, 1024, 77, 8, 80, "cross"),
+    "self_l2_b8": (8, 256, 256, 8, 160, "self"),
+    "cross_l2_b8": (8, 256, 77, 8, 160, "cross"),
+    # and at 256x256 (tiers 4 and 5 of the encprop preset)
+    "self_l0_256_b8": (8, 1024, 1024, 8, 40, "self"),
+    "cross_l0_256_b8": (8, 1024, 77, 8, 40, "cross"),
+    "self_l1_256_b8": (8, 256, 256, 8, 80, "self"),
+    "cross_l1_256_b8": (8, 256, 77, 8, 80, "cross"),
+    "self_l2_256_b8": (8, 64, 64, 8, 160, "self"),
+    "cross_l2_256_b8": (8, 64, 77, 8, 160, "cross"),
 }
 # Flash launches of one SD1.5 UNet forward by mode (its transformer
 # blocks, one self and one cross attention each): a full forward runs 16
@@ -186,6 +255,24 @@ UNET_FLASH = {
     "decoder_only": {"self_l0_b4": 3, "cross_l0_b4": 3, "self_l1_b4": 3,
                      "cross_l1_b4": 3, "self_l2_b4": 3, "cross_l2_b4": 3},
     "shallow": {"self_l0": 5, "cross_l0": 5},
+}
+# The brownout tiers' forwards: SD1.5's full forward at 256x256, the
+# decoder-only forward at batch 8 at 512x512 and 256x256, and SDXL's
+# full forward at 1024 and 512 (5 x 2 blocks at level 1, 5 x 10 + 10 mid
+# at level 2).
+TIER_UNET_FLASH = {
+    "full_256": {"self_l0_256": 5, "cross_l0_256": 5, "self_l1_256": 5,
+                 "cross_l1_256": 5, "self_mid": 5, "cross_mid": 5,
+                 "self_mid_256": 1, "cross_mid_256": 1},
+    "decoder_only_b8": {"self_l0_b8": 3, "cross_l0_b8": 3, "self_l1_b8": 3,
+                        "cross_l1_b8": 3, "self_l2_b8": 3, "cross_l2_b8": 3},
+    "decoder_only_b8_256": {
+        "self_l0_256_b8": 3, "cross_l0_256_b8": 3, "self_l1_256_b8": 3,
+        "cross_l1_256_b8": 3, "self_l2_256_b8": 3, "cross_l2_256_b8": 3},
+    "sdxl_full": {"self_x1": 10, "cross_x1": 10, "self_x2": 60,
+                  "cross_x2": 60},
+    "sdxl_full_512": {"self_x1_512": 10, "cross_x1_512": 10,
+                      "self_x2_512": 60, "cross_x2_512": 60},
 }
 # UNet forwards of one round by preset, where they differ from DDIM-50's
 # 50 full: encoder propagation runs 20 key (full) forwards (5 dense, then
@@ -231,6 +318,36 @@ ROUND_FLASH = {
     # 4 x 32 + 1 = 129 (lcm), 30 x 32 + 2 = 962 (img2img)
     **{sampler: sampler_flash(sampler) for sampler in SAMPLER_FORWARDS},
 }
+
+
+def tier_flash(forwards: dict, vae: str) -> dict:
+    """Flash launches per shape name of one round at a brownout tier: its
+    UNet forwards by mode, and its VAE mid block's shape."""
+    out = {vae: 1}
+    for mode, n in forwards.items():
+        for name, k in {**UNET_FLASH, **TIER_UNET_FLASH}[mode].items():
+            out[name] = out.get(name, 0) + k * n
+    return out
+
+
+# The [brownout] cells (preset@tier; serving/overload.py DEFAULT_TIERS
+# through degraded_sampler_cfg): DDIM at 30 steps (0.6 x 50) from tier 1,
+# 961 launches (30 x 32 + 1) at 512x512 or 256x256; four consistency
+# steps at tier 3 where the UNet is declared a distilled student, 129;
+# encprop's stride 3 + 2 = 5 from tier 2, 10 key forwards and 5
+# decoder-only ones at batch 8, 411 (10 x 32 + 5 x 18 + 1) at 512x512 or
+# 256x256; SDXL at 30 steps, 4,201 (30 x 140 + 1) at 1024x1024 or
+# 512x512.
+ROUND_FLASH.update({
+    "default@t1": tier_flash({"full": 30}, "vae_mid"),
+    "default@t4": tier_flash({"full_256": 30}, "vae_mid_256"),
+    "consistency@t3": tier_flash({"full": 4}, "vae_mid"),
+    "encprop@t2": tier_flash({"full": 10, "decoder_only_b8": 5}, "vae_mid"),
+    "encprop@t4": tier_flash({"full_256": 10, "decoder_only_b8_256": 5},
+                             "vae_mid_256"),
+    "sdxl@t1": tier_flash({"sdxl_full": 30}, "vae_mid_xl"),
+    "sdxl@t4": tier_flash({"sdxl_full_512": 30}, "vae_mid"),
+})
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # blocks' D = 512 on mma.sync (ops/_flash_plan.py)
 ROUND_FLASH_PATHS = {
@@ -243,7 +360,10 @@ ROUND_FLASH_PATHS = {
 PRESET_MODEL = {"default": "sd15", "weights": "sd15", "fusedconv": "sd15",
                 "w8a8": "sd15",
                 "sdxl": "sdxl", "mistral": "sd15",
-                **{sampler: sampler for sampler in SAMPLER_FORWARDS}}
+                **{sampler: sampler for sampler in SAMPLER_FORWARDS},
+                **{cell: cell for cell in ROUND_FLASH if "@" in cell},
+                "fusedconv@t4": "default@t4", "w8a8@t4": "default@t4",
+                "game@t5": "default@t4"}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -294,23 +414,53 @@ VAE_CONV_SHAPES = {
                  (1, 256, 256, 256, 256): 3, (1, 128, 128, 256, 512): 1,
                  (1, 128, 128, 512, 512): 3, (1, 64, 64, 512, 512): 8},
 }
-# Every W8A8 dense site of one UNet forward, (M, K, N) -> launches (16
-# transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
-# proj and out). M = 2 x tokens; the cross kv reads the 2 x 77 context.
-UNET_MATMUL_SHAPES = {}
-for _c, _m, _blocks in ((320, 8192, 5), (640, 2048, 5), (1280, 512, 5),
-                        (1280, 128, 1)):
-    for _shape, _n in (((_m, _c, 3 * _c), 1), ((_m, _c, _c), 3),
-                       ((_m, _c, 8 * _c), 1), ((_m, 4 * _c, _c), 1),
-                       ((154, 768, 2 * _c), 1)):
-        UNET_MATMUL_SHAPES[_shape] = (UNET_MATMUL_SHAPES.get(_shape, 0)
-                                      + _n * _blocks)
+
+
+def unet_matmul_shapes(size: int) -> dict:
+    """Every W8A8 dense site of one SD1.5 UNet forward with CFG at
+    ``size`` pixels, (M, K, N) -> launches (16 transformer blocks x 7:
+    self qkv and out, cross q, kv and out, GEGLU proj and out). M = 2 x
+    tokens; the cross kv reads the 2 x 77 context."""
+    tokens = (size // 8) ** 2
+    out = {}
+    for c, m, blocks in ((320, 2 * tokens, 5), (640, tokens // 2, 5),
+                         (1280, tokens // 8, 5), (1280, tokens // 32, 1)):
+        for shape, n in (((m, c, 3 * c), 1), ((m, c, c), 3),
+                         ((m, c, 8 * c), 1), ((m, 4 * c, c), 1),
+                         ((154, 768, 2 * c), 1)):
+            out[shape] = out.get(shape, 0) + n * blocks
+    return out
+
+
+def conv_shapes_at(shapes: dict, size: int, base: int = 512) -> dict:
+    """A table of conv3x3 shapes at ``base`` pixels, at ``size``: the same
+    layers at the scaled height and width."""
+    return {(b, h * size // base, w * size // base, c, f): n
+            for (b, h, w, c, f), n in shapes.items()}
+
+
+UNET_MATMUL_SHAPES = unet_matmul_shapes(512)
 # GPT-2's W8A8 projections per layer (q, k, v, out, fc1, fc2) at M = 32
 # (prefill: one prompt in the 32-token bucket) and M = 1 (decode).
 GPT2_KN = {(768, 768): 4, (768, 3072): 1, (3072, 768): 1}
 GPT2_LAYERS = 12
 LM_MATMUL_SHAPES = {(m, k, n): c * GPT2_LAYERS * (1 if m == 32 else 95)
                     for m in (32, 1) for (k, n), c in GPT2_KN.items()}
+# the UNet's conv3x3 and W8A8 dense sites at 256x256 (brownout tier 4):
+# the same layers at half the width and height, M a quarter; and the
+# SD1.5 VAE decoder's (the encprop preset's fused decoder) at 256x256
+TIER_CONV_SHAPES = conv_shapes_at(CONV_SHAPES, 256)
+TIER_UNET_MATMUL_SHAPES = unet_matmul_shapes(256)
+VAE_CONV_SHAPES["sd15_256"] = conv_shapes_at(VAE_CONV_SHAPES["sd15"],
+                                             256)
+# the shapes phase 2 holds each kernel at against its plain version
+FUSED_CHECK_SHAPES = list(dict.fromkeys(
+    [*CONV_SHAPES, *TIER_CONV_SHAPES,
+     *(shape for table in VAE_CONV_SHAPES.values() for shape in table)]))
+MATMUL_CHECK_SHAPES = list(dict.fromkeys(
+    [*UNET_MATMUL_SHAPES, *TIER_UNET_MATMUL_SHAPES, *LM_MATMUL_SHAPES]))
+INT8_CONV_CHECK_SHAPES = list(dict.fromkeys([*CONV_SHAPES,
+                                             *TIER_CONV_SHAPES]))
 ROUND_FUSED_LAUNCHES = 44 * UNET_FORWARDS                     # 2,200
 ROUND_UNET_MATMUL_LAUNCHES = 112 * UNET_FORWARDS              # 5,600
 ROUND_LM_MATMUL_LAUNCHES = 72 * LM_FORWARDS                   # 6,912
@@ -532,7 +682,8 @@ def exact_agreement(out, ref) -> dict:
 
 
 def check_fused_conv_kernel():
-    """Kernel 2 vs plain at the UNet's 14 ResBlock conv shapes, the VAE
+    """Kernel 2 vs plain at the UNet's ResBlock conv shapes at 512x512 and
+    256x256 (brownout tier 4, down to W = 4), the VAE
     decoders' (SD1.5's six, W 64 to 512, and SDXL's six, W 128 to 1024:
     2-row tiles of 64-column stretches past W = 64) and the SD1.5
     encoder's two that rise in channels (128 -> 256, 256 -> 512), bf16
@@ -549,9 +700,7 @@ def check_fused_conv_kernel():
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(1)
-    vae = {**VAE_CONV_SHAPES["sd15"], **VAE_CONV_SHAPES["sdxl"],
-           **VAE_CONV_SHAPES["sd15_enc"]}
-    for shape in list(CONV_SHAPES) + list(vae):
+    for shape in FUSED_CHECK_SHAPES:
         b, h, w, c, f = shape
         kw = dict(generator=gen, device="cuda")
         x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
@@ -585,8 +734,9 @@ def check_fused_conv_kernel():
 
 
 def check_int8_matmul_kernel():
-    """Kernel 3 vs plain at the 19 UNet (M, K, N) (one per-tensor scale,
-    stride 0) and the GPT-2 prefill and decode shapes (per-token scales),
+    """Kernel 3 vs plain at the UNet's (M, K, N) at 512x512 and at the
+    brownout tiers' 256x256 (one per-tensor scale, stride 0) and the
+    GPT-2 prefill and decode shapes (per-token scales),
     bf16 out, int8 operands uniform in [-127, 127], the weight in the
     modules' (N, K) memory. Library yardstick: torch._int_mm, the int32
     product alone (it takes M > 16 only)."""
@@ -599,7 +749,7 @@ def check_int8_matmul_kernel():
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(2)
-    for shape in list(UNET_MATMUL_SHAPES) + list(LM_MATMUL_SHAPES):
+    for shape in MATMUL_CHECK_SHAPES:
         m, k, n = shape
         per_token = shape in LM_MATMUL_SHAPES
         kw = dict(generator=gen, device="cuda")
@@ -639,7 +789,8 @@ def int8_im2col(x_q):
 
 
 def check_int8_conv_kernel():
-    """Kernel 4 vs plain at the 14 ResBlock conv shapes, int8 operands
+    """Kernel 4 vs plain at the ResBlock conv shapes of the 512x512 and
+    256x256 (brownout tier 4) UNet, int8 operands
     uniform in [-127, 127], the weight in OHWI memory, bf16 out. No single
     PyTorch call computes an int8 conv; the library yardstick is
     torch._int_mm on an im2col built beforehand (M = B*H*W, K = 9C, N =
@@ -653,7 +804,7 @@ def check_int8_conv_kernel():
 
     rows = {}
     gen = torch.Generator("cuda").manual_seed(3)
-    for shape in CONV_SHAPES:
+    for shape in INT8_CONV_CHECK_SHAPES:
         b, h, w, c, f = shape
         kw = dict(generator=gen, device="cuda")
         x_q = torch.randint(-127, 128, (b, h, w, c), dtype=torch.int8, **kw)
@@ -1103,21 +1254,21 @@ def check_small_samplers():
         reset_all_counters()
         d_gpu = np.abs(run(gpu).astype(np.int32) - ref)
         graphs = (gpu.img2img_graphs if name == "img2img"
-                  else gpu.step_graphs)
+                  else gpu.full_variant.step_graphs)
         res = dict(card_vs_fp32_max=int(d_gpu.max()),
                    card_vs_fp32_mean=float(d_gpu.mean()),
                    cpu_bf16_vs_fp32_max=int(d_cpu.max()),
                    cpu_bf16_vs_fp32_mean=float(d_cpu.mean()),
                    card_decoded_finite=gpu.last_decoded_finite,
-                   sampler_mode=gpu.sampler_mode,
-                   encprop_step_counts=gpu.encprop_counts,
+                   sampler_mode=gpu.full_variant.mode,
+                   encprop_step_counts=gpu.full_variant.encprop_counts,
                    graphs={str(k): sorted(g.graphs)
                            for k, g in graphs.items()},
                    flash_launches=flash_attention.flash_attention.launches,
                    fused_conv_launches=fused_conv.gn_silu_conv3x3.launches)
         ok = (d_gpu.mean() <= d_cpu.mean() + 0.5
               and d_gpu.max() <= d_cpu.max() + 2 and gpu.last_decoded_finite
-              and gpu.sampler_mode == mode == cpu.sampler_mode
+              and gpu.full_variant.mode == mode == cpu.full_variant.mode
               and len(graphs) == 1
               and res["flash_launches"] > 0
               and (res["fused_conv_launches"] > 0) == fused_vae)
@@ -1259,7 +1410,7 @@ def flash_path_totals(shape_paths) -> dict:
 
 def round_flash_shapes(preset: str) -> dict:
     """{(B, Sq, Sk, H, D): launches} of flash attention in one round of
-    ``preset``."""
+    ``preset`` (or of a [brownout] cell)."""
     return {FLASH_SHAPES[name][:5]: n
             for name, n in ROUND_FLASH[PRESET_MODEL[preset]].items()}
 
@@ -1294,7 +1445,7 @@ GRAPH_REPLAYS = {"encprop": {"key": 5, "segment": 15},
                  "deepcache": {"pair": 25}, "fast": {"step": 25},
                  "turbo": {"pair": 12}, "lcm": {"step": 4},
                  "img2img": {"step": 30}}
-# the loop each preset's pipeline serves (Text2ImagePipeline.sampler_mode)
+# the loop each preset's pipeline serves (its full_variant's mode)
 SAMPLER_MODE = {"encprop": "encprop", "deepcache": "deepcache",
                 "fast": "dpmpp_2m", "turbo": "deepcache",
                 "lcm": "consistency"}
@@ -1339,7 +1490,7 @@ def run_round(card: str, preset: str, cfg, svc=None):
     rc = asyncio.run(svc.generate_content("The Night the Trains Sang"))
     round_s = time.perf_counter() - t0
     replays = {name: g.replays for name, g in
-               svc.backend.t2i.step_graphs[1].graphs.items()}
+               svc.backend.t2i.full_variant.step_graphs[1].graphs.items()}
     t1 = time.perf_counter()
     sims = asyncio.run(svc.similarity(pairs))
     score_s = time.perf_counter() - t1
@@ -1388,14 +1539,14 @@ def run_round(card: str, preset: str, cfg, svc=None):
     }
     for kernel, want in expected_tallies(preset).items():
         checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
-    mode = t2i.sampler_mode
+    mode = t2i.full_variant.mode
     checks["sampler_mode"] = mode == SAMPLER_MODE.get(preset, "ddim")
     checks["graph_replays"] = replays == GRAPH_REPLAYS.get(preset,
                                                            {"step": 50})
     if preset in SAMPLER_FORWARDS:
         checks["unet_forwards"] = (unet_forwards(replays)
                                    == SAMPLER_FORWARDS[preset])
-    checks["encprop_step_counts"] = t2i.encprop_counts == (
+    checks["encprop_step_counts"] = t2i.full_variant.encprop_counts == (
         (20, 0, 30) if mode == "encprop" else None)
     checks = {k: bool(v) for k, v in checks.items()}
     lm = lm_decode_times(gen) if preset == "mistral" else None
@@ -1409,7 +1560,7 @@ def run_round(card: str, preset: str, cfg, svc=None):
                             for k in ("flash_attention", "gn_silu_conv3x3")},
         sampler_mode=mode, graph_replays=replays,
         unet_forwards=unet_forwards(replays),
-        encprop_step_counts=t2i.encprop_counts,
+        encprop_step_counts=t2i.full_variant.encprop_counts,
         text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
@@ -1417,6 +1568,19 @@ def run_round(card: str, preset: str, cfg, svc=None):
     print(f"[round-{preset}] {json.dumps(report)}", flush=True)
     bad = [k for k, v in checks.items() if not v]
     return svc, tallies, bad
+
+
+def consistency_student_config():
+    """``FrameworkConfig()`` with its UNet declared a consistency-distilled
+    student (``consistency_available``): the ladder's few-step tier 3
+    serves four consistency steps instead of degrading like tier 2."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+
+    base = FrameworkConfig()
+    return base.replace(sampler=dataclasses.replace(
+        base.sampler, consistency_available=True))
 
 
 def img2img_config():
@@ -1751,7 +1915,8 @@ def profile_denoise(svc, preset: str, steps: int = 2,
     dev = t2i.device
     s = t2i.cfg.sampler
     hw = s.image_size // t2i.vae_scale
-    ts = torch.from_numpy(t2i.schedule.timesteps.astype("int32")).to(dev)
+    ts = torch.from_numpy(
+        t2i.full_variant.schedule.timesteps.astype("int32")).to(dev)
     timesteps = [ts[i:i + 1] for i in range(steps)]
     with torch.inference_mode():
         cond = t2i.encode(["a lighthouse at dusk"])
@@ -1776,7 +1941,7 @@ def profile_denoise(svc, preset: str, steps: int = 2,
             eager_window_ms = (time.perf_counter() - t0) * 1e3 / steps
         eager_counts = trace_counts(prof, steps)
 
-        graph = t2i.step_graphs[1]                    # the round's
+        graph = t2i.full_variant.step_graphs[1]       # the round's
         graph(x, **inputs)                            # warm
         synchronize(dev)
         t0 = time.perf_counter()
@@ -1880,7 +2045,7 @@ def profile_loop(svc, preset: str, replays: int = 5) -> dict:
         x = torch.randn((1, hw, hw, 4), device=dev,
                         generator=torch.Generator(dev).manual_seed(3))
         graph = (t2i.img2img_graphs[img2img_steps(t2i.cfg), tuple(x.shape)]
-                 if preset == "img2img" else t2i.step_graphs[1])
+                 if preset == "img2img" else t2i.full_variant.step_graphs[1])
         graph(x, **inputs)                            # warm
         synchronize(dev)
         t0 = time.perf_counter()
@@ -1965,7 +2130,8 @@ def check_graphs(svc, preset: str, card: str) -> bool:
                   for name, g in sg.graphs.items()}
     else:
         loop = t2i.denoise
-        graphs = {f"{b}/{name}": g for b, sg in t2i.step_graphs.items()
+        graphs = {f"{b}/{name}": g
+                  for b, sg in t2i.full_variant.step_graphs.items()
                   for name, g in sg.graphs.items()}
     with torch.inference_mode():
         cond = t2i.encode(["A watercolor style piece depicting: a "
@@ -2620,12 +2786,14 @@ def device_loss_drill(svc) -> dict:
     return e
 
 
-def check_serve(card: str) -> bool:
+def check_serve(card: str) -> tuple:
     """The serving seam at full width: ``InferenceService(FrameworkConfig())``
     scoring 1,024 concurrent guesses through the device rung (a) and rung
     0 (b), four concurrent rounds, one cold, while guesses are scored (c),
     the integrity drill (d), the device-loss drill (e) and the classifier
-    on real CUDA errors (f)."""
+    on real CUDA errors (f); then [game] on the same service
+    (:func:`check_game`). Returns (serve ok, game ok, the game's degraded
+    round's tallies)."""
     import numpy as np
     import torch
 
@@ -2637,7 +2805,7 @@ def check_serve(card: str) -> bool:
     )
     from cassmantle_tpu_torch.serving.service import InferenceService
     from cassmantle_tpu_torch.utils.logging import metrics
-    from cassmantle_tpu_torch.utils.text import load_wordlist
+    from cassmantle_tpu_torch.server.assets import load_wordlist
 
     count = metrics.counter_total
     t0 = time.perf_counter()
@@ -2658,7 +2826,7 @@ def check_serve(card: str) -> bool:
                    "batch_service_mean_s": mean_since(hists,
                                                       "score.batch_s")}
     rec.close()
-    scorer._embed_cache.clear()
+    scorer.clear_embed_cache()
     direct = scorer.similarity(pairs)
     a = {"score_batches": count("score.batches") - batches,
          "score_items": count("score.items") - items,
@@ -2799,7 +2967,7 @@ def check_serve(card: str) -> bool:
         scores_d, _ = asyncio.run(timed_guesses(svc, pairs_d))
     finally:
         chaos.disarm()
-    scorer._embed_cache.clear()
+    scorer.clear_embed_cache()
     direct_d = scorer.similarity(pairs_d)
     floored = np.nonzero(scores_d == 0.0)[0]
     keep = np.ones(len(pairs_d), bool)
@@ -2833,16 +3001,20 @@ def check_serve(card: str) -> bool:
     checks["f_assert_is_loss"] = bool(child.get("reason"))
     checks["f_oom_is_not"] = (oom["raised"] == "OutOfMemoryError"
                               and oom["reason"] is None)
-
-    asyncio.run(svc.stop())
     report["checks"] = {k: bool(v) for k, v in checks.items()}
     ok = all(checks.values())
     print(f"[serve] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
           flush=True)
+
+    # the game on this service
+    t0 = time.perf_counter()
+    game_ok, game_tallies = check_game(svc, card)
+    print(f"[game] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    asyncio.run(svc.stop())
     del svc
     gc.collect()
     torch.cuda.empty_cache()
-    return ok
+    return ok, game_ok, game_tallies
 
 
 def check_serve_sdxl(svc, card: str) -> bool:
@@ -2872,6 +3044,615 @@ def check_serve_sdxl(svc, card: str) -> bool:
     print(f"[serve-sdxl] {json.dumps(res)} -> {'pass' if ok else 'FAIL'}",
           flush=True)
     return ok
+
+
+# -- the brownout ladder and the game ([brownout], [game]) --------------------
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def add_counts(*parts) -> dict:
+    return dict(sum((collections.Counter(p) for p in parts),
+                    collections.Counter()))
+
+
+# Each [brownout] cell (preset@tier, its flash in ROUND_FLASH): the image
+# size, the sampler loop and the replays of each captured body of the
+# tier's config; the other kernels' launches per shape in TIER_KERNELS.
+TIER_CELLS = {
+    "default@t1": (512, "ddim", {"step": 30}),
+    "default@t4": (256, "ddim", {"step": 30}),
+    "consistency@t3": (512, "consistency", {"step": 4}),
+    "encprop@t2": (512, "encprop", {"key": 5, "segment": 5}),
+    "encprop@t4": (256, "encprop", {"key": 5, "segment": 5}),
+    "sdxl@t1": (1024, "ddim", {"step": 30}),
+    "sdxl@t4": (512, "ddim", {"step": 30}),
+}
+for _cell in ("fusedconv@t4", "w8a8@t4", "game@t5"):
+    TIER_CELLS[_cell] = TIER_CELLS["default@t4"]
+# 30 x 44 = 1,320 fused convs; 30 x 112 = 3,360 UNet int8 matmuls beside
+# the GPT-2 decode's 6,912; 1,320 int8 convs; encprop's fused VAE decoder
+TIER_KERNELS = {
+    "fusedconv@t4": {"gn_silu_conv3x3": scaled(TIER_CONV_SHAPES, 30)},
+    "w8a8@t4": {"int8_conv3x3": scaled(TIER_CONV_SHAPES, 30),
+                "int8_matmul": add_counts(
+                    scaled(TIER_UNET_MATMUL_SHAPES, 30), LM_MATMUL_SHAPES)},
+    "encprop@t2": {"gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15"])},
+    "encprop@t4": {"gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15_256"])},
+}
+# the tiers each preset's service is driven through
+BROWNOUT_TIERS = {"default": (1, 4), "consistency": (3,), "fusedconv": (4,),
+                  "w8a8": (4,), "encprop": (2, 4), "sdxl": (1, 4)}
+
+
+def tier_expected(cell: str) -> dict:
+    """Launches per shape of one round of a [brownout] cell, every
+    kernel."""
+    out = {"gn_silu_conv3x3": {}, "int8_matmul": {}, "int8_conv3x3": {},
+           "flash_attention": round_flash_shapes(cell)}
+    out.update(TIER_KERNELS.get(cell, {}))
+    return out
+
+
+def served_presets() -> tuple:
+    """(name, config) of every preset whose service serves rounds here:
+    phase 4's, the few-step tier's student and Mistral's."""
+    from cassmantle_tpu_torch.config import (
+        FrameworkConfig,
+        deepcache_serving_config,
+        encprop_serving_config,
+        fast_serving_config,
+        fusedconv_serving_config,
+        lcm_serving_config,
+        sdxl_config,
+        turbo_serving_config,
+        w8a8_serving_config,
+    )
+
+    return (("default", FrameworkConfig()),
+            ("fusedconv", fusedconv_serving_config()),
+            ("w8a8", w8a8_serving_config()),
+            ("sdxl", sdxl_config()),
+            ("encprop", encprop_serving_config()),
+            ("deepcache", deepcache_serving_config()),
+            ("fast", fast_serving_config()),
+            ("turbo", turbo_serving_config()),
+            ("lcm", lcm_serving_config()),
+            ("img2img", img2img_config()),
+            ("consistency", consistency_student_config()),
+            ("mistral", mistral_config()))
+
+
+def unet_flash_forward(model: str, size: int, mode: str,
+                       batch: int = 2) -> dict:
+    """Flash launches per (B, Sq, Sk, H, D) of one UNet forward at
+    ``size`` pixels, from the architectures: SD1.5's three levels of 5
+    transformer blocks (the up path's 3 a level in the decoder-only
+    forward, level 0's 5 in DeepCache's shallow one) and its mid block's
+    1, 8 heads of D 40, 80, 160 and 160; SDXL's full forward, 10 blocks
+    at 10 heads a quarter of the latent's tokens and 60 (50 + 10 mid) at
+    20 heads a sixteenth, D 64. Each block one self attention and one
+    cross attention over the 77 context tokens."""
+    lat = size // 8
+    if model == "sdxl":
+        if mode != "full":
+            raise ValueError(f"SDXL's {mode} forward is not modelled")
+        sites = [(lat * lat // 4, 10, 64, 10), (lat * lat // 16, 20, 64, 60)]
+    else:
+        blocks = {"full": (5, 5, 5, 1), "decoder_only": (3, 3, 3, 0),
+                  "shallow": (5, 0, 0, 0)}[mode]
+        sites = [(lat * lat >> 2 * i, 8, d, n) for i, (d, n) in
+                 enumerate(zip((40, 80, 160, 160), blocks)) if n]
+    out = collections.Counter()
+    for tokens, heads, d, n in sites:
+        for keys in (tokens, 77):
+            out[(batch, tokens, keys, heads, d)] += n
+    return out
+
+
+def round_forwards(s) -> list:
+    """(forward mode, batch, count) of one round under the served sampler
+    config ``s`` (CFG batch 2): encoder propagation's key forwards, its
+    DeepCache shallow ones, and one decoder-only forward a segment over
+    its propagated steps (the tail's apart); DeepCache's alternating
+    full and shallow forwards; one full forward a step otherwise."""
+    from cassmantle_tpu_torch.ops.ddim import encprop_step_counts
+    from cassmantle_tpu_torch.serving.pipeline import sampler_mode
+
+    n, mode = s.num_steps, sampler_mode(s)
+    if mode == "encprop":
+        keys, shallow, _ = encprop_step_counts(
+            n, s.encprop_stride, s.encprop_dense_steps, s.deepcache)
+        out = [("full", 2, keys), ("shallow", 2, shallow)]
+        segments, tail = divmod(n - s.encprop_dense_steps, s.encprop_stride)
+        for length, count in ((s.encprop_stride, segments), (tail, 1)):
+            if length and count:
+                propagated = length - 1 - (s.deepcache and length >= 2)
+                out.append(("decoder_only", 2 * propagated, count))
+        return [f for f in out if f[1] and f[2]]
+    if mode == "deepcache":
+        return [("full", 2, (n + 1) // 2), ("shallow", 2, n // 2)]
+    return [("full", 2, n)]
+
+
+def derived_round(cfg, tier) -> dict:
+    """What one round of ``cfg``'s service launches at brownout ``tier``
+    (None: full quality), derived from the config through the port's
+    ``degraded_sampler_cfg`` and the architectures, not from the tables
+    above: flash launches per shape; the shapes of the other kernels
+    (the UNet's convs and W8A8 sites at the round's size where the UNet
+    is fused or W8A8, the SD1.5 VAE decoder's where it is fused, and
+    GPT-2's W8A8 decode; a W8A8 UNet's convs run on kernel 4, not
+    kernel 2). A fused or W8A8 UNet is modelled in full
+    forwards only; any other forward raises."""
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.serving.pipeline import effective_sampler_cfg
+
+    m = cfg.models
+    s = effective_sampler_cfg(cfg.sampler if tier is None else
+                              overload.degraded_sampler_cfg(cfg.sampler,
+                                                            tier))
+    size = s.image_size
+    model = "sd15" if m.clip_text_2 is None else "sdxl"
+    flash = collections.Counter({(1, (size // 8) ** 2, (size // 8) ** 2,
+                                  1, 512): 1})
+    forwards = round_forwards(s)
+    for mode, batch, count in forwards:
+        for shape, n in unet_flash_forward(model, size, mode, batch).items():
+            flash[shape] += n * count
+    out = {"flash_attention": dict(flash), "gn_silu_conv3x3": set(),
+           "int8_matmul": set(), "int8_conv3x3": set()}
+    if (m.unet.fused_conv or m.unet_w8a8) and any(
+            mode != "full" for mode, _, _ in forwards):
+        raise ValueError("a fused or W8A8 UNet's partial forwards are not "
+                         "modelled")
+    if m.unet.fused_conv and not m.unet_w8a8:
+        out["gn_silu_conv3x3"] |= set(conv_shapes_at(CONV_SHAPES, size))
+    if m.unet_w8a8:
+        out["int8_conv3x3"] |= set(conv_shapes_at(CONV_SHAPES, size))
+        out["int8_matmul"] |= set(unet_matmul_shapes(size))
+    if m.lm_w8a8:
+        out["int8_matmul"] |= set(LM_MATMUL_SHAPES)
+    if m.vae.fused_conv:
+        out["gn_silu_conv3x3"] |= set(conv_shapes_at(VAE_CONV_SHAPES["sd15"],
+                                                     size))
+    return out
+
+
+def tier_shape_gaps() -> list:
+    """Every served preset (:func:`served_presets`) at full quality and at
+    each tier of ``DEFAULT_TIERS``, derived (:func:`derived_round`):
+    (preset, tier, kernel, shapes) for each kernel whose derived shapes
+    phase 2 does not check. Empty when every tier of every preset, driven
+    or not, launches only checked shapes."""
+    from cassmantle_tpu_torch.serving import overload
+
+    checked = {"flash_attention": {v[:5] for v in FLASH_SHAPES.values()},
+               "gn_silu_conv3x3": set(FUSED_CHECK_SHAPES),
+               "int8_matmul": set(MATMUL_CHECK_SHAPES),
+               "int8_conv3x3": set(INT8_CONV_CHECK_SHAPES)}
+    gaps = []
+    for preset, cfg in served_presets():
+        for i, tier in enumerate((None, *overload.DEFAULT_TIERS[1:])):
+            for kernel, shapes in derived_round(cfg, tier).items():
+                missing = set(shapes) - checked[kernel]
+                if missing:
+                    gaps.append((preset, i, kernel, sorted(missing)))
+    return gaps
+
+
+def round_table_mismatches() -> list:
+    """The tables above against :func:`derived_round`: each served
+    preset's full-quality round (``expected_tallies``; img2img's own path
+    aside) and each [brownout] cell's (ROUND_FLASH, TIER_KERNELS) at its
+    preset's tier. Returns (round, kernel) where the flash launches per
+    shape, or another kernel's shapes, differ."""
+    from cassmantle_tpu_torch.serving import overload
+
+    presets = dict(served_presets())
+    rounds = [(name, cfg, None, expected_tallies(name))
+              for name, cfg in presets.items()
+              if name not in ("img2img", "consistency")]
+    for cell in TIER_CELLS:
+        preset, tier = cell.split("@t")
+        rounds.append((cell, presets.get(preset, presets["default"]),
+                       overload.DEFAULT_TIERS[int(tier)], tier_expected(cell)))
+    out = []
+    for name, cfg, tier, expected in rounds:
+        derived = derived_round(cfg, tier)
+        for kernel, want in expected.items():
+            got = derived[kernel]
+            if (got != want if kernel == "flash_attention"
+                    else got != set(want)):
+                out.append((name, kernel))
+    return out
+
+
+def brownout_ladder():
+    """The process's ladder, configured as a service would be, subscribed
+    to an SLO engine that evaluates on every call; step-down dwell 0, so
+    each evaluation past the first steps one rung down. Returns (engine,
+    ladder)."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+    from cassmantle_tpu_torch.obs.slo import SloEngine, default_objectives
+    from cassmantle_tpu_torch.serving import overload
+
+    cfg = FrameworkConfig()
+    cfg = cfg.replace(serving=dataclasses.replace(
+        cfg.serving, brownout_step_down_dwell_s=0.0))
+    engine = SloEngine(default_objectives(cfg),
+                       fast_window_s=cfg.obs.slo_fast_window_s,
+                       slow_window_s=cfg.obs.slo_slow_window_s,
+                       min_eval_gap_s=0.0)
+    return engine, overload.configure_brownout(cfg, engine)
+
+
+def step_ladder(engine, ladder, tier: int) -> bool:
+    """Up through the drill lever (one ``overload.brownout`` injection an
+    evaluation), down through the engine's ok verdicts."""
+    from cassmantle_tpu_torch import chaos
+
+    up = tier - ladder.tier()
+    if up > 0:
+        chaos.configure(f"overload.brownout=raise:times={up}")
+        try:
+            for _ in range(up):
+                engine.evaluate()
+        finally:
+            chaos.disarm()
+    for _ in range(4 * len(ladder.tiers)):
+        if ladder.tier() <= tier:
+            break
+        engine.evaluate()
+    return ladder.tier() == tier
+
+
+def tier_round(svc, cell: str, seed: str, card: str) -> tuple:
+    """One round at the ladder's tier through ``generate_content``, the
+    counts set to 0 just before it and read just after: the image size,
+    the tier variant's replays and every kernel's launches per shape
+    against the cell's; the tier graph's final latents against the eager
+    steps on the same x_T and conditioning (bit-equal); a second round at
+    the tier on this thread under ``no_new_captures`` (the cached
+    variant). Returns (tallies, checks, report, the repeat's image)."""
+    import torch
+
+    from cassmantle_tpu_torch.ops import graphs
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.serving.pipeline import tier_key
+
+    t2i = svc.backend.t2i
+    size, mode, replays_want = TIER_CELLS[cell]
+    scfg = overload.degraded_sampler_cfg(t2i.cfg.sampler,
+                                         overload.quality_overrides())
+    variants = len(t2i.tier_variants)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counters()
+    t0 = time.perf_counter()
+    rc = asyncio.run(svc.generate_content(seed))
+    round_s = time.perf_counter() - t0
+    tallies = read_tallies()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    v = t2i.tier_variants[tier_key(scfg)]
+    sg = v.step_graphs[1]
+    replays = {name: g.replays for name, g in sg.graphs.items()}
+    stats = {name: g.stats() for name, g in sg.graphs.items()}
+    capture_s = sum(st["warmup_s"] + st["capture_s"] + st["instantiate_s"]
+                    for st in stats.values())
+    pool_mb = sum(st["pool_bytes"] for st in stats.values()) / 1e6
+    hw = size // t2i.vae_scale
+    with torch.inference_mode():
+        cond = t2i.encode([SERVE_PROMPT])
+        x = torch.randn((1, hw, hw, 4), device=t2i.device,
+                        generator=torch.Generator(t2i.device).manual_seed(9))
+        eager = t2i.denoise(x, cond, graphed=False, variant=v)
+        graphed = t2i.denoise(x, cond, graphed=True, variant=v)
+        bit_equal = bool(torch.equal(eager, graphed))
+        max_diff = (eager - graphed).abs().max().item()
+    built = len(t2i.tier_variants)
+    torch.cuda.synchronize()          # time the repeat alone
+    t0 = time.perf_counter()
+    with graphs.no_new_captures():
+        again = t2i.generate([SERVE_PROMPT], seed=13)
+    warm_s = time.perf_counter() - t0
+    checks = {
+        "image_size": rc.image.shape == (size, size, 3),
+        "image_not_constant": int(rc.image.max()) > int(rc.image.min()),
+        "sampler_mode": v.mode == mode,
+        "graph_replays": replays == replays_want,
+        "tier_graph_bit_equal": bit_equal,
+        "at_most_one_variant_built": built - variants <= 1,
+        "repeat_reuses_variant": (len(t2i.tier_variants) == built
+                                  and again.shape == (1, size, size, 3)),
+    }
+    if mode == "encprop":
+        checks["encprop_step_counts"] = v.encprop_counts == (10, 0, 20)
+    for kernel, want in tier_expected(cell).items():
+        checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
+    launches = {k: sum(c.values()) for k, c in tallies.items()
+                if k != "flash_paths"}
+    report = {"cell": cell, "card": card, "tier": overload.current_tier(),
+              "steps": scfg.num_steps, "image_size": scfg.image_size,
+              "stride": scfg.encprop_stride, "consistency": scfg.consistency,
+              "round_s": round_s, "warm_generate_s": warm_s,
+              "warm_stages_s": dict(t2i.last_stage_seconds),
+              "capture_s": capture_s, "pool_mb": pool_mb,
+              "peak_gib": peak_gib, "graph_replays": replays,
+              "launches": launches,
+              "launches_per_shape": {
+                  k: {"x".join(map(str, shape)): n
+                      for shape, n in sorted(c.items())}
+                  for k, c in tallies.items() if k != "flash_paths"},
+              "graphs": stats,
+              "denoise_max_abs_diff": max_diff}
+    return tallies, checks, report, again
+
+
+def check_brownout(svc, preset: str, card: str) -> tuple:
+    """[brownout]: the ladder stepped by its drill lever through each of
+    ``preset``'s tiers (BROWNOUT_TIERS), one round served at each
+    (:func:`tier_round`), then back to tier 0, where the image must equal
+    the one served before the ladder moved, bit for bit. On the default
+    preset, a rebuild of every model (the device-loss recovery's) and its
+    warm after the tier graphs exist: the tier's image after equal to the
+    one before, with no new capture. Returns (ok, {cell: tallies})."""
+    import numpy as np
+
+    from cassmantle_tpu_torch.ops import graphs
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    t2i = svc.backend.t2i
+    engine, ladder = brownout_ladder()
+    t0 = time.perf_counter()
+    before = t2i.generate([SERVE_PROMPT], seed=21)
+    cells, ok = {}, True
+    for i, tier in enumerate(BROWNOUT_TIERS[preset]):
+        cell = f"{preset}@t{tier}"
+        stepped = step_ladder(engine, ladder, tier)
+        tallies, checks, report, again = tier_round(
+            svc, cell, SERVE_SEEDS[i % len(SERVE_SEEDS)], card)
+        checks["ladder_stepped"] = stepped
+        if preset == "default" and tier == max(BROWNOUT_TIERS[preset]):
+            captures = graphs.capture_count()
+            t1 = time.perf_counter()
+            svc.rebuild_device_state()
+            svc.warm_after_recovery()
+            report["rebuild_and_warm_s"] = time.perf_counter() - t1
+            with graphs.no_new_captures():
+                after = t2i.generate([SERVE_PROMPT], seed=13)
+            checks["tier_graph_valid_after_rebuild"] = (
+                bool(np.array_equal(after, again))
+                and graphs.capture_count() == captures)
+        report["checks"] = {k: bool(v) for k, v in checks.items()}
+        cell_ok = all(checks.values())
+        print(f"[brownout] {json.dumps(report)} -> "
+              f"{'pass' if cell_ok else 'FAIL'}", flush=True)
+        cells[cell] = tallies
+        ok = ok and cell_ok
+    down = step_ladder(engine, ladder, 0)
+    with graphs.no_new_captures():
+        back = t2i.generate([SERVE_PROMPT], seed=21)
+    revert = {"preset": preset, "ladder_at_0": down,
+              "tier0_bit_equal_before": bool(np.array_equal(back, before)),
+              "variants": len(t2i.tier_variants),
+              "delta_unusable": metrics.counter_total(
+                  "pipeline.brownout_delta_unusable"),
+              "phase_s": time.perf_counter() - t0}
+    revert_ok = (down and revert["tier0_bit_equal_before"]
+                 and revert["delta_unusable"] == 0)
+    print(f"[brownout] {json.dumps(revert)} -> "
+          f"{'pass' if revert_ok else 'FAIL'}", flush=True)
+    overload.reset_brownout()
+    return ok and revert_ok, cells
+
+
+GAME_SESSIONS = 1024
+GAME_ROUND_S = 8.0            # time_per_prompt of the [game] rounds
+
+
+def check_game(svc, card: str) -> tuple:
+    """[game]: a ``Game`` on the [serve] service (``svc.content_backend``,
+    ``embed``, ``similarity``, ``blur``, ``supervisor``, ``pin_answers``;
+    a ``MemoryStore``; 8 s rounds): ``startup`` and a buffered next round,
+    1,024 sessions (``init_client``, ``fetch_prompt_json``, a guess at
+    both masks, half from the wordlist on rung 0 and half out of
+    vocabulary on the device rung, ``fetch_masked_image_b64``), one
+    promotion through the round timer, and, with the ladder at tier 5,
+    coarser blur buckets (rounding up) and the next buffered round at
+    256x256 while guesses are scored. Scores against direct similarity:
+    within 1e-5 on the device rung, 1e-2 of fp32 on rung 0. Returns (ok,
+    the degraded round's tallies)."""
+    import base64
+    import dataclasses
+    import io
+    import math
+
+    import numpy as np
+    from PIL import Image
+
+    from cassmantle_tpu_torch.engine.game import Game
+    from cassmantle_tpu_torch.engine.masking import select_masks
+    from cassmantle_tpu_torch.engine.store import MemoryStore
+    from cassmantle_tpu_torch.server.assets import load_wordlist
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    count = metrics.counter_total
+    cfg = svc.cfg.replace(game=dataclasses.replace(
+        svc.cfg.game, time_per_prompt=GAME_ROUND_S))
+    game = Game(cfg, MemoryStore(), svc.content_backend, svc.embed,
+                svc.similarity, blur_fn=svc.blur,
+                supervisor=svc.supervisor, pin_answers=svc.pin_answers)
+    scorer = svc.scorer
+    words = [w for w in load_wordlist() if w.isalpha()]
+    sessions = [f"player-{i}" for i in range(GAME_SESSIONS)]
+    min_score = cfg.game.min_score
+
+    def decode(b64):
+        return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+    def guesses_for(i, masks):
+        if i % 2 == 0:            # rung 0: wordlist words
+            return {str(m): words[(7 * i + j) % len(words)]
+                    for j, m in enumerate(masks)}
+        return {str(m): f"gm{i}q{j}z{i * 7919 % 104729}x"
+                for j, m in enumerate(masks)}
+
+    async def timed(coro):
+        t = time.perf_counter()
+        out = await coro
+        return out, time.perf_counter() - t
+
+    promote_s = []
+    real_promote = game.rounds.promote_buffer
+
+    async def timed_promote():
+        t = time.perf_counter()
+        await real_promote()
+        promote_s.append(time.perf_counter() - t)
+
+    game.rounds.promote_buffer = timed_promote
+    report, checks = {"card": card, "sessions": GAME_SESSIONS}, {}
+
+    async def play():
+        t = time.perf_counter()
+        await game.startup()
+        report["startup_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        await game.rounds.buffer_contents()
+        report["buffer_s"] = time.perf_counter() - t
+        prompt = await game.rounds.fetch_current_prompt()
+        tokens, masks = prompt["tokens"], prompt["masks"]
+        answers = [tokens[m] for m in masks]
+        await asyncio.gather(*(game.init_client(s) for s in sessions))
+        views = await asyncio.gather(*(game.fetch_prompt_json(s)
+                                       for s in sessions))
+        checks["prompt_json_masked"] = all(
+            all(v["tokens"][m] == "*" for m in masks) for v in views)
+        inputs = [guesses_for(i, masks) for i in range(GAME_SESSIONS)]
+        hits, batches = count("scorer.table_hits"), count("score.batches")
+        scored = await asyncio.gather(*(
+            timed(game.compute_client_scores(s, inputs[i]))
+            for i, s in enumerate(sessions)))
+        report["score_batches"] = count("score.batches") - batches
+        report["table_hits"] = count("scorer.table_hits") - hits
+        misses = count("game.image_cache_misses")
+        rendered = await asyncio.gather(*(
+            timed(game.fetch_masked_image_b64(s)) for s in sessions))
+        image_size = (await game.rounds.fetch_current_image()).shape
+        checks["masked_images_size"] = all(
+            decode(b64).shape == image_size for b64, _ in rendered[::64])
+        # each score against a direct similarity of its pair
+        dev_pairs, dev_got, t0_pairs, t0_got = [], [], [], []
+        for i, ((res, _), given) in enumerate(zip(scored, inputs)):
+            for j, m in enumerate(masks):
+                pair = (given[str(m)].lower(), answers[j].lower())
+                got = float(res[str(m)])
+                if pair[0] == pair[1]:
+                    checks.setdefault("exact_is_one", True)
+                    checks["exact_is_one"] &= got == 1.0
+                    continue
+                (t0_pairs if i % 2 == 0 else dev_pairs).append(pair)
+                (t0_got if i % 2 == 0 else dev_got).append(got)
+        scorer.clear_embed_cache()
+        direct = scorer.similarity(dev_pairs)
+        clamp = np.clip(direct, min_score, 0.999)
+        report["device_rung_max_abs_err"] = float(
+            np.abs(np.asarray(dev_got) - clamp).max())
+        texts = list(dict.fromkeys([w for p in t0_pairs for w in p]))
+        emb = dict(zip(texts, scorer._embed_device(texts)[0]))
+        fp32 = np.clip([emb[g] @ emb[a] for g, a in t0_pairs], min_score,
+                       0.999)
+        report["rung0_max_abs_err_vs_fp32"] = float(
+            np.abs(np.asarray(t0_got) - fp32).max())
+        checks["device_rung_scores"] = \
+            report["device_rung_max_abs_err"] <= 1e-5
+        checks["rung0_scores"] = report["rung0_max_abs_err_vs_fp32"] <= 1e-2
+        guess_lat = [dt for _, dt in scored]
+        render_lat = [dt for _, dt in rendered]
+        report["guess_ms"] = latency_ms(guess_lat)
+        report["render_ms"] = latency_ms(render_lat)
+        report["renders"] = count("game.image_cache_misses") - misses
+
+        # one promotion through the round timer
+        nxt = json.loads((await game.store.hget("prompt", "next")).decode())
+        promoted = count("rounds.promoted")
+        t = time.perf_counter()
+        game.start_timer(tick=0.1)
+        # the rollover ends by restarting the clock and raising the 1 s
+        # reset flag: stop the timer only then
+        while not (count("rounds.promoted") > promoted
+                   and await game.rounds.reset_flag()) and \
+                time.perf_counter() - t < 3 * GAME_ROUND_S:
+            await asyncio.sleep(0.1)
+        await game.rounds.stop()
+        report["promotion_s"] = promote_s[-1] if promote_s else None
+        report["round_wait_s"] = time.perf_counter() - t
+        after = await game.rounds.fetch_current_prompt()
+        checks["promoted"] = count("rounds.promoted") == promoted + 1
+        checks["promoted_buffered_text"] = after == nxt
+        # the masks are the new text's own selection (random weights may
+        # decode the same text from another seed)
+        report["promoted_text_differs"] = after["tokens"] != tokens
+        checks["new_masks_from_new_text"] = after["masks"] == select_masks(
+            after["tokens"], svc.embed, cfg.game.num_masked)
+        reset = [await game.sessions.fetch_scores(s) for s in sessions[::97]]
+        checks["sessions_reset"] = all(
+            r["attempts"] == "0" and float(r["max"]) == min_score
+            for r in reset)
+
+        # varied scores again, then the coarse-blur tier
+        few = sessions[:64]
+        await asyncio.gather(*(game.compute_client_scores(
+            s, guesses_for(i, after["masks"])) for i, s in enumerate(few)))
+        radii = [await game._reveal_radius(s) for s in few]
+        fine = sorted({overload.quantize_blur_radius(r) for r in radii})
+        engine, ladder = brownout_ladder()
+        checks["ladder_at_5"] = step_ladder(engine, ladder, 5)
+        coarse = [overload.quantize_blur_radius(r) for r in radii]
+        await asyncio.gather(*(game.fetch_masked_image_b64(s) for s in few))
+        checks["coarse_buckets_round_up"] = all(
+            c >= r and c == math.ceil(r / 2.0) * 2.0
+            for c, r in zip(coarse, radii))
+        checks["coarse_buckets_rendered"] = set(game._image_cache) == set(
+            coarse)
+        report["buckets"] = {"fine": fine, "coarse": sorted(set(coarse))}
+        tier_size = overload.degraded_sampler_cfg(
+            svc.cfg.sampler, overload.quality_overrides()).image_size
+        degraded = count("pipeline.brownout_images")
+        reset_all_counters()
+        t = time.perf_counter()
+        _, lat, waves = await guesses_during(
+            svc, [game.rounds.buffer_contents()], "game")
+        report["degraded_buffer_s"] = time.perf_counter() - t
+        report["degraded_guess_waves"] = waves
+        report["degraded_guess_ms"] = latency_ms(lat)
+        tallies = read_tallies()
+        raw = await game.store.hget("image", "next")
+        checks["degraded_round_256"] = (
+            raw is not None
+            and decode(base64.b64encode(raw)).shape == (tier_size,) * 2 + (3,))
+        checks["brownout_images"] = (
+            count("pipeline.brownout_images") - degraded == 1)
+        for kernel, want in tier_expected("game@t5").items():
+            checks[f"{kernel}_launches_per_shape"] = \
+                dict(tallies[kernel]) == want
+        checks["ladder_back_to_0"] = step_ladder(engine, ladder, 0)
+        overload.reset_brownout()
+        return tallies
+
+    tallies = asyncio.run(play())
+    del game.rounds.promote_buffer
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[game] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    return ok, tallies
 
 
 # -- weights from a directory ------------------------------------------------
@@ -3389,19 +4170,18 @@ def main() -> int:
             fail(f"{switch} is set: the smoke run drives the kernels")
     card = card_line()
     print(f"[card] {card}", flush=True)
+    # every preset at every brownout tier, derived from its config, runs
+    # only shapes phase 2 checks, and the rounds' tables agree with it
+    gaps, mismatches = tier_shape_gaps(), round_table_mismatches()
+    if gaps or mismatches:
+        fail(f"tier shapes phase 2 does not check: {gaps}; round tables "
+             f"that differ from the configs: {mismatches}")
+    print(f"[tiers] {len(served_presets())} presets at full quality and "
+          f"every brownout tier: every derived shape checked, every round "
+          f"table matches", flush=True)
 
-    from cassmantle_tpu_torch.config import (
-        FrameworkConfig,
-        deepcache_serving_config,
-        encprop_serving_config,
-        fast_serving_config,
-        fusedconv_serving_config,
-        lcm_serving_config,
-        sdxl_config,
-        turbo_serving_config,
-        w8a8_serving_config,
-    )
     from cassmantle_tpu_torch.ops import _build
+    from cassmantle_tpu_torch.serving.service import InferenceService
     from cassmantle_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")        # TF32 off: the plain fp32 convs are fp32
@@ -3437,17 +4217,10 @@ def main() -> int:
     if not check_small_mistral():
         fail("tiny geometry, Mistral: card and CPU disagree")
 
-    presets = (("default", FrameworkConfig()),
-               ("fusedconv", fusedconv_serving_config()),
-               ("w8a8", w8a8_serving_config()),
-               ("sdxl", sdxl_config()),
-               ("encprop", encprop_serving_config()),
-               ("deepcache", deepcache_serving_config()),
-               ("fast", fast_serving_config()),
-               ("turbo", turbo_serving_config()),
-               ("lcm", lcm_serving_config()),
-               ("img2img", img2img_config()))
+    # phase 4's presets; the student and Mistral serve further down
+    presets = served_presets()[:10]
     tallies = {}
+    brownout_s = 0.0
     for preset, cfg in presets:
         run = run_img2img if preset == "img2img" else run_round
         svc, tallies[preset], bad = run(card, preset, cfg)
@@ -3467,6 +4240,13 @@ def main() -> int:
         if not prof["graph_witness"]["ok"]:
             fail(f"{preset}: the profiled graph replays did not launch the "
                  f"step's kernels: {prof['graph_witness']}")
+        if preset in BROWNOUT_TIERS:
+            t0 = time.perf_counter()
+            ok, cells = check_brownout(svc, preset, card)
+            brownout_s += time.perf_counter() - t0
+            if not ok:
+                fail(f"brownout: a {preset} tier failed its checks")
+            tallies.update(cells)
         if preset == "sdxl" and not check_serve_sdxl(svc, card):
             fail("serve-sdxl: the SDXL round under 1,024 concurrent "
                  "guesses failed its checks")
@@ -3476,10 +4256,28 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # the few-step tier: FrameworkConfig() with its UNet declared a
+    # distilled student (consistency_available)
+    t0 = time.perf_counter()
+    svc = InferenceService(consistency_student_config(), table=None)
+    ok, cells = check_brownout(svc, "consistency", card)
+    if not ok:
+        fail("brownout: the few-step tier failed its checks")
+    tallies.update(cells)
+    asyncio.run(svc.stop())
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    brownout_s += time.perf_counter() - t0
+    print(f"[brownout] phase {brownout_s:.1f} s", flush=True)
+
     # the serving seam: queues, supervisor, integrity, device-loss recovery
-    # and the int8 table at FrameworkConfig()
-    if not check_serve(card):
+    # and the int8 table at FrameworkConfig(); then the game on it
+    serve_ok, game_ok, tallies["game@t5"] = check_serve(card)
+    if not serve_ok:
         fail("serve: the serving seam failed a check")
+    if not game_ok:
+        fail("game: the game on the service failed a check")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3539,13 +4337,43 @@ def main() -> int:
                 fail(f"{preset}: {kernel} launched at unchecked shapes "
                      f"{sorted(unchecked)}")
 
+    # per [brownout] cell: each kernel's launches x its [kernel] times
+    rows_by_shape = {"flash_attention": {key: rows[name]
+                                         for key, name in by_shape.items()},
+                     **checked}
+    per_cell = {}
+    for cell in TIER_CELLS:
+        if cell not in tallies:
+            continue
+        per_cell[cell] = {}
+        for kernel, shape_rows in rows_by_shape.items():
+            tally = tallies[cell][kernel]
+            if not tally:
+                continue
+            sums = {field: sum(n * shape_rows[shape][field]
+                               for shape, n in tally.items())
+                    for field in ("ms", "bound_ms", "plain_ms")}
+            # the library yardstick where a call exists (kernel 3: M > 16)
+            lib = [(n, shape_rows[shape]["library_ms"])
+                   for shape, n in tally.items()
+                   if shape_rows[shape]["library_ms"] is not None]
+            sums.update(launches=sum(tally.values()),
+                        library_ms=sum(n * t for n, t in lib),
+                        library_launches=sum(n for n, _ in lib))
+            per_cell[cell][kernel] = sums
+    print(f"[tiers] kernel ms a round ({card}): {json.dumps(per_cell)}",
+          flush=True)
+
     kernels = []
     for key, name in by_shape.items():
         r = rows[name]
         # launches and path from the first round whose model runs the
-        # shape: default for SD1.5's, sdxl, encprop for the batch-4 ones
-        preset = next(p for p in ("default", "sdxl", "encprop")
-                      if name in ROUND_FLASH[PRESET_MODEL[p]])
+        # shape: default for SD1.5's, sdxl, encprop for the batch-4 ones,
+        # a [brownout] cell for a tier's
+        preset = next(p for p in ("default", "sdxl", "encprop",
+                                  *TIER_CELLS)
+                      if p in tallies
+                      and name in ROUND_FLASH[PRESET_MODEL[p]])
         round_paths = tallies[preset]["flash_paths"]
         (path,) = {p for (shape, p) in round_paths if shape == key}
         kernels.append({
@@ -3558,13 +4386,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "path": path, "ok": r["ok"]})
     for kernel, presets, source, replaces in (
-            ("gn_silu_conv3x3", ("fusedconv", "encprop", "img2img"),
+            ("gn_silu_conv3x3", ("fusedconv", "encprop", "img2img",
+                                 "fusedconv@t4", "encprop@t2", "encprop@t4"),
              FUSED_SOURCE, FUSED_REPLACES),
-            ("int8_matmul", ("w8a8",), INT8_SOURCE, MATMUL_REPLACES),
-            ("int8_conv3x3", ("w8a8",), INT8_SOURCE, CONV_REPLACES)):
+            ("int8_matmul", ("w8a8", "w8a8@t4"), INT8_SOURCE,
+             MATMUL_REPLACES),
+            ("int8_conv3x3", ("w8a8", "w8a8@t4"), INT8_SOURCE,
+             CONV_REPLACES)):
         # launches in the rounds of the presets that serve the kernel
         # (the UNet's shapes at fusedconv, the VAE decoder's at encprop,
-        # at img2img the encoder's and the decoder's again)
+        # at img2img the encoder's and the decoder's again, and the
+        # tiers' at 256x256)
         tally = sum((tallies[p][kernel] for p in presets),
                     collections.Counter())
         kernels += kernel_entries(kernel, checked[kernel], tally, source,

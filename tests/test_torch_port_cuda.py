@@ -605,12 +605,13 @@ def test_cuda_denoise_graph_equals_eager(cuda_device, preset):
     if preset == "w8a8":
         assert eager_n["int8_matmul", "launches"] > 0
         assert eager_n["int8_conv3x3", "launches"] > 0
-    assert list(pipe.step_graphs) == [2]
+    assert list(pipe.full_variant.step_graphs) == [2]
     want = {"encprop": {"key": 1, "segment": 1},
             "deepcache": {"pair": 2},
             **{k: v[1] for k, v in SAMPLER_CASES.items()}}.get(
                 preset, {"step": 4})
-    assert {k: g.replays for k, g in pipe.step_graphs[2].graphs.items()} \
+    graphs = pipe.full_variant.step_graphs[2].graphs
+    assert {k: g.replays for k, g in graphs.items()} \
         == {k: 2 * n for k, n in want.items()}
 
 

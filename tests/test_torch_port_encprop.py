@@ -475,22 +475,22 @@ def test_kill_switch_serves_full_forwards(sampler_case, monkeypatch):
             "uncond_context": torch.from_numpy(c["uctx"])}
     with torch.inference_mode():
         armed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
-        assert armed.sampler_mode == "encprop"
-        assert armed.encprop_counts == (4, 0, 4)
+        assert armed.full_variant.mode == "encprop"
+        assert armed.full_variant.encprop_counts == (4, 0, 4)
         monkeypatch.setenv("CASSMANTLE_NO_ENCPROP", "1")
         assert port_ddim.encprop_disabled()
         killed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
         plain = Text2ImagePipeline(_tiny(num_steps=8), device="cpu",
                                    state_dicts=sd)
-        assert killed.sampler_mode == "ddim"
-        assert killed.encprop_counts is None
+        assert killed.full_variant.mode == "ddim"
+        assert killed.full_variant.encprop_counts is None
         got = killed.denoise(x_t, cond, graphed=False)
         assert torch.equal(got, plain.denoise(x_t, cond, graphed=False))
         assert not torch.equal(got, armed.denoise(x_t, cond, graphed=False))
         both = Text2ImagePipeline(
             _tiny(encprop=True, deepcache=True, num_steps=8,
                   encprop_dense_steps=1), device="cpu", state_dicts=sd)
-        assert both.sampler_mode == "deepcache"
+        assert both.full_variant.mode == "deepcache"
 
 
 @pytest.mark.parametrize("sampler_kw,error,match", [
@@ -551,3 +551,41 @@ def test_presets_match_reference_fields():
         assert port.models.unet.fused_conv == ref.models.unet.fused_conv
         assert port_pipeline.sampler_mode(port.sampler) == name.split(
             "_")[0]
+
+
+def test_tier_decoder_only_flash_at_stride_5(monkeypatch):
+    """chip_smoke's encprop tier (stride 5: four propagated steps a
+    segment): the decoder-only forward over four timesteps launches the
+    up path's 9 self and 9 cross attentions at batch 8, the table
+    ``TIER_UNET_FLASH["decoder_only_b8"]`` names."""
+    import chip_smoke
+
+    from cassmantle_tpu_torch.ops import attention
+
+    cfg = dataclasses.replace(
+        port_config.UNetConfig(), base_channels=32, context_dim=64,
+        time_embed_dim=128, dtype="float32")
+    unet = UNet(cfg).eval()
+    torch.manual_seed(0)
+    for prm in unet.parameters():
+        torch.nn.init.normal_(prm, std=0.02)
+    calls = []
+    real = attention.flash_attention
+
+    def recording(q, k, v, **kw):
+        level = {64: "l0", 16: "l1", 4: "l2", 1: "mid"}[q.shape[1]]
+        kind = "self" if k.shape[1] == q.shape[1] else "cross"
+        calls.append(f"{kind}_{level}_b{q.shape[0]}")
+        return real(q, k, v, **kw)
+
+    x = torch.randn(2, 8, 8, 4)
+    t = torch.tensor([500], dtype=torch.int32)
+    ctx = torch.randn(2, 77, 64)
+    with torch.inference_mode():
+        _, _, cache = unet(x, t.expand(2), ctx, return_deep=True,
+                           return_skips=True)
+        monkeypatch.setattr(attention, "flash_attention", recording)
+        port_ddim.cfg_denoiser_encprop(unet, ctx, 7.5)[1](
+            cache, torch.tensor([400, 300, 200, 100], dtype=torch.int32))
+    assert dict(collections.Counter(calls)) == \
+        chip_smoke.TIER_UNET_FLASH["decoder_only_b8"]

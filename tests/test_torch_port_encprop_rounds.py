@@ -112,10 +112,11 @@ def test_tiny_round_matches_reference(kind, monkeypatch):
         cfg, device="cpu", styles=[STYLE], rng=random.Random(0),
         state_dicts={k: from_jax(k, v) for k, v in params.items()})
     t2i = backend.t2i
-    assert t2i.sampler_mode == kind
+    assert t2i.full_variant.mode == kind
     rc = backend.generate_sync("seed", text=ROUND_TEXT)
     diff = np.abs(rc.image.astype(np.int32) - ref_img.astype(np.int32))
     assert rc.image.shape == ref_img.shape and diff.max() <= 2, diff.max()
     assert diff.mean() <= 0.5, diff.mean()
     assert t2i.vae.up_0_res_0.fused_conv == (kind == "encprop")
-    assert t2i.encprop_counts == ((2, 0, 4) if kind == "encprop" else None)
+    assert t2i.full_variant.encprop_counts == (
+        (2, 0, 4) if kind == "encprop" else None)

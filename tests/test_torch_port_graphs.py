@@ -209,9 +209,9 @@ def test_pipeline_graphed_denoise_and_image(monkeypatch):
         got = pipe.denoise(x_t, c["cond"], graphed=True)
         again = pipe.denoise(x_t, c["cond"], graphed=True)
         img = postprocess_images(pipe.vae(got)).numpy()
-    assert list(pipe.step_graphs) == [2]
-    assert pipe.step_graphs[2].graph.replays == 2 * len(
-        pipe.schedule.timesteps)
+    assert list(pipe.full_variant.step_graphs) == [2]
+    assert pipe.full_variant.step_graphs[2].graph.replays == 2 * len(
+        pipe.full_variant.schedule.timesteps)
     assert torch.equal(got, eager) and torch.equal(again, eager)
     assert_rel(got, c["final"], 1e-4)
     diff = np.abs(img.astype(np.int32) - ref_img.astype(np.int32))

@@ -120,9 +120,12 @@ def test_conv_plan_ragged_geometry(b, h, w):
 
 
 # the VAE decoders' ResBlock convs (B, H, W, C, F): SD1.5 at 512² (W 64 to
-# 512) and SDXL at 1024² (W 128 to 1024)
+# 512) and SDXL at 1024² (W 128 to 1024), and SD1.5's past W = 64 at 256²
+# (the brownout tiers at half resolution)
 VAE_CONV_SHAPES = sorted(set(chip_smoke.VAE_CONV_SHAPES["sd15"])
-                         | set(chip_smoke.VAE_CONV_SHAPES["sdxl"]))
+                         | set(chip_smoke.VAE_CONV_SHAPES["sdxl"])
+                         | {s for s in chip_smoke.VAE_CONV_SHAPES["sd15_256"]
+                            if s[2] > 64})
 
 
 def _covered_pixels(plan, b, h, w):
@@ -436,3 +439,61 @@ def test_flash_round_counts_follow_the_models():
         assert paths == chip_smoke.ROUND_FLASH_PATHS[model]
     assert set(chip_smoke.FLASH_SHAPES) == set().union(
         *map(set, chip_smoke.ROUND_FLASH.values()))
+
+
+def test_tier_flash_counts_follow_the_tiers():
+    """chip_smoke's [brownout] cells against the ladder: each cell's image
+    size and steps are what ``degraded_sampler_cfg`` gives its preset at
+    its tier; its flash round (961 at DDIM-30, 129 at the four consistency
+    steps, 411 for encprop at stride 5, 4,201 at SDXL) on the paths the
+    plan gives each shape at 132 SMs (the VAE mid block on mma.sync)."""
+    import dataclasses
+
+    from cassmantle_tpu_torch import config as pconfig
+    from cassmantle_tpu_torch.serving import overload
+
+    presets = {"default": pconfig.FrameworkConfig(),
+               "consistency": chip_smoke.consistency_student_config(),
+               "fusedconv": pconfig.fusedconv_serving_config(),
+               "w8a8": pconfig.w8a8_serving_config(),
+               "encprop": pconfig.encprop_serving_config(),
+               "sdxl": pconfig.sdxl_config(), "game": pconfig.FrameworkConfig()}
+    totals = {"default@t1": 961, "default@t4": 961, "consistency@t3": 129,
+              "encprop@t2": 411, "encprop@t4": 411, "sdxl@t1": 4201,
+              "sdxl@t4": 4201,
+              "fusedconv@t4": 961, "w8a8@t4": 961, "game@t5": 961}
+    for cell, (size, mode, replays) in chip_smoke.TIER_CELLS.items():
+        preset, tier = cell.split("@t")
+        s = overload.degraded_sampler_cfg(
+            presets[preset].sampler, overload.DEFAULT_TIERS[int(tier)])
+        assert s.image_size == size
+        assert s.num_steps == sum(replays.values()) or mode == "encprop"
+        assert s.consistency == (mode == "consistency")
+        counts = chip_smoke.ROUND_FLASH[chip_smoke.PRESET_MODEL[cell]]
+        assert sum(counts.values()) == totals[cell]
+        paths = {}
+        for name, n in counts.items():
+            b, sq, _, h, d, _ = chip_smoke.FLASH_SHAPES[name]
+            path = _flash_plan.flash_plan(b, sq, h, d, 132).path
+            paths[path] = paths.get(path, 0) + n
+        assert paths == {"wgmma": totals[cell] - 1, "mma.sync": 1}
+    assert dataclasses.asdict(overload.DEFAULT_TIERS[5])["blur_bucket_px"] \
+        == 2.0
+
+
+def test_every_tier_of_every_preset_runs_checked_shapes():
+    """chip_smoke's first check: every served preset, at full quality and
+    at each tier of ``DEFAULT_TIERS`` (its round derived from the config
+    through ``degraded_sampler_cfg``), launches each kernel only at
+    shapes phase 2 holds against the plain version. The encprop preset's
+    tiers 4 and 5 bring flash at batch 8 at 256x256 and the fused VAE
+    decoder at 256x256 (img2img's decoder too)."""
+    assert chip_smoke.tier_shape_gaps() == []
+
+
+def test_round_tables_follow_the_configs():
+    """chip_smoke's per-round tables (``expected_tallies`` of each preset,
+    ROUND_FLASH and TIER_KERNELS of each [brownout] cell) equal the
+    derivation from the configs: flash launches per shape, the other
+    kernels' shapes."""
+    assert chip_smoke.round_table_mismatches() == []

@@ -32,6 +32,7 @@ from cassmantle_tpu_torch.serving.pipeline import (
     TorchContentBackend,
 )
 from cassmantle_tpu_torch.serving.service import InferenceService
+from cassmantle_tpu_torch.server import assets as port_assets
 from cassmantle_tpu_torch.utils import text as port_text
 from cassmantle_tpu_torch.utils.tokenizers import (
     load_tokenizer,
@@ -109,7 +110,7 @@ def test_text_helpers_match_reference(text):
 
 
 def test_styles_match_reference():
-    assert port_text.load_styles() == jax_load_styles()
+    assert port_assets.load_styles() == jax_load_styles()
 
 
 class _Recorder:

@@ -108,7 +108,7 @@ def test_tiny_round_matches_reference(which, monkeypatch):
     backend = TorchContentBackend(
         cfg, device="cpu", styles=[STYLE], rng=random.Random(0),
         state_dicts={k: from_jax(k, v) for k, v in params.items()})
-    assert backend.t2i.sampler_mode == port_pipeline.sampler_mode(
+    assert backend.t2i.full_variant.mode == port_pipeline.sampler_mode(
         cfg.sampler)
     rc = backend.generate_sync("seed", text=ROUND_TEXT)
     diff = np.abs(rc.image.astype(np.int32) - ref_img.astype(np.int32))

@@ -463,13 +463,13 @@ def test_consistency_kill_switch_reverts_to_the_teacher(monkeypatch,
     cfg = _tiny(consistency=True, num_steps=2, consistency_teacher_steps=6)
     with torch.inference_mode():
         armed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
-        assert armed.sampler_mode == "consistency"
+        assert armed.full_variant.mode == "consistency"
         monkeypatch.setenv("CASSMANTLE_NO_CONSISTENCY", "1")
         assert port_samplers.consistency_disabled()
         killed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
         teacher = Text2ImagePipeline(_tiny(num_steps=6), device="cpu",
                                      state_dicts=sd)
-        assert killed.sampler_mode == "ddim"
+        assert killed.full_variant.mode == "ddim"
         assert port_pipeline.effective_sampler_steps(cfg.sampler) == 6
         got = killed.denoise(x_t, cond, graphed=False)
         assert torch.equal(got, teacher.denoise(x_t, cond, graphed=False))
@@ -529,6 +529,6 @@ def test_pipeline_graphed_denoise_equals_eager(kw, counts, sampler_unet,
         eager = pipe.denoise(x_t, cond, graphed=False)
         graphed = pipe.denoise(x_t, cond, graphed=True)
     assert torch.equal(eager, graphed)
-    assert list(pipe.step_graphs) == [2]
-    assert {k: g.replays for k, g in pipe.step_graphs[2].graphs.items()} \
-        == counts
+    assert list(pipe.full_variant.step_graphs) == [2]
+    graphs = pipe.full_variant.step_graphs[2].graphs
+    assert {k: g.replays for k, g in graphs.items()} == counts

@@ -345,10 +345,12 @@ def test_chaos_plan_replays_the_references_schedule():
 
 def test_chaos_registry_is_the_seams_and_refuses_others():
     assert set(pchaos.FAULT_POINTS) == {"server.admit", "queue.dispatch",
-                                        "device.lost", "device.poison"}
+                                        "device.lost", "device.poison",
+                                        "round.generate",
+                                        "overload.brownout"}
     assert set(pchaos.FAULT_POINTS) <= set(jchaos.FAULT_POINTS)
     with pytest.raises(ValueError, match="unknown fault point"):
-        pchaos.parse_spec("round.generate=raise")
+        pchaos.parse_spec("repl.pump=raise")
 
 
 def _traced_script(m):
@@ -378,3 +380,36 @@ def test_queue_traces_like_the_reference():
     assert port[0] == ["request", "t_trace.batch", "t_trace.batch_service",
                        "t_trace.queue_wait"]
     assert port[1] == ["queue_wait_s", "service_s"]
+
+
+def test_the_dispatch_worker_drops_a_job_before_completing_it():
+    """A future's done-callbacks run inside ``set_result`` on the worker
+    thread. By then the worker must hold nothing of the job: a waiter
+    that drops the handler's owner the moment the result lands (a
+    stopped, dropped service) must see it collected."""
+    import gc
+    import weakref
+
+    class Owner:
+        def run(self, go):
+            go.wait(5.0)
+            return 7
+
+    go = threading.Event()
+    owner = Owner()
+    ref = weakref.ref(owner)
+    cf, _started = pqueue._dispatcher.submit(owner.run, go)
+    del owner
+    seen = {}
+    called = threading.Event()
+
+    def on_done(fut):
+        gc.collect()
+        seen["alive"] = ref() is not None
+        seen["result"] = fut.result()
+        called.set()
+
+    cf.add_done_callback(on_done)
+    go.set()
+    assert called.wait(5.0)
+    assert seen == {"alive": False, "result": 7}

@@ -258,7 +258,7 @@ def test_recovery_warm_survives_a_capture_on_another_thread(svc,
 
     monkeypatch.setattr(svc.scorer, "embed",
                         embed_while_another_thread_captures)
-    svc._warm_after_recovery()
+    svc.warm_after_recovery()
     assert len(replays) == 1
     np.testing.assert_array_equal(replays[0][0], first[0])
     np.testing.assert_array_equal(replays[0][1], first[1])
@@ -269,7 +269,7 @@ def test_recovery_warm_survives_a_capture_on_another_thread(svc,
 
     monkeypatch.setattr(svc.scorer, "embed", embed_and_capture_here)
     with pytest.raises(graphs.NewCaptureError):
-        svc._warm_after_recovery()
+        svc.warm_after_recovery()
 
 
 def test_concurrent_generates_never_overlap_the_unet():

@@ -23,7 +23,7 @@ from cassmantle_tpu_torch.models.weights import from_jax
 from cassmantle_tpu_torch.ops import embed_table as pet
 from cassmantle_tpu_torch.ops.scorer import EmbeddingScorer
 from cassmantle_tpu_torch.utils.logging import metrics
-from cassmantle_tpu_torch.utils.text import load_wordlist
+from cassmantle_tpu_torch.server.assets import load_wordlist
 
 from _torch_port_common import jax_params
 
