@@ -3,10 +3,12 @@
 ``fault_point`` (and its awaitable twin ``afault_point``) is the
 no-op-unless-armed hook at the serving seam's
 boundaries; ``configure`` arms a seeded plan from a spec string
-(``disarm`` drops it); ``status()`` describes the armed plan.
+(``configure_from_env``: ``CASSMANTLE_CHAOS`` or the config's;
+``disarm`` drops it); ``status()`` describes the armed plan.
 """
 
 from cassmantle_tpu_torch.chaos.core import (
+    CHAOS_ENV,
     FAULT_POINTS,
     KINDS,
     ChaosInjected,
@@ -16,6 +18,7 @@ from cassmantle_tpu_torch.chaos.core import (
     afault_point,
     armed,
     configure,
+    configure_from_env,
     disarm,
     fault_point,
     parse_spec,
@@ -23,6 +26,7 @@ from cassmantle_tpu_torch.chaos.core import (
 )
 
 __all__ = [
+    "CHAOS_ENV",
     "FAULT_POINTS",
     "KINDS",
     "ChaosInjected",
@@ -32,6 +36,7 @@ __all__ = [
     "afault_point",
     "armed",
     "configure",
+    "configure_from_env",
     "disarm",
     "fault_point",
     "parse_spec",

@@ -52,6 +52,9 @@ FAULT_POINTS: Dict[str, str] = {
                          "(serving/overload.py)",
 }
 
+# the env lever that arms a plan at server boot; it wins over the config
+CHAOS_ENV = "CASSMANTLE_CHAOS"
+
 KINDS = ("raise", "flake", "latency", "wedge", "partition")
 
 
@@ -333,6 +336,20 @@ def configure(spec: object, *, sleep=time.sleep) -> Optional[ChaosPlan]:
                 "running a DRILL (/readyz carries the chaos block)",
                 seed, len(rules))
     return _PLAN
+
+
+def configure_from_env(cfg: object = None) -> Optional[ChaosPlan]:
+    """The server's boot entry: ``CASSMANTLE_CHAOS`` wins, else the
+    config's ``ChaosConfig`` spec, else disarmed."""
+    import os
+
+    env_spec = os.environ.get(CHAOS_ENV, "")
+    if env_spec:
+        return configure(env_spec)
+    if cfg is not None and getattr(cfg, "spec", ""):
+        return configure(cfg)
+    disarm()
+    return None
 
 
 def disarm() -> None:

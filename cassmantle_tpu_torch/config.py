@@ -4,7 +4,8 @@ A copy of the part of ``cassmantle_tpu/config.py`` that the port reads:
 the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 or
 Mistral-7B for the round's prompt text, MiniLM for guess scoring, the
 sampler and text decode settings, speculative decode, the serving
-seam's bounds, the SLO engine's settings and the game's constants. Defaults are
+seam's bounds, the observability and SLO settings, the game's constants,
+the room fabric's and the fault-injection plan's. Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
 is SDXL-base at 1024².
@@ -29,6 +30,10 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from cassmantle_tpu_torch.utils.logging import (
+    DEFAULT_BUCKETS_S as _DEFAULT_BUCKETS_S,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,15 +336,44 @@ class ServingConfig:
     # replication lag is absent: quality tiers cannot fix a store.
     brownout_objectives: Tuple[str, ...] = ("score_latency",
                                             "round_generation")
+    # A --fake worker's stand-in for the device's scoring cost: > 0 puts
+    # the hash scorer behind a real BatchingQueue whose handler holds the
+    # dispatch thread this long a batch (serving/fake_scorer.py); 0 keeps
+    # the instant hash scorer.
+    fake_score_batch_ms: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """The SLO burn-rate engine's settings (obs/slo.py), at the
-    reference's defaults."""
+    """Observability knobs (obs/, utils/logging.py) and the SLO burn-rate
+    engine's settings (obs/slo.py), at the reference's defaults; the
+    server applies them through ``obs.configure_observability``."""
 
-    # Evaluation cadence of the server's background loop (not ported
-    # yet: nothing reads it until the server does).
+    # Healthy-baseline sampling floor: the fraction of root spans kept
+    # unconditionally. Every other trace waits in the pending ring and is
+    # kept only when its root ends slow, errored or marked
+    # (CASSMANTLE_NO_TAIL_SAMPLING=1: the coin alone decides).
+    trace_sample_rate: float = 1.0
+    # Traces /debugz?trace= can answer (LRU), and spans a trace keeps.
+    trace_capacity: int = 256
+    trace_max_spans: int = 512
+    # The pending ring: its bound, and the age past which a trace whose
+    # root never ended is dropped (obs.traces_abandoned).
+    trace_pending_capacity: int = 512
+    trace_pending_ttl_s: float = 120.0
+    # Tail retention: a root span at least this slow is kept; per route
+    # by root span name ("http.post /compute_score").
+    tail_slow_default_s: float = 1.0
+    tail_slow_routes: Tuple[Tuple[str, float], ...] = ()
+    # Events /debugz replays from the flight recorder.
+    recorder_capacity: int = 512
+    # Latency histograms' default bounds (seconds).
+    latency_buckets_s: Tuple[float, ...] = _DEFAULT_BUCKETS_S
+    # Cadence of the process and device samplers (obs/process.py,
+    # obs/device.py).
+    process_sample_interval_s: float = 5.0
+    # Evaluation cadence of the server's background SLO loop
+    # (server/app.py ``_slo_loop``; CASSMANTLE_NO_SLO=1 turns it off).
     slo_eval_interval_s: float = 10.0
     # Multi-window burn rates: trip on the fast window, recover on the
     # slow one.
@@ -374,9 +408,56 @@ class GameConfig:
     # The store lock's lease and how long a caller waits to take it.
     lock_timeout: float = 120.0
     acquire_timeout: float = 2.0
+    # Token-bucket rates per (client IP, room): requests a second on most
+    # routes, and on the API routes (server/ratelimit.py).
+    rate_limit_default: float = 3.0
+    rate_limit_api: float = 2.0
     # Round-reserve ring (engine/reserve.py): archived rounds rotated in
     # while generation is dark. 0 disables.
     reserve_capacity: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """The room fabric (fabric/): rooms over one store. One worker with
+    one room (the defaults) is the classic game; the default room lives at
+    the store's un-prefixed keys. The replication fields stay at their
+    defaults: a store cluster comes with many workers (server/app.py
+    ``build_fabric`` refuses another value)."""
+
+    # Rooms, each with its own clock, content and scores: ``default_room``
+    # and room-1 .. room-(N-1); sessions hash onto them.
+    num_rooms: int = 1
+    default_room: str = "lobby"
+    # Stable worker identity ("" derives host:pid;
+    # CASSMANTLE_ROOM_WORKER_ID overrides).
+    worker_id: str = ""
+    # The address peers redirect this worker's rooms to ("": none;
+    # CASSMANTLE_ROOM_ADVERTISE overrides).
+    advertise_addr: str = ""
+    # Membership heartbeat cadence, and the age past which a worker's
+    # heartbeat reads as dead.
+    heartbeat_s: float = 2.0
+    membership_ttl_s: float = 6.0
+    # Virtual nodes per worker on the placement ring.
+    vnodes: int = 64
+    # A replicated store's endpoints, pump poll and leader lease.
+    repl_endpoints: Tuple[str, ...] = ()
+    repl_poll_s: float = 0.05
+    repl_lease_s: float = 3.0
+    # The graceful handoff's wait for peers to adopt this worker's rooms
+    # (many workers).
+    handoff_grace_s: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosConfig:
+    """Fault injection (chaos/): ``spec`` in the ``CASSMANTLE_CHAOS``
+    grammar, which wins when both are set; empty is disarmed. ``seed`` is
+    the plan's seed when the spec names none."""
+
+    spec: str = ""
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,6 +467,8 @@ class FrameworkConfig:
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     game: GameConfig = dataclasses.field(default_factory=GameConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    fabric: FabricConfig = dataclasses.field(default_factory=FabricConfig)
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     spec_decode: SpecDecodeConfig = dataclasses.field(
         default_factory=SpecDecodeConfig)
     seed: int = 0

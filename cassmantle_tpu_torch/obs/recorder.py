@@ -1,6 +1,6 @@
 """Serving flight recorder: a bounded ring of structured events.
 
-A copy of ``cassmantle_tpu/obs/recorder.py`` (``:33-93``). Breaker
+A copy of ``cassmantle_tpu/obs/recorder.py``. Breaker
 transitions, watchdog fires, deadline expiries, chaos injections,
 integrity verdicts and device-loss states land here in order, each with
 a sequence number and a wall timestamp, so the story before a degraded
@@ -24,6 +24,16 @@ class FlightRecorder:
         self._events: deque = deque(maxlen=capacity)
         self._seq = 0
         self._dropped = 0
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize in place, keeping the newest events on a shrink."""
+        capacity = max(1, int(capacity))
+        with self._lock:
+            if capacity == self._events.maxlen:
+                return
+            kept = list(self._events)[-capacity:]
+            self._dropped += len(self._events) - len(kept)
+            self._events = deque(kept, maxlen=capacity)
 
     def record(self, kind: str, **fields) -> None:
         """Append one event (``fields`` JSON-serializable)."""

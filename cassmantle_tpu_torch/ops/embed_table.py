@@ -1,6 +1,6 @@
 """Host-memory int8 wordlist embedding table: the scoring ladder's rung 0.
 
-A port of ``cassmantle_tpu/ops/embed_table.py`` (``:41-349``). The guess
+A port of ``cassmantle_tpu/ops/embed_table.py``. The guess
 vocabulary is finite (``data/wordlist.txt`` plus the round answers known
 at promotion), so the scorer's embedding of all of it is computed once
 and served from host memory: a guess whose words are all in the table
@@ -31,6 +31,10 @@ Fidelity: lookup returns ``q / ||q||``, the unit vector of the
 dequantized row, and ``score_pairs`` computes ``int32_dot(q_g, q_a) /
 (||q_g||·||q_a||)``, exactly the cosine of the vectors lookup returns;
 the only error against the fp32 scorer is quantization noise.
+
+A ``--fake`` worker arms the same rung over ``hash_embed`` rows under
+``CASSMANTLE_FAKE_EMBED_TABLE=1`` (:func:`build_fake_table`,
+:class:`TableFirstSimilarity`, :func:`pin_answers_hash`).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import os
 import struct
 import threading
 import unicodedata
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +57,14 @@ log = get_logger("embed_table")
 TABLE_VERSION = 1
 _MAGIC = b"CMETB1\n"
 _ALIGN = 64
+
+def fake_table_enabled() -> bool:
+    """Opt-in arming of the hash-embedding table on ``--fake`` workers
+    (``CASSMANTLE_FAKE_EMBED_TABLE=1``); off by default, so fake scores
+    stay the plain hash similarity."""
+    return os.environ.get("CASSMANTLE_FAKE_EMBED_TABLE", "").lower() in (
+        "1", "true", "yes", "on")
+
 
 # the port's table cache: git-ignored, beside the kernel builds
 CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -343,3 +355,65 @@ class EmbedTable:
                 return
             self._pins[key] = (row, np.float32(norm))
         metrics.inc("scorer.table_pins", 1)
+
+
+# -- fake-worker wiring -----------------------------------------------------
+
+def build_fake_table(extra_words: Sequence[str] = ()) -> EmbedTable:
+    """The whole wordlist's table for ``--fake`` workers: the production
+    rung and int8 math, ``engine/content.hash_embed`` in place of MiniLM."""
+    from cassmantle_tpu_torch.engine.content import hash_embed
+    from cassmantle_tpu_torch.server.assets import load_wordlist
+
+    seen = dict.fromkeys(normalize_key(w) for w in load_wordlist())
+    for w in extra_words:
+        seen.setdefault(normalize_key(w))
+    words = [w for w in seen if w]
+    table = EmbedTable.from_embeddings(words, hash_embed(words),
+                                       signature="fake")
+    metrics.gauge("scorer.table_rows", len(table))
+    return table
+
+
+class TableFirstSimilarity:
+    """SimilarityFn: the table rung first, ``fallback`` for the rest (the
+    ``--fake`` worker's ladder; served workers reach the table through
+    ``InferenceService.similarity``)."""
+
+    def __init__(self, table: EmbedTable, fallback) -> None:
+        self._table = table
+        self._fallback = fallback
+
+    async def __call__(self, pairs) -> np.ndarray:
+        pairs = list(pairs)
+        scores, served = self._table.score_pairs(pairs)
+        rest = [i for i in range(len(pairs)) if not served[i]]
+        if len(rest) < len(pairs):
+            metrics.inc("overload.table_served", len(pairs) - len(rest))
+        if rest:
+            oov = sum(1 for i in rest for side in pairs[i]
+                      if not self._table.contains(side))
+            if oov:
+                metrics.inc("scorer.table_oov", oov)
+            fb = np.asarray(await self._fallback([pairs[i] for i in rest]),
+                            dtype=np.float32)
+            for j, i in enumerate(rest):
+                scores[i] = fb[j]
+        return scores
+
+
+def pin_answers_hash(table: EmbedTable, words: Sequence[str]) -> int:
+    """The fake worker's pin hook: hash-embed answers the table lacks and
+    pin them. Returns the pins made."""
+    from cassmantle_tpu_torch.engine.content import hash_embed
+
+    todo: List[str] = []
+    for w in words:
+        key = normalize_key(w)
+        if key and key not in todo and not table.contains(key):
+            todo.append(key)
+    if not todo:
+        return 0
+    for w, row in zip(todo, hash_embed(todo)):
+        table.pin(w, row)
+    return len(todo)

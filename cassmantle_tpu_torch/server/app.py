@@ -1,0 +1,909 @@
+"""HTTP/WS API surface (aiohttp): the game server of one worker.
+
+Port of ``cassmantle_tpu/server/app.py`` over a local
+:class:`~cassmantle_tpu_torch.fabric.rooms.RoomFabric`, served by the
+port's ``InferenceService`` and ``Game``. Routes, with the reference's
+bodies, status codes and headers:
+
+- ``GET  /``               the game page (static/index.html)
+- ``GET  /init``           a new session id in a cookie
+- ``GET  /client/status``  {won, needInitialization}
+- ``GET  /fetch/contents`` {image: base64 JPEG at the session's blur,
+                            prompt, story}
+- ``POST /compute_score``  {inputs: {mask_idx: guess}} -> scores; floor
+                            scores marked ``X-Score-Degraded`` while the
+                            scorer is dark; ``X-Queue-Wait`` and
+                            ``X-Service-Time`` from the batching queue
+- ``WS   /clock``          1 Hz {time, reset, conns}
+- ``GET  /metrics``        the JSON snapshot; Prometheus text under
+                           ``Accept: text/plain``, OpenMetrics under
+                           ``application/openmetrics-text``
+- ``GET  /debugz``         the flight recorder's tail, or one trace's
+                           spans (``?trace=<X-Trace-Id>``); loopback only
+- ``GET  /sloz``           the SLO burn-rate verdicts
+- ``GET  /healthz``        liveness: store and the device probe
+- ``GET  /readyz``         readiness: the supervisor's verdict, 503 and
+                           Retry-After while degraded, with the SLO,
+                           overload and device-telemetry blocks
+- ``GET  /wordlist``       the spellcheck lexicon, ETag-revalidated
+- static mounts ``/static``, ``/data`` and ``/media``
+
+Rate limits are the reference's (3/s, 2/s on the API routes, per client IP
+and room). The background tasks are the process and device samplers and
+the SLO loop that steps the brownout ladder (``CASSMANTLE_NO_SLO=1`` turns
+the loop off). ``python -m cassmantle_tpu_torch serve`` runs :func:`main`;
+it serves on the card unless ``--platform cpu`` or ``--fake`` asks for
+the host. Left for later slices (``ROADMAP.md`` Queue 1): the canary
+prober (``/readyz`` reports ``{"enabled": false}`` as the reference does
+under ``CASSMANTLE_NO_PROBER=1``), ``POST /debug/trace``, and everything
+of many workers: peer hedging, cluster federation and a shared store.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import functools
+import hashlib
+import json
+import math
+import os
+import uuid
+from typing import Optional
+
+from aiohttp import WSMsgType, web
+
+from cassmantle_tpu_torch import chaos
+from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.engine.game import Game
+from cassmantle_tpu_torch.fabric.rooms import RoomFabric
+from cassmantle_tpu_torch.obs import (
+    configure_observability,
+    flight_recorder,
+    tracer,
+)
+from cassmantle_tpu_torch.obs import device as device_obs
+from cassmantle_tpu_torch.obs.device import DeviceMetrics
+from cassmantle_tpu_torch.obs.process import ProcessMetrics
+from cassmantle_tpu_torch.obs.slo import SloEngine, default_objectives
+from cassmantle_tpu_torch.obs.trace import current_marks, parse_traceparent
+from cassmantle_tpu_torch.serving import overload
+from cassmantle_tpu_torch.serving.queue import OverloadShed
+from cassmantle_tpu_torch.utils.logging import get_logger, metrics
+
+log = get_logger("app")
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+STATIC_DIR = os.path.join(_ROOT, "static")
+DATA_DIR = os.path.join(_ROOT, "data")
+MEDIA_DIR = os.path.join(_ROOT, "media")
+
+# what the slice leaves to the ROADMAP's later items, named in refusals
+_MANY_WORKERS = "ROADMAP.md Queue 1 item 9 (many workers)"
+_WEIGHT_INT8 = "ROADMAP.md Queue 1 item 13 (W8A8 and int8, the rest)"
+
+_FABRIC = web.AppKey("fabric", RoomFabric)
+_SLO = web.AppKey("slo_engine", SloEngine)
+_PROCESS = web.AppKey("process_metrics", ProcessMetrics)
+_DEVICE = web.AppKey("device_metrics", DeviceMetrics)
+# mutable holder (aiohttp freezes app keys at startup): the obs tasks
+_OBS_TASKS = web.AppKey("obs_tasks", list)
+
+
+def _env_flag_set(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
+
+
+def _cluster_obs_enabled() -> bool:
+    """CASSMANTLE_NO_CLUSTER_OBS=1: inbound trace contexts are ignored."""
+    return not _env_flag_set("CASSMANTLE_NO_CLUSTER_OBS")
+
+
+def _client_ip(request: web.Request) -> str:
+    peer = (request.transport.get_extra_info("peername")
+            if request.transport else None)
+    return peer[0] if peer else "?"
+
+
+def _session_id(request: web.Request) -> Optional[str]:
+    # the ?session= fallback keeps identity across a cross-worker redirect
+    return request.cookies.get("session_id") or request.query.get("session")
+
+
+def _explicit_room(request: web.Request) -> Optional[str]:
+    return request.query.get("room") or request.headers.get("X-Room") \
+        or request.cookies.get("room")
+
+
+def _room_of(request: web.Request) -> str:
+    """An explicit ?room= / X-Room / cookie wins; otherwise the session
+    (or the client IP) hashes onto the room list."""
+    explicit = _explicit_room(request)
+    if explicit:
+        return explicit
+    fabric = request.app[_FABRIC]
+    principal = _session_id(request) or _client_ip(request)
+    return fabric.directory.room_for_session(principal)
+
+
+async def _resolve_game(request: web.Request):
+    """(room, game) for this request. One worker owns every room: the
+    reference's redirect to a room's owner comes with many workers."""
+    fabric = request.app[_FABRIC]
+    room = _room_of(request)
+    if not fabric.directory.has_room(room):
+        raise web.HTTPNotFound(text=f"unknown room {room!r}")
+    try:
+        return room, await fabric.game_for(room)
+    except KeyError:
+        raise web.HTTPNotFound(text=f"unknown room {room!r}")
+
+
+def _is_loopback(request: web.Request) -> bool:
+    """Fail closed: an unresolvable peer is not local."""
+    return request.remote in ("127.0.0.1", "::1")
+
+
+def _is_cluster_peer(request: web.Request, fabric: RoomFabric) -> bool:
+    """The trust gate of the operator surfaces and of inbound trace
+    contexts: loopback, a live member's advertised host, or the
+    cluster-secret token (``X-Cluster-Auth``)."""
+    if _is_loopback(request):
+        return True
+    if request.remote in fabric.peer_hosts():
+        return True
+    token = request.headers.get("X-Cluster-Auth")
+    return bool(token) and fabric.verify_cluster_token(token)
+
+
+@web.middleware
+async def cors_middleware(request: web.Request, handler):
+    if request.method == "OPTIONS":
+        response = web.Response()
+    else:
+        response = await handler(request)
+    response.headers["Access-Control-Allow-Origin"] = "*"
+    response.headers["Access-Control-Allow-Credentials"] = "true"
+    response.headers["Access-Control-Allow-Methods"] = "GET, POST"
+    response.headers["Access-Control-Allow-Headers"] = "*"
+    return response
+
+
+@web.middleware
+async def tracing_middleware(request: web.Request, handler):
+    """One root span per request; its trace id returns as ``X-Trace-Id``
+    (``/debugz?trace=<id>``). The static mounts, the probe and scrape
+    routes and ``/clock`` skip tracing: they would flush the trace ring
+    of the player requests an operator triages. A ``traceparent`` header
+    (or query parameter) continues a trace when it comes from loopback or
+    a cluster peer, or as a query parameter with a valid ``tracesig``."""
+    if request.path.startswith(("/static", "/data", "/media")) or \
+            request.path in ("/healthz", "/readyz", "/metrics", "/debugz",
+                             "/clock", "/sloz"):
+        return await handler(request)
+    fabric = request.app[_FABRIC]
+    remote_ctx = None
+    header_tp = request.headers.get("traceparent")
+    query_tp = request.query.get("traceparent")
+    if (header_tp or query_tp) and _cluster_obs_enabled():
+        chosen = None
+        sig = request.query.get("tracesig")
+        if query_tp and sig and fabric.verify_trace_sig(query_tp, sig):
+            # a signed query context wins: the signature binds it to this
+            # hop, where a header is ambient client instrumentation
+            chosen = query_tp
+        elif _is_cluster_peer(request, fabric):
+            chosen = header_tp or query_tp
+        remote_ctx = parse_traceparent(chosen) if chosen else None
+        metrics.inc("obs.trace_joins" if remote_ctx is not None
+                    else "obs.trace_ctx_rejected")
+    name = f"http.{request.method.lower()} {request.path}"
+    with tracer.span(name, root=remote_ctx is None, parent=remote_ctx,
+                     attrs={"worker": fabric.worker_id}) as span:
+        try:
+            response = await handler(request)
+        except web.HTTPException as exc:
+            span.attrs["status"] = exc.status
+            exc.headers["X-Trace-Id"] = span.trace_id
+            # tail retention: a shed (503) is kept; routine redirects and
+            # 4xx are the healthy baseline
+            if exc.status == 503:
+                tracer.mark_retain("shed", span.ctx)
+            elif exc.status < 500:
+                tracer.mark_retain("baseline", span.ctx)
+            raise
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            # a handler bug: answer the 500 here so it carries the trace id
+            span.attrs["status"] = 500
+            tracer.mark_retain("error", span.ctx)
+            log.exception("unhandled error serving %s %s", request.method,
+                          request.path)
+            return web.Response(status=500, text="500 Internal Server Error",
+                                headers={"X-Trace-Id": span.trace_id})
+        span.attrs["status"] = response.status
+        if response.status >= 500:
+            tracer.mark_retain("error", span.ctx)
+        if not response.prepared:
+            response.headers["X-Trace-Id"] = span.trace_id
+            tier = overload.current_tier()
+            if tier:
+                # while the brownout ladder degrades quality, every game
+                # response says so
+                response.headers["X-Quality-Degraded"] = f"tier-{tier}"
+                tracer.mark_retain("degraded", span.ctx)
+        return response
+
+
+def make_ratelimit_middleware(cfg: FrameworkConfig):
+    from cassmantle_tpu_torch.server.ratelimit import RateLimiter
+
+    limiter = RateLimiter()
+    api_routes = {"/init", "/client/status", "/fetch/contents",
+                  "/compute_score"}
+
+    @web.middleware
+    async def ratelimit(request: web.Request, handler):
+        rate = (cfg.game.rate_limit_api if request.path in api_routes
+                else cfg.game.rate_limit_default)
+        # (client IP, room): a noisy room drains only its own quota; only
+        # rooms that exist count, so ?room= mints at most num_rooms buckets
+        fabric = request.app[_FABRIC]
+        explicit = _explicit_room(request)
+        if explicit and fabric.directory.has_room(explicit):
+            room = explicit
+        else:
+            who = _session_id(request) or _client_ip(request)
+            room = fabric.directory.room_for_session(who)
+        principal = (_client_ip(request), room)
+        if not limiter.allow(principal, request.path, rate):
+            metrics.inc("http.rate_limited")
+            # Retry-After from this bucket's own refill time
+            retry = limiter.retry_after_s(principal, request.path)
+            raise web.HTTPTooManyRequests(
+                text="rate limit exceeded",
+                headers={"Retry-After": str(max(1, math.ceil(retry)))})
+        return await handler(request)
+
+    return ratelimit
+
+
+async def handle_root(request: web.Request) -> web.StreamResponse:
+    return web.FileResponse(os.path.join(STATIC_DIR, "index.html"))
+
+
+async def handle_init(request: web.Request) -> web.Response:
+    # a fresh session's room resolves from the new id, so the cookie pair
+    # (session_id, room) stays self-consistent
+    session_id = _session_id(request) or str(uuid.uuid4())
+    fabric = request.app[_FABRIC]
+    room = _explicit_room(request) or \
+        fabric.directory.room_for_session(session_id)
+    if not fabric.directory.has_room(room):
+        raise web.HTTPNotFound(text=f"unknown room {room!r}")
+    game = await fabric.game_for(room)
+    await game.init_client(session_id)
+    response = web.json_response({"message": "Session initialized",
+                                  "session_id": session_id, "room": room})
+    response.set_cookie("session_id", session_id)
+    response.set_cookie("room", room)
+    metrics.inc("http.init")
+    return response
+
+
+async def handle_status(request: web.Request) -> web.Response:
+    _, game = await _resolve_game(request)
+    return web.json_response(await game.client_status(_session_id(request)))
+
+
+async def handle_fetch_contents(request: web.Request) -> web.Response:
+    _, game = await _resolve_game(request)
+    session = _session_id(request) or str(uuid.uuid4())
+    await game.ensure_client(session)
+    with metrics.timer("http.fetch_contents_s"):
+        image_b64 = await game.fetch_masked_image_b64(session)
+        prompt = await game.fetch_prompt_json(session)
+        story = await game.fetch_story()
+    response = web.json_response({"image": image_b64, "prompt": prompt,
+                                  "story": story})
+    if not _session_id(request):
+        response.set_cookie("session_id", session)
+    return response
+
+
+async def handle_compute_score(request: web.Request) -> web.Response:
+    room, game = await _resolve_game(request)
+    supervisor = game.supervisor
+    session = _session_id(request) or str(uuid.uuid4())
+    try:
+        data = await request.json()
+        inputs = data["inputs"]
+        assert isinstance(inputs, dict)
+    except Exception:
+        raise web.HTTPBadRequest(text="body must be {inputs: {idx: guess}}")
+    if supervisor.shed_scores() or supervisor.device_unhealthy():
+        # the local scorer is dark. The reference's ladder: a request that
+        # is itself a peer's hedge sheds 503 (hedges never cascade); else
+        # hedge to a healthy peer; else floor scores, marked. One worker
+        # has no peer, so the floor follows at once.
+        if request.headers.get("X-Score-Hedge") == "1":
+            metrics.inc("http.score_shed")
+            raise web.HTTPServiceUnavailable(
+                text="scoring degraded; retry shortly",
+                headers={"Retry-After": str(int(supervisor.retry_after_s()))})
+        metrics.inc("score.hedge_floor")
+        flight_recorder.record("score.floor", room=room)
+    await game.ensure_client(session)
+    try:
+        with metrics.timer("http.compute_score_s"):
+            scores = await game.compute_client_scores(session, inputs)
+    except OverloadShed as exc:
+        # adaptive admission shed it: the limiter's computed Retry-After
+        metrics.inc("overload.score_shed")
+        raise web.HTTPServiceUnavailable(
+            text="overloaded; retry later",
+            headers={"Retry-After": str(max(1, math.ceil(exc.retry_after_s))),
+                     "X-Overload-Shed": exc.reason})
+    response = web.json_response(scores)
+    if supervisor.shed_scores() or supervisor.device_unhealthy():
+        response.headers["X-Score-Degraded"] = "floor"
+    # the guess batch's coalescing wait and the batch it rode, from the
+    # queue's marks (absent where no queue was touched)
+    marks = current_marks()
+    if marks and "queue_wait_s" in marks:
+        response.headers["X-Queue-Wait"] = f"{marks['queue_wait_s']:.6f}"
+        response.headers["X-Service-Time"] = f"{marks['service_s']:.6f}"
+    return response
+
+
+async def handle_clock(request: web.Request) -> web.WebSocketResponse:
+    # room-scoped before the handshake: a redirect must still be a 307
+    _, game = await _resolve_game(request)
+    session = _session_id(request)
+    ws = web.WebSocketResponse(heartbeat=30.0)
+    await ws.prepare(request)
+    log.info("client %s connected", session)
+    metrics.inc("ws.connections")
+
+    async def sender() -> None:
+        # the first tick goes out at once
+        while not ws.closed:
+            if session:
+                await game.sessions.add_client(session)
+            await ws.send_json(await game.clock_payload())
+            await asyncio.sleep(1.0)
+
+    send_task = asyncio.ensure_future(sender())
+    try:
+        async for msg in ws:
+            if msg.type in (WSMsgType.CLOSE, WSMsgType.ERROR):
+                break
+    except (ConnectionResetError, asyncio.CancelledError):
+        pass
+    finally:
+        send_task.cancel()
+        try:
+            await send_task
+        except (asyncio.CancelledError, ConnectionResetError, Exception):
+            pass
+        log.info("client %s disconnected", session)
+        if session:
+            await game.sessions.remove_connection(session)
+        metrics.inc("ws.disconnections")
+    return ws
+
+
+async def handle_metrics(request: web.Request) -> web.Response:
+    """Content-negotiated: OpenMetrics or Prometheus text for a scraper,
+    the JSON snapshot otherwise (``?exemplars=1`` adds exemplars). The
+    cluster forms (``?scope=cluster``, ``?format=state``) come with many
+    workers."""
+    request.app[_PROCESS].sample()
+    request.app[_DEVICE].sample()
+    fabric = request.app[_FABRIC]
+    if request.query.get("format") == "state" or \
+            request.query.get("scope") == "cluster":
+        if not _is_cluster_peer(request, fabric):
+            raise web.HTTPForbidden(
+                text="cluster metrics: loopback or cluster peers only")
+        raise web.HTTPNotImplemented(
+            text=f"cluster metrics come with {_MANY_WORKERS}")
+    accept = request.headers.get("Accept", "")
+    if "application/openmetrics-text" in accept:
+        return web.Response(
+            body=metrics.openmetrics().encode(),
+            headers={"Content-Type": "application/openmetrics-text; "
+                                     "version=1.0.0; charset=utf-8"})
+    if "text/plain" in accept or "openmetrics" in accept:
+        return web.Response(
+            body=metrics.prometheus().encode(),
+            headers={"Content-Type":
+                     "text/plain; version=0.0.4; charset=utf-8"})
+    return web.json_response(metrics.snapshot(
+        exemplars=request.query.get("exemplars") == "1"))
+
+
+async def handle_debugz(request: web.Request) -> web.Response:
+    """The serving black box, for loopback and cluster peers:
+    ``?trace=<id>`` returns one trace's spans; otherwise the flight
+    recorder's tail (``?n=`` limits, ``?kind=`` filters by kind or
+    ``prefix.``) with the recorder's and tracer's stats."""
+    if not _is_cluster_peer(request, request.app[_FABRIC]):
+        raise web.HTTPForbidden(text="loopback or cluster peers only")
+    trace_id = request.query.get("trace")
+    if trace_id:
+        if request.query.get("scope") == "cluster" and \
+                _cluster_obs_enabled():
+            raise web.HTTPNotImplemented(
+                text=f"cluster traces come with {_MANY_WORKERS}")
+        spans = tracer.get_trace(trace_id)
+        if spans is None:
+            raise web.HTTPNotFound(
+                text=f"trace {trace_id!r} not resident (bounded ring "
+                     f"keeps {tracer.capacity} traces)")
+        spans.sort(key=lambda s: s["start_ts"])
+        return web.json_response({"trace_id": trace_id, "spans": spans})
+    try:
+        n = int(request.query.get("n", "200"))
+    except ValueError:
+        raise web.HTTPBadRequest(text="n must be an integer")
+    return web.json_response({
+        "events": flight_recorder.tail(n, kind=request.query.get("kind")),
+        "recorder": flight_recorder.stats(),
+        "tracer": tracer.stats(),
+        "recent_traces": tracer.trace_ids()[-25:],
+    })
+
+
+async def handle_sloz(request: web.Request) -> web.Response:
+    """Every objective's state and burn rates, evaluated on read
+    (rate-limited inside the engine)."""
+    engine = request.app[_SLO]
+    engine.evaluate()
+    return web.json_response(engine.status())
+
+
+async def _probe_store(fabric: RoomFabric) -> bool:
+    try:
+        await asyncio.wait_for(fabric.store.exists("healthz"), timeout=2.0)
+        return True
+    except Exception:
+        return False
+
+
+async def handle_healthz(request: web.Request) -> web.Response:
+    """Liveness: the store and the device probe, concurrently, each under
+    a deadline. The supervisor block rides along, but only the store and
+    the device set the status code. Where the device probe is wired, the
+    ``probe`` block names the device it ran on and the class of a failed
+    verdict."""
+    fabric = request.app[_FABRIC]
+    supervisor = fabric.supervisor
+    store_ok, device_ok = await asyncio.gather(
+        _probe_store(fabric), supervisor.probe_device())
+    ok = store_ok and device_ok is not False
+    body = {
+        "ok": ok,
+        "store": store_ok,
+        "device": device_ok is not False,
+        "supervisor": supervisor.status(
+            device_ok=device_ok, include_events=_is_loopback(request)),
+    }
+    dh = supervisor.device_health
+    if dh is not None:
+        body["probe"] = {"device": str(dh.device), "ok": device_ok,
+                         "failure": dh.last_failure()}
+    return web.json_response(body, status=200 if ok else 503)
+
+
+async def handle_readyz(request: web.Request) -> web.Response:
+    """Readiness: can this worker make fresh content and real scores now?
+    The supervisor's verdict (breakers, watchdog, device probe, device
+    loss) and the store; 503 with Retry-After while degraded or draining.
+    The SLO, overload, device-telemetry and canary blocks are advisory."""
+    fabric = request.app[_FABRIC]
+    supervisor = fabric.supervisor
+    store_ok, device_ok = await asyncio.gather(
+        _probe_store(fabric), supervisor.probe_device())
+    status = supervisor.status(device_ok=device_ok,
+                               include_events=_is_loopback(request))
+    status["store"] = store_ok
+    ready = bool(status["ready"]) and store_ok
+    if fabric.draining:
+        ready = False
+        status["state"] = "draining"
+    status["ready"] = ready
+    engine = request.app[_SLO]
+    engine.evaluate()
+    status["slo"] = engine.status()
+    status["overload"] = overload.status_block()
+    status["device_telemetry"] = request.app[_DEVICE].device_block()
+    # the canary prober is a later slice: the reference's block with the
+    # prober off
+    status["canary"] = {"enabled": False}
+    if ready:
+        return web.json_response(status)
+    if status.get("state") != "draining":
+        status["state"] = "degraded"
+    return web.json_response(
+        status, status=503,
+        headers={"Retry-After": str(int(supervisor.retry_after_s()))})
+
+
+# (wordlist tuple, payload bytes, quoted ETag), keyed on the identity of
+# load_wordlist()'s cached tuple: serialized and hashed once a lexicon
+_WORDLIST_CACHE: Optional[tuple] = None
+
+
+def _wordlist_payload() -> bytes:
+    global _WORDLIST_CACHE
+    from cassmantle_tpu_torch.engine.masking import STOPWORDS
+    from cassmantle_tpu_torch.server.assets import load_wordlist
+
+    words = load_wordlist()
+    cache = _WORDLIST_CACHE
+    if cache is not None and cache[0] is words:
+        return cache[1]
+    payload = json.dumps({"words": list(words),
+                          "stopwords": sorted(STOPWORDS),
+                          "min_len": 2}).encode()
+    etag = '"' + hashlib.sha256(payload).hexdigest()[:16] + '"'
+    _WORDLIST_CACHE = (words, payload, etag)
+    return payload
+
+
+async def handle_wordlist(request: web.Request) -> web.Response:
+    """The lexicon and stopwords of the client's spellcheck, with a
+    content-hash ETag and ``no-cache`` (revalidate; a weak or listed
+    If-None-Match still gets its 304)."""
+    payload = _wordlist_payload()
+    etag = _WORDLIST_CACHE[2]
+    headers = {"Cache-Control": "no-cache", "ETag": etag}
+    inm = request.headers.get("If-None-Match", "")
+    client_tags = {t.strip().removeprefix("W/")
+                   for t in inm.split(",") if t.strip()}
+    if etag in client_tags or inm.strip() == "*":
+        return web.Response(status=304, headers=headers)
+    return web.Response(body=payload, content_type="application/json",
+                        headers=headers)
+
+
+async def _slo_loop(engine: SloEngine, interval_s: float) -> None:
+    """Evaluate the SLOs every ``interval_s``; the brownout ladder listens
+    to each pass. An evaluation bug is counted and logged, never fatal."""
+    while True:
+        await asyncio.sleep(interval_s)
+        try:
+            engine.evaluate()
+        except Exception:
+            metrics.inc("slo.eval_failures")
+            log.exception("slo evaluation failed; continuing")
+
+
+def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
+               start_timer: bool = True,
+               device_health: bool = False) -> web.Application:
+    """The aiohttp app over a Game (wrapped as a one-room fabric) or a
+    RoomFabric. ``device_health``: probe the serving device
+    (``utils/health.py``) on ``/healthz`` and ``/readyz``, with a probe's
+    raise classified by the recovery manager."""
+    configure_observability(cfg.obs)
+    # CASSMANTLE_CHAOS wins over cfg.chaos.spec; disarmed otherwise
+    chaos.configure_from_env(cfg.chaos)
+    if isinstance(game, RoomFabric):
+        fabric = game
+        fabric.start_timers = start_timer
+    else:
+        fabric = RoomFabric.for_game(game, cfg, start_timers=start_timer)
+    # ratelimit outside tracing: a client spamming to 429s mints no traces
+    app = web.Application(middlewares=[
+        cors_middleware, make_ratelimit_middleware(cfg), tracing_middleware])
+    app[_FABRIC] = fabric
+    app[_OBS_TASKS] = []
+    app[_SLO] = SloEngine(default_objectives(cfg),
+                          fast_window_s=cfg.obs.slo_fast_window_s,
+                          slow_window_s=cfg.obs.slo_slow_window_s)
+    # the ladder subscribes to every evaluation (CASSMANTLE_NO_BROWNOUT=1
+    # pins tier 0)
+    overload.configure_brownout(cfg, app[_SLO])
+    app[_PROCESS] = ProcessMetrics()
+    device = fabric.device
+    # no serving device (a fake backend): no devices to report
+    app[_DEVICE] = (DeviceMetrics(device=device) if device is not None
+                    else DeviceMetrics(devices_fn=list))
+    device_obs.install(app[_DEVICE])
+    if device_health:
+        from cassmantle_tpu_torch.utils.health import DeviceHealth
+
+        dh = DeviceHealth(device=device if device is not None else "cuda")
+        fabric.supervisor.device_health = dh
+        recovery = fabric.supervisor.recovery
+        if recovery is not None:
+            # a probe's raise rides the device-loss classifier
+            dh.on_probe_error = recovery.note_probe_exception
+    app.router.add_get("/", handle_root)
+    app.router.add_get("/init", handle_init)
+    app.router.add_get("/client/status", handle_status)
+    app.router.add_get("/fetch/contents", handle_fetch_contents)
+    app.router.add_post("/compute_score", handle_compute_score)
+    app.router.add_get("/clock", handle_clock)
+    app.router.add_get("/metrics", handle_metrics)
+    app.router.add_get("/debugz", handle_debugz)
+    app.router.add_get("/sloz", handle_sloz)
+    app.router.add_get("/healthz", handle_healthz)
+    app.router.add_get("/readyz", handle_readyz)
+    app.router.add_get("/wordlist", handle_wordlist)
+    for prefix, path in (("/static", STATIC_DIR), ("/data", DATA_DIR),
+                         ("/media", MEDIA_DIR)):
+        if os.path.isdir(path):
+            app.router.add_static(prefix, path)
+
+    async def on_startup(app_: web.Application) -> None:
+        await fabric.startup()
+        loop = asyncio.get_running_loop()
+        interval = cfg.obs.process_sample_interval_s
+        tasks = app_[_OBS_TASKS]
+        tasks.append(loop.create_task(app_[_PROCESS].run(interval)))
+        tasks.append(loop.create_task(app_[_DEVICE].run(interval)))
+        if not _env_flag_set("CASSMANTLE_NO_SLO"):
+            tasks.append(loop.create_task(
+                _slo_loop(app_[_SLO], cfg.obs.slo_eval_interval_s)))
+
+    async def on_shutdown(app_: web.Application) -> None:
+        # graceful handoff: leave membership and drain the rooms before
+        # the process dies (the listeners are already closed here)
+        try:
+            await fabric.handoff()
+        except Exception:
+            log.exception("graceful handoff failed; shutting down anyway")
+
+    async def on_cleanup(app_: web.Application) -> None:
+        for task in app_[_OBS_TASKS]:
+            task.cancel()
+        for task in app_[_OBS_TASKS]:
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+        await fabric.shutdown()
+        if device_obs.active() is app_[_DEVICE]:
+            device_obs.install(None)
+
+    app.on_startup.append(on_startup)
+    app.on_shutdown.append(on_shutdown)
+    app.on_cleanup.append(on_cleanup)
+    return app
+
+
+def _build_store(store_addr: Optional[str], cfg: FrameworkConfig):
+    """The worker's store: a MemoryStore. A store address or replication
+    endpoints come with many workers and raise."""
+    from cassmantle_tpu_torch.engine.store import MemoryStore
+
+    endpoints = (os.environ.get("CASSMANTLE_REPL_ENDPOINTS", "").strip()
+                 or cfg.fabric.repl_endpoints)
+    if store_addr or endpoints:
+        raise ValueError(
+            f"store address {store_addr or endpoints!r}: a shared or "
+            f"replicated store comes with {_MANY_WORKERS}; one worker "
+            f"serves from its in-process MemoryStore")
+    default = type(cfg.fabric)()
+    fields = ("repl_poll_s", "repl_lease_s", "handoff_grace_s")
+    if any(getattr(cfg.fabric, f) != getattr(default, f) for f in fields):
+        raise ValueError(f"fabric replication settings come with "
+                         f"{_MANY_WORKERS}")
+    return MemoryStore()
+
+
+@dataclasses.dataclass
+class _Serving:
+    """What every room's Game shares: one serving stack per worker."""
+
+    backend: object
+    embed: object
+    similarity: object
+    blur_fn: object
+    pin_answers: object
+    device: object = None          # the serving device; None: fake
+    services: tuple = ()           # components with an async stop()
+
+
+def _serving_components(cfg: FrameworkConfig, fake: bool,
+                        weights_dir: Optional[str], supervisor,
+                        device="cuda") -> _Serving:
+    """The serving stack, built once a worker: the fake backend (hash
+    embeddings and similarity; the drill scorer under
+    ``fake_score_batch_ms``; the fake table under
+    ``CASSMANTLE_FAKE_EMBED_TABLE=1``) or the port's InferenceService on
+    ``device``."""
+    if fake:
+        from cassmantle_tpu_torch.engine.content import (
+            FakeContentBackend,
+            hash_embed,
+            hash_similarity,
+        )
+        from cassmantle_tpu_torch.ops.embed_table import fake_table_enabled
+
+        similarity, pin_answers, services = hash_similarity, None, ()
+        if cfg.serving.fake_score_batch_ms > 0:
+            from cassmantle_tpu_torch.serving.fake_scorer import (
+                FakeQueuedScorer,
+            )
+
+            scorer = FakeQueuedScorer(cfg, supervisor)
+            similarity, services = scorer.similarity, (scorer,)
+        if fake_table_enabled():
+            from cassmantle_tpu_torch.ops.embed_table import (
+                TableFirstSimilarity,
+                build_fake_table,
+                pin_answers_hash,
+            )
+
+            table = build_fake_table()
+            similarity = TableFirstSimilarity(table, similarity)
+            pin_answers = functools.partial(pin_answers_hash, table)
+        return _Serving(FakeContentBackend(image_size=256), hash_embed,
+                        similarity, None, pin_answers, services=services)
+    from cassmantle_tpu_torch.serving.service import InferenceService
+
+    service = InferenceService(cfg, device=device, weights_dir=weights_dir,
+                               supervisor=supervisor)
+    return _Serving(service.content_backend, service.embed,
+                    service.similarity, service.blur, service.pin_answers,
+                    device=service.device, services=(service,))
+
+
+def build_game(cfg: FrameworkConfig, fake: bool = False,
+               weights_dir: Optional[str] = None,
+               store_addr: Optional[str] = None, device="cuda") -> Game:
+    """One Game over the fake backend or the port's InferenceService on
+    ``device`` (default the card; raises without CUDA). Multi-room serving
+    goes through :func:`build_fabric`."""
+    from cassmantle_tpu_torch.serving.supervisor import ServingSupervisor
+
+    supervisor = ServingSupervisor()
+    store = _build_store(store_addr, cfg)
+    s = _serving_components(cfg, fake, weights_dir, supervisor, device)
+    return Game(cfg, store, s.backend, embed=s.embed,
+                similarity=s.similarity, blur_fn=s.blur_fn,
+                supervisor=supervisor, pin_answers=s.pin_answers)
+
+
+def apply_fabric_env(cfg: FrameworkConfig) -> FrameworkConfig:
+    """Fold CASSMANTLE_ROOM_COUNT into the config, so every reader of
+    ``cfg.fabric`` sees one value."""
+    rooms_env = os.environ.get("CASSMANTLE_ROOM_COUNT")
+    if rooms_env:
+        cfg = cfg.replace(fabric=dataclasses.replace(
+            cfg.fabric, num_rooms=int(rooms_env)))
+    return cfg
+
+
+def build_fabric(cfg: FrameworkConfig, fake: bool = False,
+                 weights_dir: Optional[str] = None,
+                 store_addr: Optional[str] = None,
+                 worker_id: Optional[str] = None,
+                 advertise_addr: Optional[str] = None,
+                 device="cuda") -> RoomFabric:
+    """The room fabric of one worker: its store, one serving stack on
+    ``device`` (default the card; raises without CUDA) and per-room Games
+    built on demand. Env overrides: CASSMANTLE_ROOM_COUNT,
+    CASSMANTLE_ROOM_WORKER_ID, CASSMANTLE_ROOM_ADVERTISE."""
+    from cassmantle_tpu_torch.serving.supervisor import ServingSupervisor
+
+    cfg = apply_fabric_env(cfg)
+    worker_id = (worker_id or os.environ.get("CASSMANTLE_ROOM_WORKER_ID")
+                 or cfg.fabric.worker_id
+                 or f"{os.uname().nodename}:{os.getpid()}")
+    advertise_addr = (advertise_addr
+                      or os.environ.get("CASSMANTLE_ROOM_ADVERTISE")
+                      or cfg.fabric.advertise_addr)
+    supervisor = ServingSupervisor()
+    store = _build_store(store_addr, cfg)
+    s = _serving_components(cfg, fake, weights_dir, supervisor, device)
+
+    def game_factory(room: str, room_store) -> Game:
+        # room= labels the game's engine series per room
+        return Game(cfg, room_store, s.backend, embed=s.embed,
+                    similarity=s.similarity, blur_fn=s.blur_fn,
+                    supervisor=supervisor, room=room,
+                    pin_answers=s.pin_answers)
+
+    fabric = RoomFabric(cfg, store, game_factory, worker_id=worker_id,
+                        advertise_addr=advertise_addr, supervisor=supervisor)
+    fabric.device = s.device
+    fabric.services.extend(s.services)
+    return fabric
+
+
+def _config_for(args) -> FrameworkConfig:
+    """The serving config the flags name."""
+    from cassmantle_tpu_torch import config as c
+
+    cfg = {"sdxl": c.sdxl_config, "fast": c.fast_serving_config,
+           "deepcache": c.deepcache_serving_config,
+           "turbo": c.turbo_serving_config}.get(args.preset,
+                                                c.FrameworkConfig)()
+    if args.round_seconds:
+        cfg = cfg.replace(game=dataclasses.replace(
+            cfg.game, time_per_prompt=args.round_seconds))
+    if args.lm == "mistral":
+        cfg = cfg.replace(models=dataclasses.replace(
+            cfg.models, mistral=c.MistralConfig()))
+    return cfg
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="cassmantle game server, one worker (PyTorch port)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--fake", action="store_true",
+                        help="deterministic fake content backend (no device)")
+    parser.add_argument("--weights", default=None,
+                        help="checkpoint directory (absent files: the seeded "
+                             "init)")
+    parser.add_argument("--round-seconds", type=float, default=None)
+    parser.add_argument("--store", default=None,
+                        help="a shared store: not in this slice (raises)")
+    parser.add_argument("--rooms", type=int, default=None,
+                        help="concurrent game rooms (default 1)")
+    parser.add_argument("--worker-id", default=None,
+                        help="stable worker identity (default host:pid)")
+    parser.add_argument("--advertise", default=None,
+                        help="address peers redirect room traffic to")
+    parser.add_argument("--preset", default="sd15",
+                        choices=("sd15", "sdxl", "fast", "deepcache",
+                                 "turbo"),
+                        help="sd15 = SD1.5-512 DDIM-50; sdxl = SDXL-base "
+                             "1024; fast = DPM++(2M) at 25 steps; deepcache "
+                             "= DDIM-50 with deep-feature reuse; turbo = "
+                             "DPM++(2M) at 24 steps with DeepCache")
+    parser.add_argument("--platform", default="auto",
+                        choices=("auto", "cpu"),
+                        help="auto = the CUDA card (raises without one); "
+                             "cpu = the port's plain PyTorch path on the host")
+    parser.add_argument("--lm", default="gpt2", choices=("gpt2", "mistral"),
+                        help="the prompt LM: GPT-2 or a Mistral-7B-class "
+                             "model")
+    parser.add_argument("--lm-int8", action="store_true",
+                        help="weights-only int8 prompt LM: not in this "
+                             "slice (raises)")
+    parser.add_argument("--workers", type=int, default=1,
+                        help="worker processes: one in this slice")
+    args = parser.parse_args(argv)
+    if args.workers != 1:
+        parser.error(f"--workers {args.workers}: many workers come with "
+                     f"{_MANY_WORKERS}")
+    if args.store:
+        parser.error(f"--store {args.store}: a shared store comes with "
+                     f"{_MANY_WORKERS}")
+    if args.lm_int8:
+        parser.error(f"--lm-int8: weights-only int8 comes with "
+                     f"{_WEIGHT_INT8}")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    _run_worker(args, _config_for(args))
+
+
+def _run_worker(args, cfg: FrameworkConfig) -> None:
+    if args.rooms:
+        cfg = cfg.replace(fabric=dataclasses.replace(
+            cfg.fabric, num_rooms=args.rooms))
+    cfg = apply_fabric_env(cfg)
+    device = "cpu" if args.platform == "cpu" else "cuda"
+    fabric = build_fabric(cfg, fake=args.fake, weights_dir=args.weights,
+                          worker_id=args.worker_id,
+                          advertise_addr=args.advertise, device=device)
+    web.run_app(create_app(fabric, cfg, device_health=not args.fake),
+                host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,15 @@ few-step consistency loop, half the size) as its own
 own captured graphs per batch. Tier 0 is the untouched full path, bit for
 bit; ``pipeline.brownout_images`` counts the degraded images.
 
+Counters, on the host at the reference's sites: ``pipeline.images`` (or
+``pipeline.sdxl_images``) per generated image, img2img's included;
+``pipeline.encprop_{key,shallow,prop}_steps`` and
+``pipeline.consistency_steps`` from the served schedule;
+``pipeline.text_fallbacks`` per round whose text fell back to the
+template; ``decode.spec_chunks`` and the ``decode.spec_accept_rate``
+gauge after a speculative decode's one host transfer. None reads the
+device inside a captured step.
+
 Weights: each pipeline takes a ``weights_dir`` beside ``state_dicts`` and
 loads every model it serves from the reference's file there
 (``clip_text.safetensors``, ``unet.safetensors``, ``vae.safetensors``,
@@ -111,6 +120,7 @@ from cassmantle_tpu_torch.models.vae import (
     VAEEncoder,
     postprocess_images,
 )
+from cassmantle_tpu_torch.obs.device import note_dispatch
 from cassmantle_tpu_torch.ops.ddim import (
     EncpropGraph,
     SamplerGraph,
@@ -336,6 +346,25 @@ def consistency_plan(sampler_cfg) -> int:
         f"(ops/samplers.py::ConsistencySchedule), and the kill switch "
         f"reverts to this schedule"))
     return s.num_steps
+
+
+def note_encprop_counters(counts, n_images: int) -> None:
+    """The UNet forwards an encoder-propagation dispatch served, from its
+    schedule's (key, shallow, propagated) counts (None: not encprop)."""
+    if counts:
+        keys, shallow, props = counts
+        metrics.inc("pipeline.encprop_key_steps", keys * n_images)
+        if shallow:
+            metrics.inc("pipeline.encprop_shallow_steps", shallow * n_images)
+        metrics.inc("pipeline.encprop_prop_steps", props * n_images)
+
+
+def note_consistency_counter(sampler_cfg, n_images: int) -> None:
+    """The consistency UNet forwards a dispatch served (the effective
+    config: silent under the kill switch)."""
+    if sampler_cfg.consistency:
+        metrics.inc("pipeline.consistency_steps",
+                    sampler_cfg.num_steps * n_images)
 
 
 def effective_sampler_cfg(sampler_cfg):
@@ -660,8 +689,14 @@ class Text2ImagePipeline(_ReloadsParams):
         # the verdict stays out of the captured graphs
         integrity.enforce(np.ones(len(out), dtype=bool),
                           pipeline=self.PIPELINE, stage="sample", images=out)
+        note_dispatch(self.PIPELINE)
+        served = variant or self.full_variant
+        metrics.inc("pipeline.sdxl_images" if self.PIPELINE == "sdxl"
+                    else "pipeline.images", len(out))
         if variant is not None:
             metrics.inc("pipeline.brownout_images", len(out))
+        note_encprop_counters(served.encprop_counts, len(out))
+        note_consistency_counter(served.sampler_cfg, len(out))
         return out
 
     def _generate_locked(self, prompts: Sequence[str], seed: int,
@@ -771,6 +806,7 @@ class Text2ImagePipeline(_ReloadsParams):
         integrity.enforce(np.ones(len(out), dtype=bool),
                           pipeline=self.PIPELINE, stage="img2img",
                           images=out)
+        metrics.inc("pipeline.images", len(out))
         return out
 
     def _img2img_locked(self, images: np.ndarray, prompts: Sequence[str],
@@ -1084,6 +1120,9 @@ class PromptGenerator(_ReloadsParams):
         self.last_spec_stats = {
             "chunks": chunks, "drafted": drafted, "accepted": accepted,
             "accept_rate": (accepted / drafted) if drafted else 0.0}
+        metrics.inc("decode.spec_chunks", chunks)
+        if drafted:
+            metrics.gauge("decode.spec_accept_rate", accepted / drafted)
 
     def generate_batch(self, seed_texts: Sequence[str],
                        max_new_tokens: Optional[int] = None) -> List:
@@ -1163,7 +1202,11 @@ class TorchContentBackend:
         text = sanitize_text(text)
         wordy = sum(is_wordlike(t) for t in tokenize_words(text))
         if wordy < self.cfg.game.num_masked + 1:
+            # degenerate LM output (random weights): keep the round
+            # playable with the deterministic template text
+            log.warning("degenerate generated text; using template fallback")
             self.text_fallbacks += 1
+            metrics.inc("pipeline.text_fallbacks")
             text = template_text(seed)
         with self._draw_lock:
             self._round += 1

@@ -36,6 +36,7 @@ from typing import Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.obs.device import note_dispatch
 from cassmantle_tpu_torch.ops.blur import device_blur
 from cassmantle_tpu_torch.ops.embed_table import EmbedTable
 from cassmantle_tpu_torch.ops.graphs import no_new_captures
@@ -135,6 +136,7 @@ class InferenceService:
         non-finite (NaN similarity, never cached) fail alone with a
         retriable ``OutputInvalid``; the batch's other pairs resolve."""
         sims = self.scorer.similarity(list(pairs))
+        note_dispatch("scorer")
         if integrity.integrity_disabled():
             return sims
         bad = ~np.isfinite(np.asarray(sims))

@@ -1,8 +1,7 @@
 """Serving supervisor: one readiness signal for the whole device path.
 
-A copy of ``cassmantle_tpu/serving/supervisor.py`` (``:37-264``) without
-the per-stage health of staged serving and the room fabric's block (later
-slices). It fuses the degradation detectors into one state:
+A copy of ``cassmantle_tpu/serving/supervisor.py``. It fuses the
+degradation detectors into one state:
 
 - the **content breaker** around round generation;
 - the **score breaker** around the guess-scorer dispatch (the service
@@ -10,17 +9,17 @@ slices). It fuses the degradation detectors into one state:
 - the **dispatch watchdog** in ``serving/queue.py`` (a handler that
   overruns its hang deadline calls :meth:`note_dispatch_overrun`);
 - the **device-loss state** (``serving/device_recovery.py``): while the
-  recovery manager rebuilds, the queues fail fast.
+  recovery manager rebuilds, the queues fail fast;
+- optionally ``utils/health.py``'s :class:`DeviceHealth`, the CUDA probe
+  the server wires in (``device_health``).
 
-The reference's device-health probe (``utils/health.py``) is wired by its
-server and comes with the server slice; :meth:`status` takes its verdict
-as ``device_ok``.
-
-:meth:`status` is the readiness body the server will serve.
+:meth:`status` is the body of ``/readyz`` and ``/healthz``, with the room
+fabric's block (``fabric_status``) and per-stage progress.
 """
 
 from __future__ import annotations
 
+import asyncio
 import time
 from typing import Callable, Dict, Optional
 
@@ -38,6 +37,7 @@ class ServingSupervisor:
         *,
         content_breaker: Optional[CircuitBreaker] = None,
         score_breaker: Optional[CircuitBreaker] = None,
+        device_health=None,
         degraded_cooldown_s: float = 60.0,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
@@ -46,6 +46,11 @@ class ServingSupervisor:
             "content", clock=clock)
         self.score_breaker = score_breaker or CircuitBreaker(
             "score", clock=clock)
+        # set by the server when it serves on a device (utils/health.py)
+        self.device_health = device_health
+        # set by a room fabric: a sync callable returning the /readyz
+        # cluster block (fabric/rooms.py RoomFabric.status)
+        self.fabric_status: Optional[Callable[[], Dict[str, object]]] = None
         self.degraded_cooldown_s = degraded_cooldown_s
         # lock hierarchy: supervisor state is leaf-ward of the dispatch
         # locks, outward of the breakers
@@ -59,6 +64,8 @@ class ServingSupervisor:
         # while the accelerator runtime is gone and the recovery manager
         # is rebuilding serving state; None when healthy
         self._device_lost: Optional[str] = None
+        # stage -> last time it made observable progress (staged serving)
+        self._stage_progress: Dict[str, float] = {}
 
     # -- watchdog ---------------------------------------------------------
     def note_dispatch_overrun(self, queue_name: str) -> None:
@@ -82,6 +89,20 @@ class ServingSupervisor:
     def watchdog_degraded(self) -> bool:
         with self._lock:
             return self.clock() < self._degraded_until
+
+    # -- per-stage health (staged serving) -----------------------------------
+    def note_stage_progress(self, stage: str) -> None:
+        """A serving stage made observable progress (a batch completed, a
+        slot retired): the ``stages`` block of :meth:`status`."""
+        with self._lock:
+            self._stage_progress[stage] = self.clock()
+
+    def stage_health(self) -> Dict[str, float]:
+        """Seconds since each registered stage last made progress."""
+        with self._lock:
+            now = self.clock()
+            return {s: round(now - t, 3)
+                    for s, t in self._stage_progress.items()}
 
     # -- device loss (serving/device_recovery.py) --------------------------
     def note_device_lost(self, reason: str) -> None:
@@ -109,6 +130,23 @@ class ServingSupervisor:
         fast instead of batching work for a dead device)."""
         with self._lock:
             return self._device_lost
+
+    def device_unhealthy(self) -> bool:
+        """True only when the cached probe verdict is a hard False: a read
+        with no probe, cheap enough for the request path."""
+        dh = self.device_health
+        return dh is not None and dh.last_verdict() is False
+
+    # -- device -----------------------------------------------------------
+    async def probe_device(self) -> Optional[bool]:
+        """The DeviceHealth verdict; None when nothing is probed (a fake
+        backend). Off the event loop: the probe blocks up to its timeout
+        on a wedged card."""
+        if self.device_health is None:
+            return None
+        loop = asyncio.get_running_loop()
+        ok, _ = await loop.run_in_executor(None, self.device_health.check)
+        return ok
 
     # -- fused signal -----------------------------------------------------
     @property
@@ -178,6 +216,9 @@ class ServingSupervisor:
         }
         if lost is not None:
             status["device_lost"] = {"reason": lost}
+        stages = self.stage_health()
+        if stages:
+            status["stages"] = stages
         from cassmantle_tpu_torch import chaos
 
         if chaos.armed():
@@ -185,6 +226,14 @@ class ServingSupervisor:
             # plan is armed, BOTH probe surfaces say so (healthz embeds
             # this same status block)
             status["chaos"] = chaos.status()
+        if self.fabric_status is not None:
+            try:
+                status["fabric"] = self.fabric_status()
+            except Exception:
+                # advisory: a torn membership snapshot never breaks the
+                # readiness verdict
+                log.exception("fabric status failed")
+                status["fabric"] = {"error": "unavailable"}
         if not ready and include_events:
             # a degraded verdict carries the recent event history that
             # explains it — the flight-recorder tail (trip order,

@@ -1,12 +1,12 @@
 """Namespaced loggers and the in-process metrics registry.
 
-A copy of ``cassmantle_tpu/utils/logging.py`` trimmed to what the serving
-seam uses: :func:`get_logger` (``:84-100``) and the :class:`Metrics`
-registry (``:184-419``: counters, gauges, fixed-bucket histograms,
-``counter_total``, ``gauge_values``, ``hist_totals``, ``timer``,
-``snapshot``). The
-Prometheus/OpenMetrics expositions, exemplars and federation belong to
-the server, a later slice.
+A copy of ``cassmantle_tpu/utils/logging.py``: :func:`get_logger` and the
+:class:`Metrics` registry (counters, gauges, fixed-bucket histograms with
+exemplars, ``counter_total``, ``gauge_values``, ``hist_totals``,
+``timer``, the JSON ``snapshot`` and the Prometheus and OpenMetrics text
+expositions the server's ``/metrics`` serves). Federation across workers
+(``dump_state``, ``merge_states``) comes with many workers, a later
+slice.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import bisect
 import logging
 import threading
 import time
+from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -64,9 +65,11 @@ def _flat_name(key: SeriesKey) -> str:
 
 class Histogram:
     """Cumulative fixed-bucket histogram: constant memory per series,
-    percentiles by in-bucket linear interpolation."""
+    percentiles by in-bucket linear interpolation. ``exemplars`` maps a
+    bucket to the last retained trace that landed in it, ``(trace_id,
+    value, unix_ts)``: a p99 bucket dereferences to ``/debugz?trace=``."""
 
-    __slots__ = ("bounds", "counts", "total", "sum")
+    __slots__ = ("bounds", "counts", "total", "sum", "exemplars")
 
     def __init__(self, bounds: Sequence[float]) -> None:
         self.bounds = tuple(sorted(float(b) for b in bounds))
@@ -74,6 +77,7 @@ class Histogram:
         self.counts = [0] * (len(self.bounds) + 1)  # last = +Inf overflow
         self.total = 0
         self.sum = 0.0
+        self.exemplars: Dict[int, Tuple[str, float, float]] = {}
 
     def observe(self, value: float) -> None:
         self.counts[bisect.bisect_left(self.bounds, value)] += 1
@@ -101,6 +105,26 @@ class Histogram:
         return self.sum / self.total if self.total else 0.0
 
 
+def _prom_name(name: str, labels: LabelsKey) -> Tuple[str, str]:
+    """(metric name, label suffix) in Prometheus grammar: dots and dashes
+    to underscores, the ``cassmantle_`` prefix, ``_s`` to ``_seconds``."""
+    base = name.replace(".", "_").replace("-", "_")
+    if base.endswith("_s"):
+        base = base[:-2] + "_seconds"
+    suffix = ""
+    if labels:
+        inner = ",".join(
+            '{}="{}"'.format(k, v.replace("\\", "\\\\").replace('"', '\\"'))
+            for k, v in labels)
+        suffix = "{" + inner + "}"
+    return "cassmantle_" + base, suffix
+
+
+def _fmt(v: float) -> str:
+    return repr(v) if isinstance(v, float) and not v.is_integer() \
+        else str(int(v))
+
+
 class Metrics:
     """Thread-safe counters, gauges and histograms. One global registry
     per process (:data:`metrics`); instantiable standalone."""
@@ -113,6 +137,22 @@ class Metrics:
         self._gauges: Dict[SeriesKey, float] = {}
         self._hists: Dict[SeriesKey, Histogram] = {}
         self._default_buckets = tuple(default_buckets)
+        # exemplars: an injected source answers "which trace is this
+        # observation from, and is it already retained?" as (trace_id,
+        # certain). Certain ones land in their bucket at once; the others
+        # (a tail-pending trace) park until retain_exemplars or
+        # discard_exemplars settles them. A fresh registry has no source.
+        self._exemplar_source = None
+        self._exemplar_pending: \
+            "OrderedDict[str, List[Tuple[Histogram, int, float, float]]]" \
+            = OrderedDict()
+        self._exemplar_pending_cap = 256
+
+    def set_default_buckets(self, bounds: Sequence[float]) -> None:
+        """Default bounds of histograms created after this call (existing
+        series keep theirs)."""
+        with self._lock:
+            self._default_buckets = tuple(bounds)
 
     def inc(self, name: str, value: float = 1.0,
             labels: Optional[Dict[str, str]] = None) -> None:
@@ -125,18 +165,60 @@ class Metrics:
         with self._lock:
             self._gauges[_series_key(name, labels)] = value
 
+    def remove_gauge(self, name: str,
+                     labels: Optional[Dict[str, str]] = None) -> None:
+        """Retract a gauge whose source is gone: absence, not a frozen
+        last value (obs/device.py)."""
+        with self._lock:
+            self._gauges.pop(_series_key(name, labels), None)
+
     def observe(self, name: str, value: float,
                 labels: Optional[Dict[str, str]] = None,
                 buckets: Optional[Sequence[float]] = None) -> None:
         """Record into the series' histogram; ``buckets`` applies only on
         the series' first observation."""
         key = _series_key(name, labels)
+        source = self._exemplar_source
+        tagged = source() if source is not None else None
         with self._lock:
             hist = self._hists.get(key)
             if hist is None:
                 hist = Histogram(buckets or self._default_buckets)
                 self._hists[key] = hist
             hist.observe(value)
+            if tagged is not None:
+                trace_id, certain = tagged
+                idx = bisect.bisect_left(hist.bounds, value)
+                if certain:
+                    hist.exemplars[idx] = (trace_id, float(value),
+                                           time.time())
+                else:
+                    slots = self._exemplar_pending.get(trace_id)
+                    if slots is None:
+                        slots = self._exemplar_pending[trace_id] = []
+                        while len(self._exemplar_pending) > \
+                                self._exemplar_pending_cap:
+                            self._exemplar_pending.popitem(last=False)
+                    slots.append((hist, idx, float(value), time.time()))
+
+    # -- exemplars ----------------------------------------------------------
+    def set_exemplar_source(self, fn) -> None:
+        """Install ``fn() -> None | (trace_id, certain)``, asked on every
+        histogram observation (obs/trace.py owns the policy)."""
+        self._exemplar_source = fn
+
+    def retain_exemplars(self, trace_id: str) -> None:
+        """A pending trace was retained: its parked observations become
+        their buckets' exemplars."""
+        with self._lock:
+            for hist, idx, value, ts in \
+                    self._exemplar_pending.pop(trace_id, ()):
+                hist.exemplars[idx] = (trace_id, value, ts)
+
+    def discard_exemplars(self, trace_id: str) -> None:
+        """A pending trace was dropped: its observations never surface."""
+        with self._lock:
+            self._exemplar_pending.pop(trace_id, None)
 
     @contextmanager
     def timer(self, name: str, labels: Optional[Dict[str, str]] = None):
@@ -183,11 +265,12 @@ class Metrics:
                 return None
             return bounds, tuple(counts), total
 
-    def snapshot(self) -> Dict[str, object]:
+    def snapshot(self, exemplars: bool = False) -> Dict[str, object]:
         """Flat counters and gauges, and ``{count, mean_s, p50_s, p99_s}``
-        per histogram (the reference's JSON shape)."""
+        per histogram (the reference's JSON shape); ``exemplars=True``
+        adds, per histogram and bucket bound, the last retained trace."""
         with self._lock:
-            return {
+            out: Dict[str, object] = {
                 "counters": {_flat_name(k): v
                              for k, v in self._counters.items()},
                 "gauges": {_flat_name(k): v
@@ -198,6 +281,81 @@ class Metrics:
                                     "p99_s": h.quantile(0.99)}
                     for k, h in self._hists.items() if h.total},
             }
+            if exemplars:
+                ex: Dict[str, dict] = {}
+                for key, h in self._hists.items():
+                    if h.exemplars:
+                        ex[_flat_name(key)] = {
+                            ("+Inf" if idx >= len(h.bounds)
+                             else repr(float(h.bounds[idx]))):
+                            {"trace_id": tid, "value": value, "ts": ts}
+                            for idx, (tid, value, ts)
+                            in sorted(h.exemplars.items())}
+                out["exemplars"] = ex
+            return out
+
+    def _exposition(self, openmetrics: bool) -> str:
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = {k: (h.bounds, tuple(h.counts), h.sum, h.total,
+                         dict(h.exemplars))
+                     for k, h in self._hists.items()}
+        lines: List[str] = []
+        typed = set()
+
+        def emit_type(pname: str, kind: str) -> None:
+            if pname not in typed:
+                typed.add(pname)
+                lines.append(f"# TYPE {pname} {kind}")
+
+        def exemplar(ex) -> str:
+            if ex is None or not openmetrics:
+                return ""
+            trace_id, value, ts = ex
+            return (f' # {{trace_id="{trace_id}"}} '
+                    f"{repr(float(value))} {repr(float(ts))}")
+
+        for key in sorted(counters):
+            pname, suffix = _prom_name(key[0], key[1])
+            # OpenMetrics declares a counter on its base name
+            emit_type(pname if openmetrics else pname + "_total",
+                      "counter")
+            lines.append(f"{pname}_total{suffix} {_fmt(counters[key])}")
+        for key in sorted(gauges):
+            pname, suffix = _prom_name(key[0], key[1])
+            emit_type(pname, "gauge")
+            lines.append(f"{pname}{suffix} {_fmt(gauges[key])}")
+        for key in sorted(hists):
+            bounds, counts, total_sum, total, exemplars = hists[key]
+            pname, suffix = _prom_name(key[0], key[1])
+            emit_type(pname, "histogram")
+            label_body = suffix[1:-1] + "," if suffix else ""
+            cum = 0
+            for i, (bound, count) in enumerate(zip(bounds, counts)):
+                cum += count
+                lines.append(
+                    f'{pname}_bucket{{{label_body}le="{_fmt(bound)}"}} '
+                    f"{cum}{exemplar(exemplars.get(i))}")
+            cum += counts[-1]
+            lines.append(f'{pname}_bucket{{{label_body}le="+Inf"}} {cum}'
+                         f"{exemplar(exemplars.get(len(bounds)))}")
+            lines.append(f"{pname}_sum{suffix} {repr(float(total_sum))}")
+            lines.append(f"{pname}_count{suffix} {total}")
+        if openmetrics:
+            lines.append("# EOF")
+        return "\n".join(lines) + "\n"
+
+    def prometheus(self) -> str:
+        """Text exposition, format 0.0.4: counters as ``*_total``, gauges,
+        histograms as cumulative ``_bucket{le=...}``, ``_sum``, ``_count``;
+        sorted, so scrapes are stable. No exemplars."""
+        return self._exposition(openmetrics=False)
+
+    def openmetrics(self) -> str:
+        """OpenMetrics 1.0: the same series, counters typed on their base
+        name, exemplars on the ``_bucket`` lines, and ``# EOF``."""
+        return self._exposition(openmetrics=True)
 
 
 class _NullMetrics:
@@ -210,6 +368,9 @@ class _NullMetrics:
         pass
 
     def gauge(self, name, value, labels=None):
+        pass
+
+    def remove_gauge(self, name, labels=None):
         pass
 
     def observe(self, name, value, labels=None, buckets=None):

@@ -155,9 +155,32 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    reset, the buffered text current), and at tier 5 coarser blur buckets
    rounding up and the next buffered round at 256x256 under guess waves,
    counted in ``pipeline.brownout_images`` with its launches. Guess p50
-   and p99, render p50 and promotion seconds.
+   and p99, render p50 and promotion seconds;
+14. the game server in this process ([server]): ``build_fabric`` and
+   ``create_app(fabric, cfg, device_health=True)`` on 127.0.0.1 at a
+   port the kernel picks, at ``FrameworkConfig()`` with 12 s rounds and
+   an SLO loop at 0.5 s over 10 s and 60 s windows with a 1 ms p99
+   threshold: /healthz's CUDA probe, /readyz, 64 sessions in parallel
+   (/init, /fetch/contents, /compute_score, /client/status), a
+   malformed body's 400, /clock through a rotation, the new round
+   served, /metrics as JSON and Prometheus text (the device gauges from
+   ``torch.cuda.memory_stats``), a ``traceparent`` continued and its
+   spans at /debugz, /sloz; real burn (waves of 1,024 out-of-vocabulary
+   guesses) until the app's own SLO loop has stepped the ladder, and
+   the round the server then generates at the tier. Every round the
+   server generates is tallied around ``t2i.generate``: at full quality
+   as ``[round-default]``, at a tier as ``derived_round`` says, flash
+   only at shapes phase 2 checks, on their checked paths;
+15. ``python -m cassmantle_tpu_torch serve`` as a child process
+   ([serve-cli]) on a port picked by binding 127.0.0.1:0 (picked once
+   more if the child cannot bind it), its output in the git-ignored
+   ``_build/serve_cli.log``: /readyz 200 within 240 s, one session,
+   /healthz's CUDA probe, then SIGINT: exit 0 within 30 s after the
+   graceful handoff (SIGKILL and reaped otherwise, on every path).
+   Boot-to-ready seconds.
 
-Prints one ``kernels`` JSON line, the card line, and as the last line
+Prints its total seconds, one ``kernels`` JSON line, the card line, and
+as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result.
 """
@@ -4145,6 +4168,541 @@ def check_weights_mistral(card: str) -> bool:
     return ok
 
 
+# -- the game server ----------------------------------------------------------
+
+SERVER_SESSIONS = 64          # [server]'s players, in parallel
+SERVER_ROUND_S = 12.0         # time_per_prompt of the [server] rounds
+SERVER_BURN_S = 60.0          # deadline for the ladder to leave tier 0
+SERVER_TIER_ROUND_S = 45.0    # deadline for the round at the tier
+SERVER_READY_S = 240.0        # deadline for [serve-cli]'s /readyz
+SERVE_CLI_ROUND_S = 60.0      # --round-seconds of [serve-cli]
+SERVE_CLI_LOG = os.path.join(REPO, "cassmantle_tpu_torch", "_build",
+                             "serve_cli.log")
+
+
+def server_config():
+    """``FrameworkConfig()`` as [server] serves it: 12 s rounds; rate
+    limits one loopback client can play 1,024 sessions under; and the SLO
+    loop at 0.5 s over a 10 s fast and 60 s slow window with a 1 ms p99
+    threshold on ``http.compute_score_s``, the ladder stepping up after 1
+    s of burn: what lets real burn trip the ladder within the phase."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig, ObsConfig
+
+    cfg = FrameworkConfig()
+    return cfg.replace(
+        game=dataclasses.replace(cfg.game, time_per_prompt=SERVER_ROUND_S,
+                                 rate_limit_default=1e9,
+                                 rate_limit_api=1e9),
+        obs=ObsConfig(slo_eval_interval_s=0.5, slo_fast_window_s=10.0,
+                      slo_slow_window_s=60.0, slo_score_p99_s=0.001),
+        serving=dataclasses.replace(cfg.serving,
+                                    brownout_step_up_dwell_s=1.0))
+
+
+def decode_b64_jpeg(b64: str):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def round_checks(cfg, record: dict, by_shape: dict, rows: dict) -> dict:
+    """One server round's tallies against its derivation: the round at
+    full quality against ``expected_tallies("default")``, at a tier
+    against ``derived_round(cfg, tier)`` (either tier when the ladder
+    moved while it ran); its image size; each flash shape a checked one,
+    on the path its [kernel] check took."""
+    from cassmantle_tpu_torch.serving import overload
+
+    tallies = record["tallies"]
+    out = {}
+    matches = []
+    for tier in sorted({record["tier"], record["tier_after"]}):
+        if tier == 0:
+            want = expected_tallies("default")
+            size = cfg.sampler.image_size
+        else:
+            derived = derived_round(cfg, overload.DEFAULT_TIERS[tier])
+            want = {k: (v if k == "flash_attention" else {})
+                    for k, v in derived.items()}
+            size = overload.degraded_sampler_cfg(
+                cfg.sampler, overload.DEFAULT_TIERS[tier]).image_size
+        matches.append(all(dict(tallies[k]) == dict(want[k])
+                           for k in ("flash_attention", "gn_silu_conv3x3",
+                                     "int8_matmul", "int8_conv3x3"))
+                       and record["shape"] == (1, size, size, 3))
+    out["launches_as_derived"] = any(matches)
+    paths = [(shape in by_shape and path == rows[by_shape[shape]]["path"])
+             for (shape, path) in tallies["flash_paths"]]
+    out["flash_checked_shapes"] = bool(paths) and all(paths)
+    return out
+
+
+def check_server(card: str, rows: dict) -> bool:
+    """[server]: the port's game server in this process at full width on
+    the card: ``build_fabric(server_config())`` and ``create_app(fabric,
+    cfg, device_health=True)`` behind ``web.AppRunner`` and ``TCPSite`` on
+    127.0.0.1 at port 0 (read back from the runner), played over HTTP by
+    an aiohttp client: /healthz (the CUDA probe ran and passed), /readyz,
+    64 sessions in parallel through /init, /fetch/contents (a JPEG at the
+    configured size), /compute_score (scores for the masked indices) and
+    /client/status, a malformed body's 400, /clock (ticks, then the reset
+    of a rotation), the new round served after it, /metrics in JSON and
+    Prometheus text (``http.compute_score_s``, ``pipeline.images``, the
+    device gauges from ``torch.cuda.memory_stats``), a ``traceparent``
+    continued and its spans at /debugz, /sloz; then real burn: waves of
+    1,024 out-of-vocabulary guesses until the ladder, read in process,
+    is at tier >= 1, every rung stepped in an evaluation by the app's own
+    SLO loop (a listener on the app's SLO engine names the evaluating
+    task), and the next round the server generates at that tier. Every round the server generates is
+    tallied as run_round tallies one (counts set to 0 just before,
+    read just after, around ``t2i.generate``)."""
+    import threading
+
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from cassmantle_tpu_torch.obs import flight_recorder
+    from cassmantle_tpu_torch.obs.slo import SloEngine
+    from cassmantle_tpu_torch.server import app as server_app
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    overload.reset_brownout()
+    by_shape = {(b, sq, sk, h, d): name
+                for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
+    t_phase = time.perf_counter()
+    cfg = server_config()
+    size = cfg.sampler.image_size
+    report, checks = {"card": card}, {}
+    print("[server] build_fabric", flush=True)
+    t0 = time.perf_counter()
+    fabric = server_app.build_fabric(cfg, worker_id="smoke")
+    report["build_s"] = time.perf_counter() - t0
+    (svc,) = fabric.services
+    t2i = svc.backend.t2i
+    real_generate = t2i.generate
+    rounds = []
+    round_lock = threading.Lock()
+
+    def tallied(prompts, seed=0, latents=None):
+        with round_lock:
+            reset_all_counters()
+            tier = overload.current_tier()
+            t = time.perf_counter()
+            out = real_generate(prompts, seed, latents)
+            rounds.append({"tier": tier, "tier_after": overload.current_tier(),
+                           "tallies": read_tallies(), "shape": out.shape,
+                           "s": time.perf_counter() - t})
+        return out
+
+    t2i.generate = tallied
+    oov = 0
+    boot_wall = time.time()
+    # the registry is the process's: earlier phases generated images too
+    images_before = metrics.counter_total("pipeline.images")
+
+    def oov_guess() -> str:
+        nonlocal oov
+        oov += 1
+        return f"srv{oov}q{oov * 7919 % 104729}x"
+
+    # which evaluation stepped each rung: a listener added after the
+    # ladder's runs in the same evaluate() pass and sees the tier the
+    # ladder left, with the task that evaluated (the app's _slo_loop, or a
+    # handler serving /readyz or /sloz)
+    rungs = []
+    seen_tier = [0]
+
+    def witness(_verdicts):
+        try:
+            task = asyncio.current_task()
+        except RuntimeError:
+            task = None
+        source = getattr(task.get_coro() if task is not None else None,
+                         "__qualname__", "?")
+        tier_now = overload.current_tier()
+        if tier_now > seen_tier[0]:
+            rungs.append({"to": tier_now, "by": source})
+        seen_tier[0] = tier_now
+
+    async def phase():
+        print("[server] create_app and startup", flush=True)
+        app = server_app.create_app(fabric, cfg, device_health=True)
+        next(v for v in app.values()
+             if isinstance(v, SloEngine)).add_listener(witness)
+        runner = web.AppRunner(app)
+        nonlocal boot_wall
+        boot_wall = time.time()
+        t = time.perf_counter()
+        await runner.setup()          # on_startup: the first round
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        report["boot_s"] = time.perf_counter() - t
+        host, port = runner.addresses[0][:2]
+        base = f"http://{host}:{port}"
+        report["port"] = port
+        http = aiohttp.ClientSession(
+            base, connector=aiohttp.TCPConnector(limit=256))
+        try:
+            await play(http, base)
+        finally:
+            await http.close()
+            print("[server] cleanup (handoff, rooms drained, queues "
+                  "stopped)", flush=True)
+            await runner.cleanup()
+
+    async def play(http, base):
+        print("[server] /healthz, /readyz", flush=True)
+        async with http.get("/healthz") as res:
+            health = await res.json()
+            checks["healthz_200"] = res.status == 200
+        probe = health.get("probe", {})
+        report["healthz_probe"] = probe
+        checks["healthz_cuda_probe"] = (
+            health["device"] is True and probe.get("ok") is True
+            and str(probe.get("device", "")).startswith("cuda"))
+        async with http.get("/readyz") as res:
+            checks["readyz_200"] = res.status == 200
+
+        print(f"[server] {SERVER_SESSIONS} sessions: /init, "
+              f"/fetch/contents, /compute_score, /client/status", flush=True)
+
+        async def player(i):
+            jar = aiohttp.CookieJar(unsafe=True)
+            async with aiohttp.ClientSession(base, cookie_jar=jar) as s:
+                async with s.get("/init") as res:
+                    init = await res.json()
+                t = time.perf_counter()
+                async with s.get("/fetch/contents") as res:
+                    data = await res.json()
+                fetch_s = time.perf_counter() - t
+                masks = data["prompt"]["masks"]
+                guesses = {str(m): oov_guess() if j % 2 else "harbor"
+                           for j, m in enumerate(masks)}
+                t = time.perf_counter()
+                async with s.post("/compute_score",
+                                  json={"inputs": guesses}) as res:
+                    scores = await res.json()
+                    score_status = res.status
+                guess_s = time.perf_counter() - t
+                async with s.get("/client/status") as res:
+                    status = await res.json()
+                return {"init": init, "data": data, "fetch_s": fetch_s,
+                        "scores": scores, "score_status": score_status,
+                        "guess_s": guess_s, "status": status,
+                        "masks": masks}
+
+        played = await asyncio.gather(*(player(i)
+                                        for i in range(SERVER_SESSIONS)))
+        first = played[0]
+        report["guess_ms"] = latency_ms([p["guess_s"] for p in played])
+        report["fetch_ms"] = latency_ms([p["fetch_s"] for p in played])
+        checks["sessions_initialized"] = all(
+            p["init"]["message"] == "Session initialized"
+            and p["status"] == {"won": 0, "needInitialization": False}
+            for p in played)
+        checks["fetch_jpeg_size"] = all(
+            decode_b64_jpeg(p["data"]["image"]).shape == (size, size, 3)
+            for p in played[::8])
+        checks["scores_for_masks"] = all(
+            p["score_status"] == 200
+            and all(str(m) in p["scores"] for m in p["masks"])
+            for p in played)
+        async with http.post("/compute_score", data=b"not json") as res:
+            checks["malformed_400"] = res.status == 400
+
+        print("[server] /clock until a rotation", flush=True)
+        ticks, t = 0, time.perf_counter()
+        async with http.ws_connect("/clock") as ws:
+            while time.perf_counter() - t < 3 * SERVER_ROUND_S:
+                msg = await asyncio.wait_for(ws.receive_json(),
+                                             timeout=SERVER_ROUND_S)
+                checks.setdefault("clock_keys", True)
+                checks["clock_keys"] &= set(msg) == {"time", "reset",
+                                                     "conns"}
+                if msg["reset"]:
+                    break
+                ticks += 1
+        report["clock_ticks_before_reset"] = ticks
+        report["rotation_wait_s"] = time.perf_counter() - t
+        checks["clock_ticks"] = ticks >= 3
+        checks["clock_reset"] = report["rotation_wait_s"] < \
+            3 * SERVER_ROUND_S
+        game = await fabric.game_for(fabric.default_room)
+        current = await game.rounds.fetch_current_prompt()
+        async with http.get("/fetch/contents") as res:
+            after = await res.json()
+        checks["new_round_served"] = (
+            after["image"] != first["data"]["image"]
+            and after["prompt"]["masks"] == current["masks"])
+
+        print("[server] /metrics, traceparent, /debugz, /sloz", flush=True)
+        async with http.get("/metrics") as res:
+            snap = await res.json()
+        async with http.get("/metrics",
+                            headers={"Accept": "text/plain"}) as res:
+            text = await res.text()
+        hbm = {k: v for k, v in snap["gauges"].items()
+               if k.startswith("device.hbm_bytes_in_use")}
+        report["hbm_gauges"] = hbm
+        report["pipeline_images"] = snap["counters"].get(
+            "pipeline.images", 0) - images_before
+        checks["metrics_json"] = (
+            "http.compute_score_s" in snap["timings"]
+            and report["pipeline_images"] >= 2
+            and any(v > 0 for v in hbm.values()))
+        checks["metrics_prometheus"] = all(
+            s in text for s in ("cassmantle_http_compute_score_seconds_bucket",
+                                "cassmantle_pipeline_images_total",
+                                'cassmantle_device_hbm_bytes_in_use{device='))
+        trace = os.urandom(16).hex()
+        async with http.get("/client/status", headers={
+                "traceparent": f"00-{trace}-{os.urandom(8).hex()}-01"}) as res:
+            checks["traceparent_joined"] = res.headers.get(
+                "X-Trace-Id") == trace
+        async with http.get("/debugz", params={"trace": trace}) as res:
+            spans = (await res.json()).get("spans", []) \
+                if res.status == 200 else []
+        checks["debugz_spans"] = any(s["name"] == "http.get /client/status"
+                                     for s in spans)
+        async with http.get("/sloz") as res:
+            report["sloz_before"] = {n: o["state"] for n, o in
+                                     (await res.json())["objectives"].items()}
+
+        print("[server] real burn: waves of 1,024 out-of-vocabulary "
+              "guesses until the SLO loop steps the ladder", flush=True)
+        masks = current["masks"]
+        t = time.perf_counter()
+        waves, lat, shed, tier = 0, [], 0, 0
+
+        async def burn_guess(w, i):
+            t1 = time.perf_counter()
+            async with http.post(
+                    "/compute_score", params={"session": f"b{w}-{i}"},
+                    json={"inputs": {str(masks[0]): oov_guess()}}) as res:
+                await res.read()
+                return res.status, time.perf_counter() - t1
+
+        while time.perf_counter() - t < SERVER_BURN_S:
+            res = await asyncio.gather(*(burn_guess(waves, i)
+                                         for i in range(SERVE_GUESSES)))
+            waves += 1
+            lat += [dt for status, dt in res if status == 200]
+            shed += sum(status == 503 for status, _ in res)
+            # read in process: a /readyz or /sloz here would evaluate the
+            # SLOs itself and could step the ladder in the loop's place
+            tier = overload.current_tier()
+            if tier >= 1:
+                break
+        report["tier_reached_s"] = time.perf_counter() - t
+        report["burn"] = {"waves": waves, "shed": shed,
+                          "guess_ms": latency_ms(lat), "tier": tier}
+        async with http.get("/sloz") as res:
+            slo = await res.json()
+        report["burn"]["sloz"] = {
+            n: {k: o[k] for k in ("state", "fast_burn", "slow_burn")}
+            for n, o in slo["objectives"].items()}
+        # this server's rungs (the recorder is the process's: earlier
+        # phases stepped other ladders by the drill lever)
+        steps = [e for e in flight_recorder.tail(
+            200, kind="overload.brownout") if e["ts"] >= boot_wall]
+        # each rung with its reason and seconds since the server booted
+        report["ladder"] = [{"to": e["to_tier"], "reason": e["reason"],
+                             "t_s": e["ts"] - boot_wall} for e in steps]
+        report["rungs_by"] = rungs
+        checks["ladder_stepped_by_slo_loop"] = (
+            tier >= 1 and bool(steps) and bool(rungs)
+            and all(e["reason"] == "slo_burn" for e in steps)
+            and all(r["by"] == "_slo_loop" for r in rungs))
+
+        print("[server] the next round at the tier", flush=True)
+        t = time.perf_counter()
+        while time.perf_counter() - t < SERVER_TIER_ROUND_S and not any(
+                r["tier"] >= 1 for r in rounds):
+            await asyncio.sleep(0.2)
+        report["tier_round_wait_s"] = time.perf_counter() - t
+
+    try:
+        asyncio.run(phase())
+    finally:
+        del t2i.generate
+        overload.reset_brownout()
+    full = [r for r in rounds if r["tier"] == 0 and r["tier_after"] == 0]
+    tiered = [r for r in rounds if r["tier"] >= 1]
+    report["rounds"] = [{"tier": r["tier"], "tier_after": r["tier_after"],
+                         "size": r["shape"][1], "s": r["s"],
+                         "flash": sum(r["tallies"]["flash_attention"]
+                                      .values())} for r in rounds]
+    checks["full_round_tallied"] = bool(full) and all(
+        all(round_checks(cfg, r, by_shape, rows).values()) for r in full)
+    checks["tier_round_tallied"] = bool(tiered) and all(
+        all(round_checks(cfg, r, by_shape, rows).values()) for r in tiered)
+    if tiered:
+        report["tier_round"] = {"tier": tiered[0]["tier"],
+                                "size": tiered[0]["shape"][1],
+                                "s": tiered[0]["s"]}
+    report["step_down"] = ("not driven on the card (slow window 60 s and "
+                           "step-down dwell 30 s); held on the CPU")
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[server] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    del fabric, svc, t2i, real_generate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def free_port() -> int:
+    """A port the kernel has just handed out on 127.0.0.1."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def log_tail(path: str, n: int = 60) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+    except OSError as exc:
+        return f"(no log: {exc})"
+
+
+def stop_child(proc, grace_s: float = 30.0):
+    """SIGINT, at most ``grace_s`` to exit, then SIGKILL; reaped either
+    way. Returns (exit code, seconds to exit after SIGINT)."""
+    import signal
+
+    if proc.poll() is not None:
+        return proc.returncode, 0.0
+    t = time.perf_counter()
+    proc.send_signal(signal.SIGINT)
+    try:
+        return proc.wait(timeout=grace_s), time.perf_counter() - t
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return None, time.perf_counter() - t
+
+
+def check_serve_cli(card: str) -> tuple:
+    """[serve-cli]: ``python -m cassmantle_tpu_torch serve --host
+    127.0.0.1 --port <picked> --round-seconds 60`` as a child process on
+    the card (started after [build], so it loads the libraries the parent
+    built), its output in the git-ignored ``_build/serve_cli.log``: /readyz
+    200 within 240 s, one session through /init, /fetch/contents,
+    /compute_score and /client/status, /healthz's CUDA probe, then SIGINT:
+    exit 0 (or -SIGINT) within 30 s with the graceful handoff in its log.
+    The port is picked by binding 127.0.0.1:0; a child that could not
+    bind it gets one more pick. Returns (ok, the log's tail)."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    import aiohttp
+
+    report, checks = {"card": card}, {}
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(SERVE_CLI_LOG), exist_ok=True)
+
+    def ready(port: int) -> bool:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=5) as res:
+                return res.status == 200
+        except (urllib.error.URLError, OSError):
+            return False
+
+    async def play(port: int):
+        jar = aiohttp.CookieJar(unsafe=True)
+        async with aiohttp.ClientSession(f"http://127.0.0.1:{port}",
+                                         cookie_jar=jar) as s:
+            async with s.get("/init") as res:
+                init = await res.json()
+            async with s.get("/fetch/contents") as res:
+                data = await res.json()
+            masks = data["prompt"]["masks"]
+            async with s.post("/compute_score", json={"inputs": {
+                    str(m): f"cli{i}q7919x" for i, m in enumerate(masks)}}
+                    ) as res:
+                scores = await res.json()
+            async with s.get("/client/status") as res:
+                status = await res.json()
+            async with s.get("/healthz") as res:
+                health = await res.json()
+        return init, data, masks, scores, status, health
+
+    proc = None
+    try:
+        for attempt in range(2):
+            port = free_port()
+            cmd = [sys.executable, "-m", "cassmantle_tpu_torch", "serve",
+                   "--host", "127.0.0.1", "--port", str(port),
+                   "--round-seconds", str(SERVE_CLI_ROUND_S)]
+            print(f"[serve-cli] starting: {' '.join(cmd[1:])}", flush=True)
+            t0 = time.perf_counter()
+            with open(SERVE_CLI_LOG, "w") as log:
+                proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                                        stderr=subprocess.STDOUT,
+                                        stdin=subprocess.DEVNULL)
+            while time.perf_counter() - t0 < SERVER_READY_S:
+                if proc.poll() is not None or ready(port):
+                    break
+                time.sleep(0.5)
+            if proc.poll() is not None and attempt == 0 and \
+                    "address already in use" in log_tail(SERVE_CLI_LOG
+                                                         ).lower():
+                print(f"[serve-cli] port {port} taken; picking again",
+                      flush=True)
+                continue
+            break
+        report["boot_to_ready_s"] = time.perf_counter() - t0
+        checks["ready"] = proc.poll() is None and ready(port)
+        if not checks["ready"]:
+            raise RuntimeError(f"no /readyz 200 within {SERVER_READY_S} s")
+        print("[serve-cli] one session: /init, /fetch/contents, "
+              "/compute_score, /client/status, /healthz", flush=True)
+        init, data, masks, scores, status, health = asyncio.run(play(port))
+        checks["session"] = (
+            init["message"] == "Session initialized"
+            and decode_b64_jpeg(data["image"]).shape == (512, 512, 3)
+            and all(str(m) in scores for m in masks)
+            and status == {"won": 0, "needInitialization": False})
+        report["healthz_probe"] = health.get("probe")
+        checks["healthz_cuda_probe"] = (
+            health.get("device") is True
+            and (health.get("probe") or {}).get("ok") is True
+            and str(health["probe"].get("device", "")).startswith("cuda"))
+        print("[serve-cli] SIGINT", flush=True)
+        rc, exit_s = stop_child(proc)
+        report.update(exit_code=rc, exit_s=exit_s)
+        checks["exit_clean"] = rc in (0, -signal.SIGINT)
+        checks["graceful_handoff"] = "graceful handoff complete" in \
+            log_tail(SERVE_CLI_LOG, 400)
+    except Exception as exc:
+        report["error"] = f"{type(exc).__name__}: {exc}"
+        checks["no_error"] = False
+    finally:
+        if proc is not None:
+            stop_child(proc)
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[serve-cli] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    return ok, log_tail(SERVE_CLI_LOG)
+
+
 def kernel_entries(kernel, rows, tally, source, replaces):
     """The kernels-line entries of one kernel: every checked shape, with
     its launches in its path's round."""
@@ -4161,6 +4719,7 @@ def kernel_entries(kernel, rows, tally, source, replaces):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's smoke run "
              "needs an NVIDIA card")
@@ -4280,6 +4839,19 @@ def main() -> int:
         fail("game: the game on the service failed a check")
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the game server: in this process over HTTP, then `python -m
+    # cassmantle_tpu_torch serve` as a child process
+    t0 = time.perf_counter()
+    if not check_server(card, rows):
+        fail("server: the game server failed a check")
+    ok, tail = check_serve_cli(card)
+    print(f"[server] phases {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        print(f"[serve-cli] the child's log, last 60 lines:\n{tail}",
+              flush=True)
+        fail("serve-cli: `python -m cassmantle_tpu_torch serve` failed a "
+             "check")
 
     # the same service from a weights directory, its rebuild from the
     # files, and Mistral from two shards
@@ -4401,6 +4973,7 @@ def main() -> int:
                     collections.Counter())
         kernels += kernel_entries(kernel, checked[kernel], tally, source,
                                   replaces)
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

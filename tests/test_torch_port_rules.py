@@ -1,6 +1,9 @@
-"""Rules of the port: ``cassmantle_tpu_torch`` and ``chip_smoke.py`` import
-no JAX, no Flax and nothing of the JAX package; and its entry points run
-on the card unless asked for the CPU, raising on a host without CUDA.
+"""Rules of the port: ``cassmantle_tpu_torch`` (every module under it, the
+server's and the fabric's included) and ``chip_smoke.py`` import no JAX,
+no Flax and nothing of the JAX package; and its entry points (the
+pipelines, the service, the device probe and telemetry, the server's
+``build_game``, ``build_fabric`` and ``serve``) run on the card unless
+asked for the CPU, raising on a host without CUDA.
 """
 
 import ast
@@ -63,7 +66,9 @@ def test_importing_the_port_loads_no_jax():
 
 def _entry_points():
     from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.obs.device import DeviceMetrics
     from cassmantle_tpu_torch.ops.blur import device_blur
+    from cassmantle_tpu_torch.server import app
     from cassmantle_tpu_torch.ops.scorer import EmbeddingScorer
     from cassmantle_tpu_torch.serving.pipeline import (
         PromptGenerator,
@@ -71,6 +76,7 @@ def _entry_points():
         TorchContentBackend,
     )
     from cassmantle_tpu_torch.serving.service import InferenceService
+    from cassmantle_tpu_torch.utils.health import DeviceHealth
 
     cfg = test_config()
     return {
@@ -81,12 +87,20 @@ def _entry_points():
         "EmbeddingScorer": lambda: EmbeddingScorer(cfg.models.minilm),
         "device_blur": lambda: device_blur(
             np.zeros((8, 8, 3), np.uint8), 2.0),
+        "DeviceHealth": lambda: DeviceHealth(),
+        "DeviceMetrics": lambda: DeviceMetrics(),
+        "build_game": lambda: app.build_game(cfg),
+        "build_fabric": lambda: app.build_fabric(cfg),
+        "serve_main": lambda: app.main(["--port", "0"]),
     }
 
 
 @pytest.mark.parametrize("name", ["InferenceService", "TorchContentBackend",
                                   "Text2ImagePipeline", "PromptGenerator",
-                                  "EmbeddingScorer", "device_blur"])
+                                  "EmbeddingScorer", "device_blur",
+                                  "DeviceHealth", "DeviceMetrics",
+                                  "build_game", "build_fabric",
+                                  "serve_main"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Called without ``device=``, an entry point asks for CUDA; on a host
     without it, it raises instead of falling back to the CPU."""
