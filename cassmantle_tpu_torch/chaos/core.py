@@ -3,9 +3,10 @@
 A copy of ``cassmantle_tpu/chaos/core.py`` (``:59-438``) with the
 registry trimmed to the serving seam's fault points: ``server.admit``
 (queue admission), ``queue.dispatch`` (the dispatch thread),
-``device.lost`` (the scorer, t2i, sdxl and prompt dispatch regions) and
-``device.poison`` (one corrupted batch member). Disarmed, a fault point
-is one module-global ``None`` check. An armed plan (the reference's
+``device.lost`` (the scorer, t2i, sdxl and prompt dispatch regions),
+``device.poison`` (one corrupted batch member) and
+``stage.denoise.tick`` (once a tick of the staged image server's denoise
+loop). Disarmed, a fault point is one module-global ``None`` check. An armed plan (the reference's
 ``CASSMANTLE_CHAOS`` grammar, given to :func:`configure`, e.g.
 ``"seed=1;device.poison=raise:peer=scorer,times=1"``) decides which hits
 fire; each rule draws from its own PRNG seeded from (plan seed, point,
@@ -50,6 +51,8 @@ FAULT_POINTS: Dict[str, str] = {
                       "(engine/rounds.py; breaker-guarded)",
     "overload.brownout": "brownout-ladder tier evaluation "
                          "(serving/overload.py)",
+    "stage.denoise.tick": "staged denoise step tick "
+                          "(serving/stages.py)",
 }
 
 # the env lever that arms a plan at server boot; it wins over the config

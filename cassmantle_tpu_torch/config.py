@@ -341,6 +341,25 @@ class ServingConfig:
     # dispatch thread this long a batch (serving/fake_scorer.py); 0 keeps
     # the instant hash scorer.
     fake_score_batch_ms: float = 0.0
+    # Stage-disaggregated image serving (serving/stages.py): encode,
+    # denoise and decode as independently batched stages, the denoise
+    # stage admitting and retiring requests at step boundaries over a
+    # fixed slot tensor, so a request arriving mid-denoise of another
+    # starts at the next step instead of waiting a whole image.
+    # CASSMANTLE_NO_STAGED_SERVING=1 is the kill switch; configs the slot
+    # stepper cannot replay (DeepCache, encprop, eta > 0) stay monolithic.
+    staged_serving: bool = False
+    # The denoise stage's slot capacity; a step gathers the live slots
+    # into the smallest width >= occupancy (powers of two up to the
+    # capacity, and the capacity), one captured graph per width.
+    denoise_slots: int = 4
+    # The encode and decode stages' batch buckets (a batch pads to the
+    # next one).
+    stage_encode_batch_sizes: Tuple[int, ...] = (1, 2, 4, 8)
+    stage_decode_batch_sizes: Tuple[int, ...] = (1, 2, 4)
+    # The encode and decode stages' coalescing window: short, since the
+    # denoise stage's step-boundary admission does the real batching.
+    stage_max_delay_ms: float = 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -554,6 +573,15 @@ def spec_decode_serving_config() -> FrameworkConfig:
     greedy decode."""
     return FrameworkConfig(
         spec_decode=SpecDecodeConfig(mode="ngram", gamma=4, ngram=3))
+
+
+def staged_serving_config() -> FrameworkConfig:
+    """DDIM-50 served through the stage graph (serving/stages.py): CLIP
+    encode, the denoise steps and the VAE decode batch independently, and
+    the denoise stage admits and retires requests at step granularity.
+    A solo request's image equals the monolithic path's for the same
+    seed; CASSMANTLE_NO_STAGED_SERVING=1 is the kill switch."""
+    return FrameworkConfig(serving=ServingConfig(staged_serving=True))
 
 
 def test_config() -> FrameworkConfig:

@@ -464,6 +464,34 @@ def _spec_at(spec: dict, index: torch.Tensor):
             tuple(a.index_select(0, index) for a in spec["coefs"]))
 
 
+def _per_slot(column: torch.Tensor) -> torch.Tensor:
+    """A gathered coefficient column (w,) as (w, 1, 1, 1), to broadcast
+    over the slots' latents; a per-step latent row (w, H, W, C), the
+    consistency re-noise ladder's, stays as it is."""
+    return column.view(-1, 1, 1, 1) if column.dim() == 1 else column
+
+
+def slot_spec_at(spec: dict, steps: torch.Tensor):
+    """:func:`_spec_at` for slots at their own schedule positions: the
+    timesteps (w,) and each coefficient column gathered at ``steps`` (w,)
+    long, one per slot, shaped for broadcasting (:func:`_per_slot`)."""
+    return (spec["timesteps"].index_select(0, steps),
+            tuple(_per_slot(a.index_select(0, steps))
+                  for a in spec["coefs"]))
+
+
+def slot_spec_step(spec: dict, denoise: Denoiser, carry: tuple,
+                   steps: torch.Tensor) -> tuple:
+    """One step of solver ``spec`` for slots that each sit at their own
+    step ``steps`` (w,): the spec's own ``x_for`` and ``update`` on the
+    coefficients gathered per slot, ``denoise(x, t (w,))`` once. A solo
+    slot computes :func:`spec_step`'s arithmetic value for value; the
+    caller advances the counters."""
+    t, coefs = slot_spec_at(spec, steps)
+    eps = denoise(spec["x_for"](carry, coefs), t)
+    return spec["update"](carry, eps, coefs)
+
+
 def encprop_segment(spec: dict, denoise_key: Callable,
                     denoise_prop: Callable,
                     denoise_shallow: Optional[Callable], carry: tuple,
@@ -603,6 +631,32 @@ def cfg_denoiser(unet: Callable, context: torch.Tensor,
     def denoise(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         x2, t2 = cfg_double(x, t)
         return cfg_guide(unet(x2, t2, context, *extra), guidance_scale)
+
+    return denoise
+
+
+def make_slot_denoiser(unet: Callable, guidance_scale: float) -> Callable:
+    """The CFG denoiser of the staged step loop (serving/stages.py):
+    ``denoise(x (w, ...), t (w,), context, uncond_context,
+    addition_embeds=None, uncond_addition_embeds=None)``, the
+    conditioning given per call (the slots' rows change between steps)
+    and t one timestep a slot. Otherwise :func:`cfg_denoiser`'s 2w-batch
+    CFG: the same stacking, unconditional rows first, so a solo slot's
+    forward is the monolithic one's."""
+
+    def denoise(x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                uncond_context: torch.Tensor,
+                addition_embeds: Optional[torch.Tensor] = None,
+                uncond_addition_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        inputs = cfg_inputs(context, uncond_context, addition_embeds,
+                            uncond_addition_embeds)
+        extra = (() if inputs["additions"] is None
+                 else (inputs["additions"],))
+        x2 = torch.cat([x, x], dim=0)
+        t2 = torch.cat([t, t], dim=0)
+        return cfg_guide(unet(x2, t2, inputs["context"], *extra),
+                         guidance_scale)
 
     return denoise
 

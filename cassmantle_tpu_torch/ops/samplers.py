@@ -26,6 +26,9 @@ in a step is by a device tensor.
   ladder ``normal(fold_in(PRNGKey(0x1C3), t), (H, W, 4))``, drawn by
   ``utils/jax_random.py`` as the reference's ``jax.random`` draws it (the
   ladder is part of the sampler's result) once a schedule and shape.
+
+:func:`make_slot_sampler` steps the same specs for the staged serving
+path, each slot at its own position (:class:`SlotSampler`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from cassmantle_tpu_torch.ops.ddim import (
     DDIMSchedule,
     alpha_bars_full,
+    slot_spec_step,
     strided_timesteps,
 )
 from cassmantle_tpu_torch.utils import jax_random
@@ -150,7 +154,8 @@ class ConsistencySchedule:
             x = carry[0]
             x0 = (x - c[0] * eps) / c[1]
             f = c[2] * x + c[3] * x0
-            return (c[4] * f + c[5] * c[6][0],)
+            # c[6]: the step's re-noise row (1, H, W, 4), or one a slot
+            return (c[4] * f + c[5] * c[6],)
 
         return {"timesteps": _timesteps(self.timesteps, dev),
                 "coefs": cols + (self.renoise_ladder(latents.shape[1:],
@@ -303,3 +308,63 @@ def make_schedule(kind: str, num_steps: int, consistency: bool = False,
         raise ValueError(f"unknown sampler kind {kind!r}; "
                          f"choose from {SAMPLER_KINDS}")
     return schedules[kind].create(num_steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSampler:
+    """The per-slot sampler of the staged denoise loop
+    (serving/stages.py), :func:`make_slot_sampler`'s result.
+
+    - ``prepare(latents) -> (x, aux)``: x_T into the solver's entry state
+      (the spec's ``init``: Euler's sigma_0 scale, else x_T itself) and
+      the slot's auxiliary state (DPM++'s history m1, entering as zeros;
+      zeros where the solver keeps none);
+    - ``step(denoise, x, aux, steps) -> (x', aux')``: every slot one step
+      from its own position ``steps`` (w,) long, ``denoise(x, t (w,))``
+      once (``ops/ddim.py::slot_spec_step``);
+    - ``num_steps``; ``spec``, the solver spec stepped; ``has_aux``,
+      whether the solver carries aux (DPM++ only)."""
+
+    spec: dict
+    num_steps: int
+    has_aux: bool
+
+    def prepare(self, latents: torch.Tensor):
+        carry = self.spec["init"](latents)
+        x = carry[0]
+        return x, (carry[1] if self.has_aux else torch.zeros_like(x))
+
+    def step(self, denoise, x: torch.Tensor, aux: torch.Tensor,
+             steps: torch.Tensor):
+        carry = (x, aux) if self.has_aux else (x,)
+        out = slot_spec_step(self.spec, denoise, carry, steps)
+        return out[0], (out[1] if self.has_aux else aux)
+
+
+def make_slot_sampler(kind: str, num_steps: int, latents: torch.Tensor,
+                      eta: float = 0.0,
+                      teacher_steps: int = 50) -> SlotSampler:
+    """Port of the reference's ``make_slot_sampler``: the step-granular
+    counterpart of a pipeline's sampler loop for the staged serving
+    path, on ``latents``' device (one row of the latent shape is enough:
+    the consistency ladder takes its row shape). Kinds ddim, euler,
+    dpmpp_2m and consistency; built on the same solver spec the
+    monolithic loop steps (:func:`make_schedule`), so a solo slot's
+    trajectory is the monolithic ``spec_step``'s value for value. eta > 0
+    raises: its per-step noise chain cannot be replayed by a slot
+    admitted mid-flight."""
+    if eta != 0.0:
+        raise ValueError(
+            "staged serving needs a deterministic sampler (eta=0); "
+            "eta>0 carries a per-step noise key chain that step-level "
+            "admission cannot replay")
+    if kind == "consistency":
+        schedule = ConsistencySchedule.create(num_steps, teacher_steps)
+    elif kind in SAMPLER_KINDS:
+        schedule = make_schedule(kind, num_steps)
+    else:
+        raise ValueError(f"unknown sampler kind {kind!r}; choose from "
+                         f"{SAMPLER_KINDS} or 'consistency'")
+    spec = schedule.spec(latents)
+    return SlotSampler(spec=spec, num_steps=int(spec["timesteps"].shape[0]),
+                       has_aux=len(spec["init"](latents[:1])) > 1)

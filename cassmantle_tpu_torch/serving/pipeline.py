@@ -17,7 +17,17 @@ The fused-conv and W8A8 presets build the same models: the UNet with
 build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
 A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
-``TPUContentBackend`` does. Staged serving is a later slice.
+``TPUContentBackend`` does.
+
+Staged serving (``ServingConfig.staged_serving``, ``serving/stages.py``):
+with no brownout tier engaged and the reference's gating met
+(:meth:`Text2ImagePipeline._staged_enabled`), ``generate`` hands the
+request to the pipeline's :class:`~cassmantle_tpu_torch.serving.stages.
+StagedImageServer`: CLIP, the denoise steps and the VAE as independently
+batched stages, the denoise admitting requests at step boundaries. The
+stages run this module's own CLIP block and VAE tail
+(:meth:`Text2ImagePipeline.encode_ids`, :meth:`_decode_stage`) and the
+same x_T draw, so a solo request's image is the monolithic one's.
 
 Brownout tiers (``serving/overload.py``): while the ladder is above tier
 0, ``generate`` serves the tier's degraded ``SamplerConfig``
@@ -552,6 +562,14 @@ class Text2ImagePipeline(_ReloadsParams):
         # before its uint8 quantisation
         self.last_stage_seconds: Dict[str, float] = {}
         self.last_decoded_finite = True
+        # the serving supervisor (set by InferenceService): the staged
+        # server's stage progress and quarantines report to it
+        self.supervisor = None
+        # the staged server, made at the first staged generate (one
+        # denoise thread a pipeline) and dropped by reload_params
+        self._staged = None
+        self._staged_init_lock = OrderedLock("pipeline.staged_init",
+                                             rank=13)
 
     def _build(self, factory: Callable[[], torch.nn.Module], kind: str,
                state_dict: Optional[Mapping],
@@ -574,17 +592,24 @@ class Text2ImagePipeline(_ReloadsParams):
                          converter_for(kind, self.cfg.models), state_dict,
                          quant_dtype)
 
+    def _tokenize_host(self, prompts: Sequence[str]) -> np.ndarray:
+        return tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
+                                     self.cfg.models.clip_text.vocab_size)
+
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
-        ids = tokenize_clip_prompts(self.tokenizer, prompts, self.pad_len,
-                                    self.cfg.models.clip_text.vocab_size)
-        return torch.from_numpy(ids).long().to(self.device)
+        return torch.from_numpy(self._tokenize_host(prompts)).long().to(
+            self.device)
 
     def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         """The CFG conditioning of ``prompts`` and the negative prompt, as
         :func:`cfg_inputs`'s keyword arguments."""
-        ids = self._tokenize(prompts)
-        uncond_ids = self._tokenize(
-            [self.cfg.sampler.negative_prompt] * len(prompts))
+        return self.encode_ids(self._tokenize(prompts), self._tokenize(
+            [self.cfg.sampler.negative_prompt] * len(prompts)))
+
+    def encode_ids(self, ids: torch.Tensor,
+                   uncond_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """:meth:`encode` from token ids (B, pad) of the prompts and of
+        the negative prompt."""
         return {"context": self.clip(ids)["hidden"],
                 "uncond_context": self.clip(uncond_ids)["hidden"]}
 
@@ -671,15 +696,99 @@ class Text2ImagePipeline(_ReloadsParams):
             self.tier_variants[key] = variant
         return variant
 
+    # -- staged serving (serving/stages.py) --------------------------------
+    def _staged_enabled(self) -> bool:
+        """The reference's per-call routing decision, less its mesh term
+        (the port serves one device): the config's ``staged_serving``,
+        minus the kill switch CASSMANTLE_NO_STAGED_SERVING, minus what the
+        slot stepper cannot replay (DeepCache's pairs, encprop's segments,
+        eta > 0's noise chain, a kind outside ``STAGEABLE_KINDS``)."""
+        from cassmantle_tpu_torch.serving.stages import (
+            STAGEABLE_KINDS,
+            staged_serving_disabled,
+        )
+
+        s = self.cfg.sampler
+        return (self.cfg.serving.staged_serving
+                and not staged_serving_disabled()
+                and not s.deepcache
+                and not s.encprop
+                and s.eta == 0.0
+                and s.kind in STAGEABLE_KINDS)
+
+    def _encode_stage(self, ids: torch.Tensor,
+                      uncond_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The encode stage: :meth:`encode_ids` under the reference's key
+        names (ctx, uctx; SDXL's add, uadd)."""
+        cond = self.encode_ids(ids, uncond_ids)
+        out = {"ctx": cond["context"], "uctx": cond["uncond_context"]}
+        if cond.get("addition_embeds") is not None:
+            out["add"] = cond["addition_embeds"]
+            out["uadd"] = cond["uncond_addition_embeds"]
+        return out
+
+    def _decode_stage(self, latents: torch.Tensor) -> torch.Tensor:
+        """The decode stage: the monolithic path's VAE and uint8 tail."""
+        return postprocess_images(self.vae(latents))
+
+    def _staged_server(self):
+        """The pipeline's staged server, made on first use."""
+        if self._staged is None:
+            with self._staged_init_lock:
+                if self._staged is None:
+                    from cassmantle_tpu_torch.serving.stages import (
+                        StagedImageServer,
+                    )
+
+                    self._staged = StagedImageServer(
+                        self.cfg, self.device,
+                        encode_fn=self._encode_stage,
+                        decode_fn=self._decode_stage, unet=self.unet,
+                        tokenize=self._tokenize_host,
+                        vae_scale=self.vae_scale,
+                        supervisor=self.supervisor)
+        return self._staged
+
+    def drop_staged(self) -> None:
+        """Stop and drop the staged server; the next staged generate
+        makes a new one."""
+        staged, self._staged = self._staged, None
+        if staged is not None:
+            try:
+                staged.stop()
+            except Exception:  # noqa: BLE001 — dropped either way
+                log.exception("staged server stop failed")
+
+    def reload_params(self) -> None:
+        """The device-loss rebuild: the staged server is stopped and
+        dropped (it restarts on the next generate), then every model is
+        rebuilt in place (:class:`_ReloadsParams`)."""
+        self.drop_staged()
+        super().reload_params()
+
     def generate(self, prompts: Sequence[str], seed: int = 0,
-                 latents: Optional[torch.Tensor] = None) -> np.ndarray:
+                 latents: Optional[torch.Tensor] = None,
+                 deadline_s: Optional[float] = None) -> np.ndarray:
         """prompts -> (B, H, W, 3) uint8 host array. ``latents`` (B, h, w, 4)
         replaces the seeded x_T (the parity tests feed the reference's).
         The device work runs under the dispatch lock; a degenerate
         (constant) frame raises ``OutputInvalid``. The active brownout
         tier (``serving/overload.py::quality_overrides``) serves its own
         variant (:meth:`tier_variant`): its steps, loop and size, through
-        its own captured graphs; tier 0 is the untouched path."""
+        its own captured graphs; tier 0 is the untouched path. With
+        staged serving enabled (:meth:`_staged_enabled`) and no tier
+        engaged, the staged server serves the request instead, honoring
+        ``deadline_s`` at step boundaries (the monolithic dispatch is
+        all or nothing and ignores it)."""
+        if (self._staged_enabled()
+                and self.tier_variant(quality_overrides()) is None):
+            out = self._staged_server().generate(
+                prompts, seed, deadline_s=deadline_s, latents=latents)
+            note_dispatch(self.PIPELINE)
+            metrics.inc("pipeline.sdxl_images" if self.PIPELINE == "sdxl"
+                        else "pipeline.images", len(out))
+            note_consistency_counter(self.full_variant.sampler_cfg, len(out))
+            return out
         with self._dispatch_lock:
             variant = self.tier_variant(quality_overrides())
             fault_point("device.lost", peer=self.PIPELINE)

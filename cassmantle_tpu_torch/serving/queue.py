@@ -116,11 +116,15 @@ class _DispatchWorker:
     call ever returns), re-queues any jobs it hadn't started, and starts
     a fresh thread, without ever pinning process exit."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str = "queue.dispatch_worker",
+                 rank: int = 20) -> None:
         # lock hierarchy: worker bookkeeping nests inside nothing and may
-        # precede supervisor state
-        self.name = "queue.dispatch_worker"
-        self._lock = OrderedLock(self.name, rank=20)
+        # precede supervisor state. The staged image server builds
+        # workers of its own (stage.encode_dispatch 21,
+        # stage.decode_dispatch 22), so each stage dispatches apart from
+        # the process-global worker.
+        self.name = name
+        self._lock = OrderedLock(name, rank=rank)
         self._jobs: Optional[_thread_queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -175,6 +179,28 @@ class _DispatchWorker:
             self._jobs.put((fn, args, cf, started))
             return cf, started
 
+    def stop(self, timeout_s: float = 5.0) -> None:
+        """Retire a dedicated worker's thread when its queue stops: the
+        retire sentinel, then a bounded join; a thread still running (a
+        wedged handler) is disowned, counted and flight-recorded. The
+        process-global worker is never stopped."""
+        with self._lock:
+            jobs, thread = self._jobs, self._thread
+            self._jobs = None
+            self._thread = None
+        if jobs is not None:
+            jobs.put(None)
+        if thread is not None and thread.is_alive():
+            thread.join(timeout=timeout_s)
+            if thread.is_alive():
+                metrics.inc("dispatch.stop_overruns")
+                flight_recorder.record("dispatch.stop_overrun",
+                                       worker=self.name,
+                                       timeout_s=timeout_s)
+                log.warning("%s dispatch thread still running %.1fs after "
+                            "stop; disowning it (wedged handler?)",
+                            self.name, timeout_s)
+
     def replace(self) -> None:
         """Disown a wedged thread and start a fresh one. Jobs the old
         thread had not started move to the new thread; the in-flight call
@@ -227,13 +253,17 @@ class BatchingQueue(Generic[T, R]):
         hang_timeout_s: Optional[float] = None,
         supervisor=None,
         degraded_max_pending: Optional[int] = None,
+        dispatcher: Optional[_DispatchWorker] = None,
         admission=None,
         background_every: int = 8,
         on_dispatch_error: Optional[Callable[[BaseException], None]]
         = None,
     ) -> None:
-        # the process-global worker: device work serializes there
-        self._dispatcher = _dispatcher
+        # the process-global worker, where device work serializes, unless
+        # the queue is given a dedicated one (the staged image server's
+        # encode and decode stages)
+        self._dispatcher = (dispatcher if dispatcher is not None
+                            else _dispatcher)
         self.handler = handler
         self.max_batch = max_batch
         self.max_delay_s = max_delay_ms / 1000.0
@@ -311,6 +341,10 @@ class BatchingQueue(Generic[T, R]):
             stopped += 1
         if stopped:
             metrics.inc(f"{self.name}.stopped_pending", stopped)
+        # a dedicated dispatch worker dies with its queue; the shared one
+        # outlives any one queue
+        if self._dispatcher is not _dispatcher:
+            self._dispatcher.stop()
 
     def _expire(self, fut: asyncio.Future) -> None:
         if not fut.done():

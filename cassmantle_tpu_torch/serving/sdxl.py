@@ -28,10 +28,15 @@ replays its captured bodies per batch size, whose static inputs include
 the addition embeds. A brownout tier serves its own variant as at SD1.5,
 its micro-conditioning time ids at the tier's image size (built once a
 size, swapped into the addition embeds by ``denoise``). The reference's
-SDXL pipeline has no img2img; nor has this one. Its data-parallel
-padding, staged serving and W8A8 UNet are later slices: the port's config
-has no field for the first two yet, and a W8A8 or fused-conv SDXL UNet
-raises ``NotImplementedError``.
+SDXL pipeline has no img2img; nor has this one. Staged serving
+(``ServingConfig.staged_serving``) serves SDXL as SD1.5
+(``Text2ImagePipeline.generate``): its encode stage is :meth:`encode_ids`
+(both towers and the micro-conditioning: ctx, uctx, add, uadd), its
+denoise slots carry the addition embeds beside the contexts, and
+``reload_params`` drops the staged server. Its data-parallel padding and
+W8A8 UNet are later slices: the port's config has no field for the
+first, and a W8A8 or fused-conv SDXL UNet raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -178,16 +183,14 @@ class SDXLPipeline(Text2ImagePipeline):
             "img2img is an SD1.5 pipeline path; the reference's SDXL "
             "pipeline has none")
 
-    def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Both towers over the prompts and the negative prompt: the
-        contexts and the micro-conditioning vectors of the CFG batch, at
-        the configured size."""
-        ids = self._tokenize(prompts)
-        uncond_ids = self._tokenize(
-            [self.cfg.sampler.negative_prompt] * len(prompts))
+    def encode_ids(self, ids: torch.Tensor,
+                   uncond_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Both towers over the prompts' and the negative prompt's ids:
+        the contexts and the micro-conditioning vectors of the CFG batch,
+        at the configured size."""
         ctx, pooled = self._encode(ids)
         uncond_ctx, uncond_pooled = self._encode(uncond_ids)
-        time_ids = self.time_ids.expand(len(prompts), -1)
+        time_ids = self.time_ids.expand(len(ids), -1)
         return {"context": ctx, "uncond_context": uncond_ctx,
                 "addition_embeds": torch.cat([pooled, time_ids], dim=-1),
                 "uncond_addition_embeds": torch.cat(

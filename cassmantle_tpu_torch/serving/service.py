@@ -103,6 +103,9 @@ class InferenceService:
         self.backend = TorchContentBackend(cfg, self.device,
                                            state_dicts=sd,
                                            weights_dir=weights_dir)
+        # the image pipeline's staged server reports stage progress and
+        # quarantines to the same supervisor as the queues
+        self.backend.t2i.supervisor = self.supervisor
         self._warm_count = 0
         self.recovery = DeviceRecoveryManager(
             supervisor=self.supervisor,
@@ -255,8 +258,10 @@ class InferenceService:
     def rebuild_device_state(self) -> None:
         """One rebuild attempt (on the recovery thread): every pipeline's
         and the scorer's models are built again on the device and copied
-        into the served parameters in place. Raises on failure (a sticky
-        CUDA error fails every attempt); the manager owns the retries."""
+        into the served parameters in place; the image pipeline's staged
+        server is dropped, to restart on the next generate. Raises on
+        failure (a sticky CUDA error fails every attempt); the manager
+        owns the retries."""
         for pipe in self._pipelines():
             pipe.reload_params()
         self.scorer.reload_params()
@@ -275,6 +280,9 @@ class InferenceService:
     async def stop(self) -> None:
         await self.score_queue.stop()
         await self.prompt_queue.stop()
+        # the staged server's threads hold the image pipeline
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.backend.t2i.drop_staged)
 
 
 class _QueuedContentBackend:

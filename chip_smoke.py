@@ -177,9 +177,30 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    ``_build/serve_cli.log``: /readyz 200 within 240 s, one session,
    /healthz's CUDA probe, then SIGINT: exit 0 within 30 s after the
    graceful handoff (SIGKILL and reaped otherwise, on every path).
-   Boot-to-ready seconds.
+   Boot-to-ready seconds;
+16. the staged image server ([staged], ``serving/stages.py``):
+   ``staged_serving_config()`` through ``InferenceService`` (a round's
+   image on the staged path); solo images bit-equal to the monolithic
+   path's for DDIM (one and two prompts), DPM++(2M), Euler, consistency
+   and SDXL at 1024²; a mixed run (A; B, two prompts, admitted 5 steps
+   in; C 5 steps after A retires) through widths 4, 2 and 1, each image
+   within the monolithic path's own batch variance (row 0 of a
+   two-prompt batch against the solo image) plus 0.5 of a level on the
+   mean and 2 at the max, each width's graph captured once and
+   bit-equal to its eager step (and widths 1 and 2 on identical rows
+   reported); a deadline preempting at a step boundary beside a
+   neighbour that finishes within the yardstick; a poisoned slot
+   quarantined, scrubbed and clean for the next request; a profiled
+   window at occupancy 4 (idle share <= 0.10, no synchronize call);
+   each width's step ms, capture s and pool; the reference's Poisson
+   A/B (12 requests at 0.6 a second, sizes 1, 1, 2) staged against
+   monolithic on one pipeline; the fused-conv and W8A8 UNets staged
+   (solo parity, a two-request run). Every staged launch is held to the
+   shapes phase 2 checks, on the flash path its check took.
 
-Prints its total seconds, one ``kernels`` JSON line, the card line, and
+Prints a ``[time]`` line after each phase, its total seconds, one
+``kernels`` JSON line (each entry's launches and its ``staged_launches``),
+the card line, and
 as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and
 prints no result.
@@ -189,6 +210,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import faulthandler
 import gc
 import json
 import logging
@@ -266,6 +288,16 @@ FLASH_SHAPES = {
     "cross_l1_256_b8": (8, 256, 77, 8, 80, "cross"),
     "self_l2_256_b8": (8, 64, 64, 8, 160, "self"),
     "cross_l2_256_b8": (8, 64, 77, 8, 160, "cross"),
+    # the staged server (serving/stages.py, 4 slots): a step runs the full
+    # UNet at batch 2w for widths 1, 2 and 4, so at batch 4 and 8 too
+    # (levels 0-2 are the *_b4 and *_b8 shapes above; the mid block
+    # here), and the decode stage's VAE at batch 2 and 4
+    "self_mid_b4": (4, 64, 64, 8, 160, "self"),
+    "cross_mid_b4": (4, 64, 77, 8, 160, "cross"),
+    "self_mid_b8": (8, 64, 64, 8, 160, "self"),
+    "cross_mid_b8": (8, 64, 77, 8, 160, "cross"),
+    "vae_mid_b2": (2, 4096, 4096, 1, 512, "separate"),
+    "vae_mid_b4": (4, 4096, 4096, 1, 512, "separate"),
 }
 # Flash launches of one SD1.5 UNet forward by mode (its transformer
 # blocks, one self and one cross attention each): a full forward runs 16
@@ -371,6 +403,16 @@ ROUND_FLASH.update({
     "sdxl@t1": tier_flash({"sdxl_full": 30}, "vae_mid_xl"),
     "sdxl@t4": tier_flash({"sdxl_full_512": 30}, "vae_mid"),
 })
+# The staged server's shapes ([staged], 4 slots): one step at each width
+# 1, 2 and 4 (a full SD1.5 forward at batch 2, 4 and 8: levels 0-2 at the
+# *_b4 and *_b8 shapes, the mid block at its own) and one decode at each
+# decode batch 1, 2 and 4 (the VAE mid block). Its runs' launches are
+# tallied as they ran (staged_shape_gaps holds them to phase 2's shapes).
+ROUND_FLASH["staged"] = {
+    **UNET_FLASH["full"],
+    **{f"{name}_b{b}": n for b in (4, 8)
+       for name, n in UNET_FLASH["full"].items()},
+    "vae_mid": 1, "vae_mid_b2": 1, "vae_mid_b4": 1}
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # blocks' D = 512 on mma.sync (ops/_flash_plan.py)
 ROUND_FLASH_PATHS = {
@@ -439,18 +481,21 @@ VAE_CONV_SHAPES = {
 }
 
 
-def unet_matmul_shapes(size: int) -> dict:
-    """Every W8A8 dense site of one SD1.5 UNet forward with CFG at
-    ``size`` pixels, (M, K, N) -> launches (16 transformer blocks x 7:
-    self qkv and out, cross q, kv and out, GEGLU proj and out). M = 2 x
-    tokens; the cross kv reads the 2 x 77 context."""
+def unet_matmul_shapes(size: int, batch: int = 2) -> dict:
+    """Every W8A8 dense site of one SD1.5 UNet forward at ``size`` pixels
+    and ``batch`` (2: one image's CFG pair), (M, K, N) -> launches (16
+    transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
+    proj and out). M = batch x tokens; the cross kv reads the batch x 77
+    context."""
     tokens = (size // 8) ** 2
     out = {}
-    for c, m, blocks in ((320, 2 * tokens, 5), (640, tokens // 2, 5),
-                         (1280, tokens // 8, 5), (1280, tokens // 32, 1)):
+    for c, m, blocks in ((320, batch * tokens, 5),
+                         (640, batch * tokens // 4, 5),
+                         (1280, batch * tokens // 16, 5),
+                         (1280, batch * tokens // 64, 1)):
         for shape, n in (((m, c, 3 * c), 1), ((m, c, c), 3),
                          ((m, c, 8 * c), 1), ((m, 4 * c, c), 1),
-                         ((154, 768, 2 * c), 1)):
+                         ((batch * 77, 768, 2 * c), 1)):
             out[shape] = out.get(shape, 0) + n * blocks
     return out
 
@@ -476,14 +521,21 @@ TIER_CONV_SHAPES = conv_shapes_at(CONV_SHAPES, 256)
 TIER_UNET_MATMUL_SHAPES = unet_matmul_shapes(256)
 VAE_CONV_SHAPES["sd15_256"] = conv_shapes_at(VAE_CONV_SHAPES["sd15"],
                                              256)
+# the staged server's two-request runs of the fused-conv and W8A8 presets
+# (widths 1 and 2): the UNet's convs and W8A8 sites at batch 4 beside 2
+STAGED_CONV_SHAPES = {(4,) + shape[1:]: n for shape, n in CONV_SHAPES.items()}
+STAGED_UNET_MATMUL_SHAPES = unet_matmul_shapes(512, batch=4)
 # the shapes phase 2 holds each kernel at against its plain version
 FUSED_CHECK_SHAPES = list(dict.fromkeys(
     [*CONV_SHAPES, *TIER_CONV_SHAPES,
-     *(shape for table in VAE_CONV_SHAPES.values() for shape in table)]))
+     *(shape for table in VAE_CONV_SHAPES.values() for shape in table),
+     *STAGED_CONV_SHAPES]))
 MATMUL_CHECK_SHAPES = list(dict.fromkeys(
-    [*UNET_MATMUL_SHAPES, *TIER_UNET_MATMUL_SHAPES, *LM_MATMUL_SHAPES]))
+    [*UNET_MATMUL_SHAPES, *TIER_UNET_MATMUL_SHAPES, *LM_MATMUL_SHAPES,
+     *STAGED_UNET_MATMUL_SHAPES]))
 INT8_CONV_CHECK_SHAPES = list(dict.fromkeys([*CONV_SHAPES,
-                                             *TIER_CONV_SHAPES]))
+                                             *TIER_CONV_SHAPES,
+                                             *STAGED_CONV_SHAPES]))
 ROUND_FUSED_LAUNCHES = 44 * UNET_FORWARDS                     # 2,200
 ROUND_UNET_MATMUL_LAUNCHES = 112 * UNET_FORWARDS              # 5,600
 ROUND_LM_MATMUL_LAUNCHES = 72 * LM_FORWARDS                   # 6,912
@@ -3526,10 +3578,23 @@ def check_game(svc, card: str) -> tuple:
         return {str(m): f"gm{i}q{j}z{i * 7919 % 104729}x"
                 for j, m in enumerate(masks)}
 
-    async def timed(coro):
+    sheds = [0]
+
+    async def timed(call):
+        """``await call()`` and its seconds; a guess the adaptive
+        admission sheds (a 503 with Retry-After over HTTP) is retried
+        after its Retry-After, as a player's client does, and counted.
+        The shed raises before the session is touched."""
+        from cassmantle_tpu_torch.serving.queue import OverloadShed
+
         t = time.perf_counter()
-        out = await coro
-        return out, time.perf_counter() - t
+        for _ in range(20):
+            try:
+                return await call(), time.perf_counter() - t
+            except OverloadShed as exc:
+                sheds[0] += 1
+                await asyncio.sleep(exc.retry_after_s)
+        return await call(), time.perf_counter() - t
 
     promote_s = []
     real_promote = game.rounds.promote_buffer
@@ -3560,13 +3625,15 @@ def check_game(svc, card: str) -> tuple:
         inputs = [guesses_for(i, masks) for i in range(GAME_SESSIONS)]
         hits, batches = count("scorer.table_hits"), count("score.batches")
         scored = await asyncio.gather(*(
-            timed(game.compute_client_scores(s, inputs[i]))
+            timed(lambda s=s, i=i: game.compute_client_scores(s, inputs[i]))
             for i, s in enumerate(sessions)))
+        report["guess_sheds_retried"] = sheds[0]
         report["score_batches"] = count("score.batches") - batches
         report["table_hits"] = count("scorer.table_hits") - hits
         misses = count("game.image_cache_misses")
         rendered = await asyncio.gather(*(
-            timed(game.fetch_masked_image_b64(s)) for s in sessions))
+            timed(lambda s=s: game.fetch_masked_image_b64(s))
+            for s in sessions))
         image_size = (await game.rounds.fetch_current_image()).shape
         checks["masked_images_size"] = all(
             decode(b64).shape == image_size for b64, _ in rendered[::64])
@@ -3631,8 +3698,10 @@ def check_game(svc, card: str) -> tuple:
 
         # varied scores again, then the coarse-blur tier
         few = sessions[:64]
-        await asyncio.gather(*(game.compute_client_scores(
-            s, guesses_for(i, after["masks"])) for i, s in enumerate(few)))
+        await asyncio.gather(*(timed(
+            lambda s=s, i=i: game.compute_client_scores(
+                s, guesses_for(i, after["masks"])))
+            for i, s in enumerate(few)))
         radii = [await game._reveal_radius(s) for s in few]
         fine = sorted({overload.quantize_blur_radius(r) for r in radii})
         engine, ladder = brownout_ladder()
@@ -4703,13 +4772,587 @@ def check_serve_cli(card: str) -> tuple:
     return ok, log_tail(SERVE_CLI_LOG)
 
 
-def kernel_entries(kernel, rows, tally, source, replaces):
+# -- [staged]: the staged image server (serving/stages.py) ---------------------
+
+STAGED_PROMPTS = (
+    "A watercolor style piece depicting: a lighthouse at dusk.",
+    "A vaporwave style piece depicting: the comet market.",
+    "An art deco style piece depicting: a night train between cities.",
+    "A woodcut style piece depicting: an orchard in the snow.")
+# the reference's load A/B (bench.py bench_sd15_staged): 12 Poisson
+# arrivals at 0.6 a second, sizes 1, 1, 2 drawn from seed 0, open loop
+AB_REQUESTS, AB_RATE = 12, 0.6
+# a mixed run's hold: the next request is admitted this many steps after
+# the boundary it waits for
+STAGED_GAP_STEPS = 5
+STAGED_STEP_REPS = 10          # replays a width's step time averages
+STAGED_IDLE_MAX = 0.10         # device idle share at occupancy 4
+STAGED_MEAN_SLACK, STAGED_MAX_SLACK = 0.5, 2   # levels over the yardstick
+# {kernel: Counter of launches per shape} of the staged runs, by run
+STAGED_TALLIES = {}
+# the served presets' [profile] readings, by preset
+PROFILES = {}
+
+
+def poisson_mixed_schedule(n: int, rate_rps: float, seed: int = 0):
+    """The reference's ``bench.py::_poisson_mixed_schedule``: Poisson
+    arrival offsets and request sizes (2:1 one image and two), from a
+    seed, so both arms replay one schedule."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate_rps, size=n)
+    arrivals = np.concatenate([[0.0], np.cumsum(gaps)[:-1]])
+    sizes = rng.choice([1, 1, 2], size=n)
+    return arrivals, sizes
+
+
+def with_staging(cfg):
+    import dataclasses
+
+    return cfg.replace(serving=dataclasses.replace(cfg.serving,
+                                                   staged_serving=True))
+
+
+def monolithic(pipe, prompts, seed=0, latents=None):
+    """``pipe.generate`` under CASSMANTLE_NO_STAGED_SERVING=1."""
+    key = "CASSMANTLE_NO_STAGED_SERVING"
+    os.environ[key] = "1"
+    try:
+        return pipe.generate(list(prompts), seed=seed, latents=latents)
+    finally:
+        os.environ.pop(key, None)
+
+
+def image_diff(a, b) -> dict:
+    import numpy as np
+
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"mean": float(d.mean()), "max": int(d.max())}
+
+
+def within_yardstick(diff: dict, yard: dict) -> bool:
+    return (diff["mean"] <= yard["mean"] + STAGED_MEAN_SLACK
+            and diff["max"] <= yard["max"] + STAGED_MAX_SLACK)
+
+
+def batch_yardstick(pipe, prompt: str, other: str, seed: int) -> dict:
+    """The monolithic path's own batch variance: ``prompt``'s x_T row
+    (its seed's one-row draw) as row 0 of a two-prompt batch beside
+    ``other``, against its solo image."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.ddim import initial_latents
+
+    s = pipe.cfg.sampler
+    rows = [initial_latents(torch.Generator(pipe.device).manual_seed(k), 1,
+                            s.image_size, pipe.vae_scale, device=pipe.device)
+            for k in (seed, seed + 1000)]
+    pair = monolithic(pipe, [prompt, other], latents=torch.cat(rows))
+    return image_diff(pair[:1], monolithic(pipe, [prompt], seed))
+
+
+def solo_parity(pipe, prompts, seed) -> dict:
+    """The staged image against the monolithic one, same seed."""
+    import numpy as np
+
+    want = monolithic(pipe, prompts, seed)
+    got = pipe.generate(list(prompts), seed=seed)
+    return {"prompts": len(prompts), "bit_equal": bool(np.array_equal(
+        got, want)), **image_diff(got, want)}
+
+
+def hold_until_queued(srv, ready):
+    """A denoise-thread hook: at the first boundary where ``ready(srv)``,
+    hold until the next request has reached the admission queue (it is
+    then admitted at this boundary)."""
+    state = {"held": 0}
+
+    def hook(s):
+        if state["held"] < len(ready) and ready[state["held"]](s):
+            deadline = time.monotonic() + 60.0
+            while (s._admit_q.empty() and not s._pend
+                   and time.monotonic() < deadline
+                   and not s._stop_evt.is_set()):
+                time.sleep(0.001)
+            state["held"] += 1
+
+    return hook
+
+
+def mixed_run(pipe, requests, gap=STAGED_GAP_STEPS):
+    """Requests ``[(prompts, seed), ...]`` through the staged server, each
+    after the first admitted ``gap`` steps into a boundary: the second
+    while the first is in flight, each later one ``gap`` steps after the
+    previous request's first retirement. Returns the images in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    srv = pipe._staged_server()
+    base = dict(srv.stats)
+
+    def after_admission(s):
+        return (s.stats["admissions"] > base["admissions"]
+                and s.stats["steps"] - base["steps"] >= gap)
+
+    marks = {}
+
+    def after_retirement(k):
+        def ready(s):
+            done = s.stats["retirements"] - base["retirements"]
+            if done < k:
+                return False
+            marks.setdefault(k, s.stats["steps"])
+            return s.stats["steps"] - marks[k] >= gap
+        return ready
+
+    conds = [after_admission] + [after_retirement(sum(
+        len(p) for p, _ in requests[:i])) for i in range(1, len(requests))]
+    srv._on_step = hold_until_queued(srv, conds[:len(requests) - 1])
+    try:
+        with ThreadPoolExecutor(max_workers=len(requests)) as ex:
+            futs = []
+            for i, (prompts, seed) in enumerate(requests):
+                if i:
+                    deadline = time.monotonic() + 120.0
+                    while (not conds[i - 1](srv)
+                           and time.monotonic() < deadline):
+                        time.sleep(0.001)
+                futs.append(ex.submit(pipe.generate, list(prompts), seed))
+            return [f.result(timeout=300) for f in futs]
+    finally:
+        srv._on_step = None
+
+
+def staged_tally(name: str, fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after; the tallies kept under ``name``."""
+    reset_all_counters()
+    out = fn()
+    STAGED_TALLIES[name] = read_tallies()
+    return out
+
+
+def staged_profile(pipe) -> dict:
+    """A window of the staged loop at occupancy 4 (one four-prompt
+    request, admitted at one boundary) under ``torch.profiler``, from
+    its 5th step for 15: the device's busy ms (its kernels and copies;
+    one stream runs) over the window's host wall, the kernels per step,
+    and the host's launch, copy and synchronize calls, by name, that
+    start inside a ``record_function`` range marking the window on this
+    thread (the profiler's own closing synchronize falls outside; the
+    copies are the verdicts' async copies to pinned memory). The
+    profiler's device timestamps are not clipped to the range: they sit
+    on another clock."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from torch.autograd import DeviceType
+
+    srv = pipe._staged_server()
+    base = dict(srv.stats)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(pipe.generate, list(STAGED_PROMPTS), 500)
+        deadline = time.monotonic() + 120.0
+        while (srv.stats["steps"] - base["steps"] < 5
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        occupancy = srv._active_n
+        with device_profile() as prof:
+            with torch.profiler.record_function("staged.window"):
+                s0 = srv.stats["steps"]
+                t0 = time.perf_counter()
+                while (srv.stats["steps"] - s0 < 15
+                       and time.monotonic() < deadline):
+                    time.sleep(0.001)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                steps = srv.stats["steps"] - s0
+        images = fut.result(timeout=300)
+    counts = trace_counts(prof, max(steps, 1))
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    window = next(e for e in cpu if e.name == "staged.window")
+    lo, hi = window.time_range.start, window.time_range.end
+    inside = [e.name for e in cpu if lo <= e.time_range.start <= hi]
+    syncs = collections.Counter(n for n in inside if HOST_SYNC.search(n))
+    copies = collections.Counter(n for n in inside if HOST_COPY.search(n))
+    busy = counts["device_busy_ms"] * max(steps, 1)
+    return {"occupancy": occupancy, "steps_in_window": steps,
+            "window_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "kernels_per_step": counts["kernels_per_step"],
+            "host_launches_per_step": counts["host_launches_per_step"],
+            "host_launch_calls": counts["host_launch_calls"],
+            "host_copy_calls": dict(copies),
+            "host_sync_calls": dict(syncs),
+            "flash_launches_per_step": counts.get(
+                "flash_attention_launches_per_step"),
+            "images_valid": int(images.max()) > int(images.min())}
+
+
+def load_ab(pipe) -> dict:
+    """The reference's staged-vs-monolithic A/B on one pipeline: the same
+    Poisson schedule through each arm, open loop (a late completion
+    delays no arrival), the monolithic arm under the kill switch, every
+    graph both arms replay already captured by the phase. Images/s,
+    request p50/p99; for the staged arm the mean slot occupancy. Every
+    request must return valid images."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    arrivals, sizes = poisson_mixed_schedule(AB_REQUESTS, AB_RATE, seed=0)
+    srv = pipe._staged_server()
+
+    def arm(staged_arm: bool) -> dict:
+        key = "CASSMANTLE_NO_STAGED_SERVING"
+        if not staged_arm:
+            os.environ[key] = "1"
+        try:
+            base = dict(srv.stats)
+            lats = [0.0] * AB_REQUESTS
+            outs = [None] * AB_REQUESTS
+            start = time.perf_counter()
+
+            def one(i):
+                delay = start + float(arrivals[i]) - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                prompts = list((STAGED_PROMPTS * 2)[i % 4:][: int(sizes[i])])
+                t0 = time.perf_counter()
+                outs[i] = pipe.generate(prompts, seed=100 + i)
+                lats[i] = time.perf_counter() - t0
+
+            def run():
+                with ThreadPoolExecutor(max_workers=AB_REQUESTS) as ex:
+                    for f in [ex.submit(one, i)
+                              for i in range(AB_REQUESTS)]:
+                        f.result(timeout=600)
+
+            if staged_arm:
+                staged_tally("staged", run)
+            else:
+                run()
+            elapsed = time.perf_counter() - start
+        finally:
+            os.environ.pop(key, None)
+        images = sum(o.shape[0] for o in outs)
+        lat = np.sort(np.asarray(lats))
+        res = {"images": images, "elapsed_s": elapsed,
+               "images_per_s": images / elapsed,
+               "p50_s": float(np.percentile(lat, 50)),
+               "p99_s": float(np.percentile(lat, 99)),
+               "valid": all(o.dtype == np.uint8 and int(o.max())
+                            > int(o.min()) for o in outs)}
+        if staged_arm:
+            steps = srv.stats["steps"] - base["steps"]
+            res["mean_slot_occupancy"] = (
+                (srv.stats["slot_steps"] - base["slot_steps"])
+                / max(1, steps * srv.capacity))
+            res["steps"] = steps
+        return res
+
+    return {"schedule": {"requests": AB_REQUESTS, "rate_rps": AB_RATE,
+                         "images": int(sizes.sum())},
+            "monolithic": arm(False), "staged": arm(True)}
+
+
+def sampler_parity(name: str, cfg) -> dict:
+    """One more sampler's staged solo image against its monolithic one,
+    on a pipeline of its own (dropped after)."""
+    import torch
+
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+
+    pipe = Text2ImagePipeline(cfg)
+    try:
+        res = solo_parity(pipe, STAGED_PROMPTS[:1], 7)
+        res["kind"] = pipe._staged.slot_kind
+        res["slot_steps"] = pipe._staged.num_steps
+    finally:
+        pipe.drop_staged()
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_staged(card: str) -> tuple:
+    """The [staged] phase: returns (ok, report)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import (
+        FrameworkConfig,
+        fast_serving_config,
+        fusedconv_serving_config,
+        lcm_serving_config,
+        sdxl_config,
+        staged_serving_config,
+        w8a8_serving_config,
+    )
+
+    from cassmantle_tpu_torch import chaos
+    from cassmantle_tpu_torch.obs.recorder import flight_recorder
+    from cassmantle_tpu_torch.serving.integrity import OutputInvalid
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+    from cassmantle_tpu_torch.serving.queue import DeadlineExceeded
+    from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+    from cassmantle_tpu_torch.serving.service import InferenceService
+
+    t_phase = time.perf_counter()
+    # a hang shows where: every thread's stack each 240 s until the
+    # phase ends
+    faulthandler.dump_traceback_later(240, repeat=True)
+    checks, report = {}, {"card": card}
+    torch.cuda.reset_peak_memory_stats()
+    # the service path: a round through InferenceService on the staged
+    # config routes its image through the staged server
+    svc = InferenceService(staged_serving_config(), table=None)
+    pipe = svc.backend.t2i
+    rc = asyncio.run(svc.generate_content("The Night the Trains Sang"))
+    srv = pipe._staged
+    size = pipe.cfg.sampler.image_size
+    checks["service_round_staged"] = (
+        srv is not None and srv.stats["retirements"] == 1
+        and rc.image.shape == (size, size, 3))
+    checks["stage_health"] = {"encode", "denoise", "decode"} <= set(
+        svc.supervisor.status().get("stages", {}))
+
+    # 1. solo parity: one prompt and two
+    solo = [solo_parity(pipe, STAGED_PROMPTS[:1], 7),
+            solo_parity(pipe, STAGED_PROMPTS[:2], 8)]
+    report["solo_ddim"] = solo
+    checks["solo_ddim_bit_equal"] = all(r["bit_equal"] for r in solo)
+
+    # 2. mid-flight admission: A; B (two prompts) 5 steps in; C 5 steps
+    # after A retires: widths 4 (A + B), 2 (B), 4 (B + C), 1 (C)
+    requests = [(STAGED_PROMPTS[:1], 21), (STAGED_PROMPTS[1:3], 22),
+                (STAGED_PROMPTS[3:4], 23)]
+    widths0 = dict(srv.width_steps)
+    t0 = time.perf_counter()
+    outs = staged_tally("staged-mixed", lambda: mixed_run(pipe, requests))
+    mixed_s = time.perf_counter() - t0
+    widths = {w: srv.width_steps[w] - widths0.get(w, 0)
+              for w in srv.width_steps}
+    solos = [monolithic(pipe, p, seed) for p, seed in requests]
+    yardstick = batch_yardstick(pipe, STAGED_PROMPTS[0], STAGED_PROMPTS[1],
+                                21)
+    diffs = [image_diff(o, s) for o, s in zip(outs, solos)]
+    report["mixed"] = {"s": mixed_s, "widths_run": widths,
+                       "diffs": diffs, "bit_equal": [
+                           bool(np.array_equal(o, s))
+                           for o, s in zip(outs, solos)],
+                       "yardstick": yardstick}
+    checks["mixed_widths_1_2_4"] = all(widths.get(w, 0) > 0
+                                       for w in (1, 2, 4))
+    checks["mixed_within_yardstick"] = all(within_yardstick(d, yardstick)
+                                           for d in diffs)
+    builds = dict(srv.builds)
+    checks["one_graph_per_width"] = (set(builds) == {1, 2, 4}
+                                     and set(builds.values()) == {1})
+
+    # graph against eager, and widths 1 and 2 on identical rows
+    g_vs_e = {}
+    mid = srv.num_steps // 5
+    for w in (1, 2, 4):
+        slots = list(range(w))
+        graph_out, _ = srv.probe_step(slots, step=mid, graphed=True)
+        eager_out, _ = srv.probe_step(slots, step=mid, graphed=False)
+        g_vs_e[w] = {"bit_equal": bool(torch.equal(graph_out, eager_out)),
+                     "values_differing": int((graph_out != eager_out)
+                                             .sum().item())}
+    one, _ = srv.probe_step([0], step=mid)
+    two, _ = srv.probe_step([0, 1], step=mid, same_rows=True)
+    report["graph_vs_eager"] = g_vs_e
+    report["width1_vs_width2_identical_rows"] = {
+        "bit_equal": bool(torch.equal(one, two[:1])),
+        "max_abs": float((one - two[:1]).abs().max().item()),
+        "rows_of_width2_equal": bool(torch.equal(two[:1], two[1:]))}
+    checks["graph_equals_eager"] = all(v["bit_equal"]
+                                       for v in g_vs_e.values())
+
+    # 3. deadline: D (deadline 0.4 s) beside E; D raises at a boundary
+    pre = srv.stats["preemptions"]
+    t_d = time.monotonic()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fe = ex.submit(pipe.generate, list(STAGED_PROMPTS[:1]), 31)
+        fd = ex.submit(lambda: pipe.generate(list(STAGED_PROMPTS[1:2]), 32,
+                                             deadline_s=0.4))
+        out_e = fe.result(timeout=300)
+        try:
+            fd.result(timeout=300)
+            deadline_raised = False
+        except DeadlineExceeded:
+            deadline_raised = True
+        d_s = time.monotonic() - t_d
+    preempt = [e for e in flight_recorder.tail(50)
+               if e["kind"] == "stage.preempt"]
+    e_diff = image_diff(out_e, monolithic(pipe, STAGED_PROMPTS[:1], 31))
+    report["deadline"] = {"raised": deadline_raised, "s": d_s,
+                          "preempt_event": preempt[-1] if preempt else None,
+                          "neighbour_diff": e_diff}
+    checks["deadline_preempts"] = (deadline_raised
+                                   and srv.stats["preemptions"] == pre + 1
+                                   and bool(preempt)
+                                   and 0 < preempt[-1]["steps_done"]
+                                   < srv.num_steps)
+    checks["deadline_neighbour_within_yardstick"] = within_yardstick(
+        e_diff, yardstick)
+    checks["slots_free_after"] = int(srv._alive.sum()) == 0
+
+    # 4. poisoned slot: device.poison at the admission seam
+    q0 = srv.stats["quarantines"]
+    chaos.configure("device.poison=raise:peer=stage,times=1")
+    try:
+        pipe.generate(list(STAGED_PROMPTS[:1]), seed=41)
+        poisoned_failed = False
+    except OutputInvalid:
+        poisoned_failed = True
+    finally:
+        chaos.disarm()
+    quar = [e for e in flight_recorder.tail(50)
+            if e["kind"] == "stage.quarantine"]
+    slot = quar[-1]["slot"] if quar else 0
+    scrubbed = srv.run_on_denoise_thread(
+        lambda: float(srv._lat[slot].abs().max().item()))
+    clean = solo_parity(pipe, STAGED_PROMPTS[:1], 41)
+    report["poison"] = {"failed_output_invalid": poisoned_failed,
+                        "quarantine_event": quar[-1] if quar else None,
+                        "slot_abs_max_after": scrubbed, "next": clean}
+    checks["poisoned_slot_quarantined"] = (
+        poisoned_failed and srv.stats["quarantines"] == q0 + 1
+        and scrubbed == 0.0 and clean["bit_equal"])
+
+    # 5. no host sync in the loop: a window at occupancy 4
+    prof = staged_tally("staged-profile", lambda: staged_profile(pipe))
+    prof["monolithic_graphed_idle_share"] = PROFILES.get(
+        "default", {}).get("idle_share")
+    report["profile"] = prof
+    checks["occupancy_4"] = prof["occupancy"] == 4 and prof["images_valid"]
+    checks["idle_share_at_most_0.10"] = prof["idle_share"] <= STAGED_IDLE_MAX
+    checks["no_sync_in_loop"] = not prof["host_sync_calls"]
+
+    # each width's step time, capture seconds and pool
+    report["widths"] = {}
+    for w in (1, 2, 4):
+        _, ms = srv.probe_step(list(range(w)), step=0,
+                               reps=min(STAGED_STEP_REPS, srv.num_steps))
+        st = srv.graphs[w].stats()
+        report["widths"][w] = {"step_ms": ms, "capture_s": st["capture_s"],
+                               "warmup_s": st["warmup_s"],
+                               "instantiate_s": st["instantiate_s"],
+                               "pool_mb": st["pool_bytes"] / 2 ** 20}
+
+    # 6. the load A/B; the staged arm is a second mixed run: no capture
+    report["load_ab"] = load_ab(pipe)
+    checks["ab_all_valid"] = (report["load_ab"]["staged"]["valid"]
+                              and report["load_ab"]["monolithic"]["valid"])
+    checks["no_new_capture_second_run"] = dict(srv.builds) == builds
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    report["stats"] = dict(srv.stats)
+    asyncio.run(svc.stop())
+    del svc, pipe, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the other samplers' solo parity
+    others = {
+        "dpmpp_2m": with_staging(fast_serving_config()),
+        "euler": with_staging(FrameworkConfig().replace(
+            sampler=dataclasses.replace(FrameworkConfig().sampler,
+                                        kind="euler"))),
+        "consistency": with_staging(lcm_serving_config())}
+    report["samplers"] = {name: sampler_parity(name, cfg)
+                          for name, cfg in others.items()}
+    checks["solo_samplers_bit_equal"] = all(
+        r["bit_equal"] for r in report["samplers"].values())
+
+    # SDXL-base at 1024x1024
+    t0 = time.perf_counter()
+    xl = SDXLPipeline(with_staging(sdxl_config()))
+    report["sdxl"] = staged_tally("staged-sdxl", lambda: solo_parity(
+        xl, STAGED_PROMPTS[:1], 7))
+    report["sdxl"]["s"] = time.perf_counter() - t0
+    checks["solo_sdxl_bit_equal"] = report["sdxl"]["bit_equal"]
+    xl.drop_staged()
+    del xl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the composed presets at 512x512: solo parity and one two-request
+    # mixed run (W8A8: the neighbour coupling reported, not held)
+    for name, cfg in (("fusedconv", fusedconv_serving_config()),
+                      ("w8a8", w8a8_serving_config())):
+        cp = Text2ImagePipeline(with_staging(cfg))
+        try:
+            res = {"solo": solo_parity(cp, STAGED_PROMPTS[:1], 7)}
+            reqs = [(STAGED_PROMPTS[:1], 51), (STAGED_PROMPTS[1:2], 52)]
+            outs = staged_tally(f"staged-{name}",
+                                lambda: mixed_run(cp, reqs))
+            solos = [monolithic(cp, p, seed) for p, seed in reqs]
+            res["mixed_diffs"] = [image_diff(o, s)
+                                  for o, s in zip(outs, solos)]
+            res["mixed_valid"] = all(int(o.max()) > int(o.min())
+                                     for o in outs)
+            res["widths_run"] = dict(cp._staged.width_steps)
+            if name == "fusedconv":
+                y = batch_yardstick(cp, STAGED_PROMPTS[0],
+                                    STAGED_PROMPTS[1], 51)
+                res["yardstick"] = y
+                checks["fusedconv_mixed_within_yardstick"] = all(
+                    within_yardstick(d, y) for d in res["mixed_diffs"])
+            checks[f"{name}_solo_bit_equal"] = res["solo"]["bit_equal"]
+            checks[f"{name}_mixed_valid"] = (
+                res["mixed_valid"] and res["widths_run"].get(2, 0) > 0)
+            report[name] = res
+        finally:
+            cp.drop_staged()
+            del cp
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    faulthandler.cancel_dump_traceback_later()
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(report["checks"].values())
+    print(f"[staged] {json.dumps(report)} -> {'pass' if ok else 'FAIL'}",
+          flush=True)
+    return ok, report
+
+
+def staged_shape_gaps(rows: dict, checked: dict) -> list:
+    """Every staged run's launches at a shape phase 2 does not check, flash
+    on another path than its check took, or flash outside its model's
+    staged shapes (``ROUND_FLASH["staged"]``; SDXL's solo run, its
+    round's): (run, kernel, shapes)."""
+    by_shape = {(b, sq, sk, h, d): name
+                for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
+    gaps = []
+    for run, tally in STAGED_TALLIES.items():
+        model = "sdxl" if run == "staged-sdxl" else "staged"
+        for (shape, path), _ in tally["flash_paths"].items():
+            name = by_shape.get(shape)
+            if (name is None or rows[name]["path"] != path
+                    or name not in ROUND_FLASH[model]):
+                gaps.append((run, "flash_attention", shape, path))
+        for kernel, kernel_rows in checked.items():
+            missing = set(tally[kernel]) - set(kernel_rows)
+            if missing:
+                gaps.append((run, kernel, sorted(missing)))
+    return gaps
+
+
+def kernel_entries(kernel, rows, tally, source, replaces, staged):
     """The kernels-line entries of one kernel: every checked shape, with
-    its launches in its path's round."""
+    its launches in its path's rounds and the staged runs, and the
+    staged runs' apart."""
     return [{"name": f"{kernel}[{'x'.join(map(str, shape))}]",
              "route": "cuda",
              "source": source, "replaces": replaces,
              "launches": tally.get(shape, 0),
+             "staged_launches": staged.get(shape, 0),
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4729,6 +5372,11 @@ def main() -> int:
             fail(f"{switch} is set: the smoke run drives the kernels")
     card = card_line()
     print(f"[card] {card}", flush=True)
+
+    def stamp(label: str) -> None:
+        """Seconds since the start, after each phase (where time goes)."""
+        print(f"[time] {label} {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     # every preset at every brownout tier, derived from its config, runs
     # only shapes phase 2 checks, and the rounds' tables agree with it
     gaps, mismatches = tier_shape_gaps(), round_table_mismatches()
@@ -4761,6 +5409,7 @@ def main() -> int:
         bad = [s for s, r in kernel_rows.items() if not r["ok"]]
         if bad:
             fail(f"{kernel} disagrees with its plain version at {bad}")
+    stamp("kernels")
 
     if not check_small_agreement():
         fail("tiny geometry: card and CPU disagree")
@@ -4775,6 +5424,7 @@ def main() -> int:
         fail("tiny geometry, a sampler loop: card and CPU disagree")
     if not check_small_mistral():
         fail("tiny geometry, Mistral: card and CPU disagree")
+    stamp("small")
 
     # phase 4's presets; the student and Mistral serve further down
     presets = served_presets()[:10]
@@ -4796,6 +5446,7 @@ def main() -> int:
             prof = profile_denoise(svc, preset)
             print(f"[profile] {preset} denoise step at full width ({card}): "
                   f"{json.dumps(prof)}", flush=True)
+        PROFILES[preset] = prof
         if not prof["graph_witness"]["ok"]:
             fail(f"{preset}: the profiled graph replays did not launch the "
                  f"step's kernels: {prof['graph_witness']}")
@@ -4814,6 +5465,7 @@ def main() -> int:
         del svc, prof
         gc.collect()
         torch.cuda.empty_cache()
+        stamp(preset)
 
     # the few-step tier: FrameworkConfig() with its UNet declared a
     # distilled student (consistency_available)
@@ -4829,6 +5481,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     brownout_s += time.perf_counter() - t0
     print(f"[brownout] phase {brownout_s:.1f} s", flush=True)
+    stamp("consistency")
 
     # the serving seam: queues, supervisor, integrity, device-loss recovery
     # and the int8 table at FrameworkConfig(); then the game on it
@@ -4839,6 +5492,7 @@ def main() -> int:
         fail("game: the game on the service failed a check")
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("serve, game")
 
     # the game server: in this process over HTTP, then `python -m
     # cassmantle_tpu_torch serve` as a child process
@@ -4852,6 +5506,7 @@ def main() -> int:
               flush=True)
         fail("serve-cli: `python -m cassmantle_tpu_torch serve` failed a "
              "check")
+    stamp("server")
 
     # the same service from a weights directory, its rebuild from the
     # files, and Mistral from two shards
@@ -4860,6 +5515,7 @@ def main() -> int:
         fail("weights: the service from a weights directory failed a check")
     if not check_weights_mistral(card):
         fail("weights-mistral: Mistral from its shards failed a check")
+    stamp("weights")
 
     # Mistral-7B as the round's prompt LM, at full width in bf16; its
     # decode-step profile, then speculative and sampled decodes over it
@@ -4884,6 +5540,18 @@ def main() -> int:
     del svc, prof
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("mistral")
+
+    # the staged image server at full width: parity, mid-flight
+    # admission, deadline, quarantine, the loop's idle share, the load A/B
+    ok, _ = check_staged(card)
+    if not ok:
+        fail("staged: the staged image server failed a check")
+    gaps = staged_shape_gaps(rows, checked)
+    if gaps:
+        fail(f"staged: launches at shapes phase 2 does not check, or "
+             f"flash on another path: {gaps}")
+    stamp("staged")
 
     by_shape = {(b, sq, sk, h, d): name
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
@@ -4936,23 +5604,34 @@ def main() -> int:
     print(f"[tiers] kernel ms a round ({card}): {json.dumps(per_cell)}",
           flush=True)
 
+    # every staged run's launches, summed: a kernels-line entry's
+    # staged_launches
+    staged = {k: sum((t[k] for t in STAGED_TALLIES.values()),
+                     collections.Counter())
+              for k in ("flash_paths", *checked)}
     kernels = []
     for key, name in by_shape.items():
         r = rows[name]
         # launches and path from the first round whose model runs the
         # shape: default for SD1.5's, sdxl, encprop for the batch-4 ones,
-        # a [brownout] cell for a tier's
-        preset = next(p for p in ("default", "sdxl", "encprop",
-                                  *TIER_CELLS)
-                      if p in tallies
-                      and name in ROUND_FLASH[PRESET_MODEL[p]])
-        round_paths = tallies[preset]["flash_paths"]
-        (path,) = {p for (shape, p) in round_paths if shape == key}
+        # a [brownout] cell for a tier's; the staged runs for the shapes
+        # only they launch
+        preset = next((p for p in ("default", "sdxl", "encprop",
+                                   *TIER_CELLS)
+                       if p in tallies
+                       and name in ROUND_FLASH[PRESET_MODEL[p]]), None)
+        round_paths = (tallies[preset]["flash_paths"] if preset
+                       else staged["flash_paths"])
+        path = next((p for (shape, p) in round_paths if shape == key),
+                    r["path"])
         kernels.append({
             "name": f"flash_attention[{name}]", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": sum(n for (shape, _), n in round_paths.items()
                             if shape == key),
+            "staged_launches": sum(
+                n for (shape, _), n in staged["flash_paths"].items()
+                if shape == key),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4971,8 +5650,9 @@ def main() -> int:
         # tiers' at 256x256)
         tally = sum((tallies[p][kernel] for p in presets),
                     collections.Counter())
-        kernels += kernel_entries(kernel, checked[kernel], tally, source,
-                                  replaces)
+        kernels += kernel_entries(kernel, checked[kernel],
+                                  tally + staged[kernel], source, replaces,
+                                  staged[kernel])
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

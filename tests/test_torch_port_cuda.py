@@ -838,3 +838,124 @@ def test_cuda_capture_survives_a_scoring_thread(cuda_device):
         captured.replay()
         replayed = out.clone()
         assert torch.equal(replayed, step().clone())
+
+
+def _staged_mixed(pipe, requests, gap):
+    """Requests [(prompts, seed)] through ``pipe``'s staged server: the
+    second admitted ``gap`` steps into the first, each later one ``gap``
+    steps after the previous requests' rows retired (the denoise thread
+    held at that boundary until it is queued)."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    srv = pipe._staged_server()
+    base = dict(srv.stats)
+    marks = {}
+
+    def ready(i):
+        def cond(s):
+            if i == 0:
+                return (s.stats["admissions"] > base["admissions"]
+                        and s.stats["steps"] - base["steps"] >= gap)
+            rows = sum(len(p) for p, _ in requests[:i])
+            if s.stats["retirements"] - base["retirements"] < rows:
+                return False
+            marks.setdefault(i, s.stats["steps"])
+            return s.stats["steps"] - marks[i] >= gap
+        return cond
+
+    conds = [ready(i) for i in range(len(requests) - 1)]
+    held = [0]
+
+    def hook(s):
+        if held[0] < len(conds) and conds[held[0]](s):
+            deadline = time.monotonic() + 60.0
+            while (s._admit_q.empty() and not s._pend
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            held[0] += 1
+
+    srv._on_step = hook
+    try:
+        with ThreadPoolExecutor(max_workers=len(requests)) as ex:
+            futs = []
+            for i, (prompts, seed) in enumerate(requests):
+                while i and not conds[i - 1](srv):
+                    time.sleep(0.001)
+                futs.append(ex.submit(pipe.generate, prompts, seed))
+            return [f.result(timeout=300) for f in futs]
+    finally:
+        srv._on_step = None
+
+
+@pytest.mark.cuda
+def test_cuda_staged_server_at_widths_1_2_4(cuda_device):
+    """The staged image server (serving/stages.py) on the card, tiny bf16
+    geometry, 4 slots, 12 DDIM steps: a one- and a two-prompt request
+    bit-equal to the monolithic graphed path; mid-flight admission (A; B,
+    two prompts, 2 steps in; C 2 steps after A retires) runs widths 4, 2
+    and 1, each width's graph captured once, and each image within the
+    monolithic path's own batch variance (row 0 of a two-prompt batch
+    against the solo image) plus 0.5 of a level on the mean and 2 at the
+    max; each width's graph replay bit-equal to its eager step; a second
+    mixed run captures nothing."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.ops.ddim import initial_latents
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+
+    base = _tiny_bf16(test_config())
+    cfg = base.replace(
+        serving=dataclasses.replace(base.serving, staged_serving=True,
+                                    denoise_slots=4),
+        sampler=dataclasses.replace(base.sampler, num_steps=12))
+    pipe = Text2ImagePipeline(cfg, device=cuda_device)
+    prompts = ["a lighthouse at dusk", "the comet market",
+               "a night train between cities", "an orchard in the snow"]
+
+    def mono(p, seed=0, latents=None):
+        os.environ["CASSMANTLE_NO_STAGED_SERVING"] = "1"
+        try:
+            return pipe.generate(p, seed=seed, latents=latents)
+        finally:
+            del os.environ["CASSMANTLE_NO_STAGED_SERVING"]
+
+    def diff(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return float(d.mean()), int(d.max())
+
+    try:
+        for p, seed in ((prompts[:1], 7), (prompts[:2], 8)):
+            assert np.array_equal(pipe.generate(p, seed=seed), mono(p, seed))
+        srv = pipe._staged
+        requests = [(prompts[:1], 21), (prompts[1:3], 22), (prompts[3:], 23)]
+        w0 = dict(srv.width_steps)
+        outs = _staged_mixed(pipe, requests, gap=2)
+        assert all(srv.width_steps[w] > w0.get(w, 0) for w in (1, 2, 4))
+        builds = dict(srv.builds)
+        assert builds == {1: 1, 2: 1, 4: 1}
+        yard = [0.0, 0]
+        for p, seed in requests:
+            rows = [initial_latents(torch.Generator(cuda_device)
+                                    .manual_seed(k), 1, 64, pipe.vae_scale,
+                                    device=cuda_device)
+                    for k in (seed, seed + 1000)]
+            y = diff(mono([p[0], prompts[0]], latents=torch.cat(rows))[:1],
+                     mono(p[:1], seed))
+            yard = [max(yard[0], y[0]), max(yard[1], y[1])]
+        for out, (p, seed) in zip(outs, requests):
+            mean, mx = diff(out, mono(p, seed))
+            assert mean <= yard[0] + 0.5 and mx <= yard[1] + 2
+        for w in (1, 2, 4):
+            graphed, _ = srv.probe_step(list(range(w)), step=3)
+            eager, _ = srv.probe_step(list(range(w)), step=3,
+                                      graphed=False)
+            assert torch.equal(graphed, eager), w
+        _staged_mixed(pipe, requests, gap=2)
+        assert dict(srv.builds) == builds
+    finally:
+        pipe.drop_staged()

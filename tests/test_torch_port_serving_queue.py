@@ -347,7 +347,8 @@ def test_chaos_registry_is_the_seams_and_refuses_others():
     assert set(pchaos.FAULT_POINTS) == {"server.admit", "queue.dispatch",
                                         "device.lost", "device.poison",
                                         "round.generate",
-                                        "overload.brownout"}
+                                        "overload.brownout",
+                                        "stage.denoise.tick"}
     assert set(pchaos.FAULT_POINTS) <= set(jchaos.FAULT_POINTS)
     with pytest.raises(ValueError, match="unknown fault point"):
         pchaos.parse_spec("repl.pump=raise")
