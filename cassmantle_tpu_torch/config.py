@@ -313,7 +313,8 @@ class ServingConfig:
     # The pending bound while the supervisor reports degraded.
     degraded_max_pending: int = 256
     # Adaptive (AIMD) admission (serving/overload.py): the latency target
-    # of queue wait + batch service, and the floor of the limit.
+    # of queue wait + batch service, and the floor of the limit;
+    # CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 reverts to the static bounds.
     queue_latency_target_s: float = 1.0
     admission_min_pending: int = 8
     # Background work (round generation) sheds at this fraction of the
@@ -403,6 +404,11 @@ class ObsConfig:
     slo_score_p99_s: float = 2.0
     slo_generation_ratio: float = 0.9
     slo_repl_lag_max: float = 512.0
+    # The canary prober (obs/prober.py): the cadence of its loop and each
+    # leg's HTTP timeout. CASSMANTLE_NO_PROBER=1 turns it off;
+    # CASSMANTLE_PROBE_INTERVAL_S overrides the cadence.
+    probe_interval_s: float = 15.0
+    probe_timeout_s: float = 5.0
     # The canary prober's objectives: success ratio and p99 bound.
     probe_success_ratio: float = 0.95
     probe_p99_s: float = 3.0

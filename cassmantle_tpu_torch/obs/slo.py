@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-import os
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, Optional, Sequence, Tuple
@@ -96,14 +95,17 @@ def default_objectives(cfg) -> Tuple[Objective, ...]:
 
 
 def _probe_objectives(obs) -> Tuple[Objective, ...]:
-    """Black-box canary objectives: the probe plays the
-    real game surface, so its verdicts are the closest thing to a
-    player's experience the SLO set has. Absent entirely under
-    CASSMANTLE_NO_PROBER — a disabled prober must leave zero probe
-    artifacts, including the slo.burning{objective=probe_*} gauges
-    evaluate() would otherwise mint with no traffic."""
-    if os.environ.get("CASSMANTLE_NO_PROBER", "").lower() in (
-            "1", "true", "yes", "on"):
+    """Black-box canary objectives, fed by the canary prober
+    (``obs/prober.py``): the probe plays the real game surface, so its
+    verdicts are the closest thing to a player's experience the SLO set
+    has. They follow the prober's switch: absent entirely under
+    CASSMANTLE_NO_PROBER, where the server starts no prober — a disabled
+    prober leaves zero probe artifacts, including the
+    slo.burning{objective=probe_*} gauges evaluate() would otherwise mint
+    with no traffic."""
+    from cassmantle_tpu_torch.obs.prober import prober_disabled
+
+    if prober_disabled():
         return ()
     return (
         Objective(

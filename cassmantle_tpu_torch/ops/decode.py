@@ -42,6 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from cassmantle_tpu_torch.ops.graphs import CapturedStep
+from cassmantle_tpu_torch.utils.profiling import annotate
 
 
 def gumbel_(noise: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -393,10 +394,14 @@ class SpecDecodeState:
         live_done = self.done | ~self.live
         y_first = torch.where(self.done, self.eos_row,
                               self.last_logits.argmax(dim=-1).to(torch.int32))
-        drafts = self._draft(idx, y_first)
+        # the profiler's ranges of the two halves (inside a replay the
+        # trace shows the captured kernels without them)
+        with annotate("spec_draft"):
+            drafts = self._draft(idx, y_first)
         chunk_toks = torch.cat([y_first[:, None], drafts], dim=1)
-        logits, _ = self.model.decode_chunk(chunk_toks, idx, self.cache,
-                                            self._valid_through(idx + gamma))
+        with annotate("spec_verify"):
+            logits, _ = self.model.decode_chunk(
+                chunk_toks, idx, self.cache, self._valid_through(idx + gamma))
         preds = logits.argmax(dim=-1).to(torch.int32)  # (B, g1)
         # greedy's continuation under the EOS freeze, and the count of
         # leading drafts that match it

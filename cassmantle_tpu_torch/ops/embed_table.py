@@ -71,6 +71,15 @@ CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 
 
+def embed_table_disabled() -> bool:
+    """Kill switch: ``CASSMANTLE_NO_EMBED_TABLE=1`` skips the table rung
+    everywhere (the scorer ladder, the service's fast path, answer
+    pinning), reverting bit for bit to the LRU and device path. Read per
+    call, so an operator's toggle needs no restart."""
+    return os.environ.get(
+        "CASSMANTLE_NO_EMBED_TABLE", "").lower() in ("1", "true", "yes", "on")
+
+
 def normalize_key(text: str) -> str:
     """Table lookup key: NFKC + casefold + strip (the engine lowercases
     and strips both sides of a scored pair, and the tokenizers lowercase,
@@ -386,6 +395,8 @@ class TableFirstSimilarity:
 
     async def __call__(self, pairs) -> np.ndarray:
         pairs = list(pairs)
+        if embed_table_disabled():
+            return np.asarray(await self._fallback(pairs), dtype=np.float32)
         scores, served = self._table.score_pairs(pairs)
         rest = [i for i in range(len(pairs)) if not served[i]]
         if len(rest) < len(pairs):

@@ -56,6 +56,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / denom).to(q.dtype)
 
 
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Shapes only, for the cost model (``obs/costmodel.py``): a meta
+    tensor holds no data. The kernel's two products, q k^T and p v, in
+    its operand dtype; the output's shape and dtype."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    return torch.einsum("bhqk,bkhd->bqhd", s.to(v.dtype), v).to(q.dtype)
+
+
 def _library(path: str):
     from cassmantle_tpu_torch.ops import _build
 
@@ -111,6 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_len = k.shape[1]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, kv_len)
+    if q.device.type == "meta":
+        return flash_attention_meta(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, kv_len)

@@ -87,6 +87,16 @@ def gn_silu_conv3x3_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return out[..., :f].to(x.dtype)
 
 
+def gn_silu_conv3x3_meta(x: torch.Tensor,
+                         kernel: torch.Tensor) -> torch.Tensor:
+    """Shapes only, for the cost model (``obs/costmodel.py``): the
+    kernel's 3x3 conv in x's dtype, unpadded as the kernel runs it; the
+    output (B, H, W, F) in x's dtype."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(
+        3, 2, 0, 1), padding=1)
+    return out.permute(0, 2, 3, 1)
+
+
 def _library():
     from cassmantle_tpu_torch.ops import _build
 
@@ -142,6 +152,8 @@ def gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     copied unless already contiguous (a channels-last OIHW weight is)."""
     if x.device.type == "cpu":
         return gn_silu_conv3x3_plain(x, a, b, kernel, bias, pad_to)
+    if x.device.type == "meta":
+        return gn_silu_conv3x3_meta(x, kernel)
     if x.device.type != "cuda":
         raise ValueError(f"gn_silu_conv3x3: unsupported device {x.device}")
     _check(x, a, b, kernel, bias)

@@ -62,6 +62,7 @@ import torch
 from cassmantle_tpu_torch.ops.flash_attention import flash_attention
 from cassmantle_tpu_torch.ops.fused_conv import gn_silu_conv3x3
 from cassmantle_tpu_torch.ops.quant_matmul import int8_conv3x3, int8_matmul
+from cassmantle_tpu_torch.utils.logging import metrics
 
 # Every launch counter of the kernel wrappers: (wrapper, attribute).
 COUNTERS = (
@@ -89,6 +90,27 @@ def thread_stream() -> "torch.cuda.Stream":
     if stream is None:
         stream = _local.stream = torch.cuda.Stream()
     return stream
+
+
+# held by a thread while it captures or launches a graph, and around a
+# switch of the device's activity tracing (``utils/profiling.py::trace``):
+# switching it while another thread was inside a graph launch deadlocked
+# both (seen on the card: a replay's cudaGraphLaunch and the switch, each
+# waiting)
+_graph_lock = threading.RLock()
+
+
+@contextlib.contextmanager
+def no_graph_running():
+    """Hold off every thread's CUDA graph capture and launch for the
+    block; the seconds held go to the ``graphs.held_off_s`` histogram."""
+    with _graph_lock:
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            metrics.observe("graphs.held_off_s",
+                            time.perf_counter() - start)
 
 
 class NewCaptureError(RuntimeError):
@@ -216,7 +238,7 @@ class CapturedStep:
         side = thread_stream()
         side.wait_stream(current)
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with _graph_lock, torch.cuda.stream(side):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.output = self.fn()
@@ -232,7 +254,8 @@ class CapturedStep:
     def replay(self):
         """Launch the graph on the current stream (no sync) and count
         the kernels it launches."""
-        self.graph.replay()
+        with _graph_lock:
+            self.graph.replay()
         add(self.tally)
         self.replays += 1
         return self.output

@@ -125,6 +125,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, row_scale, col_scale,
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, w_q, row_scale, col_scale, bias,
                                  out_dtype)
+    if x_q.device.type == "meta":
+        # shapes only, for the cost model: the int8 product, out_dtype out
+        return (x_q @ w_q).to(out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -190,6 +193,10 @@ def int8_conv3x3(x_q: torch.Tensor, kernel: torch.Tensor,
     channels-last OIHW buffer is)."""
     if x_q.device.type == "cpu":
         return int8_conv3x3_plain(x_q, kernel, col_scale, bias, out_dtype)
+    if x_q.device.type == "meta":
+        # shapes only, for the cost model: the int8 conv, out_dtype out
+        return F.conv2d(x_q.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1).to(out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_conv3x3: unsupported device {x_q.device}")
     if x_q.dtype != torch.int8 or kernel.dtype != torch.int8:

@@ -29,6 +29,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
+from functools import partial
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,10 +45,12 @@ from cassmantle_tpu_torch.models.weights import (
     convert_minilm,
     fill_,
 )
+from cassmantle_tpu_torch.obs import costmodel
 from cassmantle_tpu_torch.ops import embed_table as et
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.utils.device import DeviceLike, resolve_device
 from cassmantle_tpu_torch.utils.logging import get_logger, metrics
+from cassmantle_tpu_torch.utils.profiling import block_timer
 from cassmantle_tpu_torch.server.assets import load_wordlist
 from cassmantle_tpu_torch.utils.tokenizers import (
     load_tokenizer,
@@ -187,6 +190,37 @@ class EmbeddingScorer:
             mask[i, : len(toks)] = 1
         return ids, mask
 
+    def row_products(self) -> costmodel.Products:
+        """One encoded row's products at ``seq_len`` tokens, walked on the
+        encoder's meta twin."""
+        twin = costmodel.meta_module(partial(MiniLMEncoder, self.cfg))
+
+        def walk(counter) -> None:
+            ids = torch.zeros((1, self.seq_len), dtype=torch.long,
+                              device="meta")
+            twin(ids, torch.ones_like(ids))
+
+        return costmodel.count_products(walk)
+
+    @classmethod
+    def shape_twin(cls, cfg: MiniLMConfig, seq_len: int = 16
+                   ) -> "EmbeddingScorer":
+        """A scorer of ``cfg`` with no encoder: :meth:`row_products`
+        without building it."""
+        twin = cls.__new__(cls)
+        twin.cfg = cfg
+        twin.seq_len = min(seq_len, cfg.max_positions)
+        return twin
+
+    def cost_entries(self) -> List[tuple]:
+        """(kind, signature, counter) of one encoded row."""
+        return [("scorer", costmodel.scorer_signature(self.cfg,
+                                                      self.seq_len),
+                 self.row_products)]
+
+    def _row_flops(self) -> Optional[costmodel.Products]:
+        return costmodel.dispatch_count(*self.cost_entries()[0])
+
     def _embed_device(self, texts: Sequence[str],
                       batch: Optional[int] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
@@ -200,8 +234,15 @@ class EmbeddingScorer:
         for start in range(0, n, batch):
             chunk = texts[start:start + batch]
             ids, mask = self._tokenize_batch(chunk, batch)
-            fault_point("device.lost", peer="scorer")
-            with torch.inference_mode():
+            # the stage span of a guess batch's encode, ended when the rows
+            # are on the host; its products cover the padded batch (the
+            # device computes the pad rows too)
+            row = self._row_flops()
+            with block_timer("scorer.encode_s",
+                             flops_est=(row.scaled(batch) if row is not None
+                                        else None),
+                             pipeline="scorer"), torch.inference_mode():
+                fault_point("device.lost", peer="scorer")
                 emb = self.model(torch.from_numpy(ids).to(self.device),
                                  torch.from_numpy(mask).to(self.device))
                 # the verdict rides the rows' copy: one host read a dispatch
@@ -228,7 +269,7 @@ class EmbeddingScorer:
         if n == 0:
             return np.zeros((0, self.cfg.hidden_size), dtype=np.float32)
         out = np.zeros((n, self.cfg.hidden_size), dtype=np.float32)
-        table = self.table
+        table = self.table if not et.embed_table_disabled() else None
         if table is not None:
             rest: List[int] = []
             for i, text in enumerate(texts):
@@ -288,16 +329,18 @@ class EmbeddingScorer:
     def table_scores(self, pairs: Sequence[Tuple[str, str]]):
         """Rung 0 for the service: [(guess, answer)] -> (scores, served)
         through the int8 table, or None with no table. Pairs ``served``
-        completed with no device dispatch."""
-        if self.table is None:
+        completed with no device dispatch. None too under
+        CASSMANTLE_NO_EMBED_TABLE."""
+        if self.table is None or et.embed_table_disabled():
             return None
         return self.table.score_pairs(list(pairs))
 
     def pin_answers(self, words: Sequence[str]) -> int:
         """Pin round answers missing from the table: embedded once through
         the LRU and device rungs, quantized with the table's scheme and
-        overlaid. Returns the rows pinned (``scorer.table_pins``)."""
-        if self.table is None:
+        overlaid. Returns the rows pinned (``scorer.table_pins``); none
+        under CASSMANTLE_NO_EMBED_TABLE."""
+        if self.table is None or et.embed_table_disabled():
             return 0
         todo: List[str] = []
         for w in words:

@@ -20,23 +20,32 @@ bodies, status codes and headers:
                            ``application/openmetrics-text``
 - ``GET  /debugz``         the flight recorder's tail, or one trace's
                            spans (``?trace=<X-Trace-Id>``); loopback only
+- ``POST /debug/trace``    a ``torch.profiler`` capture of N seconds
+                           (``?seconds=N[&name=]``) under
+                           ``CASSMANTLE_TRACE_ROOT``; loopback or the
+                           cluster token, one at a time
 - ``GET  /sloz``           the SLO burn-rate verdicts
 - ``GET  /healthz``        liveness: store and the device probe
 - ``GET  /readyz``         readiness: the supervisor's verdict, 503 and
                            Retry-After while degraded, with the SLO,
-                           overload and device-telemetry blocks
+                           overload, device-telemetry and canary blocks
 - ``GET  /wordlist``       the spellcheck lexicon, ETag-revalidated
 - static mounts ``/static``, ``/data`` and ``/media``
 
 Rate limits are the reference's (3/s, 2/s on the API routes, per client IP
-and room). The background tasks are the process and device samplers and
-the SLO loop that steps the brownout ladder (``CASSMANTLE_NO_SLO=1`` turns
-the loop off). ``python -m cassmantle_tpu_torch serve`` runs :func:`main`;
-it serves on the card unless ``--platform cpu`` or ``--fake`` asks for
-the host. Left for later slices (``ROADMAP.md`` Queue 1): the canary
-prober (``/readyz`` reports ``{"enabled": false}`` as the reference does
-under ``CASSMANTLE_NO_PROBER=1``), ``POST /debug/trace``, and everything
-of many workers: peer hedging, cluster federation and a shared store.
+and room). The background tasks are the process and device samplers, the
+SLO loop that steps the brownout ladder (``CASSMANTLE_NO_SLO=1`` turns the
+loop off), the canary prober (``obs/prober.py``: it plays the probe room
+``?room=__probe__`` over this worker's own listener, ``self_addr``, and
+feeds the ``probe_success`` / ``probe_latency`` objectives;
+``CASSMANTLE_NO_PROBER=1`` leaves no probe artifact and ``/readyz``'s
+canary block reads ``{"enabled": false}``), and, under
+``CASSMANTLE_LEAK_SENTINEL=1``, the leak census (``utils/leak_sentinel.py``)
+at the process sampler's cadence. ``python -m cassmantle_tpu_torch serve``
+runs :func:`main`; it serves on the card unless ``--platform cpu`` or
+``--fake`` asks for the host. Left for later slices (``ROADMAP.md`` Queue
+1 item 9): everything of many workers, the prober's walk over peers
+included: peer hedging, cluster federation and a shared store.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ import hashlib
 import json
 import math
 import os
+import re
+import tempfile
+import time
 import uuid
 from typing import Optional
 
@@ -56,7 +68,7 @@ from aiohttp import WSMsgType, web
 
 from cassmantle_tpu_torch import chaos
 from cassmantle_tpu_torch.config import FrameworkConfig
-from cassmantle_tpu_torch.engine.game import Game
+from cassmantle_tpu_torch.engine.game import PROBE_ROOM, Game
 from cassmantle_tpu_torch.fabric.rooms import RoomFabric
 from cassmantle_tpu_torch.obs import (
     configure_observability,
@@ -66,11 +78,21 @@ from cassmantle_tpu_torch.obs import (
 from cassmantle_tpu_torch.obs import device as device_obs
 from cassmantle_tpu_torch.obs.device import DeviceMetrics
 from cassmantle_tpu_torch.obs.process import ProcessMetrics
+from cassmantle_tpu_torch.obs.prober import (
+    CanaryProber,
+    ensure_probe_round,
+    prober_disabled,
+)
 from cassmantle_tpu_torch.obs.slo import SloEngine, default_objectives
-from cassmantle_tpu_torch.obs.trace import current_marks, parse_traceparent
+from cassmantle_tpu_torch.obs.trace import (
+    current_ctx,
+    current_marks,
+    parse_traceparent,
+)
 from cassmantle_tpu_torch.serving import overload
 from cassmantle_tpu_torch.serving.queue import OverloadShed
-from cassmantle_tpu_torch.utils.logging import get_logger, metrics
+from cassmantle_tpu_torch.utils import leak_sentinel
+from cassmantle_tpu_torch.utils.logging import NULL_METRICS, get_logger, metrics
 
 log = get_logger("app")
 
@@ -88,8 +110,12 @@ _FABRIC = web.AppKey("fabric", RoomFabric)
 _SLO = web.AppKey("slo_engine", SloEngine)
 _PROCESS = web.AppKey("process_metrics", ProcessMetrics)
 _DEVICE = web.AppKey("device_metrics", DeviceMetrics)
-# mutable holder (aiohttp freezes app keys at startup): the obs tasks
+# mutable holders (aiohttp freezes app keys at startup): the obs tasks,
+# the canary prober (None under CASSMANTLE_NO_PROBER) and the single
+# flight of /debug/trace
 _OBS_TASKS = web.AppKey("obs_tasks", list)
+_PROBER = web.AppKey("prober", dict)
+_TRACE_STATE = web.AppKey("trace_state", dict)
 
 
 def _env_flag_set(name: str) -> bool:
@@ -128,10 +154,29 @@ def _room_of(request: web.Request) -> str:
     return fabric.directory.room_for_session(principal)
 
 
+async def _resolve_probe_game(request: web.Request, fabric: RoomFabric):
+    """(PROBE_ROOM, the probe game) for a canary request: the probe room
+    exists on every worker, is a 404 to anyone but a cluster peer (like
+    any unknown room), and seeds its known-answer round on first use. The
+    request's trace is marked ``probe``: the queues' adaptive admission
+    lets it through untaught, and the tail sampler keeps it."""
+    if not _is_cluster_peer(request, fabric):
+        raise web.HTTPNotFound(text=f"unknown room {PROBE_ROOM!r}")
+    game = fabric.probe_game()
+    await ensure_probe_round(game)
+    ctx = current_ctx()
+    if ctx is not None:
+        ctx.marks["probe"] = True
+    tracer.mark_retain("probe")
+    return PROBE_ROOM, game
+
+
 async def _resolve_game(request: web.Request):
     """(room, game) for this request. One worker owns every room: the
     reference's redirect to a room's owner comes with many workers."""
     fabric = request.app[_FABRIC]
+    if _explicit_room(request) == PROBE_ROOM:
+        return await _resolve_probe_game(request, fabric)
     room = _room_of(request)
     if not fabric.directory.has_room(room):
         raise web.HTTPNotFound(text=f"unknown room {room!r}")
@@ -280,6 +325,14 @@ async def handle_init(request: web.Request) -> web.Response:
     # (session_id, room) stays self-consistent
     session_id = _session_id(request) or str(uuid.uuid4())
     fabric = request.app[_FABRIC]
+    if _explicit_room(request) == PROBE_ROOM:
+        # the canary's init: its session starts the known-answer round
+        # unsolved; no cookies (the prober sends ?session=) and no
+        # http.init, so player counters never see probes
+        room, game = await _resolve_probe_game(request, fabric)
+        await game.init_client(session_id)
+        return web.json_response({"message": "Session initialized",
+                                  "session_id": session_id, "room": room})
     room = _explicit_room(request) or \
         fabric.directory.room_for_session(session_id)
     if not fabric.directory.has_room(room):
@@ -300,10 +353,12 @@ async def handle_status(request: web.Request) -> web.Response:
 
 
 async def handle_fetch_contents(request: web.Request) -> web.Response:
-    _, game = await _resolve_game(request)
+    room, game = await _resolve_game(request)
     session = _session_id(request) or str(uuid.uuid4())
     await game.ensure_client(session)
-    with metrics.timer("http.fetch_contents_s"):
+    # the canary's timings stay out of the players' latency series
+    registry = NULL_METRICS if room == PROBE_ROOM else metrics
+    with registry.timer("http.fetch_contents_s"):
         image_b64 = await game.fetch_masked_image_b64(session)
         prompt = await game.fetch_prompt_json(session)
         story = await game.fetch_story()
@@ -337,8 +392,9 @@ async def handle_compute_score(request: web.Request) -> web.Response:
         metrics.inc("score.hedge_floor")
         flight_recorder.record("score.floor", room=room)
     await game.ensure_client(session)
+    registry = NULL_METRICS if room == PROBE_ROOM else metrics
     try:
-        with metrics.timer("http.compute_score_s"):
+        with registry.timer("http.compute_score_s"):
             scores = await game.compute_client_scores(session, inputs)
     except OverloadShed as exc:
         # adaptive admission shed it: the limiter's computed Retry-After
@@ -521,9 +577,10 @@ async def handle_readyz(request: web.Request) -> web.Response:
     status["slo"] = engine.status()
     status["overload"] = overload.status_block()
     status["device_telemetry"] = request.app[_DEVICE].device_block()
-    # the canary prober is a later slice: the reference's block with the
-    # prober off
-    status["canary"] = {"enabled": False}
+    # the canary's last verdict per target: advisory, like the SLO block
+    prober = request.app[_PROBER]["prober"]
+    status["canary"] = (prober.status_block() if prober is not None
+                        else {"enabled": False})
     if ready:
         return web.json_response(status)
     if status.get("state") != "draining":
@@ -531,6 +588,69 @@ async def handle_readyz(request: web.Request) -> web.Response:
     return web.json_response(
         status, status=503,
         headers={"Retry-After": str(int(supervisor.retry_after_s()))})
+
+
+def _profile_capture(log_dir: str, seconds: float) -> str:
+    """Record ``seconds`` of host and CUDA activity into a Chrome trace
+    under ``log_dir`` (``utils/profiling.py::trace``); returns its path."""
+    from cassmantle_tpu_torch.utils import profiling
+
+    with profiling.trace(log_dir) as path:
+        time.sleep(seconds)
+    return path
+
+
+async def handle_debug_trace(request: web.Request) -> web.Response:
+    """``POST /debug/trace?seconds=N[&name=subdir]``: N seconds (at most
+    60) of host and device activity, live traffic included, recorded by
+    ``torch.profiler`` into a Chrome trace under a fixed root
+    (``CASSMANTLE_TRACE_ROOT``, else the temp dir); ``name`` picks one
+    sanitized subdirectory, never a path. Loopback or the cluster token
+    only (403). One capture at a time: a second answers 409 while one
+    runs. The capture runs on a worker thread, off the event loop. A
+    failed capture answers 500 and counts ``obs.profiler_capture_failures``;
+    a finished one counts ``obs.profiler_captures``."""
+    if not _is_cluster_peer(request, request.app[_FABRIC]):
+        raise web.HTTPForbidden(text="loopback or cluster peers only")
+    try:
+        seconds = min(60.0, float(request.query.get("seconds", "5")))
+    except ValueError:
+        raise web.HTTPBadRequest(text="seconds must be a number")
+    if not seconds >= 0.0:
+        raise web.HTTPBadRequest(text="seconds must be >= 0")
+    name = request.query.get("name", "capture")
+    if not re.fullmatch(r"[A-Za-z0-9._-]{1,64}", name) or ".." in name:
+        raise web.HTTPBadRequest(text="name must be [A-Za-z0-9._-]{1,64}")
+    root = os.environ.get("CASSMANTLE_TRACE_ROOT", os.path.join(
+        tempfile.gettempdir(), "cassmantle_trace"))
+    log_dir = os.path.join(root, name)
+    state = request.app[_TRACE_STATE]
+    # checked and set before the first await: single flight
+    if state["active"]:
+        raise web.HTTPConflict(text="a trace capture is already running")
+    state["active"] = True
+    capture = asyncio.get_running_loop().run_in_executor(
+        None, _profile_capture, log_dir, seconds)
+    # free only when the profiler has stopped, even if this request is
+    # cancelled first
+    capture.add_done_callback(lambda _: state.update(active=False))
+    try:
+        await asyncio.shield(capture)
+    except asyncio.CancelledError:
+        raise
+    except Exception as exc:
+        metrics.inc("obs.profiler_capture_failures")
+        log.exception("profiler capture failed")
+        raise web.HTTPInternalServerError(
+            text=f"trace capture failed: {type(exc).__name__}: {exc}")
+    metrics.inc("obs.profiler_captures")
+    return web.json_response({"trace_dir": log_dir, "seconds": seconds})
+
+
+def prober_of(app: web.Application):
+    """The app's canary prober (None under CASSMANTLE_NO_PROBER or before
+    startup)."""
+    return app[_PROBER]["prober"]
 
 
 # (wordlist tuple, payload bytes, quoted ETag), keyed on the identity of
@@ -571,6 +691,12 @@ async def handle_wordlist(request: web.Request) -> web.Response:
                         headers=headers)
 
 
+async def _leak_scan_loop(interval_s: float) -> None:
+    while True:
+        await asyncio.sleep(interval_s)
+        leak_sentinel.scan()
+
+
 async def _slo_loop(engine: SloEngine, interval_s: float) -> None:
     """Evaluate the SLOs every ``interval_s``; the brownout ladder listens
     to each pass. An evaluation bug is counted and logged, never fatal."""
@@ -585,11 +711,16 @@ async def _slo_loop(engine: SloEngine, interval_s: float) -> None:
 
 def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
                start_timer: bool = True,
-               device_health: bool = False) -> web.Application:
+               device_health: bool = False,
+               self_addr: Optional[str] = None) -> web.Application:
     """The aiohttp app over a Game (wrapped as a one-room fabric) or a
     RoomFabric. ``device_health``: probe the serving device
     (``utils/health.py``) on ``/healthz`` and ``/readyz``, with a probe's
-    raise classified by the recovery manager."""
+    raise classified by the recovery manager. ``self_addr``: this
+    worker's own HTTP address (``http://127.0.0.1:<port>``), which the
+    canary prober plays through; without it the prober uses the fabric's
+    advertised address, or probes nothing until one is set
+    (``prober_of(app).self_addr``)."""
     configure_observability(cfg.obs)
     # CASSMANTLE_CHAOS wins over cfg.chaos.spec; disarmed otherwise
     chaos.configure_from_env(cfg.chaos)
@@ -603,6 +734,8 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
         cors_middleware, make_ratelimit_middleware(cfg), tracing_middleware])
     app[_FABRIC] = fabric
     app[_OBS_TASKS] = []
+    app[_PROBER] = {"prober": None}
+    app[_TRACE_STATE] = {"active": False}
     app[_SLO] = SloEngine(default_objectives(cfg),
                           fast_window_s=cfg.obs.slo_fast_window_s,
                           slow_window_s=cfg.obs.slo_slow_window_s)
@@ -636,6 +769,7 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
     app.router.add_get("/healthz", handle_healthz)
     app.router.add_get("/readyz", handle_readyz)
     app.router.add_get("/wordlist", handle_wordlist)
+    app.router.add_post("/debug/trace", handle_debug_trace)
     for prefix, path in (("/static", STATIC_DIR), ("/data", DATA_DIR),
                          ("/media", MEDIA_DIR)):
         if os.path.isdir(path):
@@ -651,6 +785,18 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
         if not _env_flag_set("CASSMANTLE_NO_SLO"):
             tasks.append(loop.create_task(
                 _slo_loop(app_[_SLO], cfg.obs.slo_eval_interval_s)))
+        # the canary plays the game through this worker's own listener;
+        # under CASSMANTLE_NO_PROBER: no task, no metric, no store key
+        if not prober_disabled():
+            prober = CanaryProber(fabric, cfg, self_addr=self_addr)
+            app_[_PROBER]["prober"] = prober
+            tasks.append(loop.create_task(prober.run()))
+        # opt-in leak census (CASSMANTLE_LEAK_SENTINEL=1), log-only, at
+        # the process sampler's cadence: growth of the tracked threads and
+        # tasks counts leaks.* and records leak.detected
+        leak_sentinel.maybe_enable_from_env()
+        if leak_sentinel.sentinel_active():
+            tasks.append(loop.create_task(_leak_scan_loop(interval)))
 
     async def on_shutdown(app_: web.Application) -> None:
         # graceful handoff: leave membership and drain the rooms before
@@ -901,7 +1047,9 @@ def _run_worker(args, cfg: FrameworkConfig) -> None:
     fabric = build_fabric(cfg, fake=args.fake, weights_dir=args.weights,
                           worker_id=args.worker_id,
                           advertise_addr=args.advertise, device=device)
-    web.run_app(create_app(fabric, cfg, device_health=not args.fake),
+    # the canary plays through this worker's own listener, on loopback
+    web.run_app(create_app(fabric, cfg, device_health=not args.fake,
+                           self_addr=f"http://127.0.0.1:{args.port}"),
                 host=args.host, port=args.port)
 
 

@@ -48,6 +48,13 @@ def _env_flag(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
 
 
+def adaptive_admission_disabled() -> bool:
+    """CASSMANTLE_NO_ADAPTIVE_ADMISSION=1 reverts every queue to the
+    static ``max_pending`` / ``degraded_max_pending`` pair (read when a
+    service builds its queues)."""
+    return _env_flag("CASSMANTLE_NO_ADAPTIVE_ADMISSION")
+
+
 def brownout_disabled() -> bool:
     """CASSMANTLE_NO_BROWNOUT=1 pins the ladder at tier 0. Checked on
     every evaluation AND every override read, so setting it mid-flight
@@ -534,9 +541,13 @@ def peer_advert() -> Dict[str, object]:
     return out
 
 
-def make_admission(name: str, cfg) -> AdaptiveLimiter:
+def make_admission(name: str, cfg) -> Optional[AdaptiveLimiter]:
     """The per-queue adaptive limiter from a FrameworkConfig, registered
-    for :func:`status_block`."""
+    for :func:`status_block`; None under CASSMANTLE_NO_ADAPTIVE_ADMISSION,
+    which leaves the queue its static max_pending / degraded_max_pending
+    pair exactly."""
+    if adaptive_admission_disabled():
+        return None
     s = cfg.serving
     limiter = AdaptiveLimiter(
         name,

@@ -95,7 +95,9 @@ speculative decode one captured draft/verify chunk per shape
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import contextvars
+import copy
 import dataclasses
 import logging
 import os
@@ -130,6 +132,7 @@ from cassmantle_tpu_torch.models.vae import (
     VAEEncoder,
     postprocess_images,
 )
+from cassmantle_tpu_torch.obs import costmodel
 from cassmantle_tpu_torch.obs.device import note_dispatch
 from cassmantle_tpu_torch.ops.ddim import (
     EncpropGraph,
@@ -186,6 +189,7 @@ from cassmantle_tpu_torch.utils.device import (
 )
 from cassmantle_tpu_torch.utils.locks import OrderedLock
 from cassmantle_tpu_torch.utils.logging import metrics
+from cassmantle_tpu_torch.utils.profiling import annotate, block_timer
 from cassmantle_tpu_torch.utils.text import (
     is_wordlike,
     sanitize_text,
@@ -486,6 +490,8 @@ class Text2ImagePipeline(_ReloadsParams):
     LOCK_RANK = 10
     # the checkpoint kinds of its UNet and VAE decoder (models/weights.py)
     UNET_KIND, VAE_KIND = "unet", "vae"
+    # the profiler ranges of a dispatch's stages (utils/profiling.py)
+    RANGES = ("clip_encode", "denoise_scan", "vae_decode")
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
@@ -547,11 +553,7 @@ class Text2ImagePipeline(_ReloadsParams):
         # SDXL's two towers share the CLIP vocabulary and one tokenization
         self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size,
                                         weights_dir)
-        self.pad_len = min([cfg.sampler.prompt_pad_len] + [
-            t.max_positions for t in (m.clip_text, m.clip_text_2)
-            if t is not None])
-        # pixels per latent: one 2x upsample per VAE level transition
-        self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
+        self._set_shapes(cfg)
         # img2img: the VAE encoder (built on first use) and the captured
         # tail of each (strength steps, latent shape (B, h, w, 4))
         self.vae_enc: Optional[VAEEncoder] = None
@@ -568,6 +570,9 @@ class Text2ImagePipeline(_ReloadsParams):
         # the staged server, made at the first staged generate (one
         # denoise thread a pipeline) and dropped by reload_params
         self._staged = None
+        # the models' published-width twins on the meta device, made at
+        # the first cost count (image_products)
+        self._meta_twins: Optional[Dict[str, object]] = None
         self._staged_init_lock = OrderedLock("pipeline.staged_init",
                                              rank=13)
 
@@ -696,6 +701,120 @@ class Text2ImagePipeline(_ReloadsParams):
             self.tier_variants[key] = variant
         return variant
 
+    def _set_shapes(self, cfg: FrameworkConfig) -> None:
+        m = cfg.models
+        self.pad_len = min([cfg.sampler.prompt_pad_len] + [
+            t.max_positions for t in (m.clip_text, m.clip_text_2)
+            if t is not None])
+        # pixels per latent: one 2x upsample per VAE level transition
+        self.vae_scale = 2 ** (len(m.vae.channel_mults) - 1)
+
+    # -- the cost model (obs/costmodel.py) ---------------------------------
+    @classmethod
+    def shape_twin(cls, cfg: FrameworkConfig) -> "Text2ImagePipeline":
+        """A pipeline of ``cfg`` holding only what the cost counts read
+        (config, variant, shapes) and no model: :meth:`image_products`
+        and :meth:`staged_denoise_products` of a config at any width,
+        without building it."""
+        twin = cls.__new__(cls)
+        twin.cfg = cfg
+        twin.full_variant = SamplerVariant(cfg.sampler)
+        twin._set_shapes(cfg)
+        twin._meta_twins = None
+        return twin
+
+    def cost_signature(self, variant: Optional[SamplerVariant] = None
+                       ) -> str:
+        """The cost model's key of one dispatch variant (default: the
+        pipeline's own)."""
+        s = (variant or self.full_variant).sampler_cfg
+        return costmodel.t2i_signature(self.cfg, s)
+
+    def _meta_models(self) -> Dict[str, object]:
+        """The served models' twins on the meta device, by attribute: the
+        same modules at the same width (the UNet under W8A8 when that is
+        armed), with no storage."""
+        m = self.cfg.models
+        unet = costmodel.meta_module(partial(UNet, m.unet))
+        w8a8 = w8a8_unet_tools(m)
+        if w8a8 is not None:
+            w8a8(unet)
+        return {"clip": costmodel.meta_module(
+                    partial(ClipTextEncoder, m.clip_text)),
+                "unet": unet,
+                "vae": costmodel.meta_module(partial(VAEDecoder, m.vae))}
+
+    def _twins(self) -> Dict[str, object]:
+        if self._meta_twins is None:
+            self._meta_twins = self._meta_models()
+        return self._meta_twins
+
+    def image_products(self, variant: Optional[SamplerVariant] = None
+                       ) -> costmodel.Products:
+        """The products of one image under ``variant`` (default: the
+        pipeline's own): this pipeline's encode, denoise loop (eager,
+        every step) and VAE decode run at batch 1 on the meta twins of its
+        models, each distinct UNet forward walked once. Nothing touches
+        the card."""
+        v = variant or self.full_variant
+        twins = self._twins()
+
+        def walk(counter: costmodel.ProductCounter) -> None:
+            shadow = copy.copy(self)
+            shadow.__dict__.update(twins)
+            shadow.unet = costmodel.MemoCall(twins["unet"], counter)
+            shadow.device = torch.device("meta")
+            ids = torch.zeros((1, self.pad_len), dtype=torch.long,
+                              device="meta")
+            cond = shadow.encode_ids(ids, ids)
+            size = v.sampler_cfg.image_size // self.vae_scale
+            x = torch.zeros((1, size, size, 4), device="meta")
+            final = Text2ImagePipeline.denoise(shadow, x, cond,
+                                               graphed=False, variant=v)
+            shadow.vae(final)
+
+        return costmodel.count_products(walk)
+
+    def staged_denoise_products(self) -> costmodel.Products:
+        """One staged request's denoise: the served schedule's steps, each
+        one CFG forward at width 1 (the slot denoiser over the meta UNet
+        at batch 2)."""
+        from cassmantle_tpu_torch.ops.ddim import make_slot_denoiser
+
+        unet = self._twins()["unet"]
+        s = self.full_variant.sampler_cfg
+        m = self.cfg.models
+        size = s.image_size // self.vae_scale
+
+        def walk(counter: costmodel.ProductCounter) -> None:
+            def meta(*shape):
+                return torch.zeros(shape, device="meta")
+
+            denoise = make_slot_denoiser(unet, s.guidance_scale)
+            ctx = meta(1, self.pad_len, m.unet.context_dim)
+            add = (meta(1, m.unet.addition_embed_dim)
+                   if m.unet.addition_embed_dim else None)
+            denoise(meta(1, size, size, 4), meta(1), ctx, ctx, add, add)
+
+        return costmodel.count_products(walk).scaled(s.num_steps)
+
+    def cost_entries(self) -> List[tuple]:
+        """(kind, signature, counter) of the counts this pipeline's own
+        config reads: a monolithic image, and a staged request's denoise
+        (:func:`costmodel.flops_per_item` keys)."""
+        sig = self.cost_signature()
+        return [(self.PIPELINE, sig, self.image_products),
+                ("staged_denoise", sig, self.staged_denoise_products)]
+
+    def _dispatch_flops(self, variant: SamplerVariant
+                        ) -> Optional[costmodel.Products]:
+        """One image's products for the variant dispatched (a brownout
+        tier's counted by its own signature), or None while it is being
+        counted on a thread of its own."""
+        return costmodel.dispatch_count(
+            self.PIPELINE, self.cost_signature(variant),
+            partial(self.image_products, variant))
+
     # -- staged serving (serving/stages.py) --------------------------------
     def _staged_enabled(self) -> bool:
         """The reference's per-call routing decision, less its mesh term
@@ -746,7 +865,10 @@ class Text2ImagePipeline(_ReloadsParams):
                         decode_fn=self._decode_stage, unet=self.unet,
                         tokenize=self._tokenize_host,
                         vae_scale=self.vae_scale,
-                        supervisor=self.supervisor)
+                        supervisor=self.supervisor,
+                        denoise_cost=("staged_denoise",
+                                      self.cost_signature(),
+                                      self.staged_denoise_products))
         return self._staged
 
     def drop_staged(self) -> None:
@@ -791,14 +913,23 @@ class Text2ImagePipeline(_ReloadsParams):
             return out
         with self._dispatch_lock:
             variant = self.tier_variant(quality_overrides())
-            fault_point("device.lost", peer=self.PIPELINE)
-            images = self._generate_locked(prompts, seed, latents, variant)
+            per_image = self._dispatch_flops(variant or self.full_variant)
+            # the stage span ends when the uint8 batch is on the host (no
+            # second sync); attribution counts the variant served, and
+            # block_timer reports the dispatch to the device telemetry
+            with block_timer(
+                    f"pipeline.{self.PIPELINE}_s",
+                    flops_est=(per_image.scaled(len(prompts))
+                               if per_image is not None else None),
+                    pipeline=self.PIPELINE):
+                fault_point("device.lost", peer=self.PIPELINE)
+                images = self._generate_locked(prompts, seed, latents,
+                                               variant)
         out = integrity.poison(images, peer=self.PIPELINE)
         # the host-side sentinel on the uint8 batch already copied back:
         # the verdict stays out of the captured graphs
         integrity.enforce(np.ones(len(out), dtype=bool),
                           pipeline=self.PIPELINE, stage="sample", images=out)
-        note_dispatch(self.PIPELINE)
         served = variant or self.full_variant
         metrics.inc("pipeline.sdxl_images" if self.PIPELINE == "sdxl"
                     else "pipeline.images", len(out))
@@ -819,18 +950,22 @@ class Text2ImagePipeline(_ReloadsParams):
                                       self.vae_scale, device=self.device)
         latents = latents.to(self.device, torch.float32)
         times = {}
+        encode_range, denoise_range, vae_range = self.RANGES
         with torch.inference_mode():
             t0 = time.perf_counter()
-            cond = self.encode(prompts)
+            with annotate(encode_range):
+                cond = self.encode(prompts)
             synchronize(self.device)
             t1 = time.perf_counter()
             times["clip"] = t1 - t0
-            final = self.denoise(latents, cond, variant=variant)
+            with annotate(denoise_range):
+                final = self.denoise(latents, cond, variant=variant)
             synchronize(self.device)
             t2 = time.perf_counter()
             times["denoise"] = t2 - t1
-            decoded = self.vae(final)
-            images = postprocess_images(decoded)
+            with annotate(vae_range):
+                decoded = self.vae(final)
+                images = postprocess_images(decoded)
             self.last_decoded_finite = bool(torch.isfinite(decoded).all())
             synchronize(self.device)
             times["vae"] = time.perf_counter() - t2
@@ -909,7 +1044,7 @@ class Text2ImagePipeline(_ReloadsParams):
                 "the schedule, not arbitrary strength tails); use a "
                 "non-consistency config for image-conditioned generation")
         check_eta(s)
-        with self._dispatch_lock:
+        with self._dispatch_lock, block_timer("pipeline.i2i_s"):
             out = self._img2img_locked(images, prompts, strength, seed,
                                        graphed)
         integrity.enforce(np.ones(len(out), dtype=bool),
@@ -1033,6 +1168,11 @@ class PromptGenerator(_ReloadsParams):
         # (seed texts, max_new, seed, graphed) of the last decode
         self._last_call: Optional[tuple] = None
         self._init_spec_decode(cfg, draft_state_dict, param_dtype)
+        # the cost model: the LM's meta twin (made at the first count)
+        # and, per thread, the products of that thread's last decode (a
+        # decode that raised attributes nothing)
+        self._meta_twin = None
+        self._decode_flops_tls = threading.local()
 
     def _init_spec_decode(self, cfg: FrameworkConfig,
                           draft_state_dict: Optional[Mapping],
@@ -1076,6 +1216,71 @@ class PromptGenerator(_ReloadsParams):
             lambda t: convert_gpt2(t, d.num_layers, d.hidden_size),
             draft_state_dict)
         self.spec_draft = ModelDraft(model)
+
+    @classmethod
+    def shape_twin(cls, cfg: FrameworkConfig) -> "PromptGenerator":
+        """A generator of ``cfg`` with no model: :meth:`row_products` at
+        any width without building the LM."""
+        twin = cls.__new__(cls)
+        twin.cfg = cfg
+        twin.mcfg = (cfg.models.mistral if cfg.models.mistral is not None
+                     else cfg.models.gpt2)
+        twin._meta_twin = None
+        return twin
+
+    def _meta_lm(self) -> torch.nn.Module:
+        """The LM's twin on the meta device (W8A8 sites when armed)."""
+        if self._meta_twin is None:
+            if self.cfg.models.mistral is not None:
+                twin = costmodel.meta_module(partial(MistralLM, self.mcfg))
+            else:
+                twin = costmodel.meta_module(partial(GPT2LM, self.mcfg))
+                if lm_w8a8_armed(self.cfg.models):
+                    w8a8_modules(twin, predicate=partial(
+                        w8a8_default_predicate,
+                        min_size=self.cfg.models.w8a8_min_size))
+            self._meta_twin = twin
+        return self._meta_twin
+
+    def row_products(self, bucket: int, max_new: int) -> costmodel.Products:
+        """One row's decode at prompt bucket ``bucket``: the prefill, then
+        ``max_new - 1`` cached steps, each attending over the whole static
+        cache as the device does (the last token needs no step). Walked on
+        the meta twin; speculative decode is counted as this greedy
+        budget."""
+        model = self._meta_lm()
+        max_len = bucket + max_new
+        cache = model.new_cache(1, max_len, "meta")
+
+        def prefill(counter) -> None:
+            ids = torch.zeros((1, bucket), dtype=torch.long, device="meta")
+            lens = torch.full((1,), bucket, dtype=torch.long, device="meta")
+            model.prefill(ids, lens, max_len, cache)
+
+        def step(counter) -> None:
+            token = torch.zeros((1,), dtype=torch.int32, device="meta")
+            index = torch.full((1,), bucket, dtype=torch.long,
+                               device="meta")
+            valid = torch.ones((1, max_len), dtype=torch.bool,
+                               device="meta")
+            model.decode_step(token, index, cache, valid)
+
+        return costmodel.count_products(prefill) + costmodel.count_products(
+            step).scaled(max_new - 1)
+
+    def cost_entries(self, bucket: int, max_new: int) -> List[tuple]:
+        """(kind, signature, counter) of one row's decode at ``bucket``
+        and ``max_new`` (:func:`costmodel.flops_per_item` keys)."""
+        sig = costmodel.lm_signature(self.mcfg,
+                                     lm_w8a8_armed(self.cfg.models))
+        return [(self.PIPELINE, f"{sig}:{bucket}:{max_new}",
+                 partial(self.row_products, bucket, max_new))]
+
+    def _group_products(self, n_pad: int, bucket: int, max_new: int
+                        ) -> Optional[costmodel.Products]:
+        row = costmodel.dispatch_count(*self.cost_entries(bucket,
+                                                          max_new)[0])
+        return None if row is None else row.scaled(n_pad)
 
     def _spec_enabled(self, bucket: int, max_new: int) -> bool:
         """Per bucket group: speculative decode serves greedy decodes only,
@@ -1147,6 +1352,8 @@ class PromptGenerator(_ReloadsParams):
                else m.vocab_size)
         spec_stats = []
         bad_members = set()
+        dispatch = costmodel.Products()
+        self._decode_flops_tls.value = None
         for bucket, idxs in groups.items():
             n = len(idxs)
             n_pad = next((b for b in self.BATCH_BUCKETS if n <= b), n)
@@ -1157,7 +1364,15 @@ class PromptGenerator(_ReloadsParams):
                 toks = rows[src]
                 ids[row, : len(toks)] = np.asarray(toks) % m.vocab_size
                 lens[row] = max(1, len(toks))
-            with self._dispatch_lock:
+            group = self._group_products(n_pad, bucket, max_new)
+            if group is not None:
+                dispatch = dispatch + group
+            # a speculative group's draft and verify, timed until its
+            # tokens are on the host
+            timer = (block_timer("decode.verify_s")
+                     if self._spec_enabled(bucket, max_new)
+                     else contextlib.nullcontext())
+            with self._dispatch_lock, timer:
                 fault_point("device.lost", peer=self.PIPELINE)
                 tokens, gen_len = self._decode_group(
                     ids, lens, n, bucket, max_new, eos, seed, graphed,
@@ -1178,6 +1393,7 @@ class PromptGenerator(_ReloadsParams):
             out_len[idxs] = gen_len
         self._record_spec_stats(spec_stats)
         self._last_call = (list(seed_texts), max_new, seed, graphed)
+        self._decode_flops_tls.value = dispatch
         return out_tokens, out_len, tuple(sorted(bad_members))
 
     def replay_last_decode(self) -> bool:
@@ -1240,8 +1456,13 @@ class PromptGenerator(_ReloadsParams):
         instance in its slot (not raised): the prompt queue fails that
         request alone while the batch's other rows serve."""
         t0 = time.perf_counter()
-        tokens, lengths, bad = self._decode(seed_texts, max_new_tokens,
-                                            None, None)
+        # the products are known once the rows are grouped into buckets:
+        # read at exit, on this thread
+        with block_timer("pipeline.prompt_s", flops_est=lambda: getattr(
+                self._decode_flops_tls, "value", None),
+                pipeline=self.PIPELINE):
+            tokens, lengths, bad = self._decode(seed_texts, max_new_tokens,
+                                                None, None)
         self.last_seconds = time.perf_counter() - t0
         if bad:
             integrity.note_invalid(self.PIPELINE, "decode", sorted(bad))

@@ -50,6 +50,7 @@ import torch
 from cassmantle_tpu_torch.config import FrameworkConfig
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.layers import timestep_embedding
+from cassmantle_tpu_torch.obs import costmodel
 from cassmantle_tpu_torch.models.weights import (
     CHECKPOINT_FILES,
     checkpoint_paths,
@@ -97,6 +98,7 @@ class SDXLPipeline(Text2ImagePipeline):
     PIPELINE = "sdxl"
     LOCK_RANK = 11
     UNET_KIND, VAE_KIND = "unet_xl", "vae_xl"
+    RANGES = ("sdxl_encode", "sdxl_denoise_scan", "sdxl_vae_decode")
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, object]] = None,
@@ -152,6 +154,36 @@ class SDXLPipeline(Text2ImagePipeline):
         self.time_ids = self._rebuilds.add(partial(self._time_ids, 1))
         # a brownout tier's, by image size, built as its tier engages
         self.tier_time_ids: Dict[int, torch.Tensor] = {}
+
+    @classmethod
+    def shape_twin(cls, cfg: FrameworkConfig) -> "SDXLPipeline":
+        """:meth:`Text2ImagePipeline.shape_twin`, with bigG's projection
+        absent (as with random weights) and the time ids' shape."""
+        twin = super().shape_twin(cfg)
+        m = cfg.models
+        twin.clip2_proj = None
+        twin.time_id_dim = (m.unet.addition_embed_dim
+                            - m.clip_text_2.hidden_size) // 6
+        twin.time_ids = torch.empty((1, 6 * twin.time_id_dim),
+                                    device="meta")
+        return twin
+
+    def cost_signature(self, variant: Optional[SamplerVariant] = None
+                       ) -> str:
+        s = (variant or self.full_variant).sampler_cfg
+        return costmodel.sdxl_signature(self.cfg, s)
+
+    def _meta_models(self) -> Dict[str, object]:
+        """:meth:`Text2ImagePipeline._meta_models` with bigG, its
+        projection and the time ids."""
+        twins = super()._meta_models()
+        twins["clip2"] = costmodel.meta_module(
+            partial(ClipTextEncoder, self.cfg.models.clip_text_2))
+        twins["clip2_proj"] = (None if self.clip2_proj is None else
+                               torch.empty_like(self.clip2_proj,
+                                                device="meta"))
+        twins["time_ids"] = torch.empty_like(self.time_ids, device="meta")
+        return twins
 
     def _encode(self, ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from cassmantle_tpu_torch.chaos import fault_point
+from cassmantle_tpu_torch.obs import costmodel
 from cassmantle_tpu_torch.obs.recorder import flight_recorder
 from cassmantle_tpu_torch.obs.trace import current_ctx, tracer
 from cassmantle_tpu_torch.ops.ddim import initial_latents, make_slot_denoiser
@@ -157,7 +158,10 @@ class StagedImageServer:
     - ``unet``: the CFG step's model (``ops/ddim.py::make_slot_denoiser``
       over it);
     - ``decode_fn(latents) -> (B, H, W, 3)`` uint8 on ``device``;
-    - ``tokenize(prompts) -> (B, pad)`` host ids, the pipeline's own.
+    - ``tokenize(prompts) -> (B, pad)`` host ids, the pipeline's own;
+    - ``denoise_cost``: ``(kind, signature, counter)`` of the cost model
+      (``obs/costmodel.py``) for one request's denoise work, or None for
+      no FLOPs attribution.
 
     ``generate`` has the monolithic call's shape: prompts in, the stacked
     uint8 host batch out, blocking the caller until every row decodes.
@@ -166,7 +170,8 @@ class StagedImageServer:
     def __init__(self, cfg, device: torch.device, *, encode_fn: Callable,
                  decode_fn: Callable, unet: Callable,
                  tokenize: Callable[[Sequence[str]], np.ndarray],
-                 vae_scale: int, supervisor=None) -> None:
+                 vae_scale: int, supervisor=None,
+                 denoise_cost: Optional[tuple] = None) -> None:
         from cassmantle_tpu_torch.serving.pipeline import (
             effective_sampler_cfg,
         )
@@ -267,6 +272,7 @@ class StagedImageServer:
                       "retirements": 0, "preemptions": 0,
                       "quarantines": 0}
         self._on_step = None  # test seam: called once per loop iteration
+        self._denoise_cost = denoise_cost
 
     # -- streams and events --------------------------------------------------
 
@@ -317,6 +323,10 @@ class StagedImageServer:
                 name="cassmantle-stage-denoise")
             self._denoise_thread.start()
             self._started = True
+        if self._denoise_cost is not None:
+            # counted on a thread of its own, never on the denoise thread:
+            # retirements carry no attribution until it lands
+            costmodel.count_later(*self._denoise_cost)
 
     def _ensure_queues(self) -> None:
         """Built on the stage loop (one thread there): each stage queue
@@ -888,23 +898,50 @@ class StagedImageServer:
             flight_recorder.record(
                 "stage.retire", stage="denoise", slot=slot,
                 step=self.stats["steps"], occupancy=self._active_n)
+            unit = self._unit_products()
+            if unit is not None:
+                self._attribute(unit, now - u.t_admit)
             if u.ctx is not None and u.ctx.sampled:
                 wait_s = u.t_admit - u.t_ready
                 tracer.record_span(
                     "stage.denoise.wait", tracer.child_ctx(u.ctx),
                     parent_id=u.ctx.span_id, start_wall=u.wall_ready,
                     duration_s=wait_s, attrs={"slot": slot})
+                attrs = {"slot": slot, "steps": self.num_steps}
+                if unit is not None:
+                    attrs["flops_est"] = unit.total
                 tracer.record_span(
                     "stage.denoise.service", tracer.child_ctx(u.ctx),
                     parent_id=u.ctx.span_id,
                     start_wall=u.wall_ready + wait_s,
-                    duration_s=now - u.t_admit,
-                    attrs={"slot": slot, "steps": self.num_steps})
+                    duration_s=now - u.t_admit, attrs=attrs)
             if sup is not None:
                 sup.note_stage_progress("denoise")
             # stop(), a deadline or the verdict may have failed it already
             if not u.done.done():
                 u.done.set_result((row, ready))
+
+    def _unit_products(self) -> Optional[costmodel.Products]:
+        """One request's denoise products, once the daemon count landed."""
+        if self._denoise_cost is None:
+            return None
+        return costmodel.cached(*self._denoise_cost[:2])[1]
+
+    @staticmethod
+    def _attribute(unit: costmodel.Products, service_s: float) -> None:
+        """A retirement's FLOPs attribution: the request's num_steps CFG
+        forwards wherever its slot sat, and the gauge over its residency
+        (admit to retire). Co-resident slots overlap, so the gauge is a
+        lower bound that nears the truth as occupancy rises."""
+        from cassmantle_tpu_torch.obs.device import note_dispatch
+
+        labels = {"pipeline": "staged_denoise"}
+        metrics.inc("request.device_flops", unit.total, labels=labels)
+        if service_s > 0:
+            metrics.gauge("pipeline.mxu_utilization",
+                          costmodel.utilization(unit, service_s),
+                          labels=labels)
+        note_dispatch("staged_denoise")
 
     # -- wedge watchdog ------------------------------------------------------
 

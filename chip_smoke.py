@@ -170,14 +170,26 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    the round the server then generates at the tier. Every round the
    server generates is tallied around ``t2i.generate``: at full quality
    as ``[round-default]``, at a tier as ``derived_round`` says, flash
-   only at shapes phase 2 checks, on their checked paths;
+   only at shapes phase 2 checks, on their checked paths. Throughout, the
+   canary prober at 0.5 s ([canary]): at least 10 probes through the
+   listener, all passing, those across the capture below too
+   (``probe.e2e_s`` p50/p99, also of those across the capture; the near
+   guess's rung), /readyz's
+   canary block ok, /sloz's probe objectives with their
+   traffic; a probe failing at leg ``score`` while every score dispatch
+   raises (counted, ``probe.fail``, its trace at /debugz); a second app
+   under ``CASSMANTLE_NO_PROBER=1`` leaving no probe artifact. And
+   ([debug-trace]) ``POST /debug/trace?seconds=2`` while a round runs:
+   200, a trace naming the flash kernel among its device events, a second
+   POST meanwhile 409;
 15. ``python -m cassmantle_tpu_torch serve`` as a child process
    ([serve-cli]) on a port picked by binding 127.0.0.1:0 (picked once
    more if the child cannot bind it), its output in the git-ignored
    ``_build/serve_cli.log``: /readyz 200 within 240 s, one session,
-   /healthz's CUDA probe, then SIGINT: exit 0 within 30 s after the
-   graceful handoff (SIGKILL and reaped otherwise, on every path).
-   Boot-to-ready seconds;
+   /healthz's CUDA probe, its own canary prober's verdict ok at /readyz,
+   then SIGINT: exit 0 within 30 s after the graceful handoff (SIGKILL and
+   reaped otherwise, on every path), under ``CASSMANTLE_LEAK_SENTINEL=1``
+   with its ``leaks.*`` counters reported. Boot-to-ready seconds;
 16. the staged image server ([staged], ``serving/stages.py``):
    ``staged_serving_config()`` through ``InferenceService`` (a round's
    image on the staged path); solo images bit-equal to the monolithic
@@ -196,7 +208,17 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    A/B (12 requests at 0.6 a second, sizes 1, 1, 2) staged against
    monolithic on one pipeline; the fused-conv and W8A8 UNets staged
    (solo parity, a two-request run). Every staged launch is held to the
-   shapes phase 2 checks, on the flash path its check took.
+   shapes phase 2 checks, on the flash path its check took;
+17. device observability ([obs-device], ``obs/costmodel.py``,
+   ``utils/profiling.py``): every count the run reads is made from the
+   configs on meta tensors in a child process while the kernels build.
+   Each round of phase 4 and Mistral's attributes its two images'
+   products, ``request.device_flops{t2i|sdxl}`` = the count x 2, its
+   prompt decodes and guess encodes theirs (whole padded rows), each
+   ``pipeline.mxu_utilization`` in (0, 1]; in [staged]'s A/B every
+   retirement attributes one request's count and the monolithic arm its
+   images'. The closing line sets each count beside the reference's
+   committed entry (``data/cost_model.json``), the difference explained.
 
 Prints a ``[time]`` line after each phase, its total seconds, one
 ``kernels`` JSON line (each entry's launches and its ``staged_launches``),
@@ -1536,6 +1558,137 @@ def unet_forwards(replays: dict) -> dict:
     return {"full": replays.get("step", 0)}
 
 
+# -- the cost model's counts ([obs-device]) -----------------------------------
+
+# the prompt buckets and new tokens a round's decode runs at
+COST_BUCKETS = (32, 64, 128)
+# the reference's committed per-item FLOPs (data/cost_model.json) the
+# [obs-device] line sets beside each pipeline's count, by preset
+COMMITTED_ENTRY = {"default": "t2i", "fusedconv": "t2i",
+                   "w8a8": "t2i_w8a8", "sdxl": "sdxl", "lcm": "t2i_lcm",
+                   "mistral": "t2i", "weights": "t2i"}
+# what the port counts that the reference's committed entry does not, or
+# the reverse, by entry
+COMMITTED_DIFF = {
+    "t2i_w8a8": "the reference's trace does not enter kernel 4's "
+                "pallas_call bodies: its count omits the int8 3x3 convs' "
+                "products (32.65e12 an image); the port counts them, in "
+                "the int8 class",
+    "prompt": "the reference counts 2 x params a token; the port the "
+              "matmuls: the linears, the fp32 tied head, attention over "
+              "the static cache (within 0.1% at bucket 32)",
+    "scorer": "the reference counts 2 x params a token, the embedding "
+              "tables and norms included; the port the matmuls and "
+              "attention",
+}
+# device FLOPs and mxu readings of the run, by preset or cell
+OBS_DEVICE = {}
+
+
+def cost_configs() -> list:
+    """Every config whose dispatches the run attributes: the served
+    presets, [server]'s and [weights]' (the default's models and sampler)
+    and [staged]'s service."""
+    from cassmantle_tpu_torch.config import staged_serving_config
+
+    return [cfg for _, cfg in served_presets()] + [staged_serving_config()]
+
+
+# child processes that make the counts, each a share of the configs
+COUNT_PROCESSES = 3
+
+
+def precount_costs(part: int = 0, parts: int = 1) -> dict:
+    """{"kind|signature": products} of every count the run's dispatches
+    read at full quality (``obs/costmodel.py``), made from the configs
+    alone on meta tensors: those of every ``parts``-th config from
+    ``part`` on (the scorer's in part 0). Runs in child processes beside
+    the build, so the pipelines' first dispatches find their counts made;
+    a brownout tier's variant is counted on its pipeline's thread as it
+    engages."""
+    import torch
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+    from cassmantle_tpu_torch.ops.scorer import EmbeddingScorer
+    from cassmantle_tpu_torch.serving.pipeline import (
+        PromptGenerator,
+        Text2ImagePipeline,
+    )
+    from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+
+    torch.set_num_threads(1)
+    entries = []
+    for cfg in cost_configs()[part::parts]:
+        cls = (SDXLPipeline if cfg.models.clip_text_2 is not None
+               else Text2ImagePipeline)
+        twin = cls.shape_twin(cfg)
+        # a staged request's count where the config serves staged
+        entries += twin.cost_entries()[:2 if cfg.serving.staged_serving
+                                       else 1]
+        gen = PromptGenerator.shape_twin(cfg)
+        for bucket in COST_BUCKETS:
+            entries += gen.cost_entries(bucket, cfg.sampler.max_new_tokens)
+    if part == 0:
+        entries += EmbeddingScorer.shape_twin(
+            FrameworkConfig().models.minilm).cost_entries()
+    out = {}
+    for kind, sig, counter in entries:
+        key = f"{kind}|{sig}"
+        if key not in out:
+            out[key] = list(counter())
+    return out
+
+
+def seed_costs(counts: dict) -> None:
+    """Load :func:`precount_costs`' counts into this process's cache."""
+    from cassmantle_tpu_torch.obs import costmodel
+
+    for key, ops in counts.items():
+        kind, sig = key.split("|", 1)
+        costmodel.flops_per_item(kind, sig,
+                                 lambda ops=ops: costmodel.Products(*ops))
+
+
+def device_flops(pipeline: str) -> float:
+    """``request.device_flops{pipeline}`` so far."""
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    return metrics.snapshot()["counters"].get(
+        f'request.device_flops{{pipeline="{pipeline}"}}', 0.0)
+
+
+def mxu_gauge(pipeline: str):
+    """``pipeline.mxu_utilization{pipeline}`` now (None: never set)."""
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    return metrics.snapshot()["gauges"].get(
+        f'pipeline.mxu_utilization{{pipeline="{pipeline}"}}')
+
+
+def obs_device_reading(preset: str, kind: str, per_item, flops: float,
+                       items: int, gauge) -> dict:
+    """One [obs-device] entry: the count an item (by class), the FLOPs the
+    dispatches attributed against count x items, the gauge, and the
+    reference's committed entry with the difference explained."""
+    entry = COMMITTED_ENTRY.get(preset) if kind in ("t2i", "sdxl") else \
+        kind if kind in ("prompt", "scorer") else None
+    committed = None
+    if entry is not None:
+        with open(os.path.join(REPO, "data", "cost_model.json")) as f:
+            committed = json.load(f)["pipelines"][entry]["flops_per_item"]
+    want = per_item.total * items if per_item is not None else None
+    return {"pipeline": kind, "count_per_item": (per_item.as_dict()
+                                                 if per_item else None),
+            "items": items, "device_flops": flops, "expected": want,
+            "equal": want is not None and flops == want,
+            "mxu_utilization": gauge,
+            "mxu_in_range": gauge is not None and 0.0 < gauge <= 1.0,
+            "committed_entry": entry, "committed_flops_per_item": committed,
+            "committed_diff": (None if committed is None or per_item is None
+                               else per_item.total - committed),
+            "committed_note": COMMITTED_DIFF.get(entry)}
+
+
 def run_round(card: str, preset: str, cfg, svc=None):
     """One full-width round of ``cfg`` through InferenceService (``svc``,
     or one built here) with every launch counter set to 0 just before it
@@ -1559,6 +1712,10 @@ def run_round(card: str, preset: str, cfg, svc=None):
              ("Caravan", "caravan"), ("glacier", "canyon"),
              ("observatory", "station"), ("violet", "violet tune")]
 
+    from cassmantle_tpu_torch.obs import costmodel
+
+    image_kind = svc.backend.t2i.PIPELINE
+    flops0 = {k: device_flops(k) for k in (image_kind, "prompt")}
     torch.cuda.reset_peak_memory_stats()
     reset_all_counters()
     t0 = time.perf_counter()
@@ -1567,8 +1724,10 @@ def run_round(card: str, preset: str, cfg, svc=None):
     replays = {name: g.replays for name, g in
                svc.backend.t2i.full_variant.step_graphs[1].graphs.items()}
     t1 = time.perf_counter()
+    scorer_flops0 = device_flops("scorer")
     sims = asyncio.run(svc.similarity(pairs))
     score_s = time.perf_counter() - t1
+    scorer_flops = device_flops("scorer") - scorer_flops0
     blurred = {}
     t1 = time.perf_counter()
     for r in (0.0, 5.0, 15.0):
@@ -1586,6 +1745,22 @@ def run_round(card: str, preset: str, cfg, svc=None):
     rc2 = asyncio.run(svc.generate_content("Chapter two: the harbor"))
     warm_round_s = time.perf_counter() - t0
     warm_stages = {"decode": gen.last_seconds, **t2i.last_stage_seconds}
+    # [obs-device]: the two images' attributed FLOPs against the count
+    per_image = costmodel.cached(image_kind, t2i.cost_signature())[1]
+    obs = obs_device_reading(preset, image_kind, per_image,
+                             device_flops(image_kind) - flops0[image_kind],
+                             2, mxu_gauge(image_kind))
+    prompt_flops = device_flops("prompt") - flops0["prompt"]
+    obs_prompt = {"device_flops": prompt_flops,
+                  "mxu_utilization": mxu_gauge("prompt")}
+    # the guesses that missed the table: padded encode batches, each a
+    # whole number of rows
+    row = costmodel.cached(*svc.scorer.cost_entries()[0][:2])[1]
+    obs_scorer = {"device_flops": scorer_flops,
+                  "rows": scorer_flops / row.total if row else None,
+                  "mxu_utilization": mxu_gauge("scorer")}
+    OBS_DEVICE[preset] = {"image": obs, "prompt": obs_prompt,
+                          "scorer": obs_scorer}
 
     img = rc.image
     launches = {k: sum(v.values()) for k, v in tallies.items()
@@ -1623,6 +1798,15 @@ def run_round(card: str, preset: str, cfg, svc=None):
                                    == SAMPLER_FORWARDS[preset])
     checks["encprop_step_counts"] = t2i.full_variant.encprop_counts == (
         (20, 0, 30) if mode == "encprop" else None)
+    checks["device_flops_count_x_images"] = obs["equal"]
+    checks["mxu_utilization_in_range"] = obs["mxu_in_range"]
+    checks["prompt_flops_attributed"] = (
+        prompt_flops > 0 and 0.0 < (obs_prompt["mxu_utilization"] or 0.0)
+        <= 1.0)
+    checks["scorer_flops_whole_rows"] = (
+        scorer_flops > 0 and obs_scorer["rows"] is not None
+        and obs_scorer["rows"] == int(obs_scorer["rows"])
+        and 0.0 < (obs_scorer["mxu_utilization"] or 0.0) <= 1.0)
     checks = {k: bool(v) for k, v in checks.items()}
     lm = lm_decode_times(gen) if preset == "mistral" else None
     report = dict(
@@ -1636,6 +1820,9 @@ def run_round(card: str, preset: str, cfg, svc=None):
         sampler_mode=mode, graph_replays=replays,
         unet_forwards=unet_forwards(replays),
         encprop_step_counts=t2i.full_variant.encprop_counts,
+        obs_device={"image": {k: obs[k] for k in (
+            "device_flops", "expected", "mxu_utilization")},
+            "prompt": obs_prompt, "scorer": obs_scorer},
         text_fallbacks=svc.backend.text_fallbacks,
         prompt_text=rc.prompt_text, scores=[float(s) for s in sims],
         image_mean=float(img.mean()), image_std=float(img.std()),
@@ -4315,8 +4502,9 @@ def round_checks(cfg, record: dict, by_shape: dict, rows: dict) -> dict:
 def check_server(card: str, rows: dict) -> bool:
     """[server]: the port's game server in this process at full width on
     the card: ``build_fabric(server_config())`` and ``create_app(fabric,
-    cfg, device_health=True)`` behind ``web.AppRunner`` and ``TCPSite`` on
-    127.0.0.1 at port 0 (read back from the runner), played over HTTP by
+    cfg, device_health=True, self_addr=...)`` behind ``web.AppRunner`` and
+    ``TCPSite`` on 127.0.0.1 at a picked port, the canary prober on at
+    ``CASSMANTLE_PROBE_INTERVAL_S=0.5`` throughout, played over HTTP by
     an aiohttp client: /healthz (the CUDA probe ran and passed), /readyz,
     64 sessions in parallel through /init, /fetch/contents (a JPEG at the
     configured size), /compute_score (scores for the masked indices) and
@@ -4330,7 +4518,24 @@ def check_server(card: str, rows: dict) -> bool:
     SLO loop (a listener on the app's SLO engine names the evaluating
     task), and the next round the server generates at that tier. Every round the server generates is
     tallied as run_round tallies one (counts set to 0 just before,
-    read just after, around ``t2i.generate``)."""
+    read just after, around ``t2i.generate``). Beside it:
+
+    - [debug-trace], after the round at the tier: ``POST
+      /debug/trace?seconds=2`` while rounds run answers 200 and writes a
+      trace whose device events name the flash kernel (inside the
+      rounds' graph replays); a second POST meanwhile answers 409;
+    - [canary]: at least 10 probes over the phase, all passing, their
+      ``probe.e2e_s`` p50 / p99 and the rung the near guess rode; the
+      probes that overlapped the capture are reported apart (kineto
+      writing a trace of a busy card holds the interpreter for seconds);
+      ``/readyz``'s canary block ok with this worker as its target;
+      ``/sloz``'s probe objectives with their traffic; then, with every
+      score dispatch failing (``queue.dispatch`` raising on the score
+      queue), a probe failing at leg ``score``, counted, recorded as
+      ``probe.fail`` and its trace at ``/debugz``; and a second app under
+      ``CASSMANTLE_NO_PROBER=1`` (the fake backend) leaving no probe
+      artifact: no probe metric moves, no ``probe:`` store key, no probe
+      objective, the canary block ``{"enabled": false}``."""
     import threading
 
     import aiohttp
@@ -4348,6 +4553,13 @@ def check_server(card: str, rows: dict) -> bool:
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
     t_phase = time.perf_counter()
     cfg = server_config()
+    env_before = {k: os.environ.get(k) for k in (
+        "CASSMANTLE_PROBE_INTERVAL_S", "CASSMANTLE_NO_PROBER",
+        "CASSMANTLE_TRACE_ROOT")}
+    os.environ["CASSMANTLE_PROBE_INTERVAL_S"] = str(CANARY_INTERVAL_S)
+    os.environ.pop("CASSMANTLE_NO_PROBER", None)
+    os.environ["CASSMANTLE_TRACE_ROOT"] = TRACE_ROOT
+    probe_counts0 = probe_counts()
     size = cfg.sampler.image_size
     report, checks = {"card": card}, {}
     print("[server] build_fabric", flush=True)
@@ -4401,9 +4613,14 @@ def check_server(card: str, rows: dict) -> bool:
             rungs.append({"to": tier_now, "by": source})
         seen_tier[0] = tier_now
 
+    verdicts = []
+
     async def phase():
         print("[server] create_app and startup", flush=True)
-        app = server_app.create_app(fabric, cfg, device_health=True)
+        port = free_port()
+        app = server_app.create_app(
+            fabric, cfg, device_health=True,
+            self_addr=f"http://127.0.0.1:{port}")
         next(v for v in app.values()
              if isinstance(v, SloEngine)).add_listener(witness)
         runner = web.AppRunner(app)
@@ -4411,7 +4628,17 @@ def check_server(card: str, rows: dict) -> bool:
         boot_wall = time.time()
         t = time.perf_counter()
         await runner.setup()          # on_startup: the first round
-        site = web.TCPSite(runner, "127.0.0.1", 0)
+        # every verdict the app's prober reaches, in order
+        prober = server_app.prober_of(app)
+        played = prober.probe_once
+
+        async def recorded(*args, **kw):
+            verdict = await played(*args, **kw)
+            verdicts.append(verdict)
+            return verdict
+
+        prober.probe_once = recorded
+        site = web.TCPSite(runner, "127.0.0.1", port)
         await site.start()
         report["boot_s"] = time.perf_counter() - t
         host, port = runner.addresses[0][:2]
@@ -4421,6 +4648,8 @@ def check_server(card: str, rows: dict) -> bool:
             base, connector=aiohttp.TCPConnector(limit=256))
         try:
             await play(http, base)
+            await debug_trace(http)
+            await canary(http, prober)
         finally:
             await http.close()
             print("[server] cleanup (handoff, rooms drained, queues "
@@ -4598,9 +4827,190 @@ def check_server(card: str, rows: dict) -> bool:
             await asyncio.sleep(0.2)
         report["tier_round_wait_s"] = time.perf_counter() - t
 
+    # the wall-clock window of the [debug-trace] capture
+    window = [math.inf, math.inf]
+
+    async def debug_trace(http):
+        """[debug-trace]: a 2 s capture while a round runs, a second
+        capture refused meanwhile."""
+        print("[server] [debug-trace] POST /debug/trace?seconds=2 while a "
+              "round runs", flush=True)
+        seen = {"card": card}
+
+        async def capture(seconds):
+            async with http.post("/debug/trace", params={
+                    "seconds": str(seconds), "name": "smoke"}) as res:
+                return res.status, (await res.json() if res.status == 200
+                                    else await res.text())
+
+        # a hang shows where: every thread's stack each 120 s until done
+        faulthandler.dump_traceback_later(120, repeat=True)
+        held0 = held_off()
+        window[0] = time.time()
+        first = asyncio.ensure_future(capture(2))
+        # the event loop's longest stall while the capture runs (the
+        # profiler's stop and its writing hold the interpreter)
+        stalls = [0.0]
+
+        async def ticker():
+            last = time.perf_counter()
+            while not first.done():
+                await asyncio.sleep(0.01)
+                now = time.perf_counter()
+                stalls.append(now - last - 0.01)
+                last = now
+
+        ticking = asyncio.ensure_future(ticker())
+        await asyncio.sleep(0.3)
+        seen["second_status"], _ = await capture(0)
+        # one round inside the window (the profiler starts at once: its
+        # CUPTI set-up was paid by [profile]); every kernel of the window
+        # lands in the trace, so one round keeps its writing short
+        t = time.perf_counter()
+        await asyncio.to_thread(t2i.generate, [SERVE_PROMPT], 4242)
+        seen["round_s"] = time.perf_counter() - t
+        seen["status"], body = await first
+        faulthandler.cancel_dump_traceback_later()
+        window[1] = time.time()
+        await ticking
+        seen["capture_s"] = window[1] - window[0]
+        seen["loop_max_stall_s"] = max(stalls)
+        # how long graph launches (every image dispatch's steps) were held
+        # off by the capture's switches of the tracing
+        held = held_off()
+        seen["graphs_held_off"] = {"times": held[0] - held0[0],
+                                   "s": held[1] - held0[1]}
+        seen.update(trace_kernels(body))
+        seen["reply"] = body
+        report["debug_trace"] = seen
+        checks["debug_trace_200"] = seen["status"] == 200
+        checks["debug_trace_409"] = seen["second_status"] == 409
+        checks["debug_trace_names_flash"] = seen.get("flash_events", 0) > 0
+
+    async def canary(http, prober):
+        """[canary]: the probes of the phase, the /readyz and /sloz
+        blocks, then a probe failing at leg score under chaos."""
+        from cassmantle_tpu_torch import chaos
+        from cassmantle_tpu_torch.obs.trace import tracer
+
+        print("[server] [canary] probes, /readyz, /sloz, a failing probe",
+              flush=True)
+        seen = {"card": card}
+        # one more now: the burn's 1,024 traces may have pushed the loop's
+        # last probe out of the trace ring
+        fresh = await prober.probe_once()
+        # every probe counts, those across [debug-trace]'s capture too;
+        # these are also read apart
+        during = [v for v in verdicts
+                  if v["t"] + v["e2e_s"] >= window[0] and v["t"] <= window[1]]
+        seen["probes"] = len(verdicts)
+        seen["failed"] = [(v["leg"], v["error"]) for v in verdicts
+                          if not v["ok"]][:4]
+        seen["e2e_ms"] = latency_ms([v["e2e_s"] for v in verdicts])
+        seen["during_capture"] = {
+            "probes": len(during), "ok": sum(v["ok"] for v in during),
+            "e2e_ms": latency_ms([v["e2e_s"] for v in during]),
+            "failed": [(v["leg"], v["error"]) for v in during
+                       if not v["ok"]][:4]}
+        spans = tracer.get_trace(fresh["trace"])
+        names = sorted({sp["name"] for sp in spans or []})
+        seen["probe_spans"] = names
+        seen["near_guess_rung"] = ("score-queue dispatch"
+                                   if "score.batch_service" in names
+                                   else "embed table")
+        checks["canary_probes_all_ok"] = len(verdicts) >= CANARY_PROBES and \
+            all(v["ok"] for v in verdicts)
+        async with http.get("/readyz") as res:
+            block = (await res.json())["canary"]
+        seen["readyz"] = {k: block[k] for k in (
+            "enabled", "ok", "consecutive_failures", "interval_s")}
+        seen["targets"] = list(block["targets"])
+        checks["canary_readyz"] = (block["enabled"] is True
+                                   and block["ok"] is True
+                                   and seen["targets"] == [fabric.worker_id])
+        async with http.get("/sloz") as res:
+            objectives = (await res.json())["objectives"]
+        counts = probe_counts()
+        seen["counts"] = {k: counts[k] - probe_counts0[k] for k in counts}
+        seen["sloz"] = {n: {k: o[k] for k in ("state", "fast_burn",
+                                               "slow_burn")}
+                        for n, o in objectives.items()
+                        if n.startswith("probe_")}
+        checks["canary_slo_objectives"] = (
+            set(seen["sloz"]) == {"probe_success", "probe_latency"}
+            and seen["counts"]["ok"] >= CANARY_PROBES
+            and seen["counts"]["e2e"] >= CANARY_PROBES)
+        # every score dispatch fails: the near guess cannot be scored
+        seq0 = flight_recorder.tail(1)[-1]["seq"]
+        chaos.configure("seed=16;queue.dispatch=raise:peer=score")
+        try:
+            fault = await prober.probe_once()
+        finally:
+            chaos.disarm()
+        events = [e for e in flight_recorder.tail(200, kind="probe.fail")
+                  if e["seq"] > seq0]
+        async with http.get("/debugz",
+                            params={"trace": fault["trace"]}) as res:
+            fault_spans = ((await res.json())["spans"]
+                           if res.status == 200 else [])
+        seen["fault"] = {"ok": fault["ok"], "leg": fault["leg"],
+                         "error": fault["error"],
+                         "failures": probe_counts()["failures"]
+                         - counts["failures"],
+                         "event": any(e.get("trace") == fault["trace"]
+                                      for e in events),
+                         "debugz_root": [sp["name"] for sp in fault_spans
+                                         if sp["parent_id"] is None]}
+        checks["canary_fault_at_score"] = (
+            fault["ok"] is False and fault["leg"] == "score"
+            and seen["fault"]["failures"] >= 1 and seen["fault"]["event"]
+            and seen["fault"]["debugz_root"] == ["probe.run"])
+        report["canary"] = seen
+
+    async def no_prober():
+        """A second app under CASSMANTLE_NO_PROBER=1 (the fake backend):
+        no probe artifact over three of the prober's intervals."""
+        os.environ["CASSMANTLE_NO_PROBER"] = "1"
+        off = server_app.build_fabric(cfg, fake=True,
+                                      worker_id="smoke-noprober")
+        app = server_app.create_app(off, cfg, start_timer=False)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        port = free_port()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        before = probe_counts()
+        try:
+            await asyncio.sleep(3 * CANARY_INTERVAL_S)
+            async with aiohttp.ClientSession(
+                    f"http://127.0.0.1:{port}") as s:
+                async with s.get("/readyz") as res:
+                    block = (await res.json())["canary"]
+                async with s.get("/sloz") as res:
+                    objectives = (await res.json())["objectives"]
+        finally:
+            await runner.cleanup()
+        moved = {k: v - before[k] for k, v in probe_counts().items()}
+        seen = {"prober": server_app.prober_of(app) is None,
+                "canary": block, "probe_metrics_moved": moved,
+                "probe_objectives": sorted(n for n in objectives
+                                           if n.startswith("probe_")),
+                "probe_store_keys": sorted(
+                    k for k in off.store._data if k.startswith("probe:"))}
+        report["canary_off"] = seen
+        checks["no_prober_no_artifacts"] = (
+            seen["prober"] and block == {"enabled": False}
+            and not any(moved.values()) and not seen["probe_objectives"]
+            and not seen["probe_store_keys"])
+
     try:
         asyncio.run(phase())
+        asyncio.run(no_prober())
     finally:
+        for key, value in env_before.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
         del t2i.generate
         overload.reset_brownout()
     full = [r for r in rounds if r["tier"] == 0 and r["tier_after"] == 0]
@@ -4628,6 +5038,59 @@ def check_server(card: str, rows: dict) -> bool:
     gc.collect()
     torch.cuda.empty_cache()
     return ok
+
+
+CANARY_INTERVAL_S = 0.5       # the prober's cadence in [server], [serve-cli]
+SERVE_CLI_CANARY_S = 20.0     # [serve-cli]'s wait for its first verdict
+CANARY_PROBES = 10            # probes [server] must see pass
+# where /debug/trace writes in [server] (git-ignored; removed after)
+TRACE_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "cassmantle_tpu_torch", "_build", "traces")
+
+
+def probe_counts() -> dict:
+    """The process's probe.ok and probe.failures counters and probe.e2e_s
+    observations so far."""
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    hist = metrics.hist_totals("probe.e2e_s")
+    return {"ok": metrics.counter_total("probe.ok"),
+            "failures": metrics.counter_total("probe.failures"),
+            "e2e": hist[2] if hist else 0}
+
+
+def held_off() -> tuple:
+    """(times, seconds) graph launches were held off so far
+    (``graphs.held_off_s``)."""
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    hist = metrics.snapshot()["timings"].get("graphs.held_off_s")
+    if not hist:
+        return 0, 0.0
+    return hist["count"], hist["count"] * hist["mean_s"]
+
+
+def trace_kernels(reply) -> dict:
+    """The device events of a /debug/trace capture's Chrome trace: kernel
+    events, those naming flash, and the trace's bytes; the trace is
+    removed after."""
+    import glob
+    import shutil
+
+    if not isinstance(reply, dict) or "trace_dir" not in reply:
+        return {}
+    files = sorted(glob.glob(os.path.join(reply["trace_dir"], "*.json")))
+    if not files:
+        return {"trace_files": 0}
+    with open(files[-1]) as f:
+        text = f.read()
+    kernels = re.findall(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', text)
+    out = {"trace_files": len(files), "trace_bytes": len(text),
+           "kernel_events": len(kernels),
+           "flash_events": sum("flash" in k for k in kernels),
+           "flash_names": sorted({k for k in kernels if "flash" in k})[:4]}
+    shutil.rmtree(reply["trace_dir"], ignore_errors=True)
+    return out
 
 
 def free_port() -> int:
@@ -4672,8 +5135,12 @@ def check_serve_cli(card: str) -> tuple:
     200 within 240 s, one session through /init, /fetch/contents,
     /compute_score and /client/status, /healthz's CUDA probe, then SIGINT:
     exit 0 (or -SIGINT) within 30 s with the graceful handoff in its log.
-    The port is picked by binding 127.0.0.1:0; a child that could not
-    bind it gets one more pick. Returns (ok, the log's tail)."""
+    The child runs its canary prober (at ``CASSMANTLE_PROBE_INTERVAL_S``
+    0.5) and the leak census (``CASSMANTLE_LEAK_SENTINEL=1``): its
+    /readyz canary block must read ok, and its ``leaks.*`` counters are
+    reported just before the SIGINT. The port is picked by binding
+    127.0.0.1:0; a child that could not bind it gets one more pick.
+    Returns (ok, the log's tail)."""
     import signal
     import urllib.error
     import urllib.request
@@ -4691,6 +5158,16 @@ def check_serve_cli(card: str) -> tuple:
                 return res.status == 200
         except (urllib.error.URLError, OSError):
             return False
+
+    def readyz(port: int) -> dict:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=5) as res:
+                return json.load(res)
+        except urllib.error.HTTPError as exc:     # 503: the body still says
+            return json.load(exc)
+        except (urllib.error.URLError, OSError):
+            return {}
 
     async def play(port: int):
         jar = aiohttp.CookieJar(unsafe=True)
@@ -4720,10 +5197,13 @@ def check_serve_cli(card: str) -> tuple:
                    "--round-seconds", str(SERVE_CLI_ROUND_S)]
             print(f"[serve-cli] starting: {' '.join(cmd[1:])}", flush=True)
             t0 = time.perf_counter()
+            env = {**os.environ, "CASSMANTLE_LEAK_SENTINEL": "1",
+                   "CASSMANTLE_PROBE_INTERVAL_S": str(CANARY_INTERVAL_S)}
+            env.pop("CASSMANTLE_NO_PROBER", None)
             with open(SERVE_CLI_LOG, "w") as log:
                 proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
                                         stderr=subprocess.STDOUT,
-                                        stdin=subprocess.DEVNULL)
+                                        stdin=subprocess.DEVNULL, env=env)
             while time.perf_counter() - t0 < SERVER_READY_S:
                 if proc.poll() is not None or ready(port):
                     break
@@ -4752,6 +5232,28 @@ def check_serve_cli(card: str) -> tuple:
             health.get("device") is True
             and (health.get("probe") or {}).get("ok") is True
             and str(health["probe"].get("device", "")).startswith("cuda"))
+        # the child's canary through its own listener, then its leak
+        # census at exit
+        t0 = time.perf_counter()
+        canary = {}
+        while time.perf_counter() - t0 < SERVE_CLI_CANARY_S:
+            canary = readyz(port).get("canary", {})
+            if canary.get("ok") is not None:
+                break
+            time.sleep(0.25)
+        report["canary"] = {"wait_s": time.perf_counter() - t0,
+                            **{k: canary.get(k) for k in (
+                                "enabled", "ok", "consecutive_failures")},
+                            "targets": list(canary.get("targets", {}))}
+        checks["canary_ok"] = canary.get("enabled") is True and \
+            canary.get("ok") is True
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as res:
+            counters = json.load(res)["counters"]
+        report["leaks_at_exit"] = {k: counters.get(f"leaks.{k}", 0.0)
+                                   for k in ("threads", "tasks", "fds")}
+        report["probes"] = {k: v for k, v in counters.items()
+                            if k.startswith("probe.")}
         print("[serve-cli] SIGINT", flush=True)
         rc, exit_s = stop_child(proc)
         report.update(exit_code=rc, exit_s=exit_s)
@@ -5245,10 +5747,36 @@ def check_staged(card: str) -> tuple:
                                "instantiate_s": st["instantiate_s"],
                                "pool_mb": st["pool_bytes"] / 2 ** 20}
 
-    # 6. the load A/B; the staged arm is a second mixed run: no capture
+    # 6. the load A/B; the staged arm is a second mixed run: no capture.
+    # [obs-device]: each retirement attributes one request's count (made
+    # on its daemon thread long before), the monolithic arm its images'
+    from cassmantle_tpu_torch.obs import costmodel
+
+    per_request = costmodel.cached("staged_denoise",
+                                   pipe.cost_signature())[1]
+    flops0 = {k: device_flops(k) for k in ("staged_denoise", "t2i")}
+    retired0 = srv.stats["retirements"]
     report["load_ab"] = load_ab(pipe)
     checks["ab_all_valid"] = (report["load_ab"]["staged"]["valid"]
                               and report["load_ab"]["monolithic"]["valid"])
+    staged_obs = obs_device_reading(
+        "staged", "staged_denoise", per_request,
+        device_flops("staged_denoise") - flops0["staged_denoise"],
+        srv.stats["retirements"] - retired0, mxu_gauge("staged_denoise"))
+    mono_obs = obs_device_reading(
+        "default", "t2i", costmodel.cached("t2i", pipe.cost_signature())[1],
+        device_flops("t2i") - flops0["t2i"],
+        report["load_ab"]["monolithic"]["images"], mxu_gauge("t2i"))
+    OBS_DEVICE["staged"] = {"staged_denoise": staged_obs,
+                            "monolithic_arm": mono_obs}
+    report["obs_device"] = {k: {f: v[f] for f in (
+        "items", "device_flops", "expected", "mxu_utilization")}
+        for k, v in OBS_DEVICE["staged"].items()}
+    checks["staged_flops_retirements_x_count"] = (
+        staged_obs["equal"] and staged_obs["items"] > 0
+        and staged_obs["mxu_in_range"])
+    checks["monolithic_arm_flops_count_x_images"] = (
+        mono_obs["equal"] and mono_obs["mxu_in_range"])
     checks["no_new_capture_second_run"] = dict(srv.builds) == builds
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     report["stats"] = dict(srv.stats)
@@ -5359,6 +5887,20 @@ def kernel_entries(kernel, rows, tally, source, replaces, staged):
              "ok": r["ok"]} for shape, r in rows.items()]
 
 
+def report_obs_device(card: str) -> None:
+    """The [obs-device] line: each served preset's FLOPs an image by class
+    beside the reference's committed entry, the attributed FLOPs against
+    count x images, each pipeline's mxu gauge; the staged figure; the
+    prompt and scorer attribution."""
+    from cassmantle_tpu_torch.obs import costmodel
+
+    print(f"[obs-device] ({card}; peaks bf16 "
+          f"{costmodel.chip_peak_flops('bf16') / 1e12:.0f} / int8 "
+          f"{costmodel.chip_peak_flops('int8') / 1e12:.0f} / fp32 "
+          f"{costmodel.chip_peak_flops('fp32') / 1e12:.0f} T/s) "
+          f"{json.dumps(OBS_DEVICE)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5391,6 +5933,15 @@ def main() -> int:
     from cassmantle_tpu_torch.serving.service import InferenceService
     from cassmantle_tpu_torch.utils.device import resolve_device
 
+    # the cost model's counts of every served config, on meta tensors in
+    # child processes while the kernels build and are checked
+    import concurrent.futures
+    import multiprocessing
+
+    counting = concurrent.futures.ProcessPoolExecutor(
+        COUNT_PROCESSES, mp_context=multiprocessing.get_context("spawn"))
+    shares = [counting.submit(precount_costs, part, COUNT_PROCESSES)
+              for part in range(COUNT_PROCESSES)]
     resolve_device("cuda")        # TF32 off: the plain fp32 convs are fp32
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -5410,6 +5961,18 @@ def main() -> int:
         if bad:
             fail(f"{kernel} disagrees with its plain version at {bad}")
     stamp("kernels")
+    # the counts, before phase 3's CPU work (the children would slow it)
+    t0 = time.perf_counter()
+    counts = {}
+    try:
+        for share in shares:
+            counts.update(share.result(timeout=600))
+    finally:
+        counting.shutdown()
+    seed_costs(counts)
+    print(f"[obs-device] {len(counts)} counts made beside the build and "
+          f"phase 2 in {COUNT_PROCESSES} processes, waited for "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     if not check_small_agreement():
         fail("tiny geometry: card and CPU disagree")
@@ -5653,6 +6216,7 @@ def main() -> int:
         kernels += kernel_entries(kernel, checked[kernel],
                                   tally + staged[kernel], source, replaces,
                                   staged[kernel])
+    report_obs_device(card)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -618,7 +618,9 @@ def test_app_starts_the_slo_loop_unless_switched_off(no_slo, monkeypatch):
             overload.reset_brownout()
 
     tasks, tier = asyncio.run(run())
+    # the process and device samplers and the canary prober, with the SLO
+    # loop beside them unless it is switched off
     if no_slo:
-        assert (tasks, tier) == (2, 0)
+        assert (tasks, tier) == (3, 0)
     else:
-        assert tasks == 3 and tier >= 1
+        assert tasks == 4 and tier >= 1

@@ -10,9 +10,10 @@ hedge's 503, a ``traceparent`` continued and looked up at ``/debugz``,
 both ``/metrics`` forms, the ``/clock`` websocket. Status codes, JSON
 bodies and the headers the reference's own code sets must be equal,
 apart from session ids, trace ids, clocks and the blocks that name the
-backend (``device_telemetry``, the fabric's worker stamps). The
-reference's app runs with ``CASSMANTLE_NO_PROBER=1``: the port has no
-canary prober yet. The script runs on the plain fake scorer, on the
+backend (``device_telemetry``, the fabric's worker stamps). Both apps
+run with ``CASSMANTLE_NO_PROBER=1``, so the script compares them without
+probe traffic (the prober itself is held against the reference in
+``test_torch_port_prober.py``). The script runs on the plain fake scorer, on the
 drill scorer behind a real queue (``fake_score_batch_ms``: the
 ``X-Queue-Wait`` header) and behind the fake int8 table.
 
