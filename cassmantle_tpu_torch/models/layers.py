@@ -14,8 +14,14 @@ reference, so a Flax parameter tree maps onto these modules mechanically
 - attention goes through ``ops.attention.multi_head_attention``;
 - ``Dense`` is also the reference's ``QDense``: after the W8A8 transform
   (``ops/quant.py::w8a8_modules``) its forward runs the int8 kernel;
+  inside the calibration recorder (``ops/quant.py::collect_act_stats``)
+  it notes its input's absmax, as ``QDense`` does;
+- a weights-only int8 ``Dense`` or ``Conv`` (``ops/quant.py::
+  int8_modules``) dequantizes its own weight just before its product
+  (``ops/quant.py::layer_weight``), which stays a library call;
 - ``fused_gn_silu_conv3x3`` is the fused ResBlock GroupNorm -> SiLU ->
-  conv3x3 (``ops/fused_conv.py``), on a plain or a W8A8 weight.
+  conv3x3 (``ops/fused_conv.py``), on a plain, weights-only int8 or W8A8
+  weight; the recorder notes the activation after GroupNorm and SiLU.
 
 Images are NCHW inside the port's modules; the models convert from and to
 the reference's NHWC at their public boundary.
@@ -32,7 +38,14 @@ from torch import nn
 
 from cassmantle_tpu_torch.ops.attention import multi_head_attention
 from cassmantle_tpu_torch.ops.fused_conv import gn_silu_conv3x3
-from cassmantle_tpu_torch.ops.quant import ActQTensor, quantized_weight
+from cassmantle_tpu_torch.ops.quant import (
+    ActQTensor,
+    act_site,
+    act_stats_active,
+    layer_weight,
+    note_act_stat,
+    quantized_weight,
+)
 from cassmantle_tpu_torch.ops.quant_matmul import (
     gn_silu_conv3x3_w8a8,
     w8a8_dense,
@@ -124,6 +137,8 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if act_stats_active():
+            note_act_stat(act_site(self), x)
         q = quantized_weight(self)
         if q is not None:
             return w8a8_dense(x, ActQTensor(q.data.t(), q.scale, q.act_scale),
@@ -131,7 +146,7 @@ class Dense(nn.Module):
                               per_token=self.act_per_token)
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x.to(dt), layer_weight(self).to(dt), bias)
 
 
 class Conv(nn.Module):
@@ -156,8 +171,9 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        stride=self.stride, padding=self.padding)
+        return F.conv2d(x.to(dt), layer_weight(self).to(dt),
+                        self.bias.to(dt), stride=self.stride,
+                        padding=self.padding)
 
 
 class Conv3x3Params(Conv):
@@ -310,20 +326,27 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, norm: GroupNorm32,
                           ) -> torch.Tensor:
     """``conv(silu(norm(x)))`` as one fused kernel, on an NCHW x (run
     channels-last: the kernels read NHWC memory, so the permutes here are
-    views). fp32 GroupNorm statistics here; a plain weight goes to the
-    fused GN-affine + SiLU + conv3x3 kernel (affine and SiLU in fp32), a
-    W8A8 weight to ``gn_silu_conv3x3_w8a8`` (affine and SiLU in x's
-    dtype, then int8)."""
+    views). fp32 GroupNorm statistics here; a plain or weights-only int8
+    weight (dequantized first) goes to the fused GN-affine + SiLU +
+    conv3x3 kernel (affine and SiLU in fp32), a W8A8 weight to
+    ``gn_silu_conv3x3_w8a8`` (affine and SiLU in x's dtype, then int8).
+    Inside the calibration recorder the conv's input, ``silu(x * a + b)``
+    in x's dtype, is made here to be noted (as the reference does)."""
     x = x.contiguous(memory_format=torch.channels_last)
     a, b = norm(x, return_affine=True)
     xh = x.permute(0, 2, 3, 1)
+    if act_stats_active():
+        dt = xh.dtype
+        note_act_stat(act_site(conv), F.silu(
+            xh * a[:, None, None, :].to(dt) + b[:, None, None, :].to(dt)))
     q = quantized_weight(conv)
     if q is not None:
         hwio = ActQTensor(q.data.permute(2, 3, 1, 0), q.scale, q.act_scale)
         out = gn_silu_conv3x3_w8a8(xh, a, b, hwio, conv.bias, pad_to=pad_to)
     else:
         dt = conv.dtype
-        out = gn_silu_conv3x3(xh, a, b, conv.weight.to(dt).permute(2, 3, 1, 0),
+        out = gn_silu_conv3x3(xh, a, b,
+                              layer_weight(conv).to(dt).permute(2, 3, 1, 0),
                               conv.bias.to(dt), pad_to=pad_to)
     return out.permute(0, 3, 1, 2)
 

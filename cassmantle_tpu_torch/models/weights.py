@@ -85,29 +85,43 @@ Tensors = Mapping[str, torch.Tensor]
 # Reference parameter trees
 # ---------------------------------------------------------------------------
 
-def _leaf(name: str, value: np.ndarray):
-    value = np.asarray(value)
+def _leaf(name: str, value):
+    """A Flax leaf (numpy, or a torch tensor from a quantized file, bf16
+    included) -> (port name, tensor in the port's layout)."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    else:
+        t = torch.from_numpy(np.array(np.asarray(value), order="C"))
     if name == "kernel":
-        if value.ndim == 2:
-            value = value.T
-        elif value.ndim == 4:
-            value = value.transpose(3, 2, 0, 1)
+        if t.ndim == 2:
+            t = t.t()
+        elif t.ndim == 4:
+            t = t.permute(3, 2, 0, 1)
         else:
-            raise ValueError(f"kernel of rank {value.ndim}")
+            raise ValueError(f"kernel of rank {t.ndim}")
         name = "weight"
     elif name in ("scale", "embedding"):
         name = "weight"
-    return name, torch.from_numpy(np.array(value, order="C"))
+    return name, t.contiguous()
 
 
 def _is_w8a8_leaf(value) -> bool:
     return getattr(value, "_fields", None) == ("data", "scale", "act_scale")
 
 
+def _is_int8_leaf(value) -> bool:
+    return getattr(value, "_fields", None) == ("data", "scale")
+
+
 def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
     for key, value in tree.items():
         if isinstance(value, Mapping):
             _walk(value, f"{prefix}{key}.", out)
+        elif _is_int8_leaf(value):
+            _, data = _leaf(key, value.data)
+            _, scale = _leaf(key, value.scale)
+            out[f"{prefix}weight_q8"] = data
+            out[f"{prefix}weight_q8_scale"] = scale.float()
         elif _is_w8a8_leaf(value):
             _, data = _leaf(key, value.data)
             out[f"{prefix}weight_q"] = data
@@ -119,6 +133,76 @@ def _walk(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]) -> None:
         else:
             name, tensor = _leaf(key, value)
             out[f"{prefix}{name}"] = tensor
+
+
+def flax_flat(model: torch.nn.Module) -> Dict[str, object]:
+    """The inverse of :func:`state_dict_from_tree` for a port module: its
+    tensors under Flax paths joined by ``/`` in Flax layouts (Dense
+    kernel (in, out), conv HWIO), a weights-only int8 weight as an
+    ``ops/quant.py::QTensor`` of the same layouts (scale (1, out) or
+    (1, 1, 1, out)); embedding tables become ``embedding``, other 1-D
+    ``weight``s (norms) ``scale``."""
+    from cassmantle_tpu_torch.models.layers import Conv, Dense, Embed
+    from cassmantle_tpu_torch.ops.quant import (
+        QTensor,
+        int8_weight,
+        quantized_weight,
+    )
+
+    def layout(module, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        if isinstance(module, Dense):
+            return t.t().contiguous()
+        return t.permute(2, 3, 1, 0).contiguous()
+
+    out: Dict[str, object] = {}
+    for name, module in model.named_modules():
+        path = name.split(".") if name else []
+        if quantized_weight(module) is not None:
+            raise ValueError(f"{name}: a W8A8 site has no weights-only "
+                             f"int8 file form")
+        q = int8_weight(module)
+        if q is not None:
+            out["/".join(path + ["kernel"])] = QTensor(
+                layout(module, q.data), layout(module, q.scale))
+        for leaf, t in list(module.named_parameters(recurse=False)) + list(
+                module.named_buffers(recurse=False)):
+            if leaf in ("weight_q8", "weight_q8_scale"):
+                continue
+            if leaf == "weight":
+                if isinstance(module, (Dense, Conv)):
+                    leaf, t = "kernel", layout(module, t)
+                elif isinstance(module, Embed):
+                    leaf = "embedding"
+                elif t.ndim == 1:
+                    leaf = "scale"
+            out["/".join(path + [leaf])] = t.detach()
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write ``tensors`` as a safetensors file (the format
+    :func:`load_safetensors` reads): a little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes in order."""
+    header: Dict[str, object] = {}
+    blobs = []
+    offset = 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        dtype = next(k for k, v in SAFETENSORS_DTYPES.items()
+                     if v == t.dtype)
+        header[name] = {"dtype": dtype, "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for raw in blobs:
+            f.write(raw)
 
 
 def state_dict_from_tree(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -755,16 +839,30 @@ def fill_(module: torch.nn.Module, weights: Mapping[str, torch.Tensor],
     tensor's dtype: the peak is one converted tensor beside the module. A
     W8A8 site (``weight_q``/``weight_scale`` buffers, ``ops/quant.py``)
     is quantized from its ``weight`` cast to ``quant_dtype`` (the storage
-    dtype it was quantized from at build), so it holds what the build
-    gave. Raises when the keys or shapes differ from the module's."""
-    from cassmantle_tpu_torch.ops.quant import quantize_tensor_act
+    dtype it was quantized from at build), with its static activation
+    scale as the build computed it, so it holds what the build gave; a
+    weights-only int8 site (``weight_q8``/``weight_q8_scale``)
+    takes its buffers as given (a quantized file) or quantizes its
+    ``weight``, cast to its storage dtype, on the host. Raises when the
+    keys or shapes differ from the module's."""
+    from cassmantle_tpu_torch.ops.quant import (
+        quantize_tensor,
+        quantize_tensor_act,
+    )
 
     served = module.state_dict(keep_vars=True)
-    quantized = {k[:-len("weight_q")] for k in served
-                 if k.endswith("weight_q")}
-    site_buffers = {f"{q}{leaf}" for q in quantized
+    w8a8 = {k[:-len("weight_q")] for k in served if k.endswith("weight_q")}
+    int8 = {k[:-len("weight_q8")] for k in served
+            if k.endswith("weight_q8")}
+    site_buffers = {f"{q}{leaf}" for q in w8a8
                     for leaf in ("weight_q", "weight_scale", "act_scale")}
-    wanted = (set(served) - site_buffers) | {f"{q}weight" for q in quantized}
+    # an int8 site given as a weight is quantized here; given as its
+    # buffers, they are copied
+    int8_from_weight = {q for q in int8 if f"{q}weight" in weights}
+    site_buffers |= {f"{q}{leaf}" for q in int8_from_weight
+                     for leaf in ("weight_q8", "weight_q8_scale")}
+    wanted = ((set(served) - site_buffers)
+              | {f"{q}weight" for q in w8a8 | int8_from_weight})
     if set(weights) != wanted:
         missing = sorted(wanted - set(weights))
         extra = sorted(set(weights) - wanted)
@@ -773,13 +871,24 @@ def fill_(module: torch.nn.Module, weights: Mapping[str, torch.Tensor],
     with torch.no_grad():
         for key in weights:
             prefix = key[:-len("weight")]
-            if key.endswith("weight") and prefix in quantized:
+            if key.endswith("weight") and prefix in w8a8:
                 w = weights[key].to(served[f"{prefix}weight_q"].device)
                 if quant_dtype is not None:
                     w = w.to(quant_dtype)
                 q = quantize_tensor_act(w, axis=0)
                 _copy(served[f"{prefix}weight_q"], q.data, key)
                 _copy(served[f"{prefix}weight_scale"], q.scale, key)
+                if served.get(f"{prefix}act_scale") is not None:
+                    # the build's static scale (calibration, not the file)
+                    site = module.get_submodule(prefix[:-1])
+                    _copy(served[f"{prefix}act_scale"], site.act_scale_host,
+                          key)
+            elif key.endswith("weight") and prefix in int8_from_weight:
+                site = module.get_submodule(prefix[:-1])
+                q = quantize_tensor(
+                    weights[key].to("cpu", site.weight_q8_dtype), axis=0)
+                _copy(served[f"{prefix}weight_q8"], q.data, key)
+                _copy(served[f"{prefix}weight_q8_scale"], q.scale, key)
             else:
                 _copy(served[key], weights[key], key)
     return module

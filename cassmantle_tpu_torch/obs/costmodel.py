@@ -246,7 +246,8 @@ def _w8a8_effective(flag: bool) -> bool:
 def t2i_signature(cfg, sampler_cfg=None) -> str:
     """SD1.5 text -> image: the model architectures, the sampler's
     geometry and the armed W8A8 state (which moves products to int8; the
-    fused conv runs the same products)."""
+    fused conv runs the same products, and a weights-only int8 UNet the
+    products of bf16, its weights dequantized before each)."""
     s = sampler_cfg if sampler_cfg is not None else cfg.sampler
     m = cfg.models
     return _digest("t2i", m.unet.arch(), m.vae.arch(), m.clip_text,

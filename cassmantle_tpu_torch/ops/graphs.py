@@ -113,6 +113,67 @@ def no_graph_running():
                             time.perf_counter() - start)
 
 
+class LaunchGate:
+    """Bounds the graph launches inside one trace window
+    (``utils/profiling.py::trace``). A window's stop costs about as much
+    per kernel event as it recorded, and one launch of a UNet step's
+    graph puts thousands of kernels into a window however short it is
+    (a denoise enqueues its 50 steps in a few ms). While a window is
+    open, its first ``limit`` launches pass and count; a launch past
+    them waits until the window closes (its stop holds every launch
+    anyway), then runs untraced or in the next window. The capturing
+    thread itself never waits. Closed, the gate costs a launch one
+    attribute read."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._open = False
+        self._window = 0
+        self._owner: Optional[int] = None
+        self._first_wait: Optional[float] = None
+        self.limit = 0
+        self.admitted = 0
+
+    def open(self, limit: int) -> None:
+        """Open a window for the calling thread, admitting ``limit``
+        launches."""
+        with self._cond:
+            self._open, self.limit, self.admitted = True, limit, 0
+            self._window += 1
+            self._owner = threading.get_ident()
+            self._first_wait = None
+
+    def close(self) -> Tuple[int, float]:
+        """Close the window and wake the launches waiting on it: returns
+        the launches it admitted and the seconds its first waiting launch
+        was held (0.0 if none waited)."""
+        with self._cond:
+            self._open = False
+            held = (0.0 if self._first_wait is None
+                    else time.perf_counter() - self._first_wait)
+            self._cond.notify_all()
+            return self.admitted, held
+
+    def admit(self) -> None:
+        """Called before every graph launch: returns at once unless a
+        window of another thread is open and full."""
+        if not self._open or threading.get_ident() == self._owner:
+            return
+        with self._cond:
+            while self._open and self.admitted >= self.limit:
+                if self._first_wait is None:
+                    self._first_wait = time.perf_counter()
+                window = self._window
+                self._cond.wait_for(lambda: not self._open
+                                    or self._window != window)
+            if self._open:
+                self.admitted += 1
+
+
+#: the one gate every :meth:`CapturedStep.replay` passes
+launch_gate = LaunchGate()
+
+
 class NewCaptureError(RuntimeError):
     """A CUDA graph was captured inside a :func:`no_new_captures` block."""
 
@@ -253,7 +314,9 @@ class CapturedStep:
 
     def replay(self):
         """Launch the graph on the current stream (no sync) and count
-        the kernels it launches."""
+        the kernels it launches; inside a trace window, after the
+        window's :class:`LaunchGate` admits it."""
+        launch_gate.admit()
         with _graph_lock:
             self.graph.replay()
         add(self.tally)

@@ -1,9 +1,8 @@
 """int8 x int8 -> int32 matmul and conv3x3 for W8A8 serving: the CUDA
 kernels' wrappers, their plain versions and the W8A8 entry points.
 
-Port of the int8 part of ``cassmantle_tpu/ops/quant_matmul.py`` (fp8
-leaves are not ported). With x ~ s_a * X8 and W ~ W8 * s_w (per output
-channel):
+Port of ``cassmantle_tpu/ops/quant_matmul.py``. With x ~ s_a * X8 and
+W ~ W8 * s_w (per output channel):
 
     x @ W ~ (X8 @ W8)_int32 * s_a * s_w
 
@@ -19,7 +18,14 @@ channel):
   entry points, quantizing activations on the device (dynamic absmax,
   per tensor over the whole activation, both CFG halves together, or per
   token; or the site's static scale); :func:`w8a8_conv3x3` is the
-  conv's quantize and int8 conv after the elementwise pass.
+  conv's quantize and int8 conv after the elementwise pass;
+- an fp8 leaf (``torch.float8_e4m3fn`` data, ``ops/quant.py``) reaches
+  no kernel of the port, as in the reference, where it goes to an XLA
+  dot: :func:`fp8_matmul` is ``torch._scaled_mm`` at unit scales on the
+  card (fp32 out) and the fp32 product of the upcast operands on the CPU
+  (the reference's own path off the TPU); the fp8 conv is the fp32 conv
+  of the upcast operands on every device. The scales fold in after, in
+  fp32, as the int8 epilogue does. No config serves fp8.
 
 On a CUDA tensor the wrappers launch ``csrc/int8_gemm.cu`` or raise; on a
 CPU tensor they run the plain versions, whose int32 accumulators are
@@ -234,6 +240,56 @@ def int8_conv3x3(x_q: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
+# -- fp8 ----------------------------------------------------------------------
+
+def fp8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) fp8 x (K, N) fp8 -> (M, N) fp32: the upcast operands'
+    fp32 product (the reference's dot off the TPU)."""
+    return x_q.float() @ w_q.float()
+
+
+def fp8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """(M, K) fp8 x (K, N) fp8 -> (M, N) fp32 accumulate. On the card
+    ``torch._scaled_mm`` at unit scales (K and N multiples of 16, else it
+    raises); on the CPU :func:`fp8_matmul_plain`."""
+    if x_q.device.type != "cuda":
+        return fp8_matmul_plain(x_q, w_q)
+    one = torch.ones((), dtype=torch.float32, device=x_q.device)
+    # _scaled_mm wants its second operand column-major
+    return torch._scaled_mm(x_q.contiguous(), w_q.t().contiguous().t(),
+                            scale_a=one, scale_b=one,
+                            out_dtype=torch.float32)
+
+
+def _fp8_dense(x2: torch.Tensor, q: ActQTensor, bias, out_dtype,
+               per_token: bool) -> torch.Tensor:
+    qdtype = q.data.dtype
+    if per_token or q.act_scale is None:
+        a_scale = act_scale_from_absmax(
+            act_absmax(x2, per_token=per_token), qdtype)
+    else:
+        a_scale = q.act_scale
+    n = q.data.shape[-1]
+    acc = fp8_matmul(quantize_act(x2, a_scale, qdtype), q.data)
+    out = acc * a_scale.float().reshape(-1, 1) * q.scale.reshape(1, n)
+    if bias is not None:
+        out = out + bias.float().reshape(1, n)
+    return out.to(out_dtype)
+
+
+def _fp8_conv3x3(h: torch.Tensor, q: ActQTensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    a_scale = (act_scale_from_absmax(act_absmax(h), q.data.dtype)
+               if q.act_scale is None else q.act_scale)
+    f = q.data.shape[-1]
+    h_q = quantize_act(h, a_scale, q.data.dtype)
+    acc = F.conv2d(h_q.float().permute(0, 3, 1, 2),
+                   q.data.float().permute(3, 2, 0, 1), padding=1)
+    col = a_scale.float() * q.scale.reshape(f)
+    out = acc.permute(0, 2, 3, 1) * col + bias.float().reshape(f)
+    return out.to(h.dtype)
+
+
 # -- the modules' entry points ------------------------------------------------
 
 def w8a8_dense(x: torch.Tensor, q: ActQTensor,
@@ -248,6 +304,9 @@ def w8a8_dense(x: torch.Tensor, q: ActQTensor,
     lead, k = x.shape[:-1], x.shape[-1]
     n = q.data.shape[-1]
     x2 = x.reshape(-1, k)
+    if q.data.dtype != torch.int8:         # an fp8 leaf
+        return _fp8_dense(x2, q, bias, out_dtype,
+                          per_token).reshape(lead + (n,))
     if per_token or q.act_scale is None:
         scale = act_scale_from_absmax(act_absmax(x2, per_token=per_token))
     else:
@@ -277,6 +336,8 @@ def w8a8_conv3x3(h: torch.Tensor, q: ActQTensor, bias: torch.Tensor,
     plain path with zeros (exact through the integer dot); the CUDA
     kernel ignores it."""
     dt = h.dtype
+    if q.data.dtype != torch.int8:         # an fp8 leaf
+        return _fp8_conv3x3(h, q, bias)
     a_scale = (act_scale_from_absmax(act_absmax(h)) if q.act_scale is None
                else q.act_scale)
     f = q.data.shape[-1]

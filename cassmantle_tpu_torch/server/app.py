@@ -104,7 +104,6 @@ MEDIA_DIR = os.path.join(_ROOT, "media")
 
 # what the slice leaves to the ROADMAP's later items, named in refusals
 _MANY_WORKERS = "ROADMAP.md Queue 1 item 9 (many workers)"
-_WEIGHT_INT8 = "ROADMAP.md Queue 1 item 13 (W8A8 and int8, the rest)"
 
 _FABRIC = web.AppKey("fabric", RoomFabric)
 _SLO = web.AppKey("slo_engine", SloEngine)
@@ -590,20 +589,20 @@ async def handle_readyz(request: web.Request) -> web.Response:
         headers={"Retry-After": str(int(supervisor.retry_after_s()))})
 
 
-def _profile_capture(log_dir: str, seconds: float) -> str:
-    """Record ``seconds`` of host and CUDA activity into a Chrome trace
-    under ``log_dir`` (``utils/profiling.py::trace``); returns its path."""
+def _profile_capture(log_dir: str, seconds: float) -> dict:
+    """Record ``seconds`` of host and CUDA activity into Chrome traces
+    under ``log_dir``, as consecutive windows whose every stop and write
+    is bounded (``utils/profiling.py::capture``); returns the windows."""
     from cassmantle_tpu_torch.utils import profiling
 
-    with profiling.trace(log_dir) as path:
-        time.sleep(seconds)
-    return path
+    return profiling.capture(log_dir, seconds)
 
 
 async def handle_debug_trace(request: web.Request) -> web.Response:
     """``POST /debug/trace?seconds=N[&name=subdir]``: N seconds (at most
     60) of host and device activity, live traffic included, recorded by
-    ``torch.profiler`` into a Chrome trace under a fixed root
+    ``torch.profiler`` into Chrome traces, one per window of a bounded
+    freeze (``utils/profiling.py::capture``), under a fixed root
     (``CASSMANTLE_TRACE_ROOT``, else the temp dir); ``name`` picks one
     sanitized subdirectory, never a path. Loopback or the cluster token
     only (403). One capture at a time: a second answers 409 while one
@@ -979,6 +978,9 @@ def _config_for(args) -> FrameworkConfig:
     if args.lm == "mistral":
         cfg = cfg.replace(models=dataclasses.replace(
             cfg.models, mistral=c.MistralConfig()))
+    if args.lm_int8:
+        cfg = cfg.replace(models=dataclasses.replace(
+            cfg.models, lm_int8=True))
     return cfg
 
 
@@ -1016,8 +1018,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="the prompt LM: GPT-2 or a Mistral-7B-class "
                              "model")
     parser.add_argument("--lm-int8", action="store_true",
-                        help="weights-only int8 prompt LM: not in this "
-                             "slice (raises)")
+                        help="weights-only int8 prompt LM (loads "
+                             "<family>.int8.safetensors from --weights when "
+                             "it is there; see quantize-weights)")
     parser.add_argument("--workers", type=int, default=1,
                         help="worker processes: one in this slice")
     args = parser.parse_args(argv)
@@ -1027,9 +1030,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.store:
         parser.error(f"--store {args.store}: a shared store comes with "
                      f"{_MANY_WORKERS}")
-    if args.lm_int8:
-        parser.error(f"--lm-int8: weights-only int8 comes with "
-                     f"{_WEIGHT_INT8}")
     return args
 
 

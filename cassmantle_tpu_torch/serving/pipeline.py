@@ -14,7 +14,17 @@ carry the reference's parameters over with ``models.weights.from_jax``).
 The fused-conv and W8A8 presets build the same models: the UNet with
 ``fused_conv`` runs its ResBlock convs as one fused kernel, and under
 ``unet_w8a8``/``lm_w8a8`` the UNet's and GPT-2's sites quantize once, at
-build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``).
+build, from their bf16 weights (``w8a8_unet_tools``, ``lm_w8a8_armed``),
+with the calibrated static activation scales of ``data/act_scales.json``
+where its entry matches the config (``parallel/calibrate.py``). Under
+``unet_int8``/``lm_int8`` (weights-only int8, ``int8_unet_tools``) the
+UNet or the prompt LM is built submodule by submodule and each large
+weight quantized on the host before it is placed: the card never holds
+the fp model beside the int8 one, and each layer dequantizes its own
+weight in its forward. An ``lm_int8`` generator loads
+``<family>.int8.safetensors`` from its weights directory when that file is
+there and newer than the fp checkpoint, and writes it
+(:meth:`PromptGenerator.save_quantized`).
 A config with a second text tower (``sdxl_config()``) makes the backend
 serve its image with ``serving/sdxl.py::SDXLPipeline``, as the reference's
 ``TPUContentBackend`` does.
@@ -42,6 +52,8 @@ Counters, on the host at the reference's sites: ``pipeline.images`` (or
 ``pipeline.sdxl_images``) per generated image, img2img's included;
 ``pipeline.encprop_{key,shallow,prop}_steps`` and
 ``pipeline.consistency_steps`` from the served schedule;
+``pipeline.w8a8_dispatches`` (UNet forwards on the int8 W8A8 path,
+:func:`note_w8a8_counter`);
 ``pipeline.text_fallbacks`` per round whose text fell back to the
 template; ``decode.spec_chunks`` and the ``decode.spec_accept_rate``
 gauge after a speculative decode's one host transfer. None reads the
@@ -126,6 +138,7 @@ from cassmantle_tpu_torch.models.weights import (
     convert_gpt2,
     converter_for,
     fill_,
+    state_dict_from_tree,
 )
 from cassmantle_tpu_torch.models.vae import (
     VAEDecoder,
@@ -161,6 +174,11 @@ from cassmantle_tpu_torch.ops.decode import (
 )
 from cassmantle_tpu_torch.ops.fused_conv import describe as fc_describe
 from cassmantle_tpu_torch.ops.quant import (
+    int8_layout_,
+    int8_modules,
+    int8_site_count,
+    load_quantized,
+    tree_nbytes,
     w8a8_calibrated,
     w8a8_default_predicate,
     w8a8_modules,
@@ -223,22 +241,38 @@ def lm_w8a8_armed(models_cfg) -> bool:
     return bool(models_cfg.lm_w8a8) and not w8a8_disabled()
 
 
+def int8_unet_tools(models_cfg
+                    ) -> Optional[Callable[[torch.nn.Module], int]]:
+    """The weights-only int8 UNet's transform (quantize a built
+    submodule's large weights on the host, in place; returns the count),
+    given to :func:`build_streamed`, or None when ``unet_int8`` is off.
+    The one place the int8 serving contract lives, shared by the SD1.5
+    and SDXL pipelines: quantized before placement, dequantized layer by
+    layer in the forward."""
+    if not models_cfg.unet_int8:
+        return None
+    return int8_modules
+
+
 def w8a8_unet_tools(models_cfg) -> Optional[Callable[[torch.nn.Module], int]]:
     """The UNet's W8A8 transform (quantize every site of a built UNet in
-    place, with dynamic activation scales; returns the site count), or
-    None when W8A8 is off. Weights-only int8 (``unet_int8``) is not
-    ported: it raises here, with or without W8A8."""
-    if models_cfg.unet_int8:
-        raise ValueError("unet_int8 (weights-only int8) is not ported, and "
-                         "unet_w8a8 and unet_int8 are mutually exclusive: "
-                         "both rewrite the same kernel leaves")
+    place; returns the site count), or None when W8A8 is off. Sites the
+    committed calibration artifact covers for this config
+    (``parallel/calibrate.py::load_act_scales``) get static activation
+    scales; the others, or all when no entry matches, scale dynamically."""
     if not unet_w8a8_armed(models_cfg):
         return None
+    if models_cfg.unet_int8:
+        raise ValueError("unet_w8a8 and unet_int8 are mutually exclusive: "
+                         "both rewrite the same kernel leaves")
     if not models_cfg.unet.fused_conv:
         raise ValueError("unet_w8a8 conv sites ride the fused GN+SiLU+conv "
                          "path; set models.unet.fused_conv=True")
+    from cassmantle_tpu_torch.parallel.calibrate import load_act_scales
+
     pred = partial(w8a8_default_predicate, min_size=models_cfg.w8a8_min_size)
-    return partial(w8a8_modules, predicate=pred)
+    return partial(w8a8_modules, act_scales=load_act_scales(models_cfg),
+                   predicate=pred)
 
 
 def build_model(module: torch.nn.Module, kind: str, device: torch.device,
@@ -261,8 +295,9 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
 def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
                    device: torch.device, seed: int,
                    state_dict: Optional[Mapping] = None,
-                   storage_dtype: Optional[torch.dtype] = None
-                   ) -> torch.nn.Module:
+                   storage_dtype: Optional[torch.dtype] = None,
+                   quantize: Optional[Callable[[torch.nn.Module], int]]
+                   = None) -> torch.nn.Module:
     """:func:`build_model` for a model too large to hold in fp32 beside its
     stored copy (Mistral-7B: 29 GB in fp32, 14.5 GB in bf16). The module
     is made on the meta device, then each top-level submodule in turn is
@@ -271,7 +306,12 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
     is the stored footprint plus one submodule in fp32. The module may
     hold no parameter or buffer of its own. A checkpoint's
     :class:`Converted` plan converts each submodule's tensors as it is
-    filled, from the mapped file."""
+    filled, from the mapped file.
+
+    ``quantize`` (weights-only int8, :func:`int8_unet_tools`) runs on each
+    submodule once it holds its stored weights, so the card holds the
+    int8 model built so far and one submodule in fp. A ``state_dict``
+    of a quantized file (``weight_q8`` keys) fills those sites as given."""
     with torch.device("meta"):
         module = factory()
     if (next(module.parameters(recurse=False), None) is not None
@@ -281,16 +321,34 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
            torch.Generator(device).manual_seed(seed + INIT_SEEDS[kind]))
     for name, child in module.named_children():
         child.to_empty(device=device)
+        part = None
         if gen is not None:
             init_weights(child, gen)
         else:
             prefix = f"{name}."
-            fill_(child, {k[len(prefix):]: state_dict[k]
-                          for k in state_dict if k.startswith(prefix)})
-        if storage_dtype is not None:
-            child.to(storage_dtype)
+            part = {k[len(prefix):]: state_dict[k]
+                    for k in state_dict if k.startswith(prefix)}
+        q8 = [k[:-len("weight_q8")].rstrip(".") for k in part or ()
+              if k.split(".")[-1] == "weight_q8"]
+        if q8:
+            # int8 buffers as the file gives them; the cast first, so the
+            # fp32 scales stay fp32
+            if storage_dtype is not None:
+                child.to(storage_dtype)
+            int8_layout_(child, q8)
+            fill_(child, part)
+        else:
+            if part is not None:
+                fill_(child, part)
+            if storage_dtype is not None:
+                child.to(storage_dtype)
+        if quantize is not None:
+            quantize(child)
     if state_dict is not None:
-        unexpected = set(state_dict) - set(module.state_dict())
+        known = set(module.state_dict())
+        # a site quantized here took its fp weight
+        known |= {k[:-len("_q8")] for k in known if k.endswith("weight_q8")}
+        unexpected = set(state_dict) - known
         if unexpected:
             raise ValueError(f"unexpected keys {sorted(unexpected)}")
     return module.eval()
@@ -379,6 +437,16 @@ def note_consistency_counter(sampler_cfg, n_images: int) -> None:
     if sampler_cfg.consistency:
         metrics.inc("pipeline.consistency_steps",
                     sampler_cfg.num_steps * n_images)
+
+
+def note_w8a8_counter(models_cfg, sampler_cfg, n_images: int) -> None:
+    """``pipeline.w8a8_dispatches``: the UNet forwards a dispatch ran on
+    the int8 W8A8 path (the served schedule's steps a image), the
+    reference's proof that the kernels engaged. Silent when the config
+    or the kill switch left the UNet in fp."""
+    if unet_w8a8_armed(models_cfg):
+        metrics.inc("pipeline.w8a8_dispatches",
+                    effective_sampler_steps(sampler_cfg) * n_images)
 
 
 def effective_sampler_cfg(sampler_cfg):
@@ -502,6 +570,7 @@ class Text2ImagePipeline(_ReloadsParams):
         self.tier_variants: Dict[Tuple[int, int, int, bool],
                                  SamplerVariant] = {}
         w8a8 = w8a8_unet_tools(cfg.models)
+        int8 = int8_unet_tools(cfg.models)
         self.cfg = cfg
         self.device = resolve_device(device)
         # serializes this pipeline's device work: its graphs replay over
@@ -522,6 +591,11 @@ class Text2ImagePipeline(_ReloadsParams):
         self._rebuilds = Rebuilds()
 
         def unet(weights: Optional[Mapping]) -> UNet:
+            if int8 is not None:
+                # submodule by submodule, each quantized on the host
+                return build_streamed(partial(UNet, m.unet), "unet",
+                                      self.device, cfg.seed, weights,
+                                      param_dtype, quantize=int8)
             model = self._build(partial(UNet, m.unet), "unet", weights,
                                 param_dtype)
             if w8a8 is not None:
@@ -550,6 +624,10 @@ class Text2ImagePipeline(_ReloadsParams):
         if w8a8 is not None:
             log.info("%s", w8a8_describe(w8a8_calibrated(self.unet),
                                          w8a8_site_count(self.unet)))
+        if int8 is not None:
+            log.info("unet_int8: %d weights-only int8 weights, %.2f GB "
+                     "UNet", int8_site_count(self.unet),
+                     tree_nbytes(self.unet) / 1e9)
         # SDXL's two towers share the CLIP vocabulary and one tokenization
         self.tokenizer = load_tokenizer("clip", m.clip_text.vocab_size,
                                         weights_dir)
@@ -732,13 +810,15 @@ class Text2ImagePipeline(_ReloadsParams):
 
     def _meta_models(self) -> Dict[str, object]:
         """The served models' twins on the meta device, by attribute: the
-        same modules at the same width (the UNet under W8A8 when that is
-        armed), with no storage."""
+        same modules at the same width (the UNet under W8A8 or
+        weights-only int8 when that is served), with no storage."""
         m = self.cfg.models
         unet = costmodel.meta_module(partial(UNet, m.unet))
-        w8a8 = w8a8_unet_tools(m)
+        w8a8, int8 = w8a8_unet_tools(m), int8_unet_tools(m)
         if w8a8 is not None:
             w8a8(unet)
+        if int8 is not None:
+            int8(unet)
         return {"clip": costmodel.meta_module(
                     partial(ClipTextEncoder, m.clip_text)),
                 "unet": unet,
@@ -910,6 +990,8 @@ class Text2ImagePipeline(_ReloadsParams):
             metrics.inc("pipeline.sdxl_images" if self.PIPELINE == "sdxl"
                         else "pipeline.images", len(out))
             note_consistency_counter(self.full_variant.sampler_cfg, len(out))
+            note_w8a8_counter(self.cfg.models, self.full_variant.sampler_cfg,
+                              len(out))
             return out
         with self._dispatch_lock:
             variant = self.tier_variant(quality_overrides())
@@ -937,6 +1019,7 @@ class Text2ImagePipeline(_ReloadsParams):
             metrics.inc("pipeline.brownout_images", len(out))
         note_encprop_counters(served.encprop_counts, len(out))
         note_consistency_counter(served.sampler_cfg, len(out))
+        note_w8a8_counter(self.cfg.models, served.sampler_cfg, len(out))
         return out
 
     def _generate_locked(self, prompts: Sequence[str], seed: int,
@@ -1093,7 +1176,10 @@ class PromptGenerator(_ReloadsParams):
     ``cfg.models.mistral`` is set, Mistral-7B. Greedy at
     ``text_temperature`` 0, else top-``text_top_k`` sampled with a seed
     that advances per call; greedy decodes run speculatively under
-    ``cfg.spec_decode`` (same tokens)."""
+    ``cfg.spec_decode`` (same tokens). Under ``lm_int8`` the LM's large
+    weights are int8 (quantized on the host before placement, or read
+    from ``<family>.int8.safetensors``), each dequantized in its layer's
+    forward."""
 
     PROMPT_BUCKETS = (32, 64, 128, 256)
     BATCH_BUCKETS = (1, 2, 4, 8)
@@ -1104,9 +1190,9 @@ class PromptGenerator(_ReloadsParams):
                  draft_state_dict: Optional[Mapping] = None,
                  weights_dir: Optional[str] = None):
         models = cfg.models
-        if models.lm_int8:
-            raise NotImplementedError(
-                "lm_int8 (weights-only int8 of the prompt LM) is not ported")
+        _require(not (models.lm_int8 and models.lm_w8a8),
+                 "lm_w8a8 and lm_int8 are mutually exclusive: both rewrite "
+                 "the same kernel leaves")
         self.cfg = cfg
         self.device = resolve_device(device)
         # serializes the decodes: their graphs replay over static KV
@@ -1126,7 +1212,15 @@ class PromptGenerator(_ReloadsParams):
             kind = "mistral"
             build = partial(build_streamed, partial(MistralLM, m), kind,
                             self.device, cfg.seed,
-                            storage_dtype=param_dtype)
+                            storage_dtype=param_dtype,
+                            quantize=int8_modules if models.lm_int8 else None)
+            quant = None
+        elif models.lm_int8:
+            self.mcfg = m = models.gpt2
+            kind = "gpt2"
+            build = partial(build_streamed, partial(GPT2LM, m), kind,
+                            self.device, cfg.seed,
+                            storage_dtype=param_dtype, quantize=int8_modules)
             quant = None
         else:
             self.mcfg = m = models.gpt2
@@ -1145,18 +1239,37 @@ class PromptGenerator(_ReloadsParams):
                 return model
 
             quant = param_dtype if lm_w8a8_armed(models) else None
-        # mistral.safetensors or its shards, or gpt2.safetensors
-        self.model, self.loaded_real_weights = add_model(
-            self._rebuilds, build, kind, weights_dir, CHECKPOINT_FILES[kind],
-            converter_for(kind, models), state_dict, quant)
+        self.kind = kind
+        self._int8_path = (os.path.join(weights_dir, f"{kind}.int8.safetensors")
+                           if weights_dir else None)
+        int8_state = (self._load_int8_checkpoint(kind)
+                      if models.lm_int8 and state_dict is None else None)
+        # whether the int8 weights came from <family>.int8.safetensors
+        self.int8_from_file = int8_state is not None
+        if int8_state is not None:
+            # the quantized file straight from disk; it counts as real
+            # weights only beside its fp source (quantize-weights writes
+            # one from the seeded init when no fp file exists)
+            self.model = self._rebuilds.add(partial(build, int8_state))
+            self.loaded_real_weights = bool(checkpoint_paths(
+                weights_dir, CHECKPOINT_FILES[kind]))
+        else:
+            # mistral.safetensors or its shards, or gpt2.safetensors
+            self.model, self.loaded_real_weights = add_model(
+                self._rebuilds, build, kind, weights_dir,
+                CHECKPOINT_FILES[kind], converter_for(kind, models),
+                state_dict, quant)
         if quant is not None:
             log.info("lm_w8a8: int8 W8A8 matmuls at %d sites (per-token "
                      "activation scales)", w8a8_site_count(self.model))
         synchronize(self.device)
-        # host seconds of building the LM, and its parameters' bytes
+        # host seconds of building the LM, and its tensors' bytes (int8
+        # weights at one byte)
         self.build_seconds = time.perf_counter() - t0
-        self.param_bytes = sum(t.numel() * t.element_size()
-                               for t in self.model.parameters())
+        self.param_bytes = tree_nbytes(self.model)
+        if models.lm_int8:
+            log.info("lm_int8: serving %.2f GB, %d int8 weights",
+                     self.param_bytes / 1e9, int8_site_count(self.model))
         self.tokenizer = load_tokenizer(kind, m.vocab_size, weights_dir)
         self.last_seconds = 0.0
         # the sampling seed of the next call that gives none
@@ -1173,6 +1286,43 @@ class PromptGenerator(_ReloadsParams):
         # decode that raised attributes nothing)
         self._meta_twin = None
         self._decode_flops_tls = threading.local()
+
+    def _load_int8_checkpoint(self, name: str) -> Optional[Dict]:
+        """The port ``state_dict`` of ``<name>.int8.safetensors``, or None
+        (the fp path) when the file is absent, older than the fp
+        checkpoint (re-fetched weights not re-quantized), or unloadable."""
+        path = self._int8_path
+        if not (path and os.path.exists(path)):
+            return None
+        fp_path = os.path.join(self.weights_dir, f"{name}.safetensors")
+        if (os.path.exists(fp_path)
+                and os.path.getmtime(fp_path) > os.path.getmtime(path)):
+            log.warning("%s is older than %s; re-quantizing from the fp "
+                        "checkpoint (run quantize-weights to refresh)",
+                        path, fp_path)
+            return None
+        log.info("%s: loading quantized %s", name, path)
+        try:
+            return state_dict_from_tree(load_quantized(path))
+        except Exception:
+            # the reference's load-time degrade: the fp path serves, and
+            # the log says to re-quantize
+            log.exception("quantized checkpoint %s failed to load (model "
+                          "config changed since quantization?); falling "
+                          "back to the fp path", path)
+            return None
+
+    def save_quantized(self, path: Optional[str] = None) -> str:
+        """Write the int8 LM as ``<family>.int8.safetensors`` (default: in
+        the weights directory, where a later ``lm_int8`` build reads it)
+        in the reference's format; returns the path."""
+        _require(self.cfg.models.lm_int8, "construct with lm_int8=True first")
+        path = path or self._int8_path
+        _require(bool(path), "no weights_dir: pass an explicit path")
+        from cassmantle_tpu_torch.ops.quant import save_quantized
+
+        save_quantized(self.model, path)
+        return path
 
     def _init_spec_decode(self, cfg: FrameworkConfig,
                           draft_state_dict: Optional[Mapping],

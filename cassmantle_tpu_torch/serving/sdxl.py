@@ -33,10 +33,18 @@ SDXL pipeline has no img2img; nor has this one. Staged serving
 (``Text2ImagePipeline.generate``): its encode stage is :meth:`encode_ids`
 (both towers and the micro-conditioning: ctx, uctx, add, uadd), its
 denoise slots carry the addition embeds beside the contexts, and
-``reload_params`` drops the staged server. Its data-parallel padding and
-W8A8 UNet are later slices: the port's config has no field for the
-first, and a W8A8 or fused-conv SDXL UNet raises
-``NotImplementedError``.
+``reload_params`` drops the staged server.
+
+The UNet builds as SD1.5's does (``Text2ImagePipeline.__init__``): with
+``fused_conv`` its ResBlock convs run the fused GroupNorm + SiLU + conv3x3
+kernel (at 128x128 latents past W = 64); under ``unet_w8a8`` (with
+``fused_conv``) its attention, GEGLU and conv3x3 sites run the int8
+kernels with dynamic activation scales (the calibration artifact's entry
+is SD1.5's, so no SDXL config matches it); under ``unet_int8`` its large
+weights are int8, dequantized layer by layer. ``pipeline.w8a8_dispatches``
+counts the W8A8 forwards of each dispatch, monolithic, tier and staged.
+Its data-parallel padding is a later slice: the port's config has no
+field for it.
 """
 
 from __future__ import annotations
@@ -69,18 +77,14 @@ from cassmantle_tpu_torch.utils.device import DeviceLike, torch_dtype
 
 
 def check_sdxl(cfg: FrameworkConfig) -> None:
-    """What the port's SDXL path serves: both towers, micro-conditioning,
-    and the plain (unfused, unquantized) UNet."""
+    """What the port's SDXL path needs: both towers and micro-conditioning
+    wider than bigG's pooled width."""
     m = cfg.models
     if m.clip_text_2 is None:
         raise ValueError("SDXL needs both text towers; use sdxl_config()")
     if (m.unet.addition_embed_dim - m.clip_text_2.hidden_size) // 6 <= 0:
         raise ValueError("SDXL's UNet needs micro-conditioning wider than "
                          "the bigG pooled width")
-    if m.unet_w8a8 or m.unet.fused_conv:
-        raise NotImplementedError(
-            "the W8A8 and fused-conv SDXL UNet are not ported; the port "
-            "serves SDXL's plain bf16 UNet")
 
 
 class SDXLPipeline(Text2ImagePipeline):

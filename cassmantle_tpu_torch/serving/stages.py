@@ -879,10 +879,12 @@ class StagedImageServer:
         idx = self._slot_index[slot:slot + 1]
         for buf in (self._lat, self._aux, *self._cond.values()):
             buf.index_fill_(0, idx, 0)
-        self._fail_unit(u, OutputInvalid("staged", "denoise", [slot]))
-        self._free_slot(slot)
+        # counted before the request fails: its caller may read the
+        # breaker as soon as it wakes
         if self._supervisor is not None:
             self._supervisor.content_breaker.record_failure()
+        self._fail_unit(u, OutputInvalid("staged", "denoise", [slot]))
+        self._free_slot(slot)
 
     def _retire_finished(self) -> None:
         sup = self._supervisor

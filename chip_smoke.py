@@ -179,7 +179,7 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    traffic; a probe failing at leg ``score`` while every score dispatch
    raises (counted, ``probe.fail``, its trace at /debugz); a second app
    under ``CASSMANTLE_NO_PROBER=1`` leaving no probe artifact. And
-   ([debug-trace]) ``POST /debug/trace?seconds=2`` while a round runs:
+   ([debug-trace]) ``POST /debug/trace?seconds=4`` while a round runs:
    200, a trace naming the flash kernel among its device events, a second
    POST meanwhile 409;
 15. ``python -m cassmantle_tpu_torch serve`` as a child process
@@ -244,9 +244,18 @@ import subprocess
 import sys
 import time
 
+from cassmantle_tpu_torch.config import UNetConfig
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# The SDXL builds [round-sdxl_*] serve: the UNet with the fused conv,
+# W8A8 (bench.py:775-786: fused, conv_pad_to 128) and weights-only int8;
+# and the reference's benched sdxl_encprop and sdxl_turbo rounds
+SDXL_BUILDS = ("fused", "w8a8", "int8")
+SDXL_ROUNDS = tuple(f"sdxl_{b}" for b in SDXL_BUILDS) + ("sdxl_encprop",
+                                                       "sdxl_turbo")
 
 # Every flash-attention shape of one SD1.5-512 round with CFG (batch 2 x 8
 # heads in the UNet; the VAE mid block is one head at D = 512):
@@ -320,6 +329,21 @@ FLASH_SHAPES = {
     "cross_mid_b8": (8, 64, 77, 8, 160, "cross"),
     "vae_mid_b2": (2, 4096, 4096, 1, 512, "separate"),
     "vae_mid_b4": (4, 4096, 4096, 1, 512, "separate"),
+    # SDXL's decoder-only forward under encoder propagation (the up
+    # path's levels 2 and 1) at batch 4 (stride 3, the sdxl_encprop
+    # build) and 8 (stride 5, its brownout tiers), and at 512x512
+    "self_x1_b4": (4, 4096, 4096, 10, 64, "self"),
+    "cross_x1_b4": (4, 4096, 77, 10, 64, "cross"),
+    "self_x2_b4": (4, 1024, 1024, 20, 64, "self"),
+    "cross_x2_b4": (4, 1024, 77, 20, 64, "cross"),
+    "self_x1_b8": (8, 4096, 4096, 10, 64, "self"),
+    "cross_x1_b8": (8, 4096, 77, 10, 64, "cross"),
+    "self_x2_b8": (8, 1024, 1024, 20, 64, "self"),
+    "cross_x2_b8": (8, 1024, 77, 20, 64, "cross"),
+    "self_x1_512_b8": (8, 1024, 1024, 10, 64, "self"),
+    "cross_x1_512_b8": (8, 1024, 77, 10, 64, "cross"),
+    "self_x2_512_b8": (8, 256, 256, 20, 64, "self"),
+    "cross_x2_512_b8": (8, 256, 77, 20, 64, "cross"),
 }
 # Flash launches of one SD1.5 UNet forward by mode (its transformer
 # blocks, one self and one cross attention each): a full forward runs 16
@@ -350,6 +374,17 @@ TIER_UNET_FLASH = {
                   "cross_x2": 60},
     "sdxl_full_512": {"self_x1_512": 10, "cross_x1_512": 10,
                       "self_x2_512": 60, "cross_x2_512": 60},
+    # SDXL's decoder-only forward: the up path's 3 transformers at level
+    # 1 (depth 2) and 3 at level 2 (depth 10); its DeepCache shallow
+    # forward runs level 0 alone, which has no attention
+    "sdxl_decoder_only_b4": {"self_x1_b4": 6, "cross_x1_b4": 6,
+                             "self_x2_b4": 30, "cross_x2_b4": 30},
+    "sdxl_decoder_only_b8": {"self_x1_b8": 6, "cross_x1_b8": 6,
+                             "self_x2_b8": 30, "cross_x2_b8": 30},
+    "sdxl_decoder_only_b8_512": {
+        "self_x1_512_b8": 6, "cross_x1_512_b8": 6, "self_x2_512_b8": 30,
+        "cross_x2_512_b8": 30},
+    "sdxl_shallow": {},
 }
 # UNet forwards of one round by preset, where they differ from DDIM-50's
 # 50 full: encoder propagation runs 20 key (full) forwards (5 dense, then
@@ -435,6 +470,25 @@ ROUND_FLASH["staged"] = {
     **{f"{name}_b{b}": n for b in (4, 8)
        for name, n in UNET_FLASH["full"].items()},
     "vae_mid": 1, "vae_mid_b2": 1, "vae_mid_b4": 1}
+# The SDXL builds of this slice (sdxl_config() as the reference benches
+# them, one seeded weight set): fused conv, W8A8 and weights-only int8
+# run DDIM-50 as [round-sdxl] does (7,001); sdxl_encprop 20 key forwards
+# and 15 decoder-only ones at batch 4 (20 x 140 + 15 x 72 + 1 = 3,881);
+# sdxl_turbo DPM++(2M)-24 with DeepCache, 12 full and 12 shallow
+# forwards (12 x 140 + 1 = 1,681)
+ROUND_FLASH.update({
+    "sdxl_encprop": tier_flash({"sdxl_full": 20,
+                                "sdxl_decoder_only_b4": 15}, "vae_mid_xl"),
+    "sdxl_turbo": tier_flash({"sdxl_full": 12, "sdxl_shallow": 12},
+                             "vae_mid_xl"),
+    # its brownout tiers (derived and checked, not driven): stride 5 at
+    # 1024 (tier 2) and at 512 (tier 4), decoder-only forwards at batch 8
+    "sdxl_encprop@t2": tier_flash({"sdxl_full": 10,
+                                   "sdxl_decoder_only_b8": 5}, "vae_mid_xl"),
+    "sdxl_encprop@t4": tier_flash({"sdxl_full_512": 10,
+                                   "sdxl_decoder_only_b8_512": 5},
+                                  "vae_mid"),
+})
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # blocks' D = 512 on mma.sync (ops/_flash_plan.py)
 ROUND_FLASH_PATHS = {
@@ -450,7 +504,9 @@ PRESET_MODEL = {"default": "sd15", "weights": "sd15", "fusedconv": "sd15",
                 **{sampler: sampler for sampler in SAMPLER_FORWARDS},
                 **{cell: cell for cell in ROUND_FLASH if "@" in cell},
                 "fusedconv@t4": "default@t4", "w8a8@t4": "default@t4",
-                "game@t5": "default@t4"}
+                "game@t5": "default@t4",
+                **{f"sdxl_{b}": "sdxl" for b in SDXL_BUILDS},
+                "sdxl_encprop": "sdxl_encprop", "sdxl_turbo": "sdxl_turbo"}
 # Kernel vs plain, bf16 unit-normal inputs. Both sides round the output
 # to bf16 (one ulp of the largest output is 2^-8 to 2^-7 of it), and the
 # kernel rounds p to bf16 against its running max where the plain version
@@ -470,19 +526,6 @@ PEAK_INT8_OPS = 1979e12
 UNET_FORWARDS = 50               # one CFG forward (batch 2) per DDIM step
 LM_FORWARDS = 96                 # prefill + 95 decode steps (max_new 96)
 
-# Every ResBlock conv3x3 of one SD1.5-512 UNet forward with CFG:
-# (B, H, W, C, F) -> launches per forward (22 ResBlocks x 2 = 44); the
-# fused kernel runs them under fusedconv_serving_config(), the int8 conv
-# under w8a8_serving_config().
-CONV_SHAPES = {
-    (2, 64, 64, 320, 320): 7, (2, 64, 64, 640, 320): 2,
-    (2, 64, 64, 960, 320): 1, (2, 32, 32, 320, 640): 1,
-    (2, 32, 32, 640, 640): 6, (2, 32, 32, 960, 640): 1,
-    (2, 32, 32, 1280, 640): 1, (2, 32, 32, 1920, 640): 1,
-    (2, 16, 16, 640, 1280): 1, (2, 16, 16, 1280, 1280): 6,
-    (2, 16, 16, 1920, 1280): 1, (2, 16, 16, 2560, 1280): 2,
-    (2, 8, 8, 1280, 1280): 11, (2, 8, 8, 2560, 1280): 3,
-}
 # Every ResBlock conv3x3 of one VAE decode (one image): (B, H, W, C, F) ->
 # launches (mid block 2 ResBlocks, 3 a level, 2 convs each: 28). The
 # fused kernel runs SD1.5's under encprop_serving_config() (18 of them
@@ -503,25 +546,6 @@ VAE_CONV_SHAPES = {
 }
 
 
-def unet_matmul_shapes(size: int, batch: int = 2) -> dict:
-    """Every W8A8 dense site of one SD1.5 UNet forward at ``size`` pixels
-    and ``batch`` (2: one image's CFG pair), (M, K, N) -> launches (16
-    transformer blocks x 7: self qkv and out, cross q, kv and out, GEGLU
-    proj and out). M = batch x tokens; the cross kv reads the batch x 77
-    context."""
-    tokens = (size // 8) ** 2
-    out = {}
-    for c, m, blocks in ((320, batch * tokens, 5),
-                         (640, batch * tokens // 4, 5),
-                         (1280, batch * tokens // 16, 5),
-                         (1280, batch * tokens // 64, 1)):
-        for shape, n in (((m, c, 3 * c), 1), ((m, c, c), 3),
-                         ((m, c, 8 * c), 1), ((m, 4 * c, c), 1),
-                         ((batch * 77, 768, 2 * c), 1)):
-            out[shape] = out.get(shape, 0) + n * blocks
-    return out
-
-
 def conv_shapes_at(shapes: dict, size: int, base: int = 512) -> dict:
     """A table of conv3x3 shapes at ``base`` pixels, at ``size``: the same
     layers at the scaled height and width."""
@@ -529,7 +553,77 @@ def conv_shapes_at(shapes: dict, size: int, base: int = 512) -> dict:
             for (b, h, w, c, f), n in shapes.items()}
 
 
-UNET_MATMUL_SHAPES = unet_matmul_shapes(512)
+def arch_conv_shapes(unet: UNetConfig, size: int, batch: int = 2) -> dict:
+    """Every ResBlock conv3x3 of one UNet forward at ``size`` pixels, from
+    its config (``models/unet.py``'s layout): (B, H, W, C, F) ->
+    launches. Each ResBlock runs conv1 (C -> F) and conv2 (F -> F); the
+    down path's blocks, a downsample between levels, the mid block's two
+    ResBlocks, then the up path's blocks + 1 a level, each on the skip
+    concatenated."""
+    chans = [unet.base_channels * m for m in unet.channel_mults]
+    out = collections.Counter()
+    h, ch = size // 8, unet.base_channels
+    skips = [ch]
+    for level, c in enumerate(chans):
+        for _ in range(unet.blocks_per_level):
+            out[(batch, h, h, ch, c)] += 1
+            out[(batch, h, h, c, c)] += 1
+            ch = c
+            skips.append(ch)
+        if level < len(chans) - 1:
+            h //= 2
+            skips.append(ch)
+    out[(batch, h, h, ch, ch)] += 4
+    for level in reversed(range(len(chans))):
+        c = chans[level]
+        for _ in range(unet.blocks_per_level + 1):
+            out[(batch, h, h, ch + skips.pop(), c)] += 1
+            out[(batch, h, h, c, c)] += 1
+            ch = c
+        if level:
+            h *= 2
+    return dict(out)
+
+
+def arch_matmul_shapes(unet: UNetConfig, size: int, batch: int = 2,
+                       context_tokens: int = 77) -> dict:
+    """Every W8A8 dense site of one UNet forward at ``size`` pixels, from
+    its config: (M, K, N) -> launches. A level with attention runs a
+    transformer of its depth after each down ResBlock and each up one
+    (blocks + 1), the mid block one of the deepest attended depth; each
+    transformer block runs self qkv and out, cross q, kv (over the
+    batch's 77 context tokens) and out, GEGLU proj and out."""
+    out = collections.Counter()
+    lat = size // 8
+    attended = [(level, depth) for level, (on, depth) in enumerate(zip(
+        unet.attention_levels, unet.transformer_depth)) if on and depth]
+    sites = [(unet.base_channels * unet.channel_mults[level], lat >> level,
+              depth * (2 * unet.blocks_per_level + 1))
+             for level, depth in attended]
+    deepest = len(unet.channel_mults) - 1
+    sites.append((unet.base_channels * unet.channel_mults[-1],
+                  lat >> deepest, max([d for _, d in attended] or [1])))
+    for c, h, blocks in sites:
+        m = batch * h * h
+        for shape, n in (((m, c, 3 * c), 1), ((m, c, c), 3),
+                         ((m, c, 8 * c), 1), ((m, 4 * c, c), 1),
+                         ((batch * context_tokens, unet.context_dim, 2 * c),
+                          1)):
+            out[shape] += n * blocks
+    return dict(out)
+
+
+SD15_UNET, SDXL_UNET = UNetConfig(), UNetConfig.sdxl()
+# Every ResBlock conv3x3 of one SD1.5-512 UNet forward with CFG (44: 22
+# ResBlocks) and its 112 W8A8 dense sites (16 transformer blocks x 7);
+# the fused kernel runs the convs under fusedconv_serving_config(), the
+# int8 conv and matmul under w8a8_serving_config().
+CONV_SHAPES = arch_conv_shapes(SD15_UNET, 512)
+UNET_MATMUL_SHAPES = arch_matmul_shapes(SD15_UNET, 512)
+# SDXL's at 1024x1024 (34 convs: 17 ResBlocks; 490 dense sites: 70
+# transformer blocks x 7) and the VAE decoder's under sdxl_encprop
+SDXL_CONV_SHAPES = arch_conv_shapes(SDXL_UNET, 1024)
+SDXL_MATMUL_SHAPES = arch_matmul_shapes(SDXL_UNET, 1024)
 # GPT-2's W8A8 projections per layer (q, k, v, out, fc1, fc2) at M = 32
 # (prefill: one prompt in the 32-token bucket) and M = 1 (decode).
 GPT2_KN = {(768, 768): 4, (768, 3072): 1, (3072, 768): 1}
@@ -540,24 +634,35 @@ LM_MATMUL_SHAPES = {(m, k, n): c * GPT2_LAYERS * (1 if m == 32 else 95)
 # the same layers at half the width and height, M a quarter; and the
 # SD1.5 VAE decoder's (the encprop preset's fused decoder) at 256x256
 TIER_CONV_SHAPES = conv_shapes_at(CONV_SHAPES, 256)
-TIER_UNET_MATMUL_SHAPES = unet_matmul_shapes(256)
+TIER_UNET_MATMUL_SHAPES = arch_matmul_shapes(SD15_UNET, 256)
 VAE_CONV_SHAPES["sd15_256"] = conv_shapes_at(VAE_CONV_SHAPES["sd15"],
                                              256)
 # the staged server's two-request runs of the fused-conv and W8A8 presets
 # (widths 1 and 2): the UNet's convs and W8A8 sites at batch 4 beside 2
 STAGED_CONV_SHAPES = {(4,) + shape[1:]: n for shape, n in CONV_SHAPES.items()}
-STAGED_UNET_MATMUL_SHAPES = unet_matmul_shapes(512, batch=4)
+STAGED_UNET_MATMUL_SHAPES = arch_matmul_shapes(SD15_UNET, 512, batch=4)
+# [calibrate]'s eager forwards of the fused SD1.5 UNet over 8 prompts
+CALIBRATE_CONV_SHAPES = {(8,) + shape[1:]: n
+                         for shape, n in CONV_SHAPES.items()}
+# the SDXL builds' brownout tier 4 (512x512): the same layers at 64x64
+# latents (its convs are SD1.5's at 512x512, W8A8's M a quarter)
+SDXL_TIER_CONV_SHAPES = arch_conv_shapes(SDXL_UNET, 512)
+SDXL_TIER_MATMUL_SHAPES = arch_matmul_shapes(SDXL_UNET, 512)
 # the shapes phase 2 holds each kernel at against its plain version
 FUSED_CHECK_SHAPES = list(dict.fromkeys(
     [*CONV_SHAPES, *TIER_CONV_SHAPES,
      *(shape for table in VAE_CONV_SHAPES.values() for shape in table),
-     *STAGED_CONV_SHAPES]))
+     *STAGED_CONV_SHAPES, *SDXL_CONV_SHAPES, *SDXL_TIER_CONV_SHAPES,
+     *CALIBRATE_CONV_SHAPES]))
 MATMUL_CHECK_SHAPES = list(dict.fromkeys(
     [*UNET_MATMUL_SHAPES, *TIER_UNET_MATMUL_SHAPES, *LM_MATMUL_SHAPES,
-     *STAGED_UNET_MATMUL_SHAPES]))
+     *STAGED_UNET_MATMUL_SHAPES, *SDXL_MATMUL_SHAPES,
+     *SDXL_TIER_MATMUL_SHAPES]))
 INT8_CONV_CHECK_SHAPES = list(dict.fromkeys([*CONV_SHAPES,
                                              *TIER_CONV_SHAPES,
-                                             *STAGED_CONV_SHAPES]))
+                                             *STAGED_CONV_SHAPES,
+                                             *SDXL_CONV_SHAPES,
+                                             *SDXL_TIER_CONV_SHAPES]))
 ROUND_FUSED_LAUNCHES = 44 * UNET_FORWARDS                     # 2,200
 ROUND_UNET_MATMUL_LAUNCHES = 112 * UNET_FORWARDS              # 5,600
 ROUND_LM_MATMUL_LAUNCHES = 72 * LM_FORWARDS                   # 6,912
@@ -927,6 +1032,106 @@ def check_int8_conv_kernel():
             "prebuilt)", ops, nbytes, PEAK_INT8_OPS)
         del x_q, kernel, col, bias, out, args, cols, w_kn
         torch.cuda.empty_cache()
+    return rows
+
+
+# fp8 (e4m3) operands: the card's tensor cores keep about 14 bits of an
+# fp8 product's fp32 sum (not a full fp32 accumulator), so the library
+# product stays within 2^-10 of max |plain| where the plain fp32 one is
+# exact to 2^-24 at these depths
+FP8_MAX_REL = 2.0 ** -10
+
+
+def check_w8a8_entry_points():
+    """The W8A8 entry points at SDXL's shapes, the site's static scale
+    beside the dynamic absmax (the static path skips the absmax pass
+    before kernels 3 and 4), each against its plain composition (the
+    same quantize, then the kernel's plain version; equal); and one fp8
+    row: ``torch._scaled_mm`` (``ops/quant_matmul.py::fp8_matmul``)
+    against the plain fp32 product of the same fp8 operands. [kernel]
+    lines; returns {label: row}."""
+    import torch
+
+    from cassmantle_tpu_torch.ops import quant
+    from cassmantle_tpu_torch.ops import quant_matmul as qm
+
+    rows = {}
+    gen = torch.Generator("cuda").manual_seed(4)
+    kw = dict(generator=gen, device="cuda")
+    # dense: SDXL's level-1 self-attention out projection (M 8192, 640)
+    m, k, n = 8192, 640, 640
+    x = torch.randn((m, k), dtype=torch.bfloat16, **kw)
+    w = torch.randn((k, n), **kw) / k ** 0.5
+    bias = torch.randn((n,), **kw) * 0.1
+    absmax = float(x.float().abs().max())
+    for mode in ("dynamic", "static"):
+        act = None if mode == "dynamic" else quant.act_scale_from_absmax(
+            absmax).cuda()
+        q = quant.quantize_tensor_act(w, axis=-1, act_scale=act)
+        # the modules' (out, in) memory, as Dense hands it over
+        q = q._replace(data=q.data.t().contiguous().t())
+        out = qm.w8a8_dense(x, q, bias)
+        scale = (quant.act_scale_from_absmax(quant.act_absmax(x))
+                 if act is None else act)
+        ref = qm.int8_matmul_plain(quant.quantize_act(x, scale), q.data,
+                                   scale, q.scale, bias, torch.bfloat16)
+        agree = exact_agreement(out, ref)
+        ms = time_ms(lambda: qm.w8a8_dense(x, q, bias), 20)
+        plain_ms = time_ms(lambda: qm.int8_matmul_plain(
+            quant.quantize_act(x, scale), q.data, scale, q.scale, bias,
+            torch.bfloat16), 2)
+        rows[f"w8a8_dense[{mode}]"] = report_row(
+            f"w8a8_dense[{mode}]", "(M, K, N)", (m, k, n), agree, ms,
+            plain_ms, None, "", 2 * m * k * n,
+            2 * m * k + k * n + 2 * m * n, PEAK_INT8_OPS)
+    # conv: SDXL's level-0 ResBlock conv (128x128, 320 -> 320)
+    b, h, wd, c, f = 2, 128, 128, 320, 320
+    act_in = torch.randn((b, h, wd, c), dtype=torch.bfloat16, **kw)
+    wk = torch.randn((3, 3, c, f), **kw) / (9 * c) ** 0.5
+    cb = torch.randn((f,), **kw) * 0.1
+    amax = float(act_in.float().abs().max())
+    for mode in ("dynamic", "static"):
+        act = None if mode == "dynamic" else quant.act_scale_from_absmax(
+            amax).cuda()
+        q = quant.quantize_tensor_act(wk, axis=-1, act_scale=act)
+        # the modules' OHWI memory (OIHW channels-last)
+        q = q._replace(data=q.data.permute(3, 0, 1, 2).contiguous()
+                       .permute(1, 2, 3, 0))
+        out = qm.w8a8_conv3x3(act_in, q, cb)
+        scale = (quant.act_scale_from_absmax(quant.act_absmax(act_in))
+                 if act is None else act)
+        ref = qm.int8_conv3x3_plain(quant.quantize_act(act_in, scale),
+                                    q.data, scale * q.scale, cb,
+                                    torch.bfloat16)
+        agree = exact_agreement(out, ref)
+        ms = time_ms(lambda: qm.w8a8_conv3x3(act_in, q, cb), 20)
+        plain_ms = time_ms(lambda: qm.int8_conv3x3_plain(
+            quant.quantize_act(act_in, scale), q.data, scale * q.scale, cb,
+            torch.bfloat16), 2)
+        rows[f"w8a8_conv3x3[{mode}]"] = report_row(
+            f"w8a8_conv3x3[{mode}]", "(B, H, W, C, F)", (b, h, wd, c, f),
+            agree, ms, plain_ms, None, "", 18 * b * h * wd * c * f,
+            2 * b * h * wd * c + 9 * c * f + 2 * b * h * wd * f,
+            PEAK_INT8_OPS)
+    # fp8: the library product of an fp8 leaf against its plain version
+    fp8 = torch.float8_e4m3fn
+    q = quant.quantize_tensor_act(w, axis=-1, dtype=fp8)
+    xs = quant.act_scale_from_absmax(quant.act_absmax(x), fp8)
+    x8 = quant.quantize_act(x, xs, fp8)
+    out = qm.fp8_matmul(x8, q.data)
+    ref = qm.fp8_matmul_plain(x8, q.data)
+    err = (out - ref).abs().max().item()
+    limit = FP8_MAX_REL * ref.abs().max().item()
+    agree = dict(max_abs_err=err, ok=err <= limit, text=(
+        f"max_abs_err {err:.3e} (limit 2^-10 of max |plain| = "
+        f"{limit:.3e})"))
+    ms = time_ms(lambda: qm.fp8_matmul(x8, q.data), 20)
+    plain_ms = time_ms(lambda: qm.fp8_matmul_plain(x8, q.data), 2)
+    rows["fp8_matmul"] = report_row(
+        "fp8_matmul (torch._scaled_mm, a library call)", "(M, K, N)",
+        (m, k, n), agree, ms, plain_ms, ms, "torch._scaled_mm",
+        # the H100's fp8 peak is its int8 peak
+        2 * m * k * n, m * k + k * n + 4 * m * n, PEAK_INT8_OPS)
     return rows
 
 
@@ -1529,6 +1734,14 @@ def expected_tallies(preset: str) -> dict:
         mm = {s: n * UNET_FORWARDS for s, n in UNET_MATMUL_SHAPES.items()}
         return {**base, "int8_conv3x3": per_round,
                 "int8_matmul": {**mm, **LM_MATMUL_SHAPES}}
+    sdxl_convs = scaled(SDXL_CONV_SHAPES, UNET_FORWARDS)
+    if preset == "sdxl_fused":
+        return {**base, "gn_silu_conv3x3": sdxl_convs}
+    if preset == "sdxl_w8a8":
+        return {**base, "int8_conv3x3": sdxl_convs, "int8_matmul": scaled(
+            SDXL_MATMUL_SHAPES, UNET_FORWARDS)}
+    if preset == "sdxl_encprop":     # SDXL's fused VAE decoder, once
+        return {**base, "gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sdxl"])}
     return base
 
 
@@ -2203,8 +2416,7 @@ def profile_denoise(svc, preset: str, steps: int = 2,
             eager_window_ms = (time.perf_counter() - t0) * 1e3 / steps
         eager_counts = trace_counts(prof, steps)
 
-        graph = t2i.full_variant.step_graphs[1]       # the round's
-        graph(x, **inputs)                            # warm
+        graph = t2i.full_variant.step_graphs[1]       # the round's, warm
         synchronize(dev)
         t0 = time.perf_counter()
         final = graph(x, **inputs)
@@ -2308,8 +2520,7 @@ def profile_loop(svc, preset: str, replays: int = 5) -> dict:
                         generator=torch.Generator(dev).manual_seed(3))
         graph = (t2i.img2img_graphs[img2img_steps(t2i.cfg), tuple(x.shape)]
                  if preset == "img2img" else t2i.full_variant.step_graphs[1])
-        graph(x, **inputs)                            # warm
-        synchronize(dev)
+        synchronize(dev)                              # warm: the round's
         t0 = time.perf_counter()
         final = graph(x, **inputs)
         synchronize(dev)
@@ -2452,6 +2663,39 @@ def mistral_config():
     base = FrameworkConfig()
     return base.replace(models=dataclasses.replace(
         base.models, mistral=MistralConfig()))
+
+
+def sdxl_build_config(name: str):
+    """``sdxl_config()`` as each SDXL round of this slice serves it:
+    ``sdxl_fused`` with the fused conv (conv_pad_to 128), ``sdxl_w8a8``
+    the reference's benched W8A8 config (bench.py:775-786: fused, pad
+    128, unet_w8a8), ``sdxl_int8`` the weights-only int8 UNet;
+    ``sdxl_encprop`` encoder propagation with the fused VAE decoder and
+    ``sdxl_turbo`` DPM++(2M)-24 with DeepCache (bench.py:247-262,
+    591-604)."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import sdxl_config
+
+    cfg = sdxl_config()
+    m, s = cfg.models, cfg.sampler
+    fused = dataclasses.replace(m.unet, fused_conv=True, conv_pad_to=128)
+    if name == "sdxl_fused":
+        return cfg.replace(models=dataclasses.replace(m, unet=fused))
+    if name == "sdxl_w8a8":
+        return cfg.replace(models=dataclasses.replace(m, unet=fused,
+                                                      unet_w8a8=True))
+    if name == "sdxl_int8":
+        return cfg.replace(models=dataclasses.replace(m, unet_int8=True))
+    if name == "sdxl_encprop":
+        return cfg.replace(
+            sampler=dataclasses.replace(s, encprop=True),
+            models=dataclasses.replace(m, vae=dataclasses.replace(
+                m.vae, fused_conv=True)))
+    if name == "sdxl_turbo":
+        return cfg.replace(sampler=dataclasses.replace(
+            s, kind="dpmpp_2m", num_steps=24, deepcache=True))
+    raise ValueError(f"no SDXL round {name!r}")
 
 
 def lm_inputs(gen, text: str = LM_TEXT):
@@ -3308,6 +3552,454 @@ def check_serve_sdxl(svc, card: str) -> bool:
     return ok
 
 
+# -- [calibrate] and [int8] -------------------------------------------------
+
+INT8_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "cassmantle_tpu_torch", "_build", "int8_smoke")
+INT8_TOKENS = 64
+
+
+def image_round(pipe, seed: int = 11) -> dict:
+    """A cold round of ``pipe`` (counters set to 0 just before and read
+    just after) and a warm one: seconds by stage, the image, tallies."""
+    import torch
+
+    reset_all_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = pipe.generate([SERVE_PROMPT], seed=seed)
+    cold_s = time.perf_counter() - t0
+    tallies = read_tallies()
+    cold = dict(pipe.last_stage_seconds)
+    t0 = time.perf_counter()
+    again = pipe.generate([SERVE_PROMPT], seed=seed)
+    return {"image": img, "tallies": tallies, "cold_s": cold_s,
+            "warm_s": time.perf_counter() - t0, "cold_stages_s": cold,
+            "warm_stages_s": dict(pipe.last_stage_seconds),
+            "finite": pipe.last_decoded_finite,
+            "warm_equal": bool((img == again).all()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_calibrate_and_int8(card: str, svc) -> bool:
+    """[calibrate]: the calibration pass at full width on the fused-conv
+    preset's seeded SD1.5 (8 prompts x 4 timesteps, eager) into a temp
+    artifact, then a W8A8 round with those static scales beside a W8A8
+    round with dynamic ones, from the same weights: launches equal, the
+    seconds of each. [int8]: an SD1.5 ``unet_int8`` round from the same
+    weights; a GPT-2 ``lm_int8`` decode, ``quantize-weights`` written,
+    loaded back by an ``lm_int8`` build from that directory and decoding
+    the same tokens."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.ops.quant import (
+        int8_site_count,
+        w8a8_calibrated,
+        w8a8_site_count,
+    )
+    from cassmantle_tpu_torch.parallel import calibrate
+    from cassmantle_tpu_torch.serving.pipeline import (
+        PromptGenerator,
+        Text2ImagePipeline,
+    )
+    from cassmantle_tpu_torch.tools import quantize_weights
+
+    t2i = svc.backend.t2i
+    base = t2i.cfg
+    sd = {"clip_text": t2i.clip.state_dict(), "unet": t2i.unet.state_dict(),
+          "vae": t2i.vae.state_dict()}
+    os.makedirs(INT8_DIR, exist_ok=True)
+    ok = True
+    try:
+        artifact = os.path.join(INT8_DIR, "act_scales.json")
+        t0 = time.perf_counter()
+        art = calibrate.emit(artifact, cfg=base, pipe=t2i)
+        calib_s = time.perf_counter() - t0
+        entry = art["entries"]["unet"]
+        w8cfg = base.replace(models=dataclasses.replace(base.models,
+                                                        unet_w8a8=True))
+        rounds, pipes = {}, {}
+        for mode in ("dynamic", "static"):
+            saved = calibrate.ACT_SCALES_PATH
+            if mode == "static":
+                calibrate.ACT_SCALES_PATH = artifact
+            try:
+                pipe = Text2ImagePipeline(w8cfg, state_dicts=sd)
+            finally:
+                calibrate.ACT_SCALES_PATH = saved
+            rounds[mode] = image_round(pipe)
+            pipes[mode] = (w8a8_calibrated(pipe.unet),
+                           w8a8_site_count(pipe.unet))
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        dyn, sta = rounds["dynamic"], rounds["static"]
+        want = {"int8_conv3x3": scaled(CONV_SHAPES, UNET_FORWARDS),
+                "int8_matmul": scaled(UNET_MATMUL_SHAPES, UNET_FORWARDS)}
+        checks = {
+            "sites_recorded": len(entry["scales"]) == 156,
+            "signature_matches": entry["signature"]
+            == calibrate.calibration_signature(w8cfg.models,
+                                               entry["prompts_digest"]),
+            "w8a8_calibrated": pipes["static"] == (True, 156)
+            and pipes["dynamic"] == (False, 156),
+            "launches_equal": all(dict(sta["tallies"][k]) == dict(
+                dyn["tallies"][k]) == want[k] for k in want),
+            "images_finite": sta["finite"] and dyn["finite"],
+        }
+        res = {"card": card, "calibrate_s": calib_s,
+               "prompts": entry["num_prompts"],
+               "timesteps": entry["timesteps"],
+               "sites": len(entry["scales"]),
+               "absmax_range": [min(entry["scales"].values()),
+                                max(entry["scales"].values())],
+               **{f"{mode}_round": {k: r[k] for k in (
+                   "cold_s", "warm_s", "warm_stages_s")}
+                  for mode, r in rounds.items()},
+               "static_over_dynamic_warm": sta["warm_s"] / dyn["warm_s"],
+               "mean_abs_pixel_diff": float(np.abs(
+                   sta["image"].astype(np.float64) - dyn["image"]).mean()),
+               "checks": checks}
+        good = all(checks.values())
+        print(f"[calibrate] {json.dumps(res)} -> "
+              f"{'pass' if good else 'FAIL'}", flush=True)
+        ok = ok and good
+
+        # [int8]: the weights-only int8 UNet from the same weights
+        q8cfg = base.replace(models=dataclasses.replace(
+            base.models, unet_int8=True,
+            unet=dataclasses.replace(base.models.unet, fused_conv=False)))
+        t0 = time.perf_counter()
+        pipe = Text2ImagePipeline(q8cfg, state_dicts=sd)
+        build_s = time.perf_counter() - t0
+        r = image_round(pipe)
+        sites = int8_site_count(pipe.unet)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash = sum(r["tallies"]["flash_attention"].values())
+        others = sum(sum(r["tallies"][k].values()) for k in (
+            "gn_silu_conv3x3", "int8_matmul", "int8_conv3x3"))
+        fp = image_round(t2i)
+        # GPT-2: lm_int8, quantize-weights, the file read back
+        gcfg = base.replace(models=dataclasses.replace(base.models,
+                                                       lm_int8=True))
+        t0 = time.perf_counter()
+        gen = PromptGenerator(gcfg)
+        gen_build_s = time.perf_counter() - t0
+        toks, lens = gen.decode_ids_batch([LM_TEXT])
+        t0 = time.perf_counter()
+        text = gen.generate(LM_TEXT)
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        quantize_weights.main(["--weights", INT8_DIR, "--platform", "cuda"])
+        write_s = time.perf_counter() - t0
+        loaded = PromptGenerator(gcfg, weights_dir=INT8_DIR)
+        toks2, lens2 = loaded.decode_ids_batch([LM_TEXT])
+        checks = {
+            "unet_int8_sites": sites > 0,
+            "unet_int8_flash_1601": flash == 1601 and others == 0,
+            "unet_int8_image": r["finite"] and int(r["image"].max())
+            > int(r["image"].min()) and r["warm_equal"],
+            "lm_int8_sites": int8_site_count(gen.model) == 72,
+            "lm_int8_text": bool(text.strip()),
+            "file_tokens_equal": bool(np.array_equal(toks, toks2)
+                                      and np.array_equal(lens, lens2)),
+            "file_int8_equal": all(torch.equal(a, b) for a, b in zip(
+                gen.model.state_dict().values(),
+                loaded.model.state_dict().values())),
+            "file_not_real_weights": not loaded.loaded_real_weights,
+            "file_read": loaded.int8_from_file and not gen.int8_from_file,
+        }
+        res = {"card": card, "unet_int8": {
+            "build_s": build_s, "sites": sites, "cold_s": r["cold_s"],
+            "warm_s": r["warm_s"], "warm_stages_s": r["warm_stages_s"],
+            "peak_gib": r["peak_gib"], "flash_launches": flash,
+            "mean_abs_pixel_diff_vs_bf16": float(np.abs(
+                r["image"].astype(np.float64) - fp["image"]).mean())},
+            "lm_int8": {"build_s": gen_build_s, "param_bytes":
+                        gen.param_bytes, "decode_s": decode_s,
+                        "tokens": int(lens[0]), "write_s": write_s,
+                        "file_bytes": os.path.getsize(os.path.join(
+                            INT8_DIR, "gpt2.int8.safetensors"))},
+            "checks": checks}
+        good = all(checks.values())
+        print(f"[int8] {json.dumps(res)} -> {'pass' if good else 'FAIL'}",
+              flush=True)
+        ok = ok and good
+        del gen, loaded
+    finally:
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+# the layers of the full-width Mistral-7B the A/B builds (of its 32): a
+# 32-layer int8 build quantizes 7.2 B weights on the host in 35.3 s (one
+# H100 machine's host), past what the script's time allows beside the rest
+AB_LAYERS = 8
+
+
+def check_mistral_int8_ab(card: str) -> bool:
+    """[int8] mistral: ``lm-int8-ab`` at Mistral-7B's full width, cut to
+    :data:`AB_LAYERS` layers: an fp arm (bf16, seeded on the card) and a
+    ``lm_int8`` arm of the same seeded weights, quantized on the host; ms
+    a token for each, the weight bytes, each arm's weight-read bound at
+    the card's 3.35 TB/s, peak memory and the decode graph's pool."""
+    import dataclasses
+
+    import torch
+
+    from cassmantle_tpu_torch.ops.quant import int8_site_count
+    from cassmantle_tpu_torch.serving.pipeline import PromptGenerator
+    from cassmantle_tpu_torch.tools import lm_int8_ab
+
+    base = mistral_config()
+    m = base.models
+    cfg = base.replace(models=dataclasses.replace(
+        m, mistral=dataclasses.replace(m.mistral, num_layers=AB_LAYERS)))
+    arms = {}
+    for arm in ("fp", "int8"):
+        acfg = cfg.replace(models=dataclasses.replace(
+            cfg.models, lm_int8=arm == "int8"))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = PromptGenerator(acfg)
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        arms[arm] = lm_int8_ab.measure_arm(gen, INT8_TOKENS, 1)
+        arms[arm].update(build_s=build_s, build_peak_gib=build_peak,
+                         int8_weights=int8_site_count(gen.model))
+        del gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep = lm_int8_ab.report(arms["fp"], arms["int8"], "mistral",
+                            INT8_TOKENS, False)
+    rep.update(card=card, layers=AB_LAYERS, of_layers=m.mistral.num_layers)
+    checks = {"int8_weights": arms["int8"]["int8_weights"]
+              == AB_LAYERS * 7 + 1,
+              "int8_bytes_about_half": 0.45 < rep["param_shrink"] < 0.6,
+              "not_real_weights": rep["real_weights"] is False,
+              "graph_ms_recorded": all("graph_ms_per_token" in a
+                                       for a in arms.values())}
+    rep["checks"] = checks
+    ok = all(checks.values())
+    print(f"[int8] mistral lm-int8-ab {json.dumps(rep)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+# -- the SDXL builds of the fused conv, W8A8 and int8 ([round-sdxl_*]) --------
+
+SDXL_PROMPT = "A watercolor style piece depicting: a lighthouse at dusk."
+SDXL_SEED = 7
+# a build's denoise loop and its captured bodies' replays a round
+SDXL_LOOPS = {"sdxl_encprop": ("encprop", {"key": 5, "segment": 15}),
+              "sdxl_turbo": ("deepcache", {"pair": 12})}
+# the steps at each end of the served 50-step DDIM schedule over which a
+# DDIM SDXL build's served step graph is held to eager
+SERVED_WINDOW = 5
+
+
+def w8a8_dispatches() -> float:
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    return metrics.counter_total("pipeline.w8a8_dispatches")
+
+
+def served_ddim_vs_eager(pipe, x, cond, windows) -> tuple:
+    """The served DDIM step graph (``full_variant``'s, the one a round
+    replays) against the eager step it captured, over ``windows`` of
+    (first step, steps) of the served schedule: from ``x`` at the first
+    step, that many replays against as many eager steps on the same
+    conditioning. Returns (values that differ over every window, 0 when
+    bit-equal; every replayed latent finite)."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.ddim import (
+        cfg_denoiser,
+        cfg_inputs,
+        spec_step,
+    )
+
+    v = pipe.full_variant
+    graph = v.step_graphs[x.shape[0]]
+    inputs = cfg_inputs(**cond)
+    for key, value in inputs.items():
+        if value is not None:
+            graph.inputs[key].copy_(value)
+    denoise = cfg_denoiser(pipe.unet,
+                           guidance_scale=v.sampler_cfg.guidance_scale,
+                           **inputs)
+    spec = v.schedule.spec(x)
+    differ, finite = 0, True
+    for start, steps in windows:
+        graph.reset(x, start)
+        for _ in range(steps):
+            graph.graph.replay()
+        step = torch.full((1,), start, dtype=torch.long, device=x.device)
+        carry = spec["init"](x)
+        for _ in range(steps):
+            carry = spec_step(spec, denoise, carry, step)
+        differ += int((carry[0] != graph.x).sum().item())
+        finite = finite and bool(torch.isfinite(graph.x).all())
+    return differ, finite
+
+
+def run_sdxl_build(card: str, name: str, state_dicts: dict, images: dict):
+    """One SDXL build of this slice (:func:`sdxl_build_config`) from the
+    [round-sdxl] service's weights (``state_dicts``: one seeded set for
+    every build), through ``SDXLPipeline.generate``: a cold round (the
+    capture included) with every launch counter set to 0 just before and
+    read just after, then a warm one; seconds by stage, launches per
+    shape against :func:`expected_tallies`, the loop and its replays,
+    ``pipeline.w8a8_dispatches`` (50 an image under W8A8, else 0), the
+    two images' FLOPs against the count, the gauge, graph = eager on the
+    served graphs (the whole loop under encprop and DeepCache; the DDIM
+    step graph over the first and last :data:`SERVED_WINDOW` steps of its
+    schedule), pool MB, peak GiB, a finite image that is not constant.
+    Returns (tallies, failed checks)."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.obs import costmodel
+    from cassmantle_tpu_torch.ops.quant import (
+        int8_site_count,
+        tree_nbytes,
+        w8a8_calibrated,
+        w8a8_site_count,
+    )
+    from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
+    from cassmantle_tpu_torch.utils.device import synchronize
+
+    cfg = sdxl_build_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = SDXLPipeline(cfg, state_dicts=state_dicts)
+    synchronize(pipe.device)
+    build_s = time.perf_counter() - t0
+    flops0, w0 = device_flops("sdxl"), w8a8_dispatches()
+    reset_all_counters()
+    t0 = time.perf_counter()
+    img = pipe.generate([SDXL_PROMPT], seed=SDXL_SEED)
+    cold_s = time.perf_counter() - t0
+    tallies = read_tallies()
+    cold_stages = dict(pipe.last_stage_seconds)
+    finite = pipe.last_decoded_finite
+    replays = {n: g.replays for n, g in
+               pipe.full_variant.step_graphs[1].graphs.items()}
+    t0 = time.perf_counter()
+    img2 = pipe.generate([SDXL_PROMPT], seed=SDXL_SEED)
+    warm_s = time.perf_counter() - t0
+    warm_stages = dict(pipe.last_stage_seconds)
+    per_image = costmodel.cached("sdxl", pipe.cost_signature())[1]
+    obs = obs_device_reading(name, "sdxl", per_image,
+                             device_flops("sdxl") - flops0, 2,
+                             mxu_gauge("sdxl"))
+    dispatches = w8a8_dispatches() - w0
+    # the served graphs against eager on the same x_T: the whole loop
+    # under encprop and DeepCache; the DDIM builds' step graph over both
+    # ends of its schedule (a fifth of a whole eager loop's time)
+    hw = cfg.sampler.image_size // pipe.vae_scale
+    loop, want_replays = SDXL_LOOPS.get(name, ("ddim", {"step": 50}))
+    steps = cfg.sampler.num_steps
+    windows = (((0, SERVED_WINDOW), (steps - SERVED_WINDOW, SERVED_WINDOW))
+               if loop == "ddim" else None)
+    with torch.inference_mode():
+        cond = pipe.encode([SDXL_PROMPT])
+        x = torch.randn((1, hw, hw, 4), device=pipe.device,
+                        generator=torch.Generator(pipe.device).manual_seed(5))
+        t0 = time.perf_counter()
+        if windows:
+            differ, finite_eq = served_ddim_vs_eager(pipe, x, cond, windows)
+        else:
+            eager = pipe.denoise(x, cond, graphed=False)
+            graphed = pipe.denoise(x, cond, graphed=True)
+            differ = int((eager != graphed).sum().item())
+            finite_eq = bool(torch.isfinite(graphed).all())
+            del eager, graphed
+        synchronize(pipe.device)
+        eager_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    images[name] = img
+    model = PRESET_MODEL[name]
+    launches = {k: sum(v.values()) for k, v in tallies.items()
+                if k != "flash_paths"}
+    flash_paths = flash_path_totals(tallies["flash_paths"])
+    w8a8 = cfg.models.unet_w8a8
+    checks = {
+        "image_shape": img.shape == (1, 1024, 1024, 3),
+        "image_uint8": img.dtype == np.uint8,
+        "decoded_finite": bool(finite),
+        "image_not_constant": int(img.max()) > int(img.min()),
+        "warm_image_equal": bool(np.array_equal(img, img2)),
+        "flash_paths": flash_paths == ROUND_FLASH_PATHS[model],
+        "sampler_mode": pipe.full_variant.mode == loop,
+        "graph_replays": replays == want_replays,
+        "graph_bit_equal_eager": differ == 0 and finite_eq,
+        "w8a8_dispatches": dispatches == (2 * 50 if w8a8 else 0),
+        "device_flops_count_x_images": obs["equal"],
+        "mxu_utilization_in_range": obs["mxu_in_range"],
+        "w8a8_sites": (w8a8_site_count(pipe.unet) == 34 + 490) == w8a8,
+        "w8a8_dynamic_scales": not w8a8_calibrated(pipe.unet),
+        "int8_weights": (int8_site_count(pipe.unet) > 0)
+        == cfg.models.unet_int8,
+    }
+    for kernel, want in expected_tallies(name).items():
+        checks[f"{kernel}_launches_per_shape"] = dict(tallies[kernel]) == want
+    checks = {k: bool(v) for k, v in checks.items()}
+    report = dict(
+        build=name, card=card, build_s=build_s, cold_round_s=cold_s,
+        warm_round_s=warm_s, cold_stages_s=cold_stages,
+        warm_stages_s=warm_stages, launches=launches,
+        flash_paths=flash_paths, sampler_mode=pipe.full_variant.mode,
+        graph_replays=replays, w8a8_dispatches=dispatches,
+        unet_bytes=tree_nbytes(pipe.unet),
+        graphs={f"{b}/{n}": g.stats()
+                for b, sg in pipe.full_variant.step_graphs.items()
+                for n, g in sg.graphs.items()},
+        graph_vs_eager_s=eager_s, graph_vs_eager_windows=windows,
+        eager_values_differing=differ,
+        peak_gib=peak_gib,
+        obs_device={k: obs[k] for k in ("device_flops", "expected",
+                                        "mxu_utilization")},
+        image_mean=float(img.mean()), image_std=float(img.std()),
+        checks=checks)
+    if name == "sdxl_w8a8" and "sdxl_fused" in images:
+        report["mean_abs_pixel_diff_vs_fused_bf16"] = float(np.abs(
+            img.astype(np.float64) - images["sdxl_fused"]).mean())
+    print(f"[round-{name}] {json.dumps(report)}", flush=True)
+    pipe.drop_staged()
+    del pipe, cond, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tallies, [k for k, v in checks.items() if not v]
+
+
+def check_sdxl_builds(card: str, svc) -> tuple:
+    """Every SDXL round of this slice from the [round-sdxl] service's
+    seeded weights; returns (ok, {build: tallies})."""
+    t2i = svc.backend.t2i
+    state_dicts = {"clip_text": t2i.clip.state_dict(),
+                   "clip_text_2": t2i.clip2.state_dict(),
+                   "unet": t2i.unet.state_dict(),
+                   "vae": t2i.vae.state_dict()}
+    tallies, bad, images = {}, {}, {}
+    for name in SDXL_ROUNDS:
+        tallies[name], failed = run_sdxl_build(card, name, state_dicts,
+                                               images)
+        if failed:
+            bad[name] = failed
+    if bad:
+        print(f"[round-sdxl_*] failed checks: {bad}", flush=True)
+    return not bad, tallies
+
+
 # -- the brownout ladder and the game ([brownout], [game]) --------------------
 
 def scaled(counts: dict, n: int) -> dict:
@@ -3331,6 +4023,9 @@ TIER_CELLS = {
     "sdxl@t1": (1024, "ddim", {"step": 30}),
     "sdxl@t4": (512, "ddim", {"step": 30}),
 }
+# cells whose tables are derived and held to the configs, but not driven
+# (the sdxl_encprop build's tiers: flash at batch 8 of SDXL's up path)
+DERIVED_CELLS = ("sdxl_encprop@t2", "sdxl_encprop@t4")
 for _cell in ("fusedconv@t4", "w8a8@t4", "game@t5"):
     TIER_CELLS[_cell] = TIER_CELLS["default@t4"]
 # 30 x 44 = 1,320 fused convs; 30 x 112 = 3,360 UNet int8 matmuls beside
@@ -3342,6 +4037,9 @@ TIER_KERNELS = {
                     scaled(TIER_UNET_MATMUL_SHAPES, 30), LM_MATMUL_SHAPES)},
     "encprop@t2": {"gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15"])},
     "encprop@t4": {"gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sd15_256"])},
+    "sdxl_encprop@t2": {"gn_silu_conv3x3": dict(VAE_CONV_SHAPES["sdxl"])},
+    "sdxl_encprop@t4": {"gn_silu_conv3x3": conv_shapes_at(
+        VAE_CONV_SHAPES["sdxl"], 512, 1024)},
 }
 # the tiers each preset's service is driven through
 BROWNOUT_TIERS = {"default": (1, 4), "consistency": (3,), "fusedconv": (4,),
@@ -3383,7 +4081,8 @@ def served_presets() -> tuple:
             ("lcm", lcm_serving_config()),
             ("img2img", img2img_config()),
             ("consistency", consistency_student_config()),
-            ("mistral", mistral_config()))
+            ("mistral", mistral_config()),
+            *((name, sdxl_build_config(name)) for name in SDXL_ROUNDS))
 
 
 def unet_flash_forward(model: str, size: int, mode: str,
@@ -3398,9 +4097,14 @@ def unet_flash_forward(model: str, size: int, mode: str,
     cross attention over the 77 context tokens."""
     lat = size // 8
     if model == "sdxl":
-        if mode != "full":
-            raise ValueError(f"SDXL's {mode} forward is not modelled")
-        sites = [(lat * lat // 4, 10, 64, 10), (lat * lat // 16, 20, 64, 60)]
+        # full: 5 transformers x depth 2 at level 1, 5 x 10 + the mid
+        # block's 10 at level 2; decoder-only: the up path's 3 x 2 and
+        # 3 x 10; shallow: level 0 alone, no attention
+        blocks = {"full": (10, 60), "decoder_only": (6, 30),
+                  "shallow": (0, 0)}[mode]
+        sites = [(lat * lat // 4, 10, 64, blocks[0]),
+                 (lat * lat // 16, 20, 64, blocks[1])]
+        sites = [site for site in sites if site[3]]
     else:
         blocks = {"full": (5, 5, 5, 1), "decoder_only": (3, 3, 3, 0),
                   "shallow": (5, 0, 0, 0)}[mode]
@@ -3470,15 +4174,16 @@ def derived_round(cfg, tier) -> dict:
         raise ValueError("a fused or W8A8 UNet's partial forwards are not "
                          "modelled")
     if m.unet.fused_conv and not m.unet_w8a8:
-        out["gn_silu_conv3x3"] |= set(conv_shapes_at(CONV_SHAPES, size))
+        out["gn_silu_conv3x3"] |= set(arch_conv_shapes(m.unet, size))
     if m.unet_w8a8:
-        out["int8_conv3x3"] |= set(conv_shapes_at(CONV_SHAPES, size))
-        out["int8_matmul"] |= set(unet_matmul_shapes(size))
+        out["int8_conv3x3"] |= set(arch_conv_shapes(m.unet, size))
+        out["int8_matmul"] |= set(arch_matmul_shapes(m.unet, size))
     if m.lm_w8a8:
         out["int8_matmul"] |= set(LM_MATMUL_SHAPES)
     if m.vae.fused_conv:
-        out["gn_silu_conv3x3"] |= set(conv_shapes_at(VAE_CONV_SHAPES["sd15"],
-                                                     size))
+        base = 512 if model == "sd15" else 1024
+        out["gn_silu_conv3x3"] |= set(conv_shapes_at(VAE_CONV_SHAPES[model],
+                                                     size, base))
     return out
 
 
@@ -3516,7 +4221,7 @@ def round_table_mismatches() -> list:
     rounds = [(name, cfg, None, expected_tallies(name))
               for name, cfg in presets.items()
               if name not in ("img2img", "consistency")]
-    for cell in TIER_CELLS:
+    for cell in (*TIER_CELLS, *DERIVED_CELLS):
         preset, tier = cell.split("@t")
         rounds.append((cell, presets.get(preset, presets["default"]),
                        overload.DEFAULT_TIERS[int(tier)], tier_expected(cell)))
@@ -4521,7 +5226,7 @@ def check_server(card: str, rows: dict) -> bool:
     read just after, around ``t2i.generate``). Beside it:
 
     - [debug-trace], after the round at the tier: ``POST
-      /debug/trace?seconds=2`` while rounds run answers 200 and writes a
+      /debug/trace?seconds=4`` while rounds run answers 200 and writes a
       trace whose device events name the flash kernel (inside the
       rounds' graph replays); a second POST meanwhile answers 409;
     - [canary]: at least 10 probes over the phase, all passing, their
@@ -4648,7 +5353,7 @@ def check_server(card: str, rows: dict) -> bool:
             base, connector=aiohttp.TCPConnector(limit=256))
         try:
             await play(http, base)
-            await debug_trace(http)
+            await debug_trace(http, base)
             await canary(http, prober)
         finally:
             await http.close()
@@ -4830,12 +5535,38 @@ def check_server(card: str, rows: dict) -> bool:
     # the wall-clock window of the [debug-trace] capture
     window = [math.inf, math.inf]
 
-    async def debug_trace(http):
-        """[debug-trace]: a 2 s capture while a round runs, a second
-        capture refused meanwhile."""
-        print("[server] [debug-trace] POST /debug/trace?seconds=2 while a "
-              "round runs", flush=True)
+    async def debug_trace(http, base):
+        """[debug-trace]: a 4 s capture (consecutive windows bounded in
+        seconds and graph launches) while a round runs and guesses are in
+        flight throughout, a second capture refused meanwhile; the
+        windows' hold-offs (the switches of the tracing, and launches
+        waiting past a window's limit), the event loop's longest stall,
+        the trace's events by kind and thread."""
+        from cassmantle_tpu_torch.utils import profiling
+
+        print("[server] [debug-trace] POST /debug/trace?seconds=4 while a "
+              "round runs and guesses are scored", flush=True)
         seen = {"card": card}
+        # the capture's windows, as utils/profiling.py::capture returns
+        # them (the route answers trace_dir and seconds only)
+        windows = []
+        real_capture = profiling.capture
+
+        def recorded_capture(*args, **kw):
+            out = real_capture(*args, **kw)
+            windows.append(out)
+            return out
+
+        profiling.capture = recorded_capture
+        # a player whose guesses stay in flight across every window's
+        # stop and write: 4 in a row at a time until the capture answers
+        jar = aiohttp.CookieJar(unsafe=True)
+        guesser = aiohttp.ClientSession(base, cookie_jar=jar)
+        async with guesser.get("/init"):
+            pass
+        async with guesser.get("/fetch/contents") as res:
+            masks = (await res.json())["prompt"]["masks"]
+        guessed = []
 
         async def capture(seconds):
             async with http.post("/debug/trace", params={
@@ -4847,7 +5578,9 @@ def check_server(card: str, rows: dict) -> bool:
         faulthandler.dump_traceback_later(120, repeat=True)
         held0 = held_off()
         window[0] = time.time()
-        first = asyncio.ensure_future(capture(2))
+        # 4 s of wall time: the round below, the tier's first (its graph
+        # captured cold), takes up to ~3.3 s after its 0.3 s wait
+        first = asyncio.ensure_future(capture(4))
         # the event loop's longest stall while the capture runs (the
         # profiler's stop and its writing hold the interpreter)
         stalls = [0.0]
@@ -4860,7 +5593,22 @@ def check_server(card: str, rows: dict) -> bool:
                 stalls.append(now - last - 0.01)
                 last = now
 
+        async def guess_loop():
+            nonlocal masks
+            while not first.done():
+                t = time.perf_counter()
+                async with guesser.post("/compute_score", json={
+                        "inputs": {str(m): oov_guess()
+                                   for m in masks}}) as res:
+                    await res.read()
+                    guessed.append((res.status, time.perf_counter() - t))
+                if res.status != 200:       # a new round: its masks
+                    async with guesser.get("/fetch/contents") as again:
+                        masks = (await again.json())["prompt"]["masks"]
+                await asyncio.sleep(0.05)
+
         ticking = asyncio.ensure_future(ticker())
+        guessing = [asyncio.ensure_future(guess_loop()) for _ in range(4)]
         await asyncio.sleep(0.3)
         seen["second_status"], _ = await capture(0)
         # one round inside the window (the profiler starts at once: its
@@ -4873,8 +5621,39 @@ def check_server(card: str, rows: dict) -> bool:
         faulthandler.cancel_dump_traceback_later()
         window[1] = time.time()
         await ticking
+        await asyncio.gather(*guessing)
+        await guesser.close()
+        profiling.capture = real_capture
         seen["capture_s"] = window[1] - window[0]
         seen["loop_max_stall_s"] = max(stalls)
+        seen["guesses"] = {"n": len(guessed),
+                           "ok": sum(st == 200 for st, _ in guessed),
+                           "statuses": dict(collections.Counter(
+                               st for st, _ in guessed)),
+                           **latency_ms([d for _, d in guessed])}
+        win = windows[0] if windows else {}
+        # graph launches held: by each switch of the tracing, and past a
+        # window's launch limit until its stop (a switch's wait for the
+        # graph lock, behind another thread's graph capture, is read
+        # apart: the trace holds nothing then, the interpreter is free)
+        holds = (win.get("start_s", []) + win.get("stop_s", [])
+                 + win.get("launch_wait_s", []))
+        seen["windows"] = {
+            "n": len(win.get("paths", [])),
+            "window_s": win.get("window_s"),
+            "start_s": win.get("start_s"), "stop_s": win.get("stop_s"),
+            "write_s": win.get("write_s"),
+            "launches": win.get("launches"),
+            "launched": win.get("launched"),
+            "launch_wait_s": win.get("launch_wait_s"),
+            "lock_wait_s": win.get("lock_wait_s"),
+            "longest_lock_wait_s": max(win.get("lock_wait_s", []),
+                                       default=None),
+            "longest_hold_off_s": max(holds, default=None),
+            "longest_stop_and_write_s": max(
+                (a + b for a, b in zip(win.get("stop_s", []),
+                                       win.get("write_s", []))),
+                default=None)}
         # how long graph launches (every image dispatch's steps) were held
         # off by the capture's switches of the tracing
         held = held_off()
@@ -4886,6 +5665,20 @@ def check_server(card: str, rows: dict) -> bool:
         checks["debug_trace_200"] = seen["status"] == 200
         checks["debug_trace_409"] = seen["second_status"] == 409
         checks["debug_trace_names_flash"] = seen.get("flash_events", 0) > 0
+        checks["debug_trace_host_ranges"] = seen.get("host_ranges", 0) > 0
+        # F2: no stop holds graph launches, nor the interpreter, past
+        # half the probe's 5 s timeout
+        checks["debug_trace_hold_off_le_2_5_s"] = (
+            seen["windows"]["longest_hold_off_s"] is not None
+            and seen["windows"]["longest_hold_off_s"] <= 2.5)
+        checks["debug_trace_loop_stall_le_2_5_s"] = \
+            seen["loop_max_stall_s"] <= 2.5
+        # every guess answered (a 4xx for a round's stale masks is an
+        # answer; a 5xx is not) within the canary probe's 5 s limit
+        checks["debug_trace_guesses_ok"] = (
+            seen["guesses"]["ok"] > 0
+            and all(st < 500 for st, _ in guessed)
+            and seen["guesses"]["max_ms"] <= 5000.0)
 
     async def canary(http, prober):
         """[canary]: the probes of the phase, the /readyz and /sloz
@@ -5071,9 +5864,12 @@ def held_off() -> tuple:
 
 
 def trace_kernels(reply) -> dict:
-    """The device events of a /debug/trace capture's Chrome trace: kernel
-    events, those naming flash, and the trace's bytes; the trace is
-    removed after."""
+    """The events of a /debug/trace capture's Chrome traces (one file a
+    window): by category ("kernel", "cuda_runtime", "cpu_op",
+    "user_annotation", ...), the threads they came from, the kernel
+    events naming flash, the host ranges of the pipelines
+    (``utils/profiling.py::annotate``) and the traces' bytes; the traces
+    are removed after."""
     import glob
     import shutil
 
@@ -5082,13 +5878,30 @@ def trace_kernels(reply) -> dict:
     files = sorted(glob.glob(os.path.join(reply["trace_dir"], "*.json")))
     if not files:
         return {"trace_files": 0}
-    with open(files[-1]) as f:
-        text = f.read()
-    kernels = re.findall(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', text)
-    out = {"trace_files": len(files), "trace_bytes": len(text),
+    by_cat, threads, kernels, ranges, size = (collections.Counter(), set(),
+                                              [], set(), 0)
+    for path in files:
+        size += os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            cat = e.get("cat")
+            if cat is None:
+                continue
+            by_cat[cat] += 1
+            threads.add((cat if cat == "kernel" else "host", e.get("tid")))
+            if cat == "kernel":
+                kernels.append(e.get("name", ""))
+            elif cat == "user_annotation":
+                ranges.add(e.get("name", ""))
+    out = {"trace_files": len(files), "trace_bytes": size,
+           "events_by_category": dict(by_cat.most_common()),
+           "host_threads": sum(1 for k, _ in threads if k == "host"),
            "kernel_events": len(kernels),
            "flash_events": sum("flash" in k for k in kernels),
-           "flash_names": sorted({k for k in kernels if "flash" in k})[:4]}
+           "flash_names": sorted({k for k in kernels if "flash" in k})[:4],
+           "host_ranges": len(ranges),
+           "range_names": sorted(ranges)[:12]}
     shutil.rmtree(reply["trace_dir"], ignore_errors=True)
     return out
 
@@ -5281,9 +6094,11 @@ STAGED_PROMPTS = (
     "A vaporwave style piece depicting: the comet market.",
     "An art deco style piece depicting: a night train between cities.",
     "A woodcut style piece depicting: an orchard in the snow.")
-# the reference's load A/B (bench.py bench_sd15_staged): 12 Poisson
-# arrivals at 0.6 a second, sizes 1, 1, 2 drawn from seed 0, open loop
-AB_REQUESTS, AB_RATE = 12, 0.6
+# the reference's load A/B (bench.py bench_sd15_staged: 12 Poisson
+# arrivals at 0.6 a second, sizes 1, 1, 2 drawn from seed 0, open loop),
+# cut to 6 requests of the same generator and seed, to pay for the
+# quantized and SDXL builds' card work (about 20 s of the script's time)
+AB_REQUESTS, AB_RATE = 6, 0.6
 # a mixed run's hold: the next request is admitted this many steps after
 # the boundary it waits for
 STAGED_GAP_STEPS = 5
@@ -5905,6 +6720,8 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    # a fatal signal (a crash in native code) prints every thread's stack
+    faulthandler.enable()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's smoke run "
              "needs an NVIDIA card")
@@ -5960,6 +6777,11 @@ def main() -> int:
         bad = [s for s, r in kernel_rows.items() if not r["ok"]]
         if bad:
             fail(f"{kernel} disagrees with its plain version at {bad}")
+    entry_rows = check_w8a8_entry_points()
+    bad = [label for label, r in entry_rows.items() if not r["ok"]]
+    if bad:
+        fail(f"the W8A8 entry points or the fp8 product disagree with "
+             f"their plain versions: {bad}")
     stamp("kernels")
     # the counts, before phase 3's CPU work (the children would slow it)
     t0 = time.perf_counter()
@@ -5980,11 +6802,13 @@ def main() -> int:
         fail("tiny geometry, fused conv or W8A8: card and CPU disagree")
     if not check_small_sdxl():
         fail("tiny geometry, SDXL: card and CPU disagree")
+    stamp("small: default, fused, w8a8, sdxl")
     if not check_jax_random():
         fail("jax_random: the card's keys, bits or uniforms differ from "
              "the CPU's")
     if not check_small_samplers():
         fail("tiny geometry, a sampler loop: card and CPU disagree")
+    stamp("small: jax_random, samplers")
     if not check_small_mistral():
         fail("tiny geometry, Mistral: card and CPU disagree")
     stamp("small")
@@ -6023,6 +6847,17 @@ def main() -> int:
         if preset == "sdxl" and not check_serve_sdxl(svc, card):
             fail("serve-sdxl: the SDXL round under 1,024 concurrent "
                  "guesses failed its checks")
+        if preset == "sdxl":
+            # the fused-conv, W8A8 and int8 SDXL UNets and the benched
+            # encprop and turbo rounds, from this service's weights
+            ok, sdxl_tallies = check_sdxl_builds(card, svc)
+            if not ok:
+                fail("round-sdxl_*: an SDXL build failed its checks")
+            tallies.update(sdxl_tallies)
+            stamp("sdxl builds")
+        if preset == "fusedconv" and not check_calibrate_and_int8(card,
+                                                                  svc):
+            fail("calibrate / int8: a check failed")
         # the graphs' closures hold the service in reference cycles:
         # collect them, so the next round's peak memory is its own
         del svc, prof
@@ -6100,6 +6935,8 @@ def main() -> int:
     if not check_sampled(svc):
         fail("mistral: the sampled decode's graph disagrees with the eager "
              "steps, or a token left its top-k")
+    if not check_mistral_int8_ab(card):
+        fail("int8 mistral: the lm-int8-ab failed a check")
     del svc, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -6145,7 +6982,7 @@ def main() -> int:
                                          for key, name in by_shape.items()},
                      **checked}
     per_cell = {}
-    for cell in TIER_CELLS:
+    for cell in (*TIER_CELLS, *SDXL_ROUNDS):
         if cell not in tallies:
             continue
         per_cell[cell] = {}
@@ -6180,7 +7017,7 @@ def main() -> int:
         # a [brownout] cell for a tier's; the staged runs for the shapes
         # only they launch
         preset = next((p for p in ("default", "sdxl", "encprop",
-                                   *TIER_CELLS)
+                                   "sdxl_encprop", *TIER_CELLS)
                        if p in tallies
                        and name in ROUND_FLASH[PRESET_MODEL[p]]), None)
         round_paths = (tallies[preset]["flash_paths"] if preset
@@ -6201,11 +7038,12 @@ def main() -> int:
             "library_ms": r["library_ms"], "path": path, "ok": r["ok"]})
     for kernel, presets, source, replaces in (
             ("gn_silu_conv3x3", ("fusedconv", "encprop", "img2img",
-                                 "fusedconv@t4", "encprop@t2", "encprop@t4"),
+                                 "fusedconv@t4", "encprop@t2", "encprop@t4",
+                                 "sdxl_fused", "sdxl_encprop"),
              FUSED_SOURCE, FUSED_REPLACES),
-            ("int8_matmul", ("w8a8", "w8a8@t4"), INT8_SOURCE,
+            ("int8_matmul", ("w8a8", "w8a8@t4", "sdxl_w8a8"), INT8_SOURCE,
              MATMUL_REPLACES),
-            ("int8_conv3x3", ("w8a8", "w8a8@t4"), INT8_SOURCE,
+            ("int8_conv3x3", ("w8a8", "w8a8@t4", "sdxl_w8a8"), INT8_SOURCE,
              CONV_REPLACES)):
         # launches in the rounds of the presets that serve the kernel
         # (the UNet's shapes at fusedconv, the VAE decoder's at encprop,

@@ -301,10 +301,11 @@ def test_prompt_generator_mistral_matches_reference(ref_gen):
     assert not np.array_equal(own, np.asarray(ref_toks))
 
 
-@pytest.mark.parametrize("flag", ["lm_w8a8", "lm_int8"])
+@pytest.mark.parametrize("flag", ["lm_w8a8"])
 def test_mistral_refuses_int8(flag):
-    """Neither W8A8 nor weights-only int8 is served for Mistral: the
-    reference's projections are plain Dense layers."""
+    """W8A8 is not served for Mistral: the reference's projections are
+    plain Dense layers, with no int8 site. (Weights-only int8 is:
+    tests/test_torch_port_int8.py.)"""
     cfg = _mistral_cfg(port_config)
     cfg = cfg.replace(models=dataclasses.replace(cfg.models, **{flag: True}))
     with pytest.raises(NotImplementedError, match=flag):

@@ -40,6 +40,7 @@ from cassmantle_tpu_torch.config import (
 from cassmantle_tpu_torch.models.clip_text import ClipTextEncoder
 from cassmantle_tpu_torch.models.unet import UNet
 from cassmantle_tpu_torch.models.weights import KINDS, from_jax
+from cassmantle_tpu_torch.ops import quant
 from cassmantle_tpu_torch.ops.ddim import make_cfg_denoiser
 from cassmantle_tpu_torch.serving.pipeline import (
     INIT_SEEDS,
@@ -346,8 +347,9 @@ def test_sdxl_config_matches_reference():
 
 def test_sdxl_kinds_and_seeds():
     """from_jax takes SDXL's kinds (the add_fc leaves as Dense kernels,
-    transposed); the bigG tower's init seed is the reference's 11; a W8A8
-    or fused-conv SDXL UNet is a later slice and raises."""
+    transposed); the bigG tower's init seed is the reference's 11; the
+    fused-conv and W8A8 SDXL UNets build (their parity:
+    tests/test_torch_port_sdxl_quant.py); a config without bigG raises."""
     assert {"clip_text_2", "unet_xl", "vae_xl"} <= set(KINDS)
     assert INIT_SEEDS["clip_text_2"] == 11
     _, params, port, _ = _unet_case(4)
@@ -357,12 +359,15 @@ def test_sdxl_kinds_and_seeds():
     assert set(sd) == set(port.state_dict())
     base = port_test_sdxl_config()
     for unet_kw, model_kw in (({"fused_conv": True}, {}),
-                              ({"fused_conv": True}, {"unet_w8a8": True})):
+                              ({"fused_conv": True}, {"unet_w8a8": True,
+                                                      "w8a8_min_size": 0})):
         cfg = base.replace(models=dataclasses.replace(
             base.models, unet=dataclasses.replace(base.models.unet,
                                                   **unet_kw), **model_kw))
-        with pytest.raises(NotImplementedError):
-            SDXLPipeline(cfg, device="cpu")
+        pipe = SDXLPipeline(cfg, device="cpu")
+        assert pipe.cfg.models.unet.fused_conv
+        assert (quant.w8a8_site_count(pipe.unet) > 0) == \
+            bool(model_kw.get("unet_w8a8"))
     with pytest.raises(ValueError):
         SDXLPipeline(port_test_config(), device="cpu")
 

@@ -262,7 +262,6 @@ def test_rate_limit_429_matches_reference():
 @pytest.mark.parametrize("argv,match", [
     (["--workers", "2"], "many workers"),
     (["--store", "native:7070"], "many workers"),
-    (["--lm-int8"], "weights-only int8"),
 ])
 def test_serve_refuses_what_later_slices_bring(argv, match, capsys):
     with pytest.raises(SystemExit) as exc:

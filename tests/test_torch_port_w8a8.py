@@ -58,6 +58,7 @@ from cassmantle_tpu.models.unet import UNet as JUNet
 from cassmantle_tpu.models.vae import VAEDecoder as JVAE
 from cassmantle_tpu.models.vae import postprocess_images as jax_postprocess
 from cassmantle_tpu.ops import quant as jq
+from cassmantle_tpu.parallel import calibrate as jax_calibrate
 from cassmantle_tpu.ops import quant_matmul as jqm
 from cassmantle_tpu.ops.ddim import DDIMSchedule as JSchedule
 from cassmantle_tpu.ops.ddim import ddim_sample as jax_ddim_sample
@@ -575,7 +576,9 @@ def w8a8_slice_ref():
 def test_w8a8_slice_images_match_reference(w8a8_slice_ref):
     """The W8A8 preset's tiny twin against the reference on the same x_T.
     The preset's pipeline quantizes the reference's sites at build, with
-    dynamic scales. The images take the reference's static scales: the
+    the static scales of the committed calibration entry, which matches
+    this geometry (as the reference's ``w8a8_unet_tools`` folds them in).
+    The images take the reference's static scales: the
     fused fp pipeline's UNet quantized with them, from the same fp
     weights. Every site call of the first denoise step against the
     reference's; the images within twice the reference's own spread, and
@@ -586,7 +589,15 @@ def test_w8a8_slice_images_match_reference(w8a8_slice_ref):
                              w8a8_slice_ref["scales"])
     armed = Text2ImagePipeline(cfg, device="cpu", state_dicts=sd)
     assert quant.w8a8_site_count(armed.unet) == jq.w8a8_site_count(ref_tree)
-    assert not quant.w8a8_calibrated(armed.unet)
+    assert quant.w8a8_calibrated(armed.unet)
+    committed = from_jax("unet", jax_w8a8_tree(
+        w8a8_slice_ref["params"]["unet"],
+        jax_calibrate.load_act_scales(w8a8(jax_test_config()).models)))
+    built = armed.unet.state_dict()
+    assert {k for k in built if k.endswith("act_scale")} == \
+        {k for k in committed if k.endswith("act_scale")}
+    for key, value in committed.items():
+        assert torch.equal(built[key], value), key
     pipe = Text2ImagePipeline(cfg.replace(models=dataclasses.replace(
         cfg.models, unet_w8a8=False, lm_w8a8=False)), device="cpu",
         state_dicts=sd)
@@ -651,10 +662,14 @@ def test_w8a8_unet_tools_assertions_and_presets():
         cfg.models.unet, fused_conv=False))
     with pytest.raises(ValueError, match="fused_conv"):
         port_pipeline.w8a8_unet_tools(unfused)
-    for w8a8_on in (True, False):
-        with pytest.raises(ValueError, match="not ported.*mutually exclusive"):
-            port_pipeline.w8a8_unet_tools(dataclasses.replace(
-                cfg.models, unet_int8=True, unet_w8a8=w8a8_on))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        port_pipeline.w8a8_unet_tools(dataclasses.replace(
+            cfg.models, unet_int8=True))
+    # weights-only int8 alone is int8_unet_tools' (tests/test_torch_port_int8)
+    int8_only = dataclasses.replace(cfg.models, unet_int8=True,
+                                    unet_w8a8=False)
+    assert port_pipeline.w8a8_unet_tools(int8_only) is None
+    assert port_pipeline.int8_unet_tools(int8_only) is not None
     m = w8a8_serving_config().models
     assert m.unet_w8a8 and m.lm_w8a8 and m.unet.fused_conv
     assert m.unet.conv_pad_to == 128 and m.w8a8_min_size == 1 << 16
