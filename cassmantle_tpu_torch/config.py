@@ -486,6 +486,33 @@ class ChaosConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QualityGateConfig:
+    """CLIP-parity thresholds a fast preset must clear before its speed
+    counts (the reference's ``QualityGateConfig``). ``clip-report``
+    enforces them when the report is a measurement (every CLIP stage and
+    every pipeline loaded from checkpoints); on seeded weights they are
+    advisory. Ratios are a preset's clip_sim_mean over the ddim50
+    anchor's; a preset absent here is reported, not gated."""
+
+    parity_vs_ddim50: Tuple[Tuple[str, float], ...] = (
+        ("dpmpp25", 0.97),
+        ("deepcache", 0.97),
+        ("turbo", 0.95),
+        ("int8", 0.98),
+        ("encprop", 0.95),
+        ("lcm", 0.90),
+        ("w8a8", 0.98),
+        ("sdxl_w8a8", 0.98),
+    )
+    # the anchor's own floor: a fault that lowers every preset alike
+    # leaves the ratios passing
+    ddim50_min_sim: float = 0.18
+
+    def threshold_for(self, preset: str) -> Optional[float]:
+        return dict(self.parity_vs_ddim50).get(preset)
+
+
+@dataclasses.dataclass(frozen=True)
 class FrameworkConfig:
     models: ModelZooConfig = dataclasses.field(default_factory=ModelZooConfig)
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
@@ -496,6 +523,8 @@ class FrameworkConfig:
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     spec_decode: SpecDecodeConfig = dataclasses.field(
         default_factory=SpecDecodeConfig)
+    quality: QualityGateConfig = dataclasses.field(
+        default_factory=QualityGateConfig)
     seed: int = 0
 
     def replace(self, **kw) -> "FrameworkConfig":

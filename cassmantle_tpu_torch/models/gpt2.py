@@ -68,13 +68,17 @@ class GPT2LM(nn.Module):
         # weight-tied LM head in fp32 (keeps the greedy argmax stable)
         return hidden.float() @ self.wte.weight.float().T
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Plain causal forward: (B, S) -> (B, S, V)."""
+    def forward(self, input_ids: torch.Tensor,
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Plain causal forward: (B, S) [+ (B, S) validity: keys where it
+        is False are masked] -> (B, S, V)."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self.wte(input_ids) + self.wpe(pos)
         mask = torch.ones((s, s), dtype=torch.bool,
                           device=input_ids.device).tril()[None, None]
+        if valid is not None:
+            mask = mask & valid[:, None, None, :]
         for block in self.blocks():
             x, _ = block(x, mask=mask)
         return self._logits(self.ln_f(x))

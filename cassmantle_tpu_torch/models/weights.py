@@ -77,6 +77,9 @@ log = get_logger("weights")
 
 KINDS = ("clip_text", "clip_text_2", "unet", "unet_xl", "vae", "vae_xl",
          "vae_enc", "gpt2", "mistral", "minilm")
+# the served kinds (each with its checkpoint file) and the quality gate's
+# CLIP vision tower, read from the full CLIP file (eval/clip_parity.py)
+TREE_KINDS = KINDS + ("clip_vision",)
 
 Tensors = Mapping[str, torch.Tensor]
 
@@ -217,8 +220,9 @@ def state_dict_from_tree(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def from_jax(kind: str, params: Mapping) -> Dict[str, torch.Tensor]:
     """Reference parameter tree of model ``kind`` -> port ``state_dict``."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown model kind {kind!r}; one of {KINDS}")
+    if kind not in TREE_KINDS:
+        raise ValueError(f"unknown model kind {kind!r}; one of "
+                         f"{TREE_KINDS}")
     return state_dict_from_tree(params)
 
 
@@ -518,9 +522,46 @@ def convert_clip_text(tensors: Tensors, num_layers: int) -> Converted:
 
 
 def convert_clip_text_projection(tensors: Tensors) -> torch.Tensor:
-    """bigG's (hidden, projection) matrix, applied as ``pooled @ proj``
-    (the file stores the Linear's (out, in)). KeyError when absent."""
+    """A full CLIP file's (hidden, projection) text projection (bigG's,
+    or CLIP-L's into the space the vision tower shares), applied as
+    ``pooled @ proj`` (the file stores the Linear's (out, in)). KeyError
+    when absent."""
     return _t(tensors["text_projection.weight"])
+
+
+# -- CLIP vision tower (transformers CLIPModel naming, "vision_model.") -----
+
+def convert_clip_vision(tensors: Tensors, num_layers: int) -> Converted:
+    """The vision tower of the same full CLIPModel file that feeds
+    :func:`convert_clip_text` (``clip_text.safetensors``; its tensors are
+    listed in ``data/manifests/clip_full.json``), with
+    ``visual_projection`` as ``projection`` (hidden, projection)."""
+    c = Converter(tensors, "clip_vision", ignore=(
+        "text_model.*", "text_projection.*",
+    ) + _CLIP_FULL_EXTRAS)
+    p = "vision_model."
+    c.put("class_embedding", _same,
+          c.take(f"{p}embeddings.class_embedding"))
+    c.put("position_embedding", _same,
+          c.take(f"{p}embeddings.position_embedding.weight"))
+    c.put("patch_embed.weight", _same,
+          c.take(f"{p}embeddings.patch_embedding.weight"))
+    # transformers' historical spelling, or the corrected one
+    pre = (f"{p}pre_layrnorm" if c.has(f"{p}pre_layrnorm.weight")
+           else f"{p}pre_layernorm")
+    c.norm(pre, "pre_ln")
+    for i in range(num_layers):
+        src, dst = f"{p}encoder.layers.{i}", f"block_{i}"
+        c.norm(f"{src}.layer_norm1", f"{dst}.ln1")
+        c.dense_fused((f"{src}.self_attn.q_proj", f"{src}.self_attn.k_proj",
+                       f"{src}.self_attn.v_proj"), f"{dst}.attn.qkv")
+        c.dense(f"{src}.self_attn.out_proj", f"{dst}.attn.out")
+        c.norm(f"{src}.layer_norm2", f"{dst}.ln2")
+        c.dense(f"{src}.mlp.fc1", f"{dst}.mlp.fc1")
+        c.dense(f"{src}.mlp.fc2", f"{dst}.mlp.fc2")
+    c.norm(f"{p}post_layernorm", "post_ln")
+    c.put("projection", _t, c.take("visual_projection.weight"))
+    return c.plan()
 
 
 # -- GPT-2 (transformers naming; Conv1D stores (in, out)) --------------------

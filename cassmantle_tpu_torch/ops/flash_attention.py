@@ -15,6 +15,11 @@ attention with a ``kv_len`` mask, and the wide-head VAE variant at
 - on a CPU tensor it runs :func:`flash_attention_plain`, the same function
   with the same casts in plain PyTorch.
 
+The kernel has no backward: on a CUDA tensor the wrapper raises when grad
+mode is on and an input requires grad, rather than return an output cut
+from the graph. A forward that is differentiated takes the plain attention
+(``ops/attention.py::plain_only``).
+
 Layout: q (B, Sq, H, D), k and v (B, Sk, H, D), any strides with a unit
 stride on D; the output is a new contiguous (B, Sq, H, D) tensor.
 """
@@ -124,6 +129,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_meta(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward, and an input "
+            "requires grad; differentiate under ops.attention.plain_only()")
     _check(q, k, v, kv_len)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

@@ -1,2 +1,4 @@
-"""Offline passes over the served models: the W8A8 calibration
-(:mod:`.calibrate`)."""
+"""Offline passes over the models: the W8A8 calibration
+(:mod:`.calibrate`) and training on one device (:mod:`.train`: the
+diffusion and consistency-distillation trainers and the optimizer;
+:mod:`.lm_train`: the LM trainer)."""

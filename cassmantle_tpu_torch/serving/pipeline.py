@@ -281,7 +281,10 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
                 ) -> torch.nn.Module:
     """Fill ``module`` (already on ``device``) from ``state_dict`` (a dict
     or a checkpoint's :class:`Converted` plan, copied tensor by tensor) or
-    a seeded random init, then store its parameters in ``storage_dtype``."""
+    a seeded random init, then store its parameters in ``storage_dtype``.
+    A served model is never differentiated: its parameters require no
+    grad, so no served forward records a graph, and the flash kernel,
+    which has no backward, serves every call outside a trainer."""
     if state_dict is not None:
         fill_(module, state_dict)
     else:
@@ -289,7 +292,7 @@ def build_model(module: torch.nn.Module, kind: str, device: torch.device,
         init_weights(module, gen)
     if storage_dtype is not None:
         module.to(storage_dtype)
-    return module.eval()
+    return module.requires_grad_(False).eval()
 
 
 def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
@@ -351,7 +354,7 @@ def build_streamed(factory: Callable[[], torch.nn.Module], kind: str,
         unexpected = set(state_dict) - known
         if unexpected:
             raise ValueError(f"unexpected keys {sorted(unexpected)}")
-    return module.eval()
+    return module.requires_grad_(False).eval()
 
 
 def _require(ok: bool, message: str) -> None:

@@ -73,8 +73,9 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    launches them. Under encprop, DeepCache, fast, turbo, lcm and img2img
    each captured body is profiled the same way, with the whole loop's
    host ms and idle share (and img2img's eager VAE encoder);
-7. serves a round with Mistral-7B as the prompt LM ([round-mistral]: 32
-   layers of 4096, GQA 32/8, bf16, seeded random weights built submodule
+7. serves a round with Mistral-7B as the prompt LM ([round-mistral]:
+   its published widths, 4096, GQA 32/8, cut to 8 of its 32 layers
+   (``ROUND_MISTRAL_LAYERS``), bf16, seeded random weights built submodule
    by submodule; the image path as at default), with the LM's build
    seconds, parameter bytes, prefill ms and graphed decode ms per token
    beside the weight-read bound; its 96 graphed decode tokens equal the
@@ -219,6 +220,34 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    retirement attributes one request's count and the monolithic arm its
    images'. The closing line sets each count beside the reference's
    committed entry (``data/cost_model.json``), the difference explained.
+18. training on the card ([train-diffusion]): ``DiffusionTrainer`` on
+   SD1.5 at 512x512, batch 2, bf16 compute over fp32 parameters: a
+   differentiated forward outside ``plain_only`` refused by the flash
+   kernel, which has no backward; the trainer's forward launching none;
+   its gradient at one fixed draw against the fp32-compute gradient of
+   the same parameters (cosine >= 0.99, every attention projection's
+   gradient nonzero); ten steps at a fixed batch and draw lowering the
+   loss; step ms (forward and backward, optimizer), peak GiB;
+19. consistency distillation ([distill]): ``ConsistencyDistillTrainer``
+   on SD1.5 for three steps, the teacher's and EMA target's forwards
+   launching flash (two full forwards a step, shape for shape), then the
+   student's ``state_dict`` serving a 4-step lcm round through
+   ``Text2ImagePipeline`` (its UNet the student's weights, flash 129);
+20. LM training ([train-lm]): the ``train-lm`` command (GPT-2 small, seq
+   256, batch 8) four steps with a checkpoint directory, then ``python -m
+   cassmantle_tpu_torch train-lm`` resuming at step 2 with the
+   uninterrupted run's losses; Mistral-7B at its published widths cut to
+   2 of 32 layers through ``LMTrainer``; tokens/s of each;
+21. the quality gate ([clip]): the ViT-L/14 harness (fp32: its attention
+   on the plain path) written as one seeded fp16 CLIPModel file and read
+   back through the converters (every tensor equal); ``clip-report`` over
+   the six presets, eight images each, on seeded weights (advisory);
+   ``w8a8_quality_report`` on eight prompts; images/s of the scoring;
+   the launches of kernels 1-4; then each kernel against its plain
+   version at every shape phases 19 and 21 launch that phase 2 does not
+   check ([kernel-spot]: flash at batch 16 and 32, kernel 2 at the
+   batch-8 VAE and the batch-16 fused UNet, kernels 3 and 4 at the
+   batch-16 W8A8 UNet).
 
 Prints a ``[time]`` line after each phase, its total seconds, one
 ``kernels`` JSON line (each entry's launches and its ``staged_launches``),
@@ -232,6 +261,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import faulthandler
 import gc
 import json
@@ -687,7 +717,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, replays: int = 3) -> float:
+# launches a [kernel] timing captures in one graph (it was 20: cut with
+# the replays to 2 to make room for the training phases)
+KERNEL_ITERS = 10
+
+
+def time_ms(fn, iters: int, replays: int = 2) -> float:
     """Device ms per call: ``iters`` calls captured in one CUDA graph,
     replayed ``replays`` times between CUDA events, so the host's launch
     cost (Python, ctypes) does not hide in the time of a short kernel.
@@ -806,12 +841,13 @@ def check_flash_kernel():
         ref = flash_attention_plain(q, k, v)
         agree = flash_agreement(out, ref)
         finite = bool(torch.isfinite(out).all())
-        ms = time_ms(lambda: flash_attention(q, k, v), 20)
+        ms = time_ms(lambda: flash_attention(q, k, v), KERNEL_ITERS)
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v), 2)
         # the library yardstick: one SDPA call on (B, H, S, D) copies
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            KERNEL_ITERS)
         bound_ms, bound_by, flops, nbytes = flash_bound(b, sq, sk, h, d)
         rows[name] = dict(
             shape=[b, sq, sk, h, d], path=path,
@@ -915,7 +951,8 @@ def check_fused_conv_kernel():
         torch.cuda.synchronize()
         ref = gn_silu_conv3x3_plain(x, a, shift, kernel, bias)
         agree = scaled_agreement(out, ref)
-        ms = time_ms(lambda: gn_silu_conv3x3(x, a, shift, kernel, bias), 20)
+        ms = time_ms(lambda: gn_silu_conv3x3(x, a, shift, kernel, bias),
+                     KERNEL_ITERS)
         plain_ms = time_ms(
             lambda: gn_silu_conv3x3_plain(x, a, shift, kernel, bias), 2)
         act = F.silu(x.float() * a[:, None, None] + shift[:, None, None]) \
@@ -923,7 +960,7 @@ def check_fused_conv_kernel():
         w_oihw = ohwi.permute(0, 3, 1, 2)
         bias16 = bias.bfloat16()
         library_ms = time_ms(
-            lambda: F.conv2d(act, w_oihw, bias16, padding=1), 20)
+            lambda: F.conv2d(act, w_oihw, bias16, padding=1), KERNEL_ITERS)
         m = b * h * w
         ops = 18 * m * c * f
         nbytes = 2 * (m * c + 9 * c * f + m * f) + 4 * (2 * b * c + f)
@@ -964,9 +1001,10 @@ def check_int8_matmul_kernel():
         out = int8_matmul(*args)
         torch.cuda.synchronize()
         agree = exact_agreement(out, int8_matmul_plain(*args))
-        ms = time_ms(lambda: int8_matmul(*args), 20)
+        ms = time_ms(lambda: int8_matmul(*args), KERNEL_ITERS)
         plain_ms = time_ms(lambda: int8_matmul_plain(*args), 2)
-        library_ms = (time_ms(lambda: torch._int_mm(x_q, w_q), 20)
+        library_ms = (time_ms(lambda: torch._int_mm(x_q, w_q),
+                              KERNEL_ITERS)
                       if m > 16 else None)
         ops = 2 * m * k * n
         nbytes = m * k + k * n + 2 * m * n + 4 * (row.numel() + 2 * n)
@@ -1018,11 +1056,11 @@ def check_int8_conv_kernel():
         out = int8_conv3x3(*args)
         torch.cuda.synchronize()
         agree = exact_agreement(out, int8_conv3x3_plain(*args))
-        ms = time_ms(lambda: int8_conv3x3(*args), 20)
+        ms = time_ms(lambda: int8_conv3x3(*args), KERNEL_ITERS)
         plain_ms = time_ms(lambda: int8_conv3x3_plain(*args), 2)
         cols = int8_im2col(x_q)
         w_kn = kernel.permute(3, 0, 1, 2).reshape(f, 9 * c).t()
-        library_ms = time_ms(lambda: torch._int_mm(cols, w_kn), 20)
+        library_ms = time_ms(lambda: torch._int_mm(cols, w_kn), KERNEL_ITERS)
         m = b * h * w
         ops = 18 * m * c * f
         nbytes = m * c + 9 * c * f + 2 * m * f + 8 * f
@@ -1076,7 +1114,7 @@ def check_w8a8_entry_points():
         ref = qm.int8_matmul_plain(quant.quantize_act(x, scale), q.data,
                                    scale, q.scale, bias, torch.bfloat16)
         agree = exact_agreement(out, ref)
-        ms = time_ms(lambda: qm.w8a8_dense(x, q, bias), 20)
+        ms = time_ms(lambda: qm.w8a8_dense(x, q, bias), KERNEL_ITERS)
         plain_ms = time_ms(lambda: qm.int8_matmul_plain(
             quant.quantize_act(x, scale), q.data, scale, q.scale, bias,
             torch.bfloat16), 2)
@@ -1104,7 +1142,7 @@ def check_w8a8_entry_points():
                                     q.data, scale * q.scale, cb,
                                     torch.bfloat16)
         agree = exact_agreement(out, ref)
-        ms = time_ms(lambda: qm.w8a8_conv3x3(act_in, q, cb), 20)
+        ms = time_ms(lambda: qm.w8a8_conv3x3(act_in, q, cb), KERNEL_ITERS)
         plain_ms = time_ms(lambda: qm.int8_conv3x3_plain(
             quant.quantize_act(act_in, scale), q.data, scale * q.scale, cb,
             torch.bfloat16), 2)
@@ -1125,7 +1163,7 @@ def check_w8a8_entry_points():
     agree = dict(max_abs_err=err, ok=err <= limit, text=(
         f"max_abs_err {err:.3e} (limit 2^-10 of max |plain| = "
         f"{limit:.3e})"))
-    ms = time_ms(lambda: qm.fp8_matmul(x8, q.data), 20)
+    ms = time_ms(lambda: qm.fp8_matmul(x8, q.data), KERNEL_ITERS)
     plain_ms = time_ms(lambda: qm.fp8_matmul_plain(x8, q.data), 2)
     rows["fp8_matmul"] = report_row(
         "fp8_matmul (torch._scaled_mm, a library call)", "(M, K, N)",
@@ -1800,11 +1838,12 @@ OBS_DEVICE = {}
 
 def cost_configs() -> list:
     """Every config whose dispatches the run attributes: the served
-    presets, [server]'s and [weights]' (the default's models and sampler)
-    and [staged]'s service."""
+    presets, [server]'s and [weights]' (the default's models and sampler),
+    [staged]'s service and [round-mistral]'s depth cut."""
     from cassmantle_tpu_torch.config import staged_serving_config
 
-    return [cfg for _, cfg in served_presets()] + [staged_serving_config()]
+    return [cfg for _, cfg in served_presets()] + [
+        staged_serving_config(), mistral_round_config()]
 
 
 # child processes that make the counts, each a share of the configs
@@ -2281,6 +2320,25 @@ def device_profile():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+@contextlib.contextmanager
+def device_profile_beside_graphs():
+    """:func:`device_profile` switched on and off under
+    ``ops/graphs.py::no_graph_running``, for a window while another
+    thread launches CUDA graphs: the profiler's switch beside a
+    ``cudaGraphLaunch`` can deadlock (a stop beside a staged denoise
+    replay hung a whole run)."""
+    from cassmantle_tpu_torch.ops.graphs import no_graph_running
+
+    prof = device_profile()
+    with no_graph_running():
+        prof.start()
+    try:
+        yield prof
+    finally:
+        with no_graph_running():
+            prof.stop()
+
+
 def profile_replays(step, n: int, reset, dev, want=None, windows: int = 3):
     """``n`` replays of the captured ``step`` under ``torch.profiler``,
     after ``reset()`` and a sync: (trace counts, host ms per replay).
@@ -2663,6 +2721,22 @@ def mistral_config():
     base = FrameworkConfig()
     return base.replace(models=dataclasses.replace(
         base.models, mistral=MistralConfig()))
+
+
+# [round-mistral]'s depth cut (of 32): the round, its graphs, profile,
+# [spec] and [sampled] run Mistral-7B's widths at 8 layers (all 32 ran
+# before the training phases needed the time)
+ROUND_MISTRAL_LAYERS = 8
+
+
+def mistral_round_config():
+    """:func:`mistral_config` cut to :data:`ROUND_MISTRAL_LAYERS`."""
+    import dataclasses
+
+    cfg = mistral_config()
+    return cfg.replace(models=dataclasses.replace(
+        cfg.models, mistral=dataclasses.replace(
+            cfg.models.mistral, num_layers=ROUND_MISTRAL_LAYERS)))
 
 
 def sdxl_build_config(name: str):
@@ -3742,7 +3816,7 @@ def check_calibrate_and_int8(card: str, svc) -> bool:
 # the layers of the full-width Mistral-7B the A/B builds (of its 32): a
 # 32-layer int8 build quantizes 7.2 B weights on the host in 35.3 s (one
 # H100 machine's host), past what the script's time allows beside the rest
-AB_LAYERS = 8
+AB_LAYERS = 4
 
 
 def check_mistral_int8_ab(card: str) -> bool:
@@ -3803,7 +3877,9 @@ SDXL_LOOPS = {"sdxl_encprop": ("encprop", {"key": 5, "segment": 15}),
               "sdxl_turbo": ("deepcache", {"pair": 12})}
 # the steps at each end of the served 50-step DDIM schedule over which a
 # DDIM SDXL build's served step graph is held to eager
-SERVED_WINDOW = 5
+# the served step graph held to eager over the first and last steps (it
+# was 5 each: a depth cut to make room for the training phases)
+SERVED_WINDOW = 2
 
 
 def w8a8_dispatches() -> float:
@@ -6274,7 +6350,7 @@ def staged_profile(pipe) -> dict:
                and time.monotonic() < deadline):
             time.sleep(0.001)
         occupancy = srv._active_n
-        with device_profile() as prof:
+        with device_profile_beside_graphs() as prof:
             with torch.profiler.record_function("staged.window"):
                 s0 = srv.stats["steps"]
                 t0 = time.perf_counter()
@@ -6716,6 +6792,614 @@ def report_obs_device(card: str) -> None:
           f"{json.dumps(OBS_DEVICE)}", flush=True)
 
 
+# -- this slice: training on one card and the CLIP quality gate -------------
+
+# [train-diffusion] and [distill]: SD1.5 at 512x512, batch 2 (the CLI's
+# default batch 8 takes about 50 GB); the distillation's steps
+TRAIN_BATCH = 2
+TRAIN_STEPS = 10
+DISTILL_STEPS = 3
+# [train-lm]: GPT-2 small through the CLI, and Mistral-7B at its
+# published widths cut to 2 of its 32 layers
+LM_STEPS, LM_BATCH, LM_SEQ = 4, 8, 256
+MISTRAL_LAYERS, MISTRAL_BATCH, MISTRAL_SEQ = 2, 4, 256
+TRAIN_SMOKE_DIR = os.path.join(REPO, "cassmantle_tpu_torch", "_build",
+                               "train_smoke")
+# two harnesses with equal fp32 weights: embeddings and similarities
+CLIP_SAME_WEIGHTS_TOL = 1e-5
+# the fp32-compute gradient against the served bf16 one
+TRAIN_GRAD_MIN_COSINE = 0.99
+# the fixed-batch and distillation steps' learning rate: at 1e-4 (the
+# CLI's default) Adam's first step from the seeded init overshoots, and
+# the loss of a fixed batch rises before it falls
+TRAIN_LR = 1e-5
+
+
+def train_batch(cfg, gen):
+    """Seeded clean latents and text states on the card, at the config's
+    image size."""
+    import torch
+
+    hw = cfg.sampler.image_size // 8
+    return {"latents": torch.randn((TRAIN_BATCH, hw, hw, 4), generator=gen,
+                                   device="cuda"),
+            "context": torch.randn((TRAIN_BATCH, 77,
+                                    cfg.models.unet.context_dim),
+                                   generator=gen, device="cuda")}
+
+
+def attention_projection(name: str) -> bool:
+    return ".self_attn." in name or ".cross_attn." in name
+
+
+def grad_agreement(a, b) -> dict:
+    """Cosine of two UNets' gradients over every parameter (fp64 sums),
+    the least cosine of one attention projection, and the attention
+    projections whose gradient is zero in either."""
+    import torch
+
+    dot = na = nb = 0.0
+    min_attn, zero = 1.0, []
+    grads_b = dict(b.named_parameters())
+    for name, p in a.named_parameters():
+        ga, gb = p.grad.double(), grads_b[name].grad.double()
+        d, x, y = (ga * gb).sum().item(), ga.square().sum().item(), \
+            gb.square().sum().item()
+        dot, na, nb = dot + d, na + x, nb + y
+        if attention_projection(name):
+            if x == 0.0 or y == 0.0:
+                zero.append(name)
+            else:
+                min_attn = min(min_attn, d / math.sqrt(x * y))
+        del ga, gb
+    torch.cuda.empty_cache()
+    return {"cosine": dot / math.sqrt(na * nb),
+            "min_attention_cosine": min_attn, "zero_attention": zero}
+
+
+def check_train_diffusion(card: str) -> bool:
+    """[train-diffusion]: ``DiffusionTrainer`` on SD1.5 at 512x512, batch
+    2, bf16 compute over fp32 parameters. Outside ``plain_only`` a
+    differentiated forward reaches the flash kernel, which refuses; the
+    trainer's forward launches no flash kernel; its gradient at one fixed
+    draw against the fp32-compute gradient of the same parameters and
+    draw (cosine >= 0.99, every attention projection's gradient nonzero);
+    ten steps at a fixed batch and draw lower the loss; step ms (and its
+    forward-backward and optimizer halves), one profiled step's device
+    busy ms, kernels and host launches, peak GiB."""
+    import dataclasses
+
+    import torch
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+    from cassmantle_tpu_torch.ops.flash_attention import flash_attention
+    from cassmantle_tpu_torch.parallel.train import DiffusionTrainer
+
+    cfg = FrameworkConfig()
+    t0 = time.perf_counter()
+    tr = DiffusionTrainer(cfg, lr=TRAIN_LR, device="cuda")
+    tr.init_state(seed=0)
+    gen = torch.Generator("cuda").manual_seed(17)
+    batch = train_batch(cfg, gen)
+    t, noise = tr.draws(batch, gen)
+    reset_all_counters()
+    try:
+        tr.unet(batch["latents"], t, batch["context"])
+        refused = False
+    except RuntimeError as exc:
+        refused = "no backward" in str(exc)
+    refused_launches = flash_attention.launches
+    reset_all_counters()
+    tr.loss_and_grads(batch, t, noise)
+    cfg32 = cfg.replace(models=dataclasses.replace(
+        cfg.models, unet=dataclasses.replace(cfg.models.unet,
+                                             dtype="float32")))
+    tr32 = DiffusionTrainer(cfg32, device="cuda")
+    tr32.init_state(state_dict=tr.unet.state_dict())
+    tr32.loss_and_grads(batch, t, noise)
+    agree = grad_agreement(tr.unet, tr32.unet)
+    del tr32
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [tr.step_at(batch, t, noise) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / TRAIN_STEPS * 1e3
+    losses = [float(x) for x in losses]
+    # one more step in its two halves: forward and backward, optimizer
+    t2 = time.perf_counter()
+    tr.loss_and_grads(batch, t, noise)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    tr.optimizer.step()
+    torch.cuda.synchronize()
+    halves_ms = [(t3 - t2) * 1e3, (time.perf_counter() - t3) * 1e3]
+    # one step under the profiler: the device's busy share of the wall
+    # (the profiler's own cost is in the wall: the unprofiled step_ms is
+    # the one to hold the busy ms against)
+    with device_profile_beside_graphs() as prof:
+        t4 = time.perf_counter()
+        tr.step_at(batch, t, noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t4) * 1e3
+    counts = trace_counts(prof, 1)
+    profile = {"wall_ms": wall_ms, "device_busy_ms": counts["device_busy_ms"],
+               "idle_share": 1.0 - counts["device_busy_ms"] / wall_ms,
+               "kernels_per_step": counts["kernels_per_step"],
+               "host_launches_per_step": counts["host_launches_per_step"]}
+    del prof
+    res = dict(
+        batch=TRAIN_BATCH, image_size=cfg.sampler.image_size, lr=TRAIN_LR,
+        flash_refused_in_differentiated_forward=refused,
+        flash_launches_before_refusal=refused_launches,
+        trainer_flash_launches=flash_attention.launches,
+        grad_cosine_vs_fp32=agree["cosine"],
+        min_attention_projection_cosine=agree["min_attention_cosine"],
+        zero_attention_grads=agree["zero_attention"],
+        losses=losses, step_ms=step_ms,
+        forward_backward_ms=halves_ms[0], optimizer_ms=halves_ms[1],
+        profile=profile,
+        images_per_s=TRAIN_BATCH / step_ms * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        phase_s=time.perf_counter() - t0)
+    ok = (refused and refused_launches == 0
+          and flash_attention.launches == 0
+          and agree["cosine"] >= TRAIN_GRAD_MIN_COSINE
+          and not agree["zero_attention"]
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0])
+    print(f"[train-diffusion] SD1.5 UNet, bf16 compute over fp32 "
+          f"parameters ({card}): {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_distill(card: str) -> bool:
+    """[distill]: ``ConsistencyDistillTrainer`` on SD1.5 (the 50-step
+    teacher grid, skip 1), a few steps: the teacher's and the EMA target's
+    forwards launch flash (each step two full forwards at batch 2, shape
+    for shape), the student's none. The student's ``state_dict`` then
+    serves a 4-step lcm round through ``Text2ImagePipeline``: its UNet
+    holds the student's weights in bf16, 4 consistency forwards, flash
+    129, a uint8 image."""
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import FrameworkConfig, \
+        lcm_serving_config
+    from cassmantle_tpu_torch.ops.flash_attention import flash_attention
+    from cassmantle_tpu_torch.parallel.train import (
+        ConsistencyDistillTrainer,
+        step_generator,
+    )
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    cfg = FrameworkConfig()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr = ConsistencyDistillTrainer(cfg, lr=TRAIN_LR, device="cuda")
+    tr.init_state(seed=0)
+    batch = train_batch(cfg, torch.Generator("cuda").manual_seed(18))
+    per_forward = unet_flash_forward("sd15", cfg.sampler.image_size, "full",
+                                     TRAIN_BATCH)
+    reset_all_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [tr.step(batch, step_generator(0, i, "cuda"))
+              for i in range(DISTILL_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / DISTILL_STEPS * 1e3
+    losses = [float(x) for x in losses]
+    train_flash = dict(flash_attention.shapes)
+    want = scaled(per_forward, 2 * DISTILL_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = any(not torch.equal(e, s) for e, s in zip(
+        tr.ema.parameters(), tr.teacher.parameters()))
+    student = tr.student.state_dict()
+    pipe = Text2ImagePipeline(lcm_serving_config(),
+                              state_dicts={"unet": student})
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the served UNet holds the student's weights in its storage dtype
+    served = all(torch.equal(v, student[k].to(v.dtype))
+                 for k, v in pipe.unet.state_dict().items())
+    del student
+    reset_all_counters()
+    before = metrics.counter_total("pipeline.consistency_steps")
+    image = pipe.generate(["A linocut style piece depicting: a fox asleep "
+                           "in a bell tower"], seed=0)
+    forwards = metrics.counter_total("pipeline.consistency_steps") - before
+    tally = read_tallies()
+    lcm_flash = flash_attention.launches
+    res = dict(steps=DISTILL_STEPS, lr=TRAIN_LR, losses=losses,
+               step_ms=step_ms,
+               peak_gib=peak, train_flash_launches=sum(train_flash.values()),
+               train_flash_as_two_forwards_a_step=train_flash == want,
+               ema_moved=moved, student_served=served,
+               lcm_forwards=forwards, lcm_flash_launches=lcm_flash,
+               image_shape=list(image.shape), image_dtype=str(image.dtype),
+               phase_s=time.perf_counter() - t0)
+    ok = (all(math.isfinite(x) for x in losses) and train_flash == want
+          and moved and served and forwards == 4 and lcm_flash == 129
+          and image.dtype == np.uint8 and image.shape == (1, 512, 512, 3)
+          and int(image.max()) > int(image.min()))
+    print(f"[distill] SD1.5 consistency distillation and its student's lcm "
+          f"round ({card}): {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    SLICE_TALLIES["distill"] = tally
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def cli_losses(out: str, name: str) -> dict:
+    """{step: loss} from the training CLI's ``[name] step N loss x``."""
+    return {int(line.split()[2]): float(line.split()[4])
+            for line in out.splitlines()
+            if line.startswith(f"[{name}] step ")}
+
+
+def check_train_lm(card: str) -> bool:
+    """[train-lm]: the ``train-lm`` command (GPT-2 small, seq 256, batch 8)
+    with a checkpoint directory: four steps saving at 2 and 4, run through
+    the CLI's ``main`` in this process; the step-4 save removed, ``python
+    -m cassmantle_tpu_torch train-lm`` with the same flags resumes at step
+    2, and its steps 2 and 3 give the uninterrupted run's losses. Then
+    Mistral-7B at its published widths, 2 of 32 layers, through
+    ``LMTrainer``: a warm step and a timed one. Tokens/s of each."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import torch
+
+    from cassmantle_tpu_torch import __main__ as cli
+    from cassmantle_tpu_torch.config import MistralConfig
+    from cassmantle_tpu_torch.models.mistral import MistralLM
+    from cassmantle_tpu_torch.parallel.lm_train import LMTrainer
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_SMOKE_DIR, ignore_errors=True)
+    args = ["train-lm", "--steps", str(LM_STEPS), "--batch", str(LM_BATCH),
+            "--seq-len", str(LM_SEQ), "--log-every", "1",
+            "--checkpoint-every", "2", "--checkpoint-dir", TRAIN_SMOKE_DIR]
+    first = io.StringIO()
+    with contextlib.redirect_stdout(first):
+        rc = cli.main(list(args))
+    first = first.getvalue()
+    shutil.rmtree(os.path.join(TRAIN_SMOKE_DIR, f"step_{LM_STEPS}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "cassmantle_tpu_torch",
+                           *args], capture_output=True, text=True,
+                          timeout=600, cwd=REPO)
+    if rc != 0 or proc.returncode != 0:
+        print(f"[train-lm] the command exited {rc} / {proc.returncode}:\n"
+              f"{first[-2000:]}\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-4000:]}", flush=True)
+        return False
+    whole, resumed = cli_losses(first, "lm"), cli_losses(proc.stdout, "lm")
+    rate = re.search(r"([0-9.]+) tokens/s", first)
+    cli_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_SMOKE_DIR, ignore_errors=True)
+
+    mcfg = dataclasses.replace(MistralConfig(), num_layers=MISTRAL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        model = MistralLM(mcfg)
+    tr = LMTrainer(model, device="cuda")
+    tr.init_state(seed=0)
+    gen = torch.Generator("cuda").manual_seed(19)
+    ids = torch.randint(0, mcfg.vocab_size, (MISTRAL_BATCH, MISTRAL_SEQ),
+                        generator=gen, device="cuda")
+    batch = {"input_ids": ids, "loss_mask": torch.ones_like(ids)}
+    warm = float(tr.step(batch))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    timed = float(tr.step(batch))
+    torch.cuda.synchronize()
+    mistral_ms = (time.perf_counter() - t1) * 1e3
+    params = sum(p.numel() for p in model.parameters())
+    res = dict(
+        gpt2_losses=whole, gpt2_resumed_losses=resumed,
+        gpt2_resume_bit_equal=all(resumed.get(s) == whole.get(s)
+                                  for s in (2, 3)),
+        gpt2_tokens_per_s=float(rate.group(1)) if rate else None,
+        gpt2_cli_s=cli_s, mistral_layers=f"{MISTRAL_LAYERS} of 32",
+        mistral_params=params, mistral_losses=[warm, timed],
+        mistral_step_ms=mistral_ms,
+        mistral_tokens_per_s=MISTRAL_BATCH * MISTRAL_SEQ / mistral_ms * 1e3,
+        mistral_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        phase_s=time.perf_counter() - t0)
+    resumed_ok = (sorted(whole) == list(range(LM_STEPS))
+                  and sorted(resumed) == [2, 3]
+                  and "resumed from step 2" in proc.stdout
+                  and all(abs(resumed[s] - whole[s]) <= 1e-6 * abs(whole[s])
+                          for s in (2, 3)))
+    ok = (resumed_ok and rate is not None
+          and all(math.isfinite(x) for x in whole.values())
+          and math.isfinite(warm) and math.isfinite(timed))
+    print(f"[train-lm] GPT-2 small through the CLI, resumed; Mistral-7B "
+          f"widths ({card}): {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    del tr, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def hf_clip_file(harness) -> dict:
+    """The harness's three stages under transformers' CLIPModel names
+    (the inverse of ``convert_clip_text`` / ``convert_clip_vision`` /
+    ``convert_clip_text_projection``), fp16, on the host."""
+    import torch
+
+    out = {}
+
+    def put(name, t):
+        out[name] = t.detach().to("cpu", torch.float16)
+
+    def tower(sd, prefix, layers, d):
+        for i in range(layers):
+            src, dst = f"{prefix}encoder.layers.{i}", f"block_{i}"
+            for a, b in (("layer_norm1", "ln1"), ("layer_norm2", "ln2"),
+                         ("self_attn.out_proj", "attn.out"),
+                         ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+                put(f"{src}.{a}.weight", sd[f"{dst}.{b}.weight"])
+                put(f"{src}.{a}.bias", sd[f"{dst}.{b}.bias"])
+            for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+                put(f"{src}.self_attn.{proj}.weight",
+                    sd[f"{dst}.attn.qkv.weight"][j * d:(j + 1) * d])
+                put(f"{src}.self_attn.{proj}.bias",
+                    sd[f"{dst}.attn.qkv.bias"][j * d:(j + 1) * d])
+
+    text = harness.text.state_dict()
+    tcfg = harness.text_cfg
+    put("text_model.embeddings.token_embedding.weight",
+        text["token_embedding.weight"])
+    put("text_model.embeddings.position_embedding.weight",
+        text["position_embedding"])
+    put("text_model.final_layer_norm.weight", text["ln_final.weight"])
+    put("text_model.final_layer_norm.bias", text["ln_final.bias"])
+    tower(text, "text_model.", tcfg.num_layers, tcfg.hidden_size)
+    vis = harness.vision.state_dict()
+    vcfg = harness.vision_cfg
+    put("vision_model.embeddings.class_embedding", vis["class_embedding"])
+    put("vision_model.embeddings.position_embedding.weight",
+        vis["position_embedding"])
+    put("vision_model.embeddings.patch_embedding.weight",
+        vis["patch_embed.weight"])
+    for a, b in (("pre_layrnorm", "pre_ln"), ("post_layernorm", "post_ln")):
+        put(f"vision_model.{a}.weight", vis[f"{b}.weight"])
+        put(f"vision_model.{a}.bias", vis[f"{b}.bias"])
+    tower(vis, "vision_model.", vcfg.num_layers, vcfg.hidden_size)
+    put("visual_projection.weight", vis["projection"].t())
+    put("text_projection.weight", harness.text_projection.t())
+    return out
+
+
+def spot_check(tally: dict, checked: dict) -> list:
+    """Each kernel against its plain version, once, at every shape of
+    ``tally`` that phase 2 does not check ([kernel-spot] lines, with the
+    same inputs and limits); returns the shapes that disagree."""
+    import torch
+
+    from cassmantle_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from cassmantle_tpu_torch.ops.fused_conv import (
+        gn_silu_conv3x3,
+        gn_silu_conv3x3_plain,
+    )
+    from cassmantle_tpu_torch.ops.quant_matmul import (
+        int8_conv3x3,
+        int8_conv3x3_plain,
+        int8_matmul,
+        int8_matmul_plain,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(6)
+    kw = dict(generator=gen, device="cuda")
+    layouts = {(sq, sk, h, d): layout
+               for b, sq, sk, h, d, layout in FLASH_SHAPES.values()}
+    bad = []
+    for kernel in ("flash_attention", "gn_silu_conv3x3", "int8_matmul",
+                   "int8_conv3x3"):
+        for shape in sorted(set(tally[kernel]) - set(checked[kernel])):
+            if kernel == "flash_attention":
+                b, sq, sk, h, d = shape
+                args = flash_inputs(b, sq, sk, h, d, layouts.get(
+                    (sq, sk, h, d), "self" if sq == sk else "cross"), gen)
+                agree = scaled_agreement(flash_attention(*args),
+                                         flash_attention_plain(*args))
+            elif kernel == "gn_silu_conv3x3":
+                b, h, w, c, f = shape
+                x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
+                ohwi = (torch.randn((f, 3, 3, c), **kw)
+                        / (9 * c) ** 0.5).bfloat16()
+                args = (x, torch.rand((b, c), **kw) + 0.5,
+                        torch.randn((b, c), **kw) * 0.5,
+                        ohwi.permute(1, 2, 3, 0),
+                        torch.randn((f,), **kw) * 0.1)
+                agree = scaled_agreement(gn_silu_conv3x3(*args),
+                                         gn_silu_conv3x3_plain(*args))
+            elif kernel == "int8_matmul":
+                m, k, n = shape
+                per_token = shape in LM_MATMUL_SHAPES
+                args = (torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                                      **kw),
+                        torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                                      **kw).t(),
+                        torch.rand((m if per_token else 1,), **kw) * 0.01
+                        + 1e-3,
+                        torch.rand((n,), **kw) * 1e-3 + 1e-4,
+                        torch.randn((n,), **kw), torch.bfloat16)
+                agree = exact_agreement(int8_matmul(*args),
+                                        int8_matmul_plain(*args))
+            else:
+                b, h, w, c, f = shape
+                args = (torch.randint(-127, 128, (b, h, w, c),
+                                      dtype=torch.int8, **kw),
+                        torch.randint(-127, 128, (f, 3, 3, c),
+                                      dtype=torch.int8, **kw)
+                        .permute(1, 2, 3, 0),
+                        torch.rand((f,), **kw) * 1e-5 + 1e-6,
+                        torch.randn((f,), **kw), torch.bfloat16)
+                agree = exact_agreement(int8_conv3x3(*args),
+                                        int8_conv3x3_plain(*args))
+            print(f"[kernel-spot] {kernel} {shape}: {agree['text']} -> "
+                  f"{'pass' if agree['ok'] else 'FAIL'}", flush=True)
+            if not agree["ok"]:
+                bad.append((kernel, shape))
+            del args
+            torch.cuda.empty_cache()
+    return bad
+
+
+def check_clip(card: str) -> bool:
+    """[clip]: the ViT-L/14 quality gate at full size. A seeded harness
+    (fp32 towers: on the card their attention takes the plain path) is
+    written under the CLIPModel names as one fp16 ``clip_text.safetensors``
+    (its weights rounded to fp16 first) and read back through the
+    converters: every stage loaded, each tensor equal to the seeded one,
+    the embeddings equal. ``clip-report`` over the six presets, one batch
+    of eight prompts each, without a weights directory (real_weights
+    false, gate advisory); ``w8a8_quality_report`` on eight prompts (W8A8
+    against the fused-conv bf16 arm, same seeds). Images/s of the
+    scoring; the launches of kernels 1-4 in the phase."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cassmantle_tpu_torch.config import (
+        fusedconv_serving_config,
+        w8a8_serving_config,
+    )
+    from cassmantle_tpu_torch.eval.clip_parity import (
+        ClipSimilarityHarness,
+        w8a8_quality_report,
+    )
+    from cassmantle_tpu_torch.models.weights import save_safetensors
+    from cassmantle_tpu_torch.ops.flash_attention import flash_attention
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+    from cassmantle_tpu_torch.tools import clip_report
+
+    t0 = time.perf_counter()
+    clip_dir = os.path.join(TRAIN_SMOKE_DIR, "clip")
+    shutil.rmtree(clip_dir, ignore_errors=True)
+    os.makedirs(clip_dir)
+    seeded = ClipSimilarityHarness(device="cuda")
+    with torch.no_grad():
+        for module in (seeded.text, seeded.vision):
+            for p in module.parameters():
+                p.copy_(p.half().float())
+        seeded.text_projection.copy_(seeded.text_projection.half().float())
+    path = os.path.join(clip_dir, "clip_text.safetensors")
+    save_safetensors(hf_clip_file(seeded), path)
+    file_gb = os.path.getsize(path) / 1e9
+    loaded = ClipSimilarityHarness(weights_dir=clip_dir, device="cuda")
+    equal = all(
+        all(torch.equal(v, b.state_dict()[k])
+            for k, v in a.state_dict().items())
+        for a, b in ((loaded.text, seeded.text),
+                     (loaded.vision, seeded.vision))) and torch.equal(
+        loaded.text_projection, seeded.text_projection)
+    rng = np.random.default_rng(20)
+    images = rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    prompts = clip_report.PROMPTS
+    reset_all_counters()
+    sims = seeded.similarity(images, prompts)
+    with torch.inference_mode():
+        emb_diff = float((seeded.embed_images(images)
+                          - loaded.embed_images(images)).abs().max())
+    # equal weights; the card's library products may pick another
+    # algorithm from one call to the next (fp32, unit embeddings)
+    sim_diff = float(np.abs(sims - loaded.similarity(images, prompts)).max())
+    same = emb_diff <= CLIP_SAME_WEIGHTS_TOL and \
+        sim_diff <= CLIP_SAME_WEIGHTS_TOL
+    scoring_flash = flash_attention.launches
+    del loaded
+    shutil.rmtree(clip_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        seeded.similarity(images, prompts)
+    images_per_s = 3 * len(images) / (time.perf_counter() - t1)
+    converters_s = time.perf_counter() - t0
+
+    reset_all_counters()
+    out = os.path.join(TRAIN_SMOKE_DIR, "CLIP_REPORT.json")
+    t2 = time.perf_counter()
+    rc = clip_report.main(["--platform", "cuda", "--seeds", "1", "--weights",
+                           os.path.join(clip_dir, "absent"), "--out", out])
+    report_s = time.perf_counter() - t2
+    with open(out, encoding="utf-8") as f:
+        report = json.load(f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    arms = {}
+    for arm, cfg in (("w8a8", w8a8_serving_config()),
+                     ("fp", fusedconv_serving_config())):
+        pipe = Text2ImagePipeline(cfg)
+        arms[arm] = pipe.generate(prompts, seed=0)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    w8 = w8a8_quality_report(seeded, arms["w8a8"], arms["fp"], prompts)
+    w8a8_s = time.perf_counter() - t3
+    tally = read_tallies()
+    launches = {k: sum(v.values()) for k, v in tally.items()
+                if k != "flash_paths"}
+    SLICE_TALLIES["clip"] = tally
+    presets = report["presets"]
+    res = dict(
+        file_gb=file_gb, converters_equal=equal,
+        embedding_max_diff=emb_diff, similarity_max_diff=sim_diff,
+        loaded_real_weights=True, scoring_flash_launches=scoring_flash,
+        scoring_images_per_s=images_per_s,
+        report={name: {k: e[k] for k in ("clip_sim_mean", "n",
+                                          "parity_vs_ddim50") if k in e}
+                for name, e in presets.items()},
+        real_weights=report["real_weights"],
+        gate_enforced=report["gate_enforced"],
+        gate_failures=len(report["gate_failures"]),
+        w8a8_report=w8, launches=launches, converters_s=converters_s,
+        report_s=report_s, w8a8_s=w8a8_s,
+        phase_s=time.perf_counter() - t0)
+    ok = (equal and same and scoring_flash == 0 and rc == 0
+          and list(presets) == clip_report.DEFAULT_PRESETS.split(",")
+          and all(e["n"] == len(prompts)
+                  and math.isfinite(e["clip_sim_mean"])
+                  for e in presets.values())
+          and report["real_weights"] is False
+          and report["gate_enforced"] is False
+          and w8["n"] == len(prompts) and math.isfinite(w8["image_sim_mean"])
+          and w8["real_weights"] is False
+          and all(launches[k] > 0 for k in launches))
+    print(f"[clip] ViT-L/14 quality gate ({card}): {json.dumps(res)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    del seeded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+# this slice's tallies, by phase, for the spot checks and the kernels line
+SLICE_TALLIES = {}
+
+
 def main() -> int:
     import torch
 
@@ -6915,10 +7599,11 @@ def main() -> int:
         fail("weights-mistral: Mistral from its shards failed a check")
     stamp("weights")
 
-    # Mistral-7B as the round's prompt LM, at full width in bf16; its
-    # decode-step profile, then speculative and sampled decodes over it
+    # Mistral-7B as the round's prompt LM, at full width in bf16 (8 of
+    # its 32 layers); its decode-step profile, then speculative and
+    # sampled decodes over it
     svc, tallies["mistral"], bad = run_round(card, "mistral",
-                                             mistral_config())
+                                             mistral_round_config())
     if bad:
         fail(f"round-mistral checks failed: {bad}")
     if not check_graphs(svc, "mistral", card):
@@ -6952,6 +7637,33 @@ def main() -> int:
         fail(f"staged: launches at shapes phase 2 does not check, or "
              f"flash on another path: {gaps}")
     stamp("staged")
+
+    # training on the card and the CLIP quality gate
+    if not check_train_diffusion(card):
+        fail("train-diffusion: the diffusion trainer failed a check")
+    stamp("train-diffusion")
+    if not check_distill(card):
+        fail("distill: the consistency distillation or its student's round "
+             "failed a check")
+    stamp("distill")
+    if not check_train_lm(card):
+        fail("train-lm: the LM trainer, its CLI or its resume failed a check")
+    stamp("train-lm")
+    if not check_clip(card):
+        fail("clip: the CLIP quality gate failed a check")
+    checked_keys = {"flash_attention": {(b, sq, sk, h, d) for b, sq, sk, h,
+                                        d, _ in FLASH_SHAPES.values()},
+                    **{k: set(v) for k, v in checked.items()}}
+    bad = [b for tally in SLICE_TALLIES.values()
+           for b in spot_check(tally, checked_keys)]
+    if bad:
+        fail(f"a kernel disagrees with its plain version at a shape the "
+             f"training and gate phases launched: {bad}")
+    print(f"[slice] launches by phase: " + json.dumps(
+        {phase: {k: sum(v.values()) for k, v in tally.items()
+                 if k != "flash_paths"}
+         for phase, tally in SLICE_TALLIES.items()}), flush=True)
+    stamp("clip")
 
     by_shape = {(b, sq, sk, h, d): name
                 for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}

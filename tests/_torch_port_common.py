@@ -83,6 +83,27 @@ def assert_rel(port, ref, tol):
     assert err <= tol, f"relative error {err:.3g} > {tol}"
 
 
+def assert_grads(got, ref, tol=1e-4, zero=1e-6):
+    """Gradients by name (port tensors, reference tensors): each within
+    ``tol`` of its largest reference value (``assert_rel``). A gradient
+    that is zero in exact arithmetic (the bias of a layer a GroupNorm
+    follows; a key bias, which shifts every logit of a row alike) holds
+    rounding only on both sides, ~1e-9: where the reference's is below
+    ``zero`` of the model's largest gradient, the port's must be too."""
+    assert set(got) == set(ref)
+    top = max(float(np.abs(to_numpy(g)).max()) for g in ref.values())
+    n_zero = 0
+    for name in ref:
+        assert got[name] is not None, name
+        if float(np.abs(to_numpy(ref[name])).max()) < zero * top:
+            n_zero += 1
+            assert float(np.abs(to_numpy(got[name])).max()) < zero * top, \
+                name
+        else:
+            assert_rel(got[name], ref[name], tol)
+    assert n_zero < len(ref) // 4
+
+
 def randn(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 

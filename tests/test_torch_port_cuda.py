@@ -959,3 +959,79 @@ def test_cuda_staged_server_at_widths_1_2_4(cuda_device):
         assert dict(srv.builds) == builds
     finally:
         pipe.drop_staged()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_inputs_that_require_grad(cuda_device):
+    """The kernel has no backward: with grad on and an input requiring
+    grad it raises rather than return an output cut from the graph."""
+    q, k, v = _qkv(cuda_device, 1, 256, 256, 2, 64)
+    reset_counters()
+    flash_attention(q, k, v)                     # no input requires grad
+    for leaf in (q, k, v):
+        x = leaf.detach().requires_grad_(True)
+        args = [x if t is leaf else t for t in (q, k, v)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(*args)
+        with torch.no_grad():
+            flash_attention(*args)
+    assert flash_attention.launches == 4
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_forward_takes_the_plain_attention(cuda_device):
+    """A differentiated UNet forward (plain_only, remat recompute too)
+    launches no flash kernel, and its gradient reaches every attention
+    projection; the no-grad forward of the same UNet launches flash."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import test_config
+    from cassmantle_tpu_torch.parallel.train import DiffusionTrainer
+
+    cfg = test_config()
+    cfg = cfg.replace(models=dataclasses.replace(
+        cfg.models, unet=dataclasses.replace(cfg.models.unet,
+                                             dtype="bfloat16")))
+    tr = DiffusionTrainer(cfg, remat=True, device=cuda_device)
+    tr.init_state(seed=0)
+    g = torch.Generator(cuda_device).manual_seed(1)
+    batch = {"latents": torch.randn((2, 8, 8, 4), generator=g,
+                                    device=cuda_device),
+             "context": torch.randn((2, 6, 64), generator=g,
+                                    device=cuda_device)}
+    reset_counters()
+    loss = tr.step(batch, g)
+    assert torch.isfinite(loss) and flash_attention.launches == 0
+    projections = [(n, p) for n, p in tr.unet.named_parameters()
+                   if "_attn" in n and (".self_attn." in n
+                                        or ".cross_attn." in n)]
+    assert projections
+    for name, p in projections:
+        assert p.grad is not None and p.grad.abs().sum() > 0, name
+    with torch.no_grad():
+        tr.unet(batch["latents"], torch.tensor([5, 9], device=cuda_device),
+                batch["context"])
+    assert flash_attention.launches > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_clip_vision_tower_runs(cuda_device):
+    """An unmasked fp32 attention (the CLIP vision tower) takes the plain
+    path on the card, where the kernel would refuse fp32."""
+    from cassmantle_tpu_torch.models.clip_vision import (
+        ClipVisionConfig,
+        ClipVisionEncoder,
+    )
+    from cassmantle_tpu_torch.models.layers import init_weights
+
+    cfg = ClipVisionConfig.tiny()
+    with torch.device(cuda_device):
+        tower = ClipVisionEncoder(cfg)
+    init_weights(tower, torch.Generator(cuda_device).manual_seed(0))
+    images = torch.randn((2, 32, 32, 3), device=cuda_device)
+    reset_counters()
+    with torch.no_grad():
+        emb = tower(images)
+        ref = tower.cpu()(images.cpu())
+    assert flash_attention.launches == 0
+    torch.testing.assert_close(emb.cpu(), ref, rtol=0, atol=1e-5)
