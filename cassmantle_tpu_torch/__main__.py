@@ -2,7 +2,8 @@
 
 The counterpart of ``cassmantle_tpu/__main__.py``'s commands:
 
-- ``serve``: the game server of one worker (``server/app.py::main``);
+- ``serve``: the game server (``server/app.py::main``; ``--workers N``
+  processes on one port over a shared ``--store``);
 - ``quantize-weights``: write ``<family>.int8.safetensors``
   (``tools/quantize_weights.py``);
 - ``lm-int8-ab``: the fp against weights-only int8 decode A/B, one JSON

@@ -4,7 +4,8 @@
 no-op-unless-armed hook at the serving seam's
 boundaries; ``configure`` arms a seeded plan from a spec string
 (``configure_from_env``: ``CASSMANTLE_CHAOS`` or the config's;
-``disarm`` drops it); ``status()`` describes the armed plan.
+``disarm`` drops it; ``plan`` is the armed plan, ``release`` ends a
+wedge); ``status()`` describes the armed plan.
 """
 
 from cassmantle_tpu_torch.chaos.core import (
@@ -22,6 +23,8 @@ from cassmantle_tpu_torch.chaos.core import (
     disarm,
     fault_point,
     parse_spec,
+    plan,
+    release,
     status,
 )
 
@@ -40,5 +43,7 @@ __all__ = [
     "disarm",
     "fault_point",
     "parse_spec",
+    "plan",
+    "release",
     "status",
 ]

@@ -1,20 +1,22 @@
 """Deterministic fault injection: named fault points and a seeded plan.
 
 A copy of ``cassmantle_tpu/chaos/core.py`` (``:59-438``) with the
-registry trimmed to the serving seam's fault points: ``server.admit``
-(queue admission), ``queue.dispatch`` (the dispatch thread),
-``device.lost`` (the scorer, t2i, sdxl and prompt dispatch regions),
-``device.poison`` (one corrupted batch member) and
-``stage.denoise.tick`` (once a tick of the staged image server's denoise
-loop). Disarmed, a fault point is one module-global ``None`` check. An armed plan (the reference's
-``CASSMANTLE_CHAOS`` grammar, given to :func:`configure`, e.g.
-``"seed=1;device.poison=raise:peer=scorer,times=1"``) decides which hits
-fire; each rule draws from its own PRNG seeded from (plan seed, point,
-kind, position), so a seed replays the same schedule.
+reference's whole registry of fault points: the serving seam's
+(``server.admit``, ``queue.dispatch``, ``device.lost``, ``device.poison``,
+``round.generate``, ``overload.brownout``, ``stage.denoise.tick``) and
+those of many workers (``store.client.op``, ``repl.leader_call``,
+``repl.pump``, ``fabric.heartbeat``, ``fabric.peer_http``,
+``score.hedge``). Disarmed, a fault point is one module-global ``None``
+check. An armed plan (the reference's ``CASSMANTLE_CHAOS`` grammar, given
+to :func:`configure`, e.g. ``"seed=1;device.poison=raise:peer=scorer,
+times=1"``) decides which hits fire; each rule draws from its own PRNG
+seeded from (plan seed, point, kind, position), so a seed replays the same
+schedule. :func:`plan` is the armed plan and :func:`release` the drill
+lever that ends a wedge-until-released fault.
 
 Fault kinds: ``raise`` (:class:`ChaosInjected`), ``flake`` (``raise``
 with probability p, default 0.5), ``latency`` (sleep ``delay_s``),
-``wedge`` (block until :func:`disarm` or ``wedge_s``) and ``partition``
+``wedge`` (block until :func:`release`, :func:`disarm` or ``wedge_s``) and ``partition``
 (:class:`ChaosPartition`, a ``ConnectionError``). Shared params: ``p``,
 ``after``, ``times``, ``peer``, ``delay_s``, ``wedge_s``.
 """
@@ -37,6 +39,11 @@ log = get_logger("chaos")
 # port appears here. Plans validate against it, so a typo'd drill fails
 # loudly instead of silently injecting nothing.
 FAULT_POINTS: Dict[str, str] = {
+    "store.client.op": "native store command round trip "
+                       "(native/client.py; peer=host:port)",
+    "repl.leader_call": "replicated-store leader operation "
+                        "(engine/store.py; peer=host:port)",
+    "repl.pump": "log-shipping pump pass (engine/store.py)",
     "queue.dispatch": "batch handler on the dispatch thread "
                       "(serving/queue.py; peer=queue name)",
     "server.admit": "queue admission decision "
@@ -49,6 +56,11 @@ FAULT_POINTS: Dict[str, str] = {
                    "or prompt)",
     "round.generate": "content generation attempt "
                       "(engine/rounds.py; breaker-guarded)",
+    "fabric.heartbeat": "membership heartbeat (fabric/membership.py)",
+    "fabric.peer_http": "cluster peer HTTP fan-out "
+                        "(server/app.py; peer=worker id)",
+    "score.hedge": "cross-worker scorer hedge attempt "
+                   "(server/app.py; peer=worker id)",
     "overload.brownout": "brownout-ladder tier evaluation "
                          "(serving/overload.py)",
     "stage.denoise.tick": "staged denoise step tick "
@@ -266,6 +278,15 @@ class ChaosPlan:
         raise ChaosInjected(f"chaos: injected failure at {name}")
 
     # -- control -----------------------------------------------------------
+    def release_point(self, name: str) -> int:
+        """Release every wedge rule at a point; returns how many."""
+        released = 0
+        for rule in self._by_point.get(name, ()):
+            if rule.kind == "wedge":
+                rule.release.set()
+                released += 1
+        return released
+
     def status(self) -> Dict[str, object]:
         with self._lock:
             return {
@@ -320,6 +341,10 @@ def armed() -> bool:
     return _PLAN is not None
 
 
+def plan() -> Optional[ChaosPlan]:
+    return _PLAN
+
+
 def configure(spec: object, *, sleep=time.sleep) -> Optional[ChaosPlan]:
     """Arm (or disarm, on an empty spec) the process-global plan.
     ``spec`` is a grammar string or a ``config.ChaosConfig``."""
@@ -363,6 +388,14 @@ def disarm() -> None:
             rule.release.set()
     _PLAN = None
     metrics.gauge("chaos.armed", 0.0)
+
+
+def release(name: str) -> int:
+    """Release the wedge rules at a point (the drill lever that ends a
+    wedge-until-released fault); returns how many."""
+    if _PLAN is None:
+        return 0
+    return _PLAN.release_point(name)
 
 
 def status() -> Dict[str, object]:

@@ -387,6 +387,10 @@ class ObsConfig:
     tail_slow_routes: Tuple[Tuple[str, float], ...] = ()
     # Events /debugz replays from the flight recorder.
     recorder_capacity: int = 512
+    # Per-peer timeout of the cluster fan-outs (/metrics?scope=cluster,
+    # /debugz?trace=&scope=cluster, the scorer hedge): a dark peer costs
+    # at most this and is marked.
+    cluster_fanout_timeout_s: float = 2.0
     # Latency histograms' default bounds (seconds).
     latency_buckets_s: Tuple[float, ...] = _DEFAULT_BUCKETS_S
     # Cadence of the process and device samplers (obs/process.py,
@@ -444,11 +448,10 @@ class GameConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FabricConfig:
-    """The room fabric (fabric/): rooms over one store. One worker with
-    one room (the defaults) is the classic game; the default room lives at
-    the store's un-prefixed keys. The replication fields stay at their
-    defaults: a store cluster comes with many workers (server/app.py
-    ``build_fabric`` refuses another value)."""
+    """The room fabric (fabric/): rooms over one store, placed across the
+    workers that share it. One worker with one room (the defaults) is the
+    classic game; the default room lives at the store's un-prefixed
+    keys."""
 
     # Rooms, each with its own clock, content and scores: ``default_room``
     # and room-1 .. room-(N-1); sessions hash onto them.
@@ -466,12 +469,15 @@ class FabricConfig:
     membership_ttl_s: float = 6.0
     # Virtual nodes per worker on the placement ring.
     vnodes: int = 64
-    # A replicated store's endpoints, pump poll and leader lease.
+    # A replicated store's endpoints ("host:port", ...;
+    # CASSMANTLE_REPL_ENDPOINTS overrides), its pump's poll and the leader
+    # lease, the failover's detection time (CASSMANTLE_REPL_POLL_MS and
+    # CASSMANTLE_REPL_LEASE_MS override).
     repl_endpoints: Tuple[str, ...] = ()
     repl_poll_s: float = 0.05
     repl_lease_s: float = 3.0
-    # The graceful handoff's wait for peers to adopt this worker's rooms
-    # (many workers).
+    # The graceful handoff's wait for every live peer to heartbeat past
+    # this worker's departure, i.e. adopt its rooms.
     handoff_grace_s: float = 5.0
 
 

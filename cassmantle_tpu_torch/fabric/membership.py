@@ -2,10 +2,11 @@
 
 A copy of ``cassmantle_tpu/fabric/membership.py``. Each worker writes one
 field of the ``fabric:workers`` hash, ``{addr, rooms, t}`` with a wall
-clock stamp; a field older than the TTL is a dead worker. One worker
-heartbeats with itself as the only member; its peers come with many
-workers, a later slice. The ``fabric.membership`` lock guards only the
-cached view; store I/O happens outside it.
+clock stamp; a field older than the TTL is a dead worker. Workers join
+and leave one another through the shared store: the live view feeds the
+placement ring (``fabric/directory.py``) and ``/readyz``. The heartbeat
+is behind the ``fabric.heartbeat`` fault point. The ``fabric.membership``
+lock guards only the cached view; store I/O happens outside it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import json
 import time
 from typing import Callable, Dict, Optional
 
+from cassmantle_tpu_torch.chaos import afault_point
 from cassmantle_tpu_torch.engine.store import StateStore
 from cassmantle_tpu_torch.utils.locks import OrderedLock
 from cassmantle_tpu_torch.utils.logging import get_logger, metrics
@@ -45,6 +47,9 @@ class ClusterMembership:
         fabric passes the worker's overload state (``shed``/``btier``,
         serving/overload.py peer_advert) so peers stop hedging scorer
         work into an already-shedding worker."""
+        # a flake here ages this worker toward the staleness TTL: peers
+        # see it leave and adopt its rooms (the membership-churn drill)
+        await afault_point("fabric.heartbeat")
         info: Dict[str, object] = {
             "addr": self.addr,
             "rooms": int(room_count),

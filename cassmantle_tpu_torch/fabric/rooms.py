@@ -1,21 +1,24 @@
 """Room fabric: per-room game engines over namespaced store views.
 
-A copy of ``cassmantle_tpu/fabric/rooms.py``, the path of one worker. A
-**room** is a whole game (its clock, content, sessions and scores) under
-a per-room key prefix of the shared store; :class:`RoomFabric` builds one
-:class:`~cassmantle_tpu_torch.engine.game.Game` per room on first use
-(all sharing the worker's serving stack, so the rooms' rounds funnel into
-the one device path), heartbeats membership with itself as the only
-member, and drains its rooms on a graceful handoff. The **default room**
-maps to the empty prefix: a one-room fabric is the classic game, key for
-key. The cluster key (``fabric:cluster_key`` in the store) signs
-traceparents carried across a redirect and derives the peers' bearer
-token. Serving components with an async ``stop()`` (``services``) stop
-at shutdown, after the rooms drain.
+A copy of ``cassmantle_tpu/fabric/rooms.py``. A **room** is a whole game
+(its clock, content, sessions and scores) under a per-room key prefix of
+the shared store; :class:`RoomFabric` builds one
+:class:`~cassmantle_tpu_torch.engine.game.Game` per room it owns on first
+use (all sharing the worker's serving stack, so the rooms' rounds funnel
+into the one device path), heartbeats membership, drains the rooms the
+ring moves to a peer when membership changes, and on a graceful handoff
+leaves, drains and waits (``FabricConfig.handoff_grace_s``) until every
+live peer has heartbeated past the departure, i.e. adopted its rooms.
+The **default room** maps to the empty prefix: a one-room fabric is the
+classic game, key for key. The cluster key (``fabric:cluster_key`` in
+the store) signs traceparents carried across a redirect and derives the
+peers' bearer token. Serving components with an async ``stop()``
+(``services``) stop at shutdown, after the rooms drain.
 
 The fabric's own state (the room -> game map, startup tasks) is touched
 only from the serving event loop; the thread-locked pieces are the
-directory ring and the membership cache.
+directory ring, the replication status snapshot and the membership
+cache.
 """
 
 from __future__ import annotations
@@ -415,15 +418,25 @@ class RoomFabric:
     def draining(self) -> bool:
         return self._draining
 
-    async def handoff(self) -> None:
-        """Graceful departure of the one worker: stop the heartbeat (it
-        would re-announce us), leave the membership table, and drain the
-        room engines (clocks stop; round and session state stay in the
-        store). /readyz reports ``draining`` for as long as this worker
-        still answers probes. With many workers the peers' adoption wait
-        comes too (ROADMAP Queue 1, many workers). Idempotent; the
-        server's shutdown hook (create_app on_shutdown) runs it before
-        cleanup."""
+    async def handoff(self, grace_s: Optional[float] = None) -> None:
+        """Graceful SIGTERM departure: make peers adopt this worker's
+        rooms BEFORE the process dies, instead of after the membership
+        staleness TTL notices the silence.
+
+        Sequence: stop the heartbeat (it would re-announce us), leave
+        the membership table, rebuild the LOCAL ring without ourselves
+        (any request still answered for an ex-room 307s to its new
+        owner — the operator-initiated drain case, where the listener
+        is still up; under SIGTERM aiohttp has already closed it),
+        drain the room engines (clocks stop; round/session state stays
+        in the shared store for the adopters to resume), then wait —
+        bounded by ``FabricConfig.handoff_grace_s`` — until every live
+        peer has heartbeated PAST our departure (its beat re-reads
+        membership and rebuilds its ring = adoption). /readyz reports
+        ``draining`` for as long as this worker still answers probes,
+        so load balancers stop admitting while in-flight requests
+        finish under their deadlines. Idempotent; the server's SIGTERM
+        hook (create_app on_shutdown) runs it before cleanup."""
         if self._draining:
             return
         self._draining = True
@@ -440,8 +453,40 @@ class RoomFabric:
         if self._heartbeat_enabled:
             with contextlib.suppress(Exception):
                 await self.membership.leave()
+        # baseline each live peer's CURRENT stamp, read AFTER the leave
+        # landed: a peer beat stamps itself BEFORE its membership
+        # refresh, so a stamp that ADVANCES past this baseline implies
+        # the refresh following it read a table without us — the ring
+        # rebuild that adopts our rooms. Comparing a peer's stamp to
+        # its OWN earlier stamp keeps this correct across hosts: an
+        # absolute our-clock-vs-their-clock compare would let skew
+        # either confirm adoption off a pre-leave beat or stall every
+        # deploy for the full grace.
+        baseline: Dict[str, float] = {}
+        if self._heartbeat_enabled:
+            try:
+                table = await self.membership.table()
+                baseline = {
+                    w: float(row["info"].get("t", 0.0))
+                    for w, row in table.items()
+                    if w != self.worker_id and not row["stale"]
+                }
+            except Exception:
+                baseline = {}
+        # move the ring NOW: ownership answers flip to the survivors
+        # while this worker can still serve the redirects
+        peers = [w for w in self.directory.workers()
+                 if w != self.worker_id]
+        if peers:
+            moves = self.directory.set_workers(peers)
+            for room, (old, new) in moves.items():
+                metrics.inc("fabric.room_moves")
+                flight_recorder.record("fabric.room_move", room=room,
+                                       src=old, dst=new)
         for room in list(self._games):
             await self.drain_room(room)
+        if peers and self._heartbeat_enabled:
+            await self._await_adoption(baseline, grace_s)
         duration = asyncio.get_running_loop().time() - t0
         metrics.observe("fabric.handoff_s", duration)
         flight_recorder.record("fabric.handoff_complete",
@@ -449,6 +494,37 @@ class RoomFabric:
                                duration_s=round(duration, 3))
         log.info("graceful handoff complete: %d room(s) released in "
                  "%.2fs", rooms_held, duration)
+
+    async def _await_adoption(self, baseline: Dict[str, float],
+                              grace_s: Optional[float]) -> None:
+        """Block (bounded) until every live peer's heartbeat stamp has
+        ADVANCED past its post-leave baseline — that beat rebuilt the
+        peer's ring, i.e. our rooms are adopted. Each peer's stamp is
+        compared only to its own earlier stamp (skew-safe across
+        hosts); a peer with no baseline joined after we left and
+        already holds the new ring. A peer that also left (its row is
+        gone) or a store outage stops the wait: dying is the job here,
+        waiting forever is not."""
+        grace = (grace_s if grace_s is not None
+                 else self.cfg.fabric.handoff_grace_s)
+        deadline = asyncio.get_running_loop().time() + grace
+        poll = min(0.1, max(0.02, self.cfg.fabric.heartbeat_s / 4.0))
+        while asyncio.get_running_loop().time() < deadline:
+            try:
+                table = await self.membership.table()
+            except Exception:
+                return  # store unreachable: nothing left to confirm
+            live = {w: row for w, row in table.items()
+                    if w != self.worker_id and not row["stale"]}
+            if not live:
+                return  # peers left too (fleet-wide shutdown)
+            if all(w not in baseline
+                   or float(row["info"].get("t", 0.0)) > baseline[w]
+                   for w, row in live.items()):
+                return
+            await asyncio.sleep(poll)
+        log.warning("handoff grace (%.1fs) expired before every peer "
+                    "re-heartbeated; exiting anyway", grace)
 
     # -- lifecycle ---------------------------------------------------------
     async def startup(self) -> None:

@@ -28,9 +28,10 @@ point at it. Verdicts feed ``probe.ok`` / ``probe.failures`` /
 
 ``CASSMANTLE_NO_PROBER=1`` (read at startup and every tick) leaves no
 probe artifact: no metric, no store key, no task, no objective.
-``CASSMANTLE_PROBE_INTERVAL_S`` overrides the cadence (floor 0.5 s). One
-worker probes itself; the walk over peers' addresses comes with many
-workers.
+``CASSMANTLE_PROBE_INTERVAL_S`` overrides the cadence (floor 0.5 s). Each
+pass probes this worker through its own listener, then every live peer
+with an advertised address through the peer's listener, with the cluster
+token: every worker checks its peers' serving paths from outside.
 """
 
 from __future__ import annotations
@@ -132,7 +133,7 @@ def prober_disabled() -> bool:
 class CanaryProber:
     """The worker's probe loop. ``self_addr`` is this worker's own HTTP
     address: the probe goes through the real listener and its
-    middlewares."""
+    middlewares; peers are probed at the addresses they advertise."""
 
     def __init__(self, fabric, cfg, self_addr: Optional[str] = None):
         self.fabric = fabric
@@ -309,8 +310,8 @@ class CanaryProber:
                     f"exact answer for mask {m} scored {val}, not 1.0")
 
     def _targets(self) -> List[Tuple[str, Optional[str]]]:
-        """This worker first, then every live peer with an address (one
-        worker: itself alone)."""
+        """This worker first, then every live peer of the membership
+        table with an advertised address."""
         targets: List[Tuple[str, Optional[str]]] = [
             (self.fabric.worker_id,
              self.self_addr or self.fabric.membership.addr or None)]

@@ -1,6 +1,6 @@
-"""HTTP/WS API surface (aiohttp): the game server of one worker.
+"""HTTP/WS API surface (aiohttp): the game server.
 
-Port of ``cassmantle_tpu/server/app.py`` over a local
+Port of ``cassmantle_tpu/server/app.py`` over a
 :class:`~cassmantle_tpu_torch.fabric.rooms.RoomFabric`, served by the
 port's ``InferenceService`` and ``Game``. Routes, with the reference's
 bodies, status codes and headers:
@@ -12,14 +12,21 @@ bodies, status codes and headers:
                             prompt, story}
 - ``POST /compute_score``  {inputs: {mask_idx: guess}} -> scores; floor
                             scores marked ``X-Score-Degraded`` while the
-                            scorer is dark; ``X-Queue-Wait`` and
-                            ``X-Service-Time`` from the batching queue
+                            scorer is dark and no peer answered a hedge
+                            (``X-Score-Hedged`` where one did);
+                            ``X-Queue-Wait`` and ``X-Service-Time``
+                            from the batching queue
 - ``WS   /clock``          1 Hz {time, reset, conns}
 - ``GET  /metrics``        the JSON snapshot; Prometheus text under
                            ``Accept: text/plain``, OpenMetrics under
-                           ``application/openmetrics-text``
+                           ``application/openmetrics-text``;
+                           ``?scope=cluster`` merges every live member's
+                           registry, ``?format=state`` is the peers'
+                           wire form (loopback or cluster peers)
 - ``GET  /debugz``         the flight recorder's tail, or one trace's
-                           spans (``?trace=<X-Trace-Id>``); loopback only
+                           spans (``?trace=<X-Trace-Id>``;
+                           ``&scope=cluster`` merges it across workers);
+                           loopback or cluster peers
 - ``POST /debug/trace``    a ``torch.profiler`` capture of N seconds
                            (``?seconds=N[&name=]``) under
                            ``CASSMANTLE_TRACE_ROOT``; loopback or the
@@ -43,9 +50,19 @@ canary block reads ``{"enabled": false}``), and, under
 ``CASSMANTLE_LEAK_SENTINEL=1``, the leak census (``utils/leak_sentinel.py``)
 at the process sampler's cadence. ``python -m cassmantle_tpu_torch serve``
 runs :func:`main`; it serves on the card unless ``--platform cpu`` or
-``--fake`` asks for the host. Left for later slices (``ROADMAP.md`` Queue
-1 item 9): everything of many workers, the prober's walk over peers
-included: peer hedging, cluster federation and a shared store.
+``--fake`` asks for the host.
+
+Many workers: every room-scoped route answers a room another worker owns
+with a 307 to the owner's advertised address (``--advertise``), the
+room, the session and a signed traceparent in the query; a worker whose
+scorer is dark hedges the guesses to a healthy peer before it serves
+floor scores; ``/metrics`` and ``/debugz`` federate over the live members.
+The store is shared: one native node (``--store native[:port]``) or a
+replicated set of them (``--store repl:host:port,...``).
+``--workers N`` starts N - 1 more processes on the same port
+(``SO_REUSEPORT``) over one such store, on the host only (``--fake`` or
+``--platform cpu``): the card has one owning process. A card worker joins
+a fleet of hosts through a replicated store and ``--advertise``.
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ import json
 import math
 import os
 import re
+import socket
 import tempfile
 import time
 import uuid
@@ -67,7 +85,8 @@ from typing import Optional
 from aiohttp import WSMsgType, web
 
 from cassmantle_tpu_torch import chaos
-from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.chaos import afault_point
+from cassmantle_tpu_torch.config import FrameworkConfig, ObsConfig
 from cassmantle_tpu_torch.engine.game import PROBE_ROOM, Game
 from cassmantle_tpu_torch.fabric.rooms import RoomFabric
 from cassmantle_tpu_torch.obs import (
@@ -87,12 +106,18 @@ from cassmantle_tpu_torch.obs.slo import SloEngine, default_objectives
 from cassmantle_tpu_torch.obs.trace import (
     current_ctx,
     current_marks,
+    format_traceparent,
     parse_traceparent,
 )
 from cassmantle_tpu_torch.serving import overload
 from cassmantle_tpu_torch.serving.queue import OverloadShed
 from cassmantle_tpu_torch.utils import leak_sentinel
-from cassmantle_tpu_torch.utils.logging import NULL_METRICS, get_logger, metrics
+from cassmantle_tpu_torch.utils.logging import (
+    NULL_METRICS,
+    get_logger,
+    merge_states,
+    metrics,
+)
 
 log = get_logger("app")
 
@@ -102,17 +127,16 @@ STATIC_DIR = os.path.join(_ROOT, "static")
 DATA_DIR = os.path.join(_ROOT, "data")
 MEDIA_DIR = os.path.join(_ROOT, "media")
 
-# what the slice leaves to the ROADMAP's later items, named in refusals
-_MANY_WORKERS = "ROADMAP.md Queue 1 item 9 (many workers)"
-
 _FABRIC = web.AppKey("fabric", RoomFabric)
 _SLO = web.AppKey("slo_engine", SloEngine)
 _PROCESS = web.AppKey("process_metrics", ProcessMetrics)
 _DEVICE = web.AppKey("device_metrics", DeviceMetrics)
+_OBS_CFG = web.AppKey("obs_cfg", ObsConfig)
 # mutable holders (aiohttp freezes app keys at startup): the obs tasks,
-# the canary prober (None under CASSMANTLE_NO_PROBER) and the single
-# flight of /debug/trace
+# the canary prober (None under CASSMANTLE_NO_PROBER), the single flight
+# of /debug/trace and the lazy ClientSession of the peer fan-outs
 _OBS_TASKS = web.AppKey("obs_tasks", list)
+_PEER_HTTP = web.AppKey("peer_http", dict)
 _PROBER = web.AppKey("prober", dict)
 _TRACE_STATE = web.AppKey("trace_state", dict)
 
@@ -122,7 +146,8 @@ def _env_flag_set(name: str) -> bool:
 
 
 def _cluster_obs_enabled() -> bool:
-    """CASSMANTLE_NO_CLUSTER_OBS=1: inbound trace contexts are ignored."""
+    """CASSMANTLE_NO_CLUSTER_OBS=1: inbound trace contexts are ignored
+    and the cluster fan-outs answer worker-local."""
     return not _env_flag_set("CASSMANTLE_NO_CLUSTER_OBS")
 
 
@@ -153,6 +178,41 @@ def _room_of(request: web.Request) -> str:
     return fabric.directory.room_for_session(principal)
 
 
+def _check_room_ownership(request: web.Request, fabric: RoomFabric,
+                          room: str) -> None:
+    """The ownership gate of every room-scoped route: a room another
+    worker owns answers 307 to the owner's advertised address; with no
+    address the room serves here (the per-room store locks keep that
+    safe). The Location carries the room and the session (cookies do not
+    cross hosts) and the active trace context with its signature under
+    the cluster key, so the owner continues this trace. A peer's scorer
+    hedge (``X-Score-Hedge: 1`` from a cluster peer) serves here: its
+    room's owner is the worker that hedged."""
+    if request.headers.get("X-Score-Hedge") == "1" and \
+            _is_cluster_peer(request, fabric):
+        metrics.inc("score.hedge_served")
+        return
+    if fabric.is_local(room):
+        return
+    addr = fabric.owner_addr(room)
+    if not addr:
+        metrics.inc("fabric.foreign_serves")
+        return
+    metrics.inc("fabric.redirects")
+    url = request.rel_url.update_query(room=room)
+    session = _session_id(request)
+    if session:
+        url = url.update_query(session=session)
+    ctx = current_ctx()
+    if ctx is not None:
+        tp = format_traceparent(ctx)
+        url = url.update_query(traceparent=tp)
+        sig = fabric.sign_trace(tp)
+        if sig:
+            url = url.update_query(tracesig=sig)
+    raise web.HTTPTemporaryRedirect(location=addr.rstrip("/") + str(url))
+
+
 async def _resolve_probe_game(request: web.Request, fabric: RoomFabric):
     """(PROBE_ROOM, the probe game) for a canary request: the probe room
     exists on every worker, is a 404 to anyone but a cluster peer (like
@@ -171,14 +231,15 @@ async def _resolve_probe_game(request: web.Request, fabric: RoomFabric):
 
 
 async def _resolve_game(request: web.Request):
-    """(room, game) for this request. One worker owns every room: the
-    reference's redirect to a room's owner comes with many workers."""
+    """(room, game) for this request, after the ownership gate. The probe
+    room is never redirected: a probe asks a given worker."""
     fabric = request.app[_FABRIC]
     if _explicit_room(request) == PROBE_ROOM:
         return await _resolve_probe_game(request, fabric)
     room = _room_of(request)
     if not fabric.directory.has_room(room):
         raise web.HTTPNotFound(text=f"unknown room {room!r}")
+    _check_room_ownership(request, fabric, room)
     try:
         return room, await fabric.game_for(room)
     except KeyError:
@@ -336,6 +397,9 @@ async def handle_init(request: web.Request) -> web.Response:
         fabric.directory.room_for_session(session_id)
     if not fabric.directory.has_room(room):
         raise web.HTTPNotFound(text=f"unknown room {room!r}")
+    # init on a non-owner redirects too: it must not start a second
+    # engine (and a second round clock) of the room here
+    _check_room_ownership(request, fabric, room)
     game = await fabric.game_for(room)
     await game.init_client(session_id)
     response = web.json_response({"message": "Session initialized",
@@ -368,6 +432,66 @@ async def handle_fetch_contents(request: web.Request) -> web.Response:
     return response
 
 
+# A hedge dials at most this many peers, and a hedged request never hedges
+# again: a sick cluster degrades after one bounded fan, it cannot storm.
+SCORE_HEDGE_MAX_ATTEMPTS = 2
+
+
+async def _hedge_score(request: web.Request, room: str, session: str,
+                       payload: dict) -> Optional[dict]:
+    """The scorer's failover across workers: with the local scorer dark,
+    post the guesses to a healthy peer's /compute_score with the cluster
+    token and ``X-Score-Hedge: 1`` (the peer serves the room there and
+    never hedges again). Peers whose heartbeat advertises overload
+    (admission shedding, a brownout tier) are skipped. Returns the peer's
+    scores, or None when no peer answered (floor scores are the last
+    resort)."""
+    fabric = request.app[_FABRIC]
+    token = fabric.cluster_token()
+    if token is None:
+        return None
+    try:
+        table = await fabric.membership.table()
+    except Exception:
+        # best effort: no table is no peer, and the floor serves
+        return None
+    peers = []
+    for worker, row in sorted(table.items()):
+        if worker == fabric.worker_id or row["stale"] or \
+                not row["info"].get("addr"):
+            continue
+        if row["info"].get("shed") or row["info"].get("btier"):
+            # hedging into a shedding or browned-out peer trades a local
+            # floor score for a remote 503
+            metrics.inc("score.hedge_skipped_overloaded")
+            continue
+        peers.append((worker, row["info"].get("addr")))
+    http = _peer_session(request)
+    for worker, addr in peers[:SCORE_HEDGE_MAX_ATTEMPTS]:
+        metrics.inc("score.hedge_attempts")
+        try:
+            await afault_point("score.hedge", peer=worker)
+            async with http.post(
+                    addr.rstrip("/") + "/compute_score",
+                    params={"room": room, "session": session},
+                    json=payload,
+                    headers={"X-Cluster-Auth": token,
+                             "X-Score-Hedge": "1"}) as res:
+                if res.status != 200:
+                    # a degraded peer sheds the hedge with 503: try the
+                    # next one, never loop back
+                    metrics.inc("score.hedge_failures")
+                    continue
+                data = await res.json()
+        except Exception:
+            metrics.inc("score.hedge_failures")
+            continue
+        metrics.inc("score.hedge_success")
+        flight_recorder.record("score.hedge", peer=worker, room=room)
+        return data
+    return None
+
+
 async def handle_compute_score(request: web.Request) -> web.Response:
     room, game = await _resolve_game(request)
     supervisor = game.supervisor
@@ -379,15 +503,20 @@ async def handle_compute_score(request: web.Request) -> web.Response:
     except Exception:
         raise web.HTTPBadRequest(text="body must be {inputs: {idx: guess}}")
     if supervisor.shed_scores() or supervisor.device_unhealthy():
-        # the local scorer is dark. The reference's ladder: a request that
-        # is itself a peer's hedge sheds 503 (hedges never cascade); else
-        # hedge to a healthy peer; else floor scores, marked. One worker
-        # has no peer, so the floor follows at once.
+        # the local scorer is dark: a request that is itself a peer's
+        # hedge sheds 503 (hedges never cascade); else hedge to a healthy
+        # peer; else floor scores, marked
         if request.headers.get("X-Score-Hedge") == "1":
             metrics.inc("http.score_shed")
             raise web.HTTPServiceUnavailable(
                 text="scoring degraded; retry shortly",
                 headers={"Retry-After": str(int(supervisor.retry_after_s()))})
+        hedged = await _hedge_score(request, room, session,
+                                    {"inputs": inputs})
+        if hedged is not None:
+            response = web.json_response(hedged)
+            response.headers["X-Score-Hedged"] = "1"
+            return response
         metrics.inc("score.hedge_floor")
         flight_recorder.record("score.floor", room=room)
     await game.ensure_client(session)
@@ -451,49 +580,155 @@ async def handle_clock(request: web.Request) -> web.WebSocketResponse:
     return ws
 
 
+def _peer_session(request: web.Request):
+    """The app's ClientSession for cluster fan-outs, made on first use (so
+    it binds the serving loop) and closed at cleanup."""
+    import aiohttp
+
+    holder = request.app[_PEER_HTTP]
+    if holder.get("session") is None:
+        holder["session"] = aiohttp.ClientSession(
+            timeout=aiohttp.ClientTimeout(
+                total=request.app[_OBS_CFG].cluster_fanout_timeout_s))
+    return holder["session"]
+
+
+async def _peer_fanout(request: web.Request, path: str, params: dict):
+    """One GET to every live member at once, this worker excluded:
+    ``(worker, row)`` pairs, row ``{"status": "ok", "data": <JSON>}`` or a
+    status that says why a peer is missing (``stale``, ``no_addr``,
+    ``error``, ``http_<code>``). Requests carry the cluster token, so a
+    peer's gate admits them whatever its membership addresses resolve
+    to."""
+    fabric = request.app[_FABRIC]
+    session = _peer_session(request)
+    headers = {}
+    token = fabric.cluster_token()
+    if token:
+        headers["X-Cluster-Auth"] = token
+
+    async def fetch(worker: str, addr: str):
+        try:
+            # a worker-scoped partition marks exactly that peer errored
+            await afault_point("fabric.peer_http", peer=worker)
+            async with session.get(addr.rstrip("/") + path, params=params,
+                                   headers=headers) as res:
+                if res.status != 200:
+                    return worker, {"status": f"http_{res.status}"}
+                data = await res.json()
+            return worker, {"status": "ok", "data": data}
+        except Exception as exc:
+            metrics.inc("obs.federation_peer_errors")
+            return worker, {"status": "error", "error": type(exc).__name__}
+
+    results, fetches = [], []
+    table = await fabric.membership.table()
+    for worker, row in sorted(table.items()):
+        if worker == fabric.worker_id:
+            continue
+        if row["stale"]:
+            results.append((worker, {"status": "stale",
+                                     "age_s": row["age_s"]}))
+            continue
+        addr = row["info"].get("addr")
+        if not addr:
+            results.append((worker, {"status": "no_addr"}))
+            continue
+        fetches.append(fetch(worker, addr))
+    results.extend(await asyncio.gather(*fetches))
+    return results
+
+
+async def _federated_metrics(request: web.Request):
+    """(merged registry, federation block): this worker's registry state
+    and every reachable peer's, merged by ``merge_states`` (counters sum,
+    gauges labeled by worker, histograms bucket by bucket). A
+    ``federation.peer_up`` gauge per worker carries the view's coverage
+    into every exposition."""
+    fabric = request.app[_FABRIC]
+    states = [(fabric.worker_id, metrics.dump_state())]
+    federation = {fabric.worker_id: {"status": "self"}}
+    for worker, row in await _peer_fanout(request, "/metrics",
+                                          {"format": "state"}):
+        state = row.get("data", {}).get("state") \
+            if row["status"] == "ok" else None
+        if state is not None:
+            states.append((worker, state))
+            federation[worker] = {"status": "ok"}
+        elif row["status"] == "ok":
+            # a 200 without the state payload: marked, never a 500
+            federation[worker] = {"status": "bad_payload"}
+        else:
+            federation[worker] = row
+    cluster_metrics = merge_states(states)
+    for worker, row in federation.items():
+        cluster_metrics.gauge(
+            "federation.peer_up",
+            1.0 if row["status"] in ("self", "ok") else 0.0,
+            labels={"worker": worker})
+    return cluster_metrics, federation
+
+
 async def handle_metrics(request: web.Request) -> web.Response:
     """Content-negotiated: OpenMetrics or Prometheus text for a scraper,
-    the JSON snapshot otherwise (``?exemplars=1`` adds exemplars). The
-    cluster forms (``?scope=cluster``, ``?format=state``) come with many
-    workers."""
+    the JSON snapshot otherwise (``?exemplars=1`` adds exemplars).
+    ``?scope=cluster`` federates every live member's registry into one
+    view (unreachable peers marked in the ``federation`` block and the
+    ``federation.peer_up`` gauge); ``?format=state`` is this worker's full
+    registry state, the peers' wire form (always worker-local: a peer's
+    request never fans out again). The two cluster forms answer loopback
+    and cluster peers only: an open fan-out would amplify any client's
+    request N-fold."""
     request.app[_PROCESS].sample()
     request.app[_DEVICE].sample()
     fabric = request.app[_FABRIC]
-    if request.query.get("format") == "state" or \
-            request.query.get("scope") == "cluster":
-        if not _is_cluster_peer(request, fabric):
-            raise web.HTTPForbidden(
-                text="cluster metrics: loopback or cluster peers only")
-        raise web.HTTPNotImplemented(
-            text=f"cluster metrics come with {_MANY_WORKERS}")
+    fmt_state = request.query.get("format") == "state"
+    cluster = request.query.get("scope") == "cluster"
+    if (fmt_state or cluster) and not _is_cluster_peer(request, fabric):
+        raise web.HTTPForbidden(
+            text="cluster metrics: loopback or cluster peers only")
+    if fmt_state:
+        return web.json_response({"worker": fabric.worker_id,
+                                  "state": metrics.dump_state()})
+    federation = None
+    registry = metrics
+    if cluster:
+        if _cluster_obs_enabled():
+            registry, federation = await _federated_metrics(request)
+        else:
+            federation = {"disabled": True}
     accept = request.headers.get("Accept", "")
     if "application/openmetrics-text" in accept:
         return web.Response(
-            body=metrics.openmetrics().encode(),
+            body=registry.openmetrics().encode(),
             headers={"Content-Type": "application/openmetrics-text; "
                                      "version=1.0.0; charset=utf-8"})
     if "text/plain" in accept or "openmetrics" in accept:
         return web.Response(
-            body=metrics.prometheus().encode(),
+            body=registry.prometheus().encode(),
             headers={"Content-Type":
                      "text/plain; version=0.0.4; charset=utf-8"})
-    return web.json_response(metrics.snapshot(
-        exemplars=request.query.get("exemplars") == "1"))
+    snap = registry.snapshot(
+        exemplars=request.query.get("exemplars") == "1")
+    if federation is not None:
+        snap["federation"] = federation
+    return web.json_response(snap)
 
 
 async def handle_debugz(request: web.Request) -> web.Response:
     """The serving black box, for loopback and cluster peers:
-    ``?trace=<id>`` returns one trace's spans; otherwise the flight
-    recorder's tail (``?n=`` limits, ``?kind=`` filters by kind or
-    ``prefix.``) with the recorder's and tracer's stats."""
+    ``?trace=<id>`` returns one trace's spans (``&scope=cluster`` merges
+    them across the live members: a request that was redirected left
+    spans on two workers); otherwise the flight recorder's tail (``?n=``
+    limits, ``?kind=`` filters by kind or ``prefix.``) with the
+    recorder's and tracer's stats."""
     if not _is_cluster_peer(request, request.app[_FABRIC]):
         raise web.HTTPForbidden(text="loopback or cluster peers only")
     trace_id = request.query.get("trace")
     if trace_id:
         if request.query.get("scope") == "cluster" and \
                 _cluster_obs_enabled():
-            raise web.HTTPNotImplemented(
-                text=f"cluster traces come with {_MANY_WORKERS}")
+            return await _cluster_trace(request, trace_id)
         spans = tracer.get_trace(trace_id)
         if spans is None:
             raise web.HTTPNotFound(
@@ -511,6 +746,34 @@ async def handle_debugz(request: web.Request) -> web.Response:
         "tracer": tracer.stats(),
         "recent_traces": tracer.trace_ids()[-25:],
     })
+
+
+async def _cluster_trace(request: web.Request,
+                         trace_id: str) -> web.Response:
+    """``/debugz?trace=<id>&scope=cluster``: this worker's spans of the
+    trace and every live peer's (each answers its local lookup), deduped
+    by span id, in time order, with a ``peers`` block: a peer without the
+    trace is a ``miss``, a dark one is marked."""
+    fabric = request.app[_FABRIC]
+    merged = {s["span_id"]: s for s in (tracer.get_trace(trace_id) or [])}
+    peers = {fabric.worker_id: {"status": "self", "spans": len(merged)}}
+    for worker, row in await _peer_fanout(request, "/debugz",
+                                          {"trace": trace_id}):
+        if row["status"] == "ok":
+            remote = row["data"].get("spans", [])
+            for span in remote:
+                merged.setdefault(span["span_id"], span)
+            peers[worker] = {"status": "ok", "spans": len(remote)}
+        elif row["status"] == "http_404":
+            peers[worker] = {"status": "miss"}
+        else:
+            peers[worker] = row
+    if not merged:
+        raise web.HTTPNotFound(
+            text=f"trace {trace_id!r} not resident on any reachable worker")
+    spans = sorted(merged.values(), key=lambda s: s["start_ts"])
+    return web.json_response({"trace_id": trace_id, "scope": "cluster",
+                              "spans": spans, "peers": peers})
 
 
 async def handle_sloz(request: web.Request) -> web.Response:
@@ -732,6 +995,8 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
     app = web.Application(middlewares=[
         cors_middleware, make_ratelimit_middleware(cfg), tracing_middleware])
     app[_FABRIC] = fabric
+    app[_OBS_CFG] = cfg.obs
+    app[_PEER_HTTP] = {"session": None}
     app[_OBS_TASKS] = []
     app[_PROBER] = {"prober": None}
     app[_TRACE_STATE] = {"active": False}
@@ -813,6 +1078,9 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
                 await task
             except (asyncio.CancelledError, Exception):
                 pass
+        session = app_[_PEER_HTTP].get("session")
+        if session is not None:
+            await session.close()
         await fabric.shutdown()
         if device_obs.active() is app_[_DEVICE]:
             device_obs.install(None)
@@ -824,22 +1092,51 @@ def create_app(game: "Game | RoomFabric", cfg: FrameworkConfig,
 
 
 def _build_store(store_addr: Optional[str], cfg: FrameworkConfig):
-    """The worker's store: a MemoryStore. A store address or replication
-    endpoints come with many workers and raise."""
-    from cassmantle_tpu_torch.engine.store import MemoryStore
+    """The worker's store: a MemoryStore (one process); a MantleStore
+    (``native[:port]``, one node that the workers share; default port
+    7070); or a ReplicatedStore (``repl:host:port,host:port``, else
+    CASSMANTLE_REPL_ENDPOINTS, else ``fabric.repl_endpoints``: a leader
+    and followers with lease failover; CASSMANTLE_REPL_LEASE_MS and
+    CASSMANTLE_REPL_POLL_MS override the lease and the pump's poll). A
+    mistyped address raises ValueError and a native node that does not
+    answer raises ConnectionError here; a replicated set with no
+    promotable leader raises at startup, when the store elects one. None
+    falls back to a per-process store: a fleet would split into separate
+    games."""
+    from cassmantle_tpu_torch.engine.store import MemoryStore, ReplicatedStore
 
-    endpoints = (os.environ.get("CASSMANTLE_REPL_ENDPOINTS", "").strip()
-                 or cfg.fabric.repl_endpoints)
-    if store_addr or endpoints:
-        raise ValueError(
-            f"store address {store_addr or endpoints!r}: a shared or "
-            f"replicated store comes with {_MANY_WORKERS}; one worker "
-            f"serves from its in-process MemoryStore")
-    default = type(cfg.fabric)()
-    fields = ("repl_poll_s", "repl_lease_s", "handoff_grace_s")
-    if any(getattr(cfg.fabric, f) != getattr(default, f) for f in fields):
-        raise ValueError(f"fabric replication settings come with "
-                         f"{_MANY_WORKERS}")
+    endpoints = os.environ.get("CASSMANTLE_REPL_ENDPOINTS", "")
+    endpoints = tuple(e.strip() for e in endpoints.split(",") if e.strip()) \
+        or tuple(cfg.fabric.repl_endpoints)
+    if store_addr and store_addr.startswith("repl:"):
+        endpoints = tuple(e.strip() for e in
+                          store_addr[len("repl:"):].split(",") if e.strip())
+        store_addr = None
+    if endpoints:
+        lease_ms = os.environ.get("CASSMANTLE_REPL_LEASE_MS")
+        poll_ms = os.environ.get("CASSMANTLE_REPL_POLL_MS")
+        return ReplicatedStore(
+            list(endpoints),
+            poll_interval_s=(float(poll_ms) / 1000.0 if poll_ms
+                             else cfg.fabric.repl_poll_s),
+            lease_timeout_s=(float(lease_ms) / 1000.0 if lease_ms
+                             else cfg.fabric.repl_lease_s))
+    if store_addr:
+        m = re.fullmatch(r"native(?::(\d+))?", store_addr)
+        if not m:
+            raise ValueError(
+                f"unknown store address {store_addr!r} (expected "
+                f"'native[:port]' or 'repl:host:port,host:port')")
+        from cassmantle_tpu_torch.native.client import MantleStore
+
+        port = int(m.group(1) or 7070)
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=2.0).close()
+        except OSError as exc:
+            raise ConnectionError(
+                f"store {store_addr!r}: no mantlestore answers on "
+                f"127.0.0.1:{port} ({exc})") from exc
+        return MantleStore(port=port)
     return MemoryStore()
 
 
@@ -905,8 +1202,9 @@ def build_game(cfg: FrameworkConfig, fake: bool = False,
                weights_dir: Optional[str] = None,
                store_addr: Optional[str] = None, device="cuda") -> Game:
     """One Game over the fake backend or the port's InferenceService on
-    ``device`` (default the card; raises without CUDA). Multi-room serving
-    goes through :func:`build_fabric`."""
+    ``device`` (default the card; raises without CUDA), on the store
+    ``store_addr`` names (:func:`_build_store`). Multi-room serving goes
+    through :func:`build_fabric`."""
     from cassmantle_tpu_torch.serving.supervisor import ServingSupervisor
 
     supervisor = ServingSupervisor()
@@ -933,10 +1231,12 @@ def build_fabric(cfg: FrameworkConfig, fake: bool = False,
                  worker_id: Optional[str] = None,
                  advertise_addr: Optional[str] = None,
                  device="cuda") -> RoomFabric:
-    """The room fabric of one worker: its store, one serving stack on
-    ``device`` (default the card; raises without CUDA) and per-room Games
-    built on demand. Env overrides: CASSMANTLE_ROOM_COUNT,
-    CASSMANTLE_ROOM_WORKER_ID, CASSMANTLE_ROOM_ADVERTISE."""
+    """The room fabric of one worker: its store (``store_addr``, see
+    :func:`_build_store`), one serving stack on ``device`` (default the
+    card; raises without CUDA) and per-room Games built on demand. Env
+    overrides: CASSMANTLE_ROOM_COUNT, CASSMANTLE_ROOM_WORKER_ID,
+    CASSMANTLE_ROOM_ADVERTISE, CASSMANTLE_REPL_ENDPOINTS,
+    CASSMANTLE_REPL_LEASE_MS, CASSMANTLE_REPL_POLL_MS."""
     from cassmantle_tpu_torch.serving.supervisor import ServingSupervisor
 
     cfg = apply_fabric_env(cfg)
@@ -986,7 +1286,7 @@ def _config_for(args) -> FrameworkConfig:
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="cassmantle game server, one worker (PyTorch port)")
+        description="cassmantle game server (PyTorch port)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--fake", action="store_true",
@@ -996,13 +1296,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "init)")
     parser.add_argument("--round-seconds", type=float, default=None)
     parser.add_argument("--store", default=None,
-                        help="a shared store: not in this slice (raises)")
+                        help="'native[:port]' = one shared mantlestore node "
+                             "(native/mantlestore.cc; "
+                             "cassmantle_tpu_torch.native.client."
+                             "spawn_server starts one); "
+                             "'repl:host:port,host:port' = a replicated "
+                             "set (leader writes, log shipping, lease "
+                             "failover); default: this process's own "
+                             "MemoryStore")
     parser.add_argument("--rooms", type=int, default=None,
                         help="concurrent game rooms (default 1)")
     parser.add_argument("--worker-id", default=None,
-                        help="stable worker identity (default host:pid)")
+                        help="stable worker identity for room placement "
+                             "(default host:pid)")
     parser.add_argument("--advertise", default=None,
-                        help="address peers redirect room traffic to")
+                        help="address peers redirect this worker's rooms "
+                             "to, e.g. http://10.0.0.3:8000 (unset: no "
+                             "redirects to it; foreign rooms serve "
+                             "locally)")
     parser.add_argument("--preset", default="sd15",
                         choices=("sd15", "sdxl", "fast", "deepcache",
                                  "turbo"),
@@ -1022,20 +1333,82 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "<family>.int8.safetensors from --weights when "
                              "it is there; see quantize-weights)")
     parser.add_argument("--workers", type=int, default=1,
-                        help="worker processes: one in this slice")
+                        help="worker processes sharing the port "
+                             "(SO_REUSEPORT) and one --store (required "
+                             "above 1): every worker runs the lock-guarded "
+                             "round timer, exactly one generates a round")
     args = parser.parse_args(argv)
-    if args.workers != 1:
-        parser.error(f"--workers {args.workers}: many workers come with "
-                     f"{_MANY_WORKERS}")
-    if args.store:
-        parser.error(f"--store {args.store}: a shared store comes with "
-                     f"{_MANY_WORKERS}")
+    if args.workers > 1:
+        if not (args.store and args.store.startswith(("native", "repl:"))):
+            parser.error("--workers > 1 requires --store native[:port] "
+                         "or repl:... (a shared native store is the "
+                         "coordination plane; per-process MemoryStores "
+                         "would each run their own game)")
+        if not (args.fake or args.platform == "cpu"):
+            parser.error("--workers > 1 needs --fake or --platform cpu: "
+                         "one card has one owning process (a card worker "
+                         "joins a fleet through --store repl:... and "
+                         "--advertise)")
     return args
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    _run_worker(args, _config_for(args))
+    cfg = _config_for(args)
+    if args.workers > 1:
+        _run_workers(args, cfg)
+    else:
+        _run_worker(args, cfg)
+
+
+def _run_workers(args, cfg: FrameworkConfig) -> None:
+    """This process and ``args.workers - 1`` more serve one port. A
+    watcher thread waits on every worker's sentinel at once and counts a
+    worker that died of anything but SIGINT or SIGTERM
+    (``server.worker_deaths``, a ``server.worker_death`` event). At exit
+    the workers get SIGINT (their graceful handoff), 5 s, then SIGTERM."""
+    import multiprocessing
+    import signal
+    import threading
+    from multiprocessing.connection import wait as mp_wait
+
+    # spawn, not fork: this process has imported torch, whose thread pools
+    # and lazy CUDA state a forked child would inherit half-made; a
+    # spawned worker starts a fresh interpreter and never touches CUDA
+    # (--fake or --platform cpu)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_run_worker, args=(args, cfg), daemon=True)
+             for _ in range(args.workers - 1)]
+    for p in procs:
+        p.start()
+
+    def watch() -> None:
+        pending = {p.sentinel: p for p in procs}
+        while pending:
+            for sentinel in mp_wait(list(pending)):
+                p = pending.pop(sentinel)
+                p.join()
+                if p.exitcode not in (0, None, -signal.SIGINT,
+                                      -signal.SIGTERM):
+                    log.error("worker pid=%s died with exit code %s",
+                              p.pid, p.exitcode)
+                    metrics.inc("server.worker_deaths")
+                    flight_recorder.record("server.worker_death",
+                                           pid=p.pid, exitcode=p.exitcode)
+
+    threading.Thread(target=watch, name="worker-watch", daemon=True).start()
+    try:
+        _run_worker(args, cfg)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGINT)
+        for p in procs:
+            p.join(timeout=5.0)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5.0)
 
 
 def _run_worker(args, cfg: FrameworkConfig) -> None:
@@ -1045,12 +1418,13 @@ def _run_worker(args, cfg: FrameworkConfig) -> None:
     cfg = apply_fabric_env(cfg)
     device = "cpu" if args.platform == "cpu" else "cuda"
     fabric = build_fabric(cfg, fake=args.fake, weights_dir=args.weights,
-                          worker_id=args.worker_id,
+                          store_addr=args.store, worker_id=args.worker_id,
                           advertise_addr=args.advertise, device=device)
     # the canary plays through this worker's own listener, on loopback
     web.run_app(create_app(fabric, cfg, device_health=not args.fake,
                            self_addr=f"http://127.0.0.1:{args.port}"),
-                host=args.host, port=args.port)
+                host=args.host, port=args.port,
+                reuse_port=args.workers > 1)
 
 
 if __name__ == "__main__":

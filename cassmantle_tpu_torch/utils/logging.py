@@ -4,9 +4,11 @@ A copy of ``cassmantle_tpu/utils/logging.py``: :func:`get_logger` and the
 :class:`Metrics` registry (counters, gauges, fixed-bucket histograms with
 exemplars, ``counter_total``, ``gauge_values``, ``hist_totals``,
 ``timer``, the JSON ``snapshot`` and the Prometheus and OpenMetrics text
-expositions the server's ``/metrics`` serves). Federation across workers
-(``dump_state``, ``merge_states``) comes with many workers, a later
-slice.
+expositions the server's ``/metrics`` serves), and cluster federation:
+``dump_state`` is a registry's full state as a peer ships it and
+:func:`merge_states` folds the workers' states into one registry
+(counters sum, gauges take a ``worker`` label, histograms with the same
+bounds add bucket by bucket).
 """
 
 from __future__ import annotations
@@ -265,6 +267,42 @@ class Metrics:
                 return None
             return bounds, tuple(counts), total
 
+    # -- federation (cluster /metrics, server/app.py) ----------------------
+    def dump_state(self) -> Dict[str, list]:
+        """The registry's full state as JSON-able lists, what a peer ships
+        for federation: unlike :meth:`snapshot`, histogram buckets
+        survive, so a merge is exact."""
+        with self._lock:
+            return {
+                "counters": [[k[0], [list(p) for p in k[1]], v]
+                             for k, v in self._counters.items()],
+                "gauges": [[k[0], [list(p) for p in k[1]], v]
+                           for k, v in self._gauges.items()],
+                "hists": [[k[0], [list(p) for p in k[1]],
+                           list(h.bounds), list(h.counts), h.sum, h.total]
+                          for k, h in self._hists.items()],
+            }
+
+    def merge_hist_state(self, name: str, labels: Optional[Dict[str, str]],
+                         bounds: Sequence[float], counts: Sequence[int],
+                         total_sum: float, total: int) -> bool:
+        """Fold one shipped histogram into this registry: with the same
+        bounds the bucket counts add; on a bounds mismatch nothing changes
+        and False returns, so the caller keeps a per-worker series
+        instead of mis-binning."""
+        bounds = tuple(float(b) for b in bounds)
+        key = _series_key(name, labels)
+        with self._lock:
+            hist = self._hists.get(key)
+            if hist is None:
+                hist = self._hists[key] = Histogram(bounds)
+            if hist.bounds != bounds:
+                return False
+            hist.counts = [a + int(b) for a, b in zip(hist.counts, counts)]
+            hist.total += int(total)
+            hist.sum += float(total_sum)
+            return True
+
     def snapshot(self, exemplars: bool = False) -> Dict[str, object]:
         """Flat counters and gauges, and ``{count, mean_s, p50_s, p99_s}``
         per histogram (the reference's JSON shape); ``exemplars=True``
@@ -356,6 +394,38 @@ class Metrics:
         """OpenMetrics 1.0: the same series, counters typed on their base
         name, exemplars on the ``_bucket`` lines, and ``# EOF``."""
         return self._exposition(openmetrics=True)
+
+
+def _parse_labels(raw) -> Optional[Dict[str, str]]:
+    if not raw:
+        return None
+    return {str(k): str(v) for k, v in raw}
+
+
+def merge_states(states: Sequence[Tuple[str, Dict[str, list]]]
+                 ) -> "Metrics":
+    """Fold ``(worker, Metrics.dump_state())`` pairs into one registry, the
+    cluster view of ``/metrics?scope=cluster``: counters sum; gauges get a
+    ``worker`` label (a point-in-time value per process has no sum); a
+    histogram's bucket counts add where the bounds agree, and a worker
+    whose bounds differ keeps its own ``worker``-labeled series."""
+    merged = Metrics()
+    for worker, state in states:
+        for name, labels, value in state.get("counters", []):
+            merged.inc(name, value, labels=_parse_labels(labels))
+        for name, labels, value in state.get("gauges", []):
+            lbl = dict(_parse_labels(labels) or {})
+            lbl["worker"] = worker
+            merged.gauge(name, value, labels=lbl)
+        for name, labels, bounds, counts, hsum, total in \
+                state.get("hists", []):
+            if not merged.merge_hist_state(name, _parse_labels(labels),
+                                           bounds, counts, hsum, total):
+                lbl = dict(_parse_labels(labels) or {})
+                lbl["worker"] = worker
+                merged.merge_hist_state(name, lbl, bounds, counts,
+                                        hsum, total)
+    return merged
 
 
 class _NullMetrics:

@@ -191,7 +191,25 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    then SIGINT: exit 0 within 30 s after the graceful handoff (SIGKILL and
    reaped otherwise, on every path), under ``CASSMANTLE_LEAK_SENTINEL=1``
    with its ``leaks.*`` counters reported. Boot-to-ready seconds;
-16. the staged image server ([staged], ``serving/stages.py``):
+16. a card worker in a two-worker fleet ([cluster]): the server of phase
+   14 in this process at ``FrameworkConfig()`` (full width, 60 s rounds,
+   4 rooms) over a replicated store of two mantlestore nodes of the
+   port's own build (a leader and a follower, 1.5 s lease), with a
+   ``--fake`` peer worker as a child process, both advertising their
+   addresses and canary-probing at 2 s: the rooms spread over both
+   workers; the peer answers a card room 307 to the card worker, the
+   followed fetch the card's 512x512 JPEG in the same trace (the
+   redirect's added milliseconds); ``/metrics?scope=cluster`` of each
+   worker equal to ``merge_states`` of both workers' ``?format=state``;
+   the canary of each worker ok on both; the store leader SIGKILLed
+   under 16 guessing players: every guess answered, both workers on the
+   follower within the failover grace, every round and a won score as
+   before; the peer SIGINTed: its graceful handoff met, the card worker
+   owning every room within ``handoff_grace_s``, then the next round of
+   an adopted room generated on the card with a full round's launches.
+   Every round the card worker generates is tallied as in phase 14, and
+   the seconds of each step are printed;
+17. the staged image server ([staged], ``serving/stages.py``):
    ``staged_serving_config()`` through ``InferenceService`` (a round's
    image on the staged path); solo images bit-equal to the monolithic
    path's for DDIM (one and two prompts), DPM++(2M), Euler, consistency
@@ -210,7 +228,7 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    monolithic on one pipeline; the fused-conv and W8A8 UNets staged
    (solo parity, a two-request run). Every staged launch is held to the
    shapes phase 2 checks, on the flash path its check took;
-17. device observability ([obs-device], ``obs/costmodel.py``,
+18. device observability ([obs-device], ``obs/costmodel.py``,
    ``utils/profiling.py``): every count the run reads is made from the
    configs on meta tensors in a child process while the kernels build.
    Each round of phase 4 and Mistral's attributes its two images'
@@ -220,7 +238,7 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    retirement attributes one request's count and the monolithic arm its
    images'. The closing line sets each count beside the reference's
    committed entry (``data/cost_model.json``), the difference explained.
-18. training on the card ([train-diffusion]): ``DiffusionTrainer`` on
+19. training on the card ([train-diffusion]): ``DiffusionTrainer`` on
    SD1.5 at 512x512, batch 2, bf16 compute over fp32 parameters: a
    differentiated forward outside ``plain_only`` refused by the flash
    kernel, which has no backward; the trainer's forward launching none;
@@ -228,23 +246,23 @@ Drives ``cassmantle_tpu_torch`` only (nothing of JAX or ``cassmantle_tpu``):
    the same parameters (cosine >= 0.99, every attention projection's
    gradient nonzero); ten steps at a fixed batch and draw lowering the
    loss; step ms (forward and backward, optimizer), peak GiB;
-19. consistency distillation ([distill]): ``ConsistencyDistillTrainer``
+20. consistency distillation ([distill]): ``ConsistencyDistillTrainer``
    on SD1.5 for three steps, the teacher's and EMA target's forwards
    launching flash (two full forwards a step, shape for shape), then the
    student's ``state_dict`` serving a 4-step lcm round through
    ``Text2ImagePipeline`` (its UNet the student's weights, flash 129);
-20. LM training ([train-lm]): the ``train-lm`` command (GPT-2 small, seq
+21. LM training ([train-lm]): the ``train-lm`` command (GPT-2 small, seq
    256, batch 8) four steps with a checkpoint directory, then ``python -m
    cassmantle_tpu_torch train-lm`` resuming at step 2 with the
    uninterrupted run's losses; Mistral-7B at its published widths cut to
    2 of 32 layers through ``LMTrainer``; tokens/s of each;
-21. the quality gate ([clip]): the ViT-L/14 harness (fp32: its attention
+22. the quality gate ([clip]): the ViT-L/14 harness (fp32: its attention
    on the plain path) written as one seeded fp16 CLIPModel file and read
    back through the converters (every tensor equal); ``clip-report`` over
    the six presets, eight images each, on seeded weights (advisory);
    ``w8a8_quality_report`` on eight prompts; images/s of the scoring;
    the launches of kernels 1-4; then each kernel against its plain
-   version at every shape phases 19 and 21 launch that phase 2 does not
+   version at every shape phases 20 and 22 launch that phase 2 does not
    check ([kernel-spot]: flash at batch 16 and 32, kernel 2 at the
    batch-8 VAE and the batch-16 fused UNet, kernels 3 and 4 at the
    batch-16 W8A8 UNet).
@@ -6163,6 +6181,586 @@ def check_serve_cli(card: str) -> tuple:
     return ok, log_tail(SERVE_CLI_LOG)
 
 
+# -- [cluster]: a card worker in a two-worker fleet ---------------------------
+
+CLUSTER_ROUND_S = 60.0        # --round-seconds of both workers in [cluster]
+CLUSTER_ROOMS = 4             # --rooms of the fleet
+CLUSTER_LEASE_MS = 1500       # the store leader's lease
+CLUSTER_POLL_MS = 20          # the replication pump's poll
+CLUSTER_PROBE_S = 2.0         # the canary's cadence in [cluster]
+CLUSTER_READY_S = 60.0        # deadline for the fleet to converge
+CLUSTER_PLAYERS = 16          # guess loops across the leader kill
+CLUSTER_PEER_LOG = os.path.join(REPO, "cassmantle_tpu_torch", "_build",
+                                "cluster_peer.log")
+
+
+def cluster_config():
+    """``FrameworkConfig()`` as the [cluster] card worker serves it: 60 s
+    rounds over 4 rooms, rate limits one loopback client can drive, the
+    store's 1.5 s lease (failover grace 2 x 1.5 + 3 = 6 s) and its pump's
+    20 ms poll."""
+    import dataclasses
+
+    from cassmantle_tpu_torch.config import FrameworkConfig
+
+    cfg = FrameworkConfig()
+    return cfg.replace(
+        game=dataclasses.replace(cfg.game, time_per_prompt=CLUSTER_ROUND_S,
+                                 rate_limit_default=1e9,
+                                 rate_limit_api=1e9),
+        fabric=dataclasses.replace(
+            cfg.fabric, num_rooms=CLUSTER_ROOMS,
+            repl_lease_s=CLUSTER_LEASE_MS / 1000.0,
+            repl_poll_s=CLUSTER_POLL_MS / 1000.0))
+
+
+def cluster_worker_ids(cfg) -> tuple:
+    """(card worker id, peer worker id) whose ring leaves the default
+    room and at least one other room on the card and at least one room on
+    the peer."""
+    from cassmantle_tpu_torch.fabric.directory import RoomDirectory
+    from cassmantle_tpu_torch.fabric.rooms import room_ids
+
+    for i in range(400):
+        card, peer = f"card-{i % 20}", f"peer-{i // 20}"
+        owners = RoomDirectory(room_ids(cfg), workers=[card, peer],
+                               vnodes=cfg.fabric.vnodes).placement()
+        card_rooms = [r for r, w in owners.items() if w == card]
+        if owners[cfg.fabric.default_room] == card and \
+                2 <= len(card_rooms) < len(owners):
+            return card, peer
+    raise RuntimeError("no pair of worker ids splits the rooms")
+
+
+def exact_metric_lines(text: str) -> list:
+    """The exposition's counter, histogram-bucket, _count and _sum lines,
+    sorted: what a merge must reproduce exactly (gauges are per worker
+    and sampled at each scrape)."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        name = re.split(r"[{ ]", line, maxsplit=1)[0]
+        if name.endswith(("_total", "_count", "_sum")) or "_bucket{" in line:
+            out.append(line)
+    return sorted(out)
+
+
+def check_cluster(card: str, rows: dict, cfg=None, device="cuda") -> bool:
+    """[cluster]: a card worker in a two-worker fleet over a replicated
+    store. The card worker is the port's server in this process
+    (``build_fabric(cluster_config(), store_addr="repl:...",
+    worker_id=..., advertise_addr=...)`` and ``create_app(...,
+    device_health=True)`` on 127.0.0.1): ``FrameworkConfig()`` at full
+    width, every round it generates tallied around ``t2i.generate`` as
+    [server] tallies them. Beside it, started while it boots: two
+    mantlestore nodes of the port's build (``native/client.py``: a
+    ``--repl`` leader and a ``--follower``, 1.5 s lease) and a ``--fake``
+    peer (``python -m cassmantle_tpu_torch serve --fake --store repl:...
+    --rooms 4 --advertise ...`` as a child, its log in
+    ``_build/cluster_peer.log``), both workers' canary at 2 s. Checks,
+    with the seconds of each step:
+
+    - spread: both workers' rings agree and each owns rooms;
+    - redirect: the peer answers a card room 307 to the card worker's
+      address (room, session, a signed traceparent), the followed fetch
+      is the card's 512x512 JPEG in the same trace; the redirect's added
+      latency (median of three fetches through the peer less three
+      direct ones);
+    - federation: ``/metrics?scope=cluster`` of each worker (Prometheus
+      text) equals ``merge_states`` of both workers' ``?format=state``
+      read around it (counters, buckets, counts and sums; retried until
+      the states read before and after agree), peer_up 1 for both;
+    - canary: each worker's prober has probed both workers through
+      their listeners: its own probe ok, the other worker's past init and
+      clock, at fetch ok or refused on the masks alone (a probe's answers
+      come from its own worker's embedding; the fake peer's hash
+      embedding masks other words than the card's MiniLM);
+    - failover: SIGKILL of the store leader while 16 players guess in the
+      card's rooms: every guess answered 200 with its scores, the card's
+      store on the follower within ``failover_grace_s``, the peer's too,
+      every room's round (prompt, image, episode) and a won score as
+      before;
+    - adoption: SIGINT of the peer: it exits 0 after its graceful
+      handoff (its adoption wait met, not timed out), and the card
+      worker owns every room within ``handoff_grace_s``; the card then
+      generates the next round of an adopted room (``rotate_room``, the
+      buffer step, ``rotate_room``), whose tally is a full round's
+      (flash 1,601 at tier 0), served as a 512x512 JPEG."""
+    import signal
+    import threading
+
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from cassmantle_tpu_torch.fabric.rooms import room_prefix
+    from cassmantle_tpu_torch.native.client import spawn_server
+    from cassmantle_tpu_torch.server import app as server_app
+    from cassmantle_tpu_torch.serving import overload
+    from cassmantle_tpu_torch.utils.logging import merge_states
+
+    overload.reset_brownout()
+    cfg = cfg or cluster_config()
+    by_shape = {(b, sq, sk, h, d): name
+                for name, (b, sq, sk, h, d, _) in FLASH_SHAPES.items()}
+    t_phase = time.perf_counter()
+    steps, report, checks = {}, {"card": card}, {}
+    card_id, peer_id = cluster_worker_ids(cfg)
+    env_before = {k: os.environ.get(k) for k in (
+        "CASSMANTLE_PROBE_INTERVAL_S", "CASSMANTLE_NO_PROBER",
+        "CASSMANTLE_NO_BROWNOUT")}
+    os.environ["CASSMANTLE_PROBE_INTERVAL_S"] = str(CLUSTER_PROBE_S)
+    os.environ.pop("CASSMANTLE_NO_PROBER", None)
+    # the failover's seconds-long guesses must not brown the rounds out
+    os.environ["CASSMANTLE_NO_BROWNOUT"] = "1"
+    os.makedirs(os.path.dirname(CLUSTER_PEER_LOG), exist_ok=True)
+    nodes, peer = {}, None
+
+    def start_nodes():
+        # the build (g++, a few seconds) and both nodes
+        nodes["leader"] = spawn_server(0, repl=True, repl_id="L",
+                                       lease_ms=CLUSTER_LEASE_MS)
+        nodes["follower"] = spawn_server(0, follower=True, repl_id="F",
+                                         lease_ms=CLUSTER_LEASE_MS)
+
+    rounds, round_lock = [], threading.Lock()
+    fabric = svc = t2i = None
+
+    def tallied(prompts, seed=0, latents=None):
+        with round_lock:
+            reset_all_counters()
+            tier = overload.current_tier()
+            t = time.perf_counter()
+            out = real_generate(prompts, seed, latents)
+            rounds.append({"tier": tier,
+                           "tier_after": overload.current_tier(),
+                           "tallies": read_tallies(), "shape": out.shape,
+                           "t0": t, "t1": time.perf_counter()})
+        return out
+
+    async def get_json(http, url, **kw):
+        async with http.get(url, **kw) as res:
+            return res.status, await res.json()
+
+    async def store_round(room):
+        """(prompt JSON, image bytes, episode) of a room, as stored."""
+        prefix = room_prefix(room, cfg.fabric.default_room)
+        return (await fabric.store.hget(prefix + "prompt", "current"),
+                await fabric.store.hget(prefix + "image", "current"),
+                await fabric.store.hget(prefix + "story", "episode"))
+
+    async def phase():
+        nonlocal peer
+        app = server_app.create_app(fabric, cfg, device_health=True,
+                                    self_addr=base)
+        runner = web.AppRunner(app)
+        with open(CLUSTER_PEER_LOG, "w") as log:
+            peer = subprocess.Popen(peer_cmd, cwd=REPO, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    stdin=subprocess.DEVNULL, env=peer_env)
+        await runner.setup()     # elects the leader, the first round
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        steps["boot"] = time.perf_counter() - t0
+        http = aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=64))
+        try:
+            await converge(http)
+            await redirect(http)
+            await federation(http)
+            await canary(http, server_app.prober_of(app))
+            await failover(http)
+            await adoption(http)
+        finally:
+            await http.close()
+            print("[cluster] cleanup", flush=True)
+            await runner.cleanup()
+
+    async def converge(http):
+        print("[cluster] both workers in one ring", flush=True)
+        t = time.perf_counter()
+        placement, peer_view = {}, {}
+        while time.perf_counter() - t < CLUSTER_READY_S:
+            if peer.poll() is not None:
+                raise RuntimeError(f"the peer exited: {peer.returncode}")
+            placement = fabric.directory.placement()
+            try:
+                _, ready = await get_json(http, peer_base + "/readyz")
+                peer_view = ready.get("fabric", {}).get("rooms", {})
+            except (aiohttp.ClientError, ValueError):
+                peer_view = {}
+            if placement == peer_view and \
+                    set(placement.values()) == {card_id, peer_id}:
+                break
+            # the peer's rate limit: three /readyz a second
+            await asyncio.sleep(0.4)
+        steps["converge"] = time.perf_counter() - t
+        report["placement"] = placement
+        checks["rooms_spread"] = placement == peer_view and \
+            set(placement.values()) == {card_id, peer_id}
+
+    async def redirect(http):
+        print("[cluster] a card room asked of the peer: 307", flush=True)
+        t = time.perf_counter()
+        placement = report["placement"]
+        room = next(r for r, w in sorted(placement.items())
+                    if w == card_id and r != cfg.fabric.default_room)
+        report["redirect_room"] = room
+        q = {"room": room, "session": "cl-hop"}
+        async with http.get(peer_base + "/fetch/contents", params=q,
+                            allow_redirects=False) as res:
+            loc = res.headers.get("Location", "")
+            checks["redirect_307"] = res.status == 307 and \
+                loc.startswith(base + "/fetch/contents?") and \
+                f"room={room}" in loc and "session=cl-hop" in loc and \
+                "traceparent=00-" in loc and "tracesig=" in loc
+        via, direct = [], []
+        for i in range(3):
+            if i:
+                # the peer's own rate limit: 2 a second a route and room
+                await asyncio.sleep(0.6)
+            t1 = time.perf_counter()
+            async with http.get(peer_base + "/fetch/contents",
+                                params=q) as res:
+                data = await res.json()
+                # the peer's 307 and the card's answer: one trace
+                hops = [h.headers.get("X-Trace-Id") for h in res.history]
+                followed = (res.status, str(res.url), hops,
+                            res.headers.get("X-Trace-Id"))
+            via.append(time.perf_counter() - t1)
+            if i == 0:
+                first = (data, followed)
+            t1 = time.perf_counter()
+            async with http.get(base + "/fetch/contents", params=q) as res:
+                await res.read()
+            direct.append(time.perf_counter() - t1)
+        data, (status, url, hops, trace) = first
+        report["redirect_trace"] = {"hops": hops, "followed": trace}
+        checks["redirect_followed"] = (
+            status == 200 and url.startswith(base)
+            and decode_b64_jpeg(data["image"]).shape == (512, 512, 3)
+            and len(hops) == 1 and hops[0] == trace)
+        report["redirect_ms"] = {
+            "via_peer_p50": 1e3 * sorted(via)[1],
+            "direct_p50": 1e3 * sorted(direct)[1],
+            "added_p50": 1e3 * (sorted(via)[1] - sorted(direct)[1])}
+        steps["redirect"] = time.perf_counter() - t
+
+    def merged_lines(states):
+        return exact_metric_lines(merge_states(states).prometheus())
+
+    async def federation(http):
+        print("[cluster] /metrics?scope=cluster on both workers", flush=True)
+        t = time.perf_counter()
+        views = {}
+        for name, (self_base, other_base) in (
+                ("card", (base, peer_base)), ("peer", (peer_base, base))):
+            for attempt in range(20):
+                # the peer's rate limit: three /metrics a second, and an
+                # attempt asks three of it
+                await asyncio.sleep(1.1)
+                before = [await get_json(http, b + "/metrics",
+                                         params={"format": "state"})
+                          for b in (self_base, other_base)]
+                async with http.get(self_base + "/metrics",
+                                    params={"scope": "cluster"},
+                                    headers={"Accept": "text/plain"}) as res:
+                    text = await res.text()
+                after = [await get_json(http, b + "/metrics",
+                                        params={"format": "state"})
+                         for b in (self_base, other_base)]
+                states = [(body["worker"], body["state"])
+                          for _, body in before]
+                quiet = all(merged_lines([pair]) == merged_lines(
+                    [(body["worker"], body["state"])])
+                    for pair, (_, body) in zip(states, after))
+                if quiet:
+                    break
+            want = merged_lines(states)
+            views[name] = {
+                "attempts": attempt + 1, "quiet": quiet,
+                "lines": len(want),
+                "equal": exact_metric_lines(text) == want,
+                "peer_up": all(
+                    f'cassmantle_federation_peer_up{{worker="{w}"}} 1' in text
+                    for w in (card_id, peer_id))}
+        report["federation"] = views
+        checks["federation_exact"] = all(
+            v["quiet"] and v["equal"] and v["peer_up"]
+            for v in views.values())
+        steps["federation"] = time.perf_counter() - t
+
+    async def canary(http, prober):
+        """Each worker's canary probes itself and its peer through the
+        listeners. Its own probe passes. A probe of the other worker
+        passes the init and clock legs and fails at fetch, on the masks:
+        a probe derives its answers from its own worker's embedding
+        (``obs/prober.py::probe_state``, as the reference does: one model
+        config a fleet), and the fake peer's hash embedding masks other
+        words of the probe sentence than the card's MiniLM."""
+        print("[cluster] the canary of both workers", flush=True)
+        t = time.perf_counter()
+        want = {card_id, peer_id}
+        blocks = {}
+
+        def settled(block, own):
+            targets = block.get("targets", {})
+            return set(targets) == want and targets[own]["ok"] is True
+
+        while time.perf_counter() - t < 6 * CLUSTER_PROBE_S:
+            _, ready = await get_json(http, peer_base + "/readyz")
+            blocks = {"card": prober.status_block(),
+                      "peer": ready.get("canary", {})}
+            if settled(blocks["card"], card_id) and \
+                    settled(blocks["peer"], peer_id):
+                break
+            await asyncio.sleep(0.4)
+        report["canary"] = {
+            name: {w: {k: v.get(k) for k in ("ok", "leg", "error", "e2e_s")}
+                   for w, v in b.get("targets", {}).items()}
+            for name, b in blocks.items()}
+        checks["canary_self_ok"] = settled(blocks["card"], card_id) and \
+            settled(blocks["peer"], peer_id)
+        checks["canary_walks_the_peer"] = all(
+            v["ok"] is True
+            or (v["leg"] == "fetch" and "masks" in (v["error"] or ""))
+            for b in report["canary"].values() for v in b.values())
+        steps["canary"] = time.perf_counter() - t
+
+    async def failover(http):
+        print("[cluster] SIGKILL of the store leader under guesses",
+              flush=True)
+        t = time.perf_counter()
+        card_rooms = sorted(r for r, w in report["placement"].items()
+                            if w == card_id)
+        # every card room live (its first round made), and a won score
+        for room in card_rooms:
+            async with http.get(base + "/fetch/contents", params={
+                    "room": room, "session": "cl-warm"}) as res:
+                await res.read()
+        lobby = cfg.fabric.default_room
+        prompt = json.loads((await store_round(lobby))[0])
+        mask = prompt["masks"][0]
+        q = {"room": lobby, "session": "cl-win"}
+        async with http.get(base + "/fetch/contents", params=q) as res:
+            await res.read()
+        async with http.post(base + "/compute_score", params=q, json={
+                "inputs": {str(mask): prompt["tokens"][mask]}}) as res:
+            won_before = (await res.json()).get(str(mask))
+        before = {r: await store_round(r) for r in card_rooms}
+        answered, failed = [], []
+        stop = asyncio.Event()
+
+        async def player(i):
+            room = card_rooms[i % len(card_rooms)]
+            pq = {"room": room, "session": f"cl-p{i}"}
+            async with http.get(base + "/fetch/contents", params=pq) as res:
+                masks = (await res.json())["prompt"]["masks"]
+            n = 0
+            while not stop.is_set():
+                n += 1
+                t1 = time.perf_counter()
+                try:
+                    async with http.post(base + "/compute_score", params=pq,
+                                         json={"inputs": {
+                                             str(m): f"cl{i}q{n}x"
+                                             for m in masks}}) as res:
+                        body = await res.json()
+                        ok = res.status == 200 and all(
+                            str(m) in body for m in masks)
+                except (aiohttp.ClientError, ValueError) as exc:
+                    ok, body = False, repr(exc)
+                if ok:
+                    answered.append(time.perf_counter() - t1)
+                else:
+                    failed.append(str(body)[:200])
+                await asyncio.sleep(0.02)
+
+        players = [asyncio.ensure_future(player(i))
+                   for i in range(CLUSTER_PLAYERS)]
+        await asyncio.sleep(0.5)
+        store = fabric.store
+        follower_ep = f"127.0.0.1:{fport}"
+        nodes["leader"].kill()
+        nodes["leader"].wait()
+        t_kill = time.perf_counter()
+        while store.status()["leader"] != follower_ep and \
+                time.perf_counter() - t_kill < 2 * store.failover_grace_s:
+            await asyncio.sleep(0.01)
+        failover_s = time.perf_counter() - t_kill
+        await asyncio.sleep(1.0)     # guesses go on against the follower
+        stop.set()
+        await asyncio.gather(*players)
+        after = {r: await store_round(r) for r in card_rooms}
+        game = await fabric.game_for(lobby)
+        won_after = (await game.sessions.fetch_scores("cl-win")).get(
+            str(mask))
+        _, peer_ready = await get_json(http, peer_base + "/readyz")
+        peer_repl = peer_ready.get("fabric", {}).get("replication", {})
+        status = store.status()
+        report["failover"] = {
+            "failover_s": failover_s,
+            "failover_grace_s": store.failover_grace_s,
+            "card_store": status, "peer_store": peer_repl,
+            "guesses": len(answered), "unanswered": len(failed),
+            "unanswered_first": failed[:3],
+            "guess_max_ms": 1e3 * max(answered, default=0.0)}
+        # the worker whose election came first promotes; the other finds
+        # the follower already leading
+        checks["failover_within_grace"] = (
+            status["leader"] == follower_ep
+            and peer_repl.get("leader") == follower_ep
+            and status["failovers"] + peer_repl.get("failovers", 0) >= 1
+            and failover_s < store.failover_grace_s)
+        checks["guesses_answered"] = bool(answered) and not failed
+        report["failover"].update(
+            rounds_changed={r: [k for k, x, y in zip(
+                ("prompt", "image", "episode"), before[r], after[r])
+                if x != y] for r in card_rooms if before[r] != after[r]},
+            won_score={"before": won_before, "after": won_after})
+        checks["round_state_survives"] = before == after and \
+            float(won_before) == 1.0 and float(won_after) == 1.0
+        steps["failover"] = time.perf_counter() - t
+
+    async def adoption(http):
+        print("[cluster] SIGINT of the peer: adoption, then the next round "
+              "of an adopted room on the card", flush=True)
+        t = time.perf_counter()
+        room = next(r for r, w in sorted(report["placement"].items())
+                    if w == peer_id)
+        report["adopted_room"] = room
+        # the room runs on the peer first: its round is the fake backend's
+        q = {"room": room, "session": "cl-adopt"}
+        async with http.get(peer_base + "/fetch/contents", params=q) as res:
+            data = await res.json()
+            checks["peer_room_served"] = res.status == 200 and \
+                str(res.url).startswith(peer_base)
+        peer.send_signal(signal.SIGINT)
+        t_int = time.perf_counter()
+        while set(fabric.directory.placement().values()) != {card_id} \
+                and time.perf_counter() - t_int < 4 * \
+                cfg.fabric.handoff_grace_s:
+            await asyncio.sleep(0.02)
+        adopt_s = time.perf_counter() - t_int
+        loop = asyncio.get_running_loop()
+        rc = await loop.run_in_executor(None, peer.wait, 30)
+        tail = log_tail(CLUSTER_PEER_LOG, 400)
+        report["adoption"] = {"adopt_s": adopt_s,
+                              "handoff_grace_s": cfg.fabric.handoff_grace_s,
+                              "peer_exit": rc,
+                              "peer_exit_s": time.perf_counter() - t_int}
+        checks["adopted_within_grace"] = (
+            set(fabric.directory.placement().values()) == {card_id}
+            and adopt_s < cfg.fabric.handoff_grace_s)
+        checks["peer_handoff_clean"] = (
+            rc in (0, -signal.SIGINT)
+            and "graceful handoff complete" in tail
+            and "handoff grace" not in tail)
+        # the adopted room's next round, generated on the card
+        game = await fabric.game_for(room)
+        backend = game.rounds.backend
+        spans = []
+
+        class RoomBackend:
+            """The shared backend, the adopted room's calls timed."""
+
+            def __getattr__(self, name):
+                return getattr(backend, name)
+
+            async def generate(self, seed, is_seed):
+                t1 = time.perf_counter()
+                try:
+                    return await backend.generate(seed, is_seed)
+                finally:
+                    spans.append((t1, time.perf_counter()))
+
+        game.rounds.backend = RoomBackend()
+        t1 = time.perf_counter()
+        prefix = room_prefix(room, cfg.fabric.default_room)
+        if await fabric.store.hget(prefix + "prompt", "next") is not None:
+            await fabric.rotate_room(room)   # the peer's buffered round
+        await game.rounds.buffer_contents()  # the next round, on the card
+        await fabric.rotate_room(room)       # ... served
+        report["adopted_round_s"] = time.perf_counter() - t1
+        mine = [r for r in rounds for s0, s1 in spans
+                if s0 <= r["t0"] and r["t1"] <= s1]
+        async with http.get(base + "/fetch/contents", params=q) as res:
+            data = await res.json()
+        report["adopted_round"] = {
+            "rounds": len(mine),
+            "flash": [sum(r["tallies"]["flash_attention"].values())
+                      for r in mine],
+            "size": decode_b64_jpeg(data["image"]).shape[0]}
+        checks["adopted_round_on_card"] = (
+            len(mine) == 1
+            and all(round_checks(cfg, mine[0], by_shape, rows).values())
+            and report["adopted_round"]["size"] == 512)
+        steps["adoption"] = time.perf_counter() - t
+
+    try:
+        print("[cluster] store nodes, card worker, peer", flush=True)
+        t0 = time.perf_counter()
+        start_nodes()
+        port, peer_port = free_port(), free_port()
+        base, peer_base = f"http://127.0.0.1:{port}", \
+            f"http://127.0.0.1:{peer_port}"
+        t_build = time.perf_counter()
+        lport, fport = nodes["leader"].port, nodes["follower"].port
+        store_addr = f"repl:127.0.0.1:{lport},127.0.0.1:{fport}"
+        fabric = server_app.build_fabric(cfg, store_addr=store_addr,
+                                         worker_id=card_id,
+                                         advertise_addr=base, device=device)
+        report["build_s"] = time.perf_counter() - t_build
+        (svc,) = fabric.services
+        t2i = svc.backend.t2i
+        real_generate = t2i.generate
+        t2i.generate = tallied
+        peer_cmd = [sys.executable, "-m", "cassmantle_tpu_torch", "serve",
+                    "--fake", "--host", "127.0.0.1", "--port", str(peer_port),
+                    "--store", store_addr, "--rooms", str(CLUSTER_ROOMS),
+                    "--worker-id", peer_id, "--advertise", peer_base,
+                    "--round-seconds", str(CLUSTER_ROUND_S)]
+        peer_env = {**os.environ,
+                    "CASSMANTLE_REPL_LEASE_MS": str(CLUSTER_LEASE_MS),
+                    "CASSMANTLE_REPL_POLL_MS": str(CLUSTER_POLL_MS),
+                    "CASSMANTLE_PROBE_INTERVAL_S": str(CLUSTER_PROBE_S)}
+        asyncio.run(phase())
+    except Exception as exc:
+        report["error"] = f"{type(exc).__name__}: {exc}"
+        checks["no_error"] = False
+    finally:
+        for key, value in env_before.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        if t2i is not None:
+            t2i.__dict__.pop("generate", None)
+        overload.reset_brownout()
+        if peer is not None:
+            stop_child(peer)
+        for proc in nodes.values():
+            proc.kill()
+            proc.wait()
+    report["rounds"] = [{"tier": r["tier"], "size": r["shape"][1],
+                         "s": r["t1"] - r["t0"],
+                         "flash": sum(r["tallies"]["flash_attention"]
+                                      .values())} for r in rounds]
+    checks["rounds_tallied"] = bool(rounds) and all(
+        all(round_checks(cfg, r, by_shape, rows).values()) for r in rounds)
+    report["steps_s"] = steps
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["checks"] = {k: bool(v) for k, v in checks.items()}
+    ok = all(checks.values())
+    print(f"[cluster] {json.dumps(report, default=str)} -> "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    del fabric, svc, t2i
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return ok
+
+
 # -- [staged]: the staged image server (serving/stages.py) ---------------------
 
 STAGED_PROMPTS = (
@@ -7589,6 +8187,14 @@ def main() -> int:
         fail("serve-cli: `python -m cassmantle_tpu_torch serve` failed a "
              "check")
     stamp("server")
+
+    # a card worker in a two-worker fleet: a fake peer as a child, over a
+    # replicated store of two mantlestore nodes
+    if not check_cluster(card, rows):
+        print(f"[cluster] the peer's log, last 60 lines:\n"
+              f"{log_tail(CLUSTER_PEER_LOG)}", flush=True)
+        fail("cluster: the two-worker fleet failed a check")
+    stamp("cluster")
 
     # the same service from a weights directory, its rebuild from the
     # files, and Mistral from two shards

@@ -260,10 +260,12 @@ def test_rate_limit_429_matches_reference():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--workers", "2"], "many workers"),
-    (["--store", "native:7070"], "many workers"),
+    (["--workers", "2"], "requires --store native"),
+    (["--workers", "2", "--store", "native"], "needs --fake or --platform"),
 ])
 def test_serve_refuses_what_later_slices_bring(argv, match, capsys):
+    """The reference's two refusals of many workers: without a shared
+    store, and on the card (one card has one owning process)."""
     with pytest.raises(SystemExit) as exc:
         papp.parse_args(argv)
     assert exc.value.code == 2
@@ -316,14 +318,30 @@ def test_serving_without_a_card_raises(build, monkeypatch):
     assert not served
 
 
-def test_build_fabric_refuses_a_shared_store():
+def _unused_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("case", ["mistyped", "unreachable"])
+def test_build_fabric_refuses_a_shared_store(case):
+    """A store address the worker cannot use raises at boot, never serves
+    from a per-process MemoryStore: a mistyped address (ValueError, as the
+    reference's), a native node nobody listens for (ConnectionError)."""
     cfg = pconfig.test_config()
-    with pytest.raises(ValueError, match="many workers"):
-        papp.build_fabric(cfg, fake=True, store_addr="native:7070")
-    repl = cfg.replace(fabric=dataclasses.replace(
-        cfg.fabric, repl_endpoints=("localhost:7070",)))
-    with pytest.raises(ValueError, match="many workers"):
-        papp.build_fabric(repl, fake=True)
+    if case == "mistyped":
+        for addr in ("native:x", "redis://localhost:6379", "nativ"):
+            with pytest.raises(ValueError, match="unknown store address"):
+                papp.build_fabric(cfg, fake=True, store_addr=addr)
+            with pytest.raises(ValueError, match="unknown store address"):
+                japp._build_store(addr, jconfig.test_config())
+    else:
+        with pytest.raises(ConnectionError, match="no mantlestore answers"):
+            papp.build_fabric(cfg, fake=True,
+                              store_addr=f"native:{_unused_port()}")
 
 
 def test_full_stack_real_backend_round():

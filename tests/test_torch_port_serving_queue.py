@@ -344,14 +344,17 @@ def test_chaos_plan_replays_the_references_schedule():
 
 
 def test_chaos_registry_is_the_seams_and_refuses_others():
-    assert set(pchaos.FAULT_POINTS) == {"server.admit", "queue.dispatch",
-                                        "device.lost", "device.poison",
-                                        "round.generate",
-                                        "overload.brownout",
-                                        "stage.denoise.tick"}
-    assert set(pchaos.FAULT_POINTS) <= set(jchaos.FAULT_POINTS)
+    """The port's registry is the reference's, the serving seam's points
+    and those of many workers; a point outside it is refused."""
+    assert set(pchaos.FAULT_POINTS) == set(jchaos.FAULT_POINTS)
+    assert {"server.admit", "queue.dispatch", "device.lost",
+            "device.poison", "round.generate", "overload.brownout",
+            "stage.denoise.tick", "store.client.op", "repl.leader_call",
+            "repl.pump", "fabric.heartbeat", "fabric.peer_http",
+            "score.hedge"} == set(pchaos.FAULT_POINTS)
+    pchaos.parse_spec("repl.pump=raise")
     with pytest.raises(ValueError, match="unknown fault point"):
-        pchaos.parse_spec("repl.pump=raise")
+        pchaos.parse_spec("repl.pmp=raise")
 
 
 def _traced_script(m):
