@@ -20,8 +20,10 @@ The training commands are thin loops over the trainers with
 from its latest step). Step N's draws come from a generator seeded from
 (``--seed``, N), so a resumed run draws what an uninterrupted one does.
 They train on one device: ``--dp``, ``--tp`` and ``--sp`` other than 1
-(``--dp -1``, every device, is the one) are ROADMAP Queue 1 item 16 and
-are refused. ``--platform cpu`` runs on the host.
+(``--dp -1``, every device, is the one) are refused: training over a mesh
+is ROADMAP Queue 1 item 16's training half (serving over one, ``serve``
+on a host of several cards, is its serving half). ``--platform cpu``
+runs on the host.
 
 The W8A8 calibration runs as ``python -m
 cassmantle_tpu_torch.parallel.calibrate --emit``, as in the reference.
@@ -116,7 +118,8 @@ def _refuse_mesh(p: argparse.ArgumentParser, args) -> None:
             if n not in ((-1, 1) if name == "dp" else (1,))}
     if wide:
         p.error(f"{wide}: the port trains on one device; data, tensor and "
-                f"sequence parallelism are ROADMAP Queue 1 item 16")
+                f"sequence parallel training are ROADMAP Queue 1 item "
+                f"16's training half")
 
 
 def _framework_config(args):

@@ -5,7 +5,8 @@ the SD1.5 and SDXL model zoos (CLIP text towers, UNet, VAE), GPT-2 or
 Mistral-7B for the round's prompt text, MiniLM for guess scoring, the
 sampler and text decode settings, speculative decode, the serving
 seam's bounds, the observability and SLO settings, the game's constants,
-the room fabric's and the fault-injection plan's. Defaults are
+the room fabric's and the fault-injection plan's, and the device mesh's
+axes (:class:`MeshConfig`, ``parallel/mesh.py``). Defaults are
 the reference's defaults, so ``FrameworkConfig()`` is the serving
 configuration: SD1.5 at 512², 50 DDIM steps, CFG 7.5; :func:`sdxl_config`
 is SDXL-base at 1024².
@@ -361,6 +362,30 @@ class ServingConfig:
     # The encode and decode stages' coalescing window: short, since the
     # denoise stage's step-boundary admission does the real batching.
     stage_max_delay_ms: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh (``cassmantle_tpu/config.py::MeshConfig``).
+    Axes follow the scaling-book convention:
+
+    - ``dp``: data parallel (batch sharding);
+    - ``tp``: tensor parallel (attention heads / MLP columns);
+    - ``sp``: sequence/spatial parallel (latent rows, image tokens);
+    - ``pp``: pipeline parallel (layer stages);
+    - ``ep``: expert parallel (MoE experts).
+    Sizes of -1 mean "fill with the remaining devices". The port serves
+    over ``dp`` and ``sp`` (``serving/pipeline.py``,
+    ``parallel/spatial.py``); ``tp``, ``pp`` and ``ep`` are training's
+    axes, not ported yet (ROADMAP Queue 1 item 16)."""
+
+    dp: int = -1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    ep: int = 1
+    # Axis names, in mesh order.
+    axis_names: Tuple[str, ...] = ("dp", "pp", "tp", "sp", "ep")
 
 
 @dataclasses.dataclass(frozen=True)

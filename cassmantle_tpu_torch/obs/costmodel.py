@@ -25,7 +25,9 @@ limit: 989 TFLOP/s bf16 and fp16, 1,979 TOP/s int8, 67 TFLOP/s fp32.
 other two with it (a card held below 700 W). ``pipeline.mxu_utilization``
 (``utils/profiling.py::block_timer``) is ``sum(class ops / class peak) /
 elapsed s``: the share of the card's peak the dispatch's own work would
-take, counted as the same work whatever implements it.
+take, counted as the same work whatever implements it. A meshed
+dispatch counts its padded rows and divides by the peaks of the
+distinct cards its mesh covers.
 
 :func:`flops_per_item` caches a count per ``(kind, signature)``, the
 signatures digesting what the count depends on (:func:`t2i_signature`,
@@ -96,10 +98,12 @@ class Products(NamedTuple):
         return {**self._asdict(), "total": self.total}
 
 
-def utilization(products: Products, elapsed_s: float) -> float:
-    """The share of the card's peak: sum(class ops / class peak) over the
-    elapsed seconds."""
-    return products.peak_seconds() / elapsed_s
+def utilization(products: Products, elapsed_s: float,
+                cards: int = 1) -> float:
+    """The share of the peak: sum(class ops / class peak) over the elapsed
+    seconds, the peaks those of ``cards`` cards (a meshed dispatch's
+    distinct cards; one card's where every position is on one)."""
+    return products.peak_seconds() / (elapsed_s * cards)
 
 
 _ATEN = torch.ops.aten

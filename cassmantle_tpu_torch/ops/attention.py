@@ -12,7 +12,10 @@ model zoo goes through :func:`multi_head_attention`:
   fp32 softmax, einsum.
 
 ``CASSMANTLE_NO_FLASH_CROSS=1`` sends cross attention (Sq != Sk) to the
-plain path, as in the reference.
+plain path, as in the reference. A caller whose Sq != Sk is self
+attention says so (``cross=False``): the spatially partitioned UNet's
+shard of queries against the whole image's keys
+(``parallel/spatial.py``) keeps the kernel under that switch.
 
 Two more routes to the plain path, on every device:
 
@@ -79,13 +82,16 @@ def flash_cross_disabled() -> bool:
 
 
 def takes_flash(q_shape, k_shape, masked: bool, device_type: str,
-                dtype: torch.dtype) -> bool:
+                dtype: torch.dtype, cross: Optional[bool] = None) -> bool:
     """The route of one attention: True for :func:`flash_attention` (the
     kernel on the card, its plain version on the CPU), False for
-    :func:`plain_attention`."""
+    :func:`plain_attention`. ``cross`` (default: Sq != Sk) says whether
+    it is cross attention, which ``CASSMANTLE_NO_FLASH_CROSS`` routes."""
     if masked or len(q_shape) != 4 or q_shape[-1] > MAX_HEAD_DIM:
         return False
-    if q_shape[-3] != k_shape[-3] and flash_cross_disabled():
+    if cross is None:
+        cross = q_shape[-3] != k_shape[-3]
+    if cross and flash_cross_disabled():
         return False
     if _PLAIN_ONLY.get():
         return False
@@ -95,10 +101,12 @@ def takes_flash(q_shape, k_shape, masked: bool, device_type: str,
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         cross: Optional[bool] = None) -> torch.Tensor:
     """Attention entry point of every model. q (..., Sq, H, D); k, v
-    (..., Sk, H, D); returns (..., Sq, H, D)."""
+    (..., Sk, H, D); returns (..., Sq, H, D). ``cross``: see
+    :func:`takes_flash`."""
     if takes_flash(q.shape, k.shape, mask is not None, q.device.type,
-                   q.dtype):
+                   q.dtype, cross):
         return flash_attention(q, k, v, scale=scale)
     return plain_attention(q, k, v, mask=mask, scale=scale)

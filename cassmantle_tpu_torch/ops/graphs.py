@@ -82,13 +82,18 @@ _local = threading.local()
 
 
 def thread_stream() -> "torch.cuda.Stream":
-    """This thread's own side stream for warm-ups and captures, made on
-    its first use. Pool streams are handed out round-robin (32 a
-    device), so one per thread keeps the capturing threads (fewer than
-    32) on streams no other thread enqueues to."""
-    stream = getattr(_local, "stream", None)
+    """This thread's own side stream on the current device for warm-ups
+    and captures, made on its first use there. Pool streams are handed
+    out round-robin (32 a device), so one per thread keeps the capturing
+    threads (fewer than 32) on streams no other thread enqueues to. A
+    thread driving several cards (a meshed dispatch) has one on each."""
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    dev = torch.cuda.current_device()
+    stream = streams.get(dev)
     if stream is None:
-        stream = _local.stream = torch.cuda.Stream()
+        stream = streams[dev] = torch.cuda.Stream(dev)
     return stream
 
 

@@ -9,8 +9,8 @@ trainers it owns its module and updates it in place.
 
 The reference's context-parallel mode (``context_parallel=True``,
 ``prepare_long_context_batch``: sequences zigzag-permuted and sharded
-over a mesh axis) needs more than one device: ROADMAP Queue 1 item 16.
-The constructor refuses it.
+over a mesh axis) needs more than one device: ROADMAP Queue 1 item 16's
+training half. The constructor refuses it.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ class LMTrainer:
         if context_parallel:
             raise NotImplementedError(
                 "context_parallel shards the sequence across devices: "
-                "ROADMAP Queue 1 item 16")
+                "ROADMAP Queue 1 item 16's training half")
         self.device = resolve_device(device)
         self.model = model
         self.lr = lr

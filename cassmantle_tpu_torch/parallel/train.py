@@ -24,8 +24,10 @@ these own their modules and optimizer state and update them in place.
 - **Draws.** A step draws from the ``torch.Generator`` it is given (t and
   noise; n and noise); ``step_at`` takes the draws themselves, which is
   how the parity tests feed the reference step's draws in.
-- **Devices.** One. A mesh of more than one device is ROADMAP Queue 1 item
-  16 and raises ``NotImplementedError``.
+- **Devices.** One. A mesh of more than one device raises
+  ``NotImplementedError``: training over a mesh is ROADMAP Queue 1 item
+  16's training half (its serving half, ``parallel/mesh.py`` and
+  ``parallel/spatial.py``, serves over dp and sp).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ def require_one_device(mesh: Mesh) -> None:
     if int(np.prod(sizes)) != 1:
         raise NotImplementedError(
             f"mesh {mesh}: the port trains on one device; data, tensor and "
-            f"sequence parallelism are ROADMAP Queue 1 item 16")
+            f"sequence parallel training are ROADMAP Queue 1 item 16's "
+            f"training half")
 
 
 def step_seed(seed: int, step: int) -> int:

@@ -16,7 +16,9 @@ A port of ``cassmantle_tpu/serving/device_recovery.py`` (``:45-245``):
 - :class:`DeviceRecoveryManager` owns the single-flight recovery: flip
   the supervisor into ``device_lost`` (the queues fail fast), then on a
   background thread rebuild serving state (the pipelines reload their
-  parameters in place) and warm the hot dispatch path under
+  parameters in place; a meshed image pipeline then re-places every
+  other card's replica from the rebuilt models, in place, so every
+  position's graphs stay valid) and warm the hot dispatch path under
   ``ops/graphs.py::no_new_captures``. Bounded retries with backoff spend
   a :class:`~cassmantle_tpu_torch.utils.retry.RetryBudget`; exhaustion is
   permanent loss: the worker stays ``device_lost`` and ``on_permanent``

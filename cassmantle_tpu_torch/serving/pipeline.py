@@ -39,6 +39,31 @@ stages run this module's own CLIP block and VAE tail
 (:meth:`Text2ImagePipeline.encode_ids`, :meth:`_decode_stage`) and the
 same x_T draw, so a solo request's image is the monolithic one's.
 
+Many devices (``mesh=``, ``parallel/mesh.py``), after the reference's
+``dp_sharded_sampler``, ``pad_prompts_to_dp`` and
+``spatially_shard_latents``: the prompts pad to a multiple of the mesh's
+``dp`` with ``""`` rows (dropped from the output; the cost attribution
+counts them, as the reference's does); x_T is drawn for the whole padded
+batch as a meshless pipeline draws it, then each dp position takes its
+rows (row i is the same draw either way) and runs CLIP, the CFG denoise
+and the VAE on them, its cond/uncond pair together, on its own device's
+stream. A position is a view of the pipeline (:meth:`Text2ImagePipeline.
+_mesh_positions`) over its card's replica of the models: positions on one
+card share one copy, each other card holds one (:func:`replicate_module`,
+re-placed in place by the device-loss rebuild). Each position captures
+its own step graphs (keyed by position and batch), so two positions on
+one card never replay over one set of static buffers. With ``sp`` > 1 a
+position's UNet is ``parallel/spatial.py::SpatialUNet`` over its sp
+devices: the latent rows split over sp, which every sampler and every
+brownout tier rides. Its step is captured like any other when its sp
+positions share one card; sp across cards runs the denoise eagerly (a
+capture cannot span devices), counted at
+``pipeline.spatial_eager_denoises``. The fused-conv, W8A8 and int8 UNets
+refuse sp > 1 (ROADMAP Queue 1 item 16). One ``_dispatch_lock`` covers
+the whole meshed dispatch, as one jitted call does in the reference;
+meshed serving is monolithic (the staged gate is false). img2img stays
+the reference's single-device path, on the mesh's first device.
+
 Brownout tiers (``serving/overload.py``): while the ladder is above tier
 0, ``generate`` serves the tier's degraded ``SamplerConfig``
 (``degraded_sampler_cfg``: fewer steps, a wider encprop stride, the
@@ -111,6 +136,7 @@ import contextlib
 import contextvars
 import copy
 import dataclasses
+import itertools
 import logging
 import os
 import random
@@ -192,6 +218,9 @@ from cassmantle_tpu_torch.ops.samplers import (
     img2img_start,
     make_schedule,
 )
+from cassmantle_tpu_torch.parallel.collectives import device_scope, move
+from cassmantle_tpu_torch.parallel.mesh import Mesh, indexed_device
+from cassmantle_tpu_torch.parallel.spatial import SpatialUNet, check_spatial
 from cassmantle_tpu_torch.server.assets import load_styles
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.serving.overload import (
@@ -532,11 +561,60 @@ def check_eta(sampler_cfg) -> None:
         raise ValueError("eta > 0 requires an rng key")
 
 
+def pad_prompts_to_dp(prompts: Sequence[str], dp: int
+                      ) -> Tuple[List[str], int]:
+    """Pad a prompt list to a multiple of the dp width (equal per-position
+    shards) with ``""`` rows; callers drop the pad rows from the output.
+    Returns (padded, the count before padding)."""
+    n = len(prompts)
+    return list(prompts) + [""] * ((-n) % dp), n
+
+
+def serving_layout(mesh: Mesh) -> List[List[torch.device]]:
+    """Per dp position, the devices of its sp positions (in row order).
+    Serving shards over dp and sp only: tp, pp and ep are training's
+    axes."""
+    for axis in ("tp", "pp", "ep"):
+        if mesh.shape.get(axis, 1) != 1:
+            raise NotImplementedError(
+                f"serving over {axis}={mesh.shape[axis]}: the serving "
+                f"layouts are dp and sp; {axis} is ROADMAP Queue 1 item "
+                f"16's training half")
+    # the other axes are 1: dp before sp in axis order
+    return [list(row) for row in
+            mesh.devices.reshape(mesh.shape["dp"], mesh.shape["sp"])]
+
+
+def replicate_module(module: torch.nn.Module,
+                     device: torch.device) -> torch.nn.Module:
+    """A copy of ``module`` on ``device``: its structure copied over meta
+    tensors, then every parameter and buffer made on ``device`` and copied
+    device to device (nothing staged through host memory; the source
+    card holds no second copy)."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        meta = torch.empty_like(t, device="meta")
+        memo[id(t)] = (torch.nn.Parameter(meta, t.requires_grad)
+                       if isinstance(t, torch.nn.Parameter) else meta)
+    twin = copy.deepcopy(module, memo).to_empty(device=device)
+    copy_module_(twin, module)
+    return twin
+
+
+def copy_module_(dst: torch.nn.Module, src: torch.nn.Module) -> None:
+    """Every parameter and buffer of ``src`` into ``dst``'s, in place."""
+    with torch.no_grad():
+        for a, b in zip(itertools.chain(dst.parameters(), dst.buffers()),
+                        itertools.chain(src.parameters(), src.buffers())):
+            a.copy_(b)
+
+
 class _ReloadsParams:
     """The device-loss rebuild of a pipeline with a ``_dispatch_lock``: it
     builds what it serves through ``self._rebuilds``, whose recipes run
     again into the same tensors under the lock, so the captured graphs
-    keep their buffers and stay valid."""
+    keep their buffers and stay valid; then a meshed pipeline copies the
+    rebuilt models into its other cards' replicas (``_replace_replicas``)."""
 
     _rebuilds: Rebuilds
 
@@ -544,12 +622,28 @@ class _ReloadsParams:
         """The parameters and buffers the pipeline serves from."""
         return self._rebuilds.tensors()
 
+    def _replace_replicas(self) -> None:
+        """Re-place what other devices hold of the rebuilt models."""
+
     def reload_params(self) -> None:
         """Raises on a context an error left unusable (a sticky CUDA
         error)."""
         with self._dispatch_lock:
             self._rebuilds.reload()
+            self._replace_replicas()
             synchronize(self.device)
+
+
+def _replicate(value, device: torch.device):
+    """A card's replica of one ``REPLICATED`` attribute: a module or a
+    tensor copied there; a dict (made on demand per card) empty; None."""
+    if isinstance(value, torch.nn.Module):
+        return replicate_module(value, device)
+    if isinstance(value, torch.Tensor):
+        return move(value, device).clone()
+    if isinstance(value, dict):
+        return {}
+    return value
 
 
 class Text2ImagePipeline(_ReloadsParams):
@@ -563,10 +657,25 @@ class Text2ImagePipeline(_ReloadsParams):
     UNET_KIND, VAE_KIND = "unet", "vae"
     # the profiler ranges of a dispatch's stages (utils/profiling.py)
     RANGES = ("clip_encode", "denoise_scan", "vae_decode")
+    # what each card of a mesh holds a replica of (by attribute)
+    REPLICATED = ("clip", "unet", "vae")
+    # a mesh position's index (None: the pipeline itself, meshless)
+    position: Optional[int] = None
+    # False for a position whose sp devices span cards: its denoise runs
+    # eagerly (a CUDA graph cannot span devices)
+    graphable = True
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
-                 weights_dir: Optional[str] = None):
+                 weights_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None,
+                 share_params_with: Optional["Text2ImagePipeline"] = None):
+        """``mesh``: serve over its dp and sp axes (the module's
+        docstring); its devices take the place of ``device``, the models
+        building on its first. ``share_params_with``: serve another
+        pipeline's models (same model configs, same device), as the
+        reference's argument of that name: nothing is built or copied,
+        and either's rebuild refills both."""
         # the configured sampler's loop, schedule and captured graphs
         self.full_variant = SamplerVariant(cfg.sampler)
         # the brownout tiers' variants, by tier_key, built as they engage
@@ -575,7 +684,22 @@ class Text2ImagePipeline(_ReloadsParams):
         w8a8 = w8a8_unet_tools(cfg.models)
         int8 = int8_unet_tools(cfg.models)
         self.cfg = cfg
+        self.mesh = mesh
+        self._layout = None if mesh is None else serving_layout(mesh)
+        if mesh is not None:
+            device = mesh.home
         self.device = resolve_device(device)
+        # the prompts a dispatch pads to a multiple of, and the distinct
+        # devices it runs on (utilization divides by their peaks)
+        self.dp = 1 if mesh is None else mesh.shape["dp"]
+        self.cards = ([self.device] if mesh is None
+                      else mesh.distinct_devices())
+        # the mesh positions' views and each card's replicas, made at the
+        # first meshed dispatch (_mesh_positions)
+        self._positions: Optional[List["Text2ImagePipeline"]] = None
+        self._replicas: Dict[torch.device, Dict[str, object]] = {}
+        # the dispatch's dropped pad rows (uint8), for checks
+        self.last_pad_images = np.zeros((0,), np.uint8)
         # serializes this pipeline's device work: its graphs replay over
         # static buffers (x_t, the conditioning) that two overlapping
         # calls would overwrite
@@ -591,36 +715,41 @@ class Text2ImagePipeline(_ReloadsParams):
             raise ValueError("vae_enc: given in state_dicts and in "
                              f"{CHECKPOINT_FILES['vae_enc']}; give one")
         param_dtype = torch_dtype(m.param_dtype)
-        self._rebuilds = Rebuilds()
+        if share_params_with is not None:
+            self._share(share_params_with)
+        else:
+            self._rebuilds = Rebuilds()
 
-        def unet(weights: Optional[Mapping]) -> UNet:
-            if int8 is not None:
-                # submodule by submodule, each quantized on the host
-                return build_streamed(partial(UNet, m.unet), "unet",
-                                      self.device, cfg.seed, weights,
-                                      param_dtype, quantize=int8)
-            model = self._build(partial(UNet, m.unet), "unet", weights,
-                                param_dtype)
-            if w8a8 is not None:
-                w8a8(model)
-            return model
+            def unet(weights: Optional[Mapping]) -> UNet:
+                if int8 is not None:
+                    # submodule by submodule, each quantized on the host
+                    return build_streamed(partial(UNet, m.unet), "unet",
+                                          self.device, cfg.seed, weights,
+                                          param_dtype, quantize=int8)
+                model = self._build(partial(UNet, m.unet), "unet", weights,
+                                    param_dtype)
+                if w8a8 is not None:
+                    w8a8(model)
+                return model
 
-        # the reference's pipeline runs CLIP in fp32 over parameters
-        # stored in param_dtype, the UNet in its own dtype over
-        # param_dtype storage, and the VAE over fp32 storage
-        self.clip, clip_file = self._add(
-            partial(self._build, partial(ClipTextEncoder, m.clip_text),
-                    "clip_text", storage_dtype=param_dtype),
-            "clip_text", sd.get("clip_text"))
-        self.unet, unet_file = self._add(
-            unet, self.UNET_KIND, sd.get("unet"),
-            param_dtype if w8a8 is not None else None)
-        self.vae, vae_file = self._add(
-            partial(self._build, partial(VAEDecoder, m.vae), "vae"),
-            self.VAE_KIND, sd.get("vae"))
-        # True only when every stage came from a checkpoint (the
-        # reference's flag: quality checks refuse a seeded stage)
-        self.loaded_real_weights = clip_file and unet_file and vae_file
+            # the reference's pipeline runs CLIP in fp32 over parameters
+            # stored in param_dtype, the UNet in its own dtype over
+            # param_dtype storage, and the VAE over fp32 storage
+            self.clip, clip_file = self._add(
+                partial(self._build, partial(ClipTextEncoder, m.clip_text),
+                        "clip_text", storage_dtype=param_dtype),
+                "clip_text", sd.get("clip_text"))
+            self.unet, unet_file = self._add(
+                unet, self.UNET_KIND, sd.get("unet"),
+                param_dtype if w8a8 is not None else None)
+            self.vae, vae_file = self._add(
+                partial(self._build, partial(VAEDecoder, m.vae), "vae"),
+                self.VAE_KIND, sd.get("vae"))
+            # True only when every stage came from a checkpoint (the
+            # reference's flag: quality checks refuse a seeded stage)
+            self.loaded_real_weights = clip_file and unet_file and vae_file
+        if self._layout is not None and len(self._layout[0]) > 1:
+            check_spatial(self.unet)
         for part in (m.unet, m.vae):
             if fc_describe(part):
                 log.info("%s", fc_describe(part))
@@ -657,6 +786,20 @@ class Text2ImagePipeline(_ReloadsParams):
         self._staged_init_lock = OrderedLock("pipeline.staged_init",
                                              rank=13)
 
+    def _share(self, donor: "Text2ImagePipeline") -> None:
+        """Serve ``donor``'s models (``share_params_with``)."""
+        if donor.cfg.models != self.cfg.models:
+            raise ValueError("share_params_with needs the same model "
+                             "configs")
+        if indexed_device(donor.device) != indexed_device(self.device):
+            raise ValueError(f"share_params_with: the donor's models are "
+                             f"on {donor.device}, this pipeline's on "
+                             f"{self.device}")
+        self._rebuilds = donor._rebuilds
+        for name in self.REPLICATED:
+            setattr(self, name, getattr(donor, name))
+        self.loaded_real_weights = donor.loaded_real_weights
+
     def _build(self, factory: Callable[[], torch.nn.Module], kind: str,
                state_dict: Optional[Mapping],
                storage_dtype: Optional[torch.dtype] = None
@@ -683,8 +826,68 @@ class Text2ImagePipeline(_ReloadsParams):
                                      self.cfg.models.clip_text.vocab_size)
 
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
-        return torch.from_numpy(self._tokenize_host(prompts)).long().to(
-            self.device)
+        return self._ids_on_device(self._tokenize_host(prompts))
+
+    def _ids_on_device(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(ids).long().to(self.device)
+
+    # -- many devices (parallel/mesh.py) -----------------------------------
+    def _mesh_positions(self) -> List["Text2ImagePipeline"]:
+        """The dp positions a dispatch runs on: the pipeline itself
+        without a mesh; with one, a view per dp position (a shallow copy
+        over its card's replica of ``REPLICATED``, its ``position`` and
+        device; with sp > 1 a :class:`SpatialUNet` over its sp devices'
+        UNets), made at the first call. The replicas: the pipeline's own
+        models on the mesh's first device, :func:`replicate_module` on
+        every other."""
+        if self._positions is not None:
+            return self._positions
+        if self.mesh is None:
+            self._positions = [self]
+            return self._positions
+        self._replicas = {indexed_device(self.device): {
+            name: getattr(self, name) for name in self.REPLICATED}}
+        for dev in self.cards:
+            if dev not in self._replicas:
+                self._replicas[dev] = {
+                    name: _replicate(getattr(self, name), dev)
+                    for name in self.REPLICATED}
+        views = []
+        for index, devs in enumerate(self._layout):
+            view = copy.copy(self)
+            view.__dict__.update(self._replicas[devs[0]])
+            view.device, view.position = devs[0], index
+            if len(devs) > 1:
+                view.unet = SpatialUNet(
+                    [self._replicas[d]["unet"] for d in devs], devs)
+                if len(set(devs)) > 1:
+                    # a CUDA graph cannot span devices
+                    view.graphable = False
+                    log.warning("dp position %d: its sp positions span "
+                                "%d cards; its denoise runs eagerly", index,
+                                len(set(devs)))
+            views.append(view)
+        self._positions = views
+        return views
+
+    def _replace_replicas(self) -> None:
+        """After a rebuild: every other card's replica refilled from the
+        rebuilt models, in place (their graphs stay valid)."""
+        home = indexed_device(self.device)
+        for dev, replica in self._replicas.items():
+            if dev == home:
+                continue
+            for name in self.REPLICATED:
+                src, dst = getattr(self, name), replica[name]
+                if isinstance(src, torch.nn.Module):
+                    copy_module_(dst, src)
+                elif isinstance(src, torch.Tensor):
+                    dst.copy_(src)
+            synchronize(dev)
+
+    def _synchronize_cards(self) -> None:
+        for dev in self.cards:
+            synchronize(dev)
 
     def encode(self, prompts: Sequence[str]) -> Dict[str, torch.Tensor]:
         """The CFG conditioning of ``prompts`` and the negative prompt, as
@@ -720,7 +923,9 @@ class Text2ImagePipeline(_ReloadsParams):
         mode = v.mode
         schedule = v.schedule
         if graphed is None:
-            graphed = self.device.type == "cuda"
+            graphed = self.device.type == "cuda" and self.graphable
+            if self.device.type == "cuda" and not graphed:
+                metrics.inc("pipeline.spatial_eager_denoises")
         if mode == "encprop":
             make = partial(cfg_denoiser_encprop, self.unet,
                            guidance_scale=gs, deepcache=s.deepcache)
@@ -744,10 +949,14 @@ class Text2ImagePipeline(_ReloadsParams):
                 return sample_spec(schedule.spec(latents), make(**inputs),
                                    latents)
             build = partial(SpecGraph, make, schedule, latents)
-        graph = v.step_graphs.get(latents.shape[0])
+        # a mesh position's own graphs: two positions never replay over
+        # one set of static buffers
+        key = (latents.shape[0] if self.position is None
+               else (self.position, latents.shape[0]))
+        graph = v.step_graphs.get(key)
         if graph is None:
             graph = build(**inputs)
-            v.step_graphs[latents.shape[0]] = graph
+            v.step_graphs[key] = graph
         return graph(latents, **inputs)
 
     # -- brownout tiers (serving/overload.py) ------------------------------
@@ -900,11 +1109,12 @@ class Text2ImagePipeline(_ReloadsParams):
 
     # -- staged serving (serving/stages.py) --------------------------------
     def _staged_enabled(self) -> bool:
-        """The reference's per-call routing decision, less its mesh term
-        (the port serves one device): the config's ``staged_serving``,
-        minus the kill switch CASSMANTLE_NO_STAGED_SERVING, minus what the
-        slot stepper cannot replay (DeepCache's pairs, encprop's segments,
-        eta > 0's noise chain, a kind outside ``STAGEABLE_KINDS``)."""
+        """The reference's per-call routing decision: the config's
+        ``staged_serving``, minus the kill switch
+        CASSMANTLE_NO_STAGED_SERVING, minus meshed (dp/sp) serving, which
+        stays monolithic, minus what the slot stepper cannot replay
+        (DeepCache's pairs, encprop's segments, eta > 0's noise chain, a
+        kind outside ``STAGEABLE_KINDS``)."""
         from cassmantle_tpu_torch.serving.stages import (
             STAGEABLE_KINDS,
             staged_serving_disabled,
@@ -913,6 +1123,7 @@ class Text2ImagePipeline(_ReloadsParams):
         s = self.cfg.sampler
         return (self.cfg.serving.staged_serving
                 and not staged_serving_disabled()
+                and self.mesh is None
                 and not s.deepcache
                 and not s.encprop
                 and s.eta == 0.0
@@ -984,7 +1195,10 @@ class Text2ImagePipeline(_ReloadsParams):
         staged serving enabled (:meth:`_staged_enabled`) and no tier
         engaged, the staged server serves the request instead, honoring
         ``deadline_s`` at step boundaries (the monolithic dispatch is
-        all or nothing and ignores it)."""
+        all or nothing and ignores it). With a mesh the prompts pad to a
+        multiple of dp (:func:`pad_prompts_to_dp`; ``latents`` may cover
+        the pad rows too, else theirs are zeros) and the dropped pad
+        rows' images stay in ``last_pad_images``."""
         if (self._staged_enabled()
                 and self.tier_variant(quality_overrides()) is None):
             out = self._staged_server().generate(
@@ -996,21 +1210,24 @@ class Text2ImagePipeline(_ReloadsParams):
             note_w8a8_counter(self.cfg.models, self.full_variant.sampler_cfg,
                               len(out))
             return out
+        padded, n = pad_prompts_to_dp(prompts, self.dp)
         with self._dispatch_lock:
             variant = self.tier_variant(quality_overrides())
             per_image = self._dispatch_flops(variant or self.full_variant)
             # the stage span ends when the uint8 batch is on the host (no
-            # second sync); attribution counts the variant served, and
-            # block_timer reports the dispatch to the device telemetry
+            # second sync); attribution counts the variant served (the
+            # padded rows too) against the peaks of the cards it ran on,
+            # and block_timer reports the dispatch to the device telemetry
             with block_timer(
                     f"pipeline.{self.PIPELINE}_s",
-                    flops_est=(per_image.scaled(len(prompts))
+                    flops_est=(per_image.scaled(len(padded))
                                if per_image is not None else None),
-                    pipeline=self.PIPELINE):
+                    pipeline=self.PIPELINE, cards=len(self.cards)):
                 fault_point("device.lost", peer=self.PIPELINE)
-                images = self._generate_locked(prompts, seed, latents,
+                images = self._generate_locked(padded, seed, latents,
                                                variant)
-        out = integrity.poison(images, peer=self.PIPELINE)
+        self.last_pad_images = images[n:]
+        out = integrity.poison(images[:n], peer=self.PIPELINE)
         # the host-side sentinel on the uint8 batch already copied back:
         # the verdict stays out of the captured graphs
         integrity.enforce(np.ones(len(out), dtype=bool),
@@ -1029,34 +1246,63 @@ class Text2ImagePipeline(_ReloadsParams):
                          latents: Optional[torch.Tensor],
                          variant: Optional[SamplerVariant] = None
                          ) -> np.ndarray:
+        """CLIP, the denoise and the VAE of ``prompts`` (a multiple of dp),
+        each stage launched on every dp position before the cards are
+        waited for, so distinct cards overlap; x_T drawn (or given) for
+        the whole batch on the first device, each position taking its
+        rows."""
         s = (variant or self.full_variant).sampler_cfg
+        positions = self._mesh_positions()
         if latents is None:
             gen = torch.Generator(self.device).manual_seed(seed)
             latents = initial_latents(gen, len(prompts), s.image_size,
                                       self.vae_scale, device=self.device)
         latents = latents.to(self.device, torch.float32)
+        if len(latents) < len(prompts):
+            latents = torch.cat([latents, latents.new_zeros(
+                (len(prompts) - len(latents),) + latents.shape[1:])])
+        rows = len(prompts) // len(positions)
+        parts = [slice(p * rows, (p + 1) * rows)
+                 for p in range(len(positions))]
+        ids = self._tokenize_host(prompts)
+        uncond = self._tokenize_host(
+            [self.cfg.sampler.negative_prompt] * len(prompts))
         times = {}
         encode_range, denoise_range, vae_range = self.RANGES
         with torch.inference_mode():
             t0 = time.perf_counter()
+            conds = []
             with annotate(encode_range):
-                cond = self.encode(prompts)
-            synchronize(self.device)
+                for view, rows_p in zip(positions, parts):
+                    with device_scope(view.device):
+                        conds.append(view.encode_ids(
+                            view._ids_on_device(ids[rows_p]),
+                            view._ids_on_device(uncond[rows_p])))
+            self._synchronize_cards()
             t1 = time.perf_counter()
             times["clip"] = t1 - t0
+            finals = []
             with annotate(denoise_range):
-                final = self.denoise(latents, cond, variant=variant)
-            synchronize(self.device)
+                for view, rows_p, cond in zip(positions, parts, conds):
+                    with device_scope(view.device):
+                        finals.append(view.denoise(
+                            move(latents[rows_p], view.device), cond,
+                            variant=variant))
+            self._synchronize_cards()
             t2 = time.perf_counter()
             times["denoise"] = t2 - t1
+            decoded, images = [], []
             with annotate(vae_range):
-                decoded = self.vae(final)
-                images = postprocess_images(decoded)
-            self.last_decoded_finite = bool(torch.isfinite(decoded).all())
-            synchronize(self.device)
+                for view, final in zip(positions, finals):
+                    with device_scope(view.device):
+                        decoded.append(view.vae(final))
+                        images.append(postprocess_images(decoded[-1]))
+            self.last_decoded_finite = all(
+                bool(torch.isfinite(d).all()) for d in decoded)
+            self._synchronize_cards()
             times["vae"] = time.perf_counter() - t2
         self.last_stage_seconds = times
-        return images.cpu().numpy()
+        return np.concatenate([im.cpu().numpy() for im in images])
 
     # -- img2img ----------------------------------------------------------
     def _ensure_encoder(self) -> VAEEncoder:
@@ -1638,26 +1884,35 @@ class PromptGenerator(_ReloadsParams):
 class TorchContentBackend:
     """Prompt-LM episode text + diffusion image: one round's content. The image
     comes from :class:`SDXLPipeline` when the config has a second text
-    tower, else from :class:`Text2ImagePipeline`. ``weights_dir``: the
-    checkpoints and vocabularies every model loads from (absent files:
-    the seeded init)."""
+    tower, else from :class:`Text2ImagePipeline`, over ``mesh`` when one
+    is given (the prompt LM serves on the mesh's first device). ``t2i``:
+    a caller-owned image pipeline instead (the reference's argument: one
+    already built for this mesh). ``weights_dir``: the checkpoints and
+    vocabularies every model loads from (absent files: the seeded
+    init)."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  styles: Optional[List[str]] = None,
                  rng: Optional[random.Random] = None,
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
-                 weights_dir: Optional[str] = None):
+                 weights_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None,
+                 t2i: Optional[Text2ImagePipeline] = None):
         sd = state_dicts or {}
         self.cfg = cfg
-        if cfg.models.clip_text_2 is not None:
+        if t2i is not None:
+            self.t2i = t2i
+        elif cfg.models.clip_text_2 is not None:
             # serving/sdxl.py builds on this module
             from cassmantle_tpu_torch.serving.sdxl import SDXLPipeline
 
             self.t2i = SDXLPipeline(cfg, device, state_dicts=sd,
-                                    weights_dir=weights_dir)
+                                    weights_dir=weights_dir, mesh=mesh)
         else:
             self.t2i = Text2ImagePipeline(cfg, device, state_dicts=sd,
-                                          weights_dir=weights_dir)
+                                          weights_dir=weights_dir, mesh=mesh)
+        if mesh is not None:
+            device = mesh.home
         lm = "gpt2" if cfg.models.mistral is None else "mistral"
         self.prompt_gen = PromptGenerator(cfg, device, sd.get(lm),
                                           sd.get("gpt2_draft"), weights_dir)

@@ -1,6 +1,6 @@
 """SDXL-base text -> image: dual text towers and micro-conditioning.
 
-Port of the monolithic single-device path of
+Port of the monolithic path of
 ``cassmantle_tpu/serving/sdxl.py::SDXLPipeline`` at full 1024x1024 scale
 (``sdxl_config()``). On top of :class:`Text2ImagePipeline` it adds:
 
@@ -43,8 +43,14 @@ kernels with dynamic activation scales (the calibration artifact's entry
 is SD1.5's, so no SDXL config matches it); under ``unet_int8`` its large
 weights are int8, dequantized layer by layer. ``pipeline.w8a8_dispatches``
 counts the W8A8 forwards of each dispatch, monolithic, tier and staged.
-Its data-parallel padding is a later slice: the port's config has no
-field for it.
+
+Over a mesh (``mesh=``) it serves as SD1.5 does
+(``serving/pipeline.py``'s module docstring): prompts padded to dp, one
+view per dp position over its card's replicas of both towers, bigG's
+projection, the time ids and the UNet and VAE, and with sp > 1 the
+spatially partitioned UNet (``parallel/spatial.py``), the micro-
+conditioning replicated. A brownout tier's time ids are built once a
+size on each card.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from cassmantle_tpu_torch.models.weights import (
     refill_from_file,
     reread,
 )
+from cassmantle_tpu_torch.parallel.mesh import Mesh
 from cassmantle_tpu_torch.serving.pipeline import (
     SamplerVariant,
     Text2ImagePipeline,
@@ -103,13 +110,23 @@ class SDXLPipeline(Text2ImagePipeline):
     LOCK_RANK = 11
     UNET_KIND, VAE_KIND = "unet_xl", "vae_xl"
     RANGES = ("sdxl_encode", "sdxl_denoise_scan", "sdxl_vae_decode")
+    REPLICATED = ("clip", "clip2", "clip2_proj", "unet", "vae", "time_ids",
+                  "tier_time_ids")
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, object]] = None,
-                 weights_dir: Optional[str] = None):
+                 weights_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None,
+                 share_params_with: Optional["SDXLPipeline"] = None):
         check_sdxl(cfg)
-        super().__init__(cfg, device, state_dicts, weights_dir)
+        super().__init__(cfg, device, state_dicts, weights_dir, mesh,
+                         share_params_with)
         m = cfg.models
+        # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings
+        self.time_id_dim = (m.unet.addition_embed_dim
+                            - m.clip_text_2.hidden_size) // 6
+        if share_params_with is not None:
+            return
         sd = state_dicts or {}
         param_dtype = torch_dtype(m.param_dtype)
         kind, filename = "clip_text_2", CHECKPOINT_FILES["clip_text_2"]
@@ -150,11 +167,8 @@ class SDXLPipeline(Text2ImagePipeline):
             self.clip2_proj = self._rebuilds.add(partial(
                 convert_clip_text_projection(tensors).to, self.device,
                 param_dtype, copy=True), refill)
-        # addition vector = pooled bigG ++ 6 sinusoidal time-id embeddings;
         # the time ids depend on the config alone: built once, here (a host
         # to device copy, never inside a step)
-        self.time_id_dim = (m.unet.addition_embed_dim
-                            - m.clip_text_2.hidden_size) // 6
         self.time_ids = self._rebuilds.add(partial(self._time_ids, 1))
         # a brownout tier's, by image size, built as its tier engages
         self.tier_time_ids: Dict[int, torch.Tensor] = {}

@@ -23,7 +23,10 @@ Port of ``cassmantle_tpu/serving/service.py::InferenceService``
 - the integrity sentinels fail only the bad members of a batch.
 
 The image pipeline follows the config: SD1.5 by default, SDXL under
-``sdxl_config()`` (``TorchContentBackend``). Queue failures follow the
+``sdxl_config()`` (``TorchContentBackend``). It serves over ``mesh``, by
+default :func:`default_serving_mesh`: batch data parallel over every
+card when the host has more than one, meshless on one card (the scorer
+and the prompt LM serve on the mesh's first card). Queue failures follow the
 reference's degradations (floor scores, ``OverloadShed`` for a 503 with
 Retry-After, the in-backend decode); nothing falls back to the CPU.
 """
@@ -34,13 +37,15 @@ import asyncio
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
-from cassmantle_tpu_torch.config import FrameworkConfig
+from cassmantle_tpu_torch.config import FrameworkConfig, MeshConfig
 from cassmantle_tpu_torch.obs.device import note_dispatch
 from cassmantle_tpu_torch.ops.blur import device_blur
 from cassmantle_tpu_torch.ops.embed_table import EmbedTable
 from cassmantle_tpu_torch.ops.graphs import no_new_captures
 from cassmantle_tpu_torch.ops.scorer import EmbeddingScorer
+from cassmantle_tpu_torch.parallel.mesh import Mesh, make_mesh
 from cassmantle_tpu_torch.serving import integrity
 from cassmantle_tpu_torch.serving.device_recovery import (
     DeviceRecoveryManager,
@@ -70,6 +75,18 @@ from cassmantle_tpu_torch.utils.logging import get_logger
 log = get_logger("service")
 
 
+def default_serving_mesh(cfg: FrameworkConfig, device: DeviceLike = "cuda"
+                         ) -> Optional[Mesh]:
+    """Batch-DP mesh over every card when more than one is visible (the
+    reference's v5e-8 serving layout, here over a host's cards); None on
+    one card, and for a service asked onto the CPU."""
+    if resolve_device(device).type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    mesh = make_mesh(MeshConfig(dp=-1))
+    log.info("serving mesh: dp=%d", mesh.shape["dp"])
+    return mesh
+
+
 class InferenceService:
     """``table``: ``"auto"`` builds (or loads from the cache) the int8
     table of the game's wordlist with the service's own scorer; an
@@ -80,14 +97,24 @@ class InferenceService:
     weights_dir=...)``. ``supervisor``: the one a served ``Game`` shares
     (its content breaker guards round generation while the queues report
     to it), as the reference's server passes one in; None builds the
-    service's own."""
+    service's own. ``mesh``: the image pipeline's device mesh (None: the
+    :func:`default_serving_mesh`); ``backend``: a caller-built
+    :class:`TorchContentBackend` (its pipelines are served as given), as
+    the reference's arguments of those names."""
 
     def __init__(self, cfg: FrameworkConfig, device: DeviceLike = "cuda",
                  state_dicts: Optional[Mapping[str, Mapping]] = None,
                  weights_dir: Optional[str] = None,
                  table: Union[str, EmbedTable, None] = "auto",
-                 supervisor: Optional[ServingSupervisor] = None) -> None:
+                 supervisor: Optional[ServingSupervisor] = None,
+                 mesh: Optional[Mesh] = None,
+                 backend: Optional[TorchContentBackend] = None) -> None:
+        if mesh is None and backend is None:
+            mesh = default_serving_mesh(cfg, device)
+        if mesh is not None:
+            device = mesh.home
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         sd = state_dicts or {}
         self.supervisor = supervisor or ServingSupervisor()
@@ -100,9 +127,9 @@ class InferenceService:
         if table == "auto":
             table, self.table_stats = self.scorer.build_table()
         self.scorer.arm_table(table)
-        self.backend = TorchContentBackend(cfg, self.device,
-                                           state_dicts=sd,
-                                           weights_dir=weights_dir)
+        self.backend = backend or TorchContentBackend(
+            cfg, self.device, state_dicts=sd, weights_dir=weights_dir,
+            mesh=mesh)
         # the image pipeline's staged server reports stage progress and
         # quarantines to the same supervisor as the queues
         self.backend.t2i.supervisor = self.supervisor

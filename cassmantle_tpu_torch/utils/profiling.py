@@ -14,7 +14,8 @@ costmodel.Products`, a number of bf16 operations, or a callable returning
 either at exit) and a ``pipeline`` label, a dispatch that completed adds
 its operations to ``request.device_flops{pipeline}``, sets
 ``pipeline.mxu_utilization{pipeline}`` to its share of the card's peak
-(``obs/costmodel.py::utilization``) and puts both on its span. A body
+(``obs/costmodel.py::utilization``; of the ``cards`` distinct cards'
+peaks for a meshed dispatch) and puts both on its span. A body
 that raised attributes nothing. ``pipeline`` alone also reports the
 dispatch to the device telemetry's high-water mark
 (``obs/device.py::note_dispatch``).
@@ -278,9 +279,11 @@ def _products(flops_est):
 
 @contextlib.contextmanager
 def block_timer(name: str, *, flops_est=None,
-                pipeline: Optional[str] = None) -> Iterator[None]:
+                pipeline: Optional[str] = None,
+                cards: int = 1) -> Iterator[None]:
     """Time a stage into histogram ``name`` and a stage span, up to the
-    block's end (its result on the host)."""
+    block's end (its result on the host). ``cards``: the distinct cards
+    the dispatch ran on."""
     from cassmantle_tpu_torch.obs.trace import current_ctx, tracer
 
     start_wall = time.time()
@@ -311,7 +314,7 @@ def block_timer(name: str, *, flops_est=None,
             if products.int8:
                 attrs["flops_int8"] = products.int8
             if elapsed > 0:
-                share = utilization(products, elapsed)
+                share = utilization(products, elapsed, cards)
                 attrs["mxu_utilization"] = round(share, 6)
                 metrics.gauge("pipeline.mxu_utilization", share,
                               labels=labels)

@@ -392,7 +392,27 @@ FLASH_SHAPES = {
     "cross_x1_512_b8": (8, 1024, 77, 10, 64, "cross"),
     "self_x2_512_b8": (8, 256, 256, 20, 64, "self"),
     "cross_x2_512_b8": (8, 256, 77, 20, 64, "cross"),
+    # the spatially partitioned UNet at sp = 2 (parallel/spatial.py;
+    # [mesh] (b) and (d)): each shard's queries, half the rows, against
+    # every token's keys and values, gathered over sp ("spatial": q a view
+    # of the shard's fused qkv, k and v the gathered copies), and the
+    # shard's queries against the context. SD1.5 at 512², SDXL at 1024²
+    "self_l0_sp2": (2, 2048, 4096, 8, 40, "spatial"),
+    "cross_l0_sp2": (2, 2048, 77, 8, 40, "cross"),
+    "self_l1_sp2": (2, 512, 1024, 8, 80, "spatial"),
+    "cross_l1_sp2": (2, 512, 77, 8, 80, "cross"),
+    "self_l2_sp2": (2, 128, 256, 8, 160, "spatial"),
+    "cross_l2_sp2": (2, 128, 77, 8, 160, "cross"),
+    "self_mid_sp2": (2, 32, 64, 8, 160, "spatial"),
+    "cross_mid_sp2": (2, 32, 77, 8, 160, "cross"),
+    "self_x1_sp2": (2, 2048, 4096, 10, 64, "spatial"),
+    "cross_x1_sp2": (2, 2048, 77, 10, 64, "cross"),
+    "self_x2_sp2": (2, 512, 1024, 20, 64, "spatial"),
+    "cross_x2_sp2": (2, 512, 77, 20, 64, "cross"),
 }
+# the shapes only the [mesh] phase launches
+SPATIAL_FLASH = tuple(name for name in FLASH_SHAPES
+                      if name.endswith("_sp2"))
 # Flash launches of one SD1.5 UNet forward by mode (its transformer
 # blocks, one self and one cross attention each): a full forward runs 16
 # (5 at each of three levels, 1 in the mid block); the decoder-only
@@ -537,6 +557,14 @@ ROUND_FLASH.update({
                                    "sdxl_decoder_only_b8_512": 5},
                                   "vae_mid"),
 })
+# one row's round at sp = 2 ([mesh] (d), SD1.5; SDXL's at its (b)
+# forward's shapes): every UNet site once a position, at the spatial
+# shapes; the VAE decodes the gathered latents
+for _model in ("sd15", "sdxl"):
+    ROUND_FLASH[f"{_model}_sp2"] = {
+        (name if name.startswith("vae") else f"{name}_sp2"):
+        (n if name.startswith("vae") else 2 * n)
+        for name, n in ROUND_FLASH[_model].items()}
 # by kernel path: the UNet's head dims on the wgmma kernel, the VAE mid
 # blocks' D = 512 on mma.sync (ops/_flash_plan.py)
 ROUND_FLASH_PATHS = {
@@ -782,6 +810,9 @@ def flash_inputs(b, sq, sk, h, d, layout, gen):
     if layout == "self":
         qkv = torch.randn((b, sq, 3 * inner), **kw)
         q, k, v = qkv.split(inner, dim=-1)
+    elif layout == "spatial":
+        q = torch.randn((b, sq, 3 * inner), **kw).split(inner, dim=-1)[0]
+        k, v = (torch.randn((b, sk, inner), **kw) for _ in range(2))
     elif layout == "cross":
         q = torch.randn((b, sq, inner), **kw)
         k, v = torch.randn((b, sk, 2 * inner), **kw).split(inner, dim=-1)
@@ -4092,6 +4123,339 @@ def check_sdxl_builds(card: str, svc) -> tuple:
     if bad:
         print(f"[round-sdxl_*] failed checks: {bad}", flush=True)
     return not bad, tallies
+
+
+# -- serving over a mesh on the one card ([mesh]) ---------------------------
+
+MESH_SEED = "The Night the Trains Sang"   # (a)'s round
+MESH_GUESSES = 100                        # (d): guesses, as the reference's
+MESH_SESSIONS = 8                         # (d): from this many sessions
+MESH_ROUND_S = 4.0                        # (d): time_per_prompt
+# flash launches of one UNet forward at sp = 2: each site once a position
+SP_FLASH = {model: {name: n // UNET_FORWARDS
+                    for name, n in ROUND_FLASH[f"{model}_sp2"].items()
+                    if not name.startswith("vae")}
+            for model in ("sd15", "sdxl")}
+# the phase's launches per part, for the kernels line
+MESH_TALLIES = {}
+MESH_SECONDS = {}
+
+
+def one_card_mesh(dp: int, sp: int = 1):
+    """A dp x sp mesh whose positions all lie on the card (the devices
+    repeat, as the reference's virtual host devices share one CPU)."""
+    import torch
+
+    from cassmantle_tpu_torch.config import MeshConfig
+    from cassmantle_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(MeshConfig(dp=dp, sp=sp),
+                     [torch.device("cuda", 0)] * (dp * sp))
+
+
+def flash_by_name(tally: dict) -> dict:
+    """Flash launches per FLASH_SHAPES name."""
+    names = {v[:5]: name for name, v in FLASH_SHAPES.items()}
+    return {names.get(shape, str(shape)): n
+            for shape, n in tally["flash_attention"].items()}
+
+
+def mesh_flash_gaps(tally: dict, rows: dict) -> list:
+    """Flash launches at a shape phase 2 did not check, or on another path
+    than its check took."""
+    names = {v[:5]: name for name, v in FLASH_SHAPES.items()}
+    gaps = [str(shape) for shape in tally["flash_attention"]
+            if shape not in names]
+    gaps += [f"{names[shape]} on {path}"
+             for (shape, path) in tally["flash_paths"]
+             if shape in names and rows[names[shape]]["path"] != path]
+    return gaps
+
+
+def fp32_twin(unet):
+    """The UNet in fp32 (its config at dtype float32) holding the served
+    bf16 weights cast up: the forward the bf16 one is held to."""
+    import dataclasses
+
+    import torch
+
+    from cassmantle_tpu_torch.models.unet import UNet
+
+    dev = next(unet.parameters()).device
+    with torch.device("meta"):
+        twin = UNet(dataclasses.replace(unet.cfg, dtype="float32"))
+    twin.to_empty(device=dev)
+    twin.load_state_dict({k: v.float() for k, v in unet.state_dict().items()})
+    return twin.requires_grad_(False).eval()
+
+
+def spatial_forward(card: str, model: str, unet, size: int,
+                    rows: dict) -> bool:
+    """[mesh] (b): one UNet forward at ``size`` (CFG batch 2) split over
+    sp = 2 positions on the card, against the one-device bf16 forward;
+    the bound is twice that forward's own max |diff| from its fp32 twin
+    on the same inputs."""
+    import torch
+
+    from cassmantle_tpu_torch.parallel.spatial import SpatialUNet
+
+    dev = next(unet.parameters()).device
+    cfg = unet.cfg
+    gen = torch.Generator(dev).manual_seed(31)
+    hw = size // 8
+    x = torch.randn((2, hw, hw, 4), generator=gen, device=dev)
+    t = torch.full((2,), 500, dtype=torch.long, device=dev)
+    ctx = torch.randn((2, 77, cfg.context_dim), generator=gen, device=dev)
+    extra = ([torch.randn((2, cfg.addition_embed_dim), generator=gen,
+                          device=dev)] if cfg.addition_embed_dim else [])
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        twin = fp32_twin(unet)
+        ref32 = twin(x, t, ctx, *extra)
+        del twin
+        one = unet(x, t, ctx, *extra)
+        spatial = SpatialUNet([unet, unet], [dev, dev])
+        spatial(x, t, ctx, *extra)              # warm-up: plans, handles
+        torch.cuda.synchronize()
+        reset_all_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = spatial(x, t, ctx, *extra)
+        end.record()
+        torch.cuda.synchronize()
+        tally = read_tallies()
+        one_start = torch.cuda.Event(enable_timing=True)
+        one_end = torch.cuda.Event(enable_timing=True)
+        one_start.record()
+        unet(x, t, ctx, *extra)
+        one_end.record()
+        torch.cuda.synchronize()
+    own = (one - ref32).abs().max().item()
+    diff = (got - one).abs().max().item()
+    by_name = flash_by_name(tally)
+    gaps = mesh_flash_gaps(tally, rows)
+    report = {"shape": list(x.shape), "max_abs_diff_sp": diff,
+              "bf16_vs_fp32_max_abs": own, "bound": 2 * own,
+              "finite": bool(torch.isfinite(got).all()),
+              "eager_ms_sp2": start.elapsed_time(end),
+              "eager_ms_one": one_start.elapsed_time(one_end),
+              "flash": by_name, "flash_paths": flash_path_totals(
+                  tally["flash_paths"]),
+              "s": time.perf_counter() - t0}
+    ok = (report["finite"] and diff <= 2 * own and by_name == SP_FLASH[model]
+          and not gaps and not any(sum(tally[k].values()) for k in (
+              "gn_silu_conv3x3", "int8_matmul", "int8_conv3x3")))
+    MESH_TALLIES[f"b_{model}"] = tally
+    print(f"[mesh] (b) sp=2 {model} UNet forward at {size}² ({card}): "
+          f"{json.dumps(report)} -> {'pass' if ok else 'FAIL'}"
+          + (f" gaps {gaps}" if gaps else ""), flush=True)
+    return ok
+
+
+def check_mesh_sd15(card: str, svc, rows: dict) -> bool:
+    """[mesh] (a), (b) at SD1.5 and (d), over the [round-default]
+    service's weights (``share_params_with``): a round on dp = 2 whose
+    image and dropped pad row equal meshless batch-1 dispatches of the same
+    x_T rows bit for bit; the sp = 2 forward; a full game round on
+    dp x sp = 2 x 2."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cassmantle_tpu_torch.engine.game import Game
+    from cassmantle_tpu_torch.engine.store import MemoryStore
+    from cassmantle_tpu_torch.ops.ddim import initial_latents
+    from cassmantle_tpu_torch.serving.pipeline import (
+        Text2ImagePipeline,
+        TorchContentBackend,
+    )
+    from cassmantle_tpu_torch.serving.service import InferenceService
+    from cassmantle_tpu_torch.utils.logging import metrics
+
+    from cassmantle_tpu_torch.serving import overload
+
+    overload.reset_brownout()
+    base = svc.backend.t2i
+    cfg = base.cfg
+    t_phase = time.perf_counter()
+
+    def meshed_service(mesh, cfg=cfg):
+        t2i = Text2ImagePipeline(cfg, mesh=mesh, share_params_with=base)
+        return InferenceService(cfg, table=None, mesh=mesh,
+                                backend=TorchContentBackend(
+                                    cfg, mesh=mesh, t2i=t2i))
+
+    # (a) dp = 2: one prompt and one pad row, a position each
+    t0 = time.perf_counter()
+    svc2 = meshed_service(one_card_mesh(2))
+    t2i = svc2.backend.t2i
+    build_s = time.perf_counter() - t0
+    reset_all_counters()
+    t0 = time.perf_counter()
+    rc = asyncio.run(svc2.generate_content(MESH_SEED))
+    round_s = time.perf_counter() - t0
+    tally_a = read_tallies()
+    MESH_TALLIES["a"] = tally_a
+    replays = {str(key): g.graphs["step"].replays
+               for key, g in t2i.full_variant.step_graphs.items()}
+    pad_image = t2i.last_pad_images[0]
+    gen = torch.Generator(t2i.device).manual_seed(rc.image_seed)
+    x_t = initial_latents(gen, 2, cfg.sampler.image_size, t2i.vae_scale,
+                          device=t2i.device)
+    one = base.generate([rc.image_prompt], latents=x_t[0:1])[0]
+    pad_one = base.generate([""], latents=x_t[1:2])[0]
+    asyncio.run(svc2.stop())
+    want_a = {k: 2 * n for k, n in ROUND_FLASH["sd15"].items()}
+    report_a = {
+        "build_s": build_s, "round_s": round_s,
+        "stages_s": dict(t2i.last_stage_seconds),
+        "image_equal": bool(np.array_equal(one, rc.image)),
+        "pad_row_equal": bool(np.array_equal(pad_one, pad_image)),
+        "image_diff_max": int(np.abs(one.astype(int) - rc.image).max()),
+        "pad_diff_max": int(np.abs(pad_one.astype(int) - pad_image).max()),
+        "flash": sum(tally_a["flash_attention"].values()),
+        "flash_per_row": sum(tally_a["flash_attention"].values()) / 2,
+        "flash_paths": flash_path_totals(tally_a["flash_paths"]),
+        "graph_replays": replays}
+    gaps_a = mesh_flash_gaps(tally_a, rows)
+    ok_a = (report_a["image_equal"] and report_a["pad_row_equal"]
+            and flash_by_name(tally_a) == want_a and not gaps_a
+            and replays == {"(0, 1)": 50, "(1, 1)": 50})
+    print(f"[mesh] (a) dp=2 round through InferenceService at 512², DDIM "
+          f"{cfg.sampler.num_steps} graphed ({card}): "
+          f"{json.dumps(report_a)} -> {'pass' if ok_a else 'FAIL'}"
+          + (f" gaps {gaps_a}" if gaps_a else ""), flush=True)
+    del svc2, t2i
+    gc.collect()
+
+    # (b) the sp = 2 forward at SD1.5 512²
+    ok_b = spatial_forward(card, "sd15", base.unet, cfg.sampler.image_size,
+                           rows)
+
+    # (d) a full game round on dp x sp = 2 x 2: the reference's
+    # _run_full_round_on_mesh (__graft_entry__.py:67)
+    cfg_d = cfg.replace(game=dataclasses.replace(
+        cfg.game, time_per_prompt=MESH_ROUND_S, lock_timeout=60.0,
+        acquire_timeout=1.0))
+    t0 = time.perf_counter()
+    svc4 = meshed_service(one_card_mesh(2, 2), cfg_d)
+    game = Game(cfg_d, MemoryStore(), svc4.content_backend, svc4.embed,
+                svc4.similarity)
+    count = metrics.counter_total
+    images0 = count("pipeline.images")
+    reset_all_counters()
+
+    async def play():
+        await svc4.similarity([("qzwarmupx", "qzwarmupy")] * 8)
+        await game.startup()
+        episode0 = int((await game.fetch_story()).get("episode", 0))
+        ver0 = await game.rounds.current_image_version()
+        timer = game.start_timer(tick=0.2)
+
+        async def one_guess(i: int) -> dict:
+            masks = await game.rounds.current_masks()
+            return await game.compute_client_scores(
+                f"mesh-player-{i % MESH_SESSIONS}",
+                {str(masks[i % len(masks)]): f"guess{i}"})
+
+        results = await asyncio.gather(
+            *(one_guess(i) for i in range(MESH_GUESSES)))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 120.0
+        while int((await game.fetch_story()).get("episode", 0)) <= episode0:
+            if loop.time() > deadline:
+                raise RuntimeError("the round never promoted on the mesh")
+            await asyncio.sleep(0.2)
+        ver1 = await game.rounds.current_image_version()
+        raw = {slot: await game.store.hget("image", slot)
+               for slot in ("current", "next")}
+        timer.cancel()
+        await game.shutdown()
+        await svc4.stop()
+        return results, ver0, ver1, raw
+
+    results, ver0, ver1, raw = asyncio.run(play())
+    round_d_s = time.perf_counter() - t0
+    tally_d = read_tallies()
+    MESH_TALLIES["d"] = tally_d
+    # a dp position's captured sp step against the same steps run
+    # eagerly, from one x_T: the graph holds the whole partitioned step
+    view = svc4.backend.t2i._mesh_positions()[0]
+    x_t = initial_latents(torch.Generator(view.device).manual_seed(5), 1,
+                          cfg.sampler.image_size, view.vae_scale,
+                          device=view.device)
+    denoise_s = {}
+    with torch.inference_mode():
+        cond = view.encode([MESH_SEED])
+        finals = {}
+        for mode, graphed in (("graph", True), ("eager", False)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            finals[mode] = view.denoise(x_t, cond, graphed=graphed)
+            torch.cuda.synchronize()
+            denoise_s[mode] = time.perf_counter() - t1
+    images_d = count("pipeline.images") - images0
+    decoded = {slot: np.asarray(Image.open(io.BytesIO(b)))
+               for slot, b in raw.items() if b}
+    # a dispatch: the prompt's row and the pad row, each a round at sp 2
+    want_d = {k: 2 * n * images_d
+              for k, n in ROUND_FLASH["sd15_sp2"].items()}
+    gaps_d = mesh_flash_gaps(tally_d, rows)
+    report_d = {
+        "s": round_d_s, "guesses": len(results),
+        "scored": sum("won" in r for r in results),
+        "image_version": [ver0, ver1], "images": images_d,
+        "image_std": {k: float(v.std()) for k, v in decoded.items()},
+        "image_shape": {k: list(v.shape) for k, v in decoded.items()},
+        "flash": sum(tally_d["flash_attention"].values()),
+        "flash_paths": flash_path_totals(tally_d["flash_paths"]),
+        "graph_captures": len(svc4.backend.t2i.full_variant.step_graphs),
+        "last_dispatch_stages_s": dict(svc4.backend.t2i.last_stage_seconds),
+        "sp_denoise_s": denoise_s,
+        "sp_graph_equal_eager": bool(torch.equal(finals["graph"],
+                                                 finals["eager"]))}
+    ok_d = (len(results) == MESH_GUESSES
+            and all("won" in r for r in results) and ver1 != ver0
+            and images_d >= 2 and decoded
+            and all(v.dtype == np.uint8 and v.std() > 0
+                    for v in decoded.values())
+            and flash_by_name(tally_d) == want_d and not gaps_d
+            and report_d["sp_graph_equal_eager"])
+    print(f"[mesh] (d) a full game round on dp x sp = 2 x 2 at 512² "
+          f"({card}): {json.dumps(report_d)} -> "
+          f"{'pass' if ok_d else 'FAIL'}"
+          + (f" gaps {gaps_d}" if gaps_d else ""), flush=True)
+    del svc4, game
+    gc.collect()
+    torch.cuda.empty_cache()
+    MESH_SECONDS["sd15"] = time.perf_counter() - t_phase
+    return ok_a and ok_b and ok_d
+
+
+def check_mesh_sdxl(card: str, svc, rows: dict) -> bool:
+    """[mesh] (b) at SDXL 1024² over the [round-sdxl] service's UNet, then
+    (c): kernel 1 at every spatial shape, from phase 2's rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    ok_b = spatial_forward(card, "sdxl", svc.backend.t2i.unet, 1024, rows)
+    torch.cuda.empty_cache()
+    MESH_SECONDS["sdxl"] = time.perf_counter() - t0
+    spatial = {name: {k: rows[name][k] for k in (
+        "shape", "path", "max_abs_err", "ms", "bound_ms", "plain_ms",
+        "library_ms", "ok")} for name in SPATIAL_FLASH}
+    ok_c = all(r["ok"] and r["path"] == "wgmma" for r in spatial.values())
+    print(f"[mesh] (c) flash at the spatial shapes, from phase 2 ({card}):"
+          f" {json.dumps(spatial)} -> {'pass' if ok_c else 'FAIL'}",
+          flush=True)
+    total = sum(MESH_SECONDS.values())
+    print(f"[mesh] phase {total:.1f} s (sd15 {MESH_SECONDS.get('sd15', 0):.1f}"
+          f", sdxl {MESH_SECONDS['sdxl']:.1f})", flush=True)
+    return ok_b and ok_c
 
 
 # -- the brownout ladder and the game ([brownout], [game]) --------------------
@@ -7785,11 +8149,17 @@ def hf_clip_file(harness) -> dict:
     return out
 
 
-def spot_check(tally: dict, checked: dict) -> list:
+def spot_check(tally: dict, checked: dict, timed: dict) -> list:
     """Each kernel against its plain version, once, at every shape of
     ``tally`` that phase 2 does not check ([kernel-spot] lines, with the
-    same inputs and limits); returns the shapes that disagree."""
+    same inputs and limits), and its device ms (``time_ms``, 2 replays),
+    bound and library yardstick as phase 2 takes them, kept in
+    ``timed[(kernel, shape)]`` (a shape already there is not run again);
+    returns the shapes that disagree."""
+    from functools import partial
+
     import torch
+    import torch.nn.functional as F
 
     from cassmantle_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -7814,12 +8184,19 @@ def spot_check(tally: dict, checked: dict) -> list:
     for kernel in ("flash_attention", "gn_silu_conv3x3", "int8_matmul",
                    "int8_conv3x3"):
         for shape in sorted(set(tally[kernel]) - set(checked[kernel])):
+            if (kernel, shape) in timed:
+                continue
+            library = None
             if kernel == "flash_attention":
                 b, sq, sk, h, d = shape
                 args = flash_inputs(b, sq, sk, h, d, layouts.get(
                     (sq, sk, h, d), "self" if sq == sk else "cross"), gen)
                 agree = scaled_agreement(flash_attention(*args),
                                          flash_attention_plain(*args))
+                fn = partial(flash_attention, *args)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in args)
+                library = partial(F.scaled_dot_product_attention, qt, kt, vt)
+                bound_ms, bound_by = flash_bound(b, sq, sk, h, d)[:2]
             elif kernel == "gn_silu_conv3x3":
                 b, h, w, c, f = shape
                 x = torch.randn((b, h, w, c), dtype=torch.bfloat16, **kw)
@@ -7831,6 +8208,16 @@ def spot_check(tally: dict, checked: dict) -> list:
                         torch.randn((f,), **kw) * 0.1)
                 agree = scaled_agreement(gn_silu_conv3x3(*args),
                                          gn_silu_conv3x3_plain(*args))
+                fn = partial(gn_silu_conv3x3, *args)
+                act = F.silu(x.float() * args[1][:, None, None]
+                             + args[2][:, None, None]).bfloat16()
+                library = partial(F.conv2d, act.permute(0, 3, 1, 2),
+                                  ohwi.permute(0, 3, 1, 2),
+                                  args[4].bfloat16(), padding=1)
+                m = b * h * w
+                bound_ms, bound_by = bound(
+                    18 * m * c * f, 2 * (m * c + 9 * c * f + m * f)
+                    + 4 * (2 * b * c + f), PEAK_BF16_FLOPS)
             elif kernel == "int8_matmul":
                 m, k, n = shape
                 per_token = shape in LM_MATMUL_SHAPES
@@ -7844,6 +8231,12 @@ def spot_check(tally: dict, checked: dict) -> list:
                         torch.randn((n,), **kw), torch.bfloat16)
                 agree = exact_agreement(int8_matmul(*args),
                                         int8_matmul_plain(*args))
+                fn = partial(int8_matmul, *args)
+                if m > 16:
+                    library = partial(torch._int_mm, args[0], args[1])
+                bound_ms, bound_by = bound(
+                    2 * m * k * n, m * k + k * n + 2 * m * n
+                    + 4 * (args[2].numel() + 2 * n), PEAK_INT8_OPS)
             else:
                 b, h, w, c, f = shape
                 args = (torch.randint(-127, 128, (b, h, w, c),
@@ -7855,13 +8248,54 @@ def spot_check(tally: dict, checked: dict) -> list:
                         torch.randn((f,), **kw), torch.bfloat16)
                 agree = exact_agreement(int8_conv3x3(*args),
                                         int8_conv3x3_plain(*args))
-            print(f"[kernel-spot] {kernel} {shape}: {agree['text']} -> "
-                  f"{'pass' if agree['ok'] else 'FAIL'}", flush=True)
+                fn = partial(int8_conv3x3, *args)
+                library = partial(torch._int_mm, int8_im2col(args[0]),
+                                  args[1].permute(3, 0, 1, 2)
+                                  .reshape(f, 9 * c).t())
+                m = b * h * w
+                bound_ms, bound_by = bound(
+                    18 * m * c * f, m * c + 9 * c * f + 2 * m * f + 8 * f,
+                    PEAK_INT8_OPS)
+            ms = time_ms(fn, KERNEL_ITERS)
+            library_ms = (None if library is None
+                          else time_ms(library, KERNEL_ITERS))
+            timed[(kernel, shape)] = dict(
+                ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, ok=agree["ok"])
+            lib = ("none" if library_ms is None
+                   else f"library {library_ms:.4f} ms")
+            print(f"[kernel-spot] {kernel} {shape}: {agree['text']}, kernel "
+                  f"{ms:.4f} ms, {lib}, bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}) -> {'pass' if agree['ok'] else 'FAIL'}",
+                  flush=True)
             if not agree["ok"]:
                 bad.append((kernel, shape))
-            del args
+            del args, fn, library
             torch.cuda.empty_cache()
     return bad
+
+
+def phase_kernel_ms(tally: dict, rows_by_shape: dict, timed: dict) -> dict:
+    """Per kernel of a phase's tally: launches, and launches x device ms,
+    bound ms and library ms (over the launches that have a library call),
+    each shape's from phase 2's row or its [kernel-spot] timing."""
+    out = {}
+    for kernel, shape_rows in rows_by_shape.items():
+        counts = tally[kernel]
+        if not counts:
+            continue
+        per = {shape: shape_rows.get(shape) or timed[(kernel, shape)]
+               for shape in counts}
+        lib = [(n, per[shape]["library_ms"]) for shape, n in counts.items()
+               if per[shape]["library_ms"] is not None]
+        out[kernel] = dict(
+            launches=sum(counts.values()),
+            ms=sum(n * per[shape]["ms"] for shape, n in counts.items()),
+            bound_ms=sum(n * per[shape]["bound_ms"]
+                         for shape, n in counts.items()),
+            library_ms=sum(n * t for n, t in lib),
+            library_launches=sum(n for n, _ in lib))
+    return out
 
 
 def check_clip(card: str) -> bool:
@@ -8119,6 +8553,13 @@ def main() -> int:
         if not prof["graph_witness"]["ok"]:
             fail(f"{preset}: the profiled graph replays did not launch the "
                  f"step's kernels: {prof['graph_witness']}")
+        # serving over a mesh on the card, from this service's weights
+        if preset == "default" and not check_mesh_sd15(card, svc, rows):
+            fail("mesh: dp = 2, the sp = 2 forward or the 2 x 2 game round "
+                 "failed a check")
+        if preset == "sdxl" and not check_mesh_sdxl(card, svc, rows):
+            fail("mesh: the sp = 2 SDXL forward or a spatial flash shape "
+                 "failed a check")
         if preset in BROWNOUT_TIERS:
             t0 = time.perf_counter()
             ok, cells = check_brownout(svc, preset, card)
@@ -8260,14 +8701,21 @@ def main() -> int:
     checked_keys = {"flash_attention": {(b, sq, sk, h, d) for b, sq, sk, h,
                                         d, _ in FLASH_SHAPES.values()},
                     **{k: set(v) for k, v in checked.items()}}
+    timed = {}
     bad = [b for tally in SLICE_TALLIES.values()
-           for b in spot_check(tally, checked_keys)]
+           for b in spot_check(tally, checked_keys, timed)]
     if bad:
         fail(f"a kernel disagrees with its plain version at a shape the "
              f"training and gate phases launched: {bad}")
     print(f"[slice] launches by phase: " + json.dumps(
         {phase: {k: sum(v.values()) for k, v in tally.items()
                  if k != "flash_paths"}
+         for phase, tally in SLICE_TALLIES.items()}), flush=True)
+    slice_rows = {"flash_attention": {FLASH_SHAPES[name][:5]: r
+                                      for name, r in rows.items()},
+                  **checked}
+    print(f"[slice] kernel ms a phase ({card}): " + json.dumps(
+        {phase: phase_kernel_ms(tally, slice_rows, timed)
          for phase, tally in SLICE_TALLIES.items()}), flush=True)
     stamp("clip")
 
@@ -8338,7 +8786,11 @@ def main() -> int:
                                    "sdxl_encprop", *TIER_CELLS)
                        if p in tallies
                        and name in ROUND_FLASH[PRESET_MODEL[p]]), None)
+        mesh_paths = sum((t["flash_paths"] for t in MESH_TALLIES.values()),
+                         collections.Counter())
+        # the spatial shapes' main path is the [mesh] phase
         round_paths = (tallies[preset]["flash_paths"] if preset
+                       else mesh_paths if name in SPATIAL_FLASH
                        else staged["flash_paths"])
         path = next((p for (shape, p) in round_paths if shape == key),
                     r["path"])
@@ -8350,6 +8802,8 @@ def main() -> int:
             "staged_launches": sum(
                 n for (shape, _), n in staged["flash_paths"].items()
                 if shape == key),
+            "mesh_launches": sum(n for (shape, _), n in mesh_paths.items()
+                                 if shape == key),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1035,3 +1035,42 @@ def test_cuda_fp32_clip_vision_tower_runs(cuda_device):
         ref = tower.cpu()(images.cpu())
     assert flash_attention.launches == 0
     torch.testing.assert_close(emb.cpu(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp,sp", [(2, 1), (1, 2), (2, 2)])
+def test_cuda_meshed_generate(cuda_device, dp, sp):
+    """Serving over a mesh whose positions share the card, tiny bf16
+    geometry: each dp position's captured step loop (the partitioned one
+    under sp) equals the same steps run eagerly, bit for bit; under dp
+    alone each row of a meshed dispatch equals the meshless pipeline's
+    batch-1 dispatch of its x_T row."""
+    import numpy as np
+
+    from cassmantle_tpu_torch.config import MeshConfig, test_config
+    from cassmantle_tpu_torch.ops.ddim import initial_latents
+    from cassmantle_tpu_torch.parallel.mesh import make_mesh
+    from cassmantle_tpu_torch.serving.pipeline import Text2ImagePipeline
+
+    cfg = _tiny_bf16(test_config())
+    ref = Text2ImagePipeline(cfg, device=cuda_device)
+    mesh = make_mesh(MeshConfig(dp=dp, sp=sp),
+                     [torch.device("cuda", 0)] * (dp * sp))
+    pipe = Text2ImagePipeline(cfg, mesh=mesh, share_params_with=ref)
+    prompts = ["a harbor at dusk", "a comet over the sea"][:dp]
+    images = pipe.generate(prompts, seed=3)
+    x_t = initial_latents(torch.Generator(pipe.device).manual_seed(3),
+                          dp, cfg.sampler.image_size, pipe.vae_scale,
+                          device=pipe.device)
+    with torch.inference_mode():
+        for view, prompt in zip(pipe._mesh_positions(), prompts):
+            row = x_t[view.position:view.position + 1]
+            cond = view.encode([prompt])
+            assert torch.equal(view.denoise(row, cond),
+                               view.denoise(row, cond, graphed=False))
+            if sp == 1:
+                np.testing.assert_array_equal(
+                    ref.generate([prompt], latents=row)[0],
+                    images[view.position])
+    assert sorted(pipe.full_variant.step_graphs) == [(p, 1)
+                                                     for p in range(dp)]

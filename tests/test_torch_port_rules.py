@@ -75,7 +75,11 @@ def _entry_points():
         Text2ImagePipeline,
         TorchContentBackend,
     )
-    from cassmantle_tpu_torch.serving.service import InferenceService
+    from cassmantle_tpu_torch.parallel.mesh import make_mesh
+    from cassmantle_tpu_torch.serving.service import (
+        InferenceService,
+        default_serving_mesh,
+    )
     from cassmantle_tpu_torch.utils.health import DeviceHealth
 
     cfg = test_config()
@@ -92,6 +96,8 @@ def _entry_points():
         "build_game": lambda: app.build_game(cfg),
         "build_fabric": lambda: app.build_fabric(cfg),
         "serve_main": lambda: app.main(["--port", "0"]),
+        "make_mesh": lambda: make_mesh(),
+        "default_serving_mesh": lambda: default_serving_mesh(cfg),
     }
 
 
@@ -100,7 +106,8 @@ def _entry_points():
                                   "EmbeddingScorer", "device_blur",
                                   "DeviceHealth", "DeviceMetrics",
                                   "build_game", "build_fabric",
-                                  "serve_main"])
+                                  "serve_main", "make_mesh",
+                                  "default_serving_mesh"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """Called without ``device=``, an entry point asks for CUDA; on a host
     without it, it raises instead of falling back to the CPU."""

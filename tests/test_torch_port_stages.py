@@ -206,12 +206,13 @@ GATING_CASES = [
     {"kind": "euler", "encprop": True}]
 
 
+@pytest.mark.parametrize("meshed", [False, True])
 @pytest.mark.parametrize("case", range(len(GATING_CASES)))
 @pytest.mark.parametrize("killed", [False, True])
-def test_staged_enabled_matches_reference(case, killed, monkeypatch):
-    """The routing decision over the same config matrix, both packages
-    (the reference's mesh term held at None: the port serves one
-    device)."""
+def test_staged_enabled_matches_reference(case, killed, meshed,
+                                          monkeypatch):
+    """The routing decision over the same config matrix, both packages,
+    meshless and under a mesh (meshed serving stays monolithic)."""
     kw = dict(GATING_CASES[case])
     serving_kw = {"staged_serving": kw.pop("staged_serving", True)}
     if killed:
@@ -223,13 +224,14 @@ def test_staged_enabled_matches_reference(case, killed, monkeypatch):
             sampler=dataclasses.replace(base.sampler, **kw),
             serving=dataclasses.replace(base.serving, **serving_kw))
 
+    mesh = object() if meshed else None
     ref = JText2Image._staged_enabled(SimpleNamespace(cfg=cfg(jconfig),
-                                                      mesh=None))
+                                                      mesh=mesh))
     port = Text2ImagePipeline._staged_enabled(SimpleNamespace(
-        cfg=cfg(pconfig)))
+        cfg=cfg(pconfig), mesh=mesh))
     assert port == ref
     if case == 0:
-        assert port == (not killed)
+        assert port == (not killed and not meshed)
 
 
 def test_staged_config_presets():
